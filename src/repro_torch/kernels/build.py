@@ -1,0 +1,134 @@
+"""Build the port's CUDA kernels and bind them through ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+with ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into
+``build/repro_torch/<name>-<hash>.so`` under the repository root; the
+hash covers the sources and the flags, so an edited kernel never loads
+a stale library.  Nothing is built while a module is imported: the
+first launch of a kernel builds it, and :func:`build_all` builds every
+kernel at once, one ``nvcc`` process per source, all started together.
+
+The launch counts live here too: ``LAUNCHES[name]`` goes up by one each
+time a wrapper launches kernel ``name`` on the card, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: kernel name -> its source, the C entry point and that entry point's
+#: argument types (pointers and the stream as c_void_p, so ctypes never
+#: cuts them to 32 bits)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNELS = {
+    "fused_attention_masked": (
+        "fused_attention.cu", "fused_attention_masked_launch",
+        [_P, _P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P]),
+    "fused_qproj_attention_masked": (
+        "fused_qproj_attention.cu", "fused_qproj_attention_masked_launch",
+        [_P] * 6 + [_I] * 9 + [_F, _F, _I, _I, _P]),
+    "fused_decode_block": (
+        "fused_decode_block.cu", "fused_decode_block_launch",
+        [_P] * 10 + [_I] * 7 + [_F, _F, _I, _I, _P]),
+}
+
+#: dtype codes of the C interface (csrc/common.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_loaded: dict = {}
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (Path(home) / "bin" / "nvcc", shutil.which("nvcc")):
+        if cand and Path(cand).exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin and PATH): the CUDA kernels "
+                       "cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = KERNELS[name][0]
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / src]:
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(src).stem}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names=None) -> dict:
+    """Compile every kernel in ``names`` (default: all) whose library is
+    missing, one nvcc per source, in parallel.  Returns
+    {name: ptxas report}; raises with the compiler's output on failure."""
+    names = list(KERNELS) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / KERNELS[name][0])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)      # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return reports
+
+
+def kernel(name: str):
+    """The bound C entry point of kernel ``name``, built on first use."""
+    fn = _loaded.get(name)
+    if fn is None:
+        path = library_path(name)
+        if not path.exists():
+            build_all([name])
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, KERNELS[name][1])
+        fn.argtypes = KERNELS[name][2]
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
+    return fn
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` on the current stream; raise if the
+    launch was refused.  Counts the launch."""
+    err = kernel(name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    return DTYPE_CODES[t.dtype]

@@ -1,0 +1,112 @@
+// fused_attention_masked for Hopper (sm_90a).
+//
+// Replaces the TPU kernel src/repro/kernels/fused_attention.py
+// fused_attention_masked (pallas_call at :310, body _masked_fwd_kernel
+// :228): online-softmax GQA attention over a dense KV cache with a
+// per-row valid prefix lengths[b], causal rows anchored at
+// lengths[b] - Sq + r, KV blocks past the prefix skipped, and rows with
+// no valid column emitting zeros.
+//
+// Bound on an H100 at the serve path's shapes (bf16, Hq=36, Hkv=4,
+// D=128, a 256-row prefill chunk): about 5 MB moved (Q and O dominate)
+// against about 0.6 GFLOP of scores and P.V, so the card's bound is
+// the bytes, a few microseconds.  Design: one block owns 16 query rows
+// of one (batch row, KV head), taken across the whole GQA group, so a
+// K/V tile brought into shared memory serves every query head that
+// reads it and M=1 decode still fills a block with the group's heads.
+// The block loads lengths[b] itself and stops at the last KV tile the
+// prefix and the causal anchor allow: tiles past it cost no loads.
+// Products run as fp32 FMAs; moving them onto the tensor cores
+// (mma.sync / wgmma) is the lever a later change pulls.
+#include "common.cuh"
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(rt::kThreads)
+    masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const int* __restrict__ lengths,
+                            T* __restrict__ out, int Hq, int Hkv, int Sq,
+                            int Skv, int D, int Dv, int causal, float scale) {
+  extern __shared__ float smem[];
+  __shared__ rt::RowInfo rows[rt::kRows];
+  __shared__ int kv_end_s;
+  const int group = Hq / Hkv;
+  const int bk = blockIdx.y;  // b * Hkv + kv head
+  const int b = bk / Hkv, kvh = bk - b * Hkv;
+  const int len = max(0, min(lengths[b], Skv));
+  const int r0 = blockIdx.x * rt::kRows;
+  const int n_rows = group * Sq;
+
+  if (threadIdx.x < rt::kRows) {
+    const int r = r0 + threadIdx.x;
+    rt::RowInfo info{-1, -1};
+    if (r < n_rows) {
+      const int g = r / Sq, pos = r - g * Sq;
+      const int h = kvh * group + g;
+      info.out_off = (((int64_t)b * Hq + h) * Sq + pos) * Dv;
+      info.anchor = causal ? len - Sq + pos : len - 1;
+    }
+    rows[threadIdx.x] = info;
+  }
+  // the Q tile: row r of the block is query head kvh*group + r/Sq
+  float* q_s = smem;
+  for (int idx = threadIdx.x; idx < rt::kRows * D; idx += rt::kThreads) {
+    const int i = idx / D, d = idx - i * D;
+    const int r = r0 + i;
+    float val = 0.f;
+    if (r < n_rows) {
+      const int g = r / Sq, pos = r - g * Sq;
+      const int h = kvh * group + g;
+      val = rt::to_f(q[(((int64_t)b * Hq + h) * Sq + pos) * D + d]);
+    }
+    q_s[i * rt::kMaxD + d] = val;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // the block-skip bound: nothing past the deepest row's anchor
+    int end = 0;
+    for (int i = 0; i < rt::kRows; ++i)
+      if (rows[i].out_off >= 0) end = max(end, min(len, rows[i].anchor + 1));
+    kv_end_s = end;
+  }
+  __syncthreads();
+  const int64_t kv_base = ((int64_t)b * Hkv + kvh) * Skv;
+  rt::masked_attention_rows<T>(smem, rows, k + kv_base * D, v + kv_base * Dv,
+                               out, len, kv_end_s, D, Dv, scale);
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const int* lengths,
+           void* out, int B, int Hq, int Hkv, int Sq, int Skv, int D, int Dv,
+           int causal, float scale, cudaStream_t stream) {
+  auto kern = masked_attention_kernel<T>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       rt::kSmemBytes);
+  const int n_rows = (Hq / Hkv) * Sq;
+  dim3 grid((n_rows + rt::kRows - 1) / rt::kRows, B * Hkv);
+  kern<<<grid, rt::kThreads, rt::kSmemBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), lengths, static_cast<T*>(out), Hq, Hkv, Sq,
+      Skv, D, Dv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int fused_attention_masked_launch(
+    const void* q, const void* k, const void* v, const int* lengths, void* out,
+    int B, int Hq, int Hkv, int Sq, int Skv, int D, int Dv, int causal,
+    float scale, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case rt::kF32:
+      return launch<float>(q, k, v, lengths, out, B, Hq, Hkv, Sq, Skv, D, Dv,
+                           causal, scale, s);
+    case rt::kBF16:
+      return launch<__nv_bfloat16>(q, k, v, lengths, out, B, Hq, Hkv, Sq, Skv,
+                                   D, Dv, causal, scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}

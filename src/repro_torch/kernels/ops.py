@@ -1,0 +1,225 @@
+"""Plan-driven kernel dispatch (a port of ``repro/kernels/ops.py``).
+
+Three entry points, one per rung of the fusion ladder that carries a
+kernel:
+
+* ``attention``       -- scores over a given Q (Fig. 5c):
+  ``fused_attention_masked``;
+* ``qproj_attention`` -- Q = x @ Wq folded into the score kernel, RoPE
+  in-kernel (Fig. 5b): ``fused_qproj_attention_masked``;
+* ``decode_block``    -- the whole M=1 sub-block through the residual
+  add: ``fused_decode_block``.
+
+Each takes ``impl``: ``cuda`` (the kernel), ``torch`` (its plain
+version) or ``reference`` (the unfused oracle the plan picks below the
+crossovers).  A ``plan`` (``lower.runtime.PlanDispatch``) supplies the
+impl and receives downgrade records; without one, ``auto`` means the
+kernel on a CUDA tensor and the plain version on a CPU one.
+
+A call the masked kernels cannot express (a dtype outside fp32/bf16/
+fp16, malformed lengths, an explicit causal offset other than the
+kernels' anchor ``lengths - Sq``: the reasons of the JAX package's
+``_masked_unsupported``) warns once per reason and runs the reference
+instead, with the reason recorded on the plan: never a silently
+different answer.  Any other limit of a kernel (a head wider than it
+takes, a dtype it was not built for) is the wrapper's, which raises; so
+does a kernel that fails to build or launch.  Nothing falls back.
+
+``CALLS[(entry, impl)]`` counts calls per entry point and impl; the
+kernels' own launch counts are ``build.LAUNCHES``.
+"""
+
+from __future__ import annotations
+
+import collections
+import warnings
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.fused_attention import (
+    fused_attention_masked, fused_attention_masked_plain)
+from repro_torch.kernels.fused_decode_block import (
+    fused_decode_block, fused_decode_block_plain)
+from repro_torch.kernels.fused_qproj_attention import (
+    fused_qproj_attention_masked, fused_qproj_attention_masked_plain)
+
+__all__ = ["attention", "qproj_attention", "decode_block", "CALLS",
+           "reset_counts", "reset_downgrade_warnings"]
+
+IMPLS = ("cuda", "torch", "reference")
+CALLS: collections.Counter = collections.Counter()
+
+_MASKED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_warned_downgrade_reasons: set = set()
+
+
+def reset_counts() -> None:
+    """Zero the per-impl call counts and the kernels' launch counts."""
+    CALLS.clear()
+    build.reset_launches()
+
+
+def reset_downgrade_warnings() -> None:
+    _warned_downgrade_reasons.clear()
+
+
+def _downgrade(plan, reason: str, kernel: str) -> str:
+    """A call the masked kernels cannot express: warn once per (kernel,
+    reason), record the reason on the plan, run the reference."""
+    key = (kernel, reason)
+    if key not in _warned_downgrade_reasons:
+        warnings.warn(f"attention: call cannot take the {kernel} "
+                      f"({reason}); running the unfused reference "
+                      "(recorded on the ExecutionPlan)", stacklevel=4)
+        _warned_downgrade_reasons.add(key)
+    if plan is not None:
+        plan.plan.record_downgrade(f"{kernel} unavailable: {reason}",
+                                   plan.path, plan.path)
+    return "reference"
+
+
+def _masked_unsupported(x, lengths, causal: bool, q_offset,
+                        sq: int) -> Optional[str]:
+    """Why the masked kernels (and their plain versions, which share
+    their anchor) cannot serve this call, or None.  An explicit causal
+    ``q_offset`` is checked against ``lengths - Sq`` when the lengths
+    are on the host; on the card it is trusted, as the JAX package
+    trusts traced values: the model builds ``lengths = cache_len + Sq``
+    and ``q_offset = cache_len`` together, and reading device lengths
+    back would stall every call."""
+    if x.dtype not in _MASKED_DTYPES:
+        return f"dtype {x.dtype} outside {_MASKED_DTYPES}"
+    if lengths.ndim != 1:
+        return f"lengths must be (B,), got shape {tuple(lengths.shape)}"
+    if lengths.is_floating_point() or lengths.is_complex():
+        return f"lengths must be integral, got {lengths.dtype}"
+    if causal and q_offset is None and sq > 1:
+        return ("causal multi-row lengths call without q_offset: pass "
+                "q_offset = lengths - Sq (the masked kernel's anchor)")
+    if causal and q_offset is not None and lengths.device.type == "cpu":
+        lens = [int(n) for n in lengths]
+        if any(n - sq != int(q_offset) for n in lens):
+            return (f"explicit q_offset={int(q_offset)} inconsistent with "
+                    f"the masked kernel's causal anchor lengths - Sq "
+                    f"({[n - sq for n in lens]})")
+    return None
+
+
+def _resolve(entry: str, impl: str, plan, device) -> str:
+    if impl == "auto":
+        if plan is not None:
+            impl = plan.impl
+        else:
+            impl = "cuda" if device.type == "cuda" else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
+    return impl
+
+
+def _count(entry: str, impl: str) -> None:
+    CALLS[(entry, impl)] += 1
+
+
+def attention(q, k, v, *, causal: bool = True,
+              scale: Optional[float] = None, q_offset=None,
+              lengths: Optional[torch.Tensor] = None, impl: str = "auto",
+              plan=None):
+    """Layer-fused attention (Fig. 5c) or the plan's unfused reference.
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D[v]).  ``lengths`` (B,):
+    valid KV prefix per row; the masked kernel anchors causal rows at
+    its end (``q_offset = lengths - Sq``).  A call without lengths runs
+    the same kernel over the full Skv when its causal anchor is the
+    default ``Skv - Sq``."""
+    b, _, sq, _ = q.shape
+    skv = k.shape[2]
+    impl = _resolve("attention", impl, plan, q.device)
+    if lengths is None and impl != "reference":
+        if causal and q_offset is not None and int(q_offset) != skv - sq:
+            impl = _downgrade(plan, f"cache-free call with q_offset="
+                              f"{int(q_offset)} != Skv - Sq",
+                              "masked attention kernel")
+        else:
+            lengths = torch.full((b,), skv, dtype=torch.int32,
+                                 device=q.device)
+            q_offset = skv - sq
+    if impl != "reference":
+        reason = _masked_unsupported(q, lengths, causal, q_offset, sq)
+        if reason is not None:
+            impl = _downgrade(plan, reason, "masked attention kernel")
+    _count("attention", impl)
+    if impl == "reference":
+        return ref.attention_reference(q, k, v, causal=causal, scale=scale,
+                                       q_offset=q_offset, lengths=lengths)
+    lengths = lengths.to(torch.int32)
+    if impl == "cuda":
+        return fused_attention_masked(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), lengths,
+                                      causal=causal, scale=scale)
+    return fused_attention_masked_plain(q, k, v, lengths, causal=causal,
+                                        scale=scale)
+
+
+def qproj_attention(x, wq, k, v, *, causal: bool = True,
+                    scale: Optional[float] = None, q_offset=None,
+                    lengths: Optional[torch.Tensor] = None,
+                    rope_theta: Optional[float] = None,
+                    impl: str = "auto", plan=None):
+    """Layer-fused Q-projection attention (Fig. 5b): x (B, Sq, E) and
+    wq (E, Hq, D) go to the kernel, which builds (and, with
+    ``rope_theta``, rotates at ``lengths[b] - Sq + r``) the Q tile
+    itself.  Requires ``lengths`` (the serving path always has them)."""
+    if lengths is None:
+        raise ValueError("qproj_attention is the KV-cached path: pass "
+                         "lengths")
+    sq = x.shape[1]
+    impl = _resolve("qproj_attention", impl, plan, x.device)
+    if impl != "reference":
+        reason = _masked_unsupported(x, lengths, causal, q_offset, sq)
+        if reason is not None:
+            impl = _downgrade(plan, reason, "masked Q-projection kernel")
+    _count("qproj_attention", impl)
+    if impl == "reference":
+        return ref.qproj_attention_reference(
+            x, wq, k, v, rope_theta=rope_theta, causal=causal, scale=scale,
+            q_offset=q_offset, lengths=lengths)
+    lengths = lengths.to(torch.int32)
+    if impl == "cuda":
+        return fused_qproj_attention_masked(
+            x.contiguous(), wq.contiguous(), k.contiguous(), v.contiguous(),
+            lengths, causal=causal, scale=scale, rope_theta=rope_theta)
+    return fused_qproj_attention_masked_plain(
+        x, wq, k, v, lengths, causal=causal, scale=scale,
+        rope_theta=rope_theta)
+
+
+def decode_block(x, wq, k, v, wo, residual, lengths, *,
+                 scale: Optional[float] = None,
+                 rope_theta: Optional[float] = None, impl: str = "auto",
+                 plan=None):
+    """The M=1 decode megakernel: Q projection (+ RoPE at
+    ``lengths[b] - 1``), masked scores over the valid prefix, softmax,
+    P.V, output projection and residual add in one launch.  x, residual:
+    (B, 1, E); wq: (E, Hq, D); k, v: (B, Hkv, Skv, D[v]); wo: (Hq, Dv,
+    E).  Returns ``residual + attn_out @ Wo``, (B, 1, E)."""
+    if x.shape[1] != 1:
+        raise ValueError("decode_block is the M=1 decode schedule")
+    impl = _resolve("decode_block", impl, plan, x.device)
+    if impl != "reference":
+        reason = _masked_unsupported(x, lengths, False, None, 1)
+        if reason is not None:
+            impl = _downgrade(plan, reason, "decode megakernel")
+    _count("decode_block", impl)
+    if impl == "reference":
+        return ref.decode_block_reference(x, wq, k, v, wo, residual,
+                                          lengths, rope_theta=rope_theta,
+                                          scale=scale)
+    lengths = lengths.to(torch.int32)
+    if impl == "cuda":
+        return fused_decode_block(
+            x.contiguous(), wq.contiguous(), k.contiguous(), v.contiguous(),
+            wo.contiguous(), residual.contiguous(), lengths, scale=scale,
+            rope_theta=rope_theta)
+    return fused_decode_block_plain(x, wq, k, v, wo, residual, lengths,
+                                    scale=scale, rope_theta=rope_theta)

@@ -1,0 +1,122 @@
+"""Plain-PyTorch oracles of the kernels (a port of
+``repro/kernels/ref.py``): the layer-by-layer realisations that
+materialise the whole score matrix, the schedule the fused kernels
+avoid.  They are the ``reference`` impl the plan picks below the
+crossovers, and ground truth for the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, Hkv, S, D) -> (B, Hkv*n_rep, S, D) for the GQA broadcast."""
+    if n_rep == 1:
+        return k
+    return k.repeat_interleave(n_rep, dim=1)
+
+
+def attention_reference(q, k, v, *, causal: bool = False,
+                        scale: Optional[float] = None,
+                        lengths: Optional[torch.Tensor] = None,
+                        q_offset: Optional[int] = None):
+    """Unfused attention: QK^T materialised, row softmax, then @V.
+    ``q_offset`` aligns the causal mask when q is a suffix of the KV
+    sequence (default Skv - Sq); ``lengths`` (B,) masks columns past
+    each row's valid prefix.  Rows with no valid column emit zeros."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    group = hq // k.shape[1]
+    k = repeat_kv(k, group).float()
+    v = repeat_kv(v, group).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * scale
+    mask = None
+    cols = torch.arange(skv, device=q.device)
+    if causal:
+        off = (skv - sq) if q_offset is None else q_offset
+        rows = off + torch.arange(sq, device=q.device)[:, None]
+        mask = (cols[None, :] <= rows)[None, None]
+    if lengths is not None:
+        lmask = (cols[None, :] < lengths[:, None])[:, None, None, :]
+        mask = lmask if mask is None else (mask & lmask)
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    if mask is not None:
+        # a row with no valid column has m == NEG_INF, so exp(s - m) is
+        # 1, not 0: zero it so such rows emit zeros
+        p = torch.where(mask, p, torch.zeros_like(p))
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p / l.clamp_min(1e-30), v)
+    return o.to(q.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding oracle written against the RoFormer definition
+    (``theta ** (-i / half)``), sharing no code with the model's rope:
+    half-split pairs rotated by ``positions * theta^(-i/half)`` in fp32.
+    x: (..., S, D); positions: (..., S)."""
+    half = x.shape[-1] // 2
+    inv_freq = torch.tensor(theta, dtype=torch.float32) ** (
+        -torch.arange(half, dtype=torch.float32) / half)
+    ang = positions.float()[..., None] * inv_freq.to(x.device)
+    while ang.ndim < x.ndim:
+        ang = ang.unsqueeze(-3)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def rope_positions(sq: int, skv: int,
+                   lengths: Optional[torch.Tensor] = None,
+                   q_offset: Optional[int] = None,
+                   device=None) -> torch.Tensor:
+    """Rotary positions of the Sq query rows under the kernels' causal
+    anchor: with ``lengths``, row r of batch b sits at
+    ``lengths[b] - sq + r``; without, at ``q_offset + r`` (default
+    ``skv - sq``)."""
+    if lengths is not None:
+        r = torch.arange(sq, dtype=torch.int32, device=lengths.device)
+        return lengths.to(torch.int32)[:, None] - sq + r[None, :]
+    off = (skv - sq) if q_offset is None else q_offset
+    return off + torch.arange(sq, dtype=torch.int32, device=device)
+
+
+def qproj_attention_reference(x, wq, k, v, *,
+                              rope_theta: Optional[float] = None, **kw):
+    """Unfused oracle of the Q-projection schedule: Q = x @ Wq
+    materialised, RoPE between projection and scores, then attention."""
+    q = torch.einsum("bse,ehd->bhsd", x, wq.to(x.dtype))
+    if rope_theta is not None:
+        pos = rope_positions(x.shape[1], k.shape[2],
+                             lengths=kw.get("lengths"),
+                             q_offset=kw.get("q_offset"), device=x.device)
+        q = rope(q, pos, rope_theta)
+    return attention_reference(q, k, v, **kw)
+
+
+def decode_block_reference(x, wq, k, v, wo, residual, lengths, *,
+                           rope_theta: Optional[float] = None,
+                           scale: Optional[float] = None):
+    """Unfused oracle of the whole M=1 decode attention sub-block: Q
+    projection (+ RoPE at ``lengths[b] - 1``), masked attention over the
+    valid prefix, output projection, residual add."""
+    if x.shape[1] != 1:
+        raise ValueError("decode_block_reference is the M=1 schedule")
+    q = torch.einsum("bse,ehd->bhsd", x, wq.to(x.dtype))
+    if rope_theta is not None:
+        q = rope(q, rope_positions(1, k.shape[2], lengths=lengths),
+                 rope_theta)
+    o = attention_reference(q, k, v, causal=False, scale=scale,
+                            lengths=lengths)
+    y = torch.einsum("bhse,hed->bsd", o.float(), wo.float())
+    return (residual.float() + y).to(x.dtype)

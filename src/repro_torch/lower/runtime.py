@@ -1,0 +1,192 @@
+"""Plan-driven dispatch (a port of ``repro/lower/runtime.py``): turn an
+ExecutionPlan into what one attention call needs, and re-resolve plans
+as the serving context grows.
+
+* :func:`dispatch` legalises one plan for one call site: it maps the
+  kernel path to an ``ops`` impl for the plan's device, walks down the
+  ladder where the call site cannot take the planned path (qk-norm
+  between projection and scores; no Wo/residual at the call site), and
+  records every such step on the plan.
+* :class:`ServingPlan` is the serving engine's handle: the prefill plan
+  per prompt bucket, the decode plan per context bucket, and a log of
+  every resolution.  The first decode bucket edge sits at the
+  crossover C = 2N, so a generation that crosses it switches kernel
+  path that step.
+
+Tiles are not part of a plan here: each CUDA kernel picks its own for
+Hopper.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.lower import cache as plan_cache
+from repro_torch.lower.plan import (DECODE_MEGAKERNEL, FUSED_ATTENTION,
+                                    QPROJ_ATTENTION, UNFUSED, ExecutionPlan)
+from repro_torch.models.common import resolve_device
+
+__all__ = ["PlanDispatch", "dispatch", "impl_for", "ServingPlan",
+           "serving_plan"]
+
+
+def impl_for(path: str, device) -> str:
+    """A kernel path -> an ``kernels.ops`` impl: the unfused path is the
+    materialising reference; fused paths run the CUDA kernels on a CUDA
+    device and their plain PyTorch versions only where the caller asked
+    for the CPU."""
+    if path == UNFUSED:
+        return "reference"
+    return "cuda" if torch.device(device).type == "cuda" else "torch"
+
+
+@dataclasses.dataclass
+class PlanDispatch:
+    """What one attention call site needs from the plan: the legalised
+    path, its impl, and the plan for downgrade records."""
+
+    plan: ExecutionPlan
+    path: str                   # legalised kernel path
+    impl: str                   # cuda | torch | reference
+
+    @property
+    def fuse_q(self) -> bool:
+        """Hand the kernel pre-projection activations + Wq, not Q."""
+        return self.path in (QPROJ_ATTENTION, DECODE_MEGAKERNEL)
+
+    @property
+    def fuse_wo(self) -> bool:
+        """Hand over Wo and the residual too: one launch per sub-block."""
+        return self.path == DECODE_MEGAKERNEL
+
+    def __repr__(self) -> str:
+        return f"<PlanDispatch {self.path}/{self.impl} of {self.plan!r}>"
+
+
+def dispatch(plan: ExecutionPlan, *, device,
+             entry: str = "attention", rope: bool = False,
+             qk_norm: bool = False,
+             lengths_masked: bool = False) -> PlanDispatch:
+    """Legalise ``plan`` for one call site.
+
+    ``device`` is where the call runs, with no default: it decides
+    whether a fused path runs its CUDA kernel or its plain version.
+    ``entry`` says what the call site can hand the kernel: "attention"
+    (a materialised Q), "qproj_attention" (x and Wq) or "decode_block"
+    (x, Wq, Wo and the residual).  qk-norm between the projection and
+    the scores breaks Q-fusion; RoPE does not (the kernels rotate the Q
+    tile themselves).  A ``lengths`` mask keeps fused paths on their
+    kernels: a note, never a downgrade.
+    """
+    path = plan.kernel_path
+    if path == DECODE_MEGAKERNEL:
+        blocked = []
+        if entry != "decode_block":
+            blocked.append("Wo/residual not available at this call site")
+        if qk_norm:
+            blocked.append("qk-norm between projection and scores")
+        if blocked:
+            if entry in ("qproj_attention", "decode_block") \
+                    and not qk_norm:
+                new = QPROJ_ATTENTION
+            elif plan.fuse_scores:
+                new = FUSED_ATTENTION
+            else:
+                new = UNFUSED
+            plan.record_downgrade("; ".join(blocked), path, new)
+            path = new
+    if path == QPROJ_ATTENTION:
+        blocked = []
+        if entry not in ("qproj_attention", "decode_block"):
+            blocked.append("Q already materialised at this call site")
+        if qk_norm:
+            blocked.append("qk-norm between projection and scores")
+        if blocked:
+            new = FUSED_ATTENTION if plan.fuse_scores else UNFUSED
+            plan.record_downgrade("; ".join(blocked), path, new)
+            path = new
+    if rope and path in (QPROJ_ATTENTION, DECODE_MEGAKERNEL):
+        plan.note("RoPE fused in-kernel: Q tile rotated between "
+                  "projection and scores")
+    impl = impl_for(path, device)
+    if lengths_masked and impl == "cuda":
+        plan.note("masked-lengths calls take the masked CUDA kernels "
+                  "(KV tiles past each row's valid prefix skipped)")
+    return PlanDispatch(plan=plan, path=path, impl=impl)
+
+
+@dataclasses.dataclass
+class ServingPlan:
+    """The serving engine's plan handle for one model on ``device``
+    (required: fused paths run the CUDA kernels on a CUDA device and
+    the plain versions only on the CPU).  ``resolutions`` logs every
+    (phase, length, bucket, path, impl) the engine acted on."""
+
+    cfg: object
+    max_len: int
+    device: torch.device
+    n_blocks: int = 1
+    resolutions: list = dataclasses.field(default_factory=list)
+
+    def _dispatch(self, phase: str, n: int,
+                  decode_tokens: int = 1) -> PlanDispatch:
+        plan = plan_cache.resolve_plan(self.cfg, phase, n,
+                                       decode_tokens=decode_tokens,
+                                       n_blocks=self.n_blocks)
+        # the model hands the kernel x + Wq on every cached call, and
+        # Wo + the residual on M=1 steps
+        entry = "attention"
+        if phase == "decode":
+            entry = "decode_block" if decode_tokens == 1 \
+                else "qproj_attention"
+        d = dispatch(plan, device=self.device, entry=entry,
+                     rope=self.cfg.rope_theta > 0,
+                     qk_norm=self.cfg.qk_norm, lengths_masked=True)
+        self.resolutions.append((phase, n, plan.bucket, d.path, d.impl))
+        return d
+
+    def prefill_dispatch(self, seq_len: int) -> PlanDispatch:
+        return self._dispatch("prefill", seq_len)
+
+    def decode_dispatch(self, ctx_len: int) -> PlanDispatch:
+        """The plan of one decode step whose scores span ``ctx_len``
+        columns (cache prefix + the new token)."""
+        return self._dispatch("decode", min(max(ctx_len, 1), self.max_len))
+
+    def chunk_dispatch(self, ctx_len: int, rows: int) -> PlanDispatch:
+        """The plan of one prefill chunk: ``rows`` new rows whose scores
+        span ``ctx_len`` columns.  The first chunk (no prefix) is plain
+        prefill; later chunks resolve like decode with
+        ``decode_tokens = rows``."""
+        ctx_len = min(max(ctx_len, 1), self.max_len)
+        if ctx_len <= rows:
+            return self._dispatch("prefill", rows)
+        return self._dispatch("decode", ctx_len, decode_tokens=rows)
+
+    def step_dispatch(self, live_lens) -> PlanDispatch:
+        """One whole-batch decode dispatch: the deepest live row picks
+        the bucket; the per-row lengths do the per-row work skipping."""
+        deepest = max((int(v) for v in live_lens), default=0)
+        return self.decode_dispatch(deepest + 1)
+
+    def concrete_ctx(self, cache_len) -> int:
+        """Host-side context length of a DecodeState's ``cache_len`` (an
+        int or a (B,) tensor): the deepest row governs the step."""
+        if isinstance(cache_len, torch.Tensor):
+            return int(cache_len.max()) if cache_len.ndim else \
+                int(cache_len)
+        return int(cache_len)
+
+
+def serving_plan(cfg, max_len: int, *, device="cuda",
+                 n_blocks=None) -> ServingPlan:
+    """The ServingPlan for ``cfg`` (dense GQA configs only) on
+    ``device``, which defaults to the card and raises without one."""
+    if cfg.attention != "gqa" or cfg.block_kind(0) != "attn":
+        raise NotImplementedError(
+            f"{cfg.name}: only dense GQA configs are ported")
+    return ServingPlan(cfg=cfg, max_len=max_len,
+                       device=resolve_device(device),
+                       n_blocks=n_blocks or cfg.n_layers)

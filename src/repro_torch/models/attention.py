@@ -1,0 +1,121 @@
+"""GQA attention block of the port (the GQA half of
+``repro/models/attention.py``), dispatching to the kernel the serving
+plan picked through ``kernels.ops``.
+
+KV-cached calls (decode, chunked prefill) append the new K/V to the
+cache and pass a ``lengths`` mask; the masked kernels anchor causal
+rows at the end of the valid prefix, which is this module's
+``q_offset = cache_len = lengths - s``.  With a per-row (B,)
+``cache_len`` (the continuous-batching engine's state) each row appends
+at its own position and ``lengths = cache_len + 1`` alone carries each
+row's causal frontier.
+
+Unlike the JAX package, the cache append is an in-place write into the
+caller's cache tensors (an indexed assignment for per-row appends, a
+slice assignment for the uniform one), and the returned cache is the
+same dict: serving never keeps the pre-append cache.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import ModelConfig, rms_norm, rope
+
+
+def _cache_write(cache_len, b: int, s: int, device):
+    """(starts, lengths, q_offset, per_row) for the two conventions: a
+    uniform int ``cache_len`` keeps the scalar ``q_offset``; a per-row
+    (B,) tensor drops it (single-token steps only)."""
+    if isinstance(cache_len, torch.Tensor) and cache_len.ndim == 1:
+        if s != 1:
+            raise NotImplementedError(
+                "per-row cache_len supports single-token decode steps; "
+                "run multi-token (chunked) prefill per request with a "
+                "scalar cache_len, then insert() the result")
+        starts = cache_len.to(torch.int32)
+        return starts, starts + s, None, True
+    start = int(cache_len)
+    return (start, torch.full((b,), start + s, dtype=torch.int32,
+                              device=device), start, False)
+
+
+def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, cache: Optional[dict] = None,
+                cache_len=None, plan=None,
+                residual: Optional[torch.Tensor] = None):
+    """x: (B, S, E).  With ``cache``: append K/V at ``cache_len`` (in
+    place) and attend over the valid prefix.  ``plan``: a
+    ``lower.runtime.PlanDispatch``; ``plan.fuse_q`` hands x and Wq to
+    the kernel (which builds and rotates Q itself), ``plan.fuse_wo``
+    runs the whole M=1 sub-block in the decode megakernel.
+    ``residual``: the block's skip input; the returned output already
+    includes it.  Returns (out, cache)."""
+    dt = x.dtype
+    b, s, _ = x.shape
+    decode = cache is not None
+    fuse_q = decode and plan is not None and plan.fuse_q \
+        and not cfg.qk_norm
+    theta = float(cfg.rope_theta) if cfg.rope_theta else None
+
+    k_new = torch.einsum("bsd,dhe->bhse", x, params["wk"].to(dt))
+    v_new = torch.einsum("bsd,dhe->bhse", x, params["wv"].to(dt))
+    if cfg.qk_norm:
+        k_new = rms_norm(k_new, params["k_norm"])
+    k_new = rope(k_new, positions, cfg.rope_theta)
+    if not fuse_q:
+        q = torch.einsum("bsd,dhe->bhse", x, params["wq"].to(dt))
+        if cfg.qk_norm:
+            q = rms_norm(q, params["q_norm"])
+        q = rope(q, positions, cfg.rope_theta)
+
+    if not decode:
+        o = ops.attention(q, k_new, v_new, causal=cfg.causal, plan=plan)
+        new_cache = None
+    else:
+        starts, lengths, q_off, per_row = _cache_write(cache_len, b, s,
+                                                       x.device)
+        kc, vc = cache["k"], cache["v"]
+        if per_row:
+            # continuous batching: row r appends at its own position
+            rows = torch.arange(b, device=x.device)
+            idx = starts.long()
+            kc[rows, :, idx] = k_new[:, :, 0].to(kc.dtype)
+            vc[rows, :, idx] = v_new[:, :, 0].to(vc.dtype)
+        else:
+            if starts + s > kc.shape[2]:
+                raise ValueError(f"cache append at {starts}+{s} overruns "
+                                 f"max_len {kc.shape[2]}")
+            kc[:, :, starts:starts + s] = k_new.to(kc.dtype)
+            vc[:, :, starts:starts + s] = v_new.to(vc.dtype)
+        new_cache = cache
+        k_buf, v_buf = kc.to(dt), vc.to(dt)
+        if fuse_q:
+            wq = params["wq"].to(dt)
+            if plan.fuse_wo and s == 1 and residual is not None:
+                out = ops.decode_block(x, wq, k_buf, v_buf,
+                                       params["wo"].to(dt), residual,
+                                       lengths, rope_theta=theta,
+                                       plan=plan)
+                return out, new_cache
+            o = ops.qproj_attention(x, wq, k_buf, v_buf, causal=cfg.causal,
+                                    q_offset=q_off, lengths=lengths,
+                                    rope_theta=theta, plan=plan)
+        else:
+            o = ops.attention(q, k_buf, v_buf, causal=cfg.causal,
+                              q_offset=q_off, lengths=lengths, plan=plan)
+    out = torch.einsum("bhse,hed->bsd", o, params["wo"].to(dt))
+    if residual is not None:
+        out = residual + out
+    return out, new_cache
+
+
+def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device, lead: tuple = ()) -> dict:
+    """Zeroed (*lead, B, Hkv, max_len, Dh) K and V buffers."""
+    shape = (*lead, batch, cfg.kv_heads, max_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

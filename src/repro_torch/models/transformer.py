@@ -1,0 +1,99 @@
+"""The dense decoder stack of the port (dense attention layers of
+``repro/models/transformer.py``).
+
+Parameters keep the JAX package's tree: ``prefix_layers`` (a list) and
+``layers`` (one dict per position in the layer period, every leaf with
+a leading ``n_periods`` axis).  Caches mirror it: ``{"prefix": [...],
+"scan": [...]}``.  The JAX ``lax.scan`` over periods is a Python loop
+here; each period's parameters and caches are views into the stacked
+tensors, so cache appends land in the stacked cache in place.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.common import ModelConfig, mlp_forward, rms_norm
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.attention != "gqa" or cfg.moe or cfg.attn_every != 1 \
+            or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs dense GQA decoders only")
+
+
+def _index(tree, j: int):
+    """Period ``j`` of a stacked parameter or cache tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, j) for k, v in tree.items()}
+    return tree[j]
+
+
+def _layer_forward(lp: dict, cfg: ModelConfig, x, positions, layer_cache,
+                   cache_len, plan):
+    h = rms_norm(x, lp["pre_norm"])
+    # the attention block owns its residual add: the decode megakernel
+    # folds it into the launch, every other path adds it in gqa_forward
+    x, _ = attn.gqa_forward(
+        lp["attn"], cfg, h, positions,
+        cache=None if layer_cache is None else layer_cache["attn"],
+        cache_len=cache_len, plan=plan, residual=x)
+    h = rms_norm(x, lp["ffn_norm"])
+    return x + mlp_forward(lp["mlp"], h, cfg.mlp)
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            cache: Optional[dict] = None, cache_len=None,
+            positions: Optional[torch.Tensor] = None, plan=None):
+    """tokens: (B, S) integer ids.  ``cache``/``cache_len``: KV-cached
+    mode; ``cache_len`` is an int (the whole batch at one context) or a
+    (B,) tensor of per-row write positions.  ``plan``: a
+    ``lower.runtime.PlanDispatch`` routing every attention block.
+    Returns logits (B, S, vocab), plus the cache (updated in place)
+    when one is given."""
+    _check_dense(cfg)
+    dt = cfg.torch_dtype()
+    x = params["embed"].to(dt)[tokens]
+    b, s, _ = x.shape
+    if positions is None:
+        ar = torch.arange(s, dtype=torch.int32, device=x.device)
+        if isinstance(cache_len, torch.Tensor) and cache_len.ndim == 1:
+            positions = cache_len.to(torch.int32)[:, None] + ar[None, :]
+        else:
+            start = 0 if cache_len is None else int(cache_len)
+            positions = (start + ar)[None, :].expand(b, s)
+
+    for i, lp in enumerate(params["prefix_layers"]):
+        lc = None if cache is None else cache["prefix"][i]
+        x = _layer_forward(lp, cfg, x, positions, lc, cache_len, plan)
+    for j in range(cfg.n_periods):
+        for pos in range(cfg.layer_period):
+            lp = _index(params["layers"][pos], j)
+            lc = None if cache is None else _index(cache["scan"][pos], j)
+            x = _layer_forward(lp, cfg, x, positions, lc, cache_len, plan)
+
+    x = rms_norm(x, params["final_norm"])
+    if "lm_head" in params:
+        logits = x @ params["lm_head"].to(dt)
+    else:
+        logits = x @ params["embed"].to(dt).T
+    if cache is None:
+        return logits
+    return logits, cache
+
+
+def init_model_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     dtype=torch.bfloat16, device="cuda") -> dict:
+    """Zeroed KV caches in the parameter tree's layout: a list for the
+    prefix layers, ``n_periods``-stacked tensors for the body."""
+    _check_dense(cfg)
+    def layer(lead=()):
+        return {"attn": attn.init_gqa_cache(cfg, batch, max_len, dtype,
+                                            device, lead)}
+    return {"prefix": [layer() for _ in range(cfg.first_dense_layers)],
+            "scan": [layer((cfg.n_periods,))
+                     for _ in range(cfg.layer_period)]}

@@ -1,0 +1,99 @@
+"""Parameters of the port: random init from an explicit generator, and
+the bridge from the JAX package's parameter tree.
+
+Both give the JAX tree's structure and layout: ``embed`` (V, E),
+``prefix_layers`` (list), ``layers`` (one dict per period position,
+leaves stacked over ``n_periods``), ``final_norm``, ``lm_head`` (E, V);
+per layer ``pre_norm``, ``attn`` {``wq`` (E, Hq, D), ``wk``/``wv``
+(E, Hkv, D), ``wo`` (Hq, D, E)[, ``q_norm``, ``k_norm``]},
+``ffn_norm`` and ``mlp`` {``w_up``, ``w_down``[, ``w_gate``]}.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import ModelConfig, resolve_device
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device="cuda", dtype=None):
+    """The JAX parameter tree (leaves already ``np.asarray``'d by the
+    caller) as tensors on ``device``, same structure.  ``dtype`` casts
+    the floating leaves; default: keep each leaf's dtype (numpy's
+    bfloat16 extension type becomes torch.bfloat16 exactly)."""
+    dev = resolve_device(device)
+    if cfg.attention != "gqa":
+        raise NotImplementedError(f"{cfg.name}: dense GQA configs only")
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        arr = np.asarray(x)
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(arr))       # a writable copy
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(dev)
+
+    return conv(tree)
+
+
+def _stacked(shape, lead: int, generator, device, dtype,
+             scale=None) -> torch.Tensor:
+    """``lead`` stacked draws of the JAX package's init: a normal
+    truncated to [-2, 2] times ``scale`` (default 1/sqrt(fan_in),
+    fan_in = shape[0]), drawn in fp32 one slice at a time."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(max(shape[0] if len(shape) > 1
+                                    else shape[-1], 1))
+    out = torch.empty((lead, *shape), dtype=dtype, device=device)
+    tmp = torch.empty(shape, dtype=torch.float32, device=device)
+    for j in range(lead):
+        torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        out[j] = tmp * scale
+    return out
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda") -> dict:
+    """Random parameters in ``cfg.param_dtype`` on ``device``, drawn
+    from ``generator`` (which must live on that device).  Not the JAX
+    package's numbers for the same seed: tests share weights through
+    :func:`params_from_numpy` instead."""
+    dev = resolve_device(device)
+    if cfg.attention != "gqa" or cfg.moe or cfg.attn_every != 1 \
+            or cfg.first_dense_layers:
+        raise NotImplementedError(f"{cfg.name}: dense GQA configs only")
+    dt = cfg.torch_dtype("param")
+    n = cfg.n_periods
+    e, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+
+    def w(*shape, scale=None, lead=n):
+        return _stacked(shape, lead, generator, dev, dt, scale)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=dev)
+
+    attn = {"wq": w(e, h, dh), "wk": w(e, hk, dh), "wv": w(e, hk, dh),
+            "wo": w(h, dh, e)}
+    if cfg.qk_norm:
+        attn["q_norm"], attn["k_norm"] = ones(n, dh), ones(n, dh)
+    mlp = {"w_up": w(e, cfg.d_ff), "w_down": w(cfg.d_ff, e)}
+    if cfg.mlp == "silu_glu":
+        mlp["w_gate"] = w(e, cfg.d_ff)
+    p = {"embed": w(cfg.vocab_size, e, scale=0.02, lead=1)[0],
+         "prefix_layers": [],
+         "layers": [{"pre_norm": ones(n, e), "attn": attn,
+                     "ffn_norm": ones(n, e), "mlp": mlp}],
+         "final_norm": ones(e)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = w(e, cfg.vocab_size, scale=0.02, lead=1)[0]
+    return p

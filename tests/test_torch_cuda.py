@@ -1,0 +1,117 @@
+"""The port's CUDA kernels on the card (marker ``cuda``; every test
+skips without a CUDA device).  This file imports no JAX, so it runs on
+a machine with the card and PyTorch alone:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Each kernel against its plain PyTorch version on the same inputs, in
+fp32 (atol/rtol 1e-4: fp32 FMAs in another order) and bf16 (2e-2: both
+round p, Q and the output to bf16, unit roundoff 2^-8), over a GQA
+group of 3, a length of 0, a ragged length and Sq > 1; the decode
+megakernel's head sum is deterministic; launches are counted.
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.fused_attention import (
+    fused_attention_masked, fused_attention_masked_plain)
+from repro_torch.kernels.fused_decode_block import (
+    fused_decode_block, fused_decode_block_plain)
+from repro_torch.kernels.fused_qproj_attention import (
+    fused_qproj_attention_masked, fused_qproj_attention_masked_plain)
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g, device=dev) * scale).to(dtype)
+
+    b, hq, hkv, skv, e, d = 3, 9, 3, 200, 96, 64
+    return dict(
+        lens=torch.tensor([0, 77, 200], dtype=torch.int32, device=dev),
+        q=r(b, hq, 5, d), k=r(b, hkv, skv, d), v=r(b, hkv, skv, d),
+        x=r(b, 5, e), wq=r(e, hq, d, scale=e ** -0.5), x1=r(b, 1, e),
+        res=r(b, 1, e), wo=r(hq, d, e, scale=(hq * d) ** -0.5))
+
+
+TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_fused_attention_masked_matches_plain(cuda_device, dtype, tol):
+    t = _inputs(cuda_device, dtype)
+    for causal in (True, False):
+        got = fused_attention_masked(t["q"], t["k"], t["v"], t["lens"],
+                                     causal=causal)
+        want = fused_attention_masked_plain(t["q"], t["k"], t["v"],
+                                            t["lens"], causal=causal)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_fused_qproj_attention_masked_matches_plain(cuda_device, dtype,
+                                                    tol):
+    t = _inputs(cuda_device, dtype)
+    for theta in (1e4, None):
+        got = fused_qproj_attention_masked(t["x"], t["wq"], t["k"], t["v"],
+                                           t["lens"], rope_theta=theta)
+        want = fused_qproj_attention_masked_plain(
+            t["x"], t["wq"], t["k"], t["v"], t["lens"], rope_theta=theta)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_fused_decode_block_matches_plain(cuda_device, dtype, tol):
+    t = _inputs(cuda_device, dtype)
+    args = (t["x1"], t["wq"], t["k"], t["v"], t["wo"], t["res"], t["lens"])
+    got = fused_decode_block(*args, rope_theta=1e4)
+    want = fused_decode_block_plain(*args, rope_theta=1e4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(got, fused_decode_block(*args, rope_theta=1e4))
+    assert torch.equal(got[0], t["res"][0])       # the length-0 row
+
+
+@pytest.mark.cuda
+def test_launches_are_counted(cuda_device):
+    t = _inputs(cuda_device, torch.bfloat16)
+    build.reset_launches()
+    fused_attention_masked(t["q"], t["k"], t["v"], t["lens"])
+    fused_qproj_attention_masked(t["x"], t["wq"], t["k"], t["v"], t["lens"])
+    fused_decode_block(t["x1"], t["wq"], t["k"], t["v"], t["wo"], t["res"],
+                       t["lens"])
+    torch.cuda.synchronize()
+    assert all(build.LAUNCHES[n] == 1 for n in build.KERNELS)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_mixed_devices(cuda_device):
+    t = _inputs(cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError):
+        fused_attention_masked(t["q"], t["k"].cpu(), t["v"], t["lens"])
+
+
+@pytest.mark.cuda
+def test_build_all_compiles_every_kernel(cuda_device):
+    build.build_all()
+    for name in build.KERNELS:
+        assert build.library_path(name).exists()
+        assert build.kernel(name) is not None

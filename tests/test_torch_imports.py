@@ -1,0 +1,91 @@
+"""The port's boundaries: no file under src/repro_torch/, and not
+chip_smoke.py, imports JAX or anything of the JAX package; the entry
+points default to the card and raise without one; each kernel source
+names the TPU kernel it replaces."""
+
+import ast
+import importlib
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro", "flax"}
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_package_imports(path):
+    bad = _imported_roots(path) & FORBIDDEN
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_every_port_module_imports_without_a_card():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT.parent).with_suffix("")
+        name = ".".join(rel.parts)
+        if name.endswith(".__init__"):
+            name = name[: -len(".__init__")]
+        importlib.import_module(name)
+
+
+def _entry_points():
+    from repro_torch import configs
+    from repro_torch.lower import serving_plan
+    from repro_torch.models.weights import init_params, params_from_numpy
+    from repro_torch.serve.engine import (ContinuousBatchingEngine,
+                                          init_decode_state,
+                                          make_serving_plan,
+                                          prefill_request)
+    cfg = configs.get_config("starcoder2-7b", smoke=True)
+    return [
+        lambda: serving_plan(cfg, 64),
+        lambda: make_serving_plan(cfg, 64),
+        lambda: init_params(cfg, torch.Generator()),
+        lambda: params_from_numpy({}, cfg),
+        lambda: init_decode_state(cfg, 1, 64),
+        lambda: prefill_request(None, cfg, [1, 2], max_len=64),
+        lambda: ContinuousBatchingEngine(None, cfg, batch_size=1,
+                                         max_len=64),
+    ]
+
+
+@pytest.mark.parametrize("i", range(7))
+def test_default_device_is_cuda_and_raises_without_it(i):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _entry_points()[i]()
+
+
+def test_serve_main_defaults_to_cuda():
+    from repro_torch.launch import serve
+    assert serve.parser().parse_args([]).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            serve.main(["--smoke"])
+
+
+def test_kernel_sources_name_what_they_replace():
+    from repro_torch.kernels import build
+    for name, (src, entry, argtypes) in build.KERNELS.items():
+        text = (PORT / "kernels" / "csrc" / src).read_text()
+        assert "Replaces the TPU kernel" in text and name in text
+        assert "Bound on an H100" in text and "Design:" in text
+        assert f'extern "C" int {entry}(' in text
+    assert build.BUILD_DIR == ROOT / "build" / "repro_torch"

@@ -1,0 +1,214 @@
+"""The port's kernels against the JAX package's Pallas kernels.
+
+On the CPU: each kernel's plain PyTorch version (what its wrapper runs
+for a CPU tensor) against the Pallas kernel in interpret mode, on the
+same numpy inputs, fp32, atol 1e-5 -- GQA with a group of 3, a length
+of 0, lengths off the block grid, Sq > 1 under the causal anchor, RoPE
+on and off.  Also the dispatch in ``kernels.ops``: impls, refusals and
+counts.  The CUDA kernels themselves are held to these plain versions
+on the card by ``test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.kernels import xla_fallback as jax_xla
+from repro.kernels.fused_attention import (
+    fused_attention_masked as pallas_attention_masked)
+from repro.kernels.fused_decode_block import (
+    fused_decode_block as pallas_decode_block)
+from repro.kernels.fused_qproj_attention import (
+    fused_qproj_attention_masked as pallas_qproj_masked)
+
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.chunked import chunked_attention
+from repro_torch.kernels.fused_attention import fused_attention_masked
+from repro_torch.kernels.fused_decode_block import fused_decode_block
+from repro_torch.kernels.fused_qproj_attention import (
+    fused_qproj_attention_masked)
+
+torch.set_num_threads(2)
+
+ATOL = 1e-5     # fp32: the two sum in different orders, nothing rounds
+
+
+def _rand(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _both(a):
+    return torch.from_numpy(a), jnp.asarray(a)
+
+
+def _close(got, want, atol=ATOL):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=atol)
+
+
+# b, hq, hkv, sq, skv, d, causal, lengths
+ATTN_CASES = [
+    (3, 6, 2, 1, 160, 32, False, [100, 160, 0]),    # GQA 3, a length 0
+    (2, 6, 2, 1, 150, 32, True, [77, 131]),         # ragged decode rows
+    (2, 6, 2, 5, 192, 32, True, [70, 192]),         # Sq > 1, causal anchor
+    (2, 4, 4, 3, 128, 64, True, [3, 0]),            # MHA, anchored at 0
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,lengths", ATTN_CASES)
+def test_attention_plain_matches_pallas(b, hq, hkv, sq, skv, d, causal,
+                                        lengths):
+    rng = np.random.default_rng(0)
+    q, jq = _both(_rand(rng, b, hq, sq, d))
+    k, jk = _both(_rand(rng, b, hkv, skv, d))
+    v, jv = _both(_rand(rng, b, hkv, skv, d))
+    lens = np.array(lengths, np.int32)
+    want = pallas_attention_masked(jq, jk, jv, jnp.asarray(lens),
+                                   causal=causal, block_q=128, block_k=64,
+                                   interpret=True)
+    got = fused_attention_masked(q, k, v, torch.from_numpy(lens),
+                                 causal=causal)
+    _close(got, want)
+
+
+# b, hq, hkv, sq, skv, e, d, lengths, rope
+QPROJ_CASES = [
+    (2, 6, 2, 1, 160, 48, 32, [100, 0], 1e4),
+    (2, 6, 2, 4, 150, 48, 32, [4, 131], 1e4),
+    (2, 6, 2, 7, 192, 64, 32, [70, 192], None),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,e,d,lengths,rope", QPROJ_CASES)
+def test_qproj_plain_matches_pallas(b, hq, hkv, sq, skv, e, d, lengths,
+                                    rope):
+    rng = np.random.default_rng(1)
+    x, jx = _both(_rand(rng, b, sq, e))
+    wq, jwq = _both(_rand(rng, e, hq, d, scale=e ** -0.5))
+    k, jk = _both(_rand(rng, b, hkv, skv, d))
+    v, jv = _both(_rand(rng, b, hkv, skv, d))
+    lens = np.array(lengths, np.int32)
+    want = pallas_qproj_masked(jx, jwq, jk, jv, jnp.asarray(lens),
+                               causal=True, rope_theta=rope, block_q=128,
+                               block_k=64, interpret=True)
+    got = fused_qproj_attention_masked(x, wq, k, v, torch.from_numpy(lens),
+                                       causal=True, rope_theta=rope)
+    _close(got, want)
+
+
+# b, hq, hkv, skv, e, d, lengths, rope
+DECODE_CASES = [
+    (3, 6, 2, 160, 48, 32, [100, 0, 160], 1e4),
+    (2, 6, 2, 130, 64, 32, [1, 129], None),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,skv,e,d,lengths,rope", DECODE_CASES)
+def test_decode_block_plain_matches_pallas(b, hq, hkv, skv, e, d, lengths,
+                                           rope):
+    rng = np.random.default_rng(2)
+    x, jx = _both(_rand(rng, b, 1, e))
+    res, jres = _both(_rand(rng, b, 1, e))
+    wq, jwq = _both(_rand(rng, e, hq, d, scale=e ** -0.5))
+    wo, jwo = _both(_rand(rng, hq, d, e, scale=(hq * d) ** -0.5))
+    k, jk = _both(_rand(rng, b, hkv, skv, d))
+    v, jv = _both(_rand(rng, b, hkv, skv, d))
+    lens = np.array(lengths, np.int32)
+    want = pallas_decode_block(jx, jwq, jk, jv, jwo, jres,
+                               jnp.asarray(lens), rope_theta=rope,
+                               block_k=64, interpret=True)
+    got = fused_decode_block(x, wq, k, v, wo, res, torch.from_numpy(lens),
+                             rope_theta=rope)
+    _close(got, want)
+    # a length-0 row returns its residual exactly
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert torch.equal(got[i], res[i])
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, None), (True, 30),
+                                             (False, None)])
+def test_chunked_matches_jax_fallback(causal, q_offset):
+    """The shared body against ``xla_fallback.chunked_attention`` with
+    a scalar offset and lengths, across several q and kv blocks."""
+    rng = np.random.default_rng(3)
+    q, jq = _both(_rand(rng, 2, 6, 9, 16))
+    k, jk = _both(_rand(rng, 2, 2, 40, 16))
+    v, jv = _both(_rand(rng, 2, 2, 40, 16))
+    lens = np.array([25, 40], np.int32)
+    want = jax_xla.chunked_attention(jq, jk, jv, causal=causal,
+                                     q_offset=q_offset,
+                                     lengths=jnp.asarray(lens), block_q=4,
+                                     block_k=16)
+    got = chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
+                            lengths=torch.from_numpy(lens), block_q=4,
+                            block_k=16)
+    _close(got, want)
+
+
+def test_ops_impls_agree_and_count():
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(_rand(rng, 2, 6, 3, 32))
+    k = torch.from_numpy(_rand(rng, 2, 2, 64, 32))
+    v = torch.from_numpy(_rand(rng, 2, 2, 64, 32))
+    lens = torch.tensor([20, 20], dtype=torch.int32)
+    ops.reset_counts()
+    outs = [ops.attention(q, k, v, q_offset=17, lengths=lens, impl=impl)
+            for impl in ("auto", "torch", "reference")]
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], rtol=0, atol=ATOL)
+    assert ops.CALLS[("attention", "torch")] == 2
+    assert ops.CALLS[("attention", "reference")] == 1
+    assert not build.LAUNCHES      # the CPU never launches a kernel
+
+
+def test_ops_refuses_inconsistent_offset_onto_reference():
+    """An explicit causal offset the masked kernels cannot express runs
+    the reference, with the reason recorded on the plan."""
+    from repro_torch import configs, lower
+    cfg = configs.get_config("qwen3-8b", smoke=True)
+    d = lower.serving_plan(cfg, 256, device="cpu").decode_dispatch(200)
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(_rand(rng, 2, 4, 3, 32))
+    k = torch.from_numpy(_rand(rng, 2, 2, 64, 32))
+    v = torch.from_numpy(_rand(rng, 2, 2, 64, 32))
+    lens = torch.tensor([20, 30], dtype=torch.int32)
+    ops.reset_downgrade_warnings()
+    with pytest.warns(UserWarning, match="inconsistent"):
+        got = ops.attention(q, k, v, q_offset=17, lengths=lens, plan=d)
+    want = ref.attention_reference(q, k, v, causal=True, q_offset=17,
+                                   lengths=lens)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert any("inconsistent" in g.reason for g in d.plan.downgrades)
+
+
+def test_ops_head_width_is_no_refusal():
+    """A head wider than the CUDA kernels take is the wrapper's limit,
+    not a reason to run the reference: on the CPU the plan's fused path
+    runs its plain version and records nothing."""
+    from repro_torch import configs, lower
+    cfg = configs.get_config("starcoder2-7b", smoke=True)
+    d = lower.serving_plan(cfg, 256, device="cpu").prefill_dispatch(200)
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(_rand(rng, 1, 4, 5, 256))
+    k = torch.from_numpy(_rand(rng, 1, 2, 16, 256))
+    v = torch.from_numpy(_rand(rng, 1, 2, 16, 256))
+    lens = torch.tensor([9], dtype=torch.int32)
+    ops.reset_counts()
+    got = ops.attention(q, k, v, q_offset=4, lengths=lens, plan=d)
+    want = ref.attention_reference(q, k, v, causal=True, q_offset=4,
+                                   lengths=lens)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    assert d.impl == "torch" and ops.CALLS[("attention", "torch")] == 1
+    assert not d.plan.downgrades
+
+
+def test_kernel_wrappers_refuse_bad_cuda_args():
+    """The CUDA-side argument checks run without a card: a mixed-device
+    call is refused before any launch."""
+    q = torch.zeros(1, 2, 1, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        from repro_torch.kernels.fused_attention import check_cuda_args
+        check_cuda_args("k", {"q": q}, torch.zeros(1, dtype=torch.int32),
+                        (8,))
