@@ -7,26 +7,38 @@ Phases, in order:
   2. build  -- every CUDA kernel built from csrc/, one nvcc per source,
                all started together;
   3. kernels-- each kernel against its plain PyTorch version on the card
-               in bf16, at the serve path's full-width shapes and at edge
-               cases (a length of 0, lengths off the tile grid, Sq > 1
-               under the causal anchor), with its time, the plain
-               version's, the card's bound and a library yardstick;
+               in bf16, at the serve paths' full-width shapes and at edge
+               cases (a length of 0, lengths off the tile and page grids,
+               Sq > 1 under the causal anchor, pages of 8 and 128, a dead
+               row whose table row is zeros), with its time, the plain
+               version's, the card's bound and a library yardstick; each
+               paged kernel also bit for bit against its dense kernel on
+               the gathered cache;
   4. serve  -- the port's launch/serve path: starcoder2-7b at full width
                and depth, random weights from a seed, 6 requests through
-               the continuous-batching engine; every kernel must launch,
-               and one request rerun with impl forced to the plain
-               versions must give the same logits within tolerance;
-               then the mix again and a steady decode window under
-               torch.profiler: device time by kernel and idle share;
-  5. qwen   -- qwen3-8b at full width, depth cut to 4 layers, one short
-               stream; its decode past C = 2N runs fused_attention_masked.
-The last three lines of stdout are the kernels' JSON record, the card's
-name and power limit, and {"ok": true, "device": {...}}.  Any failure exits non-zero and prints
-no ok line.  Imports nothing of JAX or of the JAX package.
+               the continuous-batching engine; every dense kernel must
+               launch, and one request rerun with impl forced to the
+               plain versions must give the same logits within
+               tolerance; then the mix again and a steady decode window
+               under torch.profiler: device time by kernel and idle
+               share.  With the same weights: the mix through the paged
+               engine with a pool that forces a preempt and a resume
+               (the dense serve's tokens, fused_decode_block_paged, KV
+               memory and concurrency), and a demotions=1 paged run
+               whose decode takes fused_qproj_attention_paged;
+  5. qwen   -- qwen3-8b at full width, depth cut to 4 layers, two
+               prompts; its decode past C = 2N runs fused_attention_masked
+               on the dense engine and fused_attention_paged on the paged
+               one.
+Every kernel must have launched on some path.  The last three lines of
+stdout are the kernels' JSON record, the card's name and power limit,
+and {"ok": true, "device": {...}}.  Any failure exits non-zero and
+prints no ok line.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -43,6 +55,9 @@ PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 
 STARCODER = dict(E=4608, HQ=36, HKV=4, D=128)
+#: the kernels the dense serve path runs
+DENSE_KERNELS = ("fused_attention_masked", "fused_qproj_attention_masked",
+                 "fused_decode_block")
 
 
 def log(*a):
@@ -206,6 +221,19 @@ def kernel_phase(dev, g):
         max_abs_err=err, ms=time_ms(f2, 10), plain_ms=time_ms(p2, 3),
         bound_ms=bms, bound_by=by, library_ms=None)
 
+    def check_decode_with(name, run, args, tag):
+        """``run(x, ..., residual, ...) -> (kernel, plain)`` with
+        ``args``' residual (its 4th entry) and with a zero one; returns
+        (kernel output with the residual, the larger error)."""
+        outs, errs = [], []
+        rr = args[3]
+        for r_, what in ((rr, "residual"), (torch.zeros_like(rr),
+                                            "zero residual")):
+            got, want = run(*args[:3], r_, *args[4:])
+            outs.append(got)
+            errs.append(check(name, got, want, f"{tag} {what}"))
+        return outs[0], max(errs)
+
     # -- 3. fused_decode_block: a B=4 decode step ------------------------
     # The residual is N(0, 1) while the term the kernel computes, y =
     # o @ Wo, is an order of magnitude smaller, so against a residual
@@ -219,20 +247,15 @@ def kernel_phase(dev, g):
     lens = torch.tensor([301, 460, 612, 705], dtype=torch.int32,
                         device=dev)
 
+    def dense_decode(xx, kk, vv, rr, ll):
+        return (fused_decode_block(xx, wq, kk, vv, wo, rr, ll,
+                                   rope_theta=theta),
+                fused_decode_block_plain(xx, wq, kk, vv, wo, rr, ll,
+                                         rope_theta=theta))
+
     def check_decode(xx, kk, vv, rr, ll, tag):
-        """Kernel against plain with the residual ``rr`` and with a zero
-        one; returns (kernel output with rr, the larger error)."""
-        outs, errs = [], []
-        for r_, what in ((rr, "residual"), (torch.zeros_like(rr),
-                                            "zero residual")):
-            outs.append(fused_decode_block(xx, wq, kk, vv, wo, r_, ll,
-                                           rope_theta=theta))
-            errs.append(check(
-                "fused_decode_block", outs[-1],
-                fused_decode_block_plain(xx, wq, kk, vv, wo, r_, ll,
-                                         rope_theta=theta),
-                f"{tag} {what}"))
-        return outs[0], max(errs)
+        return check_decode_with("fused_decode_block", dense_decode,
+                                 (xx, kk, vv, rr, ll), tag)
 
     f3 = lambda: fused_decode_block(x, wq, k, v, wo, res, lens,
                                     rope_theta=theta)
@@ -261,11 +284,234 @@ def kernel_phase(dev, g):
         replaces="src/repro/kernels/fused_decode_block.py:258",
         max_abs_err=err, ms=time_ms(f3, 20), plain_ms=time_ms(p3, 3),
         bound_ms=bms, bound_by=by, library_ms=None)
+    results.update(paged_kernel_phase(dev, g, check, check_decode_with))
     for name, r in results.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {name}: kernel_ms={r['ms']:.4f} plain_ms="
             f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}) library_ms={lib}")
+    return results
+
+
+QWEN = dict(E=4096, HQ=32, HKV=8, D=128)
+#: the paged kernels' main-path batch: B=4 rows at these contexts
+PAGED_LENS = [301, 460, 612, 705]
+
+
+def paged_from_dense(k, v, lens, page, g, extra=37, dead=()):
+    """Scatter each row's live pages of the dense (B, Hkv, Skv, D) caches
+    into random pools of more pages than the rows need (``extra`` more,
+    plus the null page 0), at shuffled page ids, as the paged engine
+    lays them out: table row b names its ceil(len/page) pages in order,
+    then zeros.  Rows in ``dead`` get an all-zero table row.  Returns
+    (k pool, v pool, table)."""
+    b, hkv, skv, d = k.shape
+    need = [0 if i in dead else -(-int(n) // page) for i, n in
+            enumerate(lens)]
+    n_pages = sum(need) + extra + 1
+    ids = torch.randperm(n_pages - 1, generator=g, device=k.device) + 1
+    tbl = torch.zeros((b, skv // page), dtype=torch.int32, device=k.device)
+    pools = [torch.randn(n_pages, hkv, page, d, generator=g,
+                         device=k.device).to(k.dtype) for _ in (k, v)]
+    off = 0
+    for i, n in enumerate(need):
+        rows = ids[off:off + n]
+        off += n
+        tbl[i, :n] = rows.to(torch.int32)
+        for pool, x in zip(pools, (k, v)):
+            pool[rows] = x[i, :, :n * page].reshape(
+                hkv, n, page, d).movedim(1, 0)
+    return pools[0], pools[1], tbl
+
+
+def paged_kernel_phase(dev, g, check, check_decode_with):
+    """The three paged kernels at the paged path's full-width shapes in
+    bf16, over shuffled tables of pools larger than the batch needs:
+    each against its plain version, and bit for bit against its dense
+    kernel on the gathered cache (one body, another KV address)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_attention import (
+        fused_attention_masked, fused_attention_paged,
+        fused_attention_paged_plain)
+    from repro_torch.kernels.fused_decode_block import (
+        fused_decode_block, fused_decode_block_paged,
+        fused_decode_block_paged_plain)
+    from repro_torch.kernels.fused_qproj_attention import (
+        fused_qproj_attention_masked, fused_qproj_attention_paged,
+        fused_qproj_attention_paged_plain)
+
+    bf = torch.bfloat16
+    theta, skv, page, b = 1e5, 1024, 16, len(PAGED_LENS)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev)
+                * scale).to(bf)
+
+    def log_twin(name, dense, iters):
+        """The dense kernel's time on the gathered cache at the same
+        shapes: what paging costs the kernel (the gather is not in it)."""
+        r = results[name]
+        dense_ms = time_ms(dense, iters)
+        log(f"  {name}: {r['ms']:.4f} ms against its dense kernel's "
+            f"{dense_ms:.4f} ms on the gathered cache "
+            f"({100 * (r['ms'] / dense_ms - 1):+.1f}%)")
+
+    def same_as_dense(name, got, dense, tag):
+        if not torch.equal(got, dense):
+            err = (got.float() - dense.float()).abs().max().item()
+            raise SystemExit(f"{name} [{tag}] differs from its dense kernel "
+                             f"on the gathered cache (max_abs {err:.3e})")
+        log(f"  {name} [{tag}] bitwise equal to the dense kernel on the "
+            f"gathered cache")
+
+    # edge cases: (lengths, page, dead rows)
+    edges = [([0, 77, 130], 8, (0,)), ([1, 200, 1023], 128, ()),
+             ([16, 0, 513], 16, ())]
+    results = {}
+    lens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
+    tbl_bytes = lambda t: 4 * (int(t.count_nonzero()) + t.shape[0])
+
+    # -- 4. fused_attention_paged: qwen3-8b decode past C = 256 ----------
+    E, HQ, HKV, D = (QWEN[k] for k in ("E", "HQ", "HKV", "D"))
+    k, v = rnd(b, HKV, skv, D), rnd(b, HKV, skv, D)
+    q = rnd(b, HQ, 1, D)
+    kp, vp, tbl = paged_from_dense(k, v, PAGED_LENS, page, g)
+    kg, vg = ref.gather_pages(kp, tbl), ref.gather_pages(vp, tbl)
+    f4 = lambda: fused_attention_paged(q, kp, vp, lens, tbl)
+    p4 = lambda: fused_attention_paged_plain(q, kp, vp, lens, tbl)
+    out = f4()
+    err = check("fused_attention_paged", out, p4(),
+                f"qwen B=4 page {page} lengths={PAGED_LENS}")
+    same_as_dense("fused_attention_paged", out,
+                  fused_attention_masked(q, kg, vg, lens), "B=4")
+    # the edge cases at M=1, and a causal 5-row chunk
+    for ls, pg, dead, sq in [e + (1,) for e in edges] + [
+            ([41, 700, 5], 16, (), 5)]:
+        qq = rnd(3, HQ, sq, D)
+        kk, vv = rnd(3, HKV, skv, D), rnd(3, HKV, skv, D)
+        ll = torch.tensor(ls, dtype=torch.int32, device=dev)
+        kp_, vp_, t_ = paged_from_dense(kk, vv, ls, pg, g, dead=dead)
+        got = fused_attention_paged(qq, kp_, vp_, ll, t_)
+        tag = f"Sq={sq} page {pg} lengths={ls} dead={list(dead)}"
+        check("fused_attention_paged", got,
+              fused_attention_paged_plain(qq, kp_, vp_, ll, t_), tag)
+        same_as_dense("fused_attention_paged", got, fused_attention_masked(
+            qq, ref.gather_pages(kp_, t_), ref.gather_pages(vp_, t_), ll),
+            tag)
+        if 0 in ls and got[ls.index(0)].any():
+            raise SystemExit("fused_attention_paged: a length-0 row must "
+                             "emit zeros")
+    kv_rows = sum(PAGED_LENS)
+    byts = 2 * (2 * q.numel() + kv_rows * HKV * 2 * D) + tbl_bytes(tbl)
+    bms, by = bound(byts, 4 * HQ * D * kv_rows)
+    cols = torch.arange(skv, device=dev)
+    mask = (cols[None, :] < lens[:, None])[:, None, None, :]
+    ke, ve = (x.repeat_interleave(HQ // HKV, 1) for x in (kg, vg))
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, ke, ve, attn_mask=mask)
+    gather_ms = time_ms(lambda: (ref.gather_pages(kp, tbl),
+                                 ref.gather_pages(vp, tbl)), 20)
+    log(f"  fused_attention_paged: the yardstick's gather of the pool to "
+        f"dense KV takes {gather_ms:.4f} ms, not in library_ms")
+    results["fused_attention_paged"] = dict(
+        source="src/repro_torch/kernels/csrc/fused_attention.cu",
+        replaces="src/repro/kernels/fused_attention.py:408",
+        max_abs_err=err, ms=time_ms(f4, 50), plain_ms=time_ms(p4, 3),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(lib, 20))
+    log_twin("fused_attention_paged",
+             lambda: fused_attention_masked(q, kg, vg, lens), 50)
+
+    # -- 5. fused_qproj_attention_paged: the megakernel one rung down ----
+    E, HQ, HKV, D = (STARCODER[k] for k in ("E", "HQ", "HKV", "D"))
+    wq = rnd(E, HQ, D, scale=E ** -0.5)
+    wo = rnd(HQ, D, E, scale=(HQ * D) ** -0.5)
+    k, v = rnd(b, HKV, skv, D), rnd(b, HKV, skv, D)
+    x, res = rnd(b, 1, E), rnd(b, 1, E)
+    kp, vp, tbl = paged_from_dense(k, v, PAGED_LENS, page, g)
+    kg, vg = ref.gather_pages(kp, tbl), ref.gather_pages(vp, tbl)
+    f5 = lambda: fused_qproj_attention_paged(x, wq, kp, vp, lens, tbl,
+                                             rope_theta=theta)
+    p5 = lambda: fused_qproj_attention_paged_plain(x, wq, kp, vp, lens, tbl,
+                                                   rope_theta=theta)
+    out = f5()
+    err = check("fused_qproj_attention_paged", out, p5(),
+                f"B=4 page {page} lengths={PAGED_LENS}")
+    same_as_dense("fused_qproj_attention_paged", out,
+                  fused_qproj_attention_masked(x, wq, kg, vg, lens,
+                                               rope_theta=theta), "B=4")
+    edge_inputs = []
+    for ls, pg, dead in edges:
+        kk, vv = rnd(3, HKV, skv, D), rnd(3, HKV, skv, D)
+        ll = torch.tensor(ls, dtype=torch.int32, device=dev)
+        kp_, vp_, t_ = paged_from_dense(kk, vv, ls, pg, g, dead=dead)
+        xx, rr = rnd(3, 1, E), rnd(3, 1, E)
+        edge_inputs.append((ls, pg, dead, ll, kp_, vp_, t_, xx, rr))
+        tag = f"page {pg} lengths={ls} dead={list(dead)}"
+        got = fused_qproj_attention_paged(xx, wq, kp_, vp_, ll, t_,
+                                          rope_theta=theta)
+        check("fused_qproj_attention_paged", got,
+              fused_qproj_attention_paged_plain(xx, wq, kp_, vp_, ll, t_,
+                                                rope_theta=theta), tag)
+        same_as_dense("fused_qproj_attention_paged", got,
+                      fused_qproj_attention_masked(
+                          xx, wq, ref.gather_pages(kp_, t_),
+                          ref.gather_pages(vp_, t_), ll, rope_theta=theta),
+                      tag)
+    byts = 2 * (x.numel() + wq.numel() + kv_rows * HKV * 2 * D
+                + b * HQ * D) + tbl_bytes(tbl)
+    bms, by = bound(byts, 2 * b * E * HQ * D + 4 * HQ * D * kv_rows)
+    results["fused_qproj_attention_paged"] = dict(
+        source="src/repro_torch/kernels/csrc/fused_qproj_attention.cu",
+        replaces="src/repro/kernels/fused_qproj_attention.py:322",
+        max_abs_err=err, ms=time_ms(f5, 20), plain_ms=time_ms(p5, 3),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    log_twin("fused_qproj_attention_paged",
+             lambda: fused_qproj_attention_masked(x, wq, kg, vg, lens,
+                                                  rope_theta=theta), 20)
+
+    # -- 6. fused_decode_block_paged: starcoder2-7b paged decode ---------
+    def paged_decode(xx, kp_, vp_, rr, ll, t_):
+        return (fused_decode_block_paged(xx, wq, kp_, vp_, wo, rr, ll, t_,
+                                         rope_theta=theta),
+                fused_decode_block_paged_plain(xx, wq, kp_, vp_, wo, rr, ll,
+                                               t_, rope_theta=theta))
+
+    def dense_decode(xx, kp_, vp_, rr, ll, t_):
+        return fused_decode_block(xx, wq, ref.gather_pages(kp_, t_),
+                                  ref.gather_pages(vp_, t_), wo, rr, ll,
+                                  rope_theta=theta)
+
+    out, err = check_decode_with("fused_decode_block_paged", paged_decode,
+                                 (x, kp, vp, res, lens, tbl),
+                                 f"B=4 page {page} lengths={PAGED_LENS}")
+    same_as_dense("fused_decode_block_paged", out,
+                  dense_decode(x, kp, vp, res, lens, tbl), "B=4")
+    for ls, pg, dead, ll, kp_, vp_, t_, xx, rr in edge_inputs:
+        tag = f"page {pg} lengths={ls} dead={list(dead)}"
+        got, _ = check_decode_with("fused_decode_block_paged", paged_decode,
+                                   (xx, kp_, vp_, rr, ll, t_), tag)
+        same_as_dense("fused_decode_block_paged", got,
+                      dense_decode(xx, kp_, vp_, rr, ll, t_), tag)
+        zero = [i for i, n in enumerate(ls) if n == 0]
+        if zero and not torch.equal(got[zero], rr[zero]):
+            raise SystemExit("fused_decode_block_paged: a length-0 row "
+                             "must return its residual")
+    f6 = lambda: fused_decode_block_paged(x, wq, kp, vp, wo, res, lens, tbl,
+                                          rope_theta=theta)
+    p6 = lambda: fused_decode_block_paged_plain(x, wq, kp, vp, wo, res, lens,
+                                                tbl, rope_theta=theta)
+    byts = 2 * (3 * b * E + wq.numel() + wo.numel()
+                + kv_rows * HKV * 2 * D) + tbl_bytes(tbl)
+    flops = 2 * b * E * HQ * D + 4 * HQ * D * kv_rows + 2 * b * HQ * D * E
+    bms, by = bound(byts, flops)
+    results["fused_decode_block_paged"] = dict(
+        source="src/repro_torch/kernels/csrc/fused_decode_block.cu",
+        replaces="src/repro/kernels/fused_decode_block.py:194",
+        max_abs_err=err, ms=time_ms(f6, 20), plain_ms=time_ms(p6, 3),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    log_twin("fused_decode_block_paged",
+             lambda: fused_decode_block(x, wq, kg, vg, wo, res, lens,
+                                        rope_theta=theta), 20)
     return results
 
 
@@ -294,16 +540,17 @@ def _leaves(tree):
         yield tree
 
 
-def _one_request_logits(eng, prompt, forced_tokens=None):
+def _one_request_logits(eng, prompt, forced_tokens=None,
+                        steps=DECODE_COMPARED):
     """Prefill ``prompt`` into slot 0 of an idle engine, then decode
-    DECODE_COMPARED steps; with ``forced_tokens`` the row is fed those
-    tokens instead of its own samples (so two runs stay comparable).
-    Returns ([prefill logits, step logits...], tokens fed)."""
+    ``steps`` steps; with ``forced_tokens`` the row is fed those tokens
+    instead of its own samples (so two runs stay comparable).  Returns
+    ([prefill logits, step logits...], tokens fed)."""
     eng.begin_prefill(0, prompt)
     while not eng.live[0]:
         eng._advance_prefills()
     logits, fed = [eng.prefill_logits[0].float()], []
-    for i in range(DECODE_COMPARED):
+    for i in range(steps):
         if forced_tokens is not None:
             eng.state.last_token[0] = forced_tokens[i]
         fed.append(int(eng.state.last_token[0]))
@@ -412,7 +659,7 @@ def serve_phase(dev):
 
     ops.reset_counts()
     out = serve.run(args, cfg, params, requests)
-    launches = dict(build.LAUNCHES)
+    launches = collections.Counter(build.LAUNCHES)
     calls = dict(ops.CALLS)
     finished, secs = out["finished"], out["seconds"]
     gen = sum(len(r.generated) for r in finished)
@@ -423,7 +670,7 @@ def serve_phase(dev):
     log(f"  finished {len(finished)}/{len(requests)} requests, {gen} "
         f"tokens in {secs:.3f}s = {gen / secs:.2f} tok/s; decode steps "
         f"{len(steps)}, median step {step_ms:.3f} ms")
-    log(f"  launches: {launches}")
+    log(f"  launches: {dict(launches)}")
     log(f"  calls by impl: "
         f"{ {f'{e}/{i}': n for (e, i), n in sorted(calls.items())} }")
     log(f"  plan resolutions: {len(out['plan'].resolutions)}, unfused "
@@ -439,7 +686,7 @@ def serve_phase(dev):
     if len(finished) != len(requests) or any(
             len(r.generated) != args.max_new for r in finished):
         raise SystemExit("serve: not every request finished its budget")
-    missing = [n for n in build.KERNELS if launches.get(n, 0) == 0]
+    missing = [n for n in DENSE_KERNELS if launches[n] == 0]
     if missing:
         raise SystemExit(f"serve: kernels never launched: {missing}")
 
@@ -458,10 +705,27 @@ def serve_phase(dev):
         runs.append(_one_request_logits(eng, prompt, forced))
         del eng
     (k_logits, toks), (p_logits, _) = runs
+    worst = compare_logits("serve", k_logits, p_logits)
+    log(f"serve: ok (prompt {len(prompt)} tokens, prefill + "
+        f"{DECODE_COMPARED} decode steps, worst rel {worst:.4e})")
+    profile_windows(args, cfg, params)
+    dense_tokens = {r.uid: r.generated for r in finished}
+    launches.update(paged_serve_phase(args, cfg, params, dense_tokens, dev))
+    launches.update(rung_down_phase(args, cfg, params, dev))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def compare_logits(phase, got, want) -> float:
+    """Step by step, ``got`` logits against ``want``'s within LOGIT_TOL
+    of the largest |logit|; a flipped argmax fails only when the top-2
+    margin of ``want`` exceeds that.  Returns the worst relative
+    error."""
     worst = 0.0
-    for i, (a, b) in enumerate(zip(k_logits, p_logits)):
+    for i, (a, b) in enumerate(zip(got, want)):
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-            raise SystemExit(f"serve: non-finite logits at step {i}")
+            raise SystemExit(f"{phase}: non-finite logits at step {i}")
         err, rel = rel_err(a, b)
         worst = max(worst, rel)
         top2 = torch.topk(b, 2).values
@@ -471,13 +735,169 @@ def serve_phase(dev):
             f"tol={LOGIT_TOL} argmax {'FLIPPED' if flipped else 'same'} "
             f"(top-2 margin {margin:.3e})")
         if rel > LOGIT_TOL or (flipped and margin > LOGIT_TOL):
-            raise SystemExit(f"serve: kernel and plain logits disagree at "
-                             f"step {i}")
-    log(f"serve: ok (prompt {len(prompt)} tokens, prefill + "
-        f"{DECODE_COMPARED} decode steps, worst rel {worst:.4e})")
-    profile_windows(args, cfg, params)
-    del params
-    torch.cuda.empty_cache()
+            raise SystemExit(f"{phase}: logits disagree at step {i}")
+    return worst
+
+
+PAGE = 16
+
+
+def paged_engine(params, cfg, args, plan, num_pages, dev, batch=None):
+    from repro_torch.serve import PagedContinuousBatchingEngine
+    return PagedContinuousBatchingEngine(
+        params, cfg, batch_size=batch or args.batch, max_len=args.max_len,
+        plan=plan, dtype=cfg.torch_dtype(), prefill_chunk=args.prefill_chunk,
+        page_size=PAGE, num_pages=num_pages, device=dev)
+
+
+def paged_serve_phase(args, cfg, params, dense_tokens, dev):
+    """The serve phase's request mix again, through the paged engine and
+    the batcher, with a pool one page larger than the first four leases
+    reserve: all four rows run, the first page crossing preempts the
+    newest lease, and it resumes when a row finishes.  Every request
+    must finish its budget with the dense serve's tokens (or, where one
+    differs, logits within LOGIT_TOL of the dense engine's on that
+    request); the decode steps must launch fused_decode_block_paged; the
+    plan must record no paged->dense downgrade.  Returns its launches."""
+    from repro_torch import lower
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import RequestBatcher
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    requests = serve.make_requests(cfg, args.requests, args.max_new,
+                                   prompt_lens=PROMPT_LENS)
+    pages_for = lambda n: -(-n // PAGE)
+    num_pages = 2 + sum(pages_for(len(r.prompt) + 1)
+                        for r in requests[:args.batch])
+    lower.clear_plan_cache()
+    plan = lower.serving_plan(cfg, args.max_len, device=dev, paged=True,
+                              page_size=PAGE)
+    eng = paged_engine(params, cfg, args, plan, num_pages, dev)
+    counts = {"preempt": 0, "resume": 0, "peak_live": 0}
+    step_s = []
+    orig = eng.preempt, eng.resume, eng.decode_once
+
+    def preempt(slot):
+        counts["preempt"] += 1
+        return orig[0](slot)
+
+    def resume(pre, slot):
+        counts["resume"] += 1
+        return orig[1](pre, slot)
+
+    def decode_once():
+        counts["peak_live"] = max(counts["peak_live"], sum(eng.live))
+        t = time.perf_counter()
+        out = orig[2]()
+        if out is not None:
+            step_s.append(time.perf_counter() - t)
+        return out
+
+    eng.preempt, eng.resume, eng.decode_once = preempt, resume, decode_once
+    batcher = RequestBatcher(args.batch, max_len=args.max_len)
+    for req in requests:
+        batcher.submit(req)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    finished = batcher.serve(eng, max_steps=2000)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    gen = sum(len(r.generated) for r in finished)
+    step_ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    elem = torch.tensor([], dtype=cfg.torch_dtype()).element_size()
+    tok_bytes = 2 * cfg.n_layers * cfg.kv_heads * cfg.head_dim * elem
+    peak = eng.allocator.peak_used
+    log(f"paged serve: pool {num_pages} pages of {PAGE} ({num_pages - 1} "
+        f"usable), {len(finished)}/{len(requests)} requests, {gen} tokens in "
+        f"{secs:.3f}s = {gen / secs:.2f} tok/s; decode steps {len(step_s)}, "
+        f"median step {step_ms:.3f} ms")
+    log(f"  KV memory: peak {peak} pages x {PAGE * tok_bytes / 2**20:.3f} "
+        f"MiB = {peak * PAGE * tok_bytes / 2**20:.3f} MiB against the dense "
+        f"engine's {args.batch} x {args.max_len} rows = "
+        f"{args.batch * args.max_len * tok_bytes / 2**20:.3f} MiB "
+        f"(ratio {peak * PAGE / (args.batch * args.max_len):.4f}); peak "
+        f"live rows {counts['peak_live']}, where a dense cache of the "
+        f"pool's {num_pages - 1} pages holds "
+        f"{(num_pages - 1) * PAGE // args.max_len} rows of max_len; "
+        f"preempts {counts['preempt']}, resumes {counts['resume']}")
+    log(f"  launches: {launches}")
+    paged_downs = [g.reason for g in plan.downgrades() if "paged" in g.reason]
+    if len(finished) != len(requests) or any(
+            len(r.generated) != args.max_new for r in finished):
+        raise SystemExit("paged serve: not every request finished its "
+                         "budget")
+    if not counts["preempt"] or counts["resume"] != counts["preempt"]:
+        raise SystemExit(f"paged serve: expected a preempt and its resume, "
+                         f"got {counts}")
+    if launches.get("fused_decode_block_paged", 0) == 0:
+        raise SystemExit("paged serve: fused_decode_block_paged never "
+                         "launched")
+    if paged_downs:
+        raise SystemExit(f"paged serve: paged->dense downgrades on the "
+                         f"card: {paged_downs}")
+    differ = [r for r in finished if r.generated != dense_tokens[r.uid]]
+    log(f"  tokens equal to the dense serve's for "
+        f"{len(finished) - len(differ)}/{len(finished)} requests")
+    del eng
+    for req in differ:
+        # the dense and the paged engine on this request alone, both fed
+        # the dense serve's tokens: their logits must agree
+        runs = []
+        for make in (lambda: ContinuousBatchingEngine(
+                params, cfg, batch_size=1, max_len=args.max_len,
+                plan=lower.serving_plan(cfg, args.max_len, device=dev),
+                dtype=cfg.torch_dtype(), prefill_chunk=args.prefill_chunk,
+                device=dev),
+                lambda: paged_engine(params, cfg, args, plan,
+                                     pages_for(args.max_len) + 1, dev,
+                                     batch=1)):
+            runs.append(_one_request_logits(
+                make(), req.prompt, dense_tokens[req.uid][:-1],
+                steps=args.max_new - 1)[0])
+        worst = compare_logits(f"paged serve, request {req.uid}", runs[1],
+                               runs[0])
+        log(f"  request {req.uid}: tokens differ, logits within tolerance "
+            f"(worst rel {worst:.4e})")
+    log("paged serve: ok")
+    return launches
+
+
+def rung_down_phase(args, cfg, params, dev):
+    """A paged engine with ``demotions = 1`` serves one request past
+    context 256: its decode steps take the megakernel's rung below,
+    fused_qproj_attention_paged.  The same steps with the plan on the
+    CPU device (fused paths on their plain versions) must give the same
+    logits within LOGIT_TOL.  Returns the kernel run's launches."""
+    from repro_torch import lower
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+
+    prompt = serve.make_requests(cfg, 2, args.max_new,
+                                 prompt_lens=PROMPT_LENS)[1].prompt
+    runs = []
+    for plan_dev in (dev, torch.device("cpu")):
+        plan = lower.ServingPlan(cfg=cfg, max_len=args.max_len,
+                                 device=plan_dev, n_blocks=cfg.n_layers,
+                                 paged=True, page_size=PAGE)
+        eng = paged_engine(params, cfg, args, plan,
+                           args.max_len // PAGE + 1, dev, batch=1)
+        eng.demotions = 1
+        ops.reset_counts()
+        runs.append(_one_request_logits(
+            eng, prompt, runs[0][1] if runs else None))
+        if len(runs) == 1:
+            launches = dict(build.LAUNCHES)
+            step = f"{eng.last_dispatch.path}/{eng.last_dispatch.impl}"
+        del eng
+    log(f"rung-down: demotions=1, prompt {len(prompt)} tokens, decode "
+        f"steps on {step}, launches {launches}")
+    if launches.get("fused_qproj_attention_paged", 0) == 0:
+        raise SystemExit("rung-down: fused_qproj_attention_paged never "
+                         "launched")
+    worst = compare_logits("rung-down", runs[0][0], runs[1][0])
+    log(f"rung-down: ok (worst rel {worst:.4e} against the plain versions)")
     return launches
 
 
@@ -497,9 +917,10 @@ def qwen_phase(dev):
         dtype=cfg.torch_dtype(), prefill_chunk=args.prefill_chunk,
         device=dev)
     rng = torch.Generator().manual_seed(1)
-    for slot, n in enumerate((300, 333)):
-        eng.begin_prefill(slot, torch.randint(0, cfg.vocab_size, (n,),
-                                              generator=rng))
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
+               for n in (300, 333)]
+    for slot, prompt in enumerate(prompts):
+        eng.begin_prefill(slot, prompt)
     while eng._pending:
         eng._advance_prefills()
     ops.reset_counts()
@@ -516,8 +937,36 @@ def qwen_phase(dev):
                          "fused_attention_masked")
     if not torch.isfinite(eng.last_logits).all():
         raise SystemExit("qwen: non-finite logits")
+    dense_logits = eng.last_logits.float()
+    del eng
+
+    # the same prompts through the paged engine: decode past 256 runs
+    # fused_attention_paged
+    launches = collections.Counter(launches)
+    plan = lower.serving_plan(cfg, args.max_len, device=dev, paged=True,
+                              page_size=PAGE)
+    eng = paged_engine(params, cfg, args, plan,
+                       args.batch * args.max_len // PAGE + 1, dev)
+    for slot, prompt in enumerate(prompts):
+        eng.begin_prefill(slot, prompt)
+    while eng._pending:
+        eng._advance_prefills()
+    ops.reset_counts()
+    for _ in range(steps):
+        toks = eng.decode_once()
+    paged = dict(build.LAUNCHES)
+    log(f"qwen paged: page {PAGE}, {steps} decode steps: launches {paged}, "
+        f"tokens {toks.tolist()}")
+    if paged.get("fused_attention_paged", 0) == 0:
+        raise SystemExit("qwen: paged decode never launched "
+                         "fused_attention_paged")
+    # the last step's logits, row by row, against the dense engine's
+    compare_logits("qwen paged", list(eng.last_logits.float()),
+                   list(dense_logits))
+    launches.update(paged)
     del params, eng
     torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -551,9 +1000,12 @@ def main() -> int:
     results = kernel_phase(dev, g)
     log("kernels: " + ", ".join(f"{n} ok" for n in results))
     launches = serve_phase(dev)
-    qwen_phase(dev)
+    launches.update(qwen_phase(dev))
+    missing = [n for n in build.KERNELS if launches[n] == 0]
+    if missing:
+        raise SystemExit(f"kernels never launched on any path: {missing}")
 
-    record = [dict(name=n, route="cuda", launches=launches.get(n, 0), **r)
+    record = [dict(name=n, route="cuda", launches=launches[n], **r)
               for n, r in results.items()]
     print(json.dumps({"kernels": record}))
     print(card)

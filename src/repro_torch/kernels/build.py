@@ -4,9 +4,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into
 ``build/repro_torch/<name>-<hash>.so`` under the repository root; the
 hash covers the sources and the flags, so an edited kernel never loads
-a stale library.  Nothing is built while a module is imported: the
-first launch of a kernel builds it, and :func:`build_all` builds every
-kernel at once, one ``nvcc`` process per source, all started together.
+a stale library.  A source may hold several kernels (a masked kernel
+and its paged twin share one body) and is built once for all of them.
+Nothing is built while a module is imported: the first launch of a
+kernel builds it, and :func:`build_all` builds every kernel at once,
+one ``nvcc`` process per source, all started together.
 
 The launch counts live here too: ``LAUNCHES[name]`` goes up by one each
 time a wrapper launches kernel ``name`` on the card, and nowhere else.
@@ -43,6 +45,15 @@ KERNELS = {
     "fused_decode_block": (
         "fused_decode_block.cu", "fused_decode_block_launch",
         [_P] * 10 + [_I] * 7 + [_F, _F, _I, _I, _P]),
+    "fused_attention_paged": (
+        "fused_attention.cu", "fused_attention_paged_launch",
+        [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
+    "fused_qproj_attention_paged": (
+        "fused_qproj_attention.cu", "fused_qproj_attention_paged_launch",
+        [_P] * 7 + [_I] * 10 + [_F, _F, _I, _I, _P]),
+    "fused_decode_block_paged": (
+        "fused_decode_block.cu", "fused_decode_block_paged_launch",
+        [_P] * 11 + [_I] * 8 + [_F, _F, _I, _I, _P]),
 }
 
 #: dtype codes of the C interface (csrc/common.cuh)
@@ -77,28 +88,28 @@ def library_path(name: str) -> Path:
 
 
 def build_all(names=None) -> dict:
-    """Compile every kernel in ``names`` (default: all) whose library is
-    missing, one nvcc per source, in parallel.  Returns
-    {name: ptxas report}; raises with the compiler's output on failure."""
+    """Compile the sources of every kernel in ``names`` (default: all)
+    whose library is missing, one nvcc per source, in parallel.  Returns
+    {source: ptxas report}; raises with the compiler's output on
+    failure."""
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = library_path(name)
-        if out.exists():
+        src, out = KERNELS[name][0], library_path(name)
+        if out.exists() or src in procs:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / KERNELS[name][0])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
     reports, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
+    for src, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        reports[name] = log
+        reports[src] = log
         if proc.returncode:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{src}:\n{log}")
             continue
         os.replace(tmp, out)      # atomic: a reader never sees half a file
     if failed:

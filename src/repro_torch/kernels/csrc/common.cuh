@@ -1,6 +1,7 @@
 // Shared pieces of the Hopper attention kernels: element conversions,
-// warp reductions, and the masked online-softmax body that
-// fused_attention.cu and fused_qproj_attention.cu both run.
+// warp reductions, the KV addressing policies, and the masked
+// online-softmax body that fused_attention.cu and
+// fused_qproj_attention.cu both run, dense and paged.
 //
 // Every kernel here computes in fp32 and keeps the TPU kernels' cast
 // points: p is rounded to the V dtype before P.V, and a Q tile built
@@ -71,21 +72,118 @@ constexpr int kSmemFloats = kRows * kMaxD      // q tile
                             + kRows * kTileK;    // p tile
 constexpr int kSmemBytes = kSmemFloats * 4;
 
+// Where a kernel's KV lives, as its launch gives it: a dense cache
+// (tbl == nullptr) or a paged pool read through (B, max_pages) block
+// tables.  skv is a row's capacity, Skv or max_pages * page: lengths
+// are clamped to it, as the TPU kernels clamp them.
+struct KVSource {
+  const int* tbl;
+  int max_pages, page, skv;
+};
+
+// KV addressing policies.  The attention bodies walk logical KV
+// positions p of one (batch row, KV head) and ask the policy for the
+// row index of p in the K/V arrays; the element is then
+// k[row * D + d] / v[row * Dv + d].  A policy is a per-thread value
+// made by KV::make(src, b, kvh, Hkv, scratch), scratch being the
+// kernel's shared PagedScratch: stage(j0, nk) runs on every thread of
+// the block at the start of each KV tile [j0, j0 + nk), followed by a
+// __syncthreads() when kStaged, and row(p) is valid for p inside the
+// staged tile.  The walk, the masking, the softmax and the
+// cast points are the bodies' own, one for both policies, so a paged
+// kernel over any table gives bit for bit what its dense kernel gives
+// over the gathered cache.
+
+// A dense (B, Hkv, Skv, D) cache: plane (b, kvh) starts at row
+// (b * Hkv + kvh) * Skv.
+struct DenseKV {
+  static constexpr bool kStaged = false;
+  int64_t base;
+  template <typename Scratch>
+  static __device__ __forceinline__ DenseKV make(const KVSource& src, int b,
+                                                 int kvh, int hkv, Scratch&) {
+    return DenseKV{((int64_t)b * hkv + kvh) * src.skv};
+  }
+  __device__ __forceinline__ void stage(int, int) {}
+  __device__ __forceinline__ int64_t row(int p) const { return base + p; }
+};
+
+// Smallest page the paged policy takes (kernels/ops.py refuses others).
+constexpr int kMinPage = 8;
+
+// Shared memory of the paged policy for tiles of kTile keys: the
+// tile's slice of the block table and the row index of each key.
+template <int kTile>
+struct PagedScratch {
+  int tbl[kTile / kMinPage + 1];
+  int64_t row[kTile];
+};
+
+// A paged pool (num_pages, Hkv, page, D) read through one batch row's
+// block-table row: logical position p of KV head kvh sits at row
+// (tbl[p / page] * Hkv + kvh) * page + p % page.  Pages may be smaller
+// than a tile (page 8 against a 64- or 256-key tile), so stage() copies
+// the tile's slice of the table, at most tile / kMinPage + 1 entries,
+// into shared memory once per tile, then resolves each key's row from
+// it, once per key; row() is a shared-memory read, so the loaders do
+// no division per element.  The slice covers only pages that hold
+// positions < j0 + nk, and the bodies never walk past a row's clamped
+// length, so no table entry past the row's last live page is read; a
+// length-0 row reads none.
+struct PagedKV {
+  static constexpr bool kStaged = true;
+  const int* tbl;    // this batch row's (max_pages,) table row
+  int* tbl_s;        // shared: the staged slice
+  int64_t* row_s;    // shared: the staged tile's row indices
+  int hkv, kvh, page, j0;
+  template <int kTile>
+  static __device__ __forceinline__ PagedKV make(const KVSource& src, int b,
+                                                 int kvh, int hkv,
+                                                 PagedScratch<kTile>& s) {
+    return PagedKV{src.tbl + (int64_t)b * src.max_pages, s.tbl, s.row, hkv,
+                   kvh, src.page, 0};
+  }
+  // The caller's next __syncthreads() publishes row_s.
+  __device__ __forceinline__ void stage(int tile0, int nk) {
+    j0 = tile0;
+    const int first = j0 / page;
+    const int n = (j0 + nk - 1) / page - first + 1;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) tbl_s[i] = tbl[first + i];
+    __syncthreads();
+    for (int i = threadIdx.x; i < nk; i += blockDim.x) {
+      const int p = j0 + i, pg = p / page;
+      row_s[i] = ((int64_t)tbl_s[pg - first] * hkv + kvh) * page +
+                 (p - pg * page);
+    }
+  }
+  __device__ __forceinline__ int64_t row(int p) const { return row_s[p - j0]; }
+};
+
+// The KVSource of a paged launch, or false when the page size is one
+// the paged policy does not take.
+inline bool paged_source(const int* tbl, int max_pages, int page,
+                         KVSource* src) {
+  if (page < kMinPage || page % kMinPage || max_pages < 1) return false;
+  *src = KVSource{tbl, max_pages, page, max_pages * page};
+  return true;
+}
+
 struct RowInfo {
   int64_t out_off;  // element offset of the row's output, -1: padding row
   int anchor;       // last column the row may see (causal), else len - 1
 };
 
 // The masked online-softmax body for the kRows rows whose Q (fp32,
-// already rounded to K's dtype, kMaxD stride) sits in q_s.  kb / vb
-// point at this (b, kv-head)'s (Skv, D) / (Skv, Dv) planes.  Columns
-// c < kv_end are walked; a row sees column c iff c < len and
-// c <= anchor (the end-anchored causal triangle, or the whole prefix).
-// p is zeroed under the mask, so a row with no valid column emits 0.
-template <typename T>
+// already rounded to K's dtype, kMaxD stride) sits in q_s.  k / v are
+// the whole K/V arrays, addressed through the policy kv (DenseKV or
+// PagedKV) for this (b, kv-head).  Columns c < kv_end are walked; a
+// row sees column c iff c < len and c <= anchor (the end-anchored
+// causal triangle, or the whole prefix).  p is zeroed under the mask,
+// so a row with no valid column emits 0.
+template <typename T, typename KV>
 __device__ void masked_attention_rows(float* smem, const RowInfo* rows,
-                                      const T* __restrict__ kb,
-                                      const T* __restrict__ vb,
+                                      const T* __restrict__ k,
+                                      const T* __restrict__ v, KV kv,
                                       T* __restrict__ out, int len,
                                       int kv_end, int D, int Dv,
                                       float scale) {
@@ -110,14 +208,15 @@ __device__ void masked_attention_rows(float* smem, const RowInfo* rows,
   for (int j0 = 0; j0 < kv_end; j0 += kTileK) {
     const int nk = min(kTileK, kv_end - j0);
     __syncthreads();  // previous tile fully consumed
+    kv.stage(j0, nk);
+    if (KV::kStaged) __syncthreads();
     for (int idx = tid; idx < kTileK * D; idx += kThreads) {
       const int j = idx / D, d = idx - j * D;
-      k_s[j * kKStride + d] =
-          j < nk ? to_f(kb[(int64_t)(j0 + j) * D + d]) : 0.f;
+      k_s[j * kKStride + d] = j < nk ? to_f(k[kv.row(j0 + j) * D + d]) : 0.f;
     }
     for (int idx = tid; idx < kTileK * Dv; idx += kThreads) {
       const int j = idx / Dv, d = idx - j * Dv;
-      v_s[j * kMaxD + d] = j < nk ? to_f(vb[(int64_t)(j0 + j) * Dv + d]) : 0.f;
+      v_s[j * kMaxD + d] = j < nk ? to_f(v[kv.row(j0 + j) * Dv + d]) : 0.f;
     }
     __syncthreads();
 

@@ -1,4 +1,4 @@
-// fused_attention_masked for Hopper (sm_90a).
+// fused_attention_masked and fused_attention_paged for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/fused_attention.py
 // fused_attention_masked (pallas_call at :310, body _masked_fwd_kernel
@@ -6,36 +6,50 @@
 // per-row valid prefix lengths[b], causal rows anchored at
 // lengths[b] - Sq + r, KV blocks past the prefix skipped, and rows with
 // no valid column emitting zeros.
+// Replaces the TPU kernel src/repro/kernels/fused_attention.py
+// fused_attention_paged (pallas_call at :408, body _paged_fwd_kernel
+// :341): the same attention with K/V read from a page pool through
+// block_tables[b, p / page].  As on the TPU, the paged kernel is the
+// masked kernel with another KV address: one body
+// (common.cuh masked_attention_rows), two addressing policies.
 //
 // Bound on an H100 at the serve path's shapes (bf16, Hq=36, Hkv=4,
 // D=128, a 256-row prefill chunk): about 5 MB moved (Q and O dominate)
 // against about 0.6 GFLOP of scores and P.V, so the card's bound is
-// the bytes, a few microseconds.  Design: one block owns 16 query rows
-// of one (batch row, KV head), taken across the whole GQA group, so a
-// K/V tile brought into shared memory serves every query head that
-// reads it and M=1 decode still fills a block with the group's heads.
-// The block loads lengths[b] itself and stops at the last KV tile the
-// prefix and the causal anchor allow: tiles past it cost no loads.
+// the bytes, a few microseconds.  The paged kernel at qwen3-8b's
+// decode shapes (Hq=32, Hkv=8, B=4 rows at contexts 301..705) reads
+// about 8.5 MB of KV: about 2.5 us, bytes-bound too.
+// Design: one block owns 16 query rows of one (batch row, KV head),
+// taken across the whole GQA group, so a K/V tile brought into shared
+// memory serves every query head that reads it and M=1 decode still
+// fills a block with the group's heads.  The block loads lengths[b]
+// itself and stops at the last KV tile the prefix and the causal
+// anchor allow: tiles past it cost no loads.  The paged policy stages
+// each 64-key tile's slice of the block table in shared memory (a page
+// may be as small as 8 keys) and resolves every key's row from it.
 // Products run as fp32 FMAs; moving them onto the tensor cores
-// (mma.sync / wgmma) is the lever a later change pulls.
+// (mma.sync / wgmma) and the page gather onto cp.async or TMA are the
+// levers a later change pulls.
 #include "common.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(rt::kThreads)
     masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
                             const int* __restrict__ lengths,
-                            T* __restrict__ out, int Hq, int Hkv, int Sq,
-                            int Skv, int D, int Dv, int causal, float scale) {
+                            rt::KVSource src, T* __restrict__ out, int Hq,
+                            int Hkv, int Sq, int D, int Dv, int causal,
+                            float scale) {
   extern __shared__ float smem[];
   __shared__ rt::RowInfo rows[rt::kRows];
   __shared__ int kv_end_s;
+  __shared__ rt::PagedScratch<rt::kTileK> scratch;
   const int group = Hq / Hkv;
   const int bk = blockIdx.y;  // b * Hkv + kv head
   const int b = bk / Hkv, kvh = bk - b * Hkv;
-  const int len = max(0, min(lengths[b], Skv));
+  const int len = max(0, min(lengths[b], src.skv));
   const int r0 = blockIdx.x * rt::kRows;
   const int n_rows = group * Sq;
 
@@ -72,25 +86,42 @@ __global__ void __launch_bounds__(rt::kThreads)
     kv_end_s = end;
   }
   __syncthreads();
-  const int64_t kv_base = ((int64_t)b * Hkv + kvh) * Skv;
-  rt::masked_attention_rows<T>(smem, rows, k + kv_base * D, v + kv_base * Dv,
-                               out, len, kv_end_s, D, Dv, scale);
+  rt::masked_attention_rows<T>(smem, rows, k, v,
+                               KV::make(src, b, kvh, Hkv, scratch), out,
+                               len, kv_end_s, D, Dv, scale);
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* out, int B, int Hq, int Hkv, int Sq, int Skv, int D, int Dv,
-           int causal, float scale, cudaStream_t stream) {
-  auto kern = masked_attention_kernel<T>;
+           rt::KVSource src, void* out, int B, int Hq, int Hkv, int Sq,
+           int D, int Dv, int causal, float scale, cudaStream_t stream) {
+  auto kern = masked_attention_kernel<T, KV>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        rt::kSmemBytes);
   const int n_rows = (Hq / Hkv) * Sq;
   dim3 grid((n_rows + rt::kRows - 1) / rt::kRows, B * Hkv);
   kern<<<grid, rt::kThreads, rt::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), Hq, Hkv, Sq,
-      Skv, D, Dv, causal, scale);
+      static_cast<const T*>(v), lengths, src, static_cast<T*>(out), Hq, Hkv,
+      Sq, D, Dv, causal, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename KV>
+int run(int dtype, const void* q, const void* k, const void* v,
+        const int* lengths, rt::KVSource src, void* out, int B, int Hq,
+        int Hkv, int Sq, int D, int Dv, int causal, float scale,
+        void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case rt::kF32:
+      return launch<float, KV>(q, k, v, lengths, src, out, B, Hq, Hkv, Sq, D,
+                               Dv, causal, scale, s);
+    case rt::kBF16:
+      return launch<__nv_bfloat16, KV>(q, k, v, lengths, src, out, B, Hq,
+                                       Hkv, Sq, D, Dv, causal, scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -99,14 +130,19 @@ extern "C" int fused_attention_masked_launch(
     const void* q, const void* k, const void* v, const int* lengths, void* out,
     int B, int Hq, int Hkv, int Sq, int Skv, int D, int Dv, int causal,
     float scale, int dtype, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case rt::kF32:
-      return launch<float>(q, k, v, lengths, out, B, Hq, Hkv, Sq, Skv, D, Dv,
-                           causal, scale, s);
-    case rt::kBF16:
-      return launch<__nv_bfloat16>(q, k, v, lengths, out, B, Hq, Hkv, Sq, Skv,
-                                   D, Dv, causal, scale, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return run<rt::DenseKV>(dtype, q, k, v, lengths,
+                          rt::KVSource{nullptr, 0, 0, Skv}, out, B, Hq, Hkv,
+                          Sq, D, Dv, causal, scale, stream);
+}
+
+extern "C" int fused_attention_paged_launch(
+    const void* q, const void* k_pool, const void* v_pool, const int* lengths,
+    const int* block_tables, void* out, int B, int Hq, int Hkv, int Sq,
+    int max_pages, int page, int D, int Dv, int causal, float scale,
+    int dtype, void* stream) {
+  rt::KVSource src;
+  if (!rt::paged_source(block_tables, max_pages, page, &src))
+    return (int)cudaErrorInvalidValue;
+  return run<rt::PagedKV>(dtype, q, k_pool, v_pool, lengths, src, out, B, Hq,
+                          Hkv, Sq, D, Dv, causal, scale, stream);
 }

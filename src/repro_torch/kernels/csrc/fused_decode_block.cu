@@ -1,25 +1,34 @@
-// fused_decode_block for Hopper (sm_90a): the whole M=1 attention
-// sub-block in one launch.
+// fused_decode_block and fused_decode_block_paged for Hopper (sm_90a):
+// the whole M=1 attention sub-block in one launch.
 //
 // Replaces the TPU kernel src/repro/kernels/fused_decode_block.py
 // fused_decode_block (pallas_call at :258, body _decode_block_kernel
 // :40): q = x @ Wq[h] rotated by RoPE at lengths[b] - 1, masked online
 // softmax over the valid prefix, o / l, o @ Wo[h] summed over the heads
 // in fp32, plus the residual.  A length-0 row returns the residual.
+// Replaces the TPU kernel src/repro/kernels/fused_decode_block.py
+// fused_decode_block_paged (pallas_call at :194, body
+// _paged_decode_block_kernel :121): the same sub-block with K/V read
+// from a page pool through block_tables[b, p / page], through the
+// paged addressing policy of common.cuh; the body is this file's one.
 //
 // Bound on an H100 at the serve path's shapes (bf16, B=4, E=4608,
 // Hq=36, Hkv=4, D=128, contexts of a few hundred tokens): Wq and Wo are
 // 2 x 42.5 MB of a ~90 MB total, against ~1.4 GFLOP, so the bound is
-// the bytes, about 27 us.  Design: one block per (head, batch row),
-// batch row fastest so the B blocks of a head run side by side and
-// share its Wq/Wo slice through L2.  Each block still reads that slice
-// once per batch row: reading the weights once per step (one block per
-// head over all rows) is the first lever of a later change.  The heads'
-// o @ Wo[h] contributions are summed deterministically, never with fp32
+// the bytes, about 27 us.  The paged kernel at the same shapes moves
+// the same Wq + Wo (84.9 MB) and about 4.3 MB of KV: about 27 us too.
+// Design: one block per (head, batch row), batch row fastest so the B
+// blocks of a head run side by side and share its Wq/Wo slice through
+// L2.  Each block still reads that slice once per batch row: reading
+// the weights once per step (one block per head over all rows) is the
+// first lever of a later change.  The heads' o @ Wo[h] contributions are summed deterministically, never with fp32
 // atomics: each block writes its (E,) fp32 partial to a workspace,
 // takes a ticket from a per-row counter after a fence, and the block
 // that draws the last ticket sums the partials in head order (the TPU
 // kernel's VMEM order, :89-101), adds the residual in fp32 and casts.
+// The paged policy stages each 256-key step's slice of the block table
+// (up to 33 entries at page 8) in shared memory and resolves every
+// key's row from it.
 #include "common.cuh"
 
 namespace {
@@ -28,15 +37,16 @@ constexpr int kThreadsD = 256;
 constexpr int kWarpsD = kThreadsD / 32;
 constexpr int kTileKD = 256;  // keys scored per step of the prefix walk
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreadsD)
     decode_block_kernel(const T* __restrict__ x, const T* __restrict__ wq,
                         const T* __restrict__ k, const T* __restrict__ v,
                         const T* __restrict__ wo, const T* __restrict__ res,
-                        const int* __restrict__ lengths, T* __restrict__ out,
-                        float* __restrict__ partial, int* __restrict__ counter,
-                        int Hq, int Hkv, int Skv, int E, int D, int Dv,
-                        float scale, float rope_theta, int use_rope) {
+                        const int* __restrict__ lengths, rt::KVSource src,
+                        T* __restrict__ out, float* __restrict__ partial,
+                        int* __restrict__ counter, int Hq, int Hkv, int E,
+                        int D, int Dv, float scale, float rope_theta,
+                        int use_rope) {
   extern __shared__ float smem[];
   float* x_s = smem;                    // (E,)
   float* q_s = x_s + E;                 // (kMaxD,)
@@ -44,11 +54,12 @@ __global__ void __launch_bounds__(kThreadsD)
   float* p_s = red + 2 * rt::kMaxD;     // (kTileKD,)
   __shared__ float alpha_s, l_s;
   __shared__ int last_s;
+  __shared__ rt::PagedScratch<kTileKD> scratch;
 
   const int b = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int d = tid % rt::kMaxD, part = tid / rt::kMaxD;  // two halves
-  const int len = max(0, min(lengths[b], Skv));
+  const int len = max(0, min(lengths[b], src.skv));
 
   for (int e = tid; e < E; e += kThreadsD) x_s[e] = rt::to_f(x[(int64_t)b * E + e]);
   __syncthreads();
@@ -84,8 +95,7 @@ __global__ void __launch_bounds__(kThreadsD)
 
   // fusion step 2: masked online softmax over the valid prefix
   const int kvh = h / (Hq / Hkv);
-  const T* kb = k + ((int64_t)b * Hkv + kvh) * Skv * D;
-  const T* vb = v + ((int64_t)b * Hkv + kvh) * Skv * Dv;
+  KV kv = KV::make(src, b, kvh, Hkv, scratch);
   float qr[rt::kMaxD / 32];
 #pragma unroll
   for (int t = 0; t < rt::kMaxD / 32; ++t)
@@ -94,8 +104,10 @@ __global__ void __launch_bounds__(kThreadsD)
   float acc = 0.f;                 // output dim d, keys of parity `part`
   for (int j0 = 0; j0 < len; j0 += kTileKD) {
     const int nk = min(kTileKD, len - j0);
+    kv.stage(j0, nk);  // the previous step ended in __syncthreads()
+    if (KV::kStaged) __syncthreads();
     for (int jj = warp; jj < nk; jj += kWarpsD) {
-      const T* kr = kb + (int64_t)(j0 + jj) * D;
+      const T* kr = k + kv.row(j0 + jj) * D;
       float s = 0.f;
 #pragma unroll
       for (int t = 0; t < rt::kMaxD / 32; ++t)
@@ -131,7 +143,7 @@ __global__ void __launch_bounds__(kThreadsD)
     acc *= alpha_s;
     if (d < Dv)
       for (int jj = part; jj < nk; jj += 2)
-        acc = fmaf(p_s[jj], rt::to_f(vb[(int64_t)(j0 + jj) * Dv + d]), acc);
+        acc = fmaf(p_s[jj], rt::to_f(v[kv.row(j0 + jj) * Dv + d]), acc);
     __syncthreads();
   }
   if (tid == 0) l_s = l;
@@ -168,23 +180,43 @@ __global__ void __launch_bounds__(kThreadsD)
   if (tid == 0) counter[b] = 0;  // the workspace is reusable as it stands
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch(const void* x, const void* wq, const void* k, const void* v,
-           const void* wo, const void* res, const int* lengths, void* out,
-           float* partial, int* counter, int B, int Hq, int Hkv, int Skv,
-           int E, int D, int Dv, float scale, float rope_theta, int use_rope,
-           cudaStream_t stream) {
-  auto kern = decode_block_kernel<T>;
+           const void* wo, const void* res, const int* lengths,
+           rt::KVSource src, void* out, float* partial, int* counter, int B,
+           int Hq, int Hkv, int E, int D, int Dv, float scale,
+           float rope_theta, int use_rope, cudaStream_t stream) {
+  auto kern = decode_block_kernel<T, KV>;
   const int smem = (E + 3 * rt::kMaxD + kTileKD) * 4;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   dim3 grid(B, Hq);
   kern<<<grid, kThreadsD, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wq),
       static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(wo), static_cast<const T*>(res), lengths,
-      static_cast<T*>(out), partial, counter, Hq, Hkv, Skv, E, D, Dv, scale,
+      static_cast<const T*>(wo), static_cast<const T*>(res), lengths, src,
+      static_cast<T*>(out), partial, counter, Hq, Hkv, E, D, Dv, scale,
       rope_theta, use_rope);
   return (int)cudaGetLastError();
+}
+
+template <typename KV>
+int run(int dtype, const void* x, const void* wq, const void* k,
+        const void* v, const void* wo, const void* res, const int* lengths,
+        rt::KVSource src, void* out, float* partial, int* counter, int B,
+        int Hq, int Hkv, int E, int D, int Dv, float scale, float rope_theta,
+        int use_rope, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case rt::kF32:
+      return launch<float, KV>(x, wq, k, v, wo, res, lengths, src, out,
+                               partial, counter, B, Hq, Hkv, E, D, Dv, scale,
+                               rope_theta, use_rope, s);
+    case rt::kBF16:
+      return launch<__nv_bfloat16, KV>(x, wq, k, v, wo, res, lengths, src,
+                                       out, partial, counter, B, Hq, Hkv, E,
+                                       D, Dv, scale, rope_theta, use_rope, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -195,16 +227,22 @@ extern "C" int fused_decode_block_launch(
     float* partial, int* counter, int B, int Hq, int Hkv, int Skv, int E,
     int D, int Dv, float scale, float rope_theta, int use_rope, int dtype,
     void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case rt::kF32:
-      return launch<float>(x, wq, k, v, wo, res, lengths, out, partial,
-                           counter, B, Hq, Hkv, Skv, E, D, Dv, scale,
-                           rope_theta, use_rope, s);
-    case rt::kBF16:
-      return launch<__nv_bfloat16>(x, wq, k, v, wo, res, lengths, out,
-                                   partial, counter, B, Hq, Hkv, Skv, E, D,
-                                   Dv, scale, rope_theta, use_rope, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return run<rt::DenseKV>(dtype, x, wq, k, v, wo, res, lengths,
+                          rt::KVSource{nullptr, 0, 0, Skv}, out, partial,
+                          counter, B, Hq, Hkv, E, D, Dv, scale, rope_theta,
+                          use_rope, stream);
+}
+
+extern "C" int fused_decode_block_paged_launch(
+    const void* x, const void* wq, const void* k_pool, const void* v_pool,
+    const void* wo, const void* res, const int* lengths,
+    const int* block_tables, void* out, float* partial, int* counter, int B,
+    int Hq, int Hkv, int max_pages, int page, int E, int D, int Dv,
+    float scale, float rope_theta, int use_rope, int dtype, void* stream) {
+  rt::KVSource src;
+  if (!rt::paged_source(block_tables, max_pages, page, &src))
+    return (int)cudaErrorInvalidValue;
+  return run<rt::PagedKV>(dtype, x, wq, k_pool, v_pool, wo, res, lengths, src,
+                          out, partial, counter, B, Hq, Hkv, E, D, Dv, scale,
+                          rope_theta, use_rope, stream);
 }

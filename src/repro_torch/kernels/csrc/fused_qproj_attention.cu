@@ -1,4 +1,5 @@
-// fused_qproj_attention_masked for Hopper (sm_90a).
+// fused_qproj_attention_masked and fused_qproj_attention_paged for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/fused_qproj_attention.py
 // fused_qproj_attention_masked (pallas_call at :243, body
@@ -7,39 +8,50 @@
 // fp32), rotated by RoPE at lengths[b] - Sq + row, rounded to the K
 // dtype, and then runs the masked attention body of fused_attention.cu.
 // Q never reaches device memory.
+// Replaces the TPU kernel src/repro/kernels/fused_qproj_attention.py
+// fused_qproj_attention_paged (pallas_call at :322, body
+// _qproj_paged_fwd_kernel :260): the same kernel over a page pool,
+// through the paged addressing policy of common.cuh.
 //
 // Bound on an H100 at the serve path's shapes (bf16, E=4608, Hq=36,
 // D=128, a 256-row chunk over a ~512-column prefix): the projection's
 // 2*Sq*E*Hq*D = 11 GFLOP dominates the operations, and x, Wq (42.5 MB)
 // and O dominate the ~50 MB of bytes, so the bound is the bytes, about
-// 15 us.  Design: one block owns 16 rows of one (batch row, query
-// head); its 128 threads each build one Q column for the 16 rows, so
-// every Wq element a block reads feeds 16 FMAs, and the block's x rows
-// are staged through shared memory.  Blocks of the same head read the
-// same Wq slice from L2.  The FMA projection is far from the bound;
-// the later lever is a tensor-core (wgmma) projection over larger
-// row tiles.
+// 15 us.  The paged kernel on the rung-down decode path (M=1,
+// starcoder2-7b, B=4 at contexts 301..705) reads Wq (42.5 MB) and about
+// 4.3 MB of KV: about 14 us, bytes-bound.
+// Design: one block owns 16 rows of one (batch row, query head); its
+// 128 threads each build one Q column for the 16 rows, so every Wq
+// element a block reads feeds 16 FMAs, and the block's x rows are
+// staged through shared memory.  Blocks of the same head read the same
+// Wq slice from L2.  The FMA projection is far from the bound; the
+// later lever is a tensor-core (wgmma) projection over larger row
+// tiles.  The paged policy stages each tile's slice of the block table
+// in shared memory, as in fused_attention.cu.  At M=1 a block computes
+// one live row of its 16, and each batch row's block of a head reads
+// that head's Wq slice again (from L2 after the first).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kChunkE = 64;  // x columns staged per step of the projection
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(rt::kThreads)
     qproj_attention_kernel(const T* __restrict__ x, const T* __restrict__ wq,
                            const T* __restrict__ k, const T* __restrict__ v,
-                           const int* __restrict__ lengths,
-                           T* __restrict__ out, int Hq, int Hkv, int Sq,
-                           int Skv, int E, int D, int Dv, int causal,
-                           float scale, float rope_theta, int use_rope) {
+                           const int* __restrict__ lengths, rt::KVSource src,
+                           T* __restrict__ out, int Hq, int Hkv, int Sq, int E,
+                           int D, int Dv, int causal, float scale,
+                           float rope_theta, int use_rope) {
   extern __shared__ float smem[];
   __shared__ rt::RowInfo rows[rt::kRows];
   __shared__ int kv_end_s;
+  __shared__ rt::PagedScratch<rt::kTileK> scratch;
   const int bh = blockIdx.y;  // b * Hq + query head
   const int b = bh / Hq, h = bh - b * Hq;
   const int kvh = h / (Hq / Hkv);
-  const int len = max(0, min(lengths[b], Skv));
+  const int len = max(0, min(lengths[b], src.skv));
   const int r0 = blockIdx.x * rt::kRows;
   const int tid = threadIdx.x;
 
@@ -114,26 +126,45 @@ __global__ void __launch_bounds__(rt::kThreads)
     kv_end_s = end;
   }
   __syncthreads();
-  const int64_t kv_base = ((int64_t)b * Hkv + kvh) * Skv;
-  rt::masked_attention_rows<T>(smem, rows, k + kv_base * D, v + kv_base * Dv,
-                               out, len, kv_end_s, D, Dv, scale);
+  rt::masked_attention_rows<T>(smem, rows, k, v,
+                               KV::make(src, b, kvh, Hkv, scratch), out, len,
+                               kv_end_s, D, Dv, scale);
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch(const void* x, const void* wq, const void* k, const void* v,
-           const int* lengths, void* out, int B, int Hq, int Hkv, int Sq,
-           int Skv, int E, int D, int Dv, int causal, float scale,
+           const int* lengths, rt::KVSource src, void* out, int B, int Hq,
+           int Hkv, int Sq, int E, int D, int Dv, int causal, float scale,
            float rope_theta, int use_rope, cudaStream_t stream) {
-  auto kern = qproj_attention_kernel<T>;
+  auto kern = qproj_attention_kernel<T, KV>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        rt::kSmemBytes);
   dim3 grid((Sq + rt::kRows - 1) / rt::kRows, B * Hq);
   kern<<<grid, rt::kThreads, rt::kSmemBytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wq),
-      static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      static_cast<T*>(out), Hq, Hkv, Sq, Skv, E, D, Dv, causal, scale,
-      rope_theta, use_rope);
+      static_cast<const T*>(k), static_cast<const T*>(v), lengths, src,
+      static_cast<T*>(out), Hq, Hkv, Sq, E, D, Dv, causal, scale, rope_theta,
+      use_rope);
   return (int)cudaGetLastError();
+}
+
+template <typename KV>
+int run(int dtype, const void* x, const void* wq, const void* k,
+        const void* v, const int* lengths, rt::KVSource src, void* out, int B,
+        int Hq, int Hkv, int Sq, int E, int D, int Dv, int causal,
+        float scale, float rope_theta, int use_rope, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case rt::kF32:
+      return launch<float, KV>(x, wq, k, v, lengths, src, out, B, Hq, Hkv, Sq,
+                               E, D, Dv, causal, scale, rope_theta, use_rope,
+                               s);
+    case rt::kBF16:
+      return launch<__nv_bfloat16, KV>(x, wq, k, v, lengths, src, out, B, Hq,
+                                       Hkv, Sq, E, D, Dv, causal, scale,
+                                       rope_theta, use_rope, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -143,15 +174,22 @@ extern "C" int fused_qproj_attention_masked_launch(
     const int* lengths, void* out, int B, int Hq, int Hkv, int Sq, int Skv,
     int E, int D, int Dv, int causal, float scale, float rope_theta,
     int use_rope, int dtype, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case rt::kF32:
-      return launch<float>(x, wq, k, v, lengths, out, B, Hq, Hkv, Sq, Skv, E,
-                           D, Dv, causal, scale, rope_theta, use_rope, s);
-    case rt::kBF16:
-      return launch<__nv_bfloat16>(x, wq, k, v, lengths, out, B, Hq, Hkv, Sq,
-                                   Skv, E, D, Dv, causal, scale, rope_theta,
-                                   use_rope, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return run<rt::DenseKV>(dtype, x, wq, k, v, lengths,
+                          rt::KVSource{nullptr, 0, 0, Skv}, out, B, Hq, Hkv,
+                          Sq, E, D, Dv, causal, scale, rope_theta, use_rope,
+                          stream);
+}
+
+extern "C" int fused_qproj_attention_paged_launch(
+    const void* x, const void* wq, const void* k_pool, const void* v_pool,
+    const int* lengths, const int* block_tables, void* out, int B, int Hq,
+    int Hkv, int Sq, int max_pages, int page, int E, int D, int Dv,
+    int causal, float scale, float rope_theta, int use_rope, int dtype,
+    void* stream) {
+  rt::KVSource src;
+  if (!rt::paged_source(block_tables, max_pages, page, &src))
+    return (int)cudaErrorInvalidValue;
+  return run<rt::PagedKV>(dtype, x, wq, k_pool, v_pool, lengths, src, out, B,
+                          Hq, Hkv, Sq, E, D, Dv, causal, scale, rope_theta,
+                          use_rope, stream);
 }

@@ -12,7 +12,11 @@ kernel:
 
 Each takes ``impl``: ``cuda`` (the kernel), ``torch`` (its plain
 version) or ``reference`` (the unfused oracle the plan picks below the
-crossovers).  A ``plan`` (``lower.runtime.PlanDispatch``) supplies the
+crossovers).  With ``block_tables`` (B, max_pages) the K/V arguments
+are page pools (num_pages, Hkv, page, D) and each entry point takes its
+paged kernel (``fused_attention_paged``, ``fused_qproj_attention_paged``,
+``fused_decode_block_paged``), its plain version, or the oracle over
+the gathered pool.  A ``plan`` (``lower.runtime.PlanDispatch``) supplies the
 impl and receives downgrade records; without one, ``auto`` means the
 kernel on a CUDA tensor and the plain version on a CPU one.
 
@@ -23,10 +27,15 @@ kernels' anchor ``lengths - Sq``: the reasons of the JAX package's
 instead, with the reason recorded on the plan: never a silently
 different answer.  Any other limit of a kernel (a head wider than it
 takes, a dtype it was not built for) is the wrapper's, which raises; so
-does a kernel that fails to build or launch.  Nothing falls back.
+does a kernel that fails to build or launch.  Nothing falls back.  A
+paged call the paged kernels cannot express (the reasons of the JAX
+package's ``_paged_unsupported``: a malformed table, a page size off
+the multiple of 8, and every masked reason) does the same, naming the
+paged-KV kernel.
 
-``CALLS[(entry, impl)]`` counts calls per entry point and impl; the
-kernels' own launch counts are ``build.LAUNCHES``.
+``CALLS[(entry, impl)]`` counts calls per entry point and impl, with
+``_paged`` appended to the entry of a paged call; the kernels' own
+launch counts are ``build.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -39,11 +48,14 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.fused_attention import (
-    fused_attention_masked, fused_attention_masked_plain)
+    fused_attention_masked, fused_attention_masked_plain,
+    fused_attention_paged, fused_attention_paged_plain)
 from repro_torch.kernels.fused_decode_block import (
-    fused_decode_block, fused_decode_block_plain)
+    fused_decode_block, fused_decode_block_paged,
+    fused_decode_block_paged_plain, fused_decode_block_plain)
 from repro_torch.kernels.fused_qproj_attention import (
-    fused_qproj_attention_masked, fused_qproj_attention_masked_plain)
+    fused_qproj_attention_masked, fused_qproj_attention_masked_plain,
+    fused_qproj_attention_paged, fused_qproj_attention_paged_plain)
 
 __all__ = ["attention", "qproj_attention", "decode_block", "CALLS",
            "reset_counts", "reset_downgrade_warnings"]
@@ -107,6 +119,29 @@ def _masked_unsupported(x, lengths, causal: bool, q_offset,
     return None
 
 
+def _paged_unsupported(x, lengths, block_tables, causal: bool, q_offset,
+                       sq: int, page: int) -> Optional[str]:
+    """Why the paged kernels cannot serve this call, or None: every
+    masked-kernel reason (they share the body) plus the block-table
+    contract, a 2-D integral (B, max_pages) table and a page size that
+    is a multiple of 8 (the JAX package's sublane alignment, kept so
+    both packages refuse the same calls)."""
+    if lengths is None:
+        return "paged call without lengths (the table has no row depth)"
+    if block_tables.ndim != 2:
+        return ("block_tables must be (B, max_pages), got shape "
+                f"{tuple(block_tables.shape)}")
+    if block_tables.is_floating_point() or block_tables.is_complex() \
+            or block_tables.dtype == torch.bool:
+        return f"block_tables must be integral, got {block_tables.dtype}"
+    if block_tables.shape[0] != lengths.shape[0]:
+        return (f"block_tables rows {block_tables.shape[0]} != "
+                f"lengths rows {lengths.shape[0]}")
+    if page % 8:
+        return f"page size {page} not sublane-aligned (8)"
+    return _masked_unsupported(x, lengths, causal, q_offset, sq)
+
+
 def _resolve(entry: str, impl: str, plan, device) -> str:
     if impl == "auto":
         if plan is not None:
@@ -124,15 +159,22 @@ def _count(entry: str, impl: str) -> None:
 
 def attention(q, k, v, *, causal: bool = True,
               scale: Optional[float] = None, q_offset=None,
-              lengths: Optional[torch.Tensor] = None, impl: str = "auto",
-              plan=None):
+              lengths: Optional[torch.Tensor] = None,
+              block_tables: Optional[torch.Tensor] = None,
+              impl: str = "auto", plan=None):
     """Layer-fused attention (Fig. 5c) or the plan's unfused reference.
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D[v]).  ``lengths`` (B,):
     valid KV prefix per row; the masked kernel anchors causal rows at
     its end (``q_offset = lengths - Sq``).  A call without lengths runs
     the same kernel over the full Skv when its causal anchor is the
-    default ``Skv - Sq``."""
+    default ``Skv - Sq``.  ``block_tables`` (B, max_pages): k and v
+    are page pools (num_pages, Hkv, page, D[v]) read through the table
+    (``lengths`` required)."""
     b, _, sq, _ = q.shape
+    if block_tables is not None:
+        return _attention_paged(q, k, v, lengths, block_tables,
+                                causal=causal, scale=scale,
+                                q_offset=q_offset, impl=impl, plan=plan)
     skv = k.shape[2]
     impl = _resolve("attention", impl, plan, q.device)
     if lengths is None and impl != "reference":
@@ -164,12 +206,20 @@ def attention(q, k, v, *, causal: bool = True,
 def qproj_attention(x, wq, k, v, *, causal: bool = True,
                     scale: Optional[float] = None, q_offset=None,
                     lengths: Optional[torch.Tensor] = None,
+                    block_tables: Optional[torch.Tensor] = None,
                     rope_theta: Optional[float] = None,
                     impl: str = "auto", plan=None):
     """Layer-fused Q-projection attention (Fig. 5b): x (B, Sq, E) and
     wq (E, Hq, D) go to the kernel, which builds (and, with
     ``rope_theta``, rotates at ``lengths[b] - Sq + r``) the Q tile
-    itself.  Requires ``lengths`` (the serving path always has them)."""
+    itself.  Requires ``lengths`` (the serving path always has them).
+    ``block_tables``: k and v are page pools, as in :func:`attention`."""
+    if block_tables is not None:
+        return _qproj_attention_paged(x, wq, k, v, lengths, block_tables,
+                                      causal=causal, scale=scale,
+                                      q_offset=q_offset,
+                                      rope_theta=rope_theta, impl=impl,
+                                      plan=plan)
     if lengths is None:
         raise ValueError("qproj_attention is the KV-cached path: pass "
                          "lengths")
@@ -195,6 +245,7 @@ def qproj_attention(x, wq, k, v, *, causal: bool = True,
 
 
 def decode_block(x, wq, k, v, wo, residual, lengths, *,
+                 block_tables: Optional[torch.Tensor] = None,
                  scale: Optional[float] = None,
                  rope_theta: Optional[float] = None, impl: str = "auto",
                  plan=None):
@@ -202,9 +253,15 @@ def decode_block(x, wq, k, v, wo, residual, lengths, *,
     ``lengths[b] - 1``), masked scores over the valid prefix, softmax,
     P.V, output projection and residual add in one launch.  x, residual:
     (B, 1, E); wq: (E, Hq, D); k, v: (B, Hkv, Skv, D[v]); wo: (Hq, Dv,
-    E).  Returns ``residual + attn_out @ Wo``, (B, 1, E)."""
+    E).  Returns ``residual + attn_out @ Wo``, (B, 1, E).
+    ``block_tables``: k and v are page pools, as in :func:`attention`."""
     if x.shape[1] != 1:
         raise ValueError("decode_block is the M=1 decode schedule")
+    if block_tables is not None:
+        return _decode_block_paged(x, wq, k, v, wo, residual, lengths,
+                                   block_tables, scale=scale,
+                                   rope_theta=rope_theta, impl=impl,
+                                   plan=plan)
     impl = _resolve("decode_block", impl, plan, x.device)
     if impl != "reference":
         reason = _masked_unsupported(x, lengths, False, None, 1)
@@ -223,3 +280,79 @@ def decode_block(x, wq, k, v, wo, residual, lengths, *,
             rope_theta=rope_theta)
     return fused_decode_block_plain(x, wq, k, v, wo, residual, lengths,
                                     scale=scale, rope_theta=rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# paged KV: the same entry points over a page pool and block tables
+# ---------------------------------------------------------------------------
+
+def _paged_impl(entry: str, x, lengths, block_tables, causal, q_offset,
+                sq: int, page: int, impl: str, plan) -> str:
+    """Resolve a paged call's impl, refusing onto the reference what the
+    paged kernels cannot express; counts the call."""
+    if lengths is None:
+        raise ValueError(f"paged {entry} requires lengths")
+    impl = _resolve(entry, impl, plan, x.device)
+    if impl != "reference":
+        reason = _paged_unsupported(x, lengths, block_tables, causal,
+                                    q_offset, sq, page)
+        if reason is not None:
+            impl = _downgrade(plan, reason, "paged-KV kernel")
+    _count(f"{entry}_paged", impl)
+    return impl
+
+
+def _attention_paged(q, k_pool, v_pool, lengths, block_tables, *, causal,
+                     scale, q_offset, impl, plan):
+    impl = _paged_impl("attention", q, lengths, block_tables, causal,
+                       q_offset, q.shape[2], v_pool.shape[2], impl, plan)
+    if impl == "reference":
+        return ref.paged_attention_reference(
+            q, k_pool, v_pool, lengths, block_tables, causal=causal,
+            scale=scale, q_offset=q_offset)
+    lengths = lengths.to(torch.int32)
+    if impl == "cuda":
+        return fused_attention_paged(
+            q.contiguous(), k_pool.contiguous(), v_pool.contiguous(),
+            lengths, block_tables, causal=causal, scale=scale)
+    return fused_attention_paged_plain(q, k_pool, v_pool, lengths,
+                                       block_tables, causal=causal,
+                                       scale=scale)
+
+
+def _qproj_attention_paged(x, wq, k_pool, v_pool, lengths, block_tables, *,
+                           causal, scale, q_offset, rope_theta, impl, plan):
+    impl = _paged_impl("qproj_attention", x, lengths, block_tables, causal,
+                       q_offset, x.shape[1], v_pool.shape[2], impl, plan)
+    if impl == "reference":
+        return ref.paged_qproj_attention_reference(
+            x, wq, k_pool, v_pool, lengths, block_tables, causal=causal,
+            scale=scale, rope_theta=rope_theta, q_offset=q_offset)
+    lengths = lengths.to(torch.int32)
+    if impl == "cuda":
+        return fused_qproj_attention_paged(
+            x.contiguous(), wq.contiguous(), k_pool.contiguous(),
+            v_pool.contiguous(), lengths, block_tables, causal=causal,
+            scale=scale, rope_theta=rope_theta)
+    return fused_qproj_attention_paged_plain(
+        x, wq, k_pool, v_pool, lengths, block_tables, causal=causal,
+        scale=scale, rope_theta=rope_theta)
+
+
+def _decode_block_paged(x, wq, k_pool, v_pool, wo, residual, lengths,
+                        block_tables, *, scale, rope_theta, impl, plan):
+    impl = _paged_impl("decode_block", x, lengths, block_tables, False,
+                       None, 1, v_pool.shape[2], impl, plan)
+    if impl == "reference":
+        return ref.paged_decode_block_reference(
+            x, wq, k_pool, v_pool, wo, residual, lengths, block_tables,
+            rope_theta=rope_theta, scale=scale)
+    lengths = lengths.to(torch.int32)
+    if impl == "cuda":
+        return fused_decode_block_paged(
+            x.contiguous(), wq.contiguous(), k_pool.contiguous(),
+            v_pool.contiguous(), wo.contiguous(), residual.contiguous(),
+            lengths, block_tables, scale=scale, rope_theta=rope_theta)
+    return fused_decode_block_paged_plain(
+        x, wq, k_pool, v_pool, wo, residual, lengths, block_tables,
+        scale=scale, rope_theta=rope_theta)

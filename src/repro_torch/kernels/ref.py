@@ -120,3 +120,43 @@ def decode_block_reference(x, wq, k, v, wo, residual, lengths, *,
                             lengths=lengths)
     y = torch.einsum("bhse,hed->bsd", o.float(), wo.float())
     return (residual.float() + y).to(x.dtype)
+
+
+def gather_pages(pool: torch.Tensor,
+                 block_tables: torch.Tensor) -> torch.Tensor:
+    """Densify a paged KV pool: (num_pages, Hkv, page, D) gathered
+    through (B, max_pages) integer page ids into the dense
+    (B, Hkv, max_pages*page, D) layout every dense oracle and kernel
+    takes.  Row b's j-th logical block is pool page
+    ``block_tables[b, j]``; entries past a row's valid length may name
+    any in-range page (canonically the allocator's null page 0): the
+    caller's ``lengths`` mask makes their content irrelevant."""
+    b, max_pages = block_tables.shape
+    _, hkv, page, d = pool.shape
+    g = pool[block_tables.long()]        # (B, max_pages, Hkv, page, D)
+    return g.movedim(2, 1).reshape(b, hkv, max_pages * page, d)
+
+
+def paged_attention_reference(q, k_pool, v_pool, lengths, block_tables,
+                              **kw):
+    """Oracle of ``fused_attention_paged``: gather the pages dense, then
+    the unfused lengths-masked attention."""
+    return attention_reference(
+        q, gather_pages(k_pool, block_tables),
+        gather_pages(v_pool, block_tables), lengths=lengths, **kw)
+
+
+def paged_qproj_attention_reference(x, wq, k_pool, v_pool, lengths,
+                                    block_tables, **kw):
+    """Oracle of ``fused_qproj_attention_paged``."""
+    return qproj_attention_reference(
+        x, wq, gather_pages(k_pool, block_tables),
+        gather_pages(v_pool, block_tables), lengths=lengths, **kw)
+
+
+def paged_decode_block_reference(x, wq, k_pool, v_pool, wo, residual,
+                                 lengths, block_tables, **kw):
+    """Oracle of ``fused_decode_block_paged``."""
+    return decode_block_reference(
+        x, wq, gather_pages(k_pool, block_tables),
+        gather_pages(v_pool, block_tables), wo, residual, lengths, **kw)

@@ -7,11 +7,14 @@ as the serving context grows.
   ladder where the call site cannot take the planned path (qk-norm
   between projection and scores; no Wo/residual at the call site), and
   records every such step on the plan.
+* :func:`rung_down` walks a legalised dispatch one rung down the
+  ladder, the serving engine's ``demotions`` recovery.
 * :class:`ServingPlan` is the serving engine's handle: the prefill plan
   per prompt bucket, the decode plan per context bucket, and a log of
   every resolution.  The first decode bucket edge sits at the
   crossover C = 2N, so a generation that crosses it switches kernel
-  path that step.
+  path that step.  A paged plan (``paged=True``) legalises every
+  dispatch for a KV page pool read through block tables.
 
 Tiles are not part of a plan here: each CUDA kernel picks its own for
 Hopper.
@@ -20,6 +23,7 @@ Hopper.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -28,8 +32,8 @@ from repro_torch.lower.plan import (DECODE_MEGAKERNEL, FUSED_ATTENTION,
                                     QPROJ_ATTENTION, UNFUSED, ExecutionPlan)
 from repro_torch.models.common import resolve_device
 
-__all__ = ["PlanDispatch", "dispatch", "impl_for", "ServingPlan",
-           "serving_plan"]
+__all__ = ["PlanDispatch", "dispatch", "impl_for", "rung_down",
+           "ServingPlan", "serving_plan"]
 
 
 def impl_for(path: str, device) -> str:
@@ -50,6 +54,8 @@ class PlanDispatch:
     plan: ExecutionPlan
     path: str                   # legalised kernel path
     impl: str                   # cuda | torch | reference
+    paged: bool = False         # the call site passes a KV page pool and
+    #                             block tables instead of dense caches
 
     @property
     def fuse_q(self) -> bool:
@@ -67,8 +73,8 @@ class PlanDispatch:
 
 def dispatch(plan: ExecutionPlan, *, device,
              entry: str = "attention", rope: bool = False,
-             qk_norm: bool = False,
-             lengths_masked: bool = False) -> PlanDispatch:
+             qk_norm: bool = False, lengths_masked: bool = False,
+             paged: bool = False) -> PlanDispatch:
     """Legalise ``plan`` for one call site.
 
     ``device`` is where the call runs, with no default: it decides
@@ -78,7 +84,13 @@ def dispatch(plan: ExecutionPlan, *, device,
     (x, Wq, Wo and the residual).  qk-norm between the projection and
     the scores breaks Q-fusion; RoPE does not (the kernels rotate the Q
     tile themselves).  A ``lengths`` mask keeps fused paths on their
-    kernels: a note, never a downgrade.
+    kernels: a note, never a downgrade.  ``paged``: the call site
+    stores KV as a page pool and (B, max_pages) block tables.  On the
+    ``cuda`` impl that is a note (the paged kernels read the pool
+    through the table); on any other impl the pool is gathered dense
+    before the masked path runs, recorded as the JAX package's
+    paged->masked-dense downgrade (the dispatch stays ``paged`` so the
+    call site still passes its tables; ``kernels.ops`` gathers).
     """
     path = plan.kernel_path
     if path == DECODE_MEGAKERNEL:
@@ -114,7 +126,51 @@ def dispatch(plan: ExecutionPlan, *, device,
     if lengths_masked and impl == "cuda":
         plan.note("masked-lengths calls take the masked CUDA kernels "
                   "(KV tiles past each row's valid prefix skipped)")
-    return PlanDispatch(plan=plan, path=path, impl=impl)
+    if paged:
+        if impl == "cuda":
+            plan.note("paged KV: block-table-indirect CUDA kernels (each "
+                      "KV tile's slice of the table staged in shared "
+                      "memory; pages past a row's length never read)")
+        else:
+            plan.record_downgrade(
+                f"paged KV block tables unsupported on impl '{impl}': "
+                "pool gathered to masked-dense", path, path)
+    return PlanDispatch(plan=plan, path=path, impl=impl, paged=paged)
+
+
+#: the lowering ladder, top rung first; rung-down recovery walks it
+#: path by path and ends at the chunked plain unfused bottom rung
+_LADDER = [DECODE_MEGAKERNEL, QPROJ_ATTENTION, FUSED_ATTENTION, UNFUSED]
+
+
+def rung_down(d: PlanDispatch,
+              reason: str = "kernel launch failure"
+              ) -> Optional[PlanDispatch]:
+    """One step down the lowering ladder from a legalised dispatch:
+    ``decode_megakernel -> qproj_attention -> fused_attention ->
+    unfused/reference -> unfused/torch``, recorded on the plan's
+    downgrade ledger.  Returns the demoted dispatch, or None from the
+    bottom rung.
+
+    The JAX ladder's last step is ``unfused/reference -> unfused/xla``,
+    its chunked streaming fallback.  The port has no ``xla`` impl; its
+    counterpart is the ``torch`` impl, whose entry points run the
+    chunked online-softmax plain versions (``kernels/chunked.py``, the
+    port of that fallback), so the port's last step is
+    ``unfused/reference -> unfused/torch``, and the ladder has the JAX
+    ladder's length.  Fused rungs keep their impl (``cuda`` on the card,
+    ``torch`` on the CPU)."""
+    if d.path != UNFUSED:
+        new_path = _LADDER[_LADDER.index(d.path) + 1]
+        new_impl = "reference" if new_path == UNFUSED else d.impl
+    elif d.impl != "torch":
+        new_path, new_impl = d.path, "torch"
+    else:
+        return None
+    d.plan.record_downgrade(
+        f"{reason}: rung-down {d.path}/{d.impl} -> "
+        f"{new_path}/{new_impl}", d.path, new_path)
+    return dataclasses.replace(d, path=new_path, impl=new_impl)
 
 
 @dataclasses.dataclass
@@ -122,13 +178,18 @@ class ServingPlan:
     """The serving engine's plan handle for one model on ``device``
     (required: fused paths run the CUDA kernels on a CUDA device and
     the plain versions only on the CPU).  ``resolutions`` logs every
-    (phase, length, bucket, path, impl) the engine acted on."""
+    (phase, length, bucket, path, impl) the engine acted on.  ``paged``/
+    ``page_size``: the engine stores KV as a page pool and block tables,
+    and every dispatch is legalised on that axis."""
 
     cfg: object
     max_len: int
     device: torch.device
     n_blocks: int = 1
+    paged: bool = False
+    page_size: Optional[int] = None
     resolutions: list = dataclasses.field(default_factory=list)
+    _plans: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def _dispatch(self, phase: str, n: int,
                   decode_tokens: int = 1) -> PlanDispatch:
@@ -143,9 +204,17 @@ class ServingPlan:
                 else "qproj_attention"
         d = dispatch(plan, device=self.device, entry=entry,
                      rope=self.cfg.rope_theta > 0,
-                     qk_norm=self.cfg.qk_norm, lengths_masked=True)
+                     qk_norm=self.cfg.qk_norm, lengths_masked=True,
+                     paged=self.paged)
         self.resolutions.append((phase, n, plan.bucket, d.path, d.impl))
+        self._plans[id(plan)] = plan
         return d
+
+    def downgrades(self) -> list:
+        """Every downgrade recorded on the ExecutionPlans this handle
+        resolved.  Plans are cached and shared by every handle of the
+        same config: clear the plan cache first to read one run's."""
+        return [g for plan in self._plans.values() for g in plan.downgrades]
 
     def prefill_dispatch(self, seq_len: int) -> PlanDispatch:
         return self._dispatch("prefill", seq_len)
@@ -180,13 +249,20 @@ class ServingPlan:
         return int(cache_len)
 
 
-def serving_plan(cfg, max_len: int, *, device="cuda",
-                 n_blocks=None) -> ServingPlan:
+def serving_plan(cfg, max_len: int, *, device="cuda", n_blocks=None,
+                 paged: bool = False,
+                 page_size: Optional[int] = None) -> ServingPlan:
     """The ServingPlan for ``cfg`` (dense GQA configs only) on
-    ``device``, which defaults to the card and raises without one."""
+    ``device``, which defaults to the card and raises without one.
+    ``paged``/``page_size``: plan for a paged KV pool; ``max_len`` must
+    then be a multiple of the page size."""
     if cfg.attention != "gqa" or cfg.block_kind(0) != "attn":
         raise NotImplementedError(
             f"{cfg.name}: only dense GQA configs are ported")
+    if paged and page_size is not None and max_len % page_size:
+        raise ValueError(
+            f"max_len {max_len} not a multiple of page_size {page_size}")
     return ServingPlan(cfg=cfg, max_len=max_len,
                        device=resolve_device(device),
-                       n_blocks=n_blocks or cfg.n_layers)
+                       n_blocks=n_blocks or cfg.n_layers, paged=paged,
+                       page_size=page_size)

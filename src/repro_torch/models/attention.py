@@ -10,10 +10,16 @@ rows at the end of the valid prefix, which is this module's
 at its own position and ``lengths = cache_len + 1`` alone carries each
 row's causal frontier.
 
+With ``block_tables`` the cache leaves are page pools (num_pages, Hkv,
+page, Dh) and the append is page-indirect: row b's new token lands in
+pool page ``block_tables[b, cache_len[b] // page]`` at offset
+``cache_len[b] % page``; attention reads the pool back through the same
+table.
+
 Unlike the JAX package, the cache append is an in-place write into the
-caller's cache tensors (an indexed assignment for per-row appends, a
-slice assignment for the uniform one), and the returned cache is the
-same dict: serving never keeps the pre-append cache.
+caller's cache tensors (an indexed assignment for per-row and paged
+appends, a slice assignment for the uniform one), and the returned
+cache is the same dict: serving never keeps the pre-append cache.
 """
 
 from __future__ import annotations
@@ -45,18 +51,28 @@ def _cache_write(cache_len, b: int, s: int, device):
 
 def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, cache: Optional[dict] = None,
-                cache_len=None, plan=None,
-                residual: Optional[torch.Tensor] = None):
+                cache_len=None, block_tables: Optional[torch.Tensor] = None,
+                plan=None, residual: Optional[torch.Tensor] = None):
     """x: (B, S, E).  With ``cache``: append K/V at ``cache_len`` (in
     place) and attend over the valid prefix.  ``plan``: a
     ``lower.runtime.PlanDispatch``; ``plan.fuse_q`` hands x and Wq to
     the kernel (which builds and rotates Q itself), ``plan.fuse_wo``
     runs the whole M=1 sub-block in the decode megakernel.
     ``residual``: the block's skip input; the returned output already
-    includes it.  Returns (out, cache)."""
+    includes it.  ``block_tables``: (B, max_pages) page ids; the cache
+    leaves are then page pools and the append page-indirect.  Dead rows
+    (zeroed table row, length 0) write into the allocator's null page
+    0, which no live row reads.  Single-token per-row decode only:
+    prefill runs dense and is paged when the engine inserts it.
+    Returns (out, cache)."""
     dt = x.dtype
     b, s, _ = x.shape
     decode = cache is not None
+    paged = block_tables is not None
+    if paged and not decode:
+        raise NotImplementedError(
+            "paged KV is a decode-time storage format; prefill runs "
+            "dense and is paged at insert() time")
     fuse_q = decode and plan is not None and plan.fuse_q \
         and not cfg.qk_norm
     theta = float(cfg.rope_theta) if cfg.rope_theta else None
@@ -79,7 +95,19 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
         starts, lengths, q_off, per_row = _cache_write(cache_len, b, s,
                                                        x.device)
         kc, vc = cache["k"], cache["v"]
-        if per_row:
+        if paged:
+            if not per_row:
+                raise NotImplementedError(
+                    "paged KV requires per-row (B,) cache_len")
+            # page-indirect append: row r's token lands at offset
+            # starts % page of its current page
+            page = kc.shape[2]
+            idx = starts.long()
+            page_ids = block_tables[torch.arange(b, device=x.device),
+                                    idx // page].long()
+            kc[page_ids, :, idx % page] = k_new[:, :, 0].to(kc.dtype)
+            vc[page_ids, :, idx % page] = v_new[:, :, 0].to(vc.dtype)
+        elif per_row:
             # continuous batching: row r appends at its own position
             rows = torch.arange(b, device=x.device)
             idx = starts.long()
@@ -98,15 +126,17 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
             if plan.fuse_wo and s == 1 and residual is not None:
                 out = ops.decode_block(x, wq, k_buf, v_buf,
                                        params["wo"].to(dt), residual,
-                                       lengths, rope_theta=theta,
-                                       plan=plan)
+                                       lengths, block_tables=block_tables,
+                                       rope_theta=theta, plan=plan)
                 return out, new_cache
             o = ops.qproj_attention(x, wq, k_buf, v_buf, causal=cfg.causal,
                                     q_offset=q_off, lengths=lengths,
+                                    block_tables=block_tables,
                                     rope_theta=theta, plan=plan)
         else:
             o = ops.attention(q, k_buf, v_buf, causal=cfg.causal,
-                              q_offset=q_off, lengths=lengths, plan=plan)
+                              q_offset=q_off, lengths=lengths,
+                              block_tables=block_tables, plan=plan)
     out = torch.einsum("bhse,hed->bsd", o, params["wo"].to(dt))
     if residual is not None:
         out = residual + out

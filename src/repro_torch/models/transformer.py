@@ -6,7 +6,9 @@ Parameters keep the JAX package's tree: ``prefix_layers`` (a list) and
 a leading ``n_periods`` axis).  Caches mirror it: ``{"prefix": [...],
 "scan": [...]}``.  The JAX ``lax.scan`` over periods is a Python loop
 here; each period's parameters and caches are views into the stacked
-tensors, so cache appends land in the stacked cache in place.
+tensors, so cache appends land in the stacked cache in place.  Paged
+caches (page pools, the body's with the leading ``n_periods`` axis)
+take the same walk, with one block table shared by every layer.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import ModelConfig, mlp_forward, rms_norm
 
 
-def _check_dense(cfg: ModelConfig) -> None:
+def check_dense(cfg: ModelConfig) -> None:
     if cfg.attention != "gqa" or cfg.moe or cfg.attn_every != 1 \
             or cfg.frontend != "none":
         raise NotImplementedError(
@@ -34,28 +36,31 @@ def _index(tree, j: int):
 
 
 def _layer_forward(lp: dict, cfg: ModelConfig, x, positions, layer_cache,
-                   cache_len, plan):
+                   cache_len, plan, block_tables=None):
     h = rms_norm(x, lp["pre_norm"])
     # the attention block owns its residual add: the decode megakernel
     # folds it into the launch, every other path adds it in gqa_forward
     x, _ = attn.gqa_forward(
         lp["attn"], cfg, h, positions,
         cache=None if layer_cache is None else layer_cache["attn"],
-        cache_len=cache_len, plan=plan, residual=x)
+        cache_len=cache_len, block_tables=block_tables, plan=plan,
+        residual=x)
     h = rms_norm(x, lp["ffn_norm"])
     return x + mlp_forward(lp["mlp"], h, cfg.mlp)
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache: Optional[dict] = None, cache_len=None,
-            positions: Optional[torch.Tensor] = None, plan=None):
+            positions: Optional[torch.Tensor] = None, plan=None,
+            block_tables: Optional[torch.Tensor] = None):
     """tokens: (B, S) integer ids.  ``cache``/``cache_len``: KV-cached
     mode; ``cache_len`` is an int (the whole batch at one context) or a
     (B,) tensor of per-row write positions.  ``plan``: a
     ``lower.runtime.PlanDispatch`` routing every attention block.
-    Returns logits (B, S, vocab), plus the cache (updated in place)
+    ``block_tables``: (B, max_pages) int32 page table of paged caches,
+    shared by every layer.  Returns logits (B, S, vocab), plus the cache (updated in place)
     when one is given."""
-    _check_dense(cfg)
+    check_dense(cfg)
     dt = cfg.torch_dtype()
     x = params["embed"].to(dt)[tokens]
     b, s, _ = x.shape
@@ -69,12 +74,14 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     for i, lp in enumerate(params["prefix_layers"]):
         lc = None if cache is None else cache["prefix"][i]
-        x = _layer_forward(lp, cfg, x, positions, lc, cache_len, plan)
+        x = _layer_forward(lp, cfg, x, positions, lc, cache_len, plan,
+                           block_tables)
     for j in range(cfg.n_periods):
         for pos in range(cfg.layer_period):
             lp = _index(params["layers"][pos], j)
             lc = None if cache is None else _index(cache["scan"][pos], j)
-            x = _layer_forward(lp, cfg, x, positions, lc, cache_len, plan)
+            x = _layer_forward(lp, cfg, x, positions, lc, cache_len, plan,
+                               block_tables)
 
     x = rms_norm(x, params["final_norm"])
     if "lm_head" in params:
@@ -90,7 +97,7 @@ def init_model_cache(cfg: ModelConfig, batch: int, max_len: int,
                      dtype=torch.bfloat16, device="cuda") -> dict:
     """Zeroed KV caches in the parameter tree's layout: a list for the
     prefix layers, ``n_periods``-stacked tensors for the body."""
-    _check_dense(cfg)
+    check_dense(cfg)
     def layer(lead=()):
         return {"attn": attn.init_gqa_cache(cfg, batch, max_len, dtype,
                                             device, lead)}

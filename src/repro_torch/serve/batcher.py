@@ -1,5 +1,6 @@
 """Admission-controlled request scheduler for the continuous-batching
-engine (host-side serving loop); a copy of ``repro/serve/batcher.py``.
+engines, dense and paged (host-side serving loop); a copy of
+``repro/serve/batcher.py``.
 
 Slots of a fixed decode batch are leased to requests as they arrive
 and reclaimed when a row finishes (EOS or budget): ``serve`` drives a
@@ -26,9 +27,7 @@ Admission rules:
   clamped to 1.  Budgets are always clamped so prompt + generated
   never overruns a cache row.
 
-Paged engines (``engine.allocator`` present) add two rules, which the
-port carries once its paged engine lands (``_relieve_page_pressure``
-raises until then):
+Paged engines (``engine.allocator`` present) add two rules:
 
 * admission is by free-*page* budget, not just free slots — the queue
   head is admitted only when the pool can hold its prompt plus one
@@ -203,11 +202,12 @@ class RequestBatcher:
         return self.finished
 
     def _relieve_page_pressure(self, engine) -> list:
-        """Preempt leases until the next decode step fits the free page
-        list: the paged engine's policy, which the port does not have
-        yet."""
-        raise NotImplementedError(
-            "page-pressure relief needs the paged engine, not ported yet")
+        """Preempt leases until the next decode step fits the free
+        page list, delegated to the default (newest-victim)
+        :class:`~repro_torch.serve.supervisor.PagePressurePolicy`.
+        Returns the preempted slots."""
+        from repro_torch.serve.supervisor import PagePressurePolicy
+        return PagePressurePolicy().relieve(engine, self)
 
     def serve(self, engine, max_steps: int = 1000) -> list:
         """Drive a :class:`~repro_torch.serve.engine.ContinuousBatchingEngine`

@@ -1,5 +1,5 @@
-"""Dense continuous-batching serving (a port of
-``repro/serve/engine.py:76-556``).
+"""Continuous-batching serving, dense and paged (a port of
+``repro/serve/engine.py``).
 
 Decode is the paper's M < N regime; with a KV cache the crossover moves
 to C = 2N.  A :class:`~repro_torch.lower.runtime.ServingPlan` resolves
@@ -16,9 +16,23 @@ insert(result, slot) -> generate``; :class:`ContinuousBatchingEngine`
 packages it with host mirrors of per-slot state so step dispatch never
 reads device memory.
 
+The paged engine (:class:`PagedContinuousBatchingEngine`) keeps KV in a
+page pool shared by all rows, leased through a :class:`PageAllocator`:
+prefill stays dense on a B=1 side cache and is paged once, at insert;
+decode steps read the pool through ``(B, max_pages)`` block tables;
+``preempt`` snapshots a row's pages to host memory and frees them, and
+``resume`` scatters the snapshot into fresh pages.
+
 Unlike the JAX engine, state is updated in place: the KV caches are
-written by the model's appends, and ``insert``/``evict`` write the
-slot's rows, length and token into the batch state's tensors.
+written by the model's appends, and ``insert``/``evict`` (and their
+paged twins) write the slot's rows, length, token and table row into
+the batch state's tensors.  A preempted snapshot is therefore a host
+copy of gathered pages, never a view into the pool, whose pages are
+overwritten once reissued.
+
+Left for the fault-tolerance slice: the JAX engine's fault injector
+hooks, ``rollback_slot``, NaN injection and the insert backlog that
+makes a prefill step retry-safe.
 """
 
 from __future__ import annotations
@@ -29,7 +43,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.lower import serving_plan
+from repro_torch.lower import rung_down, serving_plan
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig, resolve_device
 
@@ -41,9 +55,13 @@ class DecodeState:
     last_token: torch.Tensor      # (B,) int32
 
 
-def make_serving_plan(cfg: ModelConfig, max_len: int, *, device="cuda"):
-    """The ServingPlan for ``cfg`` on ``device``."""
-    return serving_plan(cfg, max_len, device=device)
+def make_serving_plan(cfg: ModelConfig, max_len: int, *, device="cuda",
+                      paged: bool = False,
+                      page_size: Optional[int] = None):
+    """The ServingPlan for ``cfg`` on ``device``; ``paged``/``page_size``
+    resolve it for paged-KV dispatch."""
+    return serving_plan(cfg, max_len, device=device, paged=paged,
+                        page_size=page_size)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int,
@@ -102,26 +120,30 @@ def chunked_prefill(params, cfg: ModelConfig, tokens, state: DecodeState,
 
 
 def decode_step(params, cfg: ModelConfig, state: DecodeState, *,
-                plan=None, dispatch=None, active=None):
+                plan=None, dispatch=None, active=None, block_tables=None):
     """One token for every row.  ``dispatch``: a pre-resolved
     PlanDispatch (``ServingPlan.step_dispatch`` over host-side lengths),
     else resolved from ``plan`` and the state.  ``active``: (B,) bool;
-    rows where it is False keep their length and last token.  Returns
-    (new state, last-position logits (B, vocab))."""
+    rows where it is False keep their length and last token.
+    ``block_tables``: the (B, max_pages) page table when ``state`` is
+    paged; the state's type is kept either way.  Returns (new state,
+    last-position logits (B, vocab))."""
     if dispatch is None and plan is not None:
         dispatch = plan.decode_dispatch(
             plan.concrete_ctx(state.cache_len) + 1)
     logits, cache = tf.forward(params, cfg, state.last_token[:, None],
                                cache=state.cache,
-                               cache_len=state.cache_len, plan=dispatch)
+                               cache_len=state.cache_len, plan=dispatch,
+                               block_tables=block_tables)
     nxt = greedy_sample(logits)
     step = torch.ones_like(state.cache_len)
     if active is not None:
         act = torch.as_tensor(active, device=nxt.device)
         nxt = torch.where(act, nxt, state.last_token)
         step = act.to(state.cache_len.dtype)
-    return DecodeState(cache=cache, cache_len=state.cache_len + step,
-                       last_token=nxt), logits[:, -1]
+    return dataclasses.replace(state, cache=cache,
+                               cache_len=state.cache_len + step,
+                               last_token=nxt), logits[:, -1]
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +189,22 @@ def _rows(cache):
             yield t, 1
 
 
+def _map_leaves(cache, fn):
+    """``cache`` with every attn leaf ``t`` replaced by ``fn(t, axis)``,
+    ``axis`` its batch (or page) axis: 0 in the prefix layers, 1 in the
+    period-stacked body."""
+    def one(layer, axis):
+        return {"attn": {k: fn(t, axis) for k, t in layer["attn"].items()}}
+    return {"prefix": [one(lc, 0) for lc in cache["prefix"]],
+            "scan": [one(lc, 1) for lc in cache["scan"]]}
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` in host memory that shares no storage with it
+    (``.cpu()`` of a CPU tensor would return the tensor itself)."""
+    return t.to("cpu", copy=True)
+
+
 def insert(state: DecodeState, result: PrefillResult,
            slot: int) -> DecodeState:
     """Write a prefilled request into batch row ``slot`` (cache rows,
@@ -194,7 +232,13 @@ class ContinuousBatchingEngine:
     requests prefilled (chunk by chunk with ``prefill_chunk``) and
     inserted mid-stream.  Host mirrors (``row_ctx``, ``live``) let each
     step's plan be resolved from the live rows' contexts without
-    reading device memory."""
+    reading device memory.
+
+    ``demotions`` is a standing rung-down count applied to every
+    resolved dispatch (``lower.runtime.rung_down``): 0 runs the planned
+    path, each unit one rung lower.  ``preempt``/``resume`` snapshot a
+    row to host memory and bring it back, the dense twins of the paged
+    engine's verbs."""
 
     def __init__(self, params, cfg: ModelConfig, *, batch_size: int,
                  max_len: Optional[int] = None, plan=None,
@@ -209,15 +253,22 @@ class ContinuousBatchingEngine:
         self.batch_size, self.max_len = batch_size, max_len
         self.dtype, self.device = dtype, resolve_device(device)
         self.prefill_chunk = prefill_chunk
-        self.state = init_decode_state(cfg, batch_size, max_len, dtype,
-                                       plan=plan, device=self.device)
+        self.state = self._init_state()
         self.row_ctx = [0] * batch_size   # host mirror of cache_len
         self.live = [False] * batch_size
         self._pending: dict = {}          # slot -> in-flight prefill
+        #: standing rung-down count (0: the planned path)
+        self.demotions = 0
+        self.last_dispatch = None
         #: the last decode step's last-position logits (B, vocab), on
         #: the device; the last prefill chunk's, per slot
         self.last_logits: Optional[torch.Tensor] = None
         self.prefill_logits: dict = {}
+
+    def _init_state(self):
+        return init_decode_state(self.cfg, self.batch_size, self.max_len,
+                                 self.dtype, plan=self.plan,
+                                 device=self.device)
 
     def free_slots(self) -> list:
         return [i for i in range(self.batch_size)
@@ -248,8 +299,8 @@ class ContinuousBatchingEngine:
             piece = p["tokens"][:, p["pos"]:p["pos"] + chunk]
             dispatch = None
             if self.plan is not None:
-                dispatch = self.plan.chunk_dispatch(
-                    p["pos"] + piece.shape[1], piece.shape[1])
+                dispatch = self._demoted(self.plan.chunk_dispatch(
+                    p["pos"] + piece.shape[1], piece.shape[1]))
             logits, p["cache"] = tf.forward(
                 self.params, self.cfg, piece, cache=p["cache"],
                 cache_len=p["pos"], plan=dispatch)
@@ -258,26 +309,52 @@ class ContinuousBatchingEngine:
                 self.prefill_logits[slot] = logits[0, -1]
                 res = PrefillResult(cache=p["cache"], length=total,
                                     next_token=int(greedy_sample(logits)[0]))
-                insert(self.state, res, slot)
+                self._insert(res, slot)
                 self.row_ctx[slot] = total
                 self.live[slot] = True
                 del self._pending[slot]
                 inserted.append((slot, res.next_token))
         return inserted
 
+    def _insert(self, res: PrefillResult, slot: int) -> None:
+        insert(self.state, res, slot)
+
+    def _before_decode(self) -> None:
+        """Hook run right before each decode launch (the paged engine
+        grows the page lists of rows crossing a page boundary here)."""
+
+    def _demoted(self, dispatch):
+        """The standing ``demotions`` count applied to a resolved
+        dispatch: each unit walks it one rung down the ladder, recorded
+        on the plan's downgrade ledger by ``rung_down``."""
+        if dispatch is None or not self.demotions:
+            return dispatch
+        for _ in range(self.demotions):
+            lower = rung_down(dispatch, "kernel-failure recovery")
+            if lower is None:
+                break
+            dispatch = lower
+        return dispatch
+
     def decode_once(self):
         """One whole-batch decode step over the live rows.  Returns the
-        (B,) last tokens as numpy, or None when no row is live."""
+        (B,) last tokens as numpy, or None when no row is live.  Host
+        mirrors advance only after the step ran, so a step that raises
+        (``OutOfPages`` from the paged engine's in-step ``ensure``) can
+        be run again."""
         if not any(self.live):
             self.last_logits = None
             return None
+        self._before_decode()
         dispatch = None
         if self.plan is not None:
-            dispatch = self.plan.step_dispatch(
-                [c for c, alive in zip(self.row_ctx, self.live) if alive])
+            dispatch = self._demoted(self.plan.step_dispatch(
+                [c for c, alive in zip(self.row_ctx, self.live) if alive]))
+        self.last_dispatch = dispatch
         self.state, self.last_logits = decode_step(
             self.params, self.cfg, self.state, dispatch=dispatch,
-            active=torch.tensor(self.live, device=self.device))
+            active=torch.tensor(self.live, device=self.device),
+            block_tables=getattr(self.state, "block_tables", None))
         for i in range(self.batch_size):
             if self.live[i]:
                 self.row_ctx[i] += 1
@@ -290,8 +367,408 @@ class ContinuousBatchingEngine:
         inserted = self._advance_prefills()
         return self.decode_once(), inserted
 
+    def can_resume(self, pre: "PreemptedRequest") -> bool:
+        """Dense rows are allocated up front: a snapshot can always
+        re-enter a free slot (the paged engine checks its pages)."""
+        return True
+
+    def preempt(self, slot: int) -> "PreemptedRequest":
+        """Snapshot row ``slot``'s cache rows and position to host
+        memory and free the lane: the dense twin of the paged engine's
+        verb."""
+        if not self.live[slot]:
+            raise ValueError(f"slot {slot} is not live")
+        kv = _map_leaves(self.state.cache, lambda t, axis: _host_copy(
+            t.narrow(axis, slot, 1)))
+        pre = PreemptedRequest(
+            kv=kv, n_pages=0, length=self.row_ctx[slot],
+            last_token=int(self.state.last_token[slot]))
+        self.evict(slot)
+        return pre
+
+    def resume(self, pre: "PreemptedRequest", slot: int) -> None:
+        """Re-admit a preempted snapshot into free slot ``slot``; the
+        request continues bit for bit, with no prefill recompute."""
+        if self.live[slot] or slot in self._pending:
+            raise ValueError(f"slot {slot} is not free")
+        cache = _map_leaves(pre.kv, lambda t, axis: t.to(self.device))
+        self._insert(PrefillResult(cache=cache, length=pre.length,
+                                   next_token=pre.last_token), slot)
+        self.row_ctx[slot] = pre.length
+        self.live[slot] = True
+
     def evict(self, slot: int) -> None:
         """Reclaim ``slot`` (request finished or cancelled)."""
         evict(self.state, slot)
         self.row_ctx[slot] = 0
         self.live[slot] = False
+
+
+# ---------------------------------------------------------------------------
+# paged KV: PageAllocator -> PagedDecodeState -> paged engine
+# ---------------------------------------------------------------------------
+
+class OutOfPages(RuntimeError):
+    """The page pool cannot satisfy an allocation: the caller must
+    preempt a live request (or wait for one to finish) first."""
+
+
+class PageAllocator:
+    """Host-side free-list allocator over a fixed KV page pool.
+
+    Page 0 is a reserved null page: it is never handed out, so a zeroed
+    block-table row (a dead batch lane) references it harmlessly; the
+    kernels never read past a dead row's length 0.  Keys are arbitrary
+    (the engine uses batch slot indices); ``pages[key]`` lists the key's
+    page ids in row order, the prefix of its block-table row.
+    """
+
+    def __init__(self, num_pages: int, page_size: int):
+        if num_pages < 2:
+            raise ValueError("need >= 2 pages (page 0 is the reserved "
+                             "null page)")
+        if page_size % 8:
+            raise ValueError("page_size must be sublane-aligned (8)")
+        self.num_pages = num_pages
+        self.page_size = page_size
+        # pop() order 1, 2, 3, ...; page 0 never enters the free list
+        self._free = list(range(num_pages - 1, 0, -1))
+        self.pages: dict = {}             # key -> [page ids, row order]
+        self.peak_used = 0
+        #: bookkeeping oddities worth surfacing (a release of an
+        #: already-released key): recorded, never raised
+        self.notes: list = []
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return (self.num_pages - 1) - len(self._free)
+
+    def pages_for(self, n_tokens: int) -> int:
+        """Pages needed to hold ``n_tokens`` KV entries."""
+        return -(-int(n_tokens) // self.page_size)
+
+    def alloc(self, key, n: int) -> list:
+        """Append ``n`` fresh pages to ``key``'s list.  All or nothing:
+        raises :class:`OutOfPages`, allocating none, when the free list
+        is short."""
+        if n > len(self._free):
+            raise OutOfPages(
+                f"need {n} pages for {key!r} but only {len(self._free)} "
+                f"of {self.num_pages - 1} are free — preempt or evict")
+        ids = [self._free.pop() for _ in range(n)]
+        self.pages.setdefault(key, []).extend(ids)
+        self.peak_used = max(self.peak_used, self.used_pages)
+        return ids
+
+    def ensure(self, key, n_tokens: int) -> list:
+        """Grow ``key``'s list to cover ``n_tokens`` entries; returns
+        the newly allocated ids ([] when already covered)."""
+        need = self.pages_for(n_tokens) - len(self.pages.get(key, []))
+        return self.alloc(key, need) if need > 0 else []
+
+    def release(self, key) -> list:
+        """Free every page held by ``key``.  Idempotent: an unknown or
+        already-released key returns ``[]`` and leaves a note, a
+        scheduler bookkeeping smell worth surfacing and never worth
+        killing the batch over."""
+        if key not in self.pages:
+            self.notes.append(
+                f"release({key!r}): unknown or already-released key "
+                f"(no-op)")
+            return []
+        ids = self.pages.pop(key)
+        self._free.extend(reversed(ids))
+        return ids
+
+
+@dataclasses.dataclass
+class PagedDecodeState:
+    """DecodeState whose cache leaves are page pools
+    ``(num_pages, Hkv, page, Dh)`` (the body's carry the leading
+    ``n_periods`` axis) plus the ``(B, max_pages)`` int32 block table
+    every layer shares."""
+    cache: Any
+    cache_len: torch.Tensor       # (B,) int32: per-row filled prefix
+    last_token: torch.Tensor      # (B,) int32
+    block_tables: torch.Tensor    # (B, max_pages) int32 page ids
+
+
+@dataclasses.dataclass
+class PreemptedRequest:
+    """A preempted request's host snapshot: the gathered page contents
+    per layer (the cache's {"prefix", "scan"} structure, attn leaves
+    (n, Hkv, page, Dh) / (n_periods, n, ...); the dense engine's
+    snapshot holds its B=1 cache rows with ``n_pages`` 0), its token
+    position and last sampled token.  ``resume`` scatters it into
+    freshly allocated pages: the KV bits are the same, so the
+    continuation is the same."""
+    kv: Any
+    n_pages: int
+    length: int
+    last_token: int
+
+
+def init_paged_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
+                            num_pages: int, page_size: int,
+                            dtype=torch.bfloat16,
+                            device="cuda") -> PagedDecodeState:
+    """Allocate the paged cache state: per-layer page pools plus one
+    zeroed block table.  ``max_len`` bounds one row's context and fixes
+    the table's width; the pool bounds the KV memory of all rows."""
+    tf.check_dense(cfg)                 # pools cover GQA caches only
+    dev = resolve_device(device)
+    if max_len % page_size:
+        raise ValueError(f"max_len {max_len} must be a multiple of the "
+                         f"page size {page_size}")
+    shape = (num_pages, cfg.kv_heads, page_size, cfg.head_dim)
+
+    def layer(lead=()):
+        return {"attn": {k: torch.zeros((*lead, *shape), dtype=dtype,
+                                        device=dev) for k in ("k", "v")}}
+
+    return PagedDecodeState(
+        cache={"prefix": [layer() for _ in range(cfg.first_dense_layers)],
+               "scan": [layer((cfg.n_periods,))
+                        for _ in range(cfg.layer_period)]},
+        cache_len=torch.zeros(batch, dtype=torch.int32, device=dev),
+        last_token=torch.zeros(batch, dtype=torch.int32, device=dev),
+        block_tables=torch.zeros((batch, max_len // page_size),
+                                 dtype=torch.int32, device=dev))
+
+
+def _pairs(cache, other):
+    """(cache leaf, other leaf, scanned) over two trees of one
+    structure."""
+    for (a, axis), (b, _) in zip(_rows(cache), _rows(other)):
+        yield a, b, axis == 1
+
+
+def _page_chunks(dense_row: torch.Tensor, n: int, page: int):
+    """(..., Hkv, max_len, Dh) dense rows -> their first n pages,
+    (..., n, Hkv, page, Dh)."""
+    *lead, hkv, _, dh = dense_row.shape
+    return dense_row[..., :n * page, :].reshape(
+        *lead, hkv, n, page, dh).movedim(-3, -4)
+
+
+def _set_table_row(tables: torch.Tensor, slot: int, idx) -> None:
+    """Zero row ``slot`` and write ``idx`` as its leading prefix."""
+    tables[slot] = 0
+    tables[slot, :len(idx)] = torch.as_tensor(idx, dtype=tables.dtype)
+
+
+def insert_paged(state: PagedDecodeState, result: PrefillResult, slot: int,
+                 page_ids: list) -> PagedDecodeState:
+    """Scatter a dense B=1 prefill cache into pool pages, in place: each
+    layer's (1, Hkv, max_len, Dh) rows are cut into page chunks written
+    to ``page_ids``; the slot's block-table row becomes ``page_ids``
+    (zero-padded).  Prefill itself stays dense: paging happens once,
+    here, at admission."""
+    idx = torch.as_tensor(page_ids, dtype=torch.long,
+                          device=state.block_tables.device)
+    n = len(page_ids)
+    for pool, dense, scanned in _pairs(state.cache, result.cache):
+        page = pool.shape[-2]
+        if scanned:     # (n_periods, pages, ...) vs (n_periods, 1, ...)
+            pool[:, idx] = _page_chunks(dense[:, 0], n, page).to(pool.dtype)
+        else:
+            pool[idx] = _page_chunks(dense[0], n, page).to(pool.dtype)
+    state.cache_len[slot] = int(result.length)
+    state.last_token[slot] = int(result.next_token)
+    _set_table_row(state.block_tables, slot, page_ids)
+    return state
+
+
+def evict_paged(state: PagedDecodeState, slot: int) -> PagedDecodeState:
+    """Free batch row ``slot``: zero its table row, position and token.
+    The caller releases the pages on the allocator; the pool bits stay
+    and are overwritten when the pages are next handed out."""
+    state.cache_len[slot] = 0
+    state.last_token[slot] = 0
+    state.block_tables[slot] = 0
+    return state
+
+
+def gather_slot_pages(state: PagedDecodeState, page_ids: list):
+    """The page contents backing one row, gathered from every layer's
+    pool: fresh tensors on the pool's device (an index gather copies),
+    which ``preempt`` moves to host memory."""
+    idx = torch.as_tensor(page_ids, dtype=torch.long,
+                          device=state.block_tables.device)
+    return _map_leaves(state.cache,
+                       lambda t, axis: t[:, idx] if axis else t[idx])
+
+
+def resume_paged(state: PagedDecodeState, pre: PreemptedRequest, slot: int,
+                 page_ids: list) -> PagedDecodeState:
+    """Scatter a preempted request's KV snapshot into fresh pages and
+    point the slot's table row at them, in place.  The pages differ,
+    the bits do not: generation continues where preemption cut it."""
+    idx = torch.as_tensor(page_ids, dtype=torch.long,
+                          device=state.block_tables.device)
+    for pool, saved, scanned in _pairs(state.cache, pre.kv):
+        saved = saved.to(device=pool.device, dtype=pool.dtype)
+        if scanned:
+            pool[:, idx] = saved
+        else:
+            pool[idx] = saved
+    state.cache_len[slot] = pre.length
+    state.last_token[slot] = pre.last_token
+    _set_table_row(state.block_tables, slot, page_ids)
+    return state
+
+
+class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
+    """Continuous batching over a paged KV cache.
+
+    The dense engine's lifecycle and scheduler interface
+    (``begin_prefill / step / evict``: ``RequestBatcher.serve`` drives
+    both), over a page pool: ``begin_prefill`` reserves
+    ``ceil((len + 1) / page)`` pages for the lease up front (so rows
+    growing during a chunked prefill cannot drain the pool under it),
+    the completed prefill scatters into the reserved pages, each decode
+    step grows the page list of any live row crossing a page boundary,
+    and eviction returns the pages to the free list.  Two more verbs:
+
+    * ``preempt(slot)``: snapshot the row's pages and position to host
+      memory, free the pages, clear the slot.  Costs one gather.
+    * ``resume(pre, slot)``: re-admit a snapshot into fresh pages; the
+      request continues bit for bit, with no prefill recompute.
+
+    ``step_page_deficit()`` tells the scheduler how many pages short
+    the next decode step would run: its cue to preempt before the
+    in-step ``ensure`` raises :class:`OutOfPages`.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, *, batch_size: int,
+                 page_size: int, num_pages: int,
+                 max_len: Optional[int] = None, plan=None,
+                 dtype=torch.float32, prefill_chunk: Optional[int] = None,
+                 device="cuda"):
+        self.page_size, self.num_pages = page_size, num_pages
+        self.allocator = PageAllocator(num_pages, page_size)
+        # monotone lease stamps: the scheduler preempts the newest lease
+        # first (it has the least sunk prefill and decode work)
+        self.lease_order = [0] * batch_size
+        self._lease_clock = 0
+        # host mirror of how many of each slot's pages the device block
+        # table already indexes: a decode step retried after an
+        # OutOfPages mid-loop re-derives exactly the table writes the
+        # failed attempt never made
+        self._table_pages = [0] * batch_size
+        super().__init__(params, cfg, batch_size=batch_size,
+                         max_len=max_len, plan=plan, dtype=dtype,
+                         prefill_chunk=prefill_chunk, device=device)
+
+    def _init_state(self):
+        return init_paged_decode_state(
+            self.cfg, self.batch_size, self.max_len,
+            num_pages=self.num_pages, page_size=self.page_size,
+            dtype=self.dtype, device=self.device)
+
+    # -- page accounting ---------------------------------------------------
+
+    def can_admit_tokens(self, n_tokens: int) -> bool:
+        """Can a fresh ``n_tokens``-token prompt be admitted now?  It
+        needs pages for the prompt plus its first decoded token."""
+        return self.allocator.pages_for(n_tokens + 1) \
+            <= self.allocator.num_free
+
+    def can_resume(self, pre: PreemptedRequest) -> bool:
+        """Can a preempted snapshot be re-admitted now?  It needs its
+        saved pages back, and room for the next decoded token."""
+        return max(pre.n_pages, self.allocator.pages_for(pre.length + 1)) \
+            <= self.allocator.num_free
+
+    def step_page_deficit(self) -> int:
+        """Pages the next decode step needs beyond the free list (0
+        when the step can run)."""
+        need = sum(
+            max(0, self.allocator.pages_for(self.row_ctx[i] + 1)
+                - len(self.allocator.pages.get(i, [])))
+            for i in range(self.batch_size) if self.live[i])
+        return max(0, need - self.allocator.num_free)
+
+    # -- lifecycle overrides -----------------------------------------------
+
+    def begin_prefill(self, slot: int, prompt) -> None:
+        """Lease ``slot`` and reserve the prompt's pages plus the first
+        decoded token's (what ``can_admit_tokens`` checks).  The prefill
+        runs on a dense side cache over the following steps; the
+        reservation guarantees the pool can take the result however the
+        live rows grow meanwhile."""
+        super().begin_prefill(slot, prompt)
+        try:
+            self.allocator.alloc(
+                slot, self.allocator.pages_for(len(prompt) + 1))
+        except OutOfPages:
+            del self._pending[slot]
+            raise
+
+    def _insert(self, res: PrefillResult, slot: int) -> None:
+        insert_paged(self.state, res, slot, self.allocator.pages[slot])
+        self._table_pages[slot] = len(self.allocator.pages[slot])
+        self._lease_clock += 1
+        self.lease_order[slot] = self._lease_clock
+
+    def _before_decode(self) -> None:
+        # Grow rows whose next token crosses into a new page.  Two
+        # phases for retry safety: ``ensure`` may raise OutOfPages
+        # mid-loop after earlier rows' allocations committed on the
+        # allocator, so the device table and its host mirror are only
+        # touched once every ensure has succeeded; a retry then sees
+        # ``pages[i]`` ahead of ``_table_pages[i]`` and issues exactly
+        # the writes the failed attempt never made.
+        updates = []
+        for i in range(self.batch_size):
+            if not self.live[i]:
+                continue
+            self.allocator.ensure(i, self.row_ctx[i] + 1)
+            ids = self.allocator.pages.get(i, [])
+            if len(ids) != self._table_pages[i]:
+                updates.append((i, self._table_pages[i],
+                                ids[self._table_pages[i]:]))
+        tbl = self.state.block_tables
+        for i, start, new in updates:
+            tbl[i, start:start + len(new)] = torch.as_tensor(
+                new, dtype=tbl.dtype)
+        for i, start, new in updates:
+            self._table_pages[i] = start + len(new)
+
+    def evict(self, slot: int) -> None:
+        self.allocator.release(slot)
+        evict_paged(self.state, slot)
+        self.row_ctx[slot] = 0
+        self.live[slot] = False
+        self._table_pages[slot] = 0
+
+    def preempt(self, slot: int) -> PreemptedRequest:
+        """Save row ``slot``'s KV pages and position to host memory and
+        free the slot (pages, table row, lane).  The snapshot is a host
+        copy: the freed pages are overwritten in place once reissued."""
+        if not self.live[slot]:
+            raise ValueError(f"slot {slot} is not live")
+        ids = list(self.allocator.pages[slot])
+        kv = _map_leaves(gather_slot_pages(self.state, ids),
+                         lambda t, axis: _host_copy(t))
+        pre = PreemptedRequest(kv=kv, n_pages=len(ids),
+                               length=self.row_ctx[slot],
+                               last_token=int(self.state.last_token[slot]))
+        self.evict(slot)
+        return pre
+
+    def resume(self, pre: PreemptedRequest, slot: int) -> None:
+        """Re-admit a preempted snapshot into free slot ``slot``."""
+        if self.live[slot] or slot in self._pending:
+            raise ValueError(f"slot {slot} is not free")
+        ids = self.allocator.alloc(slot, pre.n_pages)
+        resume_paged(self.state, pre, slot, ids)
+        self.row_ctx[slot] = pre.length
+        self.live[slot] = True
+        self._table_pages[slot] = len(ids)
+        self._lease_clock += 1
+        self.lease_order[slot] = self._lease_clock

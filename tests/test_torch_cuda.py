@@ -8,19 +8,26 @@ Each kernel against its plain PyTorch version on the same inputs, in
 fp32 (atol/rtol 1e-4: fp32 FMAs in another order) and bf16 (2e-2: both
 round p, Q and the output to bf16, unit roundoff 2^-8), over a GQA
 group of 3, a length of 0, a ragged length and Sq > 1; the decode
-megakernel's head sum is deterministic; launches are counted.
+megakernel's head sum is deterministic; launches are counted.  Each
+paged kernel, over a shuffled table of a pool larger than the batch
+needs (pages of 8, 40 and 128, a dead row whose table row is zeros),
+matches its plain version and gives bit for bit its dense kernel's
+output on the gathered cache: the two share one body.
 """
 
 import pytest
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 from repro_torch.kernels.fused_attention import (
-    fused_attention_masked, fused_attention_masked_plain)
+    fused_attention_masked, fused_attention_masked_plain,
+    fused_attention_paged, fused_attention_paged_plain)
 from repro_torch.kernels.fused_decode_block import (
-    fused_decode_block, fused_decode_block_plain)
+    fused_decode_block, fused_decode_block_paged,
+    fused_decode_block_paged_plain, fused_decode_block_plain)
 from repro_torch.kernels.fused_qproj_attention import (
-    fused_qproj_attention_masked, fused_qproj_attention_masked_plain)
+    fused_qproj_attention_masked, fused_qproj_attention_masked_plain,
+    fused_qproj_attention_paged, fused_qproj_attention_paged_plain)
 
 torch.set_num_threads(2)
 
@@ -90,14 +97,96 @@ def test_fused_decode_block_matches_plain(cuda_device, dtype, tol):
     assert torch.equal(got[0], t["res"][0])       # the length-0 row
 
 
+def _paged(k, v, page, seed=0, dead=()):
+    """The dense (B, Hkv, Skv, D) caches k, v, padded to whole pages and
+    scattered into random pools of more pages than they need, through a
+    shuffled (B, max_pages) int32 table; rows in ``dead`` get an
+    all-zero table row.  Returns (k pool, v pool, table, padded k,
+    padded v) with gather_pages(pool, table) == padded cache on the
+    live rows."""
+    b, hkv, skv, d = k.shape
+    max_pages = -(-skv // page)
+    pad = max_pages * page - skv
+    k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    g = torch.Generator(device=k.device).manual_seed(seed)
+    n_pages = b * max_pages + 7
+    ids = torch.randperm(n_pages - 1, generator=g, device=k.device) + 1
+    tbl = ids[:b * max_pages].reshape(b, max_pages).to(torch.int32)
+
+    def pool(x):
+        out = torch.randn(n_pages, hkv, page, d, generator=g,
+                          device=x.device).to(x.dtype)
+        out[tbl.flatten().long()] = x.reshape(
+            b, hkv, max_pages, page, d).movedim(2, 1).reshape(-1, hkv, page, d)
+        return out
+
+    kp, vp = pool(k), pool(v)
+    tbl[list(dead)] = 0
+    return kp, vp, tbl.contiguous(), k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("page", [8, 40, 128])
+def test_paged_kernels_match_plain_and_dense(cuda_device, dtype, tol, page):
+    t = _inputs(cuda_device, dtype)
+    kp, vp, tbl, k, v = _paged(t["k"], t["v"], page, dead=(0,))
+    assert torch.equal(ref.gather_pages(kp, tbl)[1:], k[1:])
+    lens = t["lens"]                                  # row 0: length 0
+    cases = [
+        (lambda: fused_attention_paged(t["q"], kp, vp, lens, tbl),
+         lambda: fused_attention_paged_plain(t["q"], kp, vp, lens, tbl),
+         lambda: fused_attention_masked(t["q"], k, v, lens)),
+        (lambda: fused_qproj_attention_paged(t["x"], t["wq"], kp, vp, lens,
+                                             tbl, rope_theta=1e4),
+         lambda: fused_qproj_attention_paged_plain(
+             t["x"], t["wq"], kp, vp, lens, tbl, rope_theta=1e4),
+         lambda: fused_qproj_attention_masked(t["x"], t["wq"], k, v, lens,
+                                              rope_theta=1e4)),
+        (lambda: fused_decode_block_paged(t["x1"], t["wq"], kp, vp, t["wo"],
+                                          t["res"], lens, tbl,
+                                          rope_theta=1e4),
+         lambda: fused_decode_block_paged_plain(
+             t["x1"], t["wq"], kp, vp, t["wo"], t["res"], lens, tbl,
+             rope_theta=1e4),
+         lambda: fused_decode_block(t["x1"], t["wq"], k, v, t["wo"],
+                                    t["res"], lens, rope_theta=1e4)),
+    ]
+    for kernel, plain, dense in cases:
+        got = kernel()
+        torch.testing.assert_close(got.float(), plain().float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(got, dense())
+
+
+@pytest.mark.cuda
+def test_paged_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    t = _inputs(cuda_device, torch.bfloat16)
+    kp, vp, tbl, _, _ = _paged(t["k"], t["v"], 8)
+    with pytest.raises(ValueError, match="int32"):
+        fused_attention_paged(t["q"], kp, vp, t["lens"], tbl.long())
+    with pytest.raises(ValueError, match="int32"):
+        fused_attention_paged(t["q"], kp, vp, t["lens"], tbl.cpu())
+    kp12, vp12, tbl12, _, _ = _paged(t["k"], t["v"], 12)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_decode_block_paged(t["x1"], t["wq"], kp12, vp12, t["wo"],
+                                 t["res"], t["lens"], tbl12)
+
+
 @pytest.mark.cuda
 def test_launches_are_counted(cuda_device):
     t = _inputs(cuda_device, torch.bfloat16)
+    kp, vp, tbl, _, _ = _paged(t["k"], t["v"], 8)
     build.reset_launches()
     fused_attention_masked(t["q"], t["k"], t["v"], t["lens"])
     fused_qproj_attention_masked(t["x"], t["wq"], t["k"], t["v"], t["lens"])
     fused_decode_block(t["x1"], t["wq"], t["k"], t["v"], t["wo"], t["res"],
                        t["lens"])
+    fused_attention_paged(t["q"], kp, vp, t["lens"], tbl)
+    fused_qproj_attention_paged(t["x"], t["wq"], kp, vp, t["lens"], tbl)
+    fused_decode_block_paged(t["x1"], t["wq"], kp, vp, t["wo"], t["res"],
+                             t["lens"], tbl)
     torch.cuda.synchronize()
     assert all(build.LAUNCHES[n] == 1 for n in build.KERNELS)
 

@@ -49,7 +49,9 @@ def _entry_points():
     from repro_torch.lower import serving_plan
     from repro_torch.models.weights import init_params, params_from_numpy
     from repro_torch.serve.engine import (ContinuousBatchingEngine,
+                                          PagedContinuousBatchingEngine,
                                           init_decode_state,
+                                          init_paged_decode_state,
                                           make_serving_plan,
                                           prefill_request)
     cfg = configs.get_config("starcoder2-7b", smoke=True)
@@ -62,10 +64,16 @@ def _entry_points():
         lambda: prefill_request(None, cfg, [1, 2], max_len=64),
         lambda: ContinuousBatchingEngine(None, cfg, batch_size=1,
                                          max_len=64),
+        lambda: make_serving_plan(cfg, 64, paged=True, page_size=16),
+        lambda: init_paged_decode_state(cfg, 1, 64, num_pages=4,
+                                        page_size=16),
+        lambda: PagedContinuousBatchingEngine(None, cfg, batch_size=1,
+                                              max_len=64, page_size=16,
+                                              num_pages=4),
     ]
 
 
-@pytest.mark.parametrize("i", range(7))
+@pytest.mark.parametrize("i", range(10))
 def test_default_device_is_cuda_and_raises_without_it(i):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
