@@ -29,8 +29,24 @@ Phases, in order:
   5. qwen   -- qwen3-8b at full width, depth cut to 4 layers, two
                prompts; its decode past C = 2N runs fused_attention_masked
                on the dense engine and fused_attention_paged on the paged
-               one.
-Every kernel must have launched on some path.  The last three lines of
+               one;
+  6. qproj train -- the cache-free ops.qproj_attention entry point,
+               forward and backward at starcoder2-7b's training shapes
+               (fused_qproj_attention_fwd, then the two backward
+               kernels), its four gradients against the plain versions;
+  7. train parity -- starcoder2-7b at full width cut to 2 layers: the
+               loss and every gradient of one batch, then two AdamW
+               steps, on the kernels and on the plain versions;
+  8. train  -- launch/train.train_loop at full width and depth: 32
+               layers, remat full, bf16 moments, B=2, seq 2048, 3 steps:
+               loss, grad_norm, step time, tokens/s, peak memory and the
+               training kernels' launches per step; every per-layer
+               gradient finite and non-zero; then one step under
+               torch.profiler, by part.
+The kernel phase also holds the four training kernels (#7-#10) to their
+plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
+causal) and times them.  Every kernel must have launched on some path.
+The last three lines of
 stdout are the kernels' JSON record, the card's name and power limit,
 and {"ok": true, "device": {...}}.  Any failure exits non-zero and
 prints no ok line.  Imports nothing of JAX or of the JAX package.
@@ -39,7 +55,10 @@ prints no ok line.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import collections
+import gc
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -109,6 +128,18 @@ def rel_err(out, want) -> tuple[float, float]:
 KERNEL_TOL = 2e-2
 
 
+def check_kernel(name, got, want, tag):
+    """A kernel's output against its plain version's: finite and within
+    KERNEL_TOL of the largest |want|.  Returns the max abs error."""
+    err, rel = rel_err(got, want)
+    ok = bool(torch.isfinite(got.float()).all()) and rel <= KERNEL_TOL
+    log(f"  {name} [{tag}] max_abs_err={err:.3e} rel={rel:.3e} "
+        f"tol={KERNEL_TOL} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name} disagrees with its plain version ({tag})")
+    return err
+
+
 def _valid_cols(lengths, sq, causal):
     """Score entries and KV rows the masked kernels need for these
     lengths: (entries per (b, q-head), kv rows per b)."""
@@ -142,16 +173,7 @@ def kernel_phase(dev, g):
                 * scale).to(bf)
 
     results = {}
-
-    def check(name, got, want, tag):
-        err, rel = rel_err(got, want)
-        ok = bool(torch.isfinite(got.float()).all()) and rel <= KERNEL_TOL
-        log(f"  {name} [{tag}] max_abs_err={err:.3e} rel={rel:.3e} "
-            f"tol={KERNEL_TOL} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"{name} disagrees with its plain version "
-                             f"({tag})")
-        return err
+    check = check_kernel
 
     # -- 1. fused_attention_masked: the first prefill chunk --------------
     sq = 256
@@ -570,7 +592,8 @@ def device_report(prof, wall_s: float, title: str, top: int = 8) -> float:
     the device busy time in ms."""
     from torch.autograd import DeviceType
     rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(r[1] for r in rows)
     if not busy_us:
         raise SystemExit(f"{title}: the profiler recorded no device time")
@@ -970,6 +993,484 @@ def qwen_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# training: kernels #7-#10, the 2-layer parity, the full-depth run
+# ---------------------------------------------------------------------------
+
+#: the training kernels' main-path shapes: starcoder2-7b, B=2, seq 2048
+TRAIN_B, TRAIN_SEQ, TRAIN_LR = 2, 2048, 3e-4
+#: the training kernels of the model's layers
+TRAIN_KERNELS = ("fused_attention_fwd", "fused_attention_bwd_dq",
+                 "fused_attention_bwd_dkv")
+
+
+def _train_launches(cfg) -> dict:
+    """The training kernels' launches in one forward and backward with
+    remat "full": each layer's forward runs twice (the forward and the
+    recompute), its backward once."""
+    return {"fused_attention_fwd": 2 * cfg.n_layers,
+            "fused_attention_bwd_dq": cfg.n_layers,
+            "fused_attention_bwd_dkv": cfg.n_layers}
+
+
+def _causal_entries(b, hq, sq):
+    """Score entries of a causal square attention: the work each
+    training kernel needs, (B * Hq) rows of r + 1 columns."""
+    return b * hq * sq * (sq + 1) // 2
+
+
+def train_kernel_phase(dev, g, check):
+    """#7, #8, #9 at starcoder2-7b's training shapes (bf16, causal, B=2,
+    Sq = Skv = 2048) and #10's forward on x (2, 2048, 4608), each against
+    its plain version, timed on CUDA events, with its bound and its
+    library yardstick (SDPA's forward for #7; SDPA's backward, forward +
+    backward less the forward, for #8 and #9 together: SDPA splits the
+    backward its own way, so that one number stands in both rows)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_attention import (
+        fused_attention_bwd_dkv, fused_attention_bwd_dkv_plain,
+        fused_attention_bwd_dq, fused_attention_bwd_dq_plain,
+        fused_attention_fwd, fused_attention_fwd_plain)
+    from repro_torch.kernels.fused_qproj_attention import (
+        fused_qproj_attention_fwd, fused_qproj_attention_fwd_plain)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf = torch.bfloat16
+    E, HQ, HKV, D = (STARCODER[k] for k in ("E", "HQ", "HKV", "D"))
+    b, sq, theta = TRAIN_B, TRAIN_SEQ, 1e5
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev)
+                * scale).to(bf)
+
+    q, k, v, do = rnd(b, HQ, sq, D), rnd(b, HKV, sq, D), rnd(b, HKV, sq, D), \
+        rnd(b, HQ, sq, D)
+    ent = _causal_entries(b, HQ, sq)
+    qb, kvb = q.numel() * 2, k.numel() * 2       # bf16 bytes
+    rowb = b * HQ * sq * 4                       # an fp32 (B, Hq, Sq) row
+    results = {}
+
+    o, lse = fused_attention_fwd(q, k, v)
+    o_p, lse_p = fused_attention_fwd_plain(q, k, v)
+    err = max(check("fused_attention_fwd", o, o_p, f"B={b} S={sq} o"),
+              check("fused_attention_fwd", lse, lse_p, f"B={b} S={sq} lse"))
+    f7 = lambda: fused_attention_fwd(q, k, v)
+    lib7 = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    bms, by = bound(2 * qb + 2 * kvb + rowb, 4 * D * ent)
+    results["fused_attention_fwd"] = dict(
+        source="src/repro_torch/kernels/csrc/fused_attention.cu",
+        replaces="src/repro/kernels/fused_attention.py:155",
+        max_abs_err=err, ms=time_ms(f7, 10),
+        plain_ms=time_ms(lambda: fused_attention_fwd_plain(q, k, v), 2, 1),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(lib7, 10))
+    del o, lse
+
+    delta = ref.attention_delta(o_p, do)
+    args = (q, k, v, do, lse_p, delta)
+    dq = fused_attention_bwd_dq(*args)
+    dk, dv = fused_attention_bwd_dkv(*args)
+    tag = f"B={b} S={sq}"
+    err8 = check("fused_attention_bwd_dq", dq,
+                 fused_attention_bwd_dq_plain(*args), f"{tag} dq")
+    want_k, want_v = fused_attention_bwd_dkv_plain(*args)
+    err9 = max(check("fused_attention_bwd_dkv", dk, want_k, f"{tag} dk"),
+               check("fused_attention_bwd_dkv", dv, want_v, f"{tag} dv"))
+    again = fused_attention_bwd_dkv(*args)
+    if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
+        raise SystemExit("fused_attention_bwd_dkv is not deterministic")
+    del dq, dk, dv, want_k, want_v, again
+    # the library's backward: SDPA forward + backward less its forward
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    fwd_g = lambda: sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+    both = lambda: torch.autograd.grad(fwd_g(), (qg, kg, vg), do)
+    lib_bwd = time_ms(both, 5) - time_ms(fwd_g, 5)
+    log(f"  SDPA backward (forward + backward less forward): "
+        f"{lib_bwd:.4f} ms for dq, dk and dv together")
+    bms, by = bound(2 * qb + 2 * kvb + 2 * rowb + qb, 6 * D * ent)
+    results["fused_attention_bwd_dq"] = dict(
+        source="src/repro_torch/kernels/csrc/fused_attention_bwd.cu",
+        replaces="src/repro/kernels/fused_attention.py:537",
+        max_abs_err=err8, ms=time_ms(lambda: fused_attention_bwd_dq(*args), 5),
+        plain_ms=time_ms(lambda: fused_attention_bwd_dq_plain(*args), 2, 1),
+        bound_ms=bms, bound_by=by, library_ms=lib_bwd)
+    bms, by = bound(2 * qb + 2 * kvb + 2 * rowb + 2 * kvb, 8 * D * ent)
+    results["fused_attention_bwd_dkv"] = dict(
+        source="src/repro_torch/kernels/csrc/fused_attention_bwd.cu",
+        replaces="src/repro/kernels/fused_attention.py:564",
+        max_abs_err=err9,
+        ms=time_ms(lambda: fused_attention_bwd_dkv(*args), 5),
+        plain_ms=time_ms(lambda: fused_attention_bwd_dkv_plain(*args), 2, 1),
+        bound_ms=bms, bound_by=by, library_ms=lib_bwd)
+    del qg, kg, vg, o_p, lse_p, delta, args
+
+    x, wq = rnd(b, sq, E), rnd(E, HQ, D, scale=E ** -0.5)
+    f10 = lambda: fused_qproj_attention_fwd(x, wq, k, v, rope_theta=theta)
+    p10 = lambda: fused_qproj_attention_fwd_plain(x, wq, k, v,
+                                                  rope_theta=theta)
+    (o, lse), (o_p, lse_p) = f10(), p10()
+    err = max(check("fused_qproj_attention_fwd", o, o_p, f"B={b} S={sq} o"),
+              check("fused_qproj_attention_fwd", lse, lse_p,
+                    f"B={b} S={sq} lse"))
+    bms, by = bound(x.numel() * 2 + wq.numel() * 2 + 2 * kvb + qb + rowb,
+                    2 * b * sq * E * HQ * D + 4 * D * ent)
+    results["fused_qproj_attention_fwd"] = dict(
+        source="src/repro_torch/kernels/csrc/fused_qproj_attention.cu",
+        replaces="src/repro/kernels/fused_qproj_attention.py:104",
+        max_abs_err=err, ms=time_ms(f10, 5), plain_ms=time_ms(p10, 2, 1),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    for name, r in results.items():
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"  {name}: kernel_ms={r['ms']:.4f} plain_ms="
+            f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}) library_ms={lib}")
+    return results
+
+
+#: bf16 tolerances of the 2-layer train parity, kernels against plain
+#: versions.  Loss and grad_norm: relative 1e-2 (both are sums over the
+#: whole batch of values the two runs round to bf16 at the same points
+#: and sum in other orders).  Each gradient leaf: KERNEL_TOL of its
+#: largest magnitude.  Parameters after two AdamW steps: 4 * lr plus 2
+#: bf16 ulps of the leaf's largest magnitude, absolute: AdamW's update is
+#: about lr * sign(g) per step (at most lr in magnitude for steps 1 and
+#: 2), so a near-zero gradient whose sign differs between the runs moves
+#: one element by up to 2 * lr per step.
+PARITY_REL = 1e-2
+
+
+def _grad_leaves(tree, name=""):
+    """(name, tensor) of every leaf of a parameter or gradient tree,
+    stacked ``layers`` leaves split per layer: the leaves the model
+    differentiates.  (A plain recursion: a nested recursive closure
+    would hold the tensors in a reference cycle until the garbage
+    collector runs, 14.8 GB of gradients at full size.)"""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _grad_leaves(tree[k], f"{name}.{k}" if name else k)]
+    if isinstance(tree, list):
+        return [x for i, t in enumerate(tree)
+                for x in _grad_leaves(t, f"{name}[{i}]")]
+    if name.startswith("layers"):
+        return [(f"{name}[layer {j}]", tree[j]) for j in range(tree.shape[0])]
+    return [(name, tree)]
+
+
+def check_grads_nonzero(grads, phase):
+    """Every per-layer gradient leaf is finite and not all zero."""
+    bad = [n for n, t in _grad_leaves(grads)
+           if not bool(torch.isfinite(t).all()) or t.abs().max().item() == 0]
+    if bad:
+        raise SystemExit(f"{phase}: zero or non-finite gradients: {bad[:8]}")
+    return len(_grad_leaves(grads))
+
+
+def train_parity_phase(dev):
+    """starcoder2-7b at full width cut to 2 layers, bf16, random weights
+    from seed 0: the loss and gradients of one batch, then two AdamW
+    steps on SyntheticTokenDataset(seed=0) batches, on the kernels and
+    with impl forced to the plain versions; loss, grad_norm, every
+    gradient leaf and the parameters after the updates compared.
+    Returns the kernel run's launches."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.kernels import build
+    from repro_torch.train import step as train_step
+
+    cfg = dataclasses.replace(configs.get_config("starcoder2-7b"), n_layers=2)
+    ds = SyntheticTokenDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_B, seed=0,
+                               structured=True)
+    batches = [{"tokens": torch.from_numpy(ds.batch(i)).long().to(dev)}
+               for i in range(2)]
+    runs = {}
+    for impl in ("auto", "torch"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        state = train_step.init_train_state(gen, cfg, moment_dtype="bfloat16",
+                                            device=dev)
+        before = [t.clone() for _, t in _grad_leaves(state.params)]
+        build.reset_launches()
+        (loss, _), grads = train_step.value_and_grad(state.params, cfg,
+                                                     batches[0], impl=impl)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        metrics = []
+        for bt in batches:
+            state, m = train_step.train_step(state, bt, cfg, lr=TRAIN_LR,
+                                             impl=impl)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[impl] = (float(loss), grads, metrics, before,
+                      _grad_leaves(state.params), launches)
+        del state
+    (l_k, g_k, m_k, p0, p_k, launches), (l_p, g_p, m_p, _, p_p, plain_l) = \
+        runs["auto"], runs["torch"]
+    log(f"train parity: {cfg.name} d_model={cfg.d_model} cut to "
+        f"{cfg.n_layers} layers, B={TRAIN_B} seq {TRAIN_SEQ}, bf16, "
+        f"launches on the kernels {launches}, on the plain versions "
+        f"{plain_l or 'none'}")
+    want = _train_launches(cfg)
+    if {n: launches.get(n, 0) for n in TRAIN_KERNELS} != want:
+        raise SystemExit(f"train parity: expected launches {want} for one "
+                         f"forward and backward, got {launches}")
+    if plain_l:
+        raise SystemExit(f"train parity: the plain run launched {plain_l}")
+    n = check_grads_nonzero(g_k, "train parity")
+    worst = ("none", -1.0)
+    for (name, a), (_, b) in zip(_grad_leaves(g_k), _grad_leaves(g_p)):
+        _, rel = rel_err(a, b)
+        worst = max(worst, (name, rel), key=lambda w: w[1])
+    log(f"  loss {l_k:.6f} vs plain {l_p:.6f}; {n} gradient leaves, worst "
+        f"{worst[0]} rel {worst[1]:.4e} (tol {KERNEL_TOL})")
+    if abs(l_k - l_p) > PARITY_REL * abs(l_p) or worst[1] > KERNEL_TOL:
+        raise SystemExit("train parity: loss or gradients disagree")
+    for i, ((lk, gk), (lp, gp)) in enumerate(zip(m_k, m_p)):
+        log(f"  step {i}: loss {lk:.6f} vs {lp:.6f}, grad_norm {gk:.6f} vs "
+            f"{gp:.6f} (tol rel {PARITY_REL})")
+        if abs(lk - lp) > PARITY_REL * abs(lp) or \
+                abs(gk - gp) > PARITY_REL * abs(gp):
+            raise SystemExit(f"train parity: step {i} loss or grad_norm "
+                             "disagree")
+    worst_p, share = 0.0, 0.0
+    for (name, a), (_, b), b0 in zip(p_k, p_p, p0):
+        ulp = 2 ** -7 * 2 ** torch.floor(torch.log2(b.float().abs().max()))
+        diff = (a.float() - b.float()).abs()
+        tol = 4 * TRAIN_LR + 2 * float(ulp)
+        worst_p = max(worst_p, diff.max().item() / tol)
+        share = max(share, (diff > TRAIN_LR / 2).float().mean().item())
+        # a weight matrix must move; a norm weight at 1.0 may not (lr
+        # 3e-4 is below half a bf16 ulp of 1.0, 2^-8)
+        if not torch.isfinite(a.float()).all() or \
+                ("norm" not in name.rsplit(".", 1)[-1]
+                 and torch.equal(a, b0)):
+            raise SystemExit(f"train parity: {name} did not update")
+    log(f"  parameters after 2 steps: worst |kernel - plain| at "
+        f"{worst_p:.3f} of its tolerance (4 lr + 2 ulp); largest share of "
+        f"a leaf's elements differing by more than lr/2: {share:.4e}")
+    if worst_p > 1.0:
+        raise SystemExit("train parity: parameters disagree after the "
+                         "updates")
+    log("train parity: ok")
+    del runs, g_k, g_p, p_k, p_p, p0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def qproj_train_phase(dev, g):
+    """The JAX package's cache-free ``ops.qproj_attention`` entry point on
+    the card, forward and backward at starcoder2-7b's training shapes:
+    #10, then #8/#9 on the recomputed Q; the gradients of x, wq, k and v
+    against impl forced to the plain versions.  Returns the kernel run's
+    launches."""
+    from repro_torch.kernels import build, ops
+
+    E, HQ, HKV, D = (STARCODER[k] for k in ("E", "HQ", "HKV", "D"))
+    b, sq = TRAIN_B, TRAIN_SEQ
+    mk = lambda *s, scale=1.0: (torch.randn(*s, generator=g, device=dev)
+                                * scale).to(torch.bfloat16)
+    inputs = (mk(b, sq, E), mk(E, HQ, D, scale=E ** -0.5), mk(b, HKV, sq, D),
+              mk(b, HKV, sq, D))
+    do = mk(b, HQ, sq, D)
+    grads = []
+    for impl in ("auto", "torch"):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        ops.reset_counts()
+        out = ops.qproj_attention(*leaves, rope_theta=1e5, impl=impl)
+        out.backward(do)
+        torch.cuda.synchronize()
+        if impl == "auto":
+            launches = dict(build.LAUNCHES)
+        grads.append([t.grad for t in leaves])
+    log(f"qproj train: ops.qproj_attention without lengths, B={b} S={sq} "
+        f"E={E}, forward + backward: launches {launches}")
+    if [launches.get(n, 0) for n in ("fused_qproj_attention_fwd",
+                                     "fused_attention_bwd_dq",
+                                     "fused_attention_bwd_dkv")] != [1, 1, 1]:
+        raise SystemExit(f"qproj train: expected #10, #8, #9 once, got "
+                         f"{launches}")
+    for name, a, w in zip(("dx", "dwq", "dk", "dv"), *grads):
+        err, rel = rel_err(a, w)
+        log(f"  {name}: max_abs_err={err:.3e} rel={rel:.3e} tol={KERNEL_TOL}")
+        if not torch.isfinite(a.float()).all() or rel > KERNEL_TOL \
+                or a.abs().max().item() == 0:
+            raise SystemExit(f"qproj train: {name} disagrees with the plain "
+                             "versions")
+    return launches
+
+
+def train_phase(dev):
+    """``launch/train.train_loop`` at full width and depth: starcoder2-7b,
+    32 layers, remat full, bf16 AdamW moments, B=2, seq 2048, lr 3e-4, 3
+    steps on structured synthetic data, no checkpoint.  Each step's loss,
+    grad_norm, time and training-kernel launches; every per-layer
+    gradient leaf must be finite and non-zero; then one more step under
+    torch.profiler.  Returns the launches of the 3 steps."""
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.train import step as train_step
+
+    cfg = configs.get_config("starcoder2-7b")
+    # the serve phases' engines hold their weights (14.3 GB) through
+    # reference cycles (the paged phase's wrapped methods): collect them
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  device memory allocated before the run: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    per_step, total = [], collections.Counter()
+    grad_leaves, peaks = [], collections.defaultdict(float)
+    value_and_grad = train_step.value_and_grad
+
+    def checked(*a, **kw):
+        out = value_and_grad(*a, **kw)
+        # the peak of init (first step) or the forward and backward
+        peaks["forward + backward"] = max(peaks["forward + backward"],
+                                          torch.cuda.max_memory_allocated())
+        grad_leaves.append(check_grads_nonzero(out[1], "train"))
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    def on_step(step, metrics, secs):
+        peaks["optimizer"] = max(peaks["optimizer"],
+                                 torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        per_step.append((step, float(metrics["loss"]),
+                         float(metrics["grad_norm"]), secs,
+                         {n: build.LAUNCHES[n] for n in TRAIN_KERNELS}))
+        total.update(build.LAUNCHES)
+        build.reset_launches()
+
+    log(f"train: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}, remat {cfg.remat}, bf16 "
+        f"params and moments, B={TRAIN_B} seq {TRAIN_SEQ} lr {TRAIN_LR}, "
+        f"3 steps")
+    build.reset_launches()
+    train_step.value_and_grad = checked
+    t0 = time.perf_counter()
+    try:
+        state, losses = train.train_loop(
+            cfg, steps=3, batch=TRAIN_B, seq=TRAIN_SEQ, lr=TRAIN_LR,
+            moment_dtype="bfloat16", device=dev, on_step=on_step,
+            log_every=1)
+    finally:
+        train_step.value_and_grad = value_and_grad
+    wall = time.perf_counter() - t0
+    peak = max(peaks.values())
+    pbytes = sum(t.numel() * t.element_size()
+                 for t in _leaves(state.params))
+    for step, loss, gn, secs, launches in per_step:
+        log(f"  step {step}: loss {loss:.6f} grad_norm {gn:.6f} "
+            f"{secs * 1e3:.1f} ms, launches {launches}")
+    med = statistics.median(p[3] for p in per_step[1:])
+    tok = TRAIN_B * TRAIN_SEQ
+    log(f"  step time: median of steps 2-3 {med * 1e3:.1f} ms; "
+        f"{tok / med:.1f} training tokens/s; wall {wall:.1f}s incl. init")
+    log(f"  peak memory {peak / 1e9:.3f} GB (max_memory_allocated over "
+        f"the 3 steps: forward + backward "
+        f"{peaks['forward + backward'] / 1e9:.3f} GB, optimizer "
+        f"{peaks['optimizer'] / 1e9:.3f} GB); parameters "
+        f"{pbytes / 1e9:.3f} GB; gradient leaves checked non-zero per "
+        f"step: {grad_leaves}")
+    want = _train_launches(cfg)
+    if len(per_step) != 3 or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"train: losses {losses}")
+    if any(p[4] != want for p in per_step):
+        raise SystemExit(f"train: launches per step {[p[4] for p in per_step]}"
+                         f", predicted {want}")
+
+    # one more step under the profiler: where a step's time goes
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import SyntheticTokenDataset
+    ds = SyntheticTokenDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_B, seed=0,
+                               structured=True)
+    batch = {"tokens": torch.from_numpy(ds.batch(3)).long().to(dev)}
+    step_fn = train_step.make_train_step(cfg, lr=TRAIN_LR)
+    adamw = train_step.adamw_update
+
+    def ranged(*a, **kw):
+        with torch.profiler.record_function("adamw_update"):
+            return adamw(*a, **kw)
+
+    torch.cuda.synchronize()
+    train_step.adamw_update = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            loss = float(m["loss"])
+            wall = time.perf_counter() - t0
+    finally:
+        train_step.adamw_update = adamw
+    busy = device_report(prof, wall, "profiled training step", top=14)
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    train_breakdown(prof, busy, cfg, n_params)
+    log(f"  profiled step: loss {loss:.6f}")
+    del state, m
+    torch.cuda.empty_cache()
+    return total
+
+
+def train_gemm_flops(cfg) -> float:
+    """The GEMM operations of one training step from the shapes: the
+    forward (every layer's projections and MLP, and the LM head), the
+    remat recompute (each layer again, less its last GEMM, w_down,
+    whose output no saved tensor needs, so the recompute stops before
+    it) and the backward (two products per forward GEMM)."""
+    e, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    n_mlp = 3 if cfg.mlp == "silu_glu" else 2
+    layer = e * cfg.n_heads * hd * 2 + e * cfg.kv_heads * hd * 2 \
+        + n_mlp * e * f
+    tok = 2 * TRAIN_B * TRAIN_SEQ               # 2 FLOP per MAC per token
+    fwd = tok * (cfg.n_layers * layer + e * cfg.vocab_size)
+    recompute = tok * cfg.n_layers * (layer - f * e)
+    return fwd + recompute + 2 * fwd
+
+
+def train_breakdown(prof, busy_ms: float, cfg, n_params: int) -> None:
+    """A profiled training step's device time by part: the three
+    training kernels (by their CUDA kernel names), the GEMMs (cuBLAS
+    kernel names), the optimizer (device time under the adamw_update
+    range) and the rest; with the GEMMs' rate and the optimizer's bytes
+    floor (AdamW must read p, g, mu, nu and write p, mu, nu: 14 bytes
+    per bf16 parameter with bf16 moments)."""
+    from torch.autograd import DeviceType
+    parts = collections.Counter()
+    names = {"masked_attention_kernel": "#7 fused_attention_fwd",
+             "dq_kernel": "#8 fused_attention_bwd_dq",
+             "dkv_kernel": "#9 fused_attention_bwd_dkv"}
+    opt = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if getattr(e, "is_user_annotation", False):
+            if e.key == "adamw_update":   # its span on the device
+                opt += e.self_device_time_total / 1e3
+            continue
+        part = next((v for k, v in names.items() if k in e.key), None)
+        if part is None and any(w in e.key.lower() for w in
+                                ("gemm", "xmma", "cutlass", "nvjet")):
+            part = "GEMMs (cuBLAS)"
+        parts[part or "other"] += e.self_device_time_total / 1e3
+    log(f"  training step by part (device ms, share of {busy_ms:.1f} ms "
+        f"busy):")
+    for part, ms in parts.most_common():
+        log(f"    {ms:10.3f} ms {100 * ms / busy_ms:6.2f}% {part}")
+    log(f"    {opt:10.3f} ms {100 * opt / busy_ms:6.2f}% the adamw_update "
+        f"range on the device (the optimizer; its kernels are in 'other')")
+    flops = train_gemm_flops(cfg)
+    gemm = parts["GEMMs (cuBLAS)"]
+    rate = flops / (gemm / 1e3)                 # FLOP/s
+    log(f"  GEMMs: {flops:.4e} FLOP counted from the shapes in "
+        f"{gemm:.3f} ms = {rate / 1e12:.1f} TFLOP/s "
+        f"({100 * rate / PEAK_BF16:.1f}% of the bf16 peak)")
+    opt_bytes = 14 * n_params
+    log(f"  optimizer: {n_params} parameters x 14 bytes = "
+        f"{opt_bytes / 1e9:.3f} GB, floor {opt_bytes / PEAK_BYTES * 1e3:.3f} "
+        f"ms at 3.35 TB/s; measured {opt:.3f} ms")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -998,9 +1499,13 @@ def main() -> int:
     g.manual_seed(0)
     log("kernels:")
     results = kernel_phase(dev, g)
+    results.update(train_kernel_phase(dev, g, check_kernel))
     log("kernels: " + ", ".join(f"{n} ok" for n in results))
     launches = serve_phase(dev)
     launches.update(qwen_phase(dev))
+    launches.update(qproj_train_phase(dev, g))
+    launches.update(train_parity_phase(dev))
+    launches.update(train_phase(dev))
     missing = [n for n in build.KERNELS if launches[n] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on any path: {missing}")

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into
 ``build/repro_torch/<name>-<hash>.so`` under the repository root; the
 hash covers the sources and the flags, so an edited kernel never loads
-a stale library.  A source may hold several kernels (a masked kernel
-and its paged twin share one body) and is built once for all of them.
+a stale library.  A source may hold several kernels (a masked kernel,
+its paged twin and its training forward share one body; the two
+backward kernels share one source) and is built once for all of them.
 Nothing is built while a module is imported: the first launch of a
 kernel builds it, and :func:`build_all` builds every kernel at once,
 one ``nvcc`` process per source, all started together.
@@ -54,6 +55,18 @@ KERNELS = {
     "fused_decode_block_paged": (
         "fused_decode_block.cu", "fused_decode_block_paged_launch",
         [_P] * 11 + [_I] * 8 + [_F, _F, _I, _I, _P]),
+    "fused_attention_fwd": (
+        "fused_attention.cu", "fused_attention_fwd_launch",
+        [_P] * 5 + [_I] * 9 + [_F, _I, _P]),
+    "fused_attention_bwd_dq": (
+        "fused_attention_bwd.cu", "fused_attention_bwd_dq_launch",
+        [_P] * 7 + [_I] * 9 + [_F, _I, _P]),
+    "fused_attention_bwd_dkv": (
+        "fused_attention_bwd.cu", "fused_attention_bwd_dkv_launch",
+        [_P] * 8 + [_I] * 9 + [_F, _I, _P]),
+    "fused_qproj_attention_fwd": (
+        "fused_qproj_attention.cu", "fused_qproj_attention_fwd_launch",
+        [_P] * 6 + [_I] * 10 + [_F, _F, _I, _I, _P]),
 }
 
 #: dtype codes of the C interface (csrc/common.cuh)

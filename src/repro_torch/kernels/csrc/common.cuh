@@ -178,13 +178,17 @@ struct RowInfo {
 // the whole K/V arrays, addressed through the policy kv (DenseKV or
 // PagedKV) for this (b, kv-head).  Columns c < kv_end are walked; a
 // row sees column c iff c < len and c <= anchor (the end-anchored
-// causal triangle, or the whole prefix).  p is zeroed under the mask,
-// so a row with no valid column emits 0.
+// causal triangle, the q_offset-anchored one of the training forward,
+// or the whole prefix).  p is zeroed under the mask, so a row with no
+// valid column emits 0.  lse (nullable; the training kernels pass it)
+// receives each row's m + log(l) in fp32, l = 0 counted as 1, at
+// out_off / Dv: the outputs are (B, Hq, Sq, Dv) and lse (B, Hq, Sq).
 template <typename T, typename KV>
 __device__ void masked_attention_rows(float* smem, const RowInfo* rows,
                                       const T* __restrict__ k,
                                       const T* __restrict__ v, KV kv,
-                                      T* __restrict__ out, int len,
+                                      T* __restrict__ out,
+                                      float* __restrict__ lse, int len,
                                       int kv_end, int D, int Dv,
                                       float scale) {
   float* q_s = smem;
@@ -287,6 +291,7 @@ __device__ void masked_attention_rows(float* smem, const RowInfo* rows,
       const int d = lane + 32 * t;
       if (d < Dv) out[r.out_off + d] = from_f<T>(acc[i][t] / l_safe);
     }
+    if (lse != nullptr && lane == 0) lse[r.out_off / Dv] = m[i] + logf(l_safe);
   }
 }
 

@@ -1,5 +1,5 @@
-// fused_qproj_attention_masked and fused_qproj_attention_paged for
-// Hopper (sm_90a).
+// fused_qproj_attention_masked, fused_qproj_attention_paged and
+// fused_qproj_attention_fwd for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/fused_qproj_attention.py
 // fused_qproj_attention_masked (pallas_call at :243, body
@@ -12,6 +12,13 @@
 // fused_qproj_attention_paged (pallas_call at :322, body
 // _qproj_paged_fwd_kernel :260): the same kernel over a page pool,
 // through the paged addressing policy of common.cuh.
+// Replaces the TPU kernel src/repro/kernels/fused_qproj_attention.py
+// _qproj_fwd (pallas_call at :104, body _qproj_fwd_kernel :34), the
+// forward of the custom_vjp fused_qproj_attention:
+// fused_qproj_attention_fwd is the same kernel over the whole Skv (no
+// lengths), rows anchored and rotated at q_offset + r, and the lse
+// output of fused_attention_fwd.  Its backward recomputes Q outside
+// the kernel and runs fused_attention_bwd.cu's two kernels.
 //
 // Bound on an H100 at the serve path's shapes (bf16, E=4608, Hq=36,
 // D=128, a 256-row chunk over a ~512-column prefix): the projection's
@@ -30,6 +37,10 @@
 // in shared memory, as in fused_attention.cu.  At M=1 a block computes
 // one live row of its 16, and each batch row's block of a head reads
 // that head's Wq slice again (from L2 after the first).
+// The forward with lse at starcoder2-7b's training shapes (B=2,
+// Sq=Skv=2048, causal): 2*B*Sq*E*Hq*D = 174 GFLOP of projection plus
+// 77 GFLOP of attention against about 127 MB (x, Wq, K, V, O, lse):
+// 0.25 ms at 989 TFLOP/s, bound by the operations.
 #include "common.cuh"
 
 namespace {
@@ -41,8 +52,9 @@ __global__ void __launch_bounds__(rt::kThreads)
     qproj_attention_kernel(const T* __restrict__ x, const T* __restrict__ wq,
                            const T* __restrict__ k, const T* __restrict__ v,
                            const int* __restrict__ lengths, rt::KVSource src,
-                           T* __restrict__ out, int Hq, int Hkv, int Sq, int E,
-                           int D, int Dv, int causal, float scale,
+                           T* __restrict__ out, float* __restrict__ lse,
+                           int Hq, int Hkv, int Sq, int E, int D, int Dv,
+                           int causal, int q_offset, float scale,
                            float rope_theta, int use_rope) {
   extern __shared__ float smem[];
   __shared__ rt::RowInfo rows[rt::kRows];
@@ -51,7 +63,10 @@ __global__ void __launch_bounds__(rt::kThreads)
   const int bh = blockIdx.y;  // b * Hq + query head
   const int b = bh / Hq, h = bh - b * Hq;
   const int kvh = h / (Hq / Hkv);
-  const int len = max(0, min(lengths[b], src.skv));
+  // masked: rows anchored (and rotated) at the end of the valid prefix;
+  // without lengths (the training forward): at q_offset over all Skv
+  const int len = lengths ? max(0, min(lengths[b], src.skv)) : src.skv;
+  const int off = lengths ? len - Sq : q_offset;
   const int r0 = blockIdx.x * rt::kRows;
   const int tid = threadIdx.x;
 
@@ -60,7 +75,7 @@ __global__ void __launch_bounds__(rt::kThreads)
     rt::RowInfo info{-1, -1};
     if (pos < Sq) {
       info.out_off = (((int64_t)b * Hq + h) * Sq + pos) * Dv;
-      info.anchor = causal ? len - Sq + pos : len - 1;
+      info.anchor = causal ? off + pos : len - 1;
     }
     rows[tid] = info;
   }
@@ -101,7 +116,7 @@ __global__ void __launch_bounds__(rt::kThreads)
   }
   __syncthreads();
 
-  // RoPE in fp32 at position len - Sq + row (the half-split rotation
+  // RoPE in fp32 at position off + row (the half-split rotation
   // of models.common.rope), then the cast to K's dtype before Q.K^T
   const int half = D / 2;
   for (int idx = tid; idx < rt::kRows * half; idx += rt::kThreads) {
@@ -110,7 +125,7 @@ __global__ void __launch_bounds__(rt::kThreads)
     float a = row[d], c = row[d + half];
     if (use_rope) {
       const float freq = expf((float)d * (-logf(rope_theta) / (float)half));
-      const float ang = (float)(len - Sq + r0 + i) * freq;
+      const float ang = (float)(off + r0 + i) * freq;
       const float cs = cosf(ang), sn = sinf(ang);
       const float a2 = a * cs - c * sn;
       c = c * cs + a * sn;
@@ -127,15 +142,16 @@ __global__ void __launch_bounds__(rt::kThreads)
   }
   __syncthreads();
   rt::masked_attention_rows<T>(smem, rows, k, v,
-                               KV::make(src, b, kvh, Hkv, scratch), out, len,
-                               kv_end_s, D, Dv, scale);
+                               KV::make(src, b, kvh, Hkv, scratch), out, lse,
+                               len, kv_end_s, D, Dv, scale);
 }
 
 template <typename T, typename KV>
 int launch(const void* x, const void* wq, const void* k, const void* v,
-           const int* lengths, rt::KVSource src, void* out, int B, int Hq,
-           int Hkv, int Sq, int E, int D, int Dv, int causal, float scale,
-           float rope_theta, int use_rope, cudaStream_t stream) {
+           const int* lengths, rt::KVSource src, void* out, float* lse,
+           int B, int Hq, int Hkv, int Sq, int E, int D, int Dv, int causal,
+           int q_offset, float scale, float rope_theta, int use_rope,
+           cudaStream_t stream) {
   auto kern = qproj_attention_kernel<T, KV>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        rt::kSmemBytes);
@@ -143,26 +159,28 @@ int launch(const void* x, const void* wq, const void* k, const void* v,
   kern<<<grid, rt::kThreads, rt::kSmemBytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wq),
       static_cast<const T*>(k), static_cast<const T*>(v), lengths, src,
-      static_cast<T*>(out), Hq, Hkv, Sq, E, D, Dv, causal, scale, rope_theta,
-      use_rope);
+      static_cast<T*>(out), lse, Hq, Hkv, Sq, E, D, Dv, causal, q_offset,
+      scale, rope_theta, use_rope);
   return (int)cudaGetLastError();
 }
 
 template <typename KV>
 int run(int dtype, const void* x, const void* wq, const void* k,
-        const void* v, const int* lengths, rt::KVSource src, void* out, int B,
-        int Hq, int Hkv, int Sq, int E, int D, int Dv, int causal,
-        float scale, float rope_theta, int use_rope, void* stream) {
+        const void* v, const int* lengths, rt::KVSource src, void* out,
+        float* lse, int B, int Hq, int Hkv, int Sq, int E, int D, int Dv,
+        int causal, int q_offset, float scale, float rope_theta,
+        int use_rope, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case rt::kF32:
-      return launch<float, KV>(x, wq, k, v, lengths, src, out, B, Hq, Hkv, Sq,
-                               E, D, Dv, causal, scale, rope_theta, use_rope,
-                               s);
+      return launch<float, KV>(x, wq, k, v, lengths, src, out, lse, B, Hq,
+                               Hkv, Sq, E, D, Dv, causal, q_offset, scale,
+                               rope_theta, use_rope, s);
     case rt::kBF16:
-      return launch<__nv_bfloat16, KV>(x, wq, k, v, lengths, src, out, B, Hq,
-                                       Hkv, Sq, E, D, Dv, causal, scale,
-                                       rope_theta, use_rope, s);
+      return launch<__nv_bfloat16, KV>(x, wq, k, v, lengths, src, out, lse, B,
+                                       Hq, Hkv, Sq, E, D, Dv, causal,
+                                       q_offset, scale, rope_theta, use_rope,
+                                       s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -175,9 +193,20 @@ extern "C" int fused_qproj_attention_masked_launch(
     int E, int D, int Dv, int causal, float scale, float rope_theta,
     int use_rope, int dtype, void* stream) {
   return run<rt::DenseKV>(dtype, x, wq, k, v, lengths,
-                          rt::KVSource{nullptr, 0, 0, Skv}, out, B, Hq, Hkv,
-                          Sq, E, D, Dv, causal, scale, rope_theta, use_rope,
-                          stream);
+                          rt::KVSource{nullptr, 0, 0, Skv}, out, nullptr, B,
+                          Hq, Hkv, Sq, E, D, Dv, causal, 0, scale, rope_theta,
+                          use_rope, stream);
+}
+
+extern "C" int fused_qproj_attention_fwd_launch(
+    const void* x, const void* wq, const void* k, const void* v, void* out,
+    float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int E, int D, int Dv,
+    int causal, int q_offset, float scale, float rope_theta, int use_rope,
+    int dtype, void* stream) {
+  return run<rt::DenseKV>(dtype, x, wq, k, v, nullptr,
+                          rt::KVSource{nullptr, 0, 0, Skv}, out, lse, B, Hq,
+                          Hkv, Sq, E, D, Dv, causal, q_offset, scale,
+                          rope_theta, use_rope, stream);
 }
 
 extern "C" int fused_qproj_attention_paged_launch(
@@ -189,7 +218,7 @@ extern "C" int fused_qproj_attention_paged_launch(
   rt::KVSource src;
   if (!rt::paged_source(block_tables, max_pages, page, &src))
     return (int)cudaErrorInvalidValue;
-  return run<rt::PagedKV>(dtype, x, wq, k_pool, v_pool, lengths, src, out, B,
-                          Hq, Hkv, Sq, E, D, Dv, causal, scale, rope_theta,
-                          use_rope, stream);
+  return run<rt::PagedKV>(dtype, x, wq, k_pool, v_pool, lengths, src, out,
+                          nullptr, B, Hq, Hkv, Sq, E, D, Dv, causal, 0, scale,
+                          rope_theta, use_rope, stream);
 }

@@ -1,7 +1,12 @@
 """``fused_attention_masked``: masked-lengths layer-fused attention (the
 paper's Fig. 5c schedule over a KV cache), and ``fused_attention_paged``,
 the same over a KV page pool, as CUDA kernels for Hopper
-(``csrc/fused_attention.cu``) with their plain PyTorch versions.
+(``csrc/fused_attention.cu``) with their plain PyTorch versions; and
+``fused_attention``, the training attention: an autograd Function whose
+forward is the kernel ``fused_attention_fwd`` (the same body over the
+whole sequence, returning lse) and whose backward is
+``fused_attention_bwd_dq`` then ``fused_attention_bwd_dkv``
+(``csrc/fused_attention_bwd.cu``).
 
 Replace the TPU kernels ``repro/kernels/fused_attention.py``
 ``fused_attention_masked`` and ``fused_attention_paged``.  Row r of
@@ -10,6 +15,8 @@ batch row b attends columns ``c < lengths[b]`` and, under ``causal``,
 of the valid prefix); rows with no valid column emit zeros.  The paged
 kernel reads logical KV block j of row b from pool page
 ``block_tables[b, j]``; the math is the masked kernel's.
+``fused_attention`` replaces the TPU ``custom_vjp`` ``fused_attention``
+(forward ``_fwd``, backward ``_bwd``'s dq and dk/dv kernels).
 """
 
 from __future__ import annotations
@@ -25,11 +32,22 @@ from repro_torch.kernels.chunked import chunked_attention
 MAX_HEAD_DIM = 128
 
 
-def check_cuda_args(name: str, tensors: dict, lengths: torch.Tensor,
-                    head_dims) -> None:
-    """The wrappers' shared checks: every tensor on one CUDA device, of
-    one float dtype, contiguous; lengths (B,) int32 on that device; head
-    widths even and at most MAX_HEAD_DIM."""
+def check_cuda_args(name: str, tensors: dict,
+                    lengths: Optional[torch.Tensor], head_dims) -> None:
+    """The wrappers' shared checks: no input that autograd tracks (a
+    kernel's output has no grad_fn, so it would cut the graph silently:
+    differentiable calls go through :func:`fused_attention` and
+    ``fused_qproj_attention``); every tensor on one CUDA device, of one
+    float dtype, contiguous; lengths, where the kernel takes them, (B,)
+    int32 on that device; head widths even and at most MAX_HEAD_DIM."""
+    if torch.is_grad_enabled():
+        tracked = [k for k, t in tensors.items() if t.requires_grad]
+        if tracked:
+            raise RuntimeError(
+                f"{name}: {tracked} require grad, but this kernel has no "
+                "backward and its output would be cut from autograd; "
+                "call it under torch.no_grad() or use the training "
+                "entry points (fused_attention, fused_qproj_attention)")
     first = next(iter(tensors.values()))
     for key, t in tensors.items():
         if t.device != first.device or t.device.type != "cuda":
@@ -40,8 +58,9 @@ def check_cuda_args(name: str, tensors: dict, lengths: torch.Tensor,
                              f"must share one of {list(build.DTYPE_CODES)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} is not contiguous")
-    if lengths.dtype != torch.int32 or lengths.device != first.device \
-            or lengths.ndim != 1 or not lengths.is_contiguous():
+    if lengths is not None and (
+            lengths.dtype != torch.int32 or lengths.device != first.device
+            or lengths.ndim != 1 or not lengths.is_contiguous()):
         raise ValueError(f"{name}: lengths must be a contiguous (B,) "
                          f"int32 tensor on {first.device}")
     for n in head_dims:
@@ -151,3 +170,164 @@ def fused_attention_paged(q, k_pool, v_pool, lengths, block_tables, *,
                  max_pages, page, d, dv, int(causal), float(scale),
                  build.dtype_code(q))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the training attention: fused_attention_fwd (#7), its backward
+# fused_attention_bwd_dq (#8) and fused_attention_bwd_dkv (#9)
+# ---------------------------------------------------------------------------
+
+fused_attention_fwd_plain = ref.attention_fwd_plain
+fused_attention_bwd_dq_plain = ref.attention_bwd_dq_plain
+fused_attention_bwd_dkv_plain = ref.attention_bwd_dkv_plain
+
+
+def _train_shapes(name: str, q, k, v):
+    b, hq, sq, d = q.shape
+    _, hkv, skv, dv = v.shape
+    if k.shape != (b, hkv, skv, d) or hq % hkv:
+        raise ValueError(f"{name}: shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    return b, hq, hkv, sq, skv, d, dv
+
+
+def _check_rows(name: str, shape, **fp32) -> None:
+    """lse and delta: contiguous fp32 (B, Hq, Sq) on the inputs' card."""
+    for key, t in fp32.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be a contiguous fp32 "
+                             f"{shape} tensor on the card, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def causal_anchor(q_offset, sq: int, skv: int) -> int:
+    """The global position of query row 0: ``q_offset``, default
+    Skv - Sq."""
+    return (skv - sq) if q_offset is None else int(q_offset)
+
+
+def fused_attention_fwd(q, k, v, *, causal: bool = True,
+                        scale: Optional[float] = None, q_offset=None):
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D[v]).  Returns (o, lse):
+    o (B, Hq, Sq, Dv) in q's dtype, lse (B, Hq, Sq) fp32.  Causal rows
+    are anchored at ``q_offset + r`` (default Skv - Sq).  On a CUDA
+    tensor this launches the kernel (or raises); a CPU tensor takes the
+    plain version."""
+    if q.device.type == "cpu":
+        return fused_attention_fwd_plain(q, k, v, causal=causal,
+                                         scale=scale, q_offset=q_offset)
+    b, hq, hkv, sq, skv, d, dv = _train_shapes("fused_attention_fwd",
+                                               q, k, v)
+    check_cuda_args("fused_attention_fwd", {"q": q, "k": k, "v": v}, None,
+                    (d, dv))
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    build.launch("fused_attention_fwd", q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, hq, hkv,
+                 sq, skv, d, dv, int(causal), causal_anchor(q_offset, sq, skv),
+                 float(scale), build.dtype_code(q))
+    return out, lse
+
+
+def _bwd_args(name, q, k, v, do, lse, delta):
+    b, hq, hkv, sq, skv, d, dv = _train_shapes(name, q, k, v)
+    if do.shape != (b, hq, sq, dv):
+        raise ValueError(f"{name}: do{tuple(do.shape)} is not "
+                         f"{(b, hq, sq, dv)}")
+    check_cuda_args(name, {"q": q, "k": k, "v": v, "do": do}, None, (d, dv))
+    _check_rows(name, (b, hq, sq), lse=lse, delta=delta)
+    return b, hq, hkv, sq, skv, d, dv
+
+
+def fused_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                           scale: Optional[float] = None, q_offset=None):
+    """dq (B, Hq, Sq, D) in q's dtype from the forward's inputs, the
+    cotangent ``do``, the forward's ``lse`` and ``delta =
+    ref.attention_delta(o, do)``.  On a CUDA tensor this launches the
+    kernel (or raises); a CPU tensor takes the plain version."""
+    if q.device.type == "cpu":
+        return fused_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                            causal=causal, scale=scale,
+                                            q_offset=q_offset)
+    b, hq, hkv, sq, skv, d, dv = _bwd_args("fused_attention_bwd_dq", q, k,
+                                           v, do, lse, delta)
+    scale = scale if scale is not None else d ** -0.5
+    dq = torch.empty_like(q)
+    build.launch("fused_attention_bwd_dq", q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), b, hq, hkv, sq, skv, d, dv,
+                 int(causal), causal_anchor(q_offset, sq, skv), float(scale),
+                 build.dtype_code(q))
+    return dq
+
+
+def fused_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                            scale: Optional[float] = None, q_offset=None):
+    """(dk, dv), each summed over its GQA group, in k's and v's dtype.
+    Arguments as :func:`fused_attention_bwd_dq`.  On a CUDA tensor this
+    launches the kernel (or raises); a CPU tensor takes the plain
+    version."""
+    if q.device.type == "cpu":
+        return fused_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                             causal=causal, scale=scale,
+                                             q_offset=q_offset)
+    b, hq, hkv, sq, skv, d, dv = _bwd_args("fused_attention_bwd_dkv", q, k,
+                                           v, do, lse, delta)
+    scale = scale if scale is not None else d ** -0.5
+    dk, dvv = torch.empty_like(k), torch.empty_like(v)
+    build.launch("fused_attention_bwd_dkv", q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dk.data_ptr(), dvv.data_ptr(), b, hq, hkv,
+                 sq, skv, d, dv, int(causal), causal_anchor(q_offset, sq, skv),
+                 float(scale), build.dtype_code(q))
+    return dk, dvv
+
+
+def attention_backward(q, k, v, o, lse, do, *, causal, scale, q_offset,
+                       plain: bool):
+    """(dq, dk, dv) through the two backward kernels (or, ``plain``,
+    their plain versions): delta, then dq, then dk/dv."""
+    do = do.contiguous()
+    delta = ref.attention_delta(o, do)
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset)
+    if plain:
+        return (fused_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw),
+                *fused_attention_bwd_dkv_plain(q, k, v, do, lse, delta, **kw))
+    return (fused_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+            *fused_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Forward #7 saving (q, k, v, o, lse); backward #8 then #9."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset, plain):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        fwd = fused_attention_fwd_plain if plain else fused_attention_fwd
+        o, lse = fwd(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = dict(causal=causal, scale=scale, q_offset=q_offset,
+                        plain=plain)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, o, lse, do, **ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def fused_attention(q, k, v, *, causal: bool = True,
+                    scale: Optional[float] = None, q_offset=None,
+                    plain: bool = False):
+    """Differentiable layer-fused attention (Fig. 5c) over the whole
+    sequence: q (B, Hq, Sq, D), k, v (B, Hkv, Skv, D[v]); causal rows
+    anchored at ``q_offset + r`` (default Skv - Sq).  The forward runs
+    ``fused_attention_fwd`` and keeps its lse; the backward runs
+    ``fused_attention_bwd_dq`` and ``fused_attention_bwd_dkv``.  Each
+    wrapper launches its kernel on a CUDA tensor and runs its plain
+    version on a CPU one; ``plain`` runs the plain versions on the card
+    too."""
+    return _FusedAttention.apply(q, k, v, causal, scale, q_offset, plain)

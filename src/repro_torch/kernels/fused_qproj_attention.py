@@ -9,6 +9,14 @@ rotated by RoPE at ``lengths[b] - Sq + r`` when ``rope_theta`` is set,
 rounded to K's dtype, then runs ``fused_attention_masked``'s body.
 ``fused_qproj_attention_paged`` (replacing the TPU kernel of that name)
 is the same over a KV page pool read through block tables.
+
+``fused_qproj_attention`` is the cache-free, differentiable schedule
+(replacing the TPU ``custom_vjp`` ``fused_qproj_attention``): its
+forward is the kernel ``fused_qproj_attention_fwd`` (#2's body over the
+whole sequence, rows anchored and rotated at ``q_offset + r``, with
+lse); its backward recomputes and rotates Q, runs the training
+attention's two backward kernels, un-rotates dq and forms dx and dWq as
+plain products, as ``_fqa_bwd`` does.
 """
 
 from __future__ import annotations
@@ -19,8 +27,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.chunked import chunked_attention
-from repro_torch.kernels.fused_attention import (check_block_tables,
-                                                 check_cuda_args)
+from repro_torch.kernels.fused_attention import (
+    attention_backward, causal_anchor, check_block_tables, check_cuda_args)
 
 
 def fused_qproj_attention_masked_plain(x, wq, k, v, lengths, *,
@@ -122,3 +130,112 @@ def fused_qproj_attention_paged(x, wq, k_pool, v_pool, lengths,
                  float(rope_theta or 0.0), int(rope_theta is not None),
                  build.dtype_code(x))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the training schedule: fused_qproj_attention_fwd (#10) and its backward
+# ---------------------------------------------------------------------------
+
+def _project(x, wq, sq: int, skv: int, q_offset, rope_theta):
+    """Q = x @ Wq in x's dtype, rotated at ``q_offset + r`` (default
+    Skv - Sq) when ``rope_theta`` is set; returns (q, positions)."""
+    q = torch.einsum("bse,ehd->bhsd", x, wq.to(x.dtype))
+    if rope_theta is None:
+        return q, None
+    pos = ref.rope_positions(sq, skv, q_offset=q_offset, device=x.device)
+    return ref.rope(q, pos, rope_theta), pos
+
+
+def fused_qproj_attention_fwd_plain(x, wq, k, v, *, causal: bool = True,
+                                    scale: Optional[float] = None,
+                                    q_offset=None,
+                                    rope_theta: Optional[float] = None):
+    """The plain version: Q by einsum, RoPE at ``q_offset + r``, then
+    ``ref.attention_fwd_plain``.  Returns (o, lse)."""
+    q, _ = _project(x, wq, x.shape[1], k.shape[2], q_offset, rope_theta)
+    return ref.attention_fwd_plain(q, k, v, causal=causal, scale=scale,
+                                   q_offset=q_offset)
+
+
+def fused_qproj_attention_fwd(x, wq, k, v, *, causal: bool = True,
+                              scale: Optional[float] = None, q_offset=None,
+                              rope_theta: Optional[float] = None):
+    """x: (B, Sq, E); wq: (E, Hq, D); k, v: (B, Hkv, Skv, D[v]).
+    Returns (o, lse): o (B, Hq, Sq, Dv) in x's dtype, lse (B, Hq, Sq)
+    fp32.  Rows are anchored and rotated at ``q_offset + r`` (default
+    Skv - Sq).  On a CUDA tensor this launches the kernel (or raises); a
+    CPU tensor takes the plain version."""
+    if x.device.type == "cpu":
+        return fused_qproj_attention_fwd_plain(
+            x, wq, k, v, causal=causal, scale=scale, q_offset=q_offset,
+            rope_theta=rope_theta)
+    b, sq, e = x.shape
+    _, hq, d = wq.shape
+    _, hkv, skv, dv = v.shape
+    if wq.shape[0] != e or k.shape != (b, hkv, skv, d) or hq % hkv:
+        raise ValueError(
+            f"fused_qproj_attention_fwd: shapes x{tuple(x.shape)} "
+            f"wq{tuple(wq.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
+    check_cuda_args("fused_qproj_attention_fwd",
+                    {"x": x, "wq": wq, "k": k, "v": v}, None, (d, dv))
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.empty((b, hq, sq, dv), dtype=x.dtype, device=x.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=x.device)
+    build.launch("fused_qproj_attention_fwd", x.data_ptr(), wq.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                 b, hq, hkv, sq, skv, e, d, dv, int(causal),
+                 causal_anchor(q_offset, sq, skv),
+                 float(scale), float(rope_theta or 0.0),
+                 int(rope_theta is not None), build.dtype_code(x))
+    return out, lse
+
+
+class _FusedQprojAttention(torch.autograd.Function):
+    """Forward #10 saving (x, wq, k, v, o, lse); backward as _fqa_bwd."""
+
+    @staticmethod
+    def forward(ctx, x, wq, k, v, causal, scale, q_offset, rope_theta,
+                plain):
+        x, wq = x.contiguous(), wq.contiguous()
+        k, v = k.contiguous(), v.contiguous()
+        fwd = fused_qproj_attention_fwd_plain if plain \
+            else fused_qproj_attention_fwd
+        o, lse = fwd(x, wq, k, v, causal=causal, scale=scale,
+                     q_offset=q_offset, rope_theta=rope_theta)
+        ctx.save_for_backward(x, wq, k, v, o, lse)
+        ctx.args = (causal, scale, q_offset, rope_theta, plain)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        x, wq, k, v, o, lse = ctx.saved_tensors
+        causal, scale, q_offset, rope_theta, plain = ctx.args
+        # recompute the rotated Q (a product and a rotation) and reuse
+        # the training attention's backward on it
+        q, pos = _project(x, wq, x.shape[1], k.shape[2], q_offset,
+                          rope_theta)
+        dq, dk, dv = attention_backward(
+            q.contiguous(), k, v, o, lse, do, causal=causal,
+            scale=scale if scale is not None else wq.shape[-1] ** -0.5,
+            q_offset=q_offset, plain=plain)
+        if rope_theta is not None:
+            # the rotation is orthogonal: d(unrotated q) = R(-pos) dq
+            dq = ref.rope(dq, -pos, rope_theta)
+        dx = torch.einsum("bhsd,ehd->bse", dq.float(),
+                          wq.float()).to(x.dtype)
+        dwq = torch.einsum("bse,bhsd->ehd", x.float(),
+                           dq.float()).to(wq.dtype)
+        return dx, dwq, dk, dv, None, None, None, None, None
+
+
+def fused_qproj_attention(x, wq, k, v, *, causal: bool = True,
+                          scale: Optional[float] = None, q_offset=None,
+                          rope_theta: Optional[float] = None,
+                          plain: bool = False):
+    """Differentiable Fig. 5b schedule over the whole sequence: Q = x @
+    Wq (+ RoPE at ``q_offset + r``) built inside the forward kernel
+    ``fused_qproj_attention_fwd``, never stored.  x (B, Sq, E), wq (E,
+    Hq, D), k, v (B, Hkv, Skv, D[v]).  ``plain`` runs the plain versions
+    on the card too."""
+    return _FusedQprojAttention.apply(x, wq, k, v, causal, scale, q_offset,
+                                      rope_theta, plain)

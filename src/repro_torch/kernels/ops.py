@@ -4,9 +4,14 @@ Three entry points, one per rung of the fusion ladder that carries a
 kernel:
 
 * ``attention``       -- scores over a given Q (Fig. 5c):
-  ``fused_attention_masked``;
+  ``fused_attention_masked`` over a KV cache; without ``lengths`` (the
+  cache-free training and prefill call) the differentiable
+  ``fused_attention`` (forward ``fused_attention_fwd``, backward
+  ``fused_attention_bwd_dq`` and ``fused_attention_bwd_dkv``);
 * ``qproj_attention`` -- Q = x @ Wq folded into the score kernel, RoPE
-  in-kernel (Fig. 5b): ``fused_qproj_attention_masked``;
+  in-kernel (Fig. 5b): ``fused_qproj_attention_masked`` over a KV cache;
+  without ``lengths`` the differentiable ``fused_qproj_attention``
+  (forward ``fused_qproj_attention_fwd``, the same backward kernels);
 * ``decode_block``    -- the whole M=1 sub-block through the residual
   add: ``fused_decode_block``.
 
@@ -48,14 +53,15 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.fused_attention import (
-    fused_attention_masked, fused_attention_masked_plain,
+    fused_attention, fused_attention_masked, fused_attention_masked_plain,
     fused_attention_paged, fused_attention_paged_plain)
 from repro_torch.kernels.fused_decode_block import (
     fused_decode_block, fused_decode_block_paged,
     fused_decode_block_paged_plain, fused_decode_block_plain)
 from repro_torch.kernels.fused_qproj_attention import (
-    fused_qproj_attention_masked, fused_qproj_attention_masked_plain,
-    fused_qproj_attention_paged, fused_qproj_attention_paged_plain)
+    fused_qproj_attention, fused_qproj_attention_masked,
+    fused_qproj_attention_masked_plain, fused_qproj_attention_paged,
+    fused_qproj_attention_paged_plain)
 
 __all__ = ["attention", "qproj_attention", "decode_block", "CALLS",
            "reset_counts", "reset_downgrade_warnings"]
@@ -166,26 +172,24 @@ def attention(q, k, v, *, causal: bool = True,
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D[v]).  ``lengths`` (B,):
     valid KV prefix per row; the masked kernel anchors causal rows at
     its end (``q_offset = lengths - Sq``).  A call without lengths runs
-    the same kernel over the full Skv when its causal anchor is the
-    default ``Skv - Sq``.  ``block_tables`` (B, max_pages): k and v
-    are page pools (num_pages, Hkv, page, D[v]) read through the table
-    (``lengths`` required)."""
-    b, _, sq, _ = q.shape
+    the differentiable ``fused_attention`` over the full Skv, causal rows
+    anchored at ``q_offset + r`` (default ``Skv - Sq``), on the kernels
+    (``cuda``) or their plain versions (``torch``).  ``block_tables``
+    (B, max_pages): k and v are page pools (num_pages, Hkv, page, D[v])
+    read through the table (``lengths`` required)."""
+    sq = q.shape[2]
     if block_tables is not None:
         return _attention_paged(q, k, v, lengths, block_tables,
                                 causal=causal, scale=scale,
                                 q_offset=q_offset, impl=impl, plan=plan)
-    skv = k.shape[2]
     impl = _resolve("attention", impl, plan, q.device)
-    if lengths is None and impl != "reference":
-        if causal and q_offset is not None and int(q_offset) != skv - sq:
-            impl = _downgrade(plan, f"cache-free call with q_offset="
-                              f"{int(q_offset)} != Skv - Sq",
-                              "masked attention kernel")
-        else:
-            lengths = torch.full((b,), skv, dtype=torch.int32,
-                                 device=q.device)
-            q_offset = skv - sq
+    if lengths is None:
+        _count("attention", impl)
+        if impl == "reference":
+            return ref.attention_reference(q, k, v, causal=causal,
+                                           scale=scale, q_offset=q_offset)
+        return fused_attention(q, k, v, causal=causal, scale=scale,
+                               q_offset=q_offset, plain=impl == "torch")
     if impl != "reference":
         reason = _masked_unsupported(q, lengths, causal, q_offset, sq)
         if reason is not None:
@@ -212,19 +216,29 @@ def qproj_attention(x, wq, k, v, *, causal: bool = True,
     """Layer-fused Q-projection attention (Fig. 5b): x (B, Sq, E) and
     wq (E, Hq, D) go to the kernel, which builds (and, with
     ``rope_theta``, rotates at ``lengths[b] - Sq + r``) the Q tile
-    itself.  Requires ``lengths`` (the serving path always has them).
-    ``block_tables``: k and v are page pools, as in :func:`attention`."""
+    itself.  Without ``lengths`` the differentiable
+    ``fused_qproj_attention`` runs over the full Skv, rows anchored and
+    rotated at ``q_offset + r`` (default ``Skv - Sq``), as the JAX
+    package's cache-free call.  ``block_tables``: k and v are page
+    pools, as in :func:`attention`."""
     if block_tables is not None:
         return _qproj_attention_paged(x, wq, k, v, lengths, block_tables,
                                       causal=causal, scale=scale,
                                       q_offset=q_offset,
                                       rope_theta=rope_theta, impl=impl,
                                       plan=plan)
-    if lengths is None:
-        raise ValueError("qproj_attention is the KV-cached path: pass "
-                         "lengths")
     sq = x.shape[1]
     impl = _resolve("qproj_attention", impl, plan, x.device)
+    if lengths is None:
+        _count("qproj_attention", impl)
+        if impl == "reference":
+            return ref.qproj_attention_reference(
+                x, wq, k, v, rope_theta=rope_theta, causal=causal,
+                scale=scale, q_offset=q_offset)
+        return fused_qproj_attention(x, wq, k, v, causal=causal,
+                                     scale=scale, q_offset=q_offset,
+                                     rope_theta=rope_theta,
+                                     plain=impl == "torch")
     if impl != "reference":
         reason = _masked_unsupported(x, lengths, causal, q_offset, sq)
         if reason is not None:

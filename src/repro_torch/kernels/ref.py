@@ -160,3 +160,108 @@ def paged_decode_block_reference(x, wq, k_pool, v_pool, wo, residual,
     return decode_block_reference(
         x, wq, gather_pages(k_pool, block_tables),
         gather_pages(v_pool, block_tables), wo, residual, lengths, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the training attention: forward with lse, and its backward
+# (repro/kernels/fused_attention.py _fwd :139-186 and _bwd :514-610)
+# ---------------------------------------------------------------------------
+
+def _train_scores(q, k, causal: bool, scale: float, q_offset):
+    """Scaled fp32 scores (B, Hq, Sq, Skv) with the GQA heads expanded,
+    and the (Sq, Skv) mask of visible columns (None: all).  Row r sees
+    column c iff c <= q_offset + r (default q_offset = Skv - Sq)."""
+    sq, skv = q.shape[2], k.shape[2]
+    group = q.shape[1] // k.shape[1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     repeat_kv(k, group).float()) * scale
+    if not causal:
+        return s, None
+    off = (skv - sq) if q_offset is None else int(q_offset)
+    rows = off + torch.arange(sq, device=q.device)[:, None]
+    return s, torch.arange(skv, device=q.device)[None, :] <= rows
+
+
+def attention_fwd_plain(q, k, v, *, causal: bool = True,
+                        scale: Optional[float] = None, q_offset=None):
+    """The forward of the training attention, whole score matrix at
+    once: returns (o, lse) with o (B, Hq, Sq, Dv) in q's dtype and lse
+    (B, Hq, Sq) fp32, ``lse = m + log(l)``.  p is rounded to V's dtype
+    before P.V; a row with no visible column emits 0 and lse = m =
+    NEG_INF (``l`` counted as 1), as ``_emit_softmax_out``."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    group = q.shape[1] // k.shape[1]
+    s, mask = _train_scores(q, k, causal, scale, q_offset)
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros_like(p))
+    l = p.sum(-1)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(),
+                     repeat_kv(v, group).float()) / l_safe[..., None]
+    return o.to(q.dtype), m + torch.log(l_safe)
+
+
+def attention_delta(o, do) -> torch.Tensor:
+    """delta = sum(o * dO) over the head width, fp32 (B, Hq, Sq): the
+    backward's row term, computed outside its kernels as ``_bwd``
+    computes it."""
+    return (o.float() * do.float()).sum(-1)
+
+
+def _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, q_offset):
+    """p = exp(s - lse) (0 where masked) and ds = p * (dp - delta) *
+    scale with dp = dO . V^T in fp32, both (B, Hq, Sq, Skv)."""
+    group = q.shape[1] // k.shape[1]
+    s, mask = _train_scores(q, k, causal, scale, q_offset)
+    p = torch.exp(s - lse.float()[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros_like(p))
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(),
+                      repeat_kv(v, group).float())
+    return p, p * (dp - delta.float()[..., None]) * scale
+
+
+def _group_sum(x, hkv: int):
+    """(B, Hq, ...) -> (B, Hkv, ...): the GQA group's sum."""
+    b, hq = x.shape[:2]
+    return x.reshape(b, hkv, hq // hkv, *x.shape[2:]).sum(2)
+
+
+def attention_bwd_dq_plain(q, k, v, do, lse, delta, *, causal: bool = True,
+                           scale: Optional[float] = None, q_offset=None):
+    """dq = (ds rounded to K's dtype) . K, fp32 sums, in q's dtype."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    _, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, q_offset)
+    group = q.shape[1] // k.shape[1]
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
+                      repeat_kv(k, group).float())
+    return dq.to(q.dtype)
+
+
+def attention_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal: bool = True,
+                            scale: Optional[float] = None, q_offset=None):
+    """(dk, dv): dv = (p rounded to dO's dtype)^T . dO and dk = (ds
+    rounded to Q's dtype)^T . Q, summed over the GQA group, fp32 sums,
+    in K's and V's dtypes."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    p, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, q_offset)
+    hkv = k.shape[1]
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    return _group_sum(dk, hkv).to(k.dtype), _group_sum(dv, hkv).to(v.dtype)
+
+
+def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                        scale: Optional[float] = None, q_offset=None):
+    """(dq, dk, dv) of the training attention from the residuals (q, k,
+    v, o, lse) and the cotangent dO, by the formulas of the TPU
+    backward kernels (not by autograd through the forward)."""
+    delta = attention_delta(o, do)
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset)
+    dq = attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    dk, dv = attention_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv

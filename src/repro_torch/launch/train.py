@@ -1,0 +1,132 @@
+"""Training entry point of the port: data pipeline -> train step ->
+checkpoint, on the card by default (a copy of ``repro.launch.train``
+without its host mesh, which waits for the multi-device slice).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
+        --smoke --steps 20 --batch 8 --seq 128 --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import time
+
+import torch
+
+from repro_torch import configs
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.data import SyntheticTokenDataset, make_batch_iterator
+from repro_torch.models.common import resolve_device
+from repro_torch.optim.adamw import cosine_schedule
+from repro_torch.runtime import StepTimer
+from repro_torch.train import step as train_mod
+
+
+def build(cfg, *, batch: int, seq: int, lr: float, steps: int,
+          moment_dtype="float32", grad_compression=False, microbatches=1,
+          seed=0, structured_data=True, device="cuda", params=None):
+    """(state, step_fn, dataset).  Weights are drawn from a generator
+    seeded with ``seed`` on ``device`` unless ``params`` are given."""
+    dev = resolve_device(device)
+    gen = None
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+    state = train_mod.init_train_state(
+        gen, cfg, moment_dtype=moment_dtype,
+        grad_compression=grad_compression, device=dev, params=params)
+    sched = cosine_schedule(lr, warmup_steps=max(steps // 20, 1),
+                            total_steps=steps)
+    step_fn = functools.partial(train_mod.train_step, cfg=cfg, lr=sched,
+                                microbatches=microbatches)
+    ds = SyntheticTokenDataset(cfg.vocab_size, seq, batch, seed=seed,
+                               structured=structured_data)
+    return state, step_fn, ds
+
+
+def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float,
+               ckpt_dir=None, checkpoint_every=50, log_every=10,
+               on_step=None, **kw):
+    """Train ``steps`` steps; returns (state, losses).  ``on_step(step,
+    metrics, seconds)`` (optional) sees each step's metrics and its time
+    on the host clock, the device synchronised.  Keyword arguments go to
+    :func:`build`."""
+    state, step_fn, ds = build(cfg, batch=batch, seq=seq, lr=lr,
+                               steps=steps, **kw)
+    dev = state.opt.step.device
+    ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start = 0
+    if ckpt and ckpt.latest_step() is not None:
+        state, extras = ckpt.restore(state)
+        start = extras["next_step"]
+        print(f"resumed from step {start}")
+    timer = StepTimer()
+    it = make_batch_iterator(ds, start_step=start)
+    losses = []
+    try:
+        for step, rows in it:
+            if step >= steps:
+                break
+            timer.start()
+            batch_tree = {"tokens": torch.from_numpy(rows).long().to(dev)}
+            state, metrics = step_fn(state, batch_tree)
+            loss = float(metrics["loss"])        # waits for the step
+            straggler = timer.stop()
+            losses.append(loss)
+            if on_step is not None:
+                on_step(step, metrics, timer.times[-1])
+            if step % log_every == 0:
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"lr {float(metrics['lr']):.2e}"
+                      + (" [straggler]" if straggler else ""), flush=True)
+            if ckpt and (step + 1) % checkpoint_every == 0:
+                ckpt.save(step, state, extras={"next_step": step + 1})
+    finally:
+        it.close()
+        if ckpt:
+            ckpt.wait()
+    return state, losses
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen3-8b",
+                    choices=configs.list_archs())
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers "
+                         "(default: the config's)")
+    ap.add_argument("--moment-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="AdamW moment dtype (bfloat16 halves their "
+                         "memory)")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    cfg = configs.get_config(args.arch, smoke=args.smoke)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    t0 = time.time()
+    _, losses = train_loop(cfg, steps=args.steps, batch=args.batch,
+                           seq=args.seq, lr=args.lr, ckpt_dir=args.ckpt_dir,
+                           microbatches=args.microbatches,
+                           moment_dtype=args.moment_dtype,
+                           device=args.device)
+    print(f"done: {len(losses)} steps in {time.time()-t0:.1f}s; "
+          f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+
+
+if __name__ == "__main__":
+    main()

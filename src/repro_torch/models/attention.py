@@ -52,7 +52,8 @@ def _cache_write(cache_len, b: int, s: int, device):
 def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, cache: Optional[dict] = None,
                 cache_len=None, block_tables: Optional[torch.Tensor] = None,
-                plan=None, residual: Optional[torch.Tensor] = None):
+                plan=None, residual: Optional[torch.Tensor] = None,
+                impl: str = "auto"):
     """x: (B, S, E).  With ``cache``: append K/V at ``cache_len`` (in
     place) and attend over the valid prefix.  ``plan``: a
     ``lower.runtime.PlanDispatch``; ``plan.fuse_q`` hands x and Wq to
@@ -64,7 +65,9 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
     (zeroed table row, length 0) write into the allocator's null page
     0, which no live row reads.  Single-token per-row decode only:
     prefill runs dense and is paged when the engine inserts it.
-    Returns (out, cache)."""
+    ``impl``: the ``kernels.ops`` impl of every attention call (``auto``
+    follows the plan, else the device); a cache-free call is the
+    differentiable training attention.  Returns (out, cache)."""
     dt = x.dtype
     b, s, _ = x.shape
     decode = cache is not None
@@ -89,7 +92,8 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
         q = rope(q, positions, cfg.rope_theta)
 
     if not decode:
-        o = ops.attention(q, k_new, v_new, causal=cfg.causal, plan=plan)
+        o = ops.attention(q, k_new, v_new, causal=cfg.causal, plan=plan,
+                          impl=impl)
         new_cache = None
     else:
         starts, lengths, q_off, per_row = _cache_write(cache_len, b, s,
@@ -127,16 +131,18 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 out = ops.decode_block(x, wq, k_buf, v_buf,
                                        params["wo"].to(dt), residual,
                                        lengths, block_tables=block_tables,
-                                       rope_theta=theta, plan=plan)
+                                       rope_theta=theta, plan=plan,
+                                       impl=impl)
                 return out, new_cache
             o = ops.qproj_attention(x, wq, k_buf, v_buf, causal=cfg.causal,
                                     q_offset=q_off, lengths=lengths,
                                     block_tables=block_tables,
-                                    rope_theta=theta, plan=plan)
+                                    rope_theta=theta, plan=plan, impl=impl)
         else:
             o = ops.attention(q, k_buf, v_buf, causal=cfg.causal,
                               q_offset=q_off, lengths=lengths,
-                              block_tables=block_tables, plan=plan)
+                              block_tables=block_tables, plan=plan,
+                              impl=impl)
     out = torch.einsum("bhse,hed->bsd", o, params["wo"].to(dt))
     if residual is not None:
         out = residual + out

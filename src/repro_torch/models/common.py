@@ -1,5 +1,5 @@
 """Shared model pieces of the port: the config, the device rule, norms,
-RoPE and the MLP.
+RoPE, the MLP and the cross entropy.
 
 ``ModelConfig`` is the JAX package's (``repro/models/common.py``), field
 for field, so one config object describes the same model to both; it
@@ -186,3 +186,18 @@ def mlp_forward(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = x @ params["w_up"].to(dt)
         h = F.gelu(h.float(), approximate="tanh").to(dt)
     return h @ params["w_down"].to(dt)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy with the logits in fp32
+    (``repro/models/common.py:256-266``); with ``mask``, the mean over
+    the masked-in tokens (at least 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -9,6 +9,14 @@ here; each period's parameters and caches are views into the stacked
 tensors, so cache appends land in the stacked cache in place.  Paged
 caches (page pools, the body's with the leading ``n_periods`` axis)
 take the same walk, with one block table shared by every layer.
+
+A cache-free forward with autograd on is a training forward: each layer
+is rematerialised per ``cfg.remat`` (``"full"``: its activations are
+recomputed in the backward, ``torch.utils.checkpoint`` around the layer,
+as ``jax.checkpoint`` around the JAX package's scanned period), and its
+attention runs the differentiable ``kernels.ops`` path.  Gradients reach
+whatever leaves the caller marks: ``train.step`` hands in one view per
+layer of each stacked leaf, so every layer's gradient is written once.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import ModelConfig, mlp_forward, rms_norm
@@ -29,14 +38,15 @@ def check_dense(cfg: ModelConfig) -> None:
 
 
 def _index(tree, j: int):
-    """Period ``j`` of a stacked parameter or cache tree (views)."""
+    """Period ``j`` of a stacked parameter or cache tree (views; a leaf
+    given as a list of per-period tensors yields its j-th)."""
     if isinstance(tree, dict):
         return {k: _index(v, j) for k, v in tree.items()}
     return tree[j]
 
 
 def _layer_forward(lp: dict, cfg: ModelConfig, x, positions, layer_cache,
-                   cache_len, plan, block_tables=None):
+                   cache_len, plan, block_tables=None, impl="auto"):
     h = rms_norm(x, lp["pre_norm"])
     # the attention block owns its residual add: the decode megakernel
     # folds it into the launch, every other path adds it in gqa_forward
@@ -44,22 +54,40 @@ def _layer_forward(lp: dict, cfg: ModelConfig, x, positions, layer_cache,
         lp["attn"], cfg, h, positions,
         cache=None if layer_cache is None else layer_cache["attn"],
         cache_len=cache_len, block_tables=block_tables, plan=plan,
-        residual=x)
+        residual=x, impl=impl)
     h = rms_norm(x, lp["ffn_norm"])
     return x + mlp_forward(lp["mlp"], h, cfg.mlp)
+
+
+def _remat(cfg: ModelConfig) -> bool:
+    """Whether a training forward recomputes each layer in the
+    backward (``cfg.remat``)."""
+    if cfg.remat == "full":
+        return True
+    if cfg.remat == "none":
+        return False
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            f"{cfg.name}: remat='dots' (JAX's dots_with_no_batch_dims_"
+            "saveable policy) is not ported; use 'full' or 'none'")
+    raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache: Optional[dict] = None, cache_len=None,
             positions: Optional[torch.Tensor] = None, plan=None,
-            block_tables: Optional[torch.Tensor] = None):
+            block_tables: Optional[torch.Tensor] = None,
+            return_aux: bool = False, impl: str = "auto"):
     """tokens: (B, S) integer ids.  ``cache``/``cache_len``: KV-cached
     mode; ``cache_len`` is an int (the whole batch at one context) or a
     (B,) tensor of per-row write positions.  ``plan``: a
     ``lower.runtime.PlanDispatch`` routing every attention block.
     ``block_tables``: (B, max_pages) int32 page table of paged caches,
-    shared by every layer.  Returns logits (B, S, vocab), plus the cache (updated in place)
-    when one is given."""
+    shared by every layer.  ``impl``: the ``kernels.ops`` impl of every
+    attention call (``torch`` forces the plain versions on the card).
+    Returns logits (B, S, vocab), plus the cache (updated in place) when
+    one is given, plus, with ``return_aux``, the auxiliary losses (zeros:
+    the dense stack has no MoE)."""
     check_dense(cfg)
     dt = cfg.torch_dtype()
     x = params["embed"].to(dt)[tokens]
@@ -72,25 +100,32 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             start = 0 if cache_len is None else int(cache_len)
             positions = (start + ar)[None, :].expand(b, s)
 
+    remat = cache is None and torch.is_grad_enabled() and _remat(cfg)
+
+    def layer(lp, lc, x):
+        if remat:
+            return checkpoint(_layer_forward, lp, cfg, x, positions, None,
+                              None, plan, None, impl, use_reentrant=False)
+        return _layer_forward(lp, cfg, x, positions, lc, cache_len, plan,
+                              block_tables, impl)
+
     for i, lp in enumerate(params["prefix_layers"]):
-        lc = None if cache is None else cache["prefix"][i]
-        x = _layer_forward(lp, cfg, x, positions, lc, cache_len, plan,
-                           block_tables)
+        x = layer(lp, None if cache is None else cache["prefix"][i], x)
     for j in range(cfg.n_periods):
         for pos in range(cfg.layer_period):
-            lp = _index(params["layers"][pos], j)
             lc = None if cache is None else _index(cache["scan"][pos], j)
-            x = _layer_forward(lp, cfg, x, positions, lc, cache_len, plan,
-                               block_tables)
+            x = layer(_index(params["layers"][pos], j), lc, x)
 
     x = rms_norm(x, params["final_norm"])
     if "lm_head" in params:
         logits = x @ params["lm_head"].to(dt)
     else:
         logits = x @ params["embed"].to(dt).T
-    if cache is None:
-        return logits
-    return logits, cache
+    out = [logits] if cache is None else [logits, cache]
+    if return_aux:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        out.append({"moe_lb_loss": zero, "moe_z_loss": zero})
+    return out[0] if len(out) == 1 else tuple(out)
 
 
 def init_model_cache(cfg: ModelConfig, batch: int, max_len: int,

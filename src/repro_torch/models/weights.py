@@ -1,5 +1,6 @@
 """Parameters of the port: random init from an explicit generator, and
-the bridge from the JAX package's parameter tree.
+the bridge from the JAX package's parameter tree (and its AdamW
+state).
 
 Both give the JAX tree's structure and layout: ``embed`` (V, E),
 ``prefix_layers`` (list), ``layers`` (one dict per period position,
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import ModelConfig, resolve_device
+from repro_torch.optim.adamw import AdamWState
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda", dtype=None):
@@ -97,3 +99,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         p["lm_head"] = w(e, cfg.vocab_size, scale=0.02, lead=1)[0]
     return p
+
+
+def adamw_state_from_numpy(step, mu, nu, cfg: ModelConfig, device="cuda"):
+    """The JAX package's ``AdamWState`` (its ``step``, ``mu`` and ``nu``
+    already ``np.asarray``'d by the caller) as the port's, on
+    ``device``: the moments through :func:`params_from_numpy`, each
+    leaf in its own dtype, and the step as a () int32 tensor."""
+    dev = resolve_device(device)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev),
+        mu=params_from_numpy(mu, cfg, dev), nu=params_from_numpy(nu, cfg, dev))

@@ -1,0 +1,150 @@
+"""Training step of the port: loss -> gradients -> AdamW, with optional
+gradient accumulation (microbatching) and int8 gradient compression: a
+copy of ``repro/train/step.py``.
+
+JAX differentiates a pure function of the parameter tree.  Here
+:func:`value_and_grad` hands the model one trainable view per layer of
+each stacked leaf (``layers`` leaves carry a leading ``n_periods``
+axis), sharing the stacked storage, with its ``.grad`` preset to the
+matching slice of a zeroed stacked gradient buffer: autograd then adds
+each layer's gradient into its slice in place, once.  Differentiating
+the stacked leaf itself would make every period's ``select`` backward
+allocate a zero tensor of the whole stacked leaf (5.4 GB for
+starcoder2-7b's ``w_up``) per layer.  The gradient tree comes back in
+the JAX package's layout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, Optional
+
+import torch
+# torch.utils.checkpoint imports torch._dynamo at its first call, and an
+# exception raised and caught inside that import keeps the calling
+# stack's frames in a reference cycle until the garbage collector runs.
+# Inside the first training forward those frames would pin that step's
+# gradients (14.8 GB for starcoder2-7b) into the next step; imported
+# here, the cycle holds only this module's import.
+import torch._dynamo  # noqa: F401
+
+from repro_torch import tree
+from repro_torch.models import transformer as tf
+from repro_torch.models.common import ModelConfig, cross_entropy
+from repro_torch.models.weights import init_params
+from repro_torch.optim import (adamw_init, adamw_update,
+                               error_feedback_init,
+                               int8_compress_with_feedback)
+from repro_torch.optim.adamw import AdamWState, chunks
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any
+    opt: AdamWState
+    feedback: Optional[Any] = None     # error-feedback buffers (compression)
+
+
+def init_train_state(generator: Optional[torch.Generator],
+                     cfg: ModelConfig, *, moment_dtype: str = "float32",
+                     grad_compression: bool = False, device="cuda",
+                     params=None) -> TrainState:
+    """A fresh state: ``params`` if given (e.g. the JAX package's, through
+    ``params_from_numpy``), else random ones drawn from ``generator``
+    on ``device``; zero moments in ``moment_dtype``."""
+    if params is None:
+        params = init_params(cfg, generator, device)
+    fb = error_feedback_init(params) if grad_compression else None
+    return TrainState(params=params, opt=adamw_init(params, moment_dtype),
+                      feedback=fb)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
+    """Next-token cross entropy (+ the MoE aux terms, zero for the dense
+    stack).  batch: {"tokens": (B, S+1)} integer ids on the parameters'
+    device, optional "mask" (B, S) and, for a non-causal model,
+    "targets"."""
+    tokens = batch["tokens"]
+    if cfg.causal:
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    else:
+        inputs, targets = tokens, batch.get("targets", tokens)
+    logits, aux = tf.forward(params, cfg, inputs, return_aux=True,
+                             impl=impl)
+    loss = cross_entropy(logits, targets, batch.get("mask"))
+    total = loss + 0.01 * aux["moe_lb_loss"] + 0.001 * aux["moe_z_loss"]
+    metrics = {"loss": loss.detach(), "moe_lb_loss": aux["moe_lb_loss"],
+               "moe_z_loss": aux["moe_z_loss"]}
+    return total, metrics
+
+
+def _trainable(params, grads):
+    """The tree the model is run on: for every leaf a trainable view of
+    its storage whose ``.grad`` is the matching view of ``grads``; a
+    stacked ``layers`` leaf becomes a list of per-period views."""
+    def leaf(p, g):
+        t = p.detach().requires_grad_()
+        t.grad = g
+        return t
+
+    def stacked(p, g):
+        return [leaf(p[j], g[j]) for j in range(p.shape[0])]
+
+    return {key: ([tree.map(stacked, lp, lg)
+                   for lp, lg in zip(val, grads[key])]
+                  if key == "layers" else tree.map(leaf, val, grads[key]))
+            for key, val in params.items()}
+
+
+def value_and_grad(params, cfg: ModelConfig, batch, *,
+                   impl: str = "auto"):
+    """((total loss, metrics), gradients): the gradients in the
+    parameters' tree, layout and dtypes, each layer's written once into
+    its slice."""
+    grads = tree.map(torch.zeros_like, params)
+    leaves = _trainable(params, grads)
+    with torch.enable_grad():
+        total, metrics = loss_fn(leaves, cfg, batch, impl=impl)
+        total.backward()
+    return (total.detach(), metrics), grads
+
+
+def train_step(state: TrainState, batch, cfg: ModelConfig, *,
+               lr=3e-4, weight_decay: float = 0.1,
+               microbatches: int = 1, impl: str = "auto") -> tuple:
+    """One optimizer step, updating ``state`` in place and returning it
+    with the metrics.  ``microbatches`` > 1 accumulates the gradients of
+    leading-batch slices in fp32 and divides, as the JAX package does;
+    the metrics are the last slice's."""
+    params = state.params
+    if microbatches > 1:
+        n = batch["tokens"].shape[0] // microbatches
+        acc = tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device), params)
+        for i in range(microbatches):
+            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            (_, metrics), g = value_and_grad(params, cfg, mb, impl=impl)
+            for a, x in zip(tree.leaves(acc), tree.leaves(g)):
+                for ca, cx in zip(chunks(a), chunks(x)):
+                    ca.add_(cx.float())
+            del g
+        for a in tree.leaves(acc):
+            a.div_(microbatches)
+        grads = acc
+    else:
+        (_, metrics), grads = value_and_grad(params, cfg, batch, impl=impl)
+
+    feedback = state.feedback
+    if feedback is not None:
+        grads, feedback = int8_compress_with_feedback(grads, feedback)
+
+    params, opt, opt_metrics = adamw_update(
+        params, grads, state.opt, lr=lr, weight_decay=weight_decay)
+    metrics = dict(metrics, **opt_metrics)
+    return TrainState(params=params, opt=opt, feedback=feedback), metrics
+
+
+def make_train_step(cfg: ModelConfig, **kw) -> Callable:
+    """``train_step`` with the config and options bound."""
+    return functools.partial(train_step, cfg=cfg, **kw)

@@ -12,7 +12,13 @@ megakernel's head sum is deterministic; launches are counted.  Each
 paged kernel, over a shuffled table of a pool larger than the batch
 needs (pages of 8, 40 and 128, a dead row whose table row is zeros),
 matches its plain version and gives bit for bit its dense kernel's
-output on the gathered cache: the two share one body.
+output on the gathered cache: the two share one body.  The training
+kernels (forward with lse, dq, dk/dv, the Q-projection forward) match
+their plain versions relative to each output's largest magnitude (fp32
+1e-4, bf16 2e-2) off the tile grids, with GQA, an explicit causal
+offset and Dv != D; backward through a one-layer model on the kernels
+reaches wq, wk and wv; the serve kernels refuse a tensor that requires
+grad.
 """
 
 import pytest
@@ -20,14 +26,19 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.fused_attention import (
-    fused_attention_masked, fused_attention_masked_plain,
-    fused_attention_paged, fused_attention_paged_plain)
+    fused_attention, fused_attention_bwd_dkv, fused_attention_bwd_dkv_plain,
+    fused_attention_bwd_dq, fused_attention_bwd_dq_plain,
+    fused_attention_fwd, fused_attention_fwd_plain, fused_attention_masked,
+    fused_attention_masked_plain, fused_attention_paged,
+    fused_attention_paged_plain)
 from repro_torch.kernels.fused_decode_block import (
     fused_decode_block, fused_decode_block_paged,
     fused_decode_block_paged_plain, fused_decode_block_plain)
 from repro_torch.kernels.fused_qproj_attention import (
-    fused_qproj_attention_masked, fused_qproj_attention_masked_plain,
-    fused_qproj_attention_paged, fused_qproj_attention_paged_plain)
+    fused_qproj_attention, fused_qproj_attention_fwd,
+    fused_qproj_attention_fwd_plain, fused_qproj_attention_masked,
+    fused_qproj_attention_masked_plain, fused_qproj_attention_paged,
+    fused_qproj_attention_paged_plain)
 
 torch.set_num_threads(2)
 
@@ -187,8 +198,17 @@ def test_launches_are_counted(cuda_device):
     fused_qproj_attention_paged(t["x"], t["wq"], kp, vp, t["lens"], tbl)
     fused_decode_block_paged(t["x1"], t["wq"], kp, vp, t["wo"], t["res"],
                              t["lens"], tbl)
+    # the training kernels: a forward and a backward of each schedule
+    # (fused_qproj_attention's backward reuses #8/#9: counted twice)
+    q, k, v = (x.clone().requires_grad_() for x in (t["q"], t["k"], t["v"]))
+    fused_attention(q, k, v).sum().backward()
+    x, wq = t["x"].clone().requires_grad_(), t["wq"].clone()
+    fused_qproj_attention(x, wq, t["k"], t["v"], rope_theta=1e4).sum() \
+        .backward()
     torch.cuda.synchronize()
-    assert all(build.LAUNCHES[n] == 1 for n in build.KERNELS)
+    twice = {"fused_attention_bwd_dq", "fused_attention_bwd_dkv"}
+    assert {n: build.LAUNCHES[n] for n in build.KERNELS} == {
+        n: 2 if n in twice else 1 for n in build.KERNELS}
 
 
 @pytest.mark.cuda
@@ -204,3 +224,112 @@ def test_build_all_compiles_every_kernel(cuda_device):
     for name in build.KERNELS:
         assert build.library_path(name).exists()
         assert build.kernel(name) is not None
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err / max(want.float().abs().max().item(), 1e-30)
+
+
+# b, hq, hkv, sq, skv, d, dv, causal, q_offset
+TRAIN_CASES = [
+    (2, 9, 3, 200, 200, 64, 64, True, None),    # off the 16/32/64 grids
+    (1, 4, 4, 120, 200, 64, 32, True, None),    # Sq < Skv, Dv != D
+    (2, 6, 2, 96, 160, 32, 32, True, 40),       # explicit causal offset
+    (1, 6, 2, 77, 130, 64, 64, False, None),    # full attention
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,dv,causal,q_offset",
+                         TRAIN_CASES)
+def test_training_attention_kernels_match_plain(cuda_device, dtype, tol, b,
+                                                hq, hkv, sq, skv, d, dv,
+                                                causal, q_offset):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda_device).to(dtype)
+    q, k, v, do = r(b, hq, sq, d), r(b, hkv, skv, d), r(b, hkv, skv, dv), \
+        r(b, hq, sq, dv)
+    kw = dict(causal=causal, q_offset=q_offset)
+    o, lse = fused_attention_fwd(q, k, v, **kw)
+    o_p, lse_p = fused_attention_fwd_plain(q, k, v, **kw)
+    assert lse.dtype == torch.float32
+    assert _rel(o, o_p) <= tol and _rel(lse, lse_p) <= tol
+    delta = (o_p.float() * do.float()).sum(-1)
+    dq = fused_attention_bwd_dq(q, k, v, do, lse_p, delta, **kw)
+    dk, dvv = fused_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+    want = (fused_attention_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw),
+            *fused_attention_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw))
+    for got, w in zip((dq, dk, dvv), want):
+        assert got.dtype == w.dtype and got.shape == w.shape
+        assert _rel(got, w) <= tol
+    # deterministic: no atomics in the dk/dv group sum
+    again = fused_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dvv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("theta,q_offset", [(1e4, None), (None, None),
+                                            (1e4, 30)])
+def test_qproj_training_kernels_match_plain(cuda_device, dtype, tol, theta,
+                                            q_offset):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    r = lambda *s, scale=1.0: (torch.randn(
+        *s, generator=g, device=cuda_device) * scale).to(dtype)
+    b, hq, hkv, sq, skv, e, d = 2, 6, 2, 100, 130, 96, 64
+    x, wq = r(b, sq, e), r(e, hq, d, scale=e ** -0.5)
+    k, v, do = r(b, hkv, skv, d), r(b, hkv, skv, d), r(b, hq, sq, d)
+    kw = dict(causal=True, q_offset=q_offset, rope_theta=theta)
+    o, lse = fused_qproj_attention_fwd(x, wq, k, v, **kw)
+    o_p, lse_p = fused_qproj_attention_fwd_plain(x, wq, k, v, **kw)
+    assert _rel(o, o_p) <= tol and _rel(lse, lse_p) <= tol
+    grads = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (x, wq, k, v)]
+        fused_qproj_attention(*leaves, plain=plain, **kw).backward(do)
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert _rel(got, want) <= tol
+
+
+@pytest.mark.cuda
+def test_one_layer_backward_on_the_kernels_reaches_qkv(cuda_device):
+    """A cache-free forward and backward through a one-layer model on the
+    card gives wq, wk and wv a non-zero gradient: the training attention
+    is differentiable on the kernels."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.weights import init_params
+    cfg = dataclasses.replace(configs.get_config("starcoder2-7b", smoke=True),
+                              n_layers=1, compute_dtype="bfloat16",
+                              param_dtype="bfloat16")
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, g, cuda_device)
+    attn = params["layers"][0]["attn"]
+    for key in ("wq", "wk", "wv"):
+        attn[key].requires_grad_()
+    toks = torch.randint(0, cfg.vocab_size, (2, 96), device=cuda_device)
+    build.reset_launches()
+    tf.forward(params, cfg, toks).float().square().mean().backward()
+    torch.cuda.synchronize()
+    for key in ("wq", "wk", "wv"):
+        grad = attn[key].grad
+        assert grad is not None and grad.abs().max().item() > 0, key
+    assert build.LAUNCHES["fused_attention_fwd"] == 1
+    assert build.LAUNCHES["fused_attention_bwd_dq"] == 1
+    assert build.LAUNCHES["fused_attention_bwd_dkv"] == 1
+
+
+@pytest.mark.cuda
+def test_serve_kernels_refuse_a_tensor_that_requires_grad(cuda_device):
+    t = _inputs(cuda_device, torch.bfloat16)
+    q = t["q"].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="require grad"):
+        fused_attention_masked(q, t["k"], t["v"], t["lens"])
+    with torch.no_grad():
+        fused_attention_masked(q, t["k"], t["v"], t["lens"])

@@ -44,10 +44,30 @@ def test_every_port_module_imports_without_a_card():
         importlib.import_module(name)
 
 
+#: the training slice's modules: the import check above covers each
+TRAINING_MODULES = ["optim/adamw.py", "optim/compression.py",
+                    "train/step.py", "data/pipeline.py",
+                    "checkpoint/manager.py", "runtime/elastic.py",
+                    "launch/train.py", "tree.py",
+                    "kernels/csrc/fused_attention_bwd.cu"]
+
+
+@pytest.mark.parametrize("rel", TRAINING_MODULES)
+def test_training_modules_are_checked(rel):
+    path = PORT / rel
+    assert path.exists()
+    if path.suffix == ".py":
+        assert path in FILES
+        assert not _imported_roots(path) & FORBIDDEN
+
+
 def _entry_points():
     from repro_torch import configs
+    from repro_torch.launch import train
     from repro_torch.lower import serving_plan
-    from repro_torch.models.weights import init_params, params_from_numpy
+    from repro_torch.models.weights import (adamw_state_from_numpy,
+                                            init_params, params_from_numpy)
+    from repro_torch.train.step import init_train_state
     from repro_torch.serve.engine import (ContinuousBatchingEngine,
                                           PagedContinuousBatchingEngine,
                                           init_decode_state,
@@ -70,10 +90,14 @@ def _entry_points():
         lambda: PagedContinuousBatchingEngine(None, cfg, batch_size=1,
                                               max_len=64, page_size=16,
                                               num_pages=4),
+        lambda: init_train_state(None, cfg),
+        lambda: train.build(cfg, batch=2, seq=8, lr=1e-3, steps=1),
+        lambda: train.train_loop(cfg, steps=1, batch=2, seq=8, lr=1e-3),
+        lambda: adamw_state_from_numpy(0, {}, {}, cfg),
     ]
 
 
-@pytest.mark.parametrize("i", range(10))
+@pytest.mark.parametrize("i", range(14))
 def test_default_device_is_cuda_and_raises_without_it(i):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
@@ -87,6 +111,14 @@ def test_serve_main_defaults_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             serve.main(["--smoke"])
+
+
+def test_train_main_defaults_to_cuda():
+    from repro_torch.launch import train
+    assert train.parser().parse_args([]).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            train.main(["--smoke", "--steps", "1"])
 
 
 def test_kernel_sources_name_what_they_replace():
