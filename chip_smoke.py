@@ -30,14 +30,29 @@ Phases, in order:
                prompts; its decode past C = 2N runs fused_attention_masked
                on the dense engine and fused_attention_paged on the paged
                one;
-  6. qproj train -- the cache-free ops.qproj_attention entry point,
+  6. mamba forward -- mamba2-130m at full width and depth (24 layers),
+               the cache-free models.transformer.forward at B=4, L=2048,
+               bf16, no grad: the TPU's #11 path, 24 ssd_scan launches;
+               each layer's ssd_scan against the plain version on the
+               same inputs, and the logits against the plain versions'
+               in fp32 compute (bf16 logits reported beside the plain
+               versions' own spread at another chunk size);
+  7. mamba serve -- launch/serve.run on mamba2-130m at full depth with
+               the dense serve's mix (no serving plan): tokens, tok/s,
+               median decode step, ssd_scan launches against 24 x the
+               prompts' multi-token prefill chunks; one request again on
+               the plain versions with each prefill chunk's ssd_scan
+               beside them on the same inputs, and its logits on the
+               kernel against the plain versions' in fp32 compute; then
+               the mix and a steady decode window under torch.profiler;
+  8. qproj train -- the cache-free ops.qproj_attention entry point,
                forward and backward at starcoder2-7b's training shapes
                (fused_qproj_attention_fwd, then the two backward
                kernels), its four gradients against the plain versions;
-  7. train parity -- starcoder2-7b at full width cut to 2 layers: the
+  9. train parity -- starcoder2-7b at full width cut to 2 layers: the
                loss and every gradient of one batch, then two AdamW
                steps, on the kernels and on the plain versions;
-  8. train  -- launch/train.train_loop at full width and depth: 32
+  10. train -- launch/train.train_loop at full width and depth: 32
                layers, remat full, bf16 moments, B=2, seq 2048, 3 steps:
                loss, grad_norm, step time, tokens/s, peak memory and the
                training kernels' launches per step; every per-layer
@@ -45,7 +60,9 @@ Phases, in order:
                torch.profiler, by part.
 The kernel phase also holds the four training kernels (#7-#10) to their
 plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
-causal) and times them.  Every kernel must have launched on some path.
+causal) and the Mamba-2 SSD scan (#11) to its plain version in bf16 and
+fp32 at the serve path's prefill chunk (B=1, L=188, with an initial
+state) and the cache-free forward's shape (B=4, L=2048), and times them.  Every kernel must have launched on some path.
 The last three lines of
 stdout are the kernels' JSON record, the card's name and power limit,
 and {"ok": true, "device": {...}}.  Any failure exits non-zero and
@@ -993,6 +1010,295 @@ def qwen_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# Mamba-2: kernel #11, the cache-free forward, the served mix
+# ---------------------------------------------------------------------------
+
+#: mamba2-130m's SSD widths: H heads of width P, G groups, state S
+MAMBA = dict(H=24, P=64, G=1, S=128, CHUNK=128)
+#: fp32 tolerance of #11 against its plain version, relative to the
+#: largest magnitude: both compute in fp32, summing in other orders
+SSD_TOL_F32 = 1e-4
+
+
+def ssd_work(b, length, h, p, g, s, chunk, elem, with_h0) -> tuple:
+    """(bytes, operations) #11 must move and do for one call: x, dt, b,
+    c (and h0) read once, y and the final state written once; per head
+    and chunk of n valid rows, the causal n(n+1)/2 entries of C B^T (S
+    each) and of the score product (P each), C.h and the state update
+    (P S each per row), two operations per multiply-add."""
+    byts = (2 * b * length * h * p + b * length * h
+            + 2 * b * length * g * s) * elem + 2 * h * 4 \
+        + (2 if with_h0 else 1) * b * h * p * s * 4
+    ops_ = 0
+    for start in range(0, length, chunk):
+        n = min(chunk, length - start)
+        ops_ += 2 * (n * (n + 1) // 2 * (s + p) + 2 * n * p * s)
+    return byts, ops_ * b * h
+
+
+def ssd_kernel_phase(dev, g):
+    """#11 against its plain version in bf16 and fp32, y and the final
+    state, at the serve path's prefill chunk (off the chunk grid, with a
+    non-zero h0) and the cache-free forward's shape; times both shapes
+    in bf16."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    H, P, G, S, C = (MAMBA[k] for k in ("H", "P", "G", "S", "CHUNK"))
+
+    def inputs(b, length, dtype):
+        def r(*shape):
+            return torch.randn(*shape, generator=g, device=dev)
+        return ((r(b, length, H, P).to(dtype),
+                 torch.nn.functional.softplus(r(b, length, H)).to(dtype),
+                 -torch.exp(r(H)), (r(b, length, G, S) * 0.3).to(dtype),
+                 (r(b, length, G, S) * 0.3).to(dtype), r(H)),
+                r(b, H, P, S) * 0.5)
+
+    timed = {}
+    for tag, b, length, with_h0 in (("serve chunk", 1, 188, True),
+                                    ("cache-free", 4, 2048, False)):
+        for dtype, tol in ((torch.bfloat16, KERNEL_TOL),
+                           (torch.float32, SSD_TOL_F32)):
+            args, h0 = inputs(b, length, dtype)
+            h0 = h0 if with_h0 else None
+            f = lambda: ssd_scan(*args, chunk=C, h0=h0,
+                                 return_final_state=True)
+            p_ = lambda: ssd_scan_plain(*args, chunk=C, h0=h0,
+                                        return_final_state=True)
+            (y, h), (wy, wh) = f(), p_()
+            torch.cuda.synchronize()
+            errs = []
+            for what, got, want in (("y", y, wy), ("state", h, wh)):
+                err, rel = rel_err(got, want)
+                ok = bool(torch.isfinite(got.float()).all()) and rel <= tol
+                log(f"  ssd_scan [{tag} B={b} L={length} h0={with_h0} "
+                    f"{str(dtype)[6:]} {what}] max_abs_err={err:.3e} "
+                    f"rel={rel:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"ssd_scan disagrees with its plain "
+                                     f"version ({tag}, {dtype}, {what})")
+                errs.append(err)
+            if dtype != torch.bfloat16:
+                continue
+            byts, flops = ssd_work(b, length, H, P, G, S, C, 2, with_h0)
+            bms, by = bound(byts, flops)
+            timed[tag] = dict(max_abs_err=errs[0], ms=time_ms(f, 20),
+                              plain_ms=time_ms(p_, 3), bound_ms=bms,
+                              bound_by=by, library_ms=None)
+            t = timed[tag]
+            log(f"  ssd_scan [{tag}] kernel_ms={t['ms']:.4f} plain_ms="
+                f"{t['plain_ms']:.4f} bound_ms={bms:.4f} ({by}: "
+                f"{byts / 1e6:.3f} MB, {flops / 1e9:.3f} GFLOP) "
+                f"library_ms=null (no PyTorch call computes the scan)")
+    return {"ssd_scan": dict(
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:102",
+        **timed["cache-free"])}
+
+
+def _ssd_side_by_side(ops, worst):
+    """An ``ops.ssd`` that runs the plain version and, on the same
+    inputs, the kernel; records the kernel's error relative to the plain
+    output's largest magnitude in ``worst`` and returns the plain output
+    (so the forward stays on the plain path)."""
+    orig = ops.ssd
+
+    def both(*a, **kw):
+        want = orig(*a, **dict(kw, impl="torch"))
+        got = orig(*a, **dict(kw, impl="cuda"))
+        pairs = zip(want, got) if isinstance(want, tuple) else \
+            [(want, got)]
+        worst.append(max(rel_err(g_, w_)[1] for w_, g_ in pairs))
+        return want
+    return orig, both
+
+
+def mamba_forward_phase(dev):
+    """The TPU's #11 path: the cache-free forward of mamba2-130m at full
+    width and depth, B=4, L=2048, bf16, on the kernel and on the plain
+    versions.  The bf16 logits of the two are compared and reported
+    beside the plain versions' own spread (the same forward with the
+    chunk halved: the same function, summed in another order); the
+    gates are each layer's #11 output against the plain version's on
+    the same inputs along the plain forward (bf16, KERNEL_TOL), and the
+    whole forward with the compute dtype raised to fp32, kernel against
+    plain versions (LOGIT_TOL)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import build, ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.weights import init_params
+
+    cfg = configs.get_config("mamba2-130m")
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, g, dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g,
+                         device=dev)
+    with torch.no_grad():
+        tf.forward(params, cfg, toks[:, :256])          # warm-up
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        got = tf.forward(params, cfg, toks)
+        torch.cuda.synchronize()
+        k_ms = (time.perf_counter() - t0) * 1e3
+        launches = collections.Counter(build.LAUNCHES)
+        t0 = time.perf_counter()
+        want = tf.forward(params, cfg, toks, impl="torch")
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        if got.shape != (4, 2048, cfg.vocab_size) or not bool(
+                torch.isfinite(got.float()).all()):
+            raise SystemExit("mamba forward: logits of the wrong shape or "
+                             "not finite")
+        err, rel = rel_err(got, want)
+        same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        del got
+        half = tf.forward(params, dataclasses.replace(cfg, ssd_chunk=64),
+                          toks, impl="torch")
+        _, floor = rel_err(half, want)
+        del half
+        worst = []
+        orig, both = _ssd_side_by_side(ops, worst)
+        ops.ssd = both
+        try:
+            tf.forward(params, cfg, toks)
+        finally:
+            ops.ssd = orig
+        del want
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        got32 = tf.forward(params, cfg32, toks)
+        want32 = tf.forward(params, cfg32, toks, impl="torch")
+        _, rel32 = rel_err(got32, want32)
+        del got32, want32
+    log(f"mamba forward: {cfg.name} {cfg.n_layers} layers d_model="
+        f"{cfg.d_model} bf16, B=4 L=2048 cache-free: {k_ms:.3f} ms on the "
+        f"kernel, {p_ms:.3f} ms on the plain versions (host clock); "
+        f"ssd_scan launches {launches['ssd_scan']}")
+    log(f"  bf16 logits, kernel against plain versions: max_abs_err="
+        f"{err:.4e} rel={rel:.4e}, argmax agreement {same:.4f}; the plain "
+        f"versions against themselves at chunk 64: rel={floor:.4e}")
+    log(f"  each layer's ssd_scan against the plain version on its inputs "
+        f"(bf16): worst rel={max(worst):.4e} over {len(worst)} layers "
+        f"tol={KERNEL_TOL}")
+    log(f"  fp32 compute, logits kernel against plain versions: "
+        f"rel={rel32:.4e} tol={LOGIT_TOL}")
+    if launches["ssd_scan"] != cfg.n_layers:
+        raise SystemExit(f"mamba forward: {launches['ssd_scan']} ssd_scan "
+                         f"launches, expected {cfg.n_layers}")
+    if len(worst) != cfg.n_layers or max(worst) > KERNEL_TOL:
+        raise SystemExit("mamba forward: a layer's ssd_scan disagrees "
+                         "with the plain version")
+    if rel32 > LOGIT_TOL:
+        raise SystemExit("mamba forward: fp32 logits disagree with the "
+                         "plain versions'")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mamba_serve_phase(dev):
+    """launch/serve on mamba2-130m at full depth with the dense serve's
+    request mix: no serving plan, #11 on every multi-token prefill chunk
+    (a one-token last chunk takes the decode step), ssd_step in decode."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    args = serve.parser().parse_args([
+        "--arch", "mamba2-130m", "--batch", "4", "--requests", "6",
+        "--max-len", "1024", "--max-new", "16", "--prefill-chunk", "256",
+        "--device", "cuda"])
+    cfg, params = serve.model_for(args)
+    requests = serve.make_requests(cfg, args.requests, args.max_new,
+                                   prompt_lens=PROMPT_LENS)
+    lens = [len(r.prompt) for r in requests]
+    chunks = sum(sum(1 for st in range(0, n, args.prefill_chunk)
+                     if n - st > 1) for n in lens)
+    predicted = cfg.n_layers * chunks
+    log(f"mamba serve: {cfg.name} {cfg.n_layers} layers bf16 random "
+        f"weights (seed 0); prompts {lens} tokens, chunk "
+        f"{args.prefill_chunk}: {chunks} multi-token chunks, so "
+        f"{predicted} ssd_scan launches predicted")
+    ops.reset_counts()
+    out = serve.run(args, cfg, params, requests)
+    launches = collections.Counter(build.LAUNCHES)
+    calls = dict(ops.CALLS)
+    finished, secs = out["finished"], out["seconds"]
+    gen = sum(len(r.generated) for r in finished)
+    steps = out["decode_step_s"]
+    step_ms = sorted(steps)[len(steps) // 2] * 1e3
+    log(f"  finished {len(finished)}/{len(requests)} requests, {gen} "
+        f"tokens in {secs:.3f}s = {gen / secs:.2f} tok/s; decode steps "
+        f"{len(steps)}, median step {step_ms:.3f} ms")
+    for r in sorted(finished, key=lambda r: r.uid):
+        log(f"  req {r.uid}: prompt {len(r.prompt)} -> {r.generated}")
+    log(f"  launches: {dict(launches)}; calls by impl: "
+        f"{ {f'{e}/{i}': n for (e, i), n in sorted(calls.items())} }")
+    if out["plan"] is not None:
+        raise SystemExit("mamba serve: a serving plan for an SSM config")
+    if len(finished) != len(requests) or any(
+            len(r.generated) != args.max_new for r in finished):
+        raise SystemExit("mamba serve: not every request finished")
+    if launches["ssd_scan"] != predicted:
+        raise SystemExit(f"mamba serve: {launches['ssd_scan']} ssd_scan "
+                         f"launches, predicted {predicted}")
+
+    # one request again, fed the kernel run's tokens: on the plain
+    # versions with each prefill chunk's ssd_scan run beside them on the
+    # same inputs (the gate, KERNEL_TOL), and at chunk 64 (the plain
+    # versions' own spread); then both with the compute dtype raised to
+    # fp32 (the gate, LOGIT_TOL)
+    import dataclasses
+    prompt = requests[1].prompt
+    worst = []
+    orig, both = _ssd_side_by_side(ops, worst)
+
+    def one(c, impl, forced=None, side=False):
+        eng = ContinuousBatchingEngine(
+            params, c, batch_size=1, max_len=args.max_len,
+            dtype=c.torch_dtype(), prefill_chunk=args.prefill_chunk,
+            device=dev, impl=impl)
+        if side:
+            ops.ssd = both
+        try:
+            return _one_request_logits(eng, prompt, forced)
+        finally:
+            ops.ssd = orig
+
+    k_logits, toks = one(cfg, "auto")
+    p_logits, _ = one(cfg, "torch", toks, side=True)
+    h_logits, _ = one(dataclasses.replace(cfg, ssd_chunk=64), "torch", toks)
+    for i, (a, b, h) in enumerate(zip(k_logits, p_logits, h_logits)):
+        err, rel = rel_err(a, b)
+        log(f"  bf16 step {i}: kernel against plain versions max_abs_err="
+            f"{err:.4e} rel={rel:.4e}, argmax "
+            f"{'same' if int(a.argmax()) == int(b.argmax()) else 'FLIPPED'}"
+            f"; plain versions at chunk 64 rel={rel_err(h, b)[1]:.4e}")
+    log(f"  each prefill chunk's ssd_scan against the plain version on its "
+        f"inputs (bf16): worst rel={max(worst):.4e} over {len(worst)} "
+        f"calls tol={KERNEL_TOL}")
+    calls = cfg.n_layers * sum(1 for st in range(0, len(prompt),
+                                                 args.prefill_chunk)
+                               if len(prompt) - st > 1)
+    if len(worst) != calls or max(worst) > KERNEL_TOL:
+        raise SystemExit("mamba serve: a prefill chunk's ssd_scan "
+                         "disagrees with the plain version")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    k32, toks32 = one(cfg32, "auto")
+    p32, _ = one(cfg32, "torch", toks32)
+    worst32 = compare_logits("mamba serve fp32", k32, p32)
+    log(f"mamba serve: ok (prompt {len(prompt)} tokens, prefill + "
+        f"{DECODE_COMPARED} decode steps; fp32 compute worst rel "
+        f"{worst32:.4e})")
+    profile_windows(args, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # training: kernels #7-#10, the 2-layer parity, the full-depth run
 # ---------------------------------------------------------------------------
 
@@ -1500,9 +1806,12 @@ def main() -> int:
     log("kernels:")
     results = kernel_phase(dev, g)
     results.update(train_kernel_phase(dev, g, check_kernel))
+    results.update(ssd_kernel_phase(dev, g))
     log("kernels: " + ", ".join(f"{n} ok" for n in results))
     launches = serve_phase(dev)
     launches.update(qwen_phase(dev))
+    launches.update(mamba_forward_phase(dev))
+    launches.update(mamba_serve_phase(dev))
     launches.update(qproj_train_phase(dev, g))
     launches.update(train_parity_phase(dev))
     launches.update(train_phase(dev))

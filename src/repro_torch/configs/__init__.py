@@ -1,14 +1,18 @@
-"""The architectures the port serves so far, with the JAX package's
+"""The architectures the port runs so far, with the JAX package's
 dims: ``get_config(arch, smoke=...)`` returns the full published config
-or its reduced same-family smoke twin."""
+or its reduced same-family smoke twin.  ``list_archs("dense")`` names
+the dense GQA decoders, ``list_archs("ssm")`` the attention-free
+Mamba-2 stacks."""
 
 from __future__ import annotations
 
 import importlib
+from typing import Optional
 
 ARCHS = {
     "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 
 
@@ -17,5 +21,11 @@ def get_config(arch: str, smoke: bool = False):
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG
 
 
-def list_archs() -> list:
-    return list(ARCHS)
+def family(arch: str) -> str:
+    """``"ssm"`` for an attention-free stack, else ``"dense"``."""
+    return "ssm" if get_config(arch).attn_every == 0 else "dense"
+
+
+def list_archs(family_: Optional[str] = None) -> list:
+    """Every arch, or those of one family (``"dense"`` or ``"ssm"``)."""
+    return [a for a in ARCHS if family_ is None or family(a) == family_]

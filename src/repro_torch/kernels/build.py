@@ -33,9 +33,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: kernel name -> its source, the C entry point and that entry point's
-#: argument types (pointers and the stream as c_void_p, so ctypes never
-#: cuts them to 32 bits)
+#: argument types (pointers and the stream as c_void_p, strides as
+#: c_longlong, so ctypes never cuts them to 32 bits)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 KERNELS = {
     "fused_attention_masked": (
         "fused_attention.cu", "fused_attention_masked_launch",
@@ -67,6 +68,9 @@ KERNELS = {
     "fused_qproj_attention_fwd": (
         "fused_qproj_attention.cu", "fused_qproj_attention_fwd_launch",
         [_P] * 6 + [_I] * 10 + [_F, _F, _I, _I, _P]),
+    "ssd_scan": (
+        "ssd_scan.cu", "ssd_scan_launch",
+        [_P] * 9 + [_I] * 7 + [_LL] * 8 + [_I, _I, _P]),
 }
 
 #: dtype codes of the C interface (csrc/common.cuh)

@@ -13,7 +13,11 @@ kernel:
   without ``lengths`` the differentiable ``fused_qproj_attention``
   (forward ``fused_qproj_attention_fwd``, the same backward kernels);
 * ``decode_block``    -- the whole M=1 sub-block through the residual
-  add: ``fused_decode_block``.
+  add: ``fused_decode_block``;
+* ``ssd``             -- the Mamba-2 chunked SSD scan: ``ssd_scan``, with
+  an optional initial state (the serve path's prefill chunks); and
+  ``ssd_step``, its one-token decode update (plain PyTorch, as the JAX
+  package's is plain lax).
 
 Each takes ``impl``: ``cuda`` (the kernel), ``torch`` (its plain
 version) or ``reference`` (the unfused oracle the plan picks below the
@@ -62,9 +66,10 @@ from repro_torch.kernels.fused_qproj_attention import (
     fused_qproj_attention, fused_qproj_attention_masked,
     fused_qproj_attention_masked_plain, fused_qproj_attention_paged,
     fused_qproj_attention_paged_plain)
+from repro_torch.kernels import ssd_scan as _ssd
 
-__all__ = ["attention", "qproj_attention", "decode_block", "CALLS",
-           "reset_counts", "reset_downgrade_warnings"]
+__all__ = ["attention", "qproj_attention", "decode_block", "ssd",
+           "ssd_step", "CALLS", "reset_counts", "reset_downgrade_warnings"]
 
 IMPLS = ("cuda", "torch", "reference")
 CALLS: collections.Counter = collections.Counter()
@@ -370,3 +375,43 @@ def _decode_block_paged(x, wq, k_pool, v_pool, wo, residual, lengths,
     return fused_decode_block_paged_plain(
         x, wq, k_pool, v_pool, wo, residual, lengths, block_tables,
         scale=scale, rope_theta=rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2: the SSD scan and its decode step
+# ---------------------------------------------------------------------------
+
+def ssd(x, dt, a, b, c, d=None, *, chunk: int = 128, impl: str = "auto",
+        h0: Optional[torch.Tensor] = None, return_final_state: bool = False):
+    """Mamba-2 SSD chunked scan.  x: (B, L, H, P); dt: (B, L, H); a:
+    (H,); b, c: (B, L, G, S); d: (H,) or None; h0: (B, H, P, S) initial
+    state or None.  ``impl``: ``cuda`` (kernel #11, with or without h0:
+    where the JAX package sends a call with h0 to its lax chunked scan,
+    the kernel computes that function), ``torch`` (the plain version, the
+    port of that lax scan) or ``reference`` (the sequential oracle);
+    ``auto`` is the kernel on a CUDA tensor and the plain version on a
+    CPU one.  No impl differentiates: an input that requires grad with
+    autograd on raises ``NotImplementedError`` (the TPU kernel has no
+    backward).  Returns y, and with ``return_final_state`` the final
+    state fp32."""
+    _ssd.check_no_grad("ops.ssd", {"x": x, "dt": dt, "a": a, "b": b,
+                                   "c": c, "d": d, "h0": h0})
+    impl = _resolve("ssd", impl, None, x.device)
+    _count("ssd", impl)
+    if impl == "reference":
+        return ref.ssd_reference(x, dt, a, b, c, d, h0=h0,
+                                 return_final_state=return_final_state)
+    if impl == "cuda":
+        if x.device.type != "cuda":
+            raise ValueError(f"ops.ssd: impl 'cuda' on a {x.device} tensor")
+        return _ssd.ssd_scan(x, dt, a, b, c, d, chunk=chunk, h0=h0,
+                             return_final_state=return_final_state)
+    return _ssd.ssd_scan_plain(x, dt, a, b, c, d, chunk=chunk, h0=h0,
+                               return_final_state=return_final_state)
+
+
+def ssd_step(x_t, dt_t, a, b_t, c_t, d, h):
+    """One-token SSD update for decode (``kernels.ssd_scan.ssd_step``):
+    returns (y (B, H, P), the new state (B, H, P, S) fp32)."""
+    _count("ssd_step", "torch")
+    return _ssd.ssd_step(x_t, dt_t, a, b_t, c_t, d, h)

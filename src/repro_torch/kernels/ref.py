@@ -265,3 +265,35 @@ def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     dq = attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     dk, dv = attention_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv
+
+
+def ssd_reference(x, dt, a, b, c, d=None, *, h0=None,
+                  return_final_state: bool = False):
+    """Mamba-2 SSD sequential-scan oracle (``repro/kernels/ref.py``
+    ``ssd_reference``), all in fp32:
+
+        h_t = exp(a * dt_t) * h_{t-1} + dt_t * x_t (outer) b_t
+        y_t = h_t . c_t + d * x_t
+
+    x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, G, S), the G
+    groups broadcast over the H heads; d: (H,) or None; h0: (B, H, P, S)
+    or None (zeros).  Returns y in x's dtype (and the final state)."""
+    bsz, length, h, p = x.shape
+    rep = h // b.shape[2]
+    bb = b.repeat_interleave(rep, dim=2).float()
+    cc = c.repeat_interleave(rep, dim=2).float()
+    xf, dtf = x.float(), dt.float()
+    decay = torch.exp(a.float()[None, None, :] * dtf)         # (B, L, H)
+    state = torch.zeros((bsz, h, p, b.shape[3]), dtype=torch.float32,
+                        device=x.device) if h0 is None else h0.float()
+    ys = []
+    for t in range(length):
+        upd = (xf[:, t] * dtf[:, t][..., None])[..., None] \
+            * bb[:, t][:, :, None, :]
+        state = state * decay[:, t][:, :, None, None] + upd
+        ys.append(torch.einsum("bhps,bhs->bhp", state, cc[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros(xf.shape)
+    if d is not None:
+        y = y + d.float()[None, None, :, None] * xf
+    y = y.to(x.dtype)
+    return (y, state) if return_final_state else y

@@ -9,6 +9,11 @@ from a seeded generator.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --smoke --requests 6 --max-new 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
+
+A Mamba-2 config has no serving plan: its prefill chunks run the SSD
+scan kernel seeded with each row's state, its decode the one-token
+update.
 """
 
 from __future__ import annotations
@@ -73,7 +78,8 @@ def run(args, cfg, params, requests) -> dict:
     """Serve ``requests`` through the batcher and the engine.  Returns
     the finished requests, the wall time, each decode step's time (the
     step ends in a host read of its tokens, so the host clock brackets
-    the device work), the plan and the engine."""
+    the device work), the plan (None for a config the plan does not
+    cover) and the engine."""
     dev = resolve_device(args.device)
     plan = make_serving_plan(cfg, max_len=args.max_len, device=dev)
     eng = ContinuousBatchingEngine(
@@ -112,9 +118,10 @@ def main(argv=None):
     total_tokens = sum(len(r.generated) for r in finished)
     print(f"served {len(finished)} requests, {total_tokens} tokens "
           f"in {dt:.2f}s ({total_tokens / max(dt, 1e-9):.1f} tok/s)")
-    paths = {p for (ph, _, _, p, _) in out["plan"].resolutions
-             if ph == "decode"}
-    print(f"decode kernel paths used: {sorted(paths)}")
+    if out["plan"] is not None:
+        paths = {p for (ph, _, _, p, _) in out["plan"].resolutions
+                 if ph == "decode"}
+        print(f"decode kernel paths used: {sorted(paths)}")
     for r in finished[:3]:
         print(f"  req {r.uid}: prompt {len(r.prompt)} toks -> "
               f"{r.generated[:8]}...")

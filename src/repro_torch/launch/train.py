@@ -4,6 +4,9 @@ without its host mesh, which waits for the multi-device slice).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
         --smoke --steps 20 --batch 8 --seq 128 --device cpu
+
+Dense archs only: the Mamba-2 SSD scan has no backward (neither has the
+JAX package's ssd_scan kernel).
 """
 
 from __future__ import annotations
@@ -94,7 +97,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float,
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-8b",
-                    choices=configs.list_archs())
+                    choices=configs.list_archs("dense"))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)

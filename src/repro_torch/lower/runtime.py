@@ -251,18 +251,20 @@ class ServingPlan:
 
 def serving_plan(cfg, max_len: int, *, device="cuda", n_blocks=None,
                  paged: bool = False,
-                 page_size: Optional[int] = None) -> ServingPlan:
-    """The ServingPlan for ``cfg`` (dense GQA configs only) on
-    ``device``, which defaults to the card and raises without one.
-    ``paged``/``page_size``: plan for a paged KV pool; ``max_len`` must
-    then be a multiple of the page size."""
+                 page_size: Optional[int] = None) -> Optional[ServingPlan]:
+    """The ServingPlan for ``cfg`` on ``device``, which defaults to the
+    card and raises without one; None when ``cfg`` is not lowerable, as
+    in the JAX package (``lowering.supported``: only GQA attention
+    blocks are DSE workloads, not MLA, SSM or hybrid ones): the engine
+    then keeps its config-driven dispatch.  ``paged``/``page_size``: plan for a
+    paged KV pool; ``max_len`` must then be a multiple of the page
+    size."""
+    dev = resolve_device(device)
     if cfg.attention != "gqa" or cfg.block_kind(0) != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: only dense GQA configs are ported")
+        return None
     if paged and page_size is not None and max_len % page_size:
         raise ValueError(
             f"max_len {max_len} not a multiple of page_size {page_size}")
-    return ServingPlan(cfg=cfg, max_len=max_len,
-                       device=resolve_device(device),
+    return ServingPlan(cfg=cfg, max_len=max_len, device=dev,
                        n_blocks=n_blocks or cfg.n_layers, paged=paged,
                        page_size=page_size)

@@ -1,5 +1,7 @@
-"""The dense decoder stack of the port (dense attention layers of
-``repro/models/transformer.py``).
+"""The decoder stack of the port (``repro/models/transformer.py``):
+dense GQA attention layers, and the Mamba-2 layers of a pure-mamba stack
+(``cfg.block_kind(i) == "mamba"``: pre-norm, the mamba block, the
+residual add, and no FFN sublayer).
 
 Parameters keep the JAX package's tree: ``prefix_layers`` (a list) and
 ``layers`` (one dict per position in the layer period, every leaf with
@@ -27,14 +29,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models.common import ModelConfig, mlp_forward, rms_norm
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    if cfg.attention != "gqa" or cfg.moe or cfg.attn_every != 1 \
-            or cfg.frontend != "none":
+def check_ported(cfg: ModelConfig) -> None:
+    """Admit the stacks the port runs: dense GQA decoders and pure
+    Mamba-2 stacks.  MoE, MLA, the attention/mamba hybrid and modality
+    frontends are refused."""
+    dense = cfg.attn_every == 1 and cfg.attention == "gqa"
+    if cfg.moe or cfg.frontend != "none" or not (dense
+                                                 or cfg.attn_every == 0):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense GQA decoders only")
+            f"{cfg.name}: the port runs dense GQA decoders and pure "
+            "Mamba-2 stacks only")
 
 
 def _index(tree, j: int):
@@ -45,16 +53,27 @@ def _index(tree, j: int):
     return tree[j]
 
 
-def _layer_forward(lp: dict, cfg: ModelConfig, x, positions, layer_cache,
-                   cache_len, plan, block_tables=None, impl="auto"):
+def _layer_forward(lp: dict, cfg: ModelConfig, kind: str, x, positions,
+                   layer_cache, cache_len, plan, block_tables=None,
+                   impl="auto"):
     h = rms_norm(x, lp["pre_norm"])
-    # the attention block owns its residual add: the decode megakernel
-    # folds it into the launch, every other path adds it in gqa_forward
-    x, _ = attn.gqa_forward(
-        lp["attn"], cfg, h, positions,
-        cache=None if layer_cache is None else layer_cache["attn"],
-        cache_len=cache_len, block_tables=block_tables, plan=plan,
-        residual=x, impl=impl)
+    if kind == "mamba":
+        h, _ = mb.mamba_forward(
+            lp["mamba"], cfg, h,
+            cache=None if layer_cache is None else layer_cache["mamba"],
+            impl=impl)
+        x = x + h
+    else:
+        # the attention block owns its residual add: the decode
+        # megakernel folds it into the launch, every other path adds it
+        # in gqa_forward
+        x, _ = attn.gqa_forward(
+            lp["attn"], cfg, h, positions,
+            cache=None if layer_cache is None else layer_cache["attn"],
+            cache_len=cache_len, block_tables=block_tables, plan=plan,
+            residual=x, impl=impl)
+    if "mlp" not in lp:
+        return x                    # pure mamba2: no FFN sublayer
     h = rms_norm(x, lp["ffn_norm"])
     return x + mlp_forward(lp["mlp"], h, cfg.mlp)
 
@@ -84,11 +103,12 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``lower.runtime.PlanDispatch`` routing every attention block.
     ``block_tables``: (B, max_pages) int32 page table of paged caches,
     shared by every layer.  ``impl``: the ``kernels.ops`` impl of every
-    attention call (``torch`` forces the plain versions on the card).
+    attention and SSD call (``torch`` forces the plain versions on the
+    card).
     Returns logits (B, S, vocab), plus the cache (updated in place) when
     one is given, plus, with ``return_aux``, the auxiliary losses (zeros:
     the dense stack has no MoE)."""
-    check_dense(cfg)
+    check_ported(cfg)
     dt = cfg.torch_dtype()
     x = params["embed"].to(dt)[tokens]
     b, s, _ = x.shape
@@ -102,19 +122,22 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     remat = cache is None and torch.is_grad_enabled() and _remat(cfg)
 
-    def layer(lp, lc, x):
+    def layer(i, lp, lc, x):
+        kind = cfg.block_kind(i)
         if remat:
-            return checkpoint(_layer_forward, lp, cfg, x, positions, None,
-                              None, plan, None, impl, use_reentrant=False)
-        return _layer_forward(lp, cfg, x, positions, lc, cache_len, plan,
-                              block_tables, impl)
+            return checkpoint(_layer_forward, lp, cfg, kind, x, positions,
+                              None, None, plan, None, impl,
+                              use_reentrant=False)
+        return _layer_forward(lp, cfg, kind, x, positions, lc, cache_len,
+                              plan, block_tables, impl)
 
     for i, lp in enumerate(params["prefix_layers"]):
-        x = layer(lp, None if cache is None else cache["prefix"][i], x)
+        x = layer(i, lp, None if cache is None else cache["prefix"][i], x)
     for j in range(cfg.n_periods):
         for pos in range(cfg.layer_period):
             lc = None if cache is None else _index(cache["scan"][pos], j)
-            x = layer(_index(params["layers"][pos], j), lc, x)
+            x = layer(cfg.first_dense_layers + pos,
+                      _index(params["layers"][pos], j), lc, x)
 
     x = rms_norm(x, params["final_norm"])
     if "lm_head" in params:
@@ -130,12 +153,18 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def init_model_cache(cfg: ModelConfig, batch: int, max_len: int,
                      dtype=torch.bfloat16, device="cuda") -> dict:
-    """Zeroed KV caches in the parameter tree's layout: a list for the
-    prefix layers, ``n_periods``-stacked tensors for the body."""
-    check_dense(cfg)
-    def layer(lead=()):
-        return {"attn": attn.init_gqa_cache(cfg, batch, max_len, dtype,
-                                            device, lead)}
-    return {"prefix": [layer() for _ in range(cfg.first_dense_layers)],
-            "scan": [layer((cfg.n_periods,))
-                     for _ in range(cfg.layer_period)]}
+    """Zeroed caches in the parameter tree's layout: a list for the
+    prefix layers, ``n_periods``-stacked tensors for the body.  An
+    attention layer holds ``{"attn": {"k", "v"}}`` (``max_len`` rows), a
+    mamba layer ``{"mamba": {"conv", "ssm"}}`` (the SSM state fp32)."""
+    check_ported(cfg)
+
+    def layer(i, lead=()):
+        if cfg.block_kind(i) == "attn":
+            return {"attn": attn.init_gqa_cache(cfg, batch, max_len, dtype,
+                                                device, lead)}
+        return {"mamba": mb.init_mamba_cache(cfg, batch, dtype, device,
+                                             lead)}
+    return {"prefix": [layer(i) for i in range(cfg.first_dense_layers)],
+            "scan": [layer(cfg.first_dense_layers + pos, (cfg.n_periods,))
+                     for pos in range(cfg.layer_period)]}

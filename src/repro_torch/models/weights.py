@@ -5,9 +5,13 @@ state).
 Both give the JAX tree's structure and layout: ``embed`` (V, E),
 ``prefix_layers`` (list), ``layers`` (one dict per period position,
 leaves stacked over ``n_periods``), ``final_norm``, ``lm_head`` (E, V);
-per layer ``pre_norm``, ``attn`` {``wq`` (E, Hq, D), ``wk``/``wv``
-(E, Hkv, D), ``wo`` (Hq, D, E)[, ``q_norm``, ``k_norm``]},
-``ffn_norm`` and ``mlp`` {``w_up``, ``w_down``[, ``w_gate``]}.
+per attention layer ``pre_norm``, ``attn`` {``wq`` (E, Hq, D),
+``wk``/``wv`` (E, Hkv, D), ``wo`` (Hq, D, E)[, ``q_norm``, ``k_norm``]},
+``ffn_norm`` and ``mlp`` {``w_up``, ``w_down``[, ``w_gate``]}; per
+mamba layer ``pre_norm`` and ``mamba`` {``in_proj`` (E, 2 d_inner +
+2 G S + H), ``conv_w`` (W, d_inner + 2 G S), ``conv_b``, ``a_log``,
+``d_skip`` and ``dt_bias`` (H,) in fp32 whatever the parameter dtype,
+``norm`` (d_inner,), ``out_proj`` (d_inner, E)}, with no FFN.
 """
 
 from __future__ import annotations
@@ -17,7 +21,9 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.models import mamba as mb
 from repro_torch.models.common import ModelConfig, resolve_device
+from repro_torch.models.transformer import check_ported
 from repro_torch.optim.adamw import AdamWState
 
 
@@ -27,8 +33,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda", dtype=None):
     the floating leaves; default: keep each leaf's dtype (numpy's
     bfloat16 extension type becomes torch.bfloat16 exactly)."""
     dev = resolve_device(device)
-    if cfg.attention != "gqa":
-        raise NotImplementedError(f"{cfg.name}: dense GQA configs only")
+    check_ported(cfg)
 
     def conv(x):
         if isinstance(x, dict):
@@ -71,31 +76,45 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     package's numbers for the same seed: tests share weights through
     :func:`params_from_numpy` instead."""
     dev = resolve_device(device)
-    if cfg.attention != "gqa" or cfg.moe or cfg.attn_every != 1 \
-            or cfg.first_dense_layers:
-        raise NotImplementedError(f"{cfg.name}: dense GQA configs only")
+    check_ported(cfg)
+    if cfg.first_dense_layers:
+        raise NotImplementedError(f"{cfg.name}: no dense prefix is ported")
     dt = cfg.torch_dtype("param")
     n = cfg.n_periods
-    e, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    e = cfg.d_model
 
-    def w(*shape, scale=None, lead=n):
-        return _stacked(shape, lead, generator, dev, dt, scale)
+    def w(*shape, scale=None, lead=n, dtype=dt):
+        return _stacked(shape, lead, generator, dev, dtype, scale)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=dev)
+    def ones(*shape, dtype=dt):
+        return torch.ones(shape, dtype=dtype, device=dev)
 
-    attn = {"wq": w(e, h, dh), "wk": w(e, hk, dh), "wv": w(e, hk, dh),
-            "wo": w(h, dh, e)}
-    if cfg.qk_norm:
-        attn["q_norm"], attn["k_norm"] = ones(n, dh), ones(n, dh)
-    mlp = {"w_up": w(e, cfg.d_ff), "w_down": w(cfg.d_ff, e)}
-    if cfg.mlp == "silu_glu":
-        mlp["w_gate"] = w(e, cfg.d_ff)
+    if cfg.attn_every == 0:
+        d_in, hs, _, g, s = mb.dims(cfg)
+        conv_dim = d_in + 2 * g * s
+        f32 = torch.float32
+        layer = {"pre_norm": ones(n, e), "mamba": {
+            "in_proj": w(e, 2 * d_in + 2 * g * s + hs),
+            "conv_w": w(cfg.conv_width, conv_dim, scale=0.5),
+            "conv_b": w(conv_dim, scale=0.01),
+            "a_log": w(hs, scale=1.0, dtype=f32),
+            "d_skip": ones(n, hs, dtype=f32),
+            "dt_bias": w(hs, scale=0.5, dtype=f32),
+            "norm": ones(n, d_in),
+            "out_proj": w(d_in, e)}}
+    else:
+        h, hk, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+        attn = {"wq": w(e, h, dh), "wk": w(e, hk, dh), "wv": w(e, hk, dh),
+                "wo": w(h, dh, e)}
+        if cfg.qk_norm:
+            attn["q_norm"], attn["k_norm"] = ones(n, dh), ones(n, dh)
+        mlp = {"w_up": w(e, cfg.d_ff), "w_down": w(cfg.d_ff, e)}
+        if cfg.mlp == "silu_glu":
+            mlp["w_gate"] = w(e, cfg.d_ff)
+        layer = {"pre_norm": ones(n, e), "attn": attn,
+                 "ffn_norm": ones(n, e), "mlp": mlp}
     p = {"embed": w(cfg.vocab_size, e, scale=0.02, lead=1)[0],
-         "prefix_layers": [],
-         "layers": [{"pre_norm": ones(n, e), "attn": attn,
-                     "ffn_norm": ones(n, e), "mlp": mlp}],
-         "final_norm": ones(e)}
+         "prefix_layers": [], "layers": [layer], "final_norm": ones(e)}
     if not cfg.tie_embeddings:
         p["lm_head"] = w(e, cfg.vocab_size, scale=0.02, lead=1)[0]
     return p

@@ -30,6 +30,12 @@ the batch state's tensors.  A preempted snapshot is therefore a host
 copy of gathered pages, never a view into the pool, whose pages are
 overwritten once reissued.
 
+A Mamba-2 config has no serving plan (``serving_plan`` returns None, as
+in the JAX package): its layers hold a conv tail and an SSM state per
+row, which insert, preempt and resume carry like KV rows; free rows
+decode too, and their state is overwritten at the next insert.  The
+paged engine refuses such a config.
+
 Left for the fault-tolerance slice: the JAX engine's fault injector
 hooks, ``rollback_slot``, NaN injection and the insert backlog that
 makes a prefill step retry-safe.
@@ -120,21 +126,23 @@ def chunked_prefill(params, cfg: ModelConfig, tokens, state: DecodeState,
 
 
 def decode_step(params, cfg: ModelConfig, state: DecodeState, *,
-                plan=None, dispatch=None, active=None, block_tables=None):
+                plan=None, dispatch=None, active=None, block_tables=None,
+                impl: str = "auto"):
     """One token for every row.  ``dispatch``: a pre-resolved
     PlanDispatch (``ServingPlan.step_dispatch`` over host-side lengths),
     else resolved from ``plan`` and the state.  ``active``: (B,) bool;
     rows where it is False keep their length and last token.
     ``block_tables``: the (B, max_pages) page table when ``state`` is
-    paged; the state's type is kept either way.  Returns (new state,
-    last-position logits (B, vocab))."""
+    paged; the state's type is kept either way.  ``impl``: the
+    ``kernels.ops`` impl of every call (``torch`` forces the plain
+    versions).  Returns (new state, last-position logits (B, vocab))."""
     if dispatch is None and plan is not None:
         dispatch = plan.decode_dispatch(
             plan.concrete_ctx(state.cache_len) + 1)
     logits, cache = tf.forward(params, cfg, state.last_token[:, None],
                                cache=state.cache,
                                cache_len=state.cache_len, plan=dispatch,
-                               block_tables=block_tables)
+                               block_tables=block_tables, impl=impl)
     nxt = greedy_sample(logits)
     step = torch.ones_like(state.cache_len)
     if active is not None:
@@ -179,22 +187,24 @@ def prefill_request(params, cfg: ModelConfig, prompt, *,
 
 
 def _rows(cache):
-    """(cache leaf, its batch axis) pairs: batch is axis 0 of
+    """(cache leaf, its batch axis) pairs over every leaf of every layer
+    (an attention layer's k and v, a mamba layer's conv tail and SSM
+    state), as ``jax.tree.map`` walks them: batch is axis 0 of
     prefix-layer caches and axis 1 of the stacked body."""
-    for layer in cache["prefix"]:
-        for t in layer["attn"].values():
-            yield t, 0
-    for layer in cache["scan"]:
-        for t in layer["attn"].values():
-            yield t, 1
+    for part, axis in (("prefix", 0), ("scan", 1)):
+        for layer in cache[part]:
+            for block in layer.values():
+                for t in block.values():
+                    yield t, axis
 
 
 def _map_leaves(cache, fn):
-    """``cache`` with every attn leaf ``t`` replaced by ``fn(t, axis)``,
+    """``cache`` with every leaf ``t`` replaced by ``fn(t, axis)``,
     ``axis`` its batch (or page) axis: 0 in the prefix layers, 1 in the
     period-stacked body."""
     def one(layer, axis):
-        return {"attn": {k: fn(t, axis) for k, t in layer["attn"].items()}}
+        return {name: {k: fn(t, axis) for k, t in block.items()}
+                for name, block in layer.items()}
     return {"prefix": [one(lc, 0) for lc in cache["prefix"]],
             "scan": [one(lc, 1) for lc in cache["scan"]]}
 
@@ -208,7 +218,9 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
 def insert(state: DecodeState, result: PrefillResult,
            slot: int) -> DecodeState:
     """Write a prefilled request into batch row ``slot`` (cache rows,
-    write position, last token), in place; other rows are untouched."""
+    write position, last token), in place; other rows are untouched.
+    Every cache leaf is written, a mamba layer's SSM state too, cast to
+    the batch leaf's dtype (the state stays fp32)."""
     for (full, axis), (row, _) in zip(_rows(state.cache),
                                       _rows(result.cache)):
         full.select(axis, slot).copy_(row.select(axis, 0))
@@ -238,12 +250,14 @@ class ContinuousBatchingEngine:
     resolved dispatch (``lower.runtime.rung_down``): 0 runs the planned
     path, each unit one rung lower.  ``preempt``/``resume`` snapshot a
     row to host memory and bring it back, the dense twins of the paged
-    engine's verbs."""
+    engine's verbs.  ``impl``: the ``kernels.ops`` impl of every call
+    (``auto``: the plan's, else the kernel on the card; ``torch``
+    forces the plain versions)."""
 
     def __init__(self, params, cfg: ModelConfig, *, batch_size: int,
                  max_len: Optional[int] = None, plan=None,
                  dtype=torch.float32, prefill_chunk: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", impl: str = "auto"):
         if max_len is None:
             if plan is None:
                 raise TypeError(
@@ -252,7 +266,7 @@ class ContinuousBatchingEngine:
         self.params, self.cfg, self.plan = params, cfg, plan
         self.batch_size, self.max_len = batch_size, max_len
         self.dtype, self.device = dtype, resolve_device(device)
-        self.prefill_chunk = prefill_chunk
+        self.prefill_chunk, self.impl = prefill_chunk, impl
         self.state = self._init_state()
         self.row_ctx = [0] * batch_size   # host mirror of cache_len
         self.live = [False] * batch_size
@@ -303,7 +317,7 @@ class ContinuousBatchingEngine:
                     p["pos"] + piece.shape[1], piece.shape[1]))
             logits, p["cache"] = tf.forward(
                 self.params, self.cfg, piece, cache=p["cache"],
-                cache_len=p["pos"], plan=dispatch)
+                cache_len=p["pos"], plan=dispatch, impl=self.impl)
             p["pos"] += piece.shape[1]
             if p["pos"] >= total:
                 self.prefill_logits[slot] = logits[0, -1]
@@ -354,7 +368,8 @@ class ContinuousBatchingEngine:
         self.state, self.last_logits = decode_step(
             self.params, self.cfg, self.state, dispatch=dispatch,
             active=torch.tensor(self.live, device=self.device),
-            block_tables=getattr(self.state, "block_tables", None))
+            block_tables=getattr(self.state, "block_tables", None),
+            impl=self.impl)
         for i in range(self.batch_size):
             if self.live[i]:
                 self.row_ctx[i] += 1
@@ -512,6 +527,20 @@ class PreemptedRequest:
     last_token: int
 
 
+def _check_paged_cfg(cfg: ModelConfig) -> None:
+    """Page pools cover GQA attention caches only (the JAX package's
+    refusals, with its messages)."""
+    if cfg.attention == "mla":
+        raise NotImplementedError(
+            "paged KV is not supported for MLA latent caches")
+    for i in range(cfg.n_layers):
+        if cfg.block_kind(i) != "attn":
+            raise NotImplementedError(
+                "paged KV pools cover GQA attention caches only "
+                f"(layer {i} is {cfg.block_kind(i)!r})")
+    tf.check_ported(cfg)
+
+
 def init_paged_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                             num_pages: int, page_size: int,
                             dtype=torch.bfloat16,
@@ -519,7 +548,7 @@ def init_paged_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     """Allocate the paged cache state: per-layer page pools plus one
     zeroed block table.  ``max_len`` bounds one row's context and fixes
     the table's width; the pool bounds the KV memory of all rows."""
-    tf.check_dense(cfg)                 # pools cover GQA caches only
+    _check_paged_cfg(cfg)
     dev = resolve_device(device)
     if max_len % page_size:
         raise ValueError(f"max_len {max_len} must be a multiple of the "

@@ -18,7 +18,10 @@ their plain versions relative to each output's largest magnitude (fp32
 1e-4, bf16 2e-2) off the tile grids, with GQA, an explicit causal
 offset and Dv != D; backward through a one-layer model on the kernels
 reaches wq, wk and wv; the serve kernels refuse a tensor that requires
-grad.
+grad.  The Mamba-2 SSD scan (#11) matches its plain version in fp32 and
+bf16, with and without an initial state, on and off the chunk grid, at
+one and several groups; reads strided views; and a 2-layer full-width
+mamba2-130m forward on it matches the plain versions.
 """
 
 import pytest
@@ -333,3 +336,120 @@ def test_serve_kernels_refuse_a_tensor_that_requires_grad(cuda_device):
         fused_attention_masked(q, t["k"], t["v"], t["lens"])
     with torch.no_grad():
         fused_attention_masked(q, t["k"], t["v"], t["lens"])
+
+
+# B, L, H, P, G, S, chunk, with h0
+SSD_CASES = [
+    (1, 188, 24, 64, 1, 128, 128, True),    # the serve path's prefill chunk
+    (2, 256, 4, 64, 2, 128, 64, False),     # on the chunk grid, G = 2
+    (2, 75, 8, 32, 4, 64, 32, True),        # off the grid, G = 4
+    (1, 128, 2, 64, 1, 32, 128, False),     # one chunk
+]
+
+
+def _ssd_inputs(dev, dtype, B, L, H, P, G, S, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    return dict(x=r(B, L, H, P).to(dtype),
+                dt=(torch.nn.functional.softplus(r(B, L, H)) * 0.1).to(dtype),
+                a=-torch.exp(r(H)), b=(r(B, L, G, S) * 0.3).to(dtype),
+                c=(r(B, L, G, S) * 0.3).to(dtype), d=r(H),
+                h0=r(B, H, P, S) * 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("B,L,H,P,G,S,chunk,with_h0", SSD_CASES)
+def test_ssd_scan_matches_plain(cuda_device, dtype, tol, B, L, H, P, G, S,
+                                chunk, with_h0):
+    """#11 against its plain version: y and the final state, relative to
+    each one's largest magnitude (fp32 1e-4, bf16 2e-2: both compute in
+    fp32 and round y once)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    t = _ssd_inputs(cuda_device, dtype, B, L, H, P, G, S)
+    h0 = t["h0"] if with_h0 else None
+    args = (t["x"], t["dt"], t["a"], t["b"], t["c"], t["d"])
+    y, h = ssd_scan(*args, chunk=chunk, h0=h0, return_final_state=True)
+    wy, wh = ssd_scan_plain(*args, chunk=chunk, h0=h0,
+                            return_final_state=True)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and h.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+    assert _rel(y, wy) <= tol and _rel(h, wh) <= tol
+
+
+@pytest.mark.cuda
+def test_ssd_scan_reads_views_through_their_strides(cuda_device):
+    """x, b and c as views into one wider tensor (the model's conv
+    output) give the contiguous copies' result bit for bit; no d."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    B, L, H, P, S = 2, 150, 4, 64, 128
+    wide = torch.randn(B, L, H * P + 2 * S + 5, generator=g,
+                       device=cuda_device).to(torch.bfloat16)
+    x = wide[..., :H * P].reshape(B, L, H, P)
+    b = wide[..., H * P:H * P + S].reshape(B, L, 1, S)
+    c = wide[..., H * P + S:H * P + 2 * S].reshape(B, L, 1, S)
+    dt = torch.rand(B, L, H, generator=g, device=cuda_device) * 0.1
+    a = -torch.rand(H, generator=g, device=cuda_device)
+    got = ssd_scan(x, dt, a, b, c, chunk=128)
+    want = ssd_scan(x.contiguous(), dt, a, b.contiguous(), c.contiguous(),
+                    chunk=128)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    t = _ssd_inputs(cuda_device, torch.float32, 1, 16, 2, 64, 1, 32)
+    args = [t["x"], t["dt"], t["a"], t["b"], t["c"], t["d"]]
+    with pytest.raises(ValueError, match="outside"):
+        ssd_scan(*args, chunk=256)
+    with pytest.raises(ValueError, match="share"):
+        ssd_scan(args[0], args[1], args[2], args[3].bfloat16(), args[4])
+    args[0] = args[0].clone().requires_grad_()
+    for fn in (ssd_scan, ops.ssd):
+        with pytest.raises(NotImplementedError, match="no backward"):
+            fn(*args, chunk=16)
+
+
+@pytest.mark.cuda
+def test_two_layer_mamba2_forward_on_the_kernel(cuda_device):
+    """mamba2-130m at full width, 2 layers, bf16: the cache-free logits
+    and a cached two-chunk prefill on #11 against the plain versions
+    (5e-2 of the largest logit), with one launch per layer and call."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.weights import init_params
+    cfg = dataclasses.replace(configs.get_config("mamba2-130m"), n_layers=2)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, g, cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 300), generator=g,
+                         device=cuda_device)
+    with torch.no_grad():
+        ops.reset_counts()
+        got = tf.forward(params, cfg, toks)
+        assert build.LAUNCHES["ssd_scan"] == 2
+        want = tf.forward(params, cfg, toks, impl="torch")
+        assert _rel(got, want) <= 5e-2
+        caches = [tf.init_model_cache(cfg, 2, 300, torch.bfloat16,
+                                      cuda_device) for _ in range(2)]
+        outs = []
+        for impl, cache in zip(("auto", "torch"), caches):
+            for start in (0, 200):
+                lg, cache = tf.forward(params, cfg, toks[:, start:start + 200],
+                                       cache=cache, cache_len=start,
+                                       impl=impl)
+            outs.append(lg)
+        assert build.LAUNCHES["ssd_scan"] == 2 + 4
+        assert _rel(outs[0], outs[1]) <= 5e-2
+        assert _rel(outs[0][:, -1], got[:, -1]) <= 5e-2
+        s0, s1 = (c["scan"][0]["mamba"]["ssm"] for c in caches)
+        assert _rel(s0, s1) <= 5e-2

@@ -1,7 +1,7 @@
 """The port's boundaries: no file under src/repro_torch/, and not
 chip_smoke.py, imports JAX or anything of the JAX package; the entry
 points default to the card and raise without one; each kernel source
-names the TPU kernel it replaces."""
+names the TPU kernel it replaces (#11, ssd_scan, by file and line)."""
 
 import ast
 import importlib
@@ -52,7 +52,12 @@ TRAINING_MODULES = ["optim/adamw.py", "optim/compression.py",
                     "kernels/csrc/fused_attention_bwd.cu"]
 
 
-@pytest.mark.parametrize("rel", TRAINING_MODULES)
+#: the Mamba slice's modules
+MAMBA_MODULES = ["configs/mamba2_130m.py", "kernels/ssd_scan.py",
+                 "models/mamba.py", "kernels/csrc/ssd_scan.cu"]
+
+
+@pytest.mark.parametrize("rel", TRAINING_MODULES + MAMBA_MODULES)
 def test_training_modules_are_checked(rel):
     path = PORT / rel
     assert path.exists()
@@ -75,6 +80,7 @@ def _entry_points():
                                           make_serving_plan,
                                           prefill_request)
     cfg = configs.get_config("starcoder2-7b", smoke=True)
+    ssm = configs.get_config("mamba2-130m", smoke=True)
     return [
         lambda: serving_plan(cfg, 64),
         lambda: make_serving_plan(cfg, 64),
@@ -94,10 +100,14 @@ def _entry_points():
         lambda: train.build(cfg, batch=2, seq=8, lr=1e-3, steps=1),
         lambda: train.train_loop(cfg, steps=1, batch=2, seq=8, lr=1e-3),
         lambda: adamw_state_from_numpy(0, {}, {}, cfg),
+        lambda: serving_plan(ssm, 64),
+        lambda: init_params(ssm, torch.Generator()),
+        lambda: ContinuousBatchingEngine(None, ssm, batch_size=1,
+                                         max_len=64),
     ]
 
 
-@pytest.mark.parametrize("i", range(14))
+@pytest.mark.parametrize("i", range(17))
 def test_default_device_is_cuda_and_raises_without_it(i):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
@@ -129,3 +139,5 @@ def test_kernel_sources_name_what_they_replace():
         assert "Bound on an H100" in text and "Design:" in text
         assert f'extern "C" int {entry}(' in text
     assert build.BUILD_DIR == ROOT / "build" / "repro_torch"
+    ssd = (PORT / "kernels" / "csrc" / "ssd_scan.cu").read_text()
+    assert "src/repro/kernels/ssd_scan.py" in ssd and "at :102" in ssd

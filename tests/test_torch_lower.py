@@ -20,7 +20,7 @@ from repro_torch.core import analytical, fusion
 
 torch.set_num_threads(2)
 
-CASES = [(arch, smoke) for arch in configs.list_archs()
+CASES = [(arch, smoke) for arch in configs.list_archs("dense")
          for smoke in (True, False)]
 
 
@@ -78,7 +78,7 @@ def test_serving_plan_resolutions_match_jax(arch, smoke):
     assert paths == want
 
 
-@pytest.mark.parametrize("arch", configs.list_archs())
+@pytest.mark.parametrize("arch", configs.list_archs("dense"))
 def test_downgrade_ledger_matches_jax(arch):
     """qk-norm walks the planned Q-fusion rungs down to fused attention
     and records it, as the JAX plan does."""

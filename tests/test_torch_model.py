@@ -24,7 +24,7 @@ from repro_torch.models.weights import init_params, params_from_numpy
 torch.set_num_threads(2)
 
 ATOL = 1e-4
-ARCHS = configs.list_archs()
+ARCHS = configs.list_archs("dense")
 
 
 @pytest.fixture(scope="module", params=ARCHS)

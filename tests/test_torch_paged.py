@@ -555,7 +555,7 @@ def _drive(plan, n):
     return out
 
 
-@pytest.mark.parametrize("arch", configs.list_archs())
+@pytest.mark.parametrize("arch", configs.list_archs("dense"))
 def test_paged_plans_and_ledgers_match_jax(arch):
     """The same (phase, n, bucket, path) resolutions and the same
     downgrade ledgers as ``repro.lower`` with ``paged=True`` on the CPU,
@@ -588,7 +588,7 @@ def test_paged_plans_and_ledgers_match_jax(arch):
     assert any("paged KV" in note for note in plan.notes)
 
 
-@pytest.mark.parametrize("arch", configs.list_archs())
+@pytest.mark.parametrize("arch", configs.list_archs("dense"))
 def test_rung_down_ladder_matches_jax(arch):
     """From the planned decode path down to the bottom rung: the JAX
     ladder ends unfused/reference -> unfused/xla, the port's

@@ -35,7 +35,7 @@ from repro_torch.train import step as port_step
 
 torch.set_num_threads(2)
 
-ARCHS = configs.list_archs()
+ARCHS = configs.list_archs("dense")
 SEQ = 96
 
 
