@@ -5,7 +5,9 @@
 Phases, in order:
   1. card   -- the card's name and power limit, torch and CUDA versions;
   2. build  -- every CUDA kernel built from csrc/, one nvcc per source,
-               all started together;
+               all started together; ptxas's registers and spills, and
+               one line counting the HMMA (tensor-core) instructions in
+               the SASS of #7's and #9's bf16 bodies;
   3. kernels-- each kernel against its plain PyTorch version on the card
                in bf16, at the serve paths' full-width shapes and at edge
                cases (a length of 0, lengths off the tile and page grids,
@@ -62,9 +64,15 @@ The kernel phase also holds the four training kernels (#7-#10) to their
 plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal) and the Mamba-2 SSD scan (#11) to its plain version in bf16 and
 fp32 at the serve path's prefill chunk (B=1, L=188, with an initial
-state) and the cache-free forward's shape (B=4, L=2048), and times them.  Every kernel must have launched on some path.
-The last three lines of
-stdout are the kernels' JSON record, the card's name and power limit,
+state) and the cache-free forward's shape (B=4, L=2048), and times
+them.  #7-#9 are also held per row (o, lse, dq, dk, dv), and that
+gate is shown to reject plain results with one tile dropped.
+Every kernel must have launched on some path.  In the kernels' JSON
+record #7 and #9 also carry their main-path bf16 instantiation's
+registers and spill bytes (ptxas); their time on the FMA bodies that
+preceded the tensor-core bodies is logged on a line of its own, as
+PERF.md records it.  The last three lines of stdout are the kernels'
+JSON record, the card's name and power limit,
 and {"ok": true, "device": {...}}.  Any failure exits non-zero and
 prints no ok line.  Imports nothing of JAX or of the JAX package.
 """
@@ -1309,6 +1317,35 @@ TRAIN_KERNELS = ("fused_attention_fwd", "fused_attention_bwd_dq",
                  "fused_attention_bwd_dkv")
 
 
+#: the bf16 times of #7 and #9 on the fp32-FMA bodies that preceded
+#: their tensor-core bodies, as PERF.md records them (this script's
+#: kernel phase, H100 80GB HBM3, 700.00 W): logged beside this run's
+#: times, and kept out of the kernels' record, which holds only what
+#: this run measured
+RECORDED_FMA_MS = {"fused_attention_fwd": 10.0170,
+                   "fused_attention_bwd_dkv": 13.3167}
+
+
+def tensor_core_usage() -> dict:
+    """Logs one line with the HMMA (tensor-core) instructions in the
+    SASS of each instantiation of #7's and #9's bf16 bodies (fails if
+    cuobjdump is missing or one has none); returns {kernel: (registers,
+    spill bytes)} of the instantiation the main path runs, from its
+    ptxas report."""
+    from repro_torch.kernels import build
+    parts, usage = [], {}
+    for name, symbols in build.TENSOR_CORE_BODIES.items():
+        counts = {s: build.sass_hmma(name, s) for s in symbols}
+        if not all(counts.values()):
+            raise SystemExit(f"{name}: an instantiation without HMMA in its "
+                             f"SASS: {counts}")
+        parts.append(f"{name} " + ", ".join(f"{s} {n} HMMA"
+                                            for s, n in counts.items()))
+        usage[name] = build.ptxas_usage(build.ptxas_report(name), symbols[0])
+    log("sass: " + "; ".join(parts) + " (cuobjdump -sass)")
+    return usage
+
+
 def _train_launches(cfg) -> dict:
     """The training kernels' launches in one forward and backward with
     remat "full": each layer's forward runs twice (the forward and the
@@ -1322,6 +1359,77 @@ def _causal_entries(b, hq, sq):
     """Score entries of a causal square attention: the work each
     training kernel needs, (B * Hq) rows of r + 1 columns."""
     return b * hq * sq * (sq + 1) // 2
+
+
+#: The training kernels' second gate at the main shape.  KERNEL_TOL of
+#: the largest |want| (about 3.5 for o) is as large as a typical late
+#: row's values (|o| about 0.03 at seq 2048), so a body that dropped a
+#: key tile for those rows would pass it.  So each row of o, dq, dk and
+#: dv (a query row; a key row) is held to ROW_TOL of that row's own
+#: largest |want|, and lse to LSE_TOL absolute.  Measured on an H100
+#: 80GB HBM3: the worst rows at 7.4e-3 to 7.8e-3 (one bf16 ulp of a
+#: value at the bottom of its binade is 2^-7 = 7.8e-3 of it), lse within
+#: 9.5e-7; the plain results with a tile dropped (dropped_tile) at 0.61
+#: (o), 1.11 (dk), 0.92 (dv) and 0.049 (lse).
+ROW_TOL = 2e-2
+LSE_TOL = 1e-3
+
+
+def row_err(got, want) -> float:
+    """The largest, over the rows (the last dimension), of a row's max
+    |got - want| over its max |want| (over 1 where want's row is 0)."""
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    scale = want.abs().amax(-1)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return ((got - want).abs().amax(-1) / scale).max().item()
+
+
+def row_gate(name, tag, outs, lse=None, expect=True) -> dict:
+    """Every (got, want) of ``outs`` within ROW_TOL per row and ``lse``'s
+    (got, want) within LSE_TOL absolute.  ``expect=False`` turns the
+    gate on itself: given a plain version with a tile dropped it must
+    fail, else it could pass a kernel with that bug."""
+    errs = {k: row_err(got, want) for k, (got, want) in outs.items()}
+    ok = all(e <= ROW_TOL for e in errs.values())
+    # beside it, each one's error over its largest |want|: check_kernel's
+    whole = {k: rel_err(got, want)[1] for k, (got, want) in outs.items()}
+    if lse is not None:
+        errs["lse_abs"] = (lse[0] - lse[1]).abs().max().item()
+        whole["lse"] = rel_err(*lse)[1]
+        ok = ok and errs["lse_abs"] <= LSE_TOL
+    text = " ".join(f"{k}={e:.3e}" for k, e in errs.items())
+    text += "; over the largest |want| " + " ".join(
+        f"{k}={e:.3e}" for k, e in whole.items())
+    verdict = ("ok" if ok else "FAIL") if expect else \
+        ("FAIL: passed" if ok else "rejected, as it must be")
+    log(f"  {name} [{tag}] per row {text} (row tol {ROW_TOL}, lse tol "
+        f"{LSE_TOL}) {verdict}")
+    if ok != expect:
+        raise SystemExit(f"{name}: per-row gate {verdict} ({tag})")
+    return errs
+
+
+def dropped_tile(q, k, v, do, o_p, lse_p, delta, want_k, want_v):
+    """Plain results with one tile of work left out, to try the row gate
+    on: #7's last row tile without its last key tile (the walk one tile
+    short for the heaviest rows), and #9's walk one step short (the last
+    head of each group loses its last query tile from every key tile's
+    sum).  Returns (o, lse, dk, dv)."""
+    from repro_torch.kernels.fused_attention import (
+        fused_attention_bwd_dkv_plain, fused_attention_fwd_plain)
+    t, sq = 64, q.shape[2]
+    o_m, lse_m = o_p.clone(), lse_p.clone()
+    o_t, lse_t = fused_attention_fwd_plain(
+        q[:, :, -t:], k[:, :, :-t], v[:, :, :-t], q_offset=sq - t)
+    o_m[:, :, -t:], lse_m[:, :, -t:] = o_t, lse_t
+    group = q.shape[1] // k.shape[1]
+    heads = [h * group + group - 1 for h in range(k.shape[1])]
+    part = lambda x: x[:, heads, -t:].float()
+    ck, cv = fused_attention_bwd_dkv_plain(
+        part(q), k.float(), v.float(), part(do), lse_p[:, heads, -t:],
+        delta[:, heads, -t:], q_offset=sq - t)
+    return (o_m, lse_m, (want_k.float() - ck).to(want_k.dtype),
+            (want_v.float() - cv).to(want_v.dtype))
 
 
 def train_kernel_phase(dev, g, check):
@@ -1359,6 +1467,8 @@ def train_kernel_phase(dev, g, check):
     o_p, lse_p = fused_attention_fwd_plain(q, k, v)
     err = max(check("fused_attention_fwd", o, o_p, f"B={b} S={sq} o"),
               check("fused_attention_fwd", lse, lse_p, f"B={b} S={sq} lse"))
+    row_gate("fused_attention_fwd", f"B={b} S={sq}", {"o": (o, o_p)},
+             (lse, lse_p))
     f7 = lambda: fused_attention_fwd(q, k, v)
     lib7 = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
     bms, by = bound(2 * qb + 2 * kvb + rowb, 4 * D * ent)
@@ -1375,15 +1485,26 @@ def train_kernel_phase(dev, g, check):
     dq = fused_attention_bwd_dq(*args)
     dk, dv = fused_attention_bwd_dkv(*args)
     tag = f"B={b} S={sq}"
-    err8 = check("fused_attention_bwd_dq", dq,
-                 fused_attention_bwd_dq_plain(*args), f"{tag} dq")
+    want_q = fused_attention_bwd_dq_plain(*args)
+    err8 = check("fused_attention_bwd_dq", dq, want_q, f"{tag} dq")
+    row_gate("fused_attention_bwd_dq", tag, {"dq": (dq, want_q)})
     want_k, want_v = fused_attention_bwd_dkv_plain(*args)
     err9 = max(check("fused_attention_bwd_dkv", dk, want_k, f"{tag} dk"),
                check("fused_attention_bwd_dkv", dv, want_v, f"{tag} dv"))
+    row_gate("fused_attention_bwd_dkv", tag,
+             {"dk": (dk, want_k), "dv": (dv, want_v)})
     again = fused_attention_bwd_dkv(*args)
     if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
         raise SystemExit("fused_attention_bwd_dkv is not deterministic")
-    del dq, dk, dv, want_k, want_v, again
+    o_m, lse_m, dk_m, dv_m = dropped_tile(q, k, v, do, o_p, lse_p, delta,
+                                          want_k, want_v)
+    row_gate("fused_attention_fwd", f"{tag}, plain with a key tile dropped",
+             {"o": (o_m, o_p)}, (lse_m, lse_p), expect=False)
+    row_gate("fused_attention_bwd_dkv",
+             f"{tag}, plain with a query tile dropped",
+             {"dk": (dk_m, want_k), "dv": (dv_m, want_v)}, expect=False)
+    del dq, dk, dv, want_q, want_k, want_v, again
+    del o_m, lse_m, dk_m, dv_m
     # the library's backward: SDPA forward + backward less its forward
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
     fwd_g = lambda: sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
@@ -1742,9 +1863,9 @@ def train_breakdown(prof, busy_ms: float, cfg, n_params: int) -> None:
     per bf16 parameter with bf16 moments)."""
     from torch.autograd import DeviceType
     parts = collections.Counter()
-    names = {"masked_attention_kernel": "#7 fused_attention_fwd",
+    names = {"fwd_mma_kernel": "#7 fused_attention_fwd",
              "dq_kernel": "#8 fused_attention_bwd_dq",
-             "dkv_kernel": "#9 fused_attention_bwd_dkv"}
+             "dkv_mma_kernel": "#9 fused_attention_bwd_dkv"}
     opt = 0.0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -1800,6 +1921,7 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    usage = tensor_core_usage()
 
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -1819,6 +1941,12 @@ def main() -> int:
     if missing:
         raise SystemExit(f"kernels never launched on any path: {missing}")
 
+    for name, ms in RECORDED_FMA_MS.items():
+        log(f"{name}: {results[name]['ms']:.4f} ms in this run; "
+            f"{ms:.4f} ms on the FMA body, as PERF.md records it (not "
+            f"measured in this run)")
+        regs, spill = usage[name]
+        results[name].update(registers=regs, spill_bytes=spill)
     record = [dict(name=n, route="cuda", launches=launches[n], **r)
               for n, r in results.items()]
     print(json.dumps({"kernels": record}))

@@ -21,6 +21,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -73,6 +74,13 @@ KERNELS = {
         [_P] * 9 + [_I] * 7 + [_LL] * 8 + [_I, _I, _P]),
 }
 
+#: kernel name -> the kernels of its bf16 tensor-core body (C linkage,
+#: so the names are the source's own): the D = Dv = 128 instantiation
+#: that the training path runs, then the one for any even width
+TENSOR_CORE_BODIES = {
+    "fused_attention_fwd": ("fwd_mma_kernel_d128", "fwd_mma_kernel_any"),
+    "fused_attention_bwd_dkv": ("dkv_mma_kernel_d128", "dkv_mma_kernel_any")}
+
 #: dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -85,14 +93,19 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
-def _nvcc() -> str:
+def _tool(name: str, purpose: str) -> str:
+    """A CUDA toolkit program: $CUDA_HOME/bin (default /usr/local/cuda),
+    else PATH; raises if neither has it."""
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (Path(home) / "bin" / "nvcc", shutil.which("nvcc")):
+    for cand in (Path(home) / "bin" / name, shutil.which(name)):
         if cand and Path(cand).exists():
             return str(cand)
-    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin and PATH): the CUDA kernels "
-                       "cannot be built")
+    raise RuntimeError(f"{name} not found (looked in $CUDA_HOME/bin, "
+                       f"/usr/local/cuda/bin and PATH): {purpose}")
+
+
+def _nvcc() -> str:
+    return _tool("nvcc", "the CUDA kernels cannot be built")
 
 
 def library_path(name: str) -> Path:
@@ -107,7 +120,8 @@ def library_path(name: str) -> Path:
 def build_all(names=None) -> dict:
     """Compile the sources of every kernel in ``names`` (default: all)
     whose library is missing, one nvcc per source, in parallel.  Returns
-    {source: ptxas report}; raises with the compiler's output on
+    {source: ptxas report}, and keeps each report beside its library
+    (:func:`ptxas_report`); raises with the compiler's output on
     failure."""
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -128,10 +142,56 @@ def build_all(names=None) -> dict:
         if proc.returncode:
             failed.append(f"{src}:\n{log}")
             continue
+        out.with_suffix(".ptxas").write_text(log)
         os.replace(tmp, out)      # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
+
+
+def ptxas_report(name: str) -> str:
+    """The ptxas report of kernel ``name``'s library, kept by the
+    build_all that built it."""
+    return library_path(name).with_suffix(".ptxas").read_text()
+
+
+def ptxas_usage(report: str, function: str) -> tuple[int, int]:
+    """(registers, spill bytes stored + loaded) of kernel ``function``,
+    by its exact symbol, in a ptxas report; raises if the report does
+    not give both."""
+    cur, regs, spill = None, None, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+        elif cur == function:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs = int(m.group(1))
+    if regs is None or spill is None:
+        raise ValueError(f"the ptxas report gives no registers and spill "
+                         f"of {function}")
+    return regs, spill
+
+
+def sass_hmma(name: str, function: str) -> int:
+    """The HMMA (tensor-core) instructions in the SASS of kernel
+    ``function`` (its exact symbol) in kernel ``name``'s built library,
+    from ``cuobjdump -sass``; raises if cuobjdump or the function is
+    missing."""
+    exe = _tool("cuobjdump", "the SASS cannot be read")
+    out = subprocess.run([exe, "-sass", str(library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    for part in out.split("Function : ")[1:]:
+        fn, _, sass = part.partition("\n")
+        if fn.strip() == function:
+            return sass.count("HMMA")
+    raise ValueError(f"{library_path(name)} has no function {function}")
 
 
 def kernel(name: str):

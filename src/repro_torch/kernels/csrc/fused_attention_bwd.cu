@@ -20,31 +20,60 @@
 // Bound on an H100 at starcoder2-7b's training shapes (bf16, B=2,
 // Sq=Skv=2048, Hq=36, Hkv=4, D=128, causal): dq does 3 products over
 // the causal triangle, 6*B*Hq*D*Sq*(Sq+1)/2 = 116 GFLOP, against about
-// 84 MB (Q, K, V, dO, lse, delta, dq); dk/dv does 4 products, 155
+// 84 MB (Q, K, V, dO, lse, delta, dq); dk/dv does 4 products, 154.7
 // GFLOP, against about 84 MB.  Both are bound by the operations: 0.117
-// and 0.157 ms at 989 TFLOP/s.
-// Design: both kernels run their products as fp32 FMAs on the CUDA
-// cores, from fp32 tiles in shared memory (K and V rows padded to 129
-// floats, so a lane reading its own key's row and a warp reading one
-// column are both conflict-free).
-// dq: one block of 128 threads per (b * Hq + h, 16 query rows), as the
-// TPU grid (B*Hq, nq, nk) without its sequential nk axis: the block
-// walks 64-key tiles up to the last row's anchor, so tiles past the
-// causal frontier cost nothing; a warp owns 4 rows, and dq stays in
-// registers (lane owns dims lane + 32 t) until its one write.
-// dk/dv: one block of 128 threads per (b * Hkv + kv head, 32 keys), as
-// the TPU grid (B, Hkv, nk, group * nq) with its sequential last axis
-// a loop: for g in the group, for each 16-row query tile, in that
-// order, skipping a tile whose last row's anchor is before the block's
-// first key (the TPU kernels' per-pair causal skip).  A warp owns 8
-// keys; dk and dv stay in registers and are written once.  No atomics:
-// every output element has one writer and one summation order, so the
-// results are deterministic.  Rows >= Sq and keys >= Skv are never read:
-// their tiles load zeros and their p is 0.
-// Levers for a later change: mma.sync / wgmma for the products, and a
-// single backward walk that also emits dq (the dk/dv block already
-// holds every ds it needs; dq then needs a cross-block sum).
+// and 0.1564 ms at 989 TFLOP/s.
+// Design: dq runs fp32 FMAs on the CUDA cores, from fp32 tiles in
+// shared memory (K and V rows padded to 129 floats, so a lane reading
+// its own key's row and a warp reading one column are both
+// conflict-free).  One block of 128 threads per (b * Hq + h, 16 query
+// rows), as the TPU grid (B*Hq, nq, nk) without its sequential nk axis:
+// the block walks 64-key tiles up to the last row's anchor, so tiles
+// past the causal frontier cost nothing; a warp owns 4 rows, and dq
+// stays in registers (lane owns dims lane + 32 t) until its one write.
+// Rows >= Sq and keys >= Skv load zeros and get p = 0, in every kernel
+// here.
+// dk/dv in bf16 (dkv_mma_body) runs its four products on the tensor
+// cores (mma.sync m16n8k16, bf16 in, fp32 accumulate; mma.cuh).  One
+// block owns 64 keys of one (b * Hkv + kv head), as the TPU grid (B,
+// Hkv, nk, group * nq) with its sequential last axis a loop: for g in
+// the group, for each 64-row query tile, in that order, skipping the
+// tiles whose last row's anchor is before the block's first key (the
+// TPU kernels' per-pair causal skip).  The block has two warp groups of
+// 4 warps, each warp 16 keys: group w takes the walk's tiles w, w + 2,
+// ..., so the heaviest block's walk is halved: under the causal mask
+// key tile 0 walks every query tile of the group and the last one a
+// single tile, and with 256 blocks on 132 SMs the heaviest block sets
+// the time.  K and V are loaded once, into A
+// fragments held in registers (253 of them at D = 128, no spill, so one
+// block of 8 warps per SM); per step Q, dO, lse and delta of both
+// groups' tiles are double-buffered in shared memory with cp.async
+// (bf16 rows padded to 136 elements, conflict-free for ldmatrix).  Per
+// 16 queries of a tile each warp computes S^T = K.Q^T and dP^T = V.dO^T
+// on the mma, then p^T = exp(s * scale - lse) and ds^T = p^T (dp^T -
+// delta) * scale in registers; keys are the M dimension of dV += P^T.dO
+// and dK += dS^T.Q too, so the first products' accumulators, rounded (p
+// to dO's dtype, ds to Q's), are already the A fragments of the second.
+// dK and dV (16 x D each per warp) stay in fp32 registers; at the end
+// group 1 hands its partial sums to group 0 through shared memory and
+// group 0 adds them to its own and writes.  So every dk/dv element has
+// one writer and one summation order: deterministic, with no atomics
+// and no scratch in device memory.  Only the 16-query slices that cross
+// the diagonal or an edge are masked, and key tiles launch heaviest
+// first (key tile 0 carries every query tile of the group).  Widths are
+// zero-padded to 16 in the fragments, as in the forward.
+// fp32 inputs take dkv_kernel<float>, the FMA body (a warp owns 8 keys
+// of a 32-key block and walks 16-row query tiles): the card tests hold
+// fp32 to 1e-4, which neither bf16 nor TF32 tensor cores can, and no
+// path of the port runs the training attention in fp32 on the card.
+// The split is a dispatch on the dtype code in
+// fused_attention_bwd_dkv_launch, not a fallback.
+// Levers for a later change: wgmma with TMA tile loads in dk/dv, the
+// tensor cores in dq, and a single backward walk that also emits dq
+// (the dk/dv block already holds every ds it needs; dq then needs a
+// cross-block sum).
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -321,6 +350,286 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The bf16 dk/dv on the tensor cores (see the notes above).
+namespace dkv {
+
+using rt::mma::bf16;
+// kGroups warp groups of 4 warps share a block's 64 keys (16 per warp of
+// a group) and take its query tiles in turn: group w the tiles it with
+// it % kGroups == w.  They add their partial dK, dV in group order at
+// the end, so the order of every sum is still fixed.
+constexpr int kGroups = 2;
+constexpr int kWarps = 4 * kGroups;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBk = 64;  // keys per block
+constexpr int kBq = 64;  // query rows per tile
+constexpr int kS = rt::mma::kStride;
+// K, V; two buffers of kGroups (Q, dO) tiles; two of kGroups (lse, delta)
+constexpr int kSmemBytes =
+    (2 * kBk + 4 * kGroups * kBq) * kS * 2 + 4 * kGroups * kBq * 4;
+// the groups' partial sums, exchanged through the (Q, dO) buffers
+static_assert((kGroups - 1) * 4 * 32 * 128 * 4 <= 4 * kGroups * kBq * kS * 2,
+              "partial sums must fit the Q/dO buffers");
+
+// One block: keys [j0, j0 + 64) of plane bk = b * Hkv + kvh, key tile
+// blockIdx.y = 0 (the heaviest under the causal mask) first.  kFull: D =
+// Dv = 128 and 16-byte copies, known to the compiler, so the width
+// guards and the loaders' divisions fold away and the products of
+// neighbouring steps interleave (with a runtime width every 16-wide
+// step sits behind its own branch): on an H100, 0.77 against 1.55 ms at
+// the training shape.  Launched as dkv_mma_kernel_d128 or _any below.
+template <bool kFull>
+__device__ __forceinline__ void dkv_mma_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int Hq, int Hkv, int Sq,
+    int Skv, int D, int Dv, int causal, int q_offset, float scale,
+    bool vec) {
+  using namespace rt::mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* v_s = k_s + kBk * kS;
+  bf16* q_s = v_s + kBk * kS;                // 2 x kGroups tiles of kBq
+  bf16* do_s = q_s + 2 * kGroups * kBq * kS;  // 2 x kGroups tiles of kBq
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kGroups * kBq * kS);
+  float* dl_s = lse_s + 2 * kGroups * kBq;
+  const int bk = blockIdx.x;
+  const int b = bk / Hkv, kvh = bk - b * Hkv;
+  const int group = Hq / Hkv;
+  const int j0 = blockIdx.y * kBk;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wg = warp >> 2, wi = warp & 3;  // warp group, warp in it
+  const int gid = lane >> 2, tig = lane & 3;
+  if (kFull) D = Dv = 128, vec = true;
+  const int Dp = (D + 15) & ~15, Dvp = (Dv + 15) & ~15;
+  const int64_t kv_plane = (int64_t)bk * Skv;
+  const int nq = (Sq + kBq - 1) / kBq;
+  // per-pair causal skip: query tiles whose last row sees none of our
+  // keys form a prefix [0, qi0)
+  int qi0 = 0;
+  if (causal)
+    while (qi0 < nq && q_offset + min((qi0 + 1) * kBq, Sq) - 1 < j0) ++qi0;
+  // the walk: tile it is head g = it / nqi (outer), query tile qi0 + it %
+  // nqi (inner); step st holds tiles kGroups * st + w, w < kGroups
+  const int nqi = nq - qi0, n_it = group * nqi;
+  const int n_steps = (n_it + kGroups - 1) / kGroups;
+
+  load_tile<kBk, kThreads>(k_s, k + kv_plane * D, j0, Skv, D, Dp, vec);
+  load_tile<kBk, kThreads>(v_s, v + kv_plane * Dv, j0, Skv, Dv, Dvp, vec);
+  // step st's tiles into buffer st & 1
+  auto load_step = [&](int st) {
+    for (int w = 0; w < kGroups; ++w) {
+      const int it = kGroups * st + w;
+      if (it >= n_it) break;
+      const int g = it / nqi, r0 = (qi0 + it - g * nqi) * kBq;
+      const int64_t plane = ((int64_t)b * Hq + kvh * group + g) * Sq;
+      const int slot = (st & 1) * kGroups + w;
+      load_tile<kBq, kThreads>(q_s + slot * kBq * kS, q + plane * D, r0, Sq,
+                               D, Dp, vec);
+      load_tile<kBq, kThreads>(do_s + slot * kBq * kS, dout + plane * Dv, r0,
+                               Sq, Dv, Dvp, vec);
+      load_row_vec<kBq, kThreads>(lse_s + slot * kBq, lse + plane, r0, Sq);
+      load_row_vec<kBq, kThreads>(dl_s + slot * kBq, delta + plane, r0, Sq);
+    }
+  };
+  if (n_steps > 0) load_step(0);
+  cp_async_commit();
+
+  // this lane's keys: wk + gid and wk + gid + 8
+  const int wk = j0 + wi * 16;
+  float dk_acc[16][4], dv_acc[16][4];  // n-tile n: columns 8n + 2tig, +1
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  uint32_t kf[8][4], vf[8][4];  // K's and V's A fragments
+
+  for (int st = 0; st < n_steps; ++st) {
+    if (st + 1 < n_steps) load_step(st + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // step st (and, at st = 0, K and V) has landed
+    __syncthreads();
+    if (st == 0) {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        if (kk * 16 < Dp)
+          ldsm_x4(kf[kk], k_s + wi * 16 * kS + kk * 16 + a_off(lane));
+        if (kk * 16 < Dvp)
+          ldsm_x4(vf[kk], v_s + wi * 16 * kS + kk * 16 + a_off(lane));
+      }
+    }
+    const int it = kGroups * st + wg;
+    if (it < n_it) {
+      const int slot = (st & 1) * kGroups + wg;
+      const bf16* qs = q_s + slot * kBq * kS;
+      const bf16* dos = do_s + slot * kBq * kS;
+      const float* ls = lse_s + slot * kBq;
+      const float* dls = dl_s + slot * kBq;
+      const int g = it / nqi, r0 = (qi0 + it - g * nqi) * kBq;
+
+#pragma unroll 1
+      for (int sub = 0; sub < kBq / 16; ++sub) {
+        const int rs = r0 + 16 * sub;  // first query of these 16
+        if (rs >= Sq) break;
+        // S^T = K.Q^T and dP^T = V.dO^T: n-tile n holds queries rs + 8n
+        // + 2tig, +1
+        float sc[2][4] = {}, dpt[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          uint32_t bf[4];
+          if (kk * 16 < Dp) {
+            ldsm_x4(bf, qs + 16 * sub * kS + kk * 16 + bn_off(lane));
+            mma_bf16(sc[0], kf[kk], bf[0], bf[1]);
+            mma_bf16(sc[1], kf[kk], bf[2], bf[3]);
+          }
+          if (kk * 16 < Dvp) {
+            ldsm_x4(bf, dos + 16 * sub * kS + kk * 16 + bn_off(lane));
+            mma_bf16(dpt[0], vf[kk], bf[0], bf[1]);
+            mma_bf16(dpt[1], vf[kk], bf[2], bf[3]);
+          }
+        }
+        // p^T and ds^T; mask only where these 16 queries cross the
+        // diagonal for some key of this warp, or an edge
+        const bool edge = rs + 16 > Sq || wk + 16 > Skv ||
+                          (causal && wk + 15 > q_offset + rs);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ql = 16 * sub + 8 * n + 2 * tig + (e & 1);
+            float p = expf(sc[n][e] * scale - ls[ql]);
+            if (edge) {
+              const int key = wk + gid + 8 * (e >> 1), row = r0 + ql;
+              const bool ok = row < Sq && key < Skv &&
+                              (!causal || key <= q_offset + row);
+              p = ok ? p : 0.f;
+            }
+            dpt[n][e] = p * (dpt[n][e] - dls[ql]) * scale;
+            sc[n][e] = p;
+          }
+        // dV += P^T.dO (p rounded to dO's dtype), dK += dS^T.Q (ds
+        // rounded to Q's): the accumulators above are the A fragments
+        uint32_t pa[4], da[4];
+        c_to_a(pa, sc[0], sc[1]);
+        c_to_a(da, dpt[0], dpt[1]);
+#pragma unroll
+        for (int np = 0; np < 8; ++np) {
+          uint32_t bf[4];
+          if (np * 16 < Dvp) {
+            ldsm_x4_t(bf, dos + 16 * sub * kS + np * 16 + bk_off(lane));
+            mma_bf16(dv_acc[2 * np], pa, bf[0], bf[1]);
+            mma_bf16(dv_acc[2 * np + 1], pa, bf[2], bf[3]);
+          }
+          if (np * 16 < Dp) {
+            ldsm_x4_t(bf, qs + 16 * sub * kS + np * 16 + bk_off(lane));
+            mma_bf16(dk_acc[2 * np], da, bf[0], bf[1]);
+            mma_bf16(dk_acc[2 * np + 1], da, bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // step st consumed before its buffers are refilled
+  }
+  cp_async_wait<0>();
+
+  // groups 1.. hand their partial sums to group 0 through the Q/dO
+  // buffers, element (n, e) of lane l of warp wi at [(n * 4 + e) * 32 + l]
+  float* red = reinterpret_cast<float*>(q_s);
+  const int red_warp = 2 * 16 * 4 * 32;  // floats per warp: dK and dV
+  if (kGroups > 1) {
+    __syncthreads();
+    if (wg > 0) {
+      float* r = red + ((wg - 1) * 4 + wi) * red_warp + lane;
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          r[(n * 4 + e) * 32] = dk_acc[n][e];
+          r[(64 + n * 4 + e) * 32] = dv_acc[n][e];
+        }
+    }
+    __syncthreads();
+    if (wg > 0) return;
+    for (int w = 1; w < kGroups; ++w) {
+      const float* r = red + ((w - 1) * 4 + wi) * red_warp + lane;
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dk_acc[n][e] += r[(n * 4 + e) * 32];
+          dv_acc[n][e] += r[(64 + n * 4 + e) * 32];
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = wk + gid + 8 * i;
+    if (key >= Skv) continue;
+    bf16* dkr = dk + (kv_plane + key) * D;
+    bf16* dvr = dv + (kv_plane + key) * Dv;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const int col = 8 * n + 2 * tig;
+      if (col < D) {
+        dkr[col] = __float2bfloat16_rn(dk_acc[n][2 * i]);
+        dkr[col + 1] = __float2bfloat16_rn(dk_acc[n][2 * i + 1]);
+      }
+      if (col < Dv) {
+        dvr[col] = __float2bfloat16_rn(dv_acc[n][2 * i]);
+        dvr[col + 1] = __float2bfloat16_rn(dv_acc[n][2 * i + 1]);
+      }
+    }
+  }
+}
+
+}  // namespace dkv
+}  // namespace
+
+// The body's two instantiations as kernels with names of their own (C
+// linkage), so the build's ptxas report and the SASS name each one:
+// dkv_mma_kernel_d128 is the one the training path runs.
+#define DKV_MMA_KERNEL(name, full)                                          \
+  extern "C" __global__ void __launch_bounds__(dkv::kThreads) name(         \
+      const rt::mma::bf16* __restrict__ q,                                  \
+      const rt::mma::bf16* __restrict__ k,                                  \
+      const rt::mma::bf16* __restrict__ v,                                  \
+      const rt::mma::bf16* __restrict__ dout, const float* __restrict__ lse, \
+      const float* __restrict__ delta, rt::mma::bf16* __restrict__ dk,      \
+      rt::mma::bf16* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,     \
+      int D, int Dv, int causal, int q_offset, float scale, bool vec) {     \
+    dkv::dkv_mma_body<full>(q, k, v, dout, lse, delta, dk, dv, Hq, Hkv, Sq, \
+                            Skv, D, Dv, causal, q_offset, scale, vec);      \
+  }
+DKV_MMA_KERNEL(dkv_mma_kernel_d128, true)
+DKV_MMA_KERNEL(dkv_mma_kernel_any, false)
+#undef DKV_MMA_KERNEL
+
+namespace {
+namespace dkv {
+
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dk, void* dv, int B,
+           int Hq, int Hkv, int Sq, int Skv, int D, int Dv, int causal,
+           int q_offset, float scale, cudaStream_t stream) {
+  const bool vec = rt::mma::vec_ok(q, D) && rt::mma::vec_ok(k, D) &&
+                   rt::mma::vec_ok(v, Dv) && rt::mma::vec_ok(dout, Dv);
+  auto kern = vec && D == 128 && Dv == 128 ? dkv_mma_kernel_d128
+                                           : dkv_mma_kernel_any;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemBytes);
+  dim3 grid(B * Hkv, (Skv + kBk - 1) / kBk);
+  kern<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+      delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Hq, Hkv, Sq,
+      Skv, D, Dv, causal, q_offset, scale, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace dkv
+
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int Hq,
@@ -386,10 +695,9 @@ extern "C" int fused_attention_bwd_dkv_launch(
     case rt::kF32:
       return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv,
                                Sq, Skv, D, Dv, causal, q_offset, scale, s);
-    case rt::kBF16:
-      return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, B,
-                                       Hq, Hkv, Sq, Skv, D, Dv, causal,
-                                       q_offset, scale, s);
+    case rt::kBF16:  // the tensor-core body; fp32 keeps the FMA body
+      return dkv::launch(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq,
+                         Skv, D, Dv, causal, q_offset, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -15,8 +15,12 @@ matches its plain version and gives bit for bit its dense kernel's
 output on the gathered cache: the two share one body.  The training
 kernels (forward with lse, dq, dk/dv, the Q-projection forward) match
 their plain versions relative to each output's largest magnitude (fp32
-1e-4, bf16 2e-2) off the tile grids, with GQA, an explicit causal
-offset and Dv != D; backward through a one-layer model on the kernels
+1e-4, bf16 2e-2) off the tile grids and at the edges of the
+64-row and 64-key tiles of #7's and #9's tensor-core bodies, with GQA,
+an explicit causal offset (a negative one too), Sq > Skv, D = 40 and 36
+and Dv != D; rows that see no key emit o = 0 and lse = -1e30 and keys no
+row sees get no gradient; the instantiations of those two bf16 bodies
+show HMMA in their SASS; backward through a one-layer model on the kernels
 reaches wq, wk and wv; the serve kernels refuse a tensor that requires
 grad.  The Mamba-2 SSD scan (#11) matches its plain version in fp32 and
 bf16, with and without an initial state, on and off the chunk grid, at
@@ -29,7 +33,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.fused_attention import (
-    fused_attention, fused_attention_bwd_dkv, fused_attention_bwd_dkv_plain,
+    causal_anchor, fused_attention, fused_attention_bwd_dkv, fused_attention_bwd_dkv_plain,
     fused_attention_bwd_dq, fused_attention_bwd_dq_plain,
     fused_attention_fwd, fused_attention_fwd_plain, fused_attention_masked,
     fused_attention_masked_plain, fused_attention_paged,
@@ -208,6 +212,10 @@ def test_launches_are_counted(cuda_device):
     x, wq = t["x"].clone().requires_grad_(), t["wq"].clone()
     fused_qproj_attention(x, wq, t["k"], t["v"], rope_theta=1e4).sum() \
         .backward()
+    # and the Mamba-2 SSD scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    s = _ssd_inputs(cuda_device, torch.bfloat16, 1, 128, 2, 64, 1, 32)
+    ssd_scan(s["x"], s["dt"], s["a"], s["b"], s["c"], s["d"], chunk=128)
     torch.cuda.synchronize()
     twice = {"fused_attention_bwd_dq", "fused_attention_bwd_dkv"}
     assert {n: build.LAUNCHES[n] for n in build.KERNELS} == {
@@ -241,6 +249,17 @@ TRAIN_CASES = [
     (1, 4, 4, 120, 200, 64, 32, True, None),    # Sq < Skv, Dv != D
     (2, 6, 2, 96, 160, 32, 32, True, 40),       # explicit causal offset
     (1, 6, 2, 77, 130, 64, 64, False, None),    # full attention
+    # the edges of the tensor-core bodies' 64-row and 64-key tiles
+    (1, 2, 1, 64, 64, 64, 64, True, None),      # one whole tile
+    (1, 2, 1, 65, 65, 64, 64, True, None),      # one row and key past it
+    (1, 9, 1, 257, 257, 128, 128, True, None),  # group of 9, D = 128
+    (2, 4, 2, 1, 130, 64, 64, True, None),      # one row against 130 keys
+    (1, 4, 2, 100, 100, 40, 40, True, None),    # D not a multiple of 16
+    (1, 4, 2, 70, 70, 36, 36, True, None),      # ... nor of 8: plain loads
+    (1, 4, 2, 150, 150, 128, 64, True, None),   # D = 128, Dv = 64
+    # rows that see no column (o = 0, lse = -1e30), keys no row sees
+    (1, 4, 2, 130, 70, 64, 64, True, None),     # Sq > Skv: rows 0..59
+    (1, 4, 2, 200, 150, 64, 64, True, -100),    # a whole tile of each
 ]
 
 
@@ -260,6 +279,12 @@ def test_training_attention_kernels_match_plain(cuda_device, dtype, tol, b,
     o_p, lse_p = fused_attention_fwd_plain(q, k, v, **kw)
     assert lse.dtype == torch.float32
     assert _rel(o, o_p) <= tol and _rel(lse, lse_p) <= tol
+    # row r sees keys up to reach + r; a row that sees no column emits
+    # o = 0 and lse = -1e30
+    reach = causal_anchor(q_offset, sq, skv) if causal else skv - 1
+    blind = reach + torch.arange(sq, device=cuda_device) < 0
+    assert torch.equal(o[:, :, blind], torch.zeros_like(o[:, :, blind]))
+    assert bool((lse[:, :, blind] == -1e30).all())
     delta = (o_p.float() * do.float()).sum(-1)
     dq = fused_attention_bwd_dq(q, k, v, do, lse_p, delta, **kw)
     dk, dvv = fused_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
@@ -268,9 +293,22 @@ def test_training_attention_kernels_match_plain(cuda_device, dtype, tol, b,
     for got, w in zip((dq, dk, dvv), want):
         assert got.dtype == w.dtype and got.shape == w.shape
         assert _rel(got, w) <= tol
+    # keys past the last row's anchor get no gradient
+    unseen = torch.arange(skv, device=cuda_device) > reach + sq - 1
+    assert not dk[:, :, unseen].any() and not dvv[:, :, unseen].any()
     # deterministic: no atomics in the dk/dv group sum
     again = fused_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
     assert torch.equal(again[0], dk) and torch.equal(again[1], dvv)
+
+
+@pytest.mark.cuda
+def test_bf16_training_bodies_run_on_the_tensor_cores(cuda_device):
+    # sass_hmma raises, so the test fails, if cuobjdump is missing
+    build.build_all(list(build.TENSOR_CORE_BODIES))
+    for name, symbols in build.TENSOR_CORE_BODIES.items():
+        for symbol in symbols:          # each width instantiation
+            assert build.sass_hmma(name, symbol) > 0, \
+                f"{name}: no HMMA in {symbol}'s SASS"
 
 
 @pytest.mark.cuda

@@ -1,7 +1,9 @@
 """The port's boundaries: no file under src/repro_torch/, and not
-chip_smoke.py, imports JAX or anything of the JAX package; the entry
-points default to the card and raise without one; each kernel source
-names the TPU kernel it replaces (#11, ssd_scan, by file and line)."""
+chip_smoke.py or time_mma_widths.py, imports JAX or anything of the JAX
+package; the entry points default to the card and raise without one;
+each kernel source names the TPU kernel it replaces (#11, ssd_scan, by
+file and line) and defines the tensor-core kernels build names; the
+ptxas report is read per kernel."""
 
 import ast
 import importlib
@@ -14,7 +16,8 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "time_mma_widths.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro", "flax"}
 
 
@@ -141,3 +144,33 @@ def test_kernel_sources_name_what_they_replace():
     assert build.BUILD_DIR == ROOT / "build" / "repro_torch"
     ssd = (PORT / "kernels" / "csrc" / "ssd_scan.cu").read_text()
     assert "src/repro/kernels/ssd_scan.py" in ssd and "at :102" in ssd
+
+
+def test_tensor_core_kernels_are_defined_by_their_sources():
+    from repro_torch.kernels import build
+    for name, symbols in build.TENSOR_CORE_BODIES.items():
+        text = (PORT / "kernels" / "csrc" / build.KERNELS[name][0]) \
+            .read_text()
+        assert 'extern "C" __global__' in text
+        for symbol, full in zip(symbols, ("true", "false")):
+            assert f"_MMA_KERNEL({symbol}, {full})" in text
+
+
+REPORT = """\
+ptxas info    : Compiling entry function 'fwd_mma_kernel_d128' for 'sm_90a'
+ptxas info    : Function properties for fwd_mma_kernel_d128
+    8 bytes stack frame, 8 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function 'fwd_mma_kernel_any' for 'sm_90a'
+ptxas info    : Function properties for fwd_mma_kernel_any
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 160 registers, used 1 barriers
+"""
+
+
+def test_ptxas_usage_reads_one_kernel():
+    from repro_torch.kernels import build
+    assert build.ptxas_usage(REPORT, "fwd_mma_kernel_d128") == (168, 24)
+    assert build.ptxas_usage(REPORT, "fwd_mma_kernel_any") == (160, 0)
+    with pytest.raises(ValueError, match="fwd_mma_kernel"):
+        build.ptxas_usage(REPORT, "fwd_mma_kernel")
