@@ -7,7 +7,7 @@ Phases, in order:
   2. build  -- every CUDA kernel built from csrc/, one nvcc per source,
                all started together; ptxas's registers and spills, and
                one line counting the HMMA (tensor-core) instructions in
-               the SASS of #7's and #9's bf16 bodies;
+               the SASS of the bf16 bodies of #7, #8 and #9;
   3. kernels-- each kernel against its plain PyTorch version on the card
                in bf16, at the serve paths' full-width shapes and at edge
                cases (a length of 0, lengths off the tile and page grids,
@@ -65,10 +65,13 @@ plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal) and the Mamba-2 SSD scan (#11) to its plain version in bf16 and
 fp32 at the serve path's prefill chunk (B=1, L=188, with an initial
 state) and the cache-free forward's shape (B=4, L=2048), and times
-them.  #7-#9 are also held per row (o, lse, dq, dk, dv), and that
-gate is shown to reject plain results with one tile dropped.
+them.  #7-#9 and #4 are also held per row (o, lse, dq, dk, dv; #4's
+o), and that gate is shown to reject plain results with one tile
+(#4: one KV chunk of its split-KV body) dropped.  Each library
+yardstick is the median of LIB_REPEATS timings, its spread logged.
+The qwen phase logs the median decode step of each engine.
 Every kernel must have launched on some path.  In the kernels' JSON
-record #7 and #9 also carry their main-path bf16 instantiation's
+record #7, #8 and #9 also carry their main-path bf16 instantiation's
 registers and spill bytes (ptxas); their time on the FMA bodies that
 preceded the tensor-core bodies is logged on a line of its own, as
 PERF.md records it.  The last three lines of stdout are the kernels'
@@ -116,12 +119,39 @@ def card_line() -> str:
     return smi
 
 
+_sleep_cycles_per_ms = []
+
+
+def hold_stream(ms: float) -> None:
+    """Keep the current stream busy for about ``ms`` (a sleep kernel,
+    calibrated once on CUDA events)."""
+    if not _sleep_cycles_per_ms:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        torch.cuda._sleep(10_000_000)
+        t1.record()
+        torch.cuda.synchronize()
+        _sleep_cycles_per_ms.append(10_000_000 / t0.elapsed_time(t1))
+    torch.cuda._sleep(int(ms * _sleep_cycles_per_ms[0]))
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device time per call of ``fn`` on CUDA events over ``iters``
+    calls.  The stream is held by a sleep kernel while the host enqueues
+    them (twice the host time of one call, each), so a call whose
+    wrapper enqueues slower than the card runs it (a decode kernel of a
+    few microseconds) is timed by the card, not by the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - h0) * 1e3
+    torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    hold_stream(min(2 * host_ms * iters, 1000.0))
     t0.record()
     for _ in range(iters):
         fn()
@@ -133,6 +163,22 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 def bound(bytes_: float, flops: float) -> tuple[float, str]:
     tb, tf = bytes_ / PEAK_BYTES, flops / PEAK_BF16
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+
+
+#: repeats of each library yardstick: its time moves between repeats
+#: far more than the kernels' (SDPA's backward read 0.55-1.92 ms across
+#: calls), so library_ms is the median and the spread is logged
+LIB_REPEATS = 5
+
+
+def lib_ms(label, measure) -> float:
+    """The median of LIB_REPEATS results of ``measure()`` (ms), with
+    their spread logged."""
+    ts = [measure() for _ in range(LIB_REPEATS)]
+    med = statistics.median(ts)
+    log(f"  library {label}: median {med:.4f} ms of {LIB_REPEATS} repeats "
+        f"(spread {min(ts):.4f}-{max(ts):.4f})")
+    return med
 
 
 def rel_err(out, want) -> tuple[float, float]:
@@ -234,7 +280,9 @@ def kernel_phase(dev, g):
         source="src/repro_torch/kernels/csrc/fused_attention.cu",
         replaces="src/repro/kernels/fused_attention.py:310",
         max_abs_err=err, ms=time_ms(f1, 20), plain_ms=time_ms(p1, 3),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(lib, 20))
+        bound_ms=bms, bound_by=by,
+        library_ms=lib_ms("SDPA for fused_attention_masked",
+                          lambda: time_ms(lib, 20)))
 
     # -- 2. fused_qproj_attention_masked: a ragged later chunk -----------
     sq, total = 188, 700          # a 700-token prompt's third chunk
@@ -378,8 +426,8 @@ def paged_kernel_phase(dev, g, check, check_decode_with):
     kernel on the gathered cache (one body, another KV address)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_attention import (
-        fused_attention_masked, fused_attention_paged,
-        fused_attention_paged_plain)
+        chunk_bounds, fused_attention_masked, fused_attention_masked_plain,
+        fused_attention_paged, fused_attention_paged_plain, split_chunks)
     from repro_torch.kernels.fused_decode_block import (
         fused_decode_block, fused_decode_block_paged,
         fused_decode_block_paged_plain)
@@ -426,11 +474,33 @@ def paged_kernel_phase(dev, g, check, check_decode_with):
     kg, vg = ref.gather_pages(kp, tbl), ref.gather_pages(vp, tbl)
     f4 = lambda: fused_attention_paged(q, kp, vp, lens, tbl)
     p4 = lambda: fused_attention_paged_plain(q, kp, vp, lens, tbl)
-    out = f4()
-    err = check("fused_attention_paged", out, p4(),
-                f"qwen B=4 page {page} lengths={PAGED_LENS}")
+    out, want = f4(), p4()
+    tag = f"qwen B=4 page {page} lengths={PAGED_LENS}"
+    err = check("fused_attention_paged", out, want, tag)
     same_as_dense("fused_attention_paged", out,
                   fused_attention_masked(q, kg, vg, lens), "B=4")
+    if not torch.equal(out, f4()):
+        raise SystemExit("fused_attention_paged is not deterministic")
+    # the split-KV body's plan at this shape, its per-row gate, and that
+    # gate against the plain output with each row's last chunk left out
+    # (attention over the keys before that chunk)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_chunks = split_chunks(b, HQ, HKV, 1, n_sms)
+    if not n_chunks:
+        raise SystemExit("fused_attention_paged: the decode shape does not "
+                         "take the split-KV body")
+    bounds = [chunk_bounds(n, n_chunks) for n in PAGED_LENS]
+    live = sum(map(len, bounds)) * HKV
+    log(f"  fused_attention_paged: split-KV body, {n_chunks} chunks per "
+        f"(row, KV head) on {n_sms} SMs, chunks per row "
+        f"{[len(c) for c in bounds]}: {live} live blocks of "
+        f"{n_chunks * b * HKV}")
+    row_gate("fused_attention_paged", tag, {"o": (out, want)})
+    short = torch.tensor([c[-1][0] for c in bounds], dtype=torch.int32,
+                         device=dev)
+    row_gate("fused_attention_paged", f"{tag}, plain with a KV chunk dropped",
+             {"o": (fused_attention_masked_plain(q, kg, vg, short), want)},
+             expect=False)
     # the edge cases at M=1, and a causal 5-row chunk
     for ls, pg, dead, sq in [e + (1,) for e in edges] + [
             ([41, 700, 5], 16, (), 5)]:
@@ -464,7 +534,9 @@ def paged_kernel_phase(dev, g, check, check_decode_with):
         source="src/repro_torch/kernels/csrc/fused_attention.cu",
         replaces="src/repro/kernels/fused_attention.py:408",
         max_abs_err=err, ms=time_ms(f4, 50), plain_ms=time_ms(p4, 3),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(lib, 20))
+        bound_ms=bms, bound_by=by,
+        library_ms=lib_ms("SDPA on the gathered KV for fused_attention_paged",
+                          lambda: time_ms(lib, 20)))
     log_twin("fused_attention_paged",
              lambda: fused_attention_masked(q, kg, vg, lens), 50)
 
@@ -949,6 +1021,20 @@ def rung_down_phase(args, cfg, params, dev):
     return launches
 
 
+def timed_decode(eng, steps):
+    """``steps`` decode steps of ``eng``, each on the host clock between
+    synchronizes: (the last step's tokens, "median step ... ms" text)."""
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = eng.decode_once()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return toks, (f"median step {statistics.median(times):.3f} ms "
+                  f"({min(times):.3f}-{max(times):.3f})")
+
+
 def qwen_phase(dev):
     from repro_torch import lower
     from repro_torch.kernels import build, ops
@@ -973,13 +1059,13 @@ def qwen_phase(dev):
         eng._advance_prefills()
     ops.reset_counts()
     steps = 8
-    for _ in range(steps):
-        toks = eng.decode_once()
+    toks, step_ms = timed_decode(eng, steps)
     launches = dict(build.LAUNCHES)
     paths = {r[3] for r in plan.resolutions if r[0] == "decode"}
     log(f"qwen: {cfg.name} d_model={cfg.d_model} cut to {cfg.n_layers} "
         f"layers, prompts 300/333, {steps} decode steps: decode paths "
-        f"{sorted(paths)}, launches {launches}, tokens {toks.tolist()}")
+        f"{sorted(paths)}, launches {launches}, tokens {toks.tolist()}, "
+        f"{step_ms}")
     if launches.get("fused_attention_masked", 0) == 0:
         raise SystemExit("qwen: decode never launched "
                          "fused_attention_masked")
@@ -1000,11 +1086,10 @@ def qwen_phase(dev):
     while eng._pending:
         eng._advance_prefills()
     ops.reset_counts()
-    for _ in range(steps):
-        toks = eng.decode_once()
+    toks, step_ms = timed_decode(eng, steps)
     paged = dict(build.LAUNCHES)
     log(f"qwen paged: page {PAGE}, {steps} decode steps: launches {paged}, "
-        f"tokens {toks.tolist()}")
+        f"tokens {toks.tolist()}, {step_ms}")
     if paged.get("fused_attention_paged", 0) == 0:
         raise SystemExit("qwen: paged decode never launched "
                          "fused_attention_paged")
@@ -1317,18 +1402,19 @@ TRAIN_KERNELS = ("fused_attention_fwd", "fused_attention_bwd_dq",
                  "fused_attention_bwd_dkv")
 
 
-#: the bf16 times of #7 and #9 on the fp32-FMA bodies that preceded
+#: the bf16 times of #7, #8 and #9 on the fp32-FMA bodies that preceded
 #: their tensor-core bodies, as PERF.md records them (this script's
 #: kernel phase, H100 80GB HBM3, 700.00 W): logged beside this run's
 #: times, and kept out of the kernels' record, which holds only what
 #: this run measured
 RECORDED_FMA_MS = {"fused_attention_fwd": 10.0170,
+                   "fused_attention_bwd_dq": 11.2974,
                    "fused_attention_bwd_dkv": 13.3167}
 
 
 def tensor_core_usage() -> dict:
     """Logs one line with the HMMA (tensor-core) instructions in the
-    SASS of each instantiation of #7's and #9's bf16 bodies (fails if
+    SASS of each instantiation of the bf16 bodies of #7, #8 and #9 (fails if
     cuobjdump is missing or one has none); returns {kernel: (registers,
     spill bytes)} of the instantiation the main path runs, from its
     ptxas report."""
@@ -1373,6 +1459,10 @@ def _causal_entries(b, hq, sq):
 #: (o), 1.11 (dk), 0.92 (dv) and 0.049 (lse).
 ROW_TOL = 2e-2
 LSE_TOL = 1e-3
+#: dq's causal row 0, whose exact value is 0, against the largest |dq|:
+#: bf16's unit roundoff 2^-8 = 3.9e-3 of it would be one rounding of the
+#: largest value; rounding noise of an exact zero is orders below that
+ZERO_ROW_TOL = 1e-4
 
 
 def row_err(got, want) -> float:
@@ -1409,26 +1499,30 @@ def row_gate(name, tag, outs, lse=None, expect=True) -> dict:
     return errs
 
 
-def dropped_tile(q, k, v, do, o_p, lse_p, delta, want_k, want_v):
+def dropped_tile(q, k, v, do, o_p, lse_p, delta, want_q, want_k, want_v):
     """Plain results with one tile of work left out, to try the row gate
-    on: #7's last row tile without its last key tile (the walk one tile
-    short for the heaviest rows), and #9's walk one step short (the last
-    head of each group loses its last query tile from every key tile's
-    sum).  Returns (o, lse, dk, dv)."""
+    on: #7's and #8's last row tile without its last key tile (the walk
+    one tile short for the heaviest rows), and #9's walk one step short
+    (the last head of each group loses its last query tile from every
+    key tile's sum).  Returns (o, lse, dq, dk, dv)."""
     from repro_torch.kernels.fused_attention import (
-        fused_attention_bwd_dkv_plain, fused_attention_fwd_plain)
+        fused_attention_bwd_dkv_plain, fused_attention_bwd_dq_plain,
+        fused_attention_fwd_plain)
     t, sq = 64, q.shape[2]
-    o_m, lse_m = o_p.clone(), lse_p.clone()
+    o_m, lse_m, dq_m = o_p.clone(), lse_p.clone(), want_q.clone()
     o_t, lse_t = fused_attention_fwd_plain(
         q[:, :, -t:], k[:, :, :-t], v[:, :, :-t], q_offset=sq - t)
     o_m[:, :, -t:], lse_m[:, :, -t:] = o_t, lse_t
+    dq_m[:, :, -t:] = fused_attention_bwd_dq_plain(
+        q[:, :, -t:], k[:, :, :-t], v[:, :, :-t], do[:, :, -t:],
+        lse_p[:, :, -t:], delta[:, :, -t:], q_offset=sq - t)
     group = q.shape[1] // k.shape[1]
     heads = [h * group + group - 1 for h in range(k.shape[1])]
     part = lambda x: x[:, heads, -t:].float()
     ck, cv = fused_attention_bwd_dkv_plain(
         part(q), k.float(), v.float(), part(do), lse_p[:, heads, -t:],
         delta[:, heads, -t:], q_offset=sq - t)
-    return (o_m, lse_m, (want_k.float() - ck).to(want_k.dtype),
+    return (o_m, lse_m, dq_m, (want_k.float() - ck).to(want_k.dtype),
             (want_v.float() - cv).to(want_v.dtype))
 
 
@@ -1477,7 +1571,9 @@ def train_kernel_phase(dev, g, check):
         replaces="src/repro/kernels/fused_attention.py:155",
         max_abs_err=err, ms=time_ms(f7, 10),
         plain_ms=time_ms(lambda: fused_attention_fwd_plain(q, k, v), 2, 1),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(lib7, 10))
+        bound_ms=bms, bound_by=by,
+        library_ms=lib_ms("SDPA forward for fused_attention_fwd",
+                          lambda: time_ms(lib7, 10)))
     del o, lse
 
     delta = ref.attention_delta(o_p, do)
@@ -1487,7 +1583,22 @@ def train_kernel_phase(dev, g, check):
     tag = f"B={b} S={sq}"
     want_q = fused_attention_bwd_dq_plain(*args)
     err8 = check("fused_attention_bwd_dq", dq, want_q, f"{tag} dq")
-    row_gate("fused_attention_bwd_dq", tag, {"dq": (dq, want_q)})
+    # Causal row 0 sees one key: p = 1 and dp = delta, so its dq is 0 in
+    # exact arithmetic and both sides hold rounding noise, which its own
+    # largest |want| cannot scale.  The per-row gate takes rows 1.., and
+    # row 0 must stay noise: within ZERO_ROW_TOL of the largest |want|.
+    row_gate("fused_attention_bwd_dq", f"{tag} rows 1..",
+             {"dq": (dq[:, :, 1:], want_q[:, :, 1:])})
+    top = want_q.float().abs().max().item()
+    row0, row0_p = (x[:, :, 0].float().abs().max().item() / top
+                    for x in (dq, want_q))
+    log(f"  fused_attention_bwd_dq [{tag}] row 0 (dq = 0 exactly): largest "
+        f"|dq| {row0:.3e} of the largest |want|, plain {row0_p:.3e} (tol "
+        f"{ZERO_ROW_TOL})")
+    if row0 > ZERO_ROW_TOL:
+        raise SystemExit("fused_attention_bwd_dq: row 0 is not zero")
+    if not torch.equal(fused_attention_bwd_dq(*args), dq):
+        raise SystemExit("fused_attention_bwd_dq is not deterministic")
     want_k, want_v = fused_attention_bwd_dkv_plain(*args)
     err9 = max(check("fused_attention_bwd_dkv", dk, want_k, f"{tag} dk"),
                check("fused_attention_bwd_dkv", dv, want_v, f"{tag} dv"))
@@ -1496,22 +1607,26 @@ def train_kernel_phase(dev, g, check):
     again = fused_attention_bwd_dkv(*args)
     if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
         raise SystemExit("fused_attention_bwd_dkv is not deterministic")
-    o_m, lse_m, dk_m, dv_m = dropped_tile(q, k, v, do, o_p, lse_p, delta,
-                                          want_k, want_v)
+    o_m, lse_m, dq_m, dk_m, dv_m = dropped_tile(
+        q, k, v, do, o_p, lse_p, delta, want_q, want_k, want_v)
     row_gate("fused_attention_fwd", f"{tag}, plain with a key tile dropped",
              {"o": (o_m, o_p)}, (lse_m, lse_p), expect=False)
+    row_gate("fused_attention_bwd_dq",
+             f"{tag} rows 1.., plain with a key tile dropped",
+             {"dq": (dq_m[:, :, 1:], want_q[:, :, 1:])}, expect=False)
     row_gate("fused_attention_bwd_dkv",
              f"{tag}, plain with a query tile dropped",
              {"dk": (dk_m, want_k), "dv": (dv_m, want_v)}, expect=False)
     del dq, dk, dv, want_q, want_k, want_v, again
-    del o_m, lse_m, dk_m, dv_m
+    del o_m, lse_m, dq_m, dk_m, dv_m
     # the library's backward: SDPA forward + backward less its forward
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
     fwd_g = lambda: sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
     both = lambda: torch.autograd.grad(fwd_g(), (qg, kg, vg), do)
-    lib_bwd = time_ms(both, 5) - time_ms(fwd_g, 5)
-    log(f"  SDPA backward (forward + backward less forward): "
-        f"{lib_bwd:.4f} ms for dq, dk and dv together")
+    lib_bwd = lib_ms("SDPA backward (forward + backward less forward: "
+                     "dq, dk and dv together) for fused_attention_bwd_dq "
+                     "and _dkv",
+                     lambda: time_ms(both, 5) - time_ms(fwd_g, 5))
     bms, by = bound(2 * qb + 2 * kvb + 2 * rowb + qb, 6 * D * ent)
     results["fused_attention_bwd_dq"] = dict(
         source="src/repro_torch/kernels/csrc/fused_attention_bwd.cu",
@@ -1864,7 +1979,7 @@ def train_breakdown(prof, busy_ms: float, cfg, n_params: int) -> None:
     from torch.autograd import DeviceType
     parts = collections.Counter()
     names = {"fwd_mma_kernel": "#7 fused_attention_fwd",
-             "dq_kernel": "#8 fused_attention_bwd_dq",
+             "dq_mma_kernel": "#8 fused_attention_bwd_dq",
              "dkv_mma_kernel": "#9 fused_attention_bwd_dkv"}
     opt = 0.0
     for e in prof.key_averages():

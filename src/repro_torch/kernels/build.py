@@ -41,7 +41,7 @@ _LL = ctypes.c_longlong
 KERNELS = {
     "fused_attention_masked": (
         "fused_attention.cu", "fused_attention_masked_launch",
-        [_P, _P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P]),
+        [_P] * 7 + [_I] * 9 + [_F, _I, _P]),
     "fused_qproj_attention_masked": (
         "fused_qproj_attention.cu", "fused_qproj_attention_masked_launch",
         [_P] * 6 + [_I] * 9 + [_F, _F, _I, _I, _P]),
@@ -50,7 +50,7 @@ KERNELS = {
         [_P] * 10 + [_I] * 7 + [_F, _F, _I, _I, _P]),
     "fused_attention_paged": (
         "fused_attention.cu", "fused_attention_paged_launch",
-        [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
+        [_P] * 8 + [_I] * 10 + [_F, _I, _P]),
     "fused_qproj_attention_paged": (
         "fused_qproj_attention.cu", "fused_qproj_attention_paged_launch",
         [_P] * 7 + [_I] * 10 + [_F, _F, _I, _I, _P]),
@@ -79,6 +79,7 @@ KERNELS = {
 #: that the training path runs, then the one for any even width
 TENSOR_CORE_BODIES = {
     "fused_attention_fwd": ("fwd_mma_kernel_d128", "fwd_mma_kernel_any"),
+    "fused_attention_bwd_dq": ("dq_mma_kernel_d128", "dq_mma_kernel_any"),
     "fused_attention_bwd_dkv": ("dkv_mma_kernel_d128", "dkv_mma_kernel_any")}
 
 #: dtype codes of the C interface (csrc/common.cuh)

@@ -11,8 +11,9 @@
 // fused_attention_paged (pallas_call at :408, body _paged_fwd_kernel
 // :341): the same attention with K/V read from a page pool through
 // block_tables[b, p / page].  As on the TPU, the paged kernel is the
-// masked kernel with another KV address: one body
-// (common.cuh masked_attention_rows), two addressing policies.
+// masked kernel with another KV address: for each grid shape one body
+// (common.cuh masked_attention_rows; split_kernel below), two
+// addressing policies (common.cuh DenseKV, PagedKV).
 //
 // Replaces the TPU kernel src/repro/kernels/fused_attention.py _fwd
 // (pallas_call at :155, body _fwd_kernel :99), the forward of the
@@ -37,8 +38,35 @@
 // paged policy stages each 64-key tile's slice of the block table in
 // shared memory (a page may be as small as 8 keys) and resolves every
 // key's row from it.  Products run as fp32 FMAs (common.cuh
-// masked_attention_rows); moving them onto the tensor cores and the page
-// gather onto cp.async or TMA are the levers a later change pulls.
+// masked_attention_rows).
+// That grid has ceil(group * Sq / 16) x B * Hkv blocks: at qwen3-8b's
+// decode (group 4, Sq 1, B 4, Hkv 8) 32 blocks on 132 SMs, 12 of each
+// block's 16 rows padding, each block walking up to 12 tiles alone.  So
+// where the grid has fewer blocks than the card has SMs, the wrapper
+// (kernels/fused_attention.py split_chunks) asks for the split-KV body
+// (split::split_kernel) with n_chunks = floor(2 * SMs / blocks) chunks,
+// at most two blocks per SM, one wave, and allocates its partials and ticket
+// counters; the same rule for the masked and the paged kernel, whose
+// shapes are the same, so the split is too.  One block owns the live
+// rows of one row tile of one (batch row, KV head), no padding rows
+// (the group's 4 at decode), and one chunk of that row's valid prefix:
+// its nt tiles of 64 keys cut into chunks of ceil(nt / n_chunks) whole
+// tiles, by logical key position and lengths[b] alone.  K and V come
+// tile by tile with 16-byte cp.async copies, double-buffered, into
+// rows of T padded by one copy; the paged policy stages each tile's
+// slice of the block table once (one table read per page, as above)
+// and every copy takes its key's row from it, a key's row being
+// contiguous in the (num_pages, Hkv, page, D) pool.  Scores (a thread
+// per key and half the rows, 16-byte reads of its key's row), the online
+// softmax (a warp per row) and P.V (a thread per output dim) are fp32
+// FMAs, bound by bytes and latency, not by the operations; so the fp32
+// kernels run the same code and hold 1e-4.  Each chunk writes its fp32
+// partial (m, l, unnormalized o) per row; the block that draws the last
+// ticket of its (row tile, batch row, KV head) merges the chunks in
+// chunk order, so the result is deterministic and no second launch is
+// needed.  Tables are read only for keys below the row's length, so a
+// length-0 row reads none and emits zeros.  Products on the tensor
+// cores and TMA page loads are the levers a later change pulls.
 //
 // The training forward at starcoder2-7b's shapes (B=2, Sq=Skv=2048,
 // causal) does 4*B*Hq*D*(Sq*(Sq+1)/2) = 77.4 GFLOP against 84 MB of Q,
@@ -133,6 +161,344 @@ __global__ void __launch_bounds__(rt::kThreads)
                                KV::make(src, b, kvh, Hkv, scratch), out,
                                lse, len, kv_end_s, D, Dv, scale);
 }
+
+// The split-KV decode body of fused_attention_masked and
+// fused_attention_paged (see the notes above).
+namespace split {
+
+constexpr int kThreads = rt::kThreads;
+constexpr int kRows = rt::kRows;   // query rows per block
+constexpr int kBk = rt::kTileK;    // keys per tile
+constexpr int kQS = rt::kMaxD;     // q_s row stride, floats
+static_assert(kThreads == 2 * kBk, "scores: a thread per key, half the rows");
+static_assert(kThreads >= rt::kMaxD, "P.V: a thread per output dim");
+static_assert(kRows % 4 == 0, "softmax: each warp a quarter of the rows");
+
+// A K or V tile of kBk keys in shared memory, in T: kE elements per
+// 16-byte copy, rows padded by one copy so that the 8 rows a quarter
+// warp reads with 16-byte loads fall in distinct banks.
+template <typename T>
+struct Tile {
+  static constexpr int kE = 16 / sizeof(T);
+  static constexpr int kS = rt::kMaxD + kE;
+  static constexpr int kElems = kBk * kS;
+};
+
+// Two buffers each of K and V, then the fp32 q tile and score tile.
+template <typename T>
+constexpr int smem_bytes() {
+  return 4 * Tile<T>::kElems * (int)sizeof(T) +
+         (kRows * kQS + kRows * kBk) * 4;
+}
+
+__device__ __forceinline__ void unpack(const float* p, float (&x)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+}
+__device__ __forceinline__ void unpack(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 t = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x, x[2 * i + 1] = f.y;
+  }
+}
+
+// Whether a (rows, width) plane of T at p can take 16-byte copies.
+template <typename T>
+inline bool vec_ok(const void* p, int width) {
+  return width % Tile<T>::kE == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Keys [j0, j0 + nk) of the tile the policy kv has staged into a tile of
+// stride Tile<T>::kS, columns [0, wp); keys past nk and columns past width
+// are zeros.  vec: each 16-byte piece of a key's row is one cp.async
+// (the caller commits and waits); otherwise element by element, plain
+// loads and stores, visible after the caller's next __syncthreads().
+template <typename T, typename KV>
+__device__ __forceinline__ void load_keys(T* dst, const T* __restrict__ src,
+                                          const KV& kv, int j0, int nk,
+                                          int width, int wp, bool vec) {
+  constexpr int kE = Tile<T>::kE, kS = Tile<T>::kS;
+  if (vec) {
+    const int cpr = wp / kE;  // copies per key
+    for (int i = threadIdx.x; i < kBk * cpr; i += kThreads) {
+      const int j = i / cpr, c = i - j * cpr;
+      const bool ok = j < nk;
+      rt::mma::cp_async16(dst + j * kS + c * kE,
+                          ok ? src + kv.row(j0 + j) * width + c * kE : src,
+                          ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBk * wp; i += kThreads) {
+      const int j = i / wp, d = i - j * wp;
+      dst[j * kS + d] = j < nk && d < width ? src[kv.row(j0 + j) * width + d]
+                                            : rt::from_f<T>(0.f);
+    }
+  }
+}
+
+// One block: rows [r0, r0 + kRows) of the group * Sq rows of one (batch
+// row b, KV head kvh), blockIdx.y = b * Hkv + kvh, and chunk c of that
+// row's valid prefix, blockIdx.x = row tile * n_chunks + c.  The plan:
+// the prefix's nt tiles of kBk keys are cut into chunks of ceil(nt /
+// n_chunks) whole tiles, chunk c taking tiles [c * that, ...) (so a
+// length-0 row has none, and a short row fewer than n_chunks): a
+// function of lengths[b] and n_chunks alone, the same for both
+// policies.  A chunk walks its tiles with the online softmax and writes
+// its fp32 partial (m, l, unnormalized o) per row to part; then every
+// block of the (row tile, b, kvh) takes a ticket, and the one that
+// draws the last merges the chunks' partials in chunk order and writes
+// the output, and resets the ticket counter.
+template <typename T, typename KV>
+__global__ void __launch_bounds__(kThreads)
+    split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const int* __restrict__ lengths,
+                 rt::KVSource src, T* __restrict__ out,
+                 float* __restrict__ part, int* __restrict__ counter, int Hq,
+                 int Hkv, int Sq, int D, int Dv, int causal, float scale,
+                 int n_chunks, bool vec) {
+  using Tl = Tile<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* k_s = reinterpret_cast<T*>(smem_raw);  // two buffers
+  T* v_s = k_s + 2 * Tl::kElems;            // two buffers
+  float* q_s = reinterpret_cast<float*>(v_s + 2 * Tl::kElems);
+  float* p_s = q_s + kRows * kQS;  // a tile's scores, then its p
+  __shared__ rt::RowInfo rows[kRows];
+  __shared__ float alpha_s[kRows];
+  __shared__ rt::PagedScratch<kBk> scratch;
+  __shared__ bool last_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int group = Hq / Hkv;
+  const int bk = blockIdx.y;
+  const int b = bk / Hkv, kvh = bk - b * Hkv;
+  const int n_rt = gridDim.x / n_chunks;
+  const int rt_i = blockIdx.x / n_chunks, c = blockIdx.x - rt_i * n_chunks;
+  const int len = max(0, min(lengths[b], src.skv));
+  const int r0 = rt_i * kRows;
+  const int n = min(kRows, group * Sq - r0);  // this block's rows
+  const int nt = (len + kBk - 1) / kBk;
+  const int tpc = (nt + n_chunks - 1) / n_chunks;  // tiles per chunk
+  const int t0 = c * tpc, t1 = min(nt, t0 + tpc);
+  const int Dp = (D + Tl::kE - 1) / Tl::kE * Tl::kE;
+  const int Dvp = (Dv + Tl::kE - 1) / Tl::kE * Tl::kE;
+
+  KV kv = KV::make(src, b, kvh, Hkv, scratch);
+  // softmax state of the rows warp owns (warp + 4 i); o of dim tid
+  float m[kRows / 4], l[kRows / 4], acc[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows / 4; ++i) m[i] = rt::kNegInf, l[i] = 0.f;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+
+  // tile t into buffer buf (called by every thread: stage() may sync)
+  auto load = [&](int t, int buf) {
+    const int j0 = t * kBk, nk = min(kBk, len - j0);
+    kv.stage(j0, nk);
+    if (KV::kStaged) __syncthreads();
+    load_keys<T>(k_s + buf * Tl::kElems, k, kv, j0, nk, D, Dp, vec);
+    load_keys<T>(v_s + buf * Tl::kElems, v, kv, j0, nk, Dv, Dvp, vec);
+  };
+  // the first tile's copies fly while the rows and q are set up
+  if (t0 < t1) load(t0, 0);
+  rt::mma::cp_async_commit();
+  if (tid < kRows) {
+    rt::RowInfo info{-1, -1};
+    if (tid < n) {
+      const int r = r0 + tid, g = r / Sq, pos = r - g * Sq;
+      info.out_off = (((int64_t)b * Hq + kvh * group + g) * Sq + pos) * Dv;
+      info.anchor = causal ? len - Sq + pos : len - 1;
+    }
+    rows[tid] = info;
+  }
+  // the q tile of the n live rows, fp32, zeros past D: row i is query
+  // head kvh*group + r/Sq (rows past n are never read)
+#pragma unroll 4
+  for (int idx = tid; idx < n * Dp; idx += kThreads) {
+    const int i = idx / Dp, d = idx - i * Dp;
+    const int r = r0 + i, g = r / Sq, pos = r - g * Sq;
+    q_s[i * kQS + d] =
+        d < D ? rt::to_f(q[(((int64_t)b * Hq + kvh * group + g) * Sq + pos) *
+                               D + d])
+              : 0.f;
+  }
+
+  for (int t = t0; t < t1; ++t) {
+    const int buf = (t - t0) & 1;
+    if (t + 1 < t1) load(t + 1, buf ^ 1);
+    rt::mma::cp_async_commit();
+    rt::mma::cp_async_wait<1>();  // tile t has landed
+    __syncthreads();
+    const int j0 = t * kBk, nk = min(kBk, len - j0);
+    const T* ks = k_s + buf * Tl::kElems;
+    const T* vs = v_s + buf * Tl::kElems;
+
+    // scores: thread tid takes key tid % kBk for rows tid / kBk + 2 i
+    {
+      const int j = tid % kBk, rh = tid / kBk;
+      const T* kr = ks + j * Tl::kS;
+      float s[kRows / 2];
+#pragma unroll
+      for (int i = 0; i < kRows / 2; ++i) s[i] = 0.f;
+      for (int d = 0; d < Dp; d += Tl::kE) {
+        float kf[Tl::kE];
+        unpack(kr + d, kf);
+#pragma unroll
+        for (int i = 0; i < kRows / 2; ++i) {
+          if (rh + 2 * i >= n) break;
+          const float* qr = q_s + (rh + 2 * i) * kQS + d;
+#pragma unroll
+          for (int e = 0; e < Tl::kE; ++e) s[i] = fmaf(qr[e], kf[e], s[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows / 2; ++i)
+        if (rh + 2 * i < n) p_s[(rh + 2 * i) * kBk + j] = s[i];
+    }
+    __syncthreads();
+
+    // online softmax: warp takes rows warp + 4 i, lane keys lane, lane + 32
+#pragma unroll
+    for (int i = 0; i < kRows / 4; ++i) {
+      const int r = warp + 4 * i;
+      if (r >= n) break;
+      const int anchor = rows[r].anchor;
+      float sv[2];
+      bool ok[2];
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int jj = lane + 32 * cc;
+        ok[cc] = jj < nk && j0 + jj <= anchor;
+        sv[cc] = ok[cc] ? p_s[r * kBk + jj] * scale : rt::kNegInf;
+      }
+      const float m_new = fmaxf(m[i], rt::warp_max(fmaxf(sv[0], sv[1])));
+      const float alpha = expf(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const float p = ok[cc] ? expf(sv[cc] - m_new) : 0.f;
+        psum += p;  // l sums p unrounded
+        p_s[r * kBk + lane + 32 * cc] = rt::round_to<T>(p);
+      }
+      l[i] = l[i] * alpha + rt::warp_sum(psum);
+      m[i] = m_new;
+      if (lane == 0) alpha_s[r] = alpha;
+    }
+    __syncthreads();
+
+    // P.V: thread tid owns output dim tid of every row
+    if (tid < Dv) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (r < n) acc[r] *= alpha_s[r];
+      const T* vc = vs + tid;
+#pragma unroll 4
+      for (int j = 0; j < nk; ++j) {
+        const float vv = rt::to_f(vc[j * Tl::kS]);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          if (r < n) acc[r] = fmaf(p_s[r * kBk + j], vv, acc[r]);
+      }
+    }
+    __syncthreads();  // tile t consumed before its buffer and p_s are reused
+  }
+  rt::mma::cp_async_wait<0>();
+
+  // partials: o at part[(row * n_chunks + c) * Dv + d], then (m, l) at
+  // part[rows_total * n_chunks * Dv + (row * n_chunks + c) * 2]
+  const int64_t rows_total = (int64_t)gridDim.y / Hkv * Hq * Sq;
+  float* part_ml = part + rows_total * n_chunks * Dv;
+  if (t0 < t1) {
+    if (tid < Dv) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (r < n)
+          part[(rows[r].out_off / Dv * n_chunks + c) * Dv + tid] = acc[r];
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < kRows / 4; ++i) {
+        const int r = warp + 4 * i;
+        if (r >= n) break;
+        reinterpret_cast<float2*>(part_ml)[rows[r].out_off / Dv * n_chunks +
+                                           c] = make_float2(m[i], l[i]);
+      }
+    }
+  }
+  int* ticket = counter + (int64_t)bk * n_rt + rt_i;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_s = atomicAdd(ticket, 1) == n_chunks - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  // the last block in: merge the live chunks in chunk order.  A warp
+  // per row takes the chunks' max m and their weights exp(m_c - max)
+  // into shared memory (the K/V buffers, idle now) and sums l; then a
+  // thread per dim sums the weighted o.  A row with no valid column (no
+  // chunk, or every p masked) has l = 0, counted as 1, and o = 0.
+  const int nc = tpc > 0 ? (nt + tpc - 1) / tpc : 0;
+  float* w_s = reinterpret_cast<float*>(smem_raw);  // (kRows, nc) weights
+  float* l_s = w_s + kRows * nc;                     // (kRows,) sums
+  for (int r = warp; r < n; r += kThreads / 32) {
+    const float2* ml = reinterpret_cast<const float2*>(part_ml) +
+                       rows[r].out_off / Dv * n_chunks;
+    // lane takes chunks lane, lane + 32, ...: the first (m, l) stays in
+    // registers, so up to 32 chunks cost one round of loads
+    const float2 first = lane < nc ? __ldcg(ml + lane)
+                                   : make_float2(rt::kNegInf, 0.f);
+    float mx = first.x;
+    for (int cc = lane + 32; cc < nc; cc += 32)
+      mx = fmaxf(mx, __ldcg(ml + cc).x);
+    mx = rt::warp_max(mx);
+    float lsum = 0.f;
+    for (int cc = lane; cc < nc; cc += 32) {
+      const float2 v = cc == lane ? first : __ldcg(ml + cc);
+      const float w = expf(v.x - mx);
+      w_s[r * nc + cc] = w;
+      lsum = fmaf(v.y, w, lsum);
+    }
+    lsum = rt::warp_sum(lsum);
+    if (lane == 0) l_s[r] = lsum == 0.f ? 1.f : lsum;
+  }
+  __syncthreads();
+  if (tid < Dv) {
+    for (int r = 0; r < n; ++r) {
+      const float* po = part + rows[r].out_off / Dv * n_chunks * Dv + tid;
+      float o = 0.f;
+#pragma unroll 8
+      for (int cc = 0; cc < nc; ++cc)
+        o = fmaf(__ldcg(po + (int64_t)cc * Dv), w_s[r * nc + cc], o);
+      out[rows[r].out_off + tid] = rt::from_f<T>(o / l_s[r]);
+    }
+  }
+  if (tid == 0) *ticket = 0;  // the counters are reusable as they stand
+}
+
+template <typename T, typename KV>
+int launch(const void* q, const void* k, const void* v, const int* lengths,
+           rt::KVSource src, void* out, float* part, int* counter, int B,
+           int Hq, int Hkv, int Sq, int D, int Dv, int causal, float scale,
+           int n_chunks, cudaStream_t stream) {
+  auto kern = split_kernel<T, KV>;
+  constexpr int smem = smem_bytes<T>();
+  // the merge's weights and sums borrow the K/V buffers
+  if ((int64_t)kRows * (n_chunks + 1) * 4 > 4 * Tile<T>::kElems * sizeof(T))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  const int n_rt = ((Hq / Hkv) * Sq + kRows - 1) / kRows;
+  const bool vec = vec_ok<T>(k, D) && vec_ok<T>(v, Dv);
+  dim3 grid(n_rt * n_chunks, B * Hkv);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), lengths, src, static_cast<T*>(out), part,
+      counter, Hq, Hkv, Sq, D, Dv, causal, scale, n_chunks, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace split
 
 // The bf16 training forward on the tensor cores (see the notes above).
 namespace fwd {
@@ -404,15 +770,42 @@ int run(int dtype, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// The masked and paged kernels: the split-KV body when the wrapper gives
+// chunks (n_chunks > 0, with the partials and ticket counters it
+// allocated), the one-pass body otherwise.
+template <typename KV>
+int run_masked(int dtype, const void* q, const void* k, const void* v,
+               const int* lengths, rt::KVSource src, void* out, float* part,
+               int* counter, int B, int Hq, int Hkv, int Sq, int D, int Dv,
+               int causal, int n_chunks, float scale, void* stream) {
+  if (n_chunks <= 0)
+    return run<KV>(dtype, q, k, v, lengths, src, out, nullptr, B, Hq, Hkv,
+                   Sq, D, Dv, causal, 0, scale, stream);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case rt::kF32:
+      return split::launch<float, KV>(q, k, v, lengths, src, out, part,
+                                      counter, B, Hq, Hkv, Sq, D, Dv, causal,
+                                      scale, n_chunks, s);
+    case rt::kBF16:
+      return split::launch<__nv_bfloat16, KV>(q, k, v, lengths, src, out,
+                                              part, counter, B, Hq, Hkv, Sq,
+                                              D, Dv, causal, scale, n_chunks,
+                                              s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" int fused_attention_masked_launch(
     const void* q, const void* k, const void* v, const int* lengths, void* out,
-    int B, int Hq, int Hkv, int Sq, int Skv, int D, int Dv, int causal,
-    float scale, int dtype, void* stream) {
-  return run<rt::DenseKV>(dtype, q, k, v, lengths,
-                          rt::KVSource{nullptr, 0, 0, Skv}, out, nullptr, B,
-                          Hq, Hkv, Sq, D, Dv, causal, 0, scale, stream);
+    float* part, int* counter, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+    int Dv, int causal, int n_chunks, float scale, int dtype, void* stream) {
+  return run_masked<rt::DenseKV>(dtype, q, k, v, lengths,
+                                 rt::KVSource{nullptr, 0, 0, Skv}, out, part,
+                                 counter, B, Hq, Hkv, Sq, D, Dv, causal,
+                                 n_chunks, scale, stream);
 }
 
 // bf16 runs the tensor-core body, fp32 the FMA body (masked_attention_rows
@@ -431,13 +824,13 @@ extern "C" int fused_attention_fwd_launch(
 
 extern "C" int fused_attention_paged_launch(
     const void* q, const void* k_pool, const void* v_pool, const int* lengths,
-    const int* block_tables, void* out, int B, int Hq, int Hkv, int Sq,
-    int max_pages, int page, int D, int Dv, int causal, float scale,
-    int dtype, void* stream) {
+    const int* block_tables, void* out, float* part, int* counter, int B,
+    int Hq, int Hkv, int Sq, int max_pages, int page, int D, int Dv,
+    int causal, int n_chunks, float scale, int dtype, void* stream) {
   rt::KVSource src;
   if (!rt::paged_source(block_tables, max_pages, page, &src))
     return (int)cudaErrorInvalidValue;
-  return run<rt::PagedKV>(dtype, q, k_pool, v_pool, lengths, src, out,
-                          nullptr, B, Hq, Hkv, Sq, D, Dv, causal, 0, scale,
-                          stream);
+  return run_masked<rt::PagedKV>(dtype, q, k_pool, v_pool, lengths, src, out,
+                                 part, counter, B, Hq, Hkv, Sq, D, Dv, causal,
+                                 n_chunks, scale, stream);
 }

@@ -23,14 +23,37 @@
 // 84 MB (Q, K, V, dO, lse, delta, dq); dk/dv does 4 products, 154.7
 // GFLOP, against about 84 MB.  Both are bound by the operations: 0.117
 // and 0.1564 ms at 989 TFLOP/s.
-// Design: dq runs fp32 FMAs on the CUDA cores, from fp32 tiles in
-// shared memory (K and V rows padded to 129 floats, so a lane reading
-// its own key's row and a warp reading one column are both
-// conflict-free).  One block of 128 threads per (b * Hq + h, 16 query
-// rows), as the TPU grid (B*Hq, nq, nk) without its sequential nk axis:
-// the block walks 64-key tiles up to the last row's anchor, so tiles
-// past the causal frontier cost nothing; a warp owns 4 rows, and dq
-// stays in registers (lane owns dims lane + 32 t) until its one write.
+// Design: dq in bf16 (dq_mma_body) runs its three products on the
+// tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate; mma.cuh),
+// in the shape of the forward's fwd_mma_body with one product more and
+// no online softmax.  One block of 4 warps owns 64 query rows of one
+// (b * Hq + h), 16 per warp, the m16 of every product, as the TPU grid
+// (B*Hq, nq, nk) with its sequential nk axis a loop.  Q and dO are staged
+// once in shared memory (in the second K and V buffers) and read into A
+// fragments held in registers; K and V stay bf16 in shared memory, 64
+// keys a tile, double-buffered with cp.async (rows padded to 136
+// elements, conflict-free for ldmatrix).  Each tile is walked in two
+// halves of 32 keys, so S and dP of a half (16 x 32 each per warp) fit
+// beside Q's and dO's fragments (64 registers) and dQ (64): per half,
+// S = Q.K^T and dP = dO.V^T on the mma, then p = exp(s * scale - lse)
+// and ds = p * (dp - delta) * scale in registers; ds rounded to K's
+// dtype (the TPU cast point) is repacked as the A fragment of dQ +=
+// dS.K, K's B fragments read transposed from its key rows (ldmatrix
+// .trans).  dQ (16 x D per warp) stays in fp32 registers until its one
+// write: one writer per element and a fixed tile order, so no atomics
+// and the result is bitwise repeatable.  A block walks key tiles only up
+// to its last row's anchor, a warp skips the halves past its own last
+// row's anchor (their p is 0, so skipping adds nothing), and only the
+// halves that cross the diagonal or the Skv edge are masked; row tiles
+// launch heaviest first.  Widths are zero-padded to 16 in the
+// fragments, as in the forward.
+// fp32 inputs take dq_kernel<float>, the FMA body (a block of 128
+// threads per (b * Hq + h, 16 query rows); fp32 tiles in shared memory,
+// K and V rows padded to 129 floats; a warp owns 4 rows, a lane the dims
+// lane + 32 t): the card tests hold fp32 to 1e-4, which neither bf16 nor
+// TF32 tensor cores can, and no path of the port runs the training
+// attention in fp32 on the card.  The split is a dispatch on the dtype
+// code in fused_attention_bwd_dq_launch, not a fallback.
 // Rows >= Sq and keys >= Skv load zeros and get p = 0, in every kernel
 // here.
 // dk/dv in bf16 (dkv_mma_body) runs its four products on the tensor
@@ -68,10 +91,9 @@
 // path of the port runs the training attention in fp32 on the card.
 // The split is a dispatch on the dtype code in
 // fused_attention_bwd_dkv_launch, not a fallback.
-// Levers for a later change: wgmma with TMA tile loads in dk/dv, the
-// tensor cores in dq, and a single backward walk that also emits dq
-// (the dk/dv block already holds every ds it needs; dq then needs a
-// cross-block sum).
+// Levers for a later change: wgmma with TMA tile loads in dq and dk/dv,
+// and a single backward walk that also emits dq (the dk/dv block
+// already holds every ds it needs; dq then needs a cross-block sum).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -585,6 +607,193 @@ __device__ __forceinline__ void dkv_mma_body(
 }
 
 }  // namespace dkv
+
+// The bf16 dq on the tensor cores (see the notes above).
+namespace dqm {
+
+using rt::mma::bf16;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBq = 16 * kWarps;  // query rows per block, 16 per warp
+constexpr int kBk = 64;           // keys per tile
+constexpr int kHalf = kBk / 2;    // keys per step of the walk
+constexpr int kS = rt::mma::kStride;
+// two buffers of (K, V); Q and dO are staged in the second K and V
+// buffers, read into registers before those buffers' first tile lands
+constexpr int kSmemBytes = 4 * kBk * kS * 2;
+static_assert(kBq <= kBk, "the Q and dO tiles must fit a K/V buffer");
+
+// One block: query rows [r0, r0 + 64) of plane bh = b * Hq + h, the row
+// tile y counted from the last (heaviest under the causal mask) first.
+// kFull: D = Dv = 128 and 16-byte copies, known to the compiler, as in
+// fwd_mma_body.  Launched as dq_mma_kernel_d128 or _any below, 2 blocks
+// per SM.
+template <bool kFull>
+__device__ __forceinline__ void dq_mma_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv, int D, int Dv,
+    int causal, int q_offset, float scale, bool vec) {
+  using namespace rt::mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // two buffers of kBk rows
+  bf16* v_s = k_s + 2 * kBk * kS;                  // two buffers of kBk rows
+  bf16* q_s = k_s + kBk * kS;                      // K's second buffer
+  bf16* do_s = v_s + kBk * kS;                     // V's second buffer
+  const int bh = blockIdx.x;
+  const int b = bh / Hq, h = bh - b * Hq;
+  const int kvh = h / (Hq / Hkv);
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kBq;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  if (kFull) D = Dv = 128, vec = true;
+  const int Dp = (D + 15) & ~15, Dvp = (Dv + 15) & ~15;
+  const int64_t plane = (int64_t)bh * Sq;  // row of (b, h, 0)
+  const bf16* kp = k + ((int64_t)b * Hkv + kvh) * Skv * D;
+  const bf16* vp = v + ((int64_t)b * Hkv + kvh) * Skv * Dv;
+  // the causal frontier: nothing past the block's last row's anchor
+  const int last = min(r0 + kBq, Sq) - 1;
+  const int kv_end = causal ? max(0, min(Skv, q_offset + last + 1)) : Skv;
+  const int n_tiles = (kv_end + kBk - 1) / kBk;
+
+  load_tile<kBq, kThreads>(q_s, q + plane * D, r0, Sq, D, Dp, vec);
+  load_tile<kBq, kThreads>(do_s, dout + plane * Dv, r0, Sq, Dv, Dvp, vec);
+  if (n_tiles > 0) {
+    load_tile<kBk, kThreads>(k_s, kp, 0, Skv, D, Dp, vec);
+    load_tile<kBk, kThreads>(v_s, vp, 0, Skv, Dv, Dvp, vec);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[8][4], df[8][4];  // Q's and dO's A fragments, 16 columns each
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (kk * 16 < Dp)
+      ldsm_x4(qf[kk], q_s + warp * 16 * kS + kk * 16 + a_off(lane));
+    if (kk * 16 < Dvp)
+      ldsm_x4(df[kk], do_s + warp * 16 * kS + kk * 16 + a_off(lane));
+  }
+  __syncthreads();  // Q and dO read before tile 1 overwrites them
+
+  // this lane's rows: wr + gid and wr + gid + 8
+  const int wr = r0 + warp * 16;
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wr + gid + 8 * i;
+    lse_r[i] = row < Sq ? lse[plane + row] : 0.f;
+    dl_r[i] = row < Sq ? delta[plane + row] : 0.f;
+  }
+  float acc[16][4];  // dQ: n-tile n holds columns 8n + 2tig, +1
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int j0 = t * kBk;
+    if (t + 1 < n_tiles) {
+      const int nb = (t + 1) & 1;
+      load_tile<kBk, kThreads>(k_s + nb * kBk * kS, kp, j0 + kBk, Skv, D, Dp,
+                               vec);
+      load_tile<kBk, kThreads>(v_s + nb * kBk * kS, vp, j0 + kBk, Skv, Dv,
+                               Dvp, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t has landed
+    __syncthreads();
+    const bf16* ks = k_s + (t & 1) * kBk * kS;
+    const bf16* vs = v_s + (t & 1) * kBk * kS;
+
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int jh = j0 + hf * kHalf;  // first key of this half
+      // nothing for this warp: every key past its last row's anchor or
+      // Skv (p = 0), or no live row
+      if (wr >= Sq || jh >= Skv || (causal && jh > q_offset + wr + 15))
+        continue;
+      const bf16* kh = ks + hf * kHalf * kS;
+      const bf16* vh = vs + hf * kHalf * kS;
+      // S = Q.K^T and dP = dO.V^T: n-tile n holds keys jh + 8n + 2tig, +1
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bf[4];
+          if (kk * 16 < Dp) {
+            ldsm_x4(bf, kh + np * 16 * kS + kk * 16 + bn_off(lane));
+            mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
+            mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+          }
+          if (kk * 16 < Dvp) {
+            ldsm_x4(bf, vh + np * 16 * kS + kk * 16 + bn_off(lane));
+            mma_bf16(dp[2 * np], df[kk], bf[0], bf[1]);
+            mma_bf16(dp[2 * np + 1], df[kk], bf[2], bf[3]);
+          }
+        }
+      }
+      // p and ds; mask only a half that crosses the diagonal (for some
+      // row of this warp) or the Skv edge.  A row that sees no key has
+      // lse = -1e30, so its unmasked p would be inf: the select, not a
+      // product, zeroes it.
+      const bool edge = (causal && jh + kHalf - 1 > q_offset + wr) ||
+                        jh + kHalf > Skv;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float p = expf(s[n][e] * scale - lse_r[i]);
+          if (edge) {
+            const int col = jh + 8 * n + 2 * tig + (e & 1);
+            const int row = wr + gid + 8 * i;
+            const bool ok = col < Skv && (!causal || col <= q_offset + row);
+            p = ok ? p : 0.f;
+          }
+          s[n][e] = p * (dp[n][e] - dl_r[i]) * scale;  // ds
+        }
+      // dQ += dS.K, ds rounded to bf16 (K's dtype) in the A fragments
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t da[4];
+        c_to_a(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int np = 0; np < 8; ++np) {
+          if (np * 16 >= Dp) break;
+          uint32_t bf[4];
+          ldsm_x4_t(bf, kh + kk * 16 * kS + np * 16 + bk_off(lane));
+          mma_bf16(acc[2 * np], da, bf[0], bf[1]);
+          mma_bf16(acc[2 * np + 1], da, bf[2], bf[3]);
+        }
+      }
+    }
+    __syncthreads();  // tile t consumed before its buffer is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wr + gid + 8 * i;
+    if (row >= Sq) continue;
+    bf16* o = dq + (plane + row) * D;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const int col = 8 * n + 2 * tig;
+      if (col < D) {
+        o[col] = __float2bfloat16_rn(acc[n][2 * i]);
+        o[col + 1] = __float2bfloat16_rn(acc[n][2 * i + 1]);
+      }
+    }
+  }
+}
+
+}  // namespace dqm
 }  // namespace
 
 // The body's two instantiations as kernels with names of their own (C
@@ -605,6 +814,24 @@ __device__ __forceinline__ void dkv_mma_body(
 DKV_MMA_KERNEL(dkv_mma_kernel_d128, true)
 DKV_MMA_KERNEL(dkv_mma_kernel_any, false)
 #undef DKV_MMA_KERNEL
+
+// dq's two instantiations: dq_mma_kernel_d128 is the one the training
+// path runs.
+#define DQ_MMA_KERNEL(name, full)                                           \
+  extern "C" __global__ void __launch_bounds__(dqm::kThreads, 2) name(      \
+      const rt::mma::bf16* __restrict__ q,                                  \
+      const rt::mma::bf16* __restrict__ k,                                  \
+      const rt::mma::bf16* __restrict__ v,                                  \
+      const rt::mma::bf16* __restrict__ dout, const float* __restrict__ lse, \
+      const float* __restrict__ delta, rt::mma::bf16* __restrict__ dq,      \
+      int Hq, int Hkv, int Sq, int Skv, int D, int Dv, int causal,          \
+      int q_offset, float scale, bool vec) {                                \
+    dqm::dq_mma_body<full>(q, k, v, dout, lse, delta, dq, Hq, Hkv, Sq, Skv, \
+                           D, Dv, causal, q_offset, scale, vec);            \
+  }
+DQ_MMA_KERNEL(dq_mma_kernel_d128, true)
+DQ_MMA_KERNEL(dq_mma_kernel_any, false)
+#undef DQ_MMA_KERNEL
 
 namespace {
 namespace dkv {
@@ -629,6 +856,29 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 }
 
 }  // namespace dkv
+
+namespace dqm {
+
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dq, int B, int Hq,
+           int Hkv, int Sq, int Skv, int D, int Dv, int causal, int q_offset,
+           float scale, cudaStream_t stream) {
+  const bool vec = rt::mma::vec_ok(q, D) && rt::mma::vec_ok(k, D) &&
+                   rt::mma::vec_ok(v, Dv) && rt::mma::vec_ok(dout, Dv);
+  auto kern = vec && D == 128 && Dv == 128 ? dq_mma_kernel_d128
+                                           : dq_mma_kernel_any;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemBytes);
+  dim3 grid(B * Hq, (Sq + kBq - 1) / kBq);
+  kern<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+      delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Skv, D, Dv, causal,
+      q_offset, scale, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace dqm
 
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -677,10 +927,9 @@ extern "C" int fused_attention_bwd_dq_launch(
     case rt::kF32:
       return launch_dq<float>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq,
                               Skv, D, Dv, causal, q_offset, scale, s);
-    case rt::kBF16:
-      return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B, Hq,
-                                      Hkv, Sq, Skv, D, Dv, causal, q_offset,
-                                      scale, s);
+    case rt::kBF16:  // the tensor-core body; fp32 keeps the FMA body
+      return dqm::launch(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv,
+                         D, Dv, causal, q_offset, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

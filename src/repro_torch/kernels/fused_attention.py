@@ -14,13 +14,18 @@ batch row b attends columns ``c < lengths[b]`` and, under ``causal``,
 ``c <= lengths[b] - Sq + r`` (the causal triangle anchored at the end
 of the valid prefix); rows with no valid column emit zeros.  The paged
 kernel reads logical KV block j of row b from pool page
-``block_tables[b, j]``; the math is the masked kernel's.
+``block_tables[b, j]``; the math is the masked kernel's.  Where their
+one-pass grid would have fewer blocks than the card has SMs (decode),
+both run a split-KV body instead, by one rule on the shapes
+(:func:`split_chunks`), so the paged kernel still gives the masked
+kernel's output on the gathered cache bit for bit.
 ``fused_attention`` replaces the TPU ``custom_vjp`` ``fused_attention``
 (forward ``_fwd``, backward ``_bwd``'s dq and dk/dv kernels).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -30,6 +35,78 @@ from repro_torch.kernels.chunked import chunked_attention
 
 #: widest head the CUDA kernels take (csrc/common.cuh kMaxD)
 MAX_HEAD_DIM = 128
+#: query rows per block and keys per tile of the masked and paged
+#: kernels' bodies (csrc/common.cuh kRows, kTileK)
+ROWS, TILE = 16, 64
+
+
+def one_pass_blocks(b: int, hq: int, hkv: int, sq: int) -> int:
+    """Blocks of the masked and paged kernels' one-pass grid: the
+    ceil(group * Sq / ROWS) row tiles of each (batch row, KV head)."""
+    return -(-(hq // hkv) * sq // ROWS) * b * hkv
+
+
+def split_chunks(b: int, hq: int, hkv: int, sq: int, n_sms: int) -> int:
+    """KV chunks per (row tile, batch row, KV head) of the masked and
+    paged kernels' split-KV decode body, or 0 for their one-pass body.
+    Where the one-pass grid has fewer blocks than the card's ``n_sms``
+    SMs, each block's KV prefix is cut into floor(2 * n_sms / blocks)
+    chunks: at most two blocks per SM (as many as fit one, at the split
+    body's shared memory), so one wave.  It reads the shapes alone,
+    which the dense and the paged kernel share, so the two split
+    alike."""
+    blocks = one_pass_blocks(b, hq, hkv, sq)
+    return 0 if blocks >= n_sms else 2 * n_sms // blocks
+
+
+def chunk_bounds(length: int, n_chunks: int) -> list:
+    """The key ranges [start, end) that the split body's chunks of one
+    row cover, in chunk order, as ``csrc/fused_attention.cu``
+    ``split_kernel`` cuts them: the row's ceil(length / TILE) tiles in
+    chunks of ceil(tiles / n_chunks) whole tiles, the last one ending at
+    ``length``.  A length-0 row has none."""
+    tiles = -(-length // TILE)
+    if tiles == 0:
+        return []
+    per = -(-tiles // n_chunks)
+    return [(t * TILE, min(length, (t + per) * TILE))
+            for t in range(0, tiles, per)]
+
+
+def kv_split(q: torch.Tensor, v: torch.Tensor, n_sms: int) -> int:
+    """:func:`split_chunks` of a masked or paged call: q (B, Hq, Sq, D)
+    and its V array, a dense cache (B, Hkv, Skv, Dv) or a page pool
+    (num_pages, Hkv, page, Dv), both with Hkv at dim 1 and nothing else
+    read."""
+    b, hq, sq, _ = q.shape
+    return split_chunks(b, hq, v.shape[1], sq, n_sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_plan(q, v):
+    """(n_chunks, partials, ticket counters) of a masked or paged launch:
+    (0, None, None) for the one-pass body; else the split body's fp32
+    partials, (B * Hq * Sq * n_chunks) rows of Dv values then as many
+    (m, l) pairs, and one zeroed int32 counter per (row tile, batch
+    row, KV head), which the kernel leaves zeroed."""
+    n_chunks = kv_split(q, v, _sm_count(q.device.index))
+    if not n_chunks:
+        return 0, None, None
+    b, hq, sq, _ = q.shape
+    rows = b * hq * sq * n_chunks
+    part = torch.empty(rows * (v.shape[3] + 2), dtype=torch.float32,
+                       device=q.device)
+    counter = torch.zeros(one_pass_blocks(b, hq, v.shape[1], sq),
+                          dtype=torch.int32, device=q.device)
+    return n_chunks, part, counter
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def check_cuda_args(name: str, tensors: dict,
@@ -118,10 +195,11 @@ def fused_attention_masked(q, k, v, lengths, *, causal: bool = True,
                     lengths, (d, dv))
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
+    n_chunks, part, counter = _split_plan(q, v)
     build.launch("fused_attention_masked", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                  b, hq, hkv, sq, skv, d, dv, int(causal), float(scale),
-                  build.dtype_code(q))
+                 v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 _ptr(part), _ptr(counter), b, hq, hkv, sq, skv, d, dv,
+                 int(causal), n_chunks, float(scale), build.dtype_code(q))
     return out
 
 
@@ -164,11 +242,12 @@ def fused_attention_paged(q, k_pool, v_pool, lengths, block_tables, *,
                                          block_tables, b, k_pool)
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
+    n_chunks, part, counter = _split_plan(q, v_pool)
     build.launch("fused_attention_paged", q.data_ptr(), k_pool.data_ptr(),
                  v_pool.data_ptr(), lengths.data_ptr(),
-                 block_tables.data_ptr(), out.data_ptr(), b, hq, hkv, sq,
-                 max_pages, page, d, dv, int(causal), float(scale),
-                 build.dtype_code(q))
+                 block_tables.data_ptr(), out.data_ptr(), _ptr(part),
+                 _ptr(counter), b, hq, hkv, sq, max_pages, page, d, dv,
+                 int(causal), n_chunks, float(scale), build.dtype_code(q))
     return out
 
 

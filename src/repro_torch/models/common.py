@@ -75,7 +75,7 @@ class ModelConfig:
     # numerics / compilation
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    remat: str = "full"                 # none | full | dots_saveable
+    remat: str = "full"                 # none | full | dots
     scan_layers: bool = True
     attn_impl: str = "auto"
     attn_block_q: Optional[int] = None

@@ -12,17 +12,21 @@ megakernel's head sum is deterministic; launches are counted.  Each
 paged kernel, over a shuffled table of a pool larger than the batch
 needs (pages of 8, 40 and 128, a dead row whose table row is zeros),
 matches its plain version and gives bit for bit its dense kernel's
-output on the gathered cache: the two share one body.  The training
+output on the gathered cache: the two share one body.  #4 at qwen3-8b's
+widths and M=1 (B=2 and 4; pages of 8, 16 and 128; lengths 0, 1, a page
+edge, and one that takes more blocks than the card has SMs) runs the
+split-KV body, equal to #1 and to itself bit for bit.  The training
 kernels (forward with lse, dq, dk/dv, the Q-projection forward) match
 their plain versions relative to each output's largest magnitude (fp32
-1e-4, bf16 2e-2) off the tile grids and at the edges of the
-64-row and 64-key tiles of #7's and #9's tensor-core bodies, with GQA,
-an explicit causal offset (a negative one too), Sq > Skv, D = 40 and 36
-and Dv != D; rows that see no key emit o = 0 and lse = -1e30 and keys no
-row sees get no gradient; the instantiations of those two bf16 bodies
-show HMMA in their SASS; backward through a one-layer model on the kernels
-reaches wq, wk and wv; the serve kernels refuse a tensor that requires
-grad.  The Mamba-2 SSD scan (#11) matches its plain version in fp32 and
+1e-4, bf16 2e-2) off the tile grids and at the edges of the 64-row and
+64-key tiles of the tensor-core bodies of #7, #8 and #9, with GQA, an
+explicit causal offset (a negative one too), Sq > Skv, D = 40 and 36
+and Dv != D; rows that see no key emit o = 0 and lse = -1e30 and keys
+no row sees get no gradient; dq and dk/dv are bitwise repeatable; the
+instantiations of those three bf16 bodies show HMMA in their SASS;
+backward through a one-layer model on the kernels reaches wq, wk and
+wv; the serve kernels refuse a tensor that requires grad.  The
+Mamba-2 SSD scan (#11) matches its plain version in fp32 and
 bf16, with and without an initial state, on and off the chunk grid, at
 one and several groups; reads strided views; and a 2-layer full-width
 mamba2-130m forward on it matches the plain versions.
@@ -33,11 +37,12 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.fused_attention import (
-    causal_anchor, fused_attention, fused_attention_bwd_dkv, fused_attention_bwd_dkv_plain,
-    fused_attention_bwd_dq, fused_attention_bwd_dq_plain,
-    fused_attention_fwd, fused_attention_fwd_plain, fused_attention_masked,
+    causal_anchor, chunk_bounds, fused_attention, fused_attention_bwd_dkv,
+    fused_attention_bwd_dkv_plain, fused_attention_bwd_dq,
+    fused_attention_bwd_dq_plain, fused_attention_fwd,
+    fused_attention_fwd_plain, fused_attention_masked,
     fused_attention_masked_plain, fused_attention_paged,
-    fused_attention_paged_plain)
+    fused_attention_paged_plain, split_chunks)
 from repro_torch.kernels.fused_decode_block import (
     fused_decode_block, fused_decode_block_paged,
     fused_decode_block_paged_plain, fused_decode_block_plain)
@@ -178,6 +183,44 @@ def test_paged_kernels_match_plain_and_dense(cuda_device, dtype, tol, page):
         assert torch.equal(got, dense())
 
 
+# batch rows, their lengths: a length-0 row (its table row zeros), a
+# length of one key, one on a page edge (384 = 3 * 128), and 1023, whose
+# chunks over every (row, KV head) need more blocks than the card has SMs
+SPLIT_CASES = [(4, [0, 1, 384, 1023]), (2, [384, 1023])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("b,lens", SPLIT_CASES)
+@pytest.mark.parametrize("page", [8, 16, 128])
+def test_split_decode_matches_plain_and_dense(cuda_device, dtype, tol, b,
+                                              lens, page):
+    """#4 at qwen3-8b's widths and M=1 runs the split-KV body: within
+    tolerance of its plain version, bitwise equal to #1 (the same body,
+    dense) on the gathered cache and to itself on a second call, and
+    zeros for a length-0 row."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda_device).to(dtype)
+    hq, hkv, d, skv = 32, 8, 128, 1024
+    q, k, v = r(b, hq, 1, d), r(b, hkv, skv, d), r(b, hkv, skv, d)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    n_sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    n_chunks = split_chunks(b, hq, hkv, 1, n_sms)
+    assert n_chunks > 0
+    assert len(chunk_bounds(max(lens), n_chunks)) * b * hkv > n_sms
+    zero = [i for i, n in enumerate(lens) if n == 0]
+    kp, vp, tbl, kd, vd = _paged(k, v, page, dead=zero)
+    got = fused_attention_paged(q, kp, vp, lengths, tbl)
+    torch.testing.assert_close(
+        got.float(), fused_attention_paged_plain(q, kp, vp, lengths,
+                                                 tbl).float(),
+        rtol=tol, atol=tol)
+    assert torch.equal(got, fused_attention_masked(q, kd, vd, lengths))
+    assert torch.equal(got, fused_attention_paged(q, kp, vp, lengths, tbl))
+    assert not got[zero].any()
+
+
 @pytest.mark.cuda
 def test_paged_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     t = _inputs(cuda_device, torch.bfloat16)
@@ -296,9 +339,12 @@ def test_training_attention_kernels_match_plain(cuda_device, dtype, tol, b,
     # keys past the last row's anchor get no gradient
     unseen = torch.arange(skv, device=cuda_device) > reach + sq - 1
     assert not dk[:, :, unseen].any() and not dvv[:, :, unseen].any()
-    # deterministic: no atomics in the dk/dv group sum
+    # deterministic: no atomics in the dk/dv group sum, one writer per
+    # dq element
     again = fused_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
     assert torch.equal(again[0], dk) and torch.equal(again[1], dvv)
+    assert torch.equal(fused_attention_bwd_dq(q, k, v, do, lse_p, delta,
+                                              **kw), dq)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The port's boundaries: no file under src/repro_torch/, and not
-chip_smoke.py or time_mma_widths.py, imports JAX or anything of the JAX
-package; the entry points default to the card and raise without one;
+chip_smoke.py, time_mma_widths.py or time_decode.py, imports JAX or
+anything of the JAX package; the entry points default to the card and
+raise without one;
 each kernel source names the TPU kernel it replaces (#11, ssd_scan, by
 file and line) and defines the tensor-core kernels build names; the
 ptxas report is read per kernel."""
@@ -17,7 +18,8 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "time_mma_widths.py"]
+                                      ROOT / "time_mma_widths.py",
+                                      ROOT / "time_decode.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro", "flax"}
 
 

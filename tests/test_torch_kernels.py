@@ -212,3 +212,55 @@ def test_kernel_wrappers_refuse_bad_cuda_args():
         from repro_torch.kernels.fused_attention import check_cuda_args
         check_cuda_args("k", {"q": q}, torch.zeros(1, dtype=torch.int32),
                         (8,))
+
+
+# (B, Hq, Hkv, Sq): qwen3-8b decode at B=4 and B=2, a causal 5-row chunk
+SPLIT_SHAPES = [(4, 32, 8, 1), (2, 32, 8, 1), (3, 32, 8, 5)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq", SPLIT_SHAPES)
+@pytest.mark.parametrize("length", [0, 1, 63, 64, 65, 301, 705, 1023, 4096])
+def test_split_plan_covers_the_prefix_in_whole_tiles(b, hq, hkv, sq, length):
+    """The split-KV decode body's plan (``csrc/fused_attention.cu``
+    ``split_kernel``, mirrored by ``split_chunks`` and ``chunk_bounds``):
+    at most n_chunks chunks cover [0, length) exactly, in order, each
+    starting on a 64-key tile and ending on one or at ``length``; a
+    length-0 row has none.  The one-pass grid here has fewer blocks than
+    an H100's 132 SMs, so the split body is taken."""
+    from repro_torch.kernels.fused_attention import (TILE, chunk_bounds,
+                                                     split_chunks)
+    n = split_chunks(b, hq, hkv, sq, 132)
+    assert n > 0
+    bounds = chunk_bounds(length, n)
+    assert len(bounds) <= n
+    if length == 0:
+        assert bounds == []
+        return
+    assert bounds[0][0] == 0 and bounds[-1][1] == length
+    for (s0, e0), (s1, _) in zip(bounds, bounds[1:]):
+        assert e0 == s1
+    for s0, e0 in bounds:
+        assert s0 % TILE == 0 and s0 < e0
+        assert e0 % TILE == 0 or e0 == length
+    # a grid that fills the card keeps the one-pass body: a 256-row
+    # prefill chunk of starcoder2-7b's heads
+    assert split_chunks(1, 36, 4, 256, 132) == 0
+
+
+@pytest.mark.parametrize("skv,page,n_pages", [(1024, 16, 300), (200, 8, 51),
+                                              (256, 128, 9)])
+def test_split_plan_is_the_same_for_dense_and_paged(skv, page, n_pages):
+    """The masked kernel on a dense cache and the paged kernel on a pool
+    of another capacity take the same chunk count (read from q and the
+    V array's KV heads alone), so over the gathered cache they split
+    every row alike and give the same output bit for bit."""
+    from repro_torch.kernels.fused_attention import chunk_bounds, kv_split
+    for b, hq, hkv, sq in SPLIT_SHAPES:
+        q = torch.zeros(b, hq, sq, 128)
+        dense = torch.zeros(b, hkv, skv, 128)
+        pool = torch.zeros(n_pages, hkv, page, 128)
+        n = kv_split(q, dense, 132)
+        assert n == kv_split(q, pool, 132) > 0
+        for length in range(0, min(skv, n_pages * page) + 1, 37):
+            assert chunk_bounds(length, n) == chunk_bounds(
+                length, kv_split(q, pool, 132))

@@ -7,7 +7,8 @@ and the same numpy tokens, in fp32 on the CPU:
   32, the M > N path), JAX through its Pallas kernels in interpret
   mode: the loss within 1e-5 relative, each gradient within 1e-4 of
   its leaf's largest magnitude;
-* ``remat="full"`` and ``remat="none"`` give the same gradients;
+* ``remat="full"`` and ``remat="none"`` give the same gradients, and
+  any other policy raises (``dots`` as not ported);
 * ``train_step`` with two microbatches equals the full batch;
 * ``launch.train.train_loop`` for 5 steps gives the JAX loop's losses
   within 1e-3, resumes from its own checkpoint after a failure bit for
@@ -30,7 +31,7 @@ from repro.train import step as jax_step
 
 from repro_torch import configs, tree
 from repro_torch.launch import train as port_train
-from repro_torch.models.weights import params_from_numpy
+from repro_torch.models.weights import init_params, params_from_numpy
 from repro_torch.train import step as port_step
 
 torch.set_num_threads(2)
@@ -97,6 +98,20 @@ def test_remat_full_and_none_give_the_same_gradients():
 def test_remat_dots_is_not_ported():
     cfg, _, _, params = _weights("qwen3-8b", remat="dots")
     with pytest.raises(NotImplementedError, match="dots"):
+        port_step.value_and_grad(
+            params, cfg, {"tokens": torch.from_numpy(_tokens(cfg)).long()})
+
+
+@pytest.mark.parametrize("remat,error", [("dots_saveable", ValueError),
+                                          ("dots", NotImplementedError)])
+def test_remat_takes_only_what_common_names(remat, error):
+    """``ModelConfig.remat`` names none, full and dots: an unknown
+    policy (the JAX config comment's ``dots_saveable``) raises
+    ValueError, ``dots`` (not ported) NotImplementedError."""
+    cfg = dataclasses.replace(configs.get_config("starcoder2-7b",
+                                                 smoke=True), remat=remat)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(error, match=remat):
         port_step.value_and_grad(
             params, cfg, {"tokens": torch.from_numpy(_tokens(cfg)).long()})
 

@@ -1,5 +1,6 @@
-"""Times the bf16 tensor-core bodies of #7 (fused_attention_fwd) and #9
-(fused_attention_bwd_dkv) on one H100 at starcoder2-7b's training shape
+"""Times the bf16 tensor-core bodies of #7 (fused_attention_fwd), #8
+(fused_attention_bwd_dq) and #9 (fused_attention_bwd_dkv) on one H100
+at starcoder2-7b's training shape
 (B=2, Hq=36, Hkv=4, Sq = Skv = 2048, D = 128, causal), once on the
 D = Dv = 128 instantiation the training path runs and once on the
 instantiation for any even width, which a copy of the kernel sources
@@ -32,11 +33,12 @@ def variant_src() -> Path:
     dst = ROOT / "build" / "mma_widths"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(ROOT / "src" / "repro_torch", dst / "src" / "repro_torch")
-    for name in ("fused_attention.cu", "fused_attention_bwd.cu"):
+    for name, bodies in (("fused_attention.cu", 1),
+                         ("fused_attention_bwd.cu", 2)):
         path = dst / "src" / "repro_torch" / "kernels" / "csrc" / name
         text = path.read_text()
-        if text.count(DISPATCH) != 1:
-            raise SystemExit(f"{name}: the width dispatch is not one line")
+        if text.count(DISPATCH) != bodies:
+            raise SystemExit(f"{name}: not one width dispatch per body")
         path.write_text(text.replace(DISPATCH, "false ?"))
     return dst / "src"
 
@@ -46,7 +48,7 @@ def time_one(label: str) -> None:
 
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.fused_attention import (
-        fused_attention_bwd_dkv, fused_attention_fwd)
+        fused_attention_bwd_dkv, fused_attention_bwd_dq, fused_attention_fwd)
 
     t0 = time.time()
     build.build_all(["fused_attention_fwd", "fused_attention_bwd_dkv"])
@@ -75,10 +77,13 @@ def time_one(label: str) -> None:
         return t0.elapsed_time(t1) / iters
 
     fwd = [ms(lambda: fused_attention_fwd(q, k, v)) for _ in range(3)]
+    dq = [ms(lambda: fused_attention_bwd_dq(q, k, v, do, lse, delta))
+          for _ in range(3)]
     dkv = [ms(lambda: fused_attention_bwd_dkv(q, k, v, do, lse, delta))
            for _ in range(3)]
     print(f"{label}: build {built:.1f}s  fused_attention_fwd ms "
-          f"{' '.join(f'{t:.4f}' for t in fwd)}  fused_attention_bwd_dkv ms "
+          f"{' '.join(f'{t:.4f}' for t in fwd)}  fused_attention_bwd_dq ms "
+          f"{' '.join(f'{t:.4f}' for t in dq)}  fused_attention_bwd_dkv ms "
           f"{' '.join(f'{t:.4f}' for t in dkv)}", flush=True)
 
 
