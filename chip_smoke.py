@@ -7,7 +7,8 @@ Phases, in order:
   2. build  -- every CUDA kernel built from csrc/, one nvcc per source,
                all started together; ptxas's registers and spills, and
                one line counting the HMMA (tensor-core) instructions in
-               the SASS of the bf16 bodies of #7, #8 and #9;
+               the SASS of every instantiation of the bf16 tensor-core
+               bodies (#1, #2, #4, #5, #7-#10);
   3. kernels-- each kernel against its plain PyTorch version on the card
                in bf16, at the serve paths' full-width shapes and at edge
                cases (a length of 0, lengths off the tile and page grids,
@@ -65,16 +66,19 @@ plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal) and the Mamba-2 SSD scan (#11) to its plain version in bf16 and
 fp32 at the serve path's prefill chunk (B=1, L=188, with an initial
 state) and the cache-free forward's shape (B=4, L=2048), and times
-them.  #7-#9 and #4 are also held per row (o, lse, dq, dk, dv; #4's
-o), and that gate is shown to reject plain results with one tile
-(#4: one KV chunk of its split-KV body) dropped.  Each library
-yardstick is the median of LIB_REPEATS timings, its spread logged.
+them.  #1, #2, #4 and #7-#10 are also held per row (o, lse, dq, dk,
+dv), and that gate is shown to reject plain results with one tile (#4:
+one KV chunk of its split-KV body) dropped; #1-#4 and #8-#10 must be
+bitwise repeatable.  Each library yardstick is the median of
+LIB_REPEATS timings, its spread logged; #2, #5 and #10, which no one
+PyTorch call computes, log the unfused path's time (torch.matmul for
+x.Wq, RoPE, SDPA) beside them and carry it as unfused_ms.
 The qwen phase logs the median decode step of each engine.
 Every kernel must have launched on some path.  In the kernels' JSON
-record #7, #8 and #9 also carry their main-path bf16 instantiation's
-registers and spill bytes (ptxas); their time on the FMA bodies that
-preceded the tensor-core bodies is logged on a line of its own, as
-PERF.md records it.  The last three lines of stdout are the kernels'
+record each kernel timed on a tensor-core body also carries its D = 128
+instantiation's registers and spill bytes (ptxas); the times of #1, #2,
+#5 and #7-#10 on the FMA bodies that preceded those bodies are logged
+on lines of their own, as PERF.md records them.  The last three lines of stdout are the kernels'
 JSON record, the card's name and power limit,
 and {"ok": true, "device": {...}}.  Any failure exits non-zero and
 prints no ok line.  Imports nothing of JAX or of the JAX package.
@@ -226,7 +230,60 @@ def _valid_cols(lengths, sq, causal):
     return ent, rows
 
 
+def mask_of(lens, sq, skv, dev):
+    """The masked kernels' boolean mask (B, 1, Sq, Skv): row r of batch
+    row b sees column c < lengths[b] with c <= lengths[b] - Sq + r."""
+    cols = torch.arange(skv, device=dev)
+    rows = lens[:, None] - sq + torch.arange(sq, device=dev)[None, :]
+    return ((cols[None, :] < lens[:, None])[:, None, None, :]
+            & (cols[None, None, :] <= rows[:, :, None])[:, None])
+
+
+def unfused_ms(name, x, wq, k, v, pos, theta, mask=None, iters=10):
+    """The unfused path that a fused Q-projection kernel (#2, #5, #10)
+    replaces, timed at the kernel's shape for reference: x.Wq as one
+    torch.matmul, the RoPE oracle (ref.rope) at ``pos``, then one SDPA
+    over k, v (with ``mask``, heads already expanded; without, causal
+    with GQA).  Three calls, not one, so not the kernel's library_ms."""
+    from repro_torch.kernels import ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, sq, e = x.shape
+    hq, d = wq.shape[1:]
+    w2 = wq.reshape(e, hq * d)
+
+    def run():
+        q = torch.matmul(x, w2).view(b, sq, hq, d).transpose(1, 2)
+        q = ref.rope(q, pos, theta)
+        if mask is None:
+            return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        return sdpa(q, k, v, attn_mask=mask)
+
+    ms = time_ms(run, iters)
+    log(f"  {name}: the unfused path (torch.matmul, RoPE, SDPA) takes "
+        f"{ms:.4f} ms at the same shape")
+    return ms
+
+
+def masked_gates(name, tag, out, want, run, length, dropped):
+    """#1's and #2's gates beyond check_kernel at their table shapes
+    (causal, one batch row of ``length`` keys, the kernel's 64-row tiles
+    r0 = 0, 64, ...): bitwise repeatable, within ROW_TOL per row, and
+    that row gate shown to reject the plain result whose deepest row tile
+    lost its last 64-key tile (``dropped(rows, end)``: the plain
+    version's rows [rows, Sq) over keys [0, end) alone)."""
+    if not torch.equal(run(), out):
+        raise SystemExit(f"{name} is not deterministic")
+    log(f"  {name} [{tag}] bitwise repeatable")
+    row_gate(name, tag, {"o": (out, want)})
+    rows = (out.shape[2] - 1) // 64 * 64        # the deepest row tile
+    cut = want.clone()
+    cut[:, :, rows:] = dropped(rows, (length - 1) // 64 * 64)
+    row_gate(name, f"{tag}, plain with a key tile dropped",
+             {"o": (cut, want)}, expect=False)
+
+
 def kernel_phase(dev, g):
+    from repro_torch.kernels import ref
     from repro_torch.kernels.fused_attention import (
         fused_attention_masked, fused_attention_masked_plain)
     from repro_torch.kernels.fused_decode_block import (
@@ -252,7 +309,14 @@ def kernel_phase(dev, g):
     lens = torch.tensor([sq], dtype=torch.int32, device=dev)
     f1 = lambda: fused_attention_masked(q, k, v, lens, causal=True)
     p1 = lambda: fused_attention_masked_plain(q, k, v, lens, causal=True)
-    err = check("fused_attention_masked", f1(), p1(), "B=1 Sq=256 chunk")
+    out1, want1 = f1(), p1()
+    tag = "B=1 Sq=256 chunk"
+    err = check("fused_attention_masked", out1, want1, tag)
+    masked_gates("fused_attention_masked", tag, out1, want1, f1, sq,
+                 lambda rows, end: fused_attention_masked_plain(
+                     q[:, :, rows:].contiguous(), k, v,
+                     torch.tensor([end], dtype=torch.int32, device=dev),
+                     causal=False))
     for (b_, sq_, ls, causal) in [(3, 5, [0, 77, 130], True),
                                   (3, 1, [0, 63, 65], False),
                                   (2, 40, [40, 1000], True)]:
@@ -268,10 +332,7 @@ def kernel_phase(dev, g):
     flops = 4 * HQ * D * sum(ent)
     bms, by = bound(byts, flops)
     # the yardstick: SDPA with a boolean mask, GQA heads expanded
-    cols = torch.arange(skv, device=dev)
-    mask = (cols[None, :] < lens[:, None])[:, None, None, :] & (
-        cols[None, None, :] <= (lens[:, None] - sq + torch.arange(
-            sq, device=dev)[None, :])[:, :, None])[:, None]
+    mask = mask_of(lens, sq, skv, dev)
     ke = k.repeat_interleave(HQ // HKV, 1)
     ve = v.repeat_interleave(HQ // HKV, 1)
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -292,8 +353,21 @@ def kernel_phase(dev, g):
         x, wq, k, v, lens, causal=True, rope_theta=theta)
     p2 = lambda: fused_qproj_attention_masked_plain(
         x, wq, k, v, lens, causal=True, rope_theta=theta)
-    err = check("fused_qproj_attention_masked", f2(), p2(),
-                f"B=1 Sq={sq} lengths=[{total}]")
+    out2, want2 = f2(), p2()
+    tag = f"B=1 Sq={sq} lengths=[{total}]"
+    err = check("fused_qproj_attention_masked", out2, want2, tag)
+
+    def qproj_rows(rows, end):
+        """The plain version's rows [rows, Sq), over keys [0, end) only."""
+        qq = torch.einsum("bse,ehd->bhsd", x[:, rows:], wq)
+        qq = ref.rope(qq, ref.rope_positions(sq - rows, skv, lengths=lens),
+                      theta)
+        return fused_attention_masked_plain(
+            qq, k, v, torch.tensor([end], dtype=torch.int32, device=dev),
+            causal=False)
+
+    masked_gates("fused_qproj_attention_masked", tag, out2, want2, f2, total,
+                 qproj_rows)
     for (b_, sq_, ls, th) in [(3, 7, [0, 70, 129], theta),
                               (2, 33, [33, 517], None)]:
         xx = rnd(b_, sq_, E)
@@ -310,11 +384,14 @@ def kernel_phase(dev, g):
                 + sq * HQ * D) + 4
     flops = 2 * sq * E * HQ * D + 4 * HQ * D * sum(ent)
     bms, by = bound(byts, flops)
+    pos = ref.rope_positions(sq, skv, lengths=lens)
     results["fused_qproj_attention_masked"] = dict(
         source="src/repro_torch/kernels/csrc/fused_qproj_attention.cu",
         replaces="src/repro/kernels/fused_qproj_attention.py:243",
         max_abs_err=err, ms=time_ms(f2, 10), plain_ms=time_ms(p2, 3),
-        bound_ms=bms, bound_by=by, library_ms=None)
+        bound_ms=bms, bound_by=by, library_ms=None,
+        unfused_ms=unfused_ms("fused_qproj_attention_masked", x, wq, ke, ve,
+                              pos, theta, mask_of(lens, sq, skv, dev)))
 
     def check_decode_with(name, run, args, tag):
         """``run(x, ..., residual, ...) -> (kernel, plain)`` with
@@ -583,7 +660,12 @@ def paged_kernel_phase(dev, g, check, check_decode_with):
         source="src/repro_torch/kernels/csrc/fused_qproj_attention.cu",
         replaces="src/repro/kernels/fused_qproj_attention.py:322",
         max_abs_err=err, ms=time_ms(f5, 20), plain_ms=time_ms(p5, 3),
-        bound_ms=bms, bound_by=by, library_ms=None)
+        bound_ms=bms, bound_by=by, library_ms=None,
+        unfused_ms=unfused_ms(
+            "fused_qproj_attention_paged", x, wq,
+            *(t.repeat_interleave(HQ // HKV, 1) for t in (kg, vg)),
+            ref.rope_positions(1, skv, lengths=lens), theta,
+            mask_of(lens, 1, skv, dev), iters=20))
     log_twin("fused_qproj_attention_paged",
              lambda: fused_qproj_attention_masked(x, wq, kg, vg, lens,
                                                   rope_theta=theta), 20)
@@ -682,10 +764,12 @@ def _one_request_logits(eng, prompt, forced_tokens=None,
 DECODE_WINDOW = 8
 
 
-def device_report(prof, wall_s: float, title: str, top: int = 8) -> float:
+def device_report(prof, wall_s: float, title: str, top: int = 8,
+                  also=()) -> float:
     """Device time by kernel from a ``torch.profiler`` trace (device-side
     events only, so the host ops that launched them are not counted
-    twice), with the share of ``wall_s`` the device was idle.  Returns
+    twice), with the share of ``wall_s`` the device was idle: the ``top``
+    kernels, then any other whose name holds one of ``also``.  Returns
     the device busy time in ms."""
     from torch.autograd import DeviceType
     rows = [(e.key, e.self_device_time_total, e.count)
@@ -697,7 +781,10 @@ def device_report(prof, wall_s: float, title: str, top: int = 8) -> float:
     log(f"  {title}: wall {wall_s * 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms, idle share under the profiler "
         f"{1 - busy_us / 1e3 / (wall_s * 1e3):.4f}")
-    for key, us, n in sorted(rows, key=lambda r: -r[1])[:top]:
+    ranked = sorted(rows, key=lambda r: -r[1])
+    shown = ranked[:top] + [r for r in ranked[top:]
+                            if any(a in r[0] for a in also)]
+    for key, us, n in shown:
         log(f"    {us / 1e3:10.3f} ms {100 * us / busy_us:6.2f}% x{n:<5d} "
             f"{key[:80]}")
     return busy_us / 1e3
@@ -722,7 +809,9 @@ def profile_windows(args, cfg, params):
         serve.run(args, cfg, params, requests)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device_report(prof, wall, "profiled serve run (prefill and decode)")
+    device_report(prof, wall, "profiled serve run (prefill and decode)",
+                  also=("masked_mma_kernel", "qproj_mma_kernel",
+                        "split_kernel"))
 
     plan = lower.serving_plan(cfg, args.max_len, device=args.device)
     eng = ContinuousBatchingEngine(
@@ -1402,22 +1491,26 @@ TRAIN_KERNELS = ("fused_attention_fwd", "fused_attention_bwd_dq",
                  "fused_attention_bwd_dkv")
 
 
-#: the bf16 times of #7, #8 and #9 on the fp32-FMA bodies that preceded
-#: their tensor-core bodies, as PERF.md records them (this script's
-#: kernel phase, H100 80GB HBM3, 700.00 W): logged beside this run's
-#: times, and kept out of the kernels' record, which holds only what
-#: this run measured
-RECORDED_FMA_MS = {"fused_attention_fwd": 10.0170,
+#: the bf16 times of #1, #2, #5, #7, #8, #9 and #10 at their table shapes
+#: on the fp32-FMA bodies that preceded their tensor-core bodies, as
+#: PERF.md records them (this script's kernel phase, H100 80GB HBM3,
+#: 700.00 W): logged beside this run's times, and kept out of the
+#: kernels' record, which holds only what this run measured
+RECORDED_FMA_MS = {"fused_attention_masked": 0.1408,
+                   "fused_qproj_attention_masked": 1.2039,
+                   "fused_qproj_attention_paged": 1.0101,
+                   "fused_attention_fwd": 10.0170,
                    "fused_attention_bwd_dq": 11.2974,
-                   "fused_attention_bwd_dkv": 13.3167}
+                   "fused_attention_bwd_dkv": 13.3167,
+                   "fused_qproj_attention_fwd": 20.8773}
 
 
 def tensor_core_usage() -> dict:
     """Logs one line with the HMMA (tensor-core) instructions in the
-    SASS of each instantiation of the bf16 bodies of #7, #8 and #9 (fails if
-    cuobjdump is missing or one has none); returns {kernel: (registers,
-    spill bytes)} of the instantiation the main path runs, from its
-    ptxas report."""
+    SASS of each instantiation of the bf16 tensor-core bodies (#1, #2,
+    #4, #5, #7-#10; fails if cuobjdump is missing or one has none);
+    returns {kernel: (registers, spill bytes)} of its D = 128
+    instantiation, from its ptxas report."""
     from repro_torch.kernels import build
     parts, usage = [], {}
     for name, symbols in build.TENSOR_CORE_BODIES.items():
@@ -1447,7 +1540,8 @@ def _causal_entries(b, hq, sq):
     return b * hq * sq * (sq + 1) // 2
 
 
-#: The training kernels' second gate at the main shape.  KERNEL_TOL of
+#: The second gate of the training kernels (and of #1, #2 and #10) at
+#: their main shapes.  KERNEL_TOL of
 #: the largest |want| (about 3.5 for o) is as large as a typical late
 #: row's values (|o| about 0.03 at seq 2048), so a body that dropped a
 #: key tile for those rows would pass it.  So each row of o, dq, dk and
@@ -1459,6 +1553,17 @@ def _causal_entries(b, hq, sq):
 #: (o), 1.11 (dk), 0.92 (dv) and 0.049 (lse).
 ROW_TOL = 2e-2
 LSE_TOL = 1e-3
+#: #10's lse against the TPU kernel's arithmetic in plain PyTorch (Q
+#: projected and rotated in fp32, rounded to bf16 once).  #10 builds Q
+#: in-kernel, summing E = 4608 products in another order than the
+#: reference, so a Q element near a bf16 rounding boundary may round to
+#: the neighbouring value on one side: one bf16 ulp, which moves the
+#: scores of a row that sees few keys by up to ulp(q) |k| / sqrt(D).
+#: Measured on an H100 80GB HBM3: 1.005e-3 at the main shape, where #7,
+#: given the same Q, stays within 1.9e-6; the reference with a key tile
+#: dropped, 4.9e-2.  So LSE_TOL holds #7, whose Q is an input, and #10
+#: takes twice its measured floor.
+QPROJ_LSE_TOL = 2e-3
 #: dq's causal row 0, whose exact value is 0, against the largest |dq|:
 #: bf16's unit roundoff 2^-8 = 3.9e-3 of it would be one rounding of the
 #: largest value; rounding noise of an exact zero is orders below that
@@ -1474,9 +1579,10 @@ def row_err(got, want) -> float:
     return ((got - want).abs().amax(-1) / scale).max().item()
 
 
-def row_gate(name, tag, outs, lse=None, expect=True) -> dict:
+def row_gate(name, tag, outs, lse=None, expect=True,
+             lse_tol=LSE_TOL) -> dict:
     """Every (got, want) of ``outs`` within ROW_TOL per row and ``lse``'s
-    (got, want) within LSE_TOL absolute.  ``expect=False`` turns the
+    (got, want) within ``lse_tol`` absolute.  ``expect=False`` turns the
     gate on itself: given a plain version with a tile dropped it must
     fail, else it could pass a kernel with that bug."""
     errs = {k: row_err(got, want) for k, (got, want) in outs.items()}
@@ -1486,14 +1592,14 @@ def row_gate(name, tag, outs, lse=None, expect=True) -> dict:
     if lse is not None:
         errs["lse_abs"] = (lse[0] - lse[1]).abs().max().item()
         whole["lse"] = rel_err(*lse)[1]
-        ok = ok and errs["lse_abs"] <= LSE_TOL
+        ok = ok and errs["lse_abs"] <= lse_tol
     text = " ".join(f"{k}={e:.3e}" for k, e in errs.items())
     text += "; over the largest |want| " + " ".join(
         f"{k}={e:.3e}" for k, e in whole.items())
     verdict = ("ok" if ok else "FAIL") if expect else \
         ("FAIL: passed" if ok else "rejected, as it must be")
     log(f"  {name} [{tag}] per row {text} (row tol {ROW_TOL}, lse tol "
-        f"{LSE_TOL}) {verdict}")
+        f"{lse_tol}) {verdict}")
     if ok != expect:
         raise SystemExit(f"{name}: per-row gate {verdict} ({tag})")
     return errs
@@ -1652,13 +1758,61 @@ def train_kernel_phase(dev, g, check):
     err = max(check("fused_qproj_attention_fwd", o, o_p, f"B={b} S={sq} o"),
               check("fused_qproj_attention_fwd", lse, lse_p,
                     f"B={b} S={sq} lse"))
+    again = f10()
+    if not (torch.equal(again[0], o) and torch.equal(again[1], lse)):
+        raise SystemExit("fused_qproj_attention_fwd is not deterministic")
+    log(f"  fused_qproj_attention_fwd [B={b} S={sq}] bitwise repeatable")
+
+    def at_kernel_cast(xx, kk, vv, q_offset=None):
+        """The TPU kernel's arithmetic in plain PyTorch: Q projected in
+        fp32, rotated in fp32 with _rope_tile's frequency schedule
+        exp(i * (-ln theta / half)) and rounded to bf16 once.  The plain
+        version, as the JAX package's unfused path, rounds the
+        projection to bf16 before RoPE and takes RoFormer's theta^(-i /
+        half): Q off by up to a bf16 ulp, lse by up to about 7e-3 at this
+        shape, more than LSE_TOL."""
+        qq = torch.einsum("bse,ehd->bhsd", xx.float(), wq.float())
+        half = qq.shape[-1] // 2
+        step = -torch.log(torch.tensor(theta, dtype=torch.float32,
+                                       device=dev)) / half
+        freq = torch.exp(torch.arange(half, dtype=torch.float32,
+                                      device=dev) * step)
+        pos = ref.rope_positions(xx.shape[1], kk.shape[2], q_offset=q_offset,
+                                 device=dev)
+        ang = pos.float()[:, None] * freq
+        cos, sin = torch.cos(ang), torch.sin(ang)
+        x1, x2 = qq[..., :half], qq[..., half:]
+        qq = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+        return fused_attention_fwd_plain(qq.to(bf), kk, vv, q_offset=q_offset)
+
+    o_r, lse_r = at_kernel_cast(x, k, v)
+    log(f"  fused_qproj_attention_fwd [B={b} S={sq}] lse against the plain "
+        f"version (Q rounded twice): "
+        f"{(lse - lse_p).abs().max().item():.3e} absolute")
+    row_gate("fused_qproj_attention_fwd",
+             f"B={b} S={sq}, against Q rounded once", {"o": (o, o_r)},
+             (lse, lse_r), lse_tol=QPROJ_LSE_TOL)
+    # that result with its last row tile's last key tile dropped
+    t = 64
+    o_t, lse_t = at_kernel_cast(x[:, -t:], k[:, :, :-t], v[:, :, :-t],
+                                q_offset=sq - t)
+    o_m, lse_m = o_r.clone(), lse_r.clone()
+    o_m[:, :, -t:], lse_m[:, :, -t:] = o_t, lse_t
+    row_gate("fused_qproj_attention_fwd",
+             f"B={b} S={sq}, against Q rounded once with a key tile dropped",
+             {"o": (o_m, o_r)}, (lse_m, lse_r), expect=False,
+             lse_tol=QPROJ_LSE_TOL)
+    del again, o_r, lse_r, o_t, lse_t, o_m, lse_m
     bms, by = bound(x.numel() * 2 + wq.numel() * 2 + 2 * kvb + qb + rowb,
                     2 * b * sq * E * HQ * D + 4 * D * ent)
     results["fused_qproj_attention_fwd"] = dict(
         source="src/repro_torch/kernels/csrc/fused_qproj_attention.cu",
         replaces="src/repro/kernels/fused_qproj_attention.py:104",
         max_abs_err=err, ms=time_ms(f10, 5), plain_ms=time_ms(p10, 2, 1),
-        bound_ms=bms, bound_by=by, library_ms=None)
+        bound_ms=bms, bound_by=by, library_ms=None,
+        unfused_ms=unfused_ms("fused_qproj_attention_fwd", x, wq, k, v,
+                              ref.rope_positions(sq, sq, device=dev), theta,
+                              iters=5))
     for name, r in results.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {name}: kernel_ms={r['ms']:.4f} plain_ms="
@@ -2060,8 +2214,12 @@ def main() -> int:
         log(f"{name}: {results[name]['ms']:.4f} ms in this run; "
             f"{ms:.4f} ms on the FMA body, as PERF.md records it (not "
             f"measured in this run)")
-        regs, spill = usage[name]
-        results[name].update(registers=regs, spill_bytes=spill)
+    # registers and spill of the instantiation each kernel's timed call
+    # ran: #4's table shape (decode) runs the split-KV body, not its
+    # tensor-core one, so it has none here
+    for name, (regs, spill) in usage.items():
+        if name != "fused_attention_paged":
+            results[name].update(registers=regs, spill_bytes=spill)
     record = [dict(name=n, route="cuda", launches=launches[n], **r)
               for n, r in results.items()]
     print(json.dumps({"kernels": record}))

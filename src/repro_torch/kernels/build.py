@@ -76,11 +76,25 @@ KERNELS = {
 
 #: kernel name -> the kernels of its bf16 tensor-core body (C linkage,
 #: so the names are the source's own): the D = Dv = 128 instantiation
-#: that the training path runs, then the one for any even width
+#: that the serve and training paths run, then the one for any even
+#: width.  The masked and paged kernels' bf16 bodies serve their
+#: one-pass shapes (the split-KV body, fp32 FMAs, serves decode shapes);
+#: fused_qproj_attention_fwd is fused_qproj_attention_masked's kernel
+#: without lengths.
 TENSOR_CORE_BODIES = {
+    "fused_attention_masked": ("masked_mma_kernel_d128",
+                               "masked_mma_kernel_any"),
+    "fused_qproj_attention_masked": ("qproj_mma_kernel_d128",
+                                     "qproj_mma_kernel_any"),
+    "fused_attention_paged": ("paged_mma_kernel_d128",
+                              "paged_mma_kernel_any"),
+    "fused_qproj_attention_paged": ("qproj_paged_mma_kernel_d128",
+                                    "qproj_paged_mma_kernel_any"),
     "fused_attention_fwd": ("fwd_mma_kernel_d128", "fwd_mma_kernel_any"),
     "fused_attention_bwd_dq": ("dq_mma_kernel_d128", "dq_mma_kernel_any"),
-    "fused_attention_bwd_dkv": ("dkv_mma_kernel_d128", "dkv_mma_kernel_any")}
+    "fused_attention_bwd_dkv": ("dkv_mma_kernel_d128", "dkv_mma_kernel_any"),
+    "fused_qproj_attention_fwd": ("qproj_mma_kernel_d128",
+                                  "qproj_mma_kernel_any")}
 
 #: dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -11,9 +11,10 @@
 // fused_attention_paged (pallas_call at :408, body _paged_fwd_kernel
 // :341): the same attention with K/V read from a page pool through
 // block_tables[b, p / page].  As on the TPU, the paged kernel is the
-// masked kernel with another KV address: for each grid shape one body
-// (common.cuh masked_attention_rows; split_kernel below), two
-// addressing policies (common.cuh DenseKV, PagedKV).
+// masked kernel with another KV address: for each grid shape and dtype
+// one body (masked_mma.cuh masked_mma_rows in bf16, common.cuh
+// masked_attention_rows in fp32; split_kernel below), two addressing
+// policies (common.cuh DenseKV, PagedKV).
 //
 // Replaces the TPU kernel src/repro/kernels/fused_attention.py _fwd
 // (pallas_call at :155, body _fwd_kernel :99), the forward of the
@@ -24,31 +25,43 @@
 // recomputes p from.
 //
 // Bound on an H100 at the serve path's shapes (bf16, Hq=36, Hkv=4,
-// D=128, a 256-row prefill chunk): about 5 MB moved (Q and O dominate)
-// against about 0.6 GFLOP of scores and P.V, so the card's bound is
-// the bytes, a few microseconds.  The paged kernel at qwen3-8b's
+// D=128, a 256-row prefill chunk at length 256): about 5 MB moved (Q
+// and O dominate) against about 0.6 GFLOP of scores and P.V, so the
+// card's bound is the bytes, 1.6 us.  The paged kernel at qwen3-8b's
 // decode shapes (Hq=32, Hkv=8, B=4 rows at contexts 301..705) reads
 // about 8.5 MB of KV: about 2.5 us, bytes-bound too.
-// Design: in the masked and paged kernels one block owns 16 query rows
-// of one (batch row, KV head), taken across the whole GQA group, so a
-// K/V tile brought into shared memory serves every query head that
-// reads it and M=1 decode still fills a block with the group's heads.
-// The block loads lengths[b] itself and stops at the last KV tile the
-// prefix and the causal anchor allow: tiles past it cost no loads.  The
-// paged policy stages each 64-key tile's slice of the block table in
-// shared memory (a page may be as small as 8 keys) and resolves every
-// key's row from it.  Products run as fp32 FMAs (common.cuh
-// masked_attention_rows).
-// That grid has ceil(group * Sq / 16) x B * Hkv blocks: at qwen3-8b's
-// decode (group 4, Sq 1, B 4, Hkv 8) 32 blocks on 132 SMs, 12 of each
-// block's 16 rows padding, each block walking up to 12 tiles alone.  So
-// where the grid has fewer blocks than the card has SMs, the wrapper
-// (kernels/fused_attention.py split_chunks) asks for the split-KV body
-// (split::split_kernel) with n_chunks = floor(2 * SMs / blocks) chunks,
-// at most two blocks per SM, one wave, and allocates its partials and ticket
+// Design: in the masked and paged kernels' one-pass body a block owns
+// query rows of one (batch row, KV head), taken across the whole GQA
+// group (row r is query head kvh * group + r / Sq at position r % Sq),
+// so a K/V tile brought into shared memory serves every query head that
+// reads it.  The block loads lengths[b] itself and stops at the last KV
+// tile its deepest row's prefix and causal anchor allow: tiles past it
+// cost no loads.  The paged policy stages each 64-key tile's slice of
+// the block table in shared memory (a page may be as small as 8 keys)
+// and resolves every key's row from it.  In bf16 the block owns 64 rows
+// and runs the tensor-core body (masked_mma.cuh masked_mma_rows; its
+// notes): 4 warps of 16 rows, Q staged in K's last buffer while tile 0
+// comes into the first, then read into A fragments by ldmatrix, bf16
+// K/V tiles double-buffered by cp.async, S and P.V on mma.sync, the
+// online softmax on the accumulators, p rounded to bf16 before P.V, row
+// tiles launched deepest first; a warp's 16 rows may span two query
+// heads, each row masked at its own limit.  Instantiated for D = Dv =
+// 128 (masked_mma_kernel_d128, paged_mma_kernel_d128: the serve path)
+// and any even width (*_any), chosen by the widths alone.  In fp32 the
+// block owns 16 rows and runs the FMA body (common.cuh
+// masked_attention_rows), which the card tests hold to 1e-4; a dispatch
+// on the dtype, not a fallback.
+// That grid has ceil(group * Sq / rows) x B * Hkv blocks: at qwen3-8b's
+// decode (group 4, Sq 1, B 4, Hkv 8) 32 blocks on 132 SMs, most rows
+// padding, each block walking up to 12 tiles alone.  So where the grid
+// that would launch in the call's dtype has fewer blocks than the card
+// has SMs, the wrapper (kernels/fused_attention.py split_chunks) asks
+// for the split-KV body (split::split_kernel) with n_chunks = floor(2 *
+// SMs / its 16-row tiles) chunks, at most two blocks per SM, one wave,
+// where that is at least 2, and allocates its partials and ticket
 // counters; the same rule for the masked and the paged kernel, whose
-// shapes are the same, so the split is too.  One block owns the live
-// rows of one row tile of one (batch row, KV head), no padding rows
+// shapes and dtype are the same, so the split is too.  One block owns the live
+// rows of one 16-row tile of one (batch row, KV head), no padding rows
 // (the group's 4 at decode), and one chunk of that row's valid prefix:
 // its nt tiles of 64 keys cut into chunks of ceil(nt / n_chunks) whole
 // tiles, by logical key position and lengths[b] alone.  K and V come
@@ -66,7 +79,7 @@
 // chunk order, so the result is deterministic and no second launch is
 // needed.  Tables are read only for keys below the row's length, so a
 // length-0 row reads none and emits zeros.  Products on the tensor
-// cores and TMA page loads are the levers a later change pulls.
+// cores and TMA page loads are the levers a later change pulls there.
 //
 // The training forward at starcoder2-7b's shapes (B=2, Sq=Skv=2048,
 // causal) does 4*B*Hq*D*(Sq*(Sq+1)/2) = 77.4 GFLOP against 84 MB of Q,
@@ -97,6 +110,7 @@
 // in fp32 on the card.  The split is a dispatch on the dtype code in
 // fused_attention_fwd_launch, not a fallback.
 #include "common.cuh"
+#include "masked_mma.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -211,34 +225,6 @@ inline bool vec_ok(const void* p, int width) {
   return width % Tile<T>::kE == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// Keys [j0, j0 + nk) of the tile the policy kv has staged into a tile of
-// stride Tile<T>::kS, columns [0, wp); keys past nk and columns past width
-// are zeros.  vec: each 16-byte piece of a key's row is one cp.async
-// (the caller commits and waits); otherwise element by element, plain
-// loads and stores, visible after the caller's next __syncthreads().
-template <typename T, typename KV>
-__device__ __forceinline__ void load_keys(T* dst, const T* __restrict__ src,
-                                          const KV& kv, int j0, int nk,
-                                          int width, int wp, bool vec) {
-  constexpr int kE = Tile<T>::kE, kS = Tile<T>::kS;
-  if (vec) {
-    const int cpr = wp / kE;  // copies per key
-    for (int i = threadIdx.x; i < kBk * cpr; i += kThreads) {
-      const int j = i / cpr, c = i - j * cpr;
-      const bool ok = j < nk;
-      rt::mma::cp_async16(dst + j * kS + c * kE,
-                          ok ? src + kv.row(j0 + j) * width + c * kE : src,
-                          ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kBk * wp; i += kThreads) {
-      const int j = i / wp, d = i - j * wp;
-      dst[j * kS + d] = j < nk && d < width ? src[kv.row(j0 + j) * width + d]
-                                            : rt::from_f<T>(0.f);
-    }
-  }
-}
-
 // One block: rows [r0, r0 + kRows) of the group * Sq rows of one (batch
 // row b, KV head kvh), blockIdx.y = b * Hkv + kvh, and chunk c of that
 // row's valid prefix, blockIdx.x = row tile * n_chunks + c.  The plan:
@@ -297,8 +283,10 @@ __global__ void __launch_bounds__(kThreads)
     const int j0 = t * kBk, nk = min(kBk, len - j0);
     kv.stage(j0, nk);
     if (KV::kStaged) __syncthreads();
-    load_keys<T>(k_s + buf * Tl::kElems, k, kv, j0, nk, D, Dp, vec);
-    load_keys<T>(v_s + buf * Tl::kElems, v, kv, j0, nk, Dv, Dvp, vec);
+    rt::load_keys<T, kBk, kThreads>(k_s + buf * Tl::kElems, k, kv, j0, nk, D,
+                                    Dp, vec);
+    rt::load_keys<T, kBk, kThreads>(v_s + buf * Tl::kElems, v, kv, j0, nk,
+                                    Dv, Dvp, vec);
   };
   // the first tile's copies fly while the rows and q are set up
   if (t0 < t1) load(t0, 0);
@@ -499,6 +487,97 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
 }
 
 }  // namespace split
+
+// The bf16 one-pass body of fused_attention_masked and
+// fused_attention_paged on the tensor cores (see the notes above).
+namespace onepass {
+
+using rt::mma::bf16;
+namespace mm = rt::masked_mma;
+
+// One block: rows [r0, r0 + 64) of the group * Sq rows of one (batch row
+// b, KV head kvh), blockIdx.y = b * Hkv + kvh, row r being query head
+// kvh * group + r / Sq at position r % Sq; row tiles counted from the
+// last (the deepest causal rows) first.  Q is staged in K's last
+// buffer while tile 0 comes into the first, then read into A fragments.
+// kFull: D = Dv = 128, known to the compiler.
+template <bool kFull, typename KV>
+__device__ __forceinline__ void body(const bf16* __restrict__ q,
+                                     const bf16* __restrict__ k,
+                                     const bf16* __restrict__ v,
+                                     const int* __restrict__ lengths,
+                                     rt::KVSource src, bf16* __restrict__ out,
+                                     int Hq, int Hkv, int Sq, int D, int Dv,
+                                     int causal, float scale, bool vec_q,
+                                     bool vec_kv) {
+  using namespace rt::mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);    // kStages buffers
+  bf16* v_s = k_s + mm::kStages * mm::kTile;         // kStages buffers
+  bf16* q_s = k_s + (mm::kStages - 1) * mm::kTile;   // K's last buffer
+  __shared__ rt::RowInfo rows[mm::kRows];
+  __shared__ int end_s[mm::kRows / 32];
+  __shared__ rt::PagedScratch<mm::kBk> scratch;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (kFull) D = Dv = 128;
+  const int Dp = (D + 15) & ~15;
+  const int group = Hq / Hkv;
+  const int b = blockIdx.y / Hkv, kvh = blockIdx.y - b * Hkv;
+  const int len = max(0, min(lengths[b], src.skv));
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * mm::kRows;
+  const int n_rows = group * Sq;
+  // (b, query head, position) of block row j, or -1 past the rows
+  auto q_row = [&](int j) -> int64_t {
+    const int r = r0 + j;
+    if (r >= n_rows) return -1;
+    const int g = r / Sq;
+    return ((int64_t)b * Hq + kvh * group + g) * Sq + (r - g * Sq);
+  };
+
+  rt::RowInfo mine{-1, -1};
+  if (tid < mm::kRows) {
+    const int64_t row = q_row(tid);
+    if (row >= 0) {
+      mine.out_off = row * Dv;
+      const int pos = (int)(row % Sq);
+      mine.anchor = causal ? len - Sq + pos : len - 1;
+    }
+  }
+  const int kv_end = mm::publish_rows(rows, end_s, mine, len);
+
+  KV kv = KV::make(src, b, kvh, Hkv, scratch);
+  if (kv_end > 0)
+    mm::fetch_tile<kFull>(k_s, v_s, k, v, kv, 0, 0, kv_end, D, Dv, vec_kv);
+  if (vec_q) {
+    const int cpr = Dp >> 3;
+    for (int i = tid; i < mm::kRows * cpr; i += mm::kThreads) {
+      const int j = i / cpr, c = i - j * cpr;
+      const int64_t row = q_row(j);
+      const bool ok = row >= 0 && c * 8 < D;
+      cp_async16(q_s + j * kStride + c * 8, ok ? q + row * D + c * 8 : q, ok);
+    }
+  } else {
+    for (int i = tid; i < mm::kRows * Dp; i += mm::kThreads) {
+      const int j = i / Dp, d = i - j * Dp;
+      const int64_t row = q_row(j);
+      q_s[j * kStride + d] =
+          row >= 0 && d < D ? q[row * D + d] : __float2bfloat16(0.f);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[8][4];  // Q's A fragments, 16 columns each
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    if (kk * 16 < Dp)
+      ldsm_x4(qf[kk], q_s + warp * 16 * kStride + kk * 16 + a_off(lane));
+  // the walk's first barrier comes before anything overwrites Q
+  mm::masked_mma_rows<kFull>(k_s, v_s, qf, rows, k, v, kv, out, nullptr, len,
+                             kv_end, D, Dv, scale, vec_kv);
+}
+
+}  // namespace onepass
 
 // The bf16 training forward on the tensor cores (see the notes above).
 namespace fwd {
@@ -712,7 +791,57 @@ FWD_MMA_KERNEL(fwd_mma_kernel_d128, true)
 FWD_MMA_KERNEL(fwd_mma_kernel_any, false)
 #undef FWD_MMA_KERNEL
 
+// The one-pass body's instantiations as kernels with names of their own
+// (C linkage), dense and paged: *_d128 is the one the serve path runs.
+#define ONE_PASS_MMA_KERNEL(name, full, KV)                                  \
+  extern "C" __global__ void __launch_bounds__(rt::masked_mma::kThreads, 2) \
+      name(const rt::mma::bf16* __restrict__ q,                              \
+           const rt::mma::bf16* __restrict__ k,                              \
+           const rt::mma::bf16* __restrict__ v,                              \
+           const int* __restrict__ lengths, rt::KVSource src,                \
+           rt::mma::bf16* __restrict__ out, int Hq, int Hkv, int Sq, int D,  \
+           int Dv, int causal, float scale, bool vec_q, bool vec_kv) {       \
+    onepass::body<full, KV>(q, k, v, lengths, src, out, Hq, Hkv, Sq, D, Dv,  \
+                            causal, scale, vec_q, vec_kv);                   \
+  }
+#define MASKED_MMA_KERNEL(name, full) \
+  ONE_PASS_MMA_KERNEL(name, full, rt::DenseKV)
+#define PAGED_MMA_KERNEL(name, full) \
+  ONE_PASS_MMA_KERNEL(name, full, rt::PagedKV)
+MASKED_MMA_KERNEL(masked_mma_kernel_d128, true)
+MASKED_MMA_KERNEL(masked_mma_kernel_any, false)
+PAGED_MMA_KERNEL(paged_mma_kernel_d128, true)
+PAGED_MMA_KERNEL(paged_mma_kernel_any, false)
+#undef PAGED_MMA_KERNEL
+#undef MASKED_MMA_KERNEL
+#undef ONE_PASS_MMA_KERNEL
+
 namespace {
+namespace onepass {
+
+// The instantiation reads the widths alone, which a dense call and its
+// paged twin share; the loaders (vec) read the pointers' alignment too.
+template <typename KV>
+int launch(const void* q, const void* k, const void* v, const int* lengths,
+           rt::KVSource src, void* out, int B, int Hq, int Hkv, int Sq,
+           int D, int Dv, int causal, float scale, cudaStream_t stream) {
+  const bool full = D == 128 && Dv == 128;
+  auto kern = full ? masked_mma_kernel_d128 : masked_mma_kernel_any;
+  if constexpr (KV::kStaged)
+    kern = full ? paged_mma_kernel_d128 : paged_mma_kernel_any;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       mm::kSmemBytes);
+  const bool vec_q = rt::mma::vec_ok(q, D);
+  const bool vec_kv = rt::mma::vec_ok(k, D) && rt::mma::vec_ok(v, Dv);
+  dim3 grid(((Hq / Hkv) * Sq + mm::kRows - 1) / mm::kRows, B * Hkv);
+  kern<<<grid, mm::kThreads, mm::kSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), lengths, src, static_cast<bf16*>(out), Hq,
+      Hkv, Sq, D, Dv, causal, scale, vec_q, vec_kv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace onepass
 namespace fwd {
 
 int launch(const void* q, const void* k, const void* v, void* out,
@@ -735,53 +864,43 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace fwd
 
-template <typename T, typename KV>
-int launch(const void* q, const void* k, const void* v, const int* lengths,
-           rt::KVSource src, void* out, float* lse, int B, int Hq, int Hkv,
-           int Sq, int D, int Dv, int causal, int q_offset, float scale,
-           cudaStream_t stream) {
-  auto kern = masked_attention_kernel<T, KV>;
+// The FMA one-pass body (masked_attention_rows), which fp32 runs: the
+// masked and paged kernels' one-pass shapes and the training forward.
+template <typename KV>
+int fma_launch(int dtype, const void* q, const void* k, const void* v,
+               const int* lengths, rt::KVSource src, void* out, float* lse,
+               int B, int Hq, int Hkv, int Sq, int D, int Dv, int causal,
+               int q_offset, float scale, cudaStream_t stream) {
+  if (dtype != rt::kF32) return (int)cudaErrorInvalidValue;
+  auto kern = masked_attention_kernel<float, KV>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        rt::kSmemBytes);
   const int n_rows = (Hq / Hkv) * Sq;
   dim3 grid((n_rows + rt::kRows - 1) / rt::kRows, B * Hkv);
   kern<<<grid, rt::kThreads, rt::kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, src, static_cast<T*>(out), lse, Hq,
-      Hkv, Sq, D, Dv, causal, q_offset, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), lengths, src, static_cast<float*>(out),
+      lse, Hq, Hkv, Sq, D, Dv, causal, q_offset, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename KV>
-int run(int dtype, const void* q, const void* k, const void* v,
-        const int* lengths, rt::KVSource src, void* out, float* lse, int B,
-        int Hq, int Hkv, int Sq, int D, int Dv, int causal, int q_offset,
-        float scale, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case rt::kF32:
-      return launch<float, KV>(q, k, v, lengths, src, out, lse, B, Hq, Hkv,
-                               Sq, D, Dv, causal, q_offset, scale, s);
-    case rt::kBF16:
-      return launch<__nv_bfloat16, KV>(q, k, v, lengths, src, out, lse, B,
-                                       Hq, Hkv, Sq, D, Dv, causal, q_offset,
-                                       scale, s);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 // The masked and paged kernels: the split-KV body when the wrapper gives
 // chunks (n_chunks > 0, with the partials and ticket counters it
-// allocated), the one-pass body otherwise.
+// allocated), the one-pass body otherwise: on the tensor cores in bf16,
+// the FMA body (masked_attention_rows) in fp32, a dispatch on the dtype.
 template <typename KV>
 int run_masked(int dtype, const void* q, const void* k, const void* v,
                const int* lengths, rt::KVSource src, void* out, float* part,
                int* counter, int B, int Hq, int Hkv, int Sq, int D, int Dv,
                int causal, int n_chunks, float scale, void* stream) {
-  if (n_chunks <= 0)
-    return run<KV>(dtype, q, k, v, lengths, src, out, nullptr, B, Hq, Hkv,
-                   Sq, D, Dv, causal, 0, scale, stream);
   auto s = static_cast<cudaStream_t>(stream);
+  if (n_chunks <= 0) {
+    if (dtype == rt::kBF16)
+      return onepass::launch<KV>(q, k, v, lengths, src, out, B, Hq, Hkv, Sq,
+                                 D, Dv, causal, scale, s);
+    return fma_launch<KV>(dtype, q, k, v, lengths, src, out, nullptr, B, Hq,
+                          Hkv, Sq, D, Dv, causal, 0, scale, s);
+  }
   switch (dtype) {
     case rt::kF32:
       return split::launch<float, KV>(q, k, v, lengths, src, out, part,
@@ -817,9 +936,10 @@ extern "C" int fused_attention_fwd_launch(
   if (dtype == rt::kBF16)
     return fwd::launch(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, Dv, causal,
                        q_offset, scale, static_cast<cudaStream_t>(stream));
-  return run<rt::DenseKV>(dtype, q, k, v, nullptr,
-                          rt::KVSource{nullptr, 0, 0, Skv}, out, lse, B, Hq,
-                          Hkv, Sq, D, Dv, causal, q_offset, scale, stream);
+  return fma_launch<rt::DenseKV>(dtype, q, k, v, nullptr,
+                                 rt::KVSource{nullptr, 0, 0, Skv}, out, lse,
+                                 B, Hq, Hkv, Sq, D, Dv, causal, q_offset,
+                                 scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_attention_paged_launch(

@@ -1,5 +1,7 @@
-// Tensor-core pieces of the bf16 training attention kernels
-// (fused_attention.cu's forward, fused_attention_bwd.cu's dk/dv): the
+// Tensor-core pieces of the bf16 attention kernels (fused_attention.cu's
+// training forward, fused_attention_bwd.cu's dq and dk/dv, and the masked
+// body of masked_mma.cuh that the masked, paged and Q-projection kernels
+// run): the
 // warp-level mma.sync.m16n8k16 product, ldmatrix fragment loads, 16- and
 // 4-byte cp.async copies with zero-fill, and the bf16 tile loader that
 // stages (rows, width) planes in shared memory for ldmatrix.

@@ -14,11 +14,13 @@ batch row b attends columns ``c < lengths[b]`` and, under ``causal``,
 ``c <= lengths[b] - Sq + r`` (the causal triangle anchored at the end
 of the valid prefix); rows with no valid column emit zeros.  The paged
 kernel reads logical KV block j of row b from pool page
-``block_tables[b, j]``; the math is the masked kernel's.  Where their
-one-pass grid would have fewer blocks than the card has SMs (decode),
-both run a split-KV body instead, by one rule on the shapes
-(:func:`split_chunks`), so the paged kernel still gives the masked
-kernel's output on the gathered cache bit for bit.
+``block_tables[b, j]``; the math is the masked kernel's.  Their
+one-pass body runs on the tensor cores in bf16 (64 rows a block) and
+as fp32 FMAs in fp32 (16 rows).  Where that grid would have fewer
+blocks than the card has SMs (decode), both run a split-KV body
+instead, by one rule on the shapes and dtype (:func:`split_chunks`), so
+the paged kernel still gives the masked kernel's output on the
+gathered cache bit for bit.
 ``fused_attention`` replaces the TPU ``custom_vjp`` ``fused_attention``
 (forward ``_fwd``, backward ``_bwd``'s dq and dk/dv kernels).
 """
@@ -36,27 +38,45 @@ from repro_torch.kernels.chunked import chunked_attention
 #: widest head the CUDA kernels take (csrc/common.cuh kMaxD)
 MAX_HEAD_DIM = 128
 #: query rows per block and keys per tile of the masked and paged
-#: kernels' bodies (csrc/common.cuh kRows, kTileK)
+#: kernels' fp32 one-pass body and their split-KV body (csrc/common.cuh
+#: kRows, kTileK)
 ROWS, TILE = 16, 64
+#: query rows per block of their bf16 one-pass body on the tensor cores
+#: (csrc/masked_mma.cuh masked_mma::kRows)
+MMA_ROWS = 64
 
 
-def one_pass_blocks(b: int, hq: int, hkv: int, sq: int) -> int:
-    """Blocks of the masked and paged kernels' one-pass grid: the
-    ceil(group * Sq / ROWS) row tiles of each (batch row, KV head)."""
-    return -(-(hq // hkv) * sq // ROWS) * b * hkv
+def one_pass_rows(dtype: torch.dtype) -> int:
+    """Query rows per block of the one-pass body that runs in ``dtype``:
+    the tensor-core body in bf16, the FMA body otherwise."""
+    return MMA_ROWS if dtype == torch.bfloat16 else ROWS
 
 
-def split_chunks(b: int, hq: int, hkv: int, sq: int, n_sms: int) -> int:
+def one_pass_blocks(b: int, hq: int, hkv: int, sq: int,
+                    rows: int = ROWS) -> int:
+    """Blocks of a grid of ``rows``-row tiles over the group * Sq rows of
+    each (batch row, KV head): the one-pass bodies' grids and (at ROWS)
+    the split-KV body's row tiles."""
+    return -(-(hq // hkv) * sq // rows) * b * hkv
+
+
+def split_chunks(b: int, hq: int, hkv: int, sq: int, n_sms: int,
+                 dtype: torch.dtype = torch.bfloat16) -> int:
     """KV chunks per (row tile, batch row, KV head) of the masked and
     paged kernels' split-KV decode body, or 0 for their one-pass body.
-    Where the one-pass grid has fewer blocks than the card's ``n_sms``
-    SMs, each block's KV prefix is cut into floor(2 * n_sms / blocks)
-    chunks: at most two blocks per SM (as many as fit one, at the split
-    body's shared memory), so one wave.  It reads the shapes alone,
+    Where the one-pass grid that would launch in ``dtype`` (64-row tiles
+    in bf16, 16-row in fp32) has fewer blocks than the card's ``n_sms``
+    SMs, each of the split body's 16-row tiles cuts its KV prefix into
+    floor(2 * n_sms / its blocks) chunks: at most two blocks per SM (as
+    many as fit one, at the split body's shared memory), so one wave;
+    where that gives fewer than two chunks the split gains nothing and
+    the one-pass body runs.  It reads the shapes and the dtype alone,
     which the dense and the paged kernel share, so the two split
     alike."""
-    blocks = one_pass_blocks(b, hq, hkv, sq)
-    return 0 if blocks >= n_sms else 2 * n_sms // blocks
+    if one_pass_blocks(b, hq, hkv, sq, one_pass_rows(dtype)) >= n_sms:
+        return 0
+    n = 2 * n_sms // one_pass_blocks(b, hq, hkv, sq)
+    return n if n >= 2 else 0
 
 
 def chunk_bounds(length: int, n_chunks: int) -> list:
@@ -74,12 +94,12 @@ def chunk_bounds(length: int, n_chunks: int) -> list:
 
 
 def kv_split(q: torch.Tensor, v: torch.Tensor, n_sms: int) -> int:
-    """:func:`split_chunks` of a masked or paged call: q (B, Hq, Sq, D)
-    and its V array, a dense cache (B, Hkv, Skv, Dv) or a page pool
-    (num_pages, Hkv, page, Dv), both with Hkv at dim 1 and nothing else
-    read."""
+    """:func:`split_chunks` of a masked or paged call: q (B, Hq, Sq, D),
+    whose dtype the call shares, and its V array, a dense cache (B, Hkv,
+    Skv, Dv) or a page pool (num_pages, Hkv, page, Dv), both with Hkv at
+    dim 1 and nothing else read."""
     b, hq, sq, _ = q.shape
-    return split_chunks(b, hq, v.shape[1], sq, n_sms)
+    return split_chunks(b, hq, v.shape[1], sq, n_sms, q.dtype)
 
 
 @functools.lru_cache(maxsize=None)

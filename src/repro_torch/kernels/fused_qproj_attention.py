@@ -4,9 +4,10 @@ as a CUDA kernel for Hopper (``csrc/fused_qproj_attention.cu``) and its
 plain PyTorch version.
 
 Replaces the TPU kernel ``repro/kernels/fused_qproj_attention.py``
-``fused_qproj_attention_masked``.  The Q tile is projected in fp32,
-rotated by RoPE at ``lengths[b] - Sq + r`` when ``rope_theta`` is set,
-rounded to K's dtype, then runs ``fused_attention_masked``'s body.
+``fused_qproj_attention_masked``.  The Q tile is projected with fp32
+accumulation (on the tensor cores in bf16), rotated by RoPE at
+``lengths[b] - Sq + r`` when ``rope_theta`` is set, rounded to K's
+dtype, then runs ``fused_attention_masked``'s body.
 ``fused_qproj_attention_paged`` (replacing the TPU kernel of that name)
 is the same over a KV page pool read through block tables.
 

@@ -15,15 +15,21 @@ matches its plain version and gives bit for bit its dense kernel's
 output on the gathered cache: the two share one body.  #4 at qwen3-8b's
 widths and M=1 (B=2 and 4; pages of 8, 16 and 128; lengths 0, 1, a page
 edge, and one that takes more blocks than the card has SMs) runs the
-split-KV body, equal to #1 and to itself bit for bit.  The training
+split-KV body, equal to #1 and to itself bit for bit.  At one-pass
+shapes #1 and #2 run the tensor-core body in bf16 and the FMA body in
+fp32 (D = 128, 64 and 40; lengths 0, 1, 63, 64, 65 and the full cache;
+Sq off the 64-row grid, so a block's rows span two query heads), are
+bitwise repeatable, and #4 and #5 equal them bit for bit over pages of
+8, 16 and 128, #5 at M=1 too.  The training
 kernels (forward with lse, dq, dk/dv, the Q-projection forward) match
 their plain versions relative to each output's largest magnitude (fp32
 1e-4, bf16 2e-2) off the tile grids and at the edges of the 64-row and
 64-key tiles of the tensor-core bodies of #7, #8 and #9, with GQA, an
 explicit causal offset (a negative one too), Sq > Skv, D = 40 and 36
 and Dv != D; rows that see no key emit o = 0 and lse = -1e30 and keys
-no row sees get no gradient; dq and dk/dv are bitwise repeatable; the
-instantiations of those three bf16 bodies show HMMA in their SASS;
+no row sees get no gradient; dq, dk/dv and #10 are bitwise repeatable;
+#10 holds at D = 128, 40 and 36 (x, Wq, K and V by plain loads); every
+instantiation of the bf16 tensor-core bodies shows HMMA in its SASS;
 backward through a one-layer model on the kernels reaches wq, wk and
 wv; the serve kernels refuse a tensor that requires grad.  The
 Mamba-2 SSD scan (#11) matches its plain version in fp32 and
@@ -206,7 +212,7 @@ def test_split_decode_matches_plain_and_dense(cuda_device, dtype, tol, b,
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
     n_sms = torch.cuda.get_device_properties(
         cuda_device).multi_processor_count
-    n_chunks = split_chunks(b, hq, hkv, 1, n_sms)
+    n_chunks = split_chunks(b, hq, hkv, 1, n_sms, dtype)
     assert n_chunks > 0
     assert len(chunk_bounds(max(lens), n_chunks)) * b * hkv > n_sms
     zero = [i for i, n in enumerate(lens) if n == 0]
@@ -219,6 +225,122 @@ def test_split_decode_matches_plain_and_dense(cuda_device, dtype, tol, b,
     assert torch.equal(got, fused_attention_masked(q, kd, vd, lengths))
     assert torch.equal(got, fused_attention_paged(q, kp, vp, lengths, tbl))
     assert not got[zero].any()
+
+
+# The masked bodies' one-pass shapes (b, hq, hkv, sq, skv, d, lengths):
+# grids of at least 132 blocks even at 64 rows a block, so neither dtype
+# takes the split-KV body; Sq off the 64-row grid, so a block's rows and
+# one warp's 16 span two query heads (group * Sq rows flattened); lengths
+# 0, 1 (rows before the prefix see nothing), 63, 64, 65 and the full
+# cache; D = 128 (the serve path's _d128 instantiation), 64 and 40 (not
+# a multiple of 16: zero-padded fragments)
+MASKED_CASES = [
+    (4, 32, 8, 70, 300, 128, [0, 1, 64, 300]),
+    (4, 32, 8, 70, 200, 64, [63, 65, 200, 0]),
+    (4, 32, 8, 70, 150, 40, [65, 150, 1, 64]),
+]
+
+
+def _masked_inputs(dev, dtype, b, hq, hkv, sq, skv, d, lens, e=256):
+    g = torch.Generator(device=dev).manual_seed(7)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g, device=dev)
+                               * scale).to(dtype)
+    return dict(q=r(b, hq, sq, d), k=r(b, hkv, skv, d), v=r(b, hkv, skv, d),
+                x=r(b, sq, e), wq=r(e, hq, d, scale=e ** -0.5),
+                lens=torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,lens", MASKED_CASES)
+def test_masked_one_pass_bodies_match_plain(cuda_device, dtype, tol, b, hq,
+                                            hkv, sq, skv, d, lens):
+    """#1 and #2 at one-pass shapes: the tensor-core bodies in bf16 (2e-2)
+    and the FMA bodies in fp32 (1e-4) against their plain versions,
+    causal and not, with and without RoPE; bitwise repeatable; zeros for
+    a length-0 row."""
+    n_sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    assert split_chunks(b, hq, hkv, sq, n_sms, dtype) == 0
+    t = _masked_inputs(cuda_device, dtype, b, hq, hkv, sq, skv, d, lens)
+    zero = [i for i, n in enumerate(lens) if n == 0]
+    for causal in (True, False):
+        args = (t["q"], t["k"], t["v"], t["lens"])
+        got = fused_attention_masked(*args, causal=causal)
+        want = fused_attention_masked_plain(*args, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(got, fused_attention_masked(*args, causal=causal))
+        assert not got[zero].any()
+        for theta in (1e4, None):
+            args = (t["x"], t["wq"], t["k"], t["v"], t["lens"])
+            got = fused_qproj_attention_masked(*args, causal=causal,
+                                               rope_theta=theta)
+            want = fused_qproj_attention_masked_plain(*args, causal=causal,
+                                                      rope_theta=theta)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            assert torch.equal(got, fused_qproj_attention_masked(
+                *args, causal=causal, rope_theta=theta))
+            assert not got[zero].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("page", [8, 16, 128])
+@pytest.mark.parametrize("case", [0, 2])
+def test_masked_one_pass_paged_twins_equal_dense(cuda_device, dtype, tol,
+                                                 page, case):
+    """#4 and #5 at one-pass shapes, over shuffled tables (a dead row whose
+    table row is zeros): within tolerance of their plain versions and bit
+    for bit #1 and #2 on the gathered cache (one body, another KV
+    address)."""
+    b, hq, hkv, sq, skv, d, lens = MASKED_CASES[case]
+    lens = [0] + lens[1:]                            # row 0: dead, length 0
+    t = _masked_inputs(cuda_device, dtype, b, hq, hkv, sq, skv, d, lens)
+    kp, vp, tbl, k, v = _paged(t["k"], t["v"], page, dead=(0,))
+    ln = t["lens"]
+    got = fused_attention_paged(t["q"], kp, vp, ln, tbl)
+    torch.testing.assert_close(
+        got.float(), fused_attention_paged_plain(t["q"], kp, vp, ln,
+                                                 tbl).float(),
+        rtol=tol, atol=tol)
+    assert torch.equal(got, fused_attention_masked(t["q"], k, v, ln))
+    got = fused_qproj_attention_paged(t["x"], t["wq"], kp, vp, ln, tbl,
+                                      rope_theta=1e4)
+    torch.testing.assert_close(
+        got.float(), fused_qproj_attention_paged_plain(
+            t["x"], t["wq"], kp, vp, ln, tbl, rope_theta=1e4).float(),
+        rtol=tol, atol=tol)
+    assert torch.equal(got, fused_qproj_attention_masked(
+        t["x"], t["wq"], k, v, ln, rope_theta=1e4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("b,sq,page", [(4, 1, 16), (2, 3, 8)])
+def test_qproj_paged_decode_rows_match_plain_and_dense(cuda_device, dtype,
+                                                       tol, b, sq, page):
+    """#5 on the rung-down decode path (M=1, 63 of a block's 64 rows
+    padding) and a 3-row chunk at D = 128: within tolerance of its plain
+    version and bit for bit #2 on the gathered cache."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    r = lambda *s, scale=1.0: (torch.randn(
+        *s, generator=g, device=cuda_device) * scale).to(dtype)
+    hq, hkv, d, skv, e = 12, 4, 128, 400, 320
+    x, wq = r(b, sq, e), r(e, hq, d, scale=e ** -0.5)
+    k, v = r(b, hkv, skv, d), r(b, hkv, skv, d)
+    lens = torch.tensor([301, 0, 399, 64][:b], dtype=torch.int32,
+                        device=cuda_device)
+    kp, vp, tbl, kd, vd = _paged(k, v, page)
+    got = fused_qproj_attention_paged(x, wq, kp, vp, lens, tbl,
+                                      rope_theta=1e4)
+    torch.testing.assert_close(
+        got.float(), fused_qproj_attention_paged_plain(
+            x, wq, kp, vp, lens, tbl, rope_theta=1e4).float(),
+        rtol=tol, atol=tol)
+    assert torch.equal(got, fused_qproj_attention_masked(
+        x, wq, kd, vd, lens, rope_theta=1e4))
 
 
 @pytest.mark.cuda
@@ -373,6 +495,8 @@ def test_qproj_training_kernels_match_plain(cuda_device, dtype, tol, theta,
     o, lse = fused_qproj_attention_fwd(x, wq, k, v, **kw)
     o_p, lse_p = fused_qproj_attention_fwd_plain(x, wq, k, v, **kw)
     assert _rel(o, o_p) <= tol and _rel(lse, lse_p) <= tol
+    again = fused_qproj_attention_fwd(x, wq, k, v, **kw)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
     grads = []
     for plain in (False, True):
         leaves = [t.clone().requires_grad_() for t in (x, wq, k, v)]
@@ -380,6 +504,31 @@ def test_qproj_training_kernels_match_plain(cuda_device, dtype, tol, theta,
         grads.append([t.grad for t in leaves])
     for got, want in zip(*grads):
         assert _rel(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("e,d,sq,skv", [(256, 128, 130, 130),
+                                        (96, 40, 100, 120),
+                                        (100, 36, 70, 70)])
+def test_qproj_fwd_widths_match_plain(cuda_device, dtype, tol, e, d, sq, skv):
+    """#10 at D = 128 (RoPE in registers), 40 (not a multiple of 16) and
+    36 with E = 100 (neither a multiple of 8: x, Wq, K and V by plain
+    loads): o and lse against the plain version, bitwise repeatable, the
+    rows before the prefix (Sq > Skv - q_offset) emitting zeros."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    r = lambda *s, scale=1.0: (torch.randn(
+        *s, generator=g, device=cuda_device) * scale).to(dtype)
+    b, hq, hkv = 2, 6, 2
+    x, wq = r(b, sq, e), r(e, hq, d, scale=e ** -0.5)
+    k, v = r(b, hkv, skv, d), r(b, hkv, skv, d)
+    kw = dict(causal=True, q_offset=-3, rope_theta=1e4)
+    o, lse = fused_qproj_attention_fwd(x, wq, k, v, **kw)
+    o_p, lse_p = fused_qproj_attention_fwd_plain(x, wq, k, v, **kw)
+    assert _rel(o, o_p) <= tol and _rel(lse, lse_p) <= tol
+    again = fused_qproj_attention_fwd(x, wq, k, v, **kw)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+    assert not o[:, :, :3].any() and bool((lse[:, :, :3] == -1e30).all())
 
 
 @pytest.mark.cuda

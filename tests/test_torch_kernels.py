@@ -264,3 +264,74 @@ def test_split_plan_is_the_same_for_dense_and_paged(skv, page, n_pages):
         for length in range(0, min(skv, n_pages * page) + 1, 37):
             assert chunk_bounds(length, n) == chunk_bounds(
                 length, kv_split(q, pool, 132))
+
+
+# (B, Hq, Hkv, Sq): the table shape of #1 (starcoder2-7b's 256-row
+# prefill chunk), its short last chunks (40 and 64 rows), a 128-row
+# chunk, qwen3-8b decode and a causal 5-row chunk
+GRID_SHAPES = [(1, 36, 4, 256), (1, 36, 4, 40), (1, 36, 4, 64),
+               (1, 36, 4, 128), (4, 32, 8, 1), (3, 32, 8, 5)]
+
+
+@pytest.mark.parametrize("dtype,rows", [(torch.bfloat16, 64),
+                                        (torch.float32, 16)])
+@pytest.mark.parametrize("b,hq,hkv,sq", GRID_SHAPES)
+def test_split_rule_reads_the_grid_that_would_launch(dtype, rows, b, hq, hkv,
+                                                     sq):
+    """``one_pass_blocks`` counts the grid of the one-pass body that runs
+    in each dtype (``csrc/masked_mma.cuh``'s 64-row tiles in bf16,
+    ``common.cuh``'s 16-row FMA tiles in fp32), and ``split_chunks``
+    takes the split-KV body exactly when that grid has fewer blocks than
+    the card's SMs and the split's own 16-row tiles get at least two
+    chunks each."""
+    from repro_torch.kernels.fused_attention import (
+        ROWS, one_pass_blocks, one_pass_rows, split_chunks)
+    assert one_pass_rows(dtype) == rows
+    grid = -(-(hq // hkv) * sq // rows) * b * hkv
+    assert one_pass_blocks(b, hq, hkv, sq, one_pass_rows(dtype)) == grid
+    split_tiles = one_pass_blocks(b, hq, hkv, sq)
+    assert split_tiles == -(-(hq // hkv) * sq // ROWS) * b * hkv
+    for n_sms in (132, 114):
+        n = split_chunks(b, hq, hkv, sq, n_sms, dtype)
+        if grid >= n_sms or 2 * n_sms // split_tiles < 2:
+            assert n == 0
+        else:
+            assert n == 2 * n_sms // split_tiles >= 2
+            # one wave: at most two split blocks per SM
+            assert n * split_tiles <= 2 * n_sms
+    # the table shape keeps the one-pass body in both dtypes
+    assert split_chunks(1, 36, 4, 256, 132, dtype) == 0
+
+
+def test_split_rule_cases_by_dtype():
+    """Where the two one-pass grids fall on either side of the SM count:
+    a 128-row chunk of starcoder2-7b is 72 blocks at 64 rows but 288 at
+    16, and the split would give it one chunk, so both dtypes run the
+    one-pass body; a 40-row chunk (92 split tiles) splits in two in both;
+    qwen3-8b decode splits into 8 chunks in both."""
+    from repro_torch.kernels.fused_attention import split_chunks
+    for dtype in (torch.bfloat16, torch.float32):
+        assert split_chunks(1, 36, 4, 128, 132, dtype) == 0
+        assert split_chunks(1, 36, 4, 40, 132, dtype) == 2
+        assert split_chunks(4, 32, 8, 1, 132, dtype) == 8
+    # a 64-row chunk: 36 bf16 blocks, 144 fp32 blocks, the split one chunk
+    assert split_chunks(1, 36, 4, 64, 132, torch.bfloat16) == 0
+    assert split_chunks(1, 36, 4, 64, 132, torch.float32) == 0
+    # 8 rows of a group of 4 on 8 KV heads, B=2: 16 bf16 blocks, 32 split
+    # tiles, so 8 chunks; fp32's grid is the split's tiles, 32 < 132
+    assert split_chunks(2, 32, 8, 8, 132, torch.bfloat16) == 8
+    assert split_chunks(2, 32, 8, 8, 132, torch.float32) == 8
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_plan_is_the_same_for_dense_and_paged_in_each_dtype(dtype):
+    """``kv_split`` reads q's dtype and shapes and the V array's KV heads,
+    all of which a dense call and its paged twin share: over every shape
+    of SPLIT_SHAPES and GRID_SHAPES the two plans agree in each dtype."""
+    from repro_torch.kernels.fused_attention import kv_split
+    for b, hq, hkv, sq in SPLIT_SHAPES + GRID_SHAPES:
+        q = torch.zeros(b, hq, sq, 128, dtype=dtype)
+        dense = torch.zeros(b, hkv, 300, 128, dtype=dtype)
+        for page, n_pages in ((8, 51), (16, 300), (128, 9)):
+            pool = torch.zeros(n_pages, hkv, page, 128, dtype=dtype)
+            assert kv_split(q, dense, 132) == kv_split(q, pool, 132)
