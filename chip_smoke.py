@@ -66,13 +66,19 @@ plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal) and the Mamba-2 SSD scan (#11) to its plain version in bf16 and
 fp32 at the serve path's prefill chunk (B=1, L=188, with an initial
 state) and the cache-free forward's shape (B=4, L=2048), and times
-them.  #1, #2, #4 and #7-#10 are also held per row (o, lse, dq, dk,
-dv), and that gate is shown to reject plain results with one tile (#4:
-one KV chunk of its split-KV body) dropped; #1-#4 and #8-#10 must be
-bitwise repeatable.  Each library yardstick is the median of
-LIB_REPEATS timings, its spread logged; #2, #5 and #10, which no one
+them.  #1-#4, #6 and #7-#10 are also held per row (o, lse, dq, dk,
+dv; #3 and #6 their output on a zero residual), and that gate is shown
+to reject plain results with one tile (#4: one KV chunk of its split-KV
+body; #3 and #6: each row's last key chunk, and separately the last
+head's contribution) dropped; #1-#4, #6 and #8-#10 must be bitwise
+repeatable.  Each library yardstick is the median of LIB_REPEATS
+timings, its spread logged; #2, #3, #5, #6 and #10, which no one
 PyTorch call computes, log the unfused path's time (torch.matmul for
-x.Wq, RoPE, SDPA) beside them and carry it as unfused_ms.
+x.Wq, RoPE, SDPA; for #3 and #6 then torch.matmul for o.Wo and the
+residual add) beside them and carry it as unfused_ms.  #3 and #6 (and
+their unfused path) are timed over WEIGHT_COPIES distinct (Wq, Wo)
+pairs in turn, so each call reads its 85 MB of weights from device
+memory rather than the 50 MB L2.
 The qwen phase logs the median decode step of each engine.
 Every kernel must have launched on some path.  In the kernels' JSON
 record each kernel timed on a tensor-core body also carries its D = 128
@@ -239,28 +245,44 @@ def mask_of(lens, sq, skv, dev):
             & (cols[None, None, :] <= rows[:, :, None])[:, None])
 
 
-def unfused_ms(name, x, wq, k, v, pos, theta, mask=None, iters=10):
+def unfused_ms(name, x, wq, k, v, pos, theta, mask=None, iters=10,
+               out_proj=None):
     """The unfused path that a fused Q-projection kernel (#2, #5, #10)
     replaces, timed at the kernel's shape for reference: x.Wq as one
     torch.matmul, the RoPE oracle (ref.rope) at ``pos``, then one SDPA
     over k, v (with ``mask``, heads already expanded; without, causal
-    with GQA).  Three calls, not one, so not the kernel's library_ms."""
+    with GQA).  With ``out_proj`` = (weight pairs, residual), the decode
+    sub-block that #3 and #6 replace: the calls cycle through the (Wq,
+    Wo) pairs (distinct copies, so each call reads its weights from
+    device memory, as the kernels' timing does; ``wq`` is then unused),
+    and o.Wo as one torch.matmul plus the residual follow SDPA.  Several
+    calls, not one, so not the kernel's library_ms."""
     from repro_torch.kernels import ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b, sq, e = x.shape
     hq, d = wq.shape[1:]
-    w2 = wq.reshape(e, hq * d)
+    pairs, res = out_proj if out_proj else ([(wq, None)], None)
+    turn = [0]
 
     def run():
-        q = torch.matmul(x, w2).view(b, sq, hq, d).transpose(1, 2)
-        q = ref.rope(q, pos, theta)
+        w_q, w_o = pairs[turn[0] % len(pairs)]
+        turn[0] += 1
+        q = torch.matmul(x, w_q.view(e, hq * d)).view(b, sq, hq, d)
+        q = ref.rope(q.transpose(1, 2), pos, theta)
         if mask is None:
-            return sdpa(q, k, v, is_causal=True, enable_gqa=True)
-        return sdpa(q, k, v, attn_mask=mask)
+            o = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            o = sdpa(q, k, v, attn_mask=mask)
+        if w_o is None:
+            return o
+        o = o.transpose(1, 2).reshape(b, sq, -1)
+        return torch.matmul(o, w_o.view(-1, e)) + res
 
     ms = time_ms(run, iters)
-    log(f"  {name}: the unfused path (torch.matmul, RoPE, SDPA) takes "
-        f"{ms:.4f} ms at the same shape")
+    what = "torch.matmul, RoPE, SDPA" + (", torch.matmul, add" if out_proj
+                                         else "")
+    log(f"  {name}: the unfused path ({what}) takes {ms:.4f} ms at the "
+        f"same shape")
     return ms
 
 
@@ -280,6 +302,58 @@ def masked_gates(name, tag, out, want, run, length, dropped):
     cut[:, :, rows:] = dropped(rows, (length - 1) // 64 * 64)
     row_gate(name, f"{tag}, plain with a key tile dropped",
              {"o": (cut, want)}, expect=False)
+
+
+def decode_terms(x, wq, k, v, wo, lens, key_lens, theta):
+    """Each head's o @ Wo[h], (B, Hq, E) in fp32, computed as
+    fused_decode_block_plain computes the sub-block: q projected and
+    rotated at lens - 1, attention over the keys [0, key_lens) of each
+    row, o rounded to Wo's dtype."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chunked import chunked_attention
+    q = torch.einsum("bse,ehd->bhsd", x, wq)
+    q = ref.rope(q, ref.rope_positions(1, k.shape[2], lengths=lens), theta)
+    o = chunked_attention(q, k, v, causal=False, lengths=key_lens)
+    return torch.einsum("bhse,hed->bhd", o.to(wo.dtype).float(), wo.float())
+
+
+def decode_gates(name, tag, out, want, run, x, wq, k, v, wo, lens, theta):
+    """#3's and #6's gates beyond check_kernel at their table shapes, on
+    a zero residual (``out`` and ``want`` are o @ Wo summed over the
+    heads; ``run()`` the kernel again): bitwise repeatable, within
+    ROW_TOL per row, and that row gate shown to reject the plain result
+    without the last head's contribution and the plain result without
+    each row's last key chunk of the kernel's plan (keys from the
+    chunk's first on left out, q still rotated at lens - 1)."""
+    from repro_torch.kernels.fused_attention import chunk_bounds
+    from repro_torch.kernels.fused_decode_block import decode_plan
+    if not torch.equal(run(), out):
+        raise SystemExit(f"{name} is not deterministic")
+    log(f"  {name} [{tag}] bitwise repeatable")
+    row_gate(name, tag, {"y": (out, want)})
+    terms = decode_terms(x, wq, k, v, wo, lens, lens, theta)
+    row_gate(name, f"{tag}, plain without its last head",
+             {"y": (terms[:, :-1].sum(1).to(out.dtype)[:, None], want)},
+             expect=False)
+    b, _, e = x.shape
+    hq, d = wq.shape[1:]
+    plan = decode_plan(b, hq, k.shape[1], e, d, v.shape[3],
+                       torch.cuda.get_device_properties(
+                           x.device).multi_processor_count)
+    short = torch.tensor([chunk_bounds(int(n), plan.n_chunks)[-1][0]
+                          for n in lens], dtype=torch.int32,
+                         device=x.device)
+    log(f"  {name}: {plan.n_chunks} key chunks per (row, KV head); each "
+        f"row without its last: lengths {short.tolist()}")
+    cut = decode_terms(x, wq, k, v, wo, lens, short, theta).sum(1)
+    row_gate(name, f"{tag}, plain without each row's last key chunk",
+             {"y": (cut.to(out.dtype)[:, None], want)}, expect=False)
+
+
+#: distinct (Wq, Wo) pairs the decode megakernels' timings cycle through
+#: (3 x 85 MB against the 50 MB L2), so each timed call reads its
+#: weights from device memory, as a 32-layer decode step does
+WEIGHT_COPIES = 3
 
 
 def kernel_phase(dev, g):
@@ -429,13 +503,30 @@ def kernel_phase(dev, g):
         return check_decode_with("fused_decode_block", dense_decode,
                                  (xx, kk, vv, rr, ll), tag)
 
-    f3 = lambda: fused_decode_block(x, wq, k, v, wo, res, lens,
-                                    rope_theta=theta)
     p3 = lambda: fused_decode_block_plain(x, wq, k, v, wo, res, lens,
                                           rope_theta=theta)
-    out, err = check_decode(x, k, v, res, lens, "B=4 lengths=[301..705]")
-    if not torch.equal(out, f3()):
-        raise SystemExit("fused_decode_block is not deterministic")
+    tag = "B=4 lengths=[301..705]"
+    out, err = check_decode(x, k, v, res, lens, tag)
+    zero = torch.zeros_like(res)
+    decode_gates("fused_decode_block", f"{tag} zero residual",
+                 fused_decode_block(x, wq, k, v, wo, zero, lens,
+                                    rope_theta=theta),
+                 fused_decode_block_plain(x, wq, k, v, wo, zero, lens,
+                                          rope_theta=theta),
+                 lambda: fused_decode_block(x, wq, k, v, wo, zero, lens,
+                                            rope_theta=theta),
+                 x, wq, k, v, wo, lens, theta)
+    pairs = [(wq, wo)] + [(rnd(E, HQ, D, scale=E ** -0.5),
+                           rnd(HQ, D, E, scale=(HQ * D) ** -0.5))
+                          for _ in range(WEIGHT_COPIES - 1)]
+    turn = [0]
+
+    def f3():
+        w_q, w_o = pairs[turn[0] % WEIGHT_COPIES]
+        turn[0] += 1
+        return fused_decode_block(x, w_q, k, v, w_o, res, lens,
+                                  rope_theta=theta)
+
     for ls in ([0, 1, 257], [64, 0, 1023]):
         ll = torch.tensor(ls, dtype=torch.int32, device=dev)
         bb = len(ls)
@@ -455,8 +546,14 @@ def kernel_phase(dev, g):
         source="src/repro_torch/kernels/csrc/fused_decode_block.cu",
         replaces="src/repro/kernels/fused_decode_block.py:258",
         max_abs_err=err, ms=time_ms(f3, 20), plain_ms=time_ms(p3, 3),
-        bound_ms=bms, bound_by=by, library_ms=None)
-    results.update(paged_kernel_phase(dev, g, check, check_decode_with))
+        bound_ms=bms, bound_by=by, library_ms=None,
+        unfused_ms=unfused_ms(
+            "fused_decode_block", x, wq,
+            *(t.repeat_interleave(HQ // HKV, 1) for t in (k, v)),
+            ref.rope_positions(1, skv, lengths=lens), theta,
+            mask_of(lens, 1, skv, dev), iters=20, out_proj=(pairs, res)))
+    results.update(paged_kernel_phase(dev, g, check, check_decode_with,
+                                      pairs))
     for name, r in results.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {name}: kernel_ms={r['ms']:.4f} plain_ms="
@@ -496,11 +593,13 @@ def paged_from_dense(k, v, lens, page, g, extra=37, dead=()):
     return pools[0], pools[1], tbl
 
 
-def paged_kernel_phase(dev, g, check, check_decode_with):
+def paged_kernel_phase(dev, g, check, check_decode_with, pairs):
     """The three paged kernels at the paged path's full-width shapes in
     bf16, over shuffled tables of pools larger than the batch needs:
     each against its plain version, and bit for bit against its dense
-    kernel on the gathered cache (one body, another KV address)."""
+    kernel on the gathered cache (one body, another KV address).  #6 is
+    timed over the (Wq, Wo) ``pairs`` that #3's timing cycles through,
+    and its own gates run on the first."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_attention import (
         chunk_bounds, fused_attention_masked, fused_attention_masked_plain,
@@ -619,8 +718,7 @@ def paged_kernel_phase(dev, g, check, check_decode_with):
 
     # -- 5. fused_qproj_attention_paged: the megakernel one rung down ----
     E, HQ, HKV, D = (STARCODER[k] for k in ("E", "HQ", "HKV", "D"))
-    wq = rnd(E, HQ, D, scale=E ** -0.5)
-    wo = rnd(HQ, D, E, scale=(HQ * D) ** -0.5)
+    wq, wo = pairs[0]
     k, v = rnd(b, HKV, skv, D), rnd(b, HKV, skv, D)
     x, res = rnd(b, 1, E), rnd(b, 1, E)
     kp, vp, tbl = paged_from_dense(k, v, PAGED_LENS, page, g)
@@ -697,8 +795,25 @@ def paged_kernel_phase(dev, g, check, check_decode_with):
         if zero and not torch.equal(got[zero], rr[zero]):
             raise SystemExit("fused_decode_block_paged: a length-0 row "
                              "must return its residual")
-    f6 = lambda: fused_decode_block_paged(x, wq, kp, vp, wo, res, lens, tbl,
-                                          rope_theta=theta)
+    zero = torch.zeros_like(res)
+    run6 = lambda: fused_decode_block_paged(x, wq, kp, vp, wo, zero, lens,
+                                            tbl, rope_theta=theta)
+    got6 = run6()
+    same_as_dense("fused_decode_block_paged", got6,
+                  dense_decode(x, kp, vp, zero, lens, tbl), "B=4 zero residual")
+    decode_gates("fused_decode_block_paged",
+                 f"B=4 page {page} zero residual", got6,
+                 fused_decode_block_paged_plain(x, wq, kp, vp, wo, zero,
+                                                lens, tbl, rope_theta=theta),
+                 run6, x, wq, kg, vg, wo, lens, theta)
+    turn = [0]
+
+    def f6():
+        w_q, w_o = pairs[turn[0] % len(pairs)]
+        turn[0] += 1
+        return fused_decode_block_paged(x, w_q, kp, vp, w_o, res, lens, tbl,
+                                        rope_theta=theta)
+
     p6 = lambda: fused_decode_block_paged_plain(x, wq, kp, vp, wo, res, lens,
                                                 tbl, rope_theta=theta)
     byts = 2 * (3 * b * E + wq.numel() + wo.numel()
@@ -709,10 +824,21 @@ def paged_kernel_phase(dev, g, check, check_decode_with):
         source="src/repro_torch/kernels/csrc/fused_decode_block.cu",
         replaces="src/repro/kernels/fused_decode_block.py:194",
         max_abs_err=err, ms=time_ms(f6, 20), plain_ms=time_ms(p6, 3),
-        bound_ms=bms, bound_by=by, library_ms=None)
-    log_twin("fused_decode_block_paged",
-             lambda: fused_decode_block(x, wq, kg, vg, wo, res, lens,
-                                        rope_theta=theta), 20)
+        bound_ms=bms, bound_by=by, library_ms=None,
+        unfused_ms=unfused_ms(
+            "fused_decode_block_paged", x, wq,
+            *(t.repeat_interleave(HQ // HKV, 1) for t in (kg, vg)),
+            ref.rope_positions(1, skv, lengths=lens), theta,
+            mask_of(lens, 1, skv, dev), iters=20, out_proj=(pairs, res)))
+    turn = [0]
+
+    def dense6():
+        w_q, w_o = pairs[turn[0] % len(pairs)]
+        turn[0] += 1
+        return fused_decode_block(x, w_q, kg, vg, w_o, res, lens,
+                                  rope_theta=theta)
+
+    log_twin("fused_decode_block_paged", dense6, 20)
     return results
 
 
@@ -1491,13 +1617,15 @@ TRAIN_KERNELS = ("fused_attention_fwd", "fused_attention_bwd_dq",
                  "fused_attention_bwd_dkv")
 
 
-#: the bf16 times of #1, #2, #5, #7, #8, #9 and #10 at their table shapes
+#: the bf16 times of #1, #2, #3, #5, #6 and #7-#10 at their table shapes
 #: on the fp32-FMA bodies that preceded their tensor-core bodies, as
 #: PERF.md records them (this script's kernel phase, H100 80GB HBM3,
 #: 700.00 W): logged beside this run's times, and kept out of the
 #: kernels' record, which holds only what this run measured
 RECORDED_FMA_MS = {"fused_attention_masked": 0.1408,
                    "fused_qproj_attention_masked": 1.2039,
+                   "fused_decode_block": 0.3413,
+                   "fused_decode_block_paged": 0.3573,
                    "fused_qproj_attention_paged": 1.0101,
                    "fused_attention_fwd": 10.0170,
                    "fused_attention_bwd_dq": 11.2974,

@@ -47,7 +47,7 @@ KERNELS = {
         [_P] * 6 + [_I] * 9 + [_F, _F, _I, _I, _P]),
     "fused_decode_block": (
         "fused_decode_block.cu", "fused_decode_block_launch",
-        [_P] * 10 + [_I] * 7 + [_F, _F, _I, _I, _P]),
+        [_P] * 9 + [_LL] + [_I] * 7 + [_F, _F] + [_I] * 4 + [_P, _P]),
     "fused_attention_paged": (
         "fused_attention.cu", "fused_attention_paged_launch",
         [_P] * 8 + [_I] * 10 + [_F, _I, _P]),
@@ -56,7 +56,7 @@ KERNELS = {
         [_P] * 7 + [_I] * 10 + [_F, _F, _I, _I, _P]),
     "fused_decode_block_paged": (
         "fused_decode_block.cu", "fused_decode_block_paged_launch",
-        [_P] * 11 + [_I] * 8 + [_F, _F, _I, _I, _P]),
+        [_P] * 10 + [_LL] + [_I] * 8 + [_F, _F] + [_I] * 4 + [_P, _P]),
     "fused_attention_fwd": (
         "fused_attention.cu", "fused_attention_fwd_launch",
         [_P] * 5 + [_I] * 9 + [_F, _I, _P]),
@@ -80,7 +80,8 @@ KERNELS = {
 #: width.  The masked and paged kernels' bf16 bodies serve their
 #: one-pass shapes (the split-KV body, fp32 FMAs, serves decode shapes);
 #: fused_qproj_attention_fwd is fused_qproj_attention_masked's kernel
-#: without lengths.
+#: without lengths; the decode megakernels' bodies are cooperative
+#: launches of one block per SM.
 TENSOR_CORE_BODIES = {
     "fused_attention_masked": ("masked_mma_kernel_d128",
                                "masked_mma_kernel_any"),
@@ -94,7 +95,11 @@ TENSOR_CORE_BODIES = {
     "fused_attention_bwd_dq": ("dq_mma_kernel_d128", "dq_mma_kernel_any"),
     "fused_attention_bwd_dkv": ("dkv_mma_kernel_d128", "dkv_mma_kernel_any"),
     "fused_qproj_attention_fwd": ("qproj_mma_kernel_d128",
-                                  "qproj_mma_kernel_any")}
+                                  "qproj_mma_kernel_any"),
+    "fused_decode_block": ("decode_mma_kernel_d128",
+                           "decode_mma_kernel_any"),
+    "fused_decode_block_paged": ("paged_decode_mma_kernel_d128",
+                                 "paged_decode_mma_kernel_any")}
 
 #: dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

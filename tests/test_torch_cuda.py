@@ -8,9 +8,17 @@ Each kernel against its plain PyTorch version on the same inputs, in
 fp32 (atol/rtol 1e-4: fp32 FMAs in another order) and bf16 (2e-2: both
 round p, Q and the output to bf16, unit roundoff 2^-8), over a GQA
 group of 3, a length of 0, a ragged length and Sq > 1; the decode
-megakernel's head sum is deterministic; launches are counted.  Each
-paged kernel, over a shuffled table of a pool larger than the batch
-needs (pages of 8, 40 and 128, a dead row whose table row is zeros),
+megakernel's head sum is deterministic; launches are counted.  The
+decode megakernels' bf16 body (#3, #6) holds per row against its plain
+version at B = 1, 4, 9, 17 and 33, GQA groups 1, 5, 9 and 12, E on and
+off its tiles and D = 128, 64, 40 and 36, over lengths 0, 1, page and
+key-chunk edges and the whole cache; it is bitwise repeatable, a
+length-0 row returns its residual, #6 equals #3 bit for bit over pages
+of 8 and 16, fp32 stays on the FMA body at 1e-4, the workspace is kept
+and its tickets left at zero, and a traced launch stamps its phases in
+order across both grid barriers.  Each paged kernel, over a shuffled
+table of a pool larger than the batch needs (pages of 8, 40 and 128, a
+dead row whose table row is zeros),
 matches its plain version and gives bit for bit its dense kernel's
 output on the gathered cache: the two share one body.  #4 at qwen3-8b's
 widths and M=1 (B=2 and 4; pages of 8, 16 and 128; lengths 0, 1, a page
@@ -124,6 +132,157 @@ def test_fused_decode_block_matches_plain(cuda_device, dtype, tol):
                                atol=tol)
     assert torch.equal(got, fused_decode_block(*args, rope_theta=1e4))
     assert torch.equal(got[0], t["res"][0])       # the length-0 row
+
+
+# The decode megakernels' bf16 body (b, hq, hkv, e, d): B = 1, 4, 9 and
+# 17 (one, two and three n-tiles of 8 rows) and 33 (two passes of 32
+# rows); GQA groups 1, 5, 9 and 12, so Hq is no multiple of the phases'
+# runs per block; E = 4608 (the serve path's) and 200, 333 (off the
+# 64-row units and the 128-column tiles; 333 also off the 16-byte copies:
+# plain loads of x and Wo); D = 128 (the _d128 instantiation), 64, 40
+# (off the 16-wide steps) and 36 (plain loads of Wq and K/V)
+DECODE_CASES = [
+    (1, 36, 4, 4608, 128), (4, 36, 4, 4608, 128), (9, 45, 9, 4608, 128),
+    (17, 12, 1, 200, 64), (4, 9, 9, 333, 128), (33, 18, 2, 512, 128),
+    (3, 10, 2, 256, 40), (2, 4, 2, 96, 36)]
+#: per-row lengths, cycled: 0, one key, a page edge (16), the 64-key tile
+#: and chunk edges (64, 65, 128), 447, and the whole cache
+DECODE_LENS = [0, 1, 16, 64, 65, 128, 447, 512]
+
+
+def _decode_inputs(dev, dtype, b, hq, hkv, e, d, skv=512, seed=11):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g, device=dev)
+                               * scale).to(dtype)
+    lens = [DECODE_LENS[(i * 3) % len(DECODE_LENS)] for i in range(b)]
+    lens[-1] = skv if b > 1 else 447
+    return dict(x=r(b, 1, e), wq=r(e, hq, d, scale=e ** -0.5),
+                k=r(b, hkv, skv, d), v=r(b, hkv, skv, d),
+                wo=r(hq, d, e, scale=(hq * d) ** -0.5), res=r(b, 1, e),
+                lens=torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def _row_rel(got, want):
+    """max over rows of max |got - want| / max |want| of the row, with a
+    row whose want is all zeros held to exact zeros."""
+    got, want = got.float().flatten(1), want.float().flatten(1)
+    err = (got - want).abs().amax(1)
+    scale = want.abs().amax(1)
+    return max(float(e / s) if s > 0 else float(e) * 1e30
+               for e, s in zip(err, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,e,d", DECODE_CASES)
+def test_decode_block_bf16_body_matches_plain_and_dense(cuda_device, b, hq,
+                                                        hkv, e, d):
+    """The bf16 body of #3 and #6: against the plain version per row at
+    2e-2 of the row (with a zero residual, so the check sees o @ Wo
+    itself), a length-0 row returning its residual exactly, bitwise
+    repeatable, and #6 over pools of pages of 8 and 16 equal to #3 on the
+    gathered cache bit for bit."""
+    t = _decode_inputs(cuda_device, torch.bfloat16, b, hq, hkv, e, d)
+    zero = torch.zeros_like(t["res"])
+    args = lambda res: (t["x"], t["wq"], t["k"], t["v"], t["wo"], res,
+                        t["lens"])
+    got0 = fused_decode_block(*args(zero), rope_theta=1e4)
+    want0 = fused_decode_block_plain(*args(zero), rope_theta=1e4)
+    assert torch.isfinite(got0.float()).all()
+    assert _row_rel(got0, want0) <= 2e-2
+    got = fused_decode_block(*args(t["res"]), rope_theta=1e4)
+    torch.testing.assert_close(
+        got.float(), fused_decode_block_plain(*args(t["res"]),
+                                              rope_theta=1e4).float(),
+        rtol=2e-2, atol=2e-2)
+    assert torch.equal(got, fused_decode_block(*args(t["res"]),
+                                               rope_theta=1e4))
+    dead = [i for i, n in enumerate(t["lens"].tolist()) if n == 0]
+    assert torch.equal(got[dead], t["res"][dead])
+    for page in (8, 16):
+        kp, vp, tbl, kd, vd = _paged(t["k"], t["v"], page, dead=dead)
+        paged = fused_decode_block_paged(t["x"], t["wq"], kp, vp, t["wo"],
+                                         t["res"], t["lens"], tbl,
+                                         rope_theta=1e4)
+        assert torch.equal(paged, got)
+    # without RoPE, and at another scale
+    got = fused_decode_block(*args(zero), scale=0.05)
+    assert _row_rel(got, fused_decode_block_plain(*args(zero),
+                                                  scale=0.05)) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,e,d", DECODE_CASES[1:2] + DECODE_CASES[6:])
+def test_decode_block_fp32_keeps_the_fma_body(cuda_device, b, hq, hkv, e, d):
+    """fp32 inputs run the FMA body, held to 1e-4 of the plain version."""
+    t = _decode_inputs(cuda_device, torch.float32, b, hq, hkv, e, d)
+    args = (t["x"], t["wq"], t["k"], t["v"], t["wo"], t["res"], t["lens"])
+    torch.testing.assert_close(
+        fused_decode_block(*args, rope_theta=1e4),
+        fused_decode_block_plain(*args, rope_theta=1e4), rtol=1e-4,
+        atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_decode_block_workspace_is_kept_and_left_clear(cuda_device):
+    """A second call of one shape reuses the first call's workspace and
+    allocates nothing on the card; its tickets are zero after each call
+    and its grid barrier's count of arrivals, which only counts up, is a
+    multiple of the grid, so the calls agree bit for bit across shapes
+    in turn."""
+    from repro_torch.kernels import fused_decode_block as fdb
+    a = _decode_inputs(cuda_device, torch.bfloat16, *DECODE_CASES[1])
+    c = _decode_inputs(cuda_device, torch.bfloat16, *DECODE_CASES[3])
+    run = lambda t: fused_decode_block(t["x"], t["wq"], t["k"], t["v"],
+                                       t["wo"], t["res"], t["lens"],
+                                       rope_theta=1e4)
+    first_a, first_c = run(a), run(c)
+    torch.cuda.synchronize()
+    kept = len(fdb._WORKSPACES)
+    before = torch.cuda.memory_allocated()
+    for _ in range(3):
+        assert torch.equal(run(a), first_a)
+        assert torch.equal(run(c), first_c)
+    torch.cuda.synchronize()
+    assert len(fdb._WORKSPACES) == kept
+    assert torch.cuda.memory_allocated() == before
+    n_sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    checked = 0
+    for key, ws in fdb._WORKSPACES.items():
+        if key[3] == "mma" and key[-1] == n_sms:
+            plan = fdb.decode_plan(*key[4:])
+            assert ws.numel() == plan.workspace_bytes
+            arrivals = ws[:8].view(torch.int64).item()
+            assert arrivals > 0 and arrivals % plan.n_blocks == 0
+            assert not ws[256:plan.counter_bytes].any()   # tickets
+            checked += 1
+    assert checked >= 2
+
+
+@pytest.mark.cuda
+def test_decode_block_phase_trace(cuda_device):
+    """A traced launch (fused_decode_block.PHASE_TRACE) gives the output
+    an untraced one gives, stamps every block's phases in order, and no
+    block passes a grid barrier before every block has reached it."""
+    from repro_torch.kernels import fused_decode_block as fdb
+    t = _decode_inputs(cuda_device, torch.bfloat16, *DECODE_CASES[1])
+    args = (t["x"], t["wq"], t["k"], t["v"], t["wo"], t["res"], t["lens"])
+    want = fused_decode_block(*args, rope_theta=1e4)
+    n_sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    trace = torch.zeros((fdb.STAMPS, n_sms), dtype=torch.int64,
+                        device=cuda_device)
+    fdb.PHASE_TRACE = trace
+    try:
+        got = fused_decode_block(*args, rope_theta=1e4)
+    finally:
+        fdb.PHASE_TRACE = None
+    assert torch.equal(got, want)
+    tr = trace.cpu()
+    every = [0, 1, 2, 6, 7, 8]      # stamps that every block writes
+    assert (tr[every] > 0).all()
+    for i, j in zip(every, every[1:]):
+        assert (tr[j] >= tr[i]).all()
+    assert tr[2].min() >= tr[1].max()   # barrier (a)
+    assert tr[7].min() >= tr[6].max()   # barrier (b)
 
 
 def _paged(k, v, page, seed=0, dead=()):

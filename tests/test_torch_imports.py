@@ -1,5 +1,6 @@
 """The port's boundaries: no file under src/repro_torch/, and not
-chip_smoke.py, time_mma_widths.py or time_decode.py, imports JAX or
+chip_smoke.py, time_mma_widths.py, time_decode.py or
+time_decode_block.py, imports JAX or
 anything of the JAX package; the entry points default to the card and
 raise without one;
 each kernel source names the TPU kernel it replaces (#11, ssd_scan, by
@@ -19,7 +20,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                       ROOT / "time_mma_widths.py",
-                                      ROOT / "time_decode.py"]
+                                      ROOT / "time_decode.py",
+                                      ROOT / "time_decode_block.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro", "flax"}
 
 
