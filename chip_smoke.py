@@ -8,7 +8,7 @@ Phases, in order:
                all started together; ptxas's registers and spills, and
                one line counting the HMMA (tensor-core) instructions in
                the SASS of every instantiation of the bf16 tensor-core
-               bodies (#1, #2, #4, #5, #7-#10);
+               bodies (#1-#11);
   3. kernels-- each kernel against its plain PyTorch version on the card
                in bf16, at the serve paths' full-width shapes and at edge
                cases (a length of 0, lengths off the tile and page grids,
@@ -66,12 +66,17 @@ plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal) and the Mamba-2 SSD scan (#11) to its plain version in bf16 and
 fp32 at the serve path's prefill chunk (B=1, L=188, with an initial
 state) and the cache-free forward's shape (B=4, L=2048), and times
-them.  #1-#4, #6 and #7-#10 are also held per row (o, lse, dq, dk,
-dv; #3 and #6 their output on a zero residual), and that gate is shown
-to reject plain results with one tile (#4: one KV chunk of its split-KV
-body; #3 and #6: each row's last key chunk, and separately the last
-head's contribution) dropped; #1-#4, #6 and #8-#10 must be bitwise
-repeatable.  Each library yardstick is the median of LIB_REPEATS
+them beside the unfused yardstick (ssd_unfused: every chunk batched
+through einsum, the states passed by one product; for reference only);
+in bf16 the same two shapes again with long-memory inputs (dt scaled by
+SSD_LONG_DT).  #1-#4, #6, #7-#10 and #11 are also held per row (o,
+lse, dq, dk, dv; #3 and #6 their output on a zero residual; #11's y
+per (row, position, head) and state per (row, head, P row)), and that
+gate is shown to reject plain results with one tile (#4: one KV chunk
+of its split-KV body; #3 and #6: each row's last key chunk, and
+separately the last head's contribution; #11, at the long-memory
+inputs, one chunk's incoming state) dropped; #1-#4, #6, #8-#10 and #11
+must be bitwise repeatable.  Each library yardstick is the median of LIB_REPEATS
 timings, its spread logged; #2, #3, #5, #6 and #10, which no one
 PyTorch call computes, log the unfused path's time (torch.matmul for
 x.Wq, RoPE, SDPA; for #3 and #6 then torch.matmul for o.Wo and the
@@ -81,8 +86,9 @@ pairs in turn, so each call reads its 85 MB of weights from device
 memory rather than the 50 MB L2.
 The qwen phase logs the median decode step of each engine.
 Every kernel must have launched on some path.  In the kernels' JSON
-record each kernel timed on a tensor-core body also carries its D = 128
-instantiation's registers and spill bytes (ptxas); the times of #1, #2,
+record each kernel timed on a tensor-core body also carries its
+main-width instantiation's (D = 128; #11's 64-column P slice) registers
+and spill bytes (ptxas); the times of #1, #2,
 #5 and #7-#10 on the FMA bodies that preceded those bodies are logged
 on lines of their own, as PERF.md records them.  The last three lines of stdout are the kernels'
 JSON record, the card's name and power limit,
@@ -1344,30 +1350,122 @@ def ssd_work(b, length, h, p, g, s, chunk, elem, with_h0) -> tuple:
     return byts, ops_ * b * h
 
 
+#: dt's scale in #11's long-memory inputs: a dt about -0.05 a position,
+#: so the state carries across 128-position chunks.  At the other inputs'
+#: a dt of about -1 it decays to nothing within a chunk, and a dropped
+#: or stale incoming state could pass a gate.
+SSD_LONG_DT = 0.05
+
+
+def ssd_unfused(x, dt, a, b, c, d, chunk, h0):
+    """#11's yardstick, for reference only (the port never calls it):
+    the chunked SSD with every chunk at once, the products batched
+    through torch.einsum in the inputs' dtype (the decay terms in fp32,
+    cast for the products, as the kernel rounds them), and the chunk
+    states passed by one batched fp32 product over the (chunk, chunk)
+    matrix of decays, as the Mamba-2 reference's minimal SSD does.
+    Returns (y, the final state)."""
+    bsz, length, h, p = x.shape
+    g, s = b.shape[2], b.shape[3]
+    rep, nj = h // g, -(-length // chunk)
+    lp, dtype = nj * chunk, x.dtype
+
+    def pad(t):
+        return torch.nn.functional.pad(
+            t, (0, 0) * (t.ndim - 2) + (0, lp - length))
+
+    xc = pad(x).reshape(bsz, nj, chunk, h, p)
+    dtc = pad(dt).float().reshape(bsz, nj, chunk, h)
+    bg = pad(b).reshape(bsz, nj, chunk, g, s)
+    cg = pad(c).reshape(bsz, nj, chunk, g, s)
+    cum = torch.cumsum(dtc * a.float(), dim=2)              # (B, nj, C, H)
+    total = cum[:, :, -1]                                   # (B, nj, H)
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                device=x.device))
+    cumh = cum.transpose(2, 3)                              # (B, nj, H, C)
+    rel = torch.where(tri, cumh[..., :, None] - cumh[..., None, :], 0.0)
+    lmat = torch.where(tri, torch.exp(rel)
+                       * dtc.transpose(2, 3)[..., None, :], 0.0)
+    cb = torch.einsum("bjtgs,bjugs->bjgtu", cg, bg).float() \
+        .repeat_interleave(rep, 2)                          # (B,nj,H,C,C)
+    y = torch.einsum("bjhtu,bjuhp->bjthp", (cb * lmat).to(dtype), xc).float()
+    w = torch.exp(total[:, :, None] - cum) * dtc            # (B, nj, C, H)
+    own = torch.einsum("bjuhp,bjuhs->bjhps", xc,
+                       (bg.repeat_interleave(rep, 3).float()
+                        * w[..., None]).to(dtype)).float()
+    init = torch.zeros_like(own[:, :1]) if h0 is None else h0.float()[:, None]
+    states = torch.cat([init, own], dim=1)                  # (B,nj+1,H,P,S)
+    # the state entering chunk j (row nj: the final state) from state i
+    # (0: h0; i: chunk i-1's own) decays by exp(ct[j] - ct[i]), i <= j
+    ct = torch.nn.functional.pad(torch.cumsum(total, 1), (0, 0, 1, 0))
+    live = torch.tril(torch.ones(nj + 1, nj + 1, dtype=torch.bool,
+                                 device=x.device))[None, :, :, None]
+    dm = torch.where(live, ct[:, :, None] - ct[:, None], 0.0)
+    passed = torch.einsum("bjih,bihps->bjhps", torch.where(
+        live, torch.exp(dm), 0.0), states)                  # (B,nj+1,H,P,S)
+    y_inter = torch.einsum("bjths,bjhps->bjthp", cg.repeat_interleave(rep, 3),
+                           passed[:, :nj].to(dtype)).float()
+    y = y + torch.exp(cum)[..., None] * y_inter
+    y = y.reshape(bsz, lp, h, p)[:, :length]
+    if d is not None:
+        y = y + d.float()[None, None, :, None] * x.float()
+    return y.to(dtype), passed[:, nj]
+
+
+def ssd_plain_dropped(args, chunk, h0, drop):
+    """The plain version with chunk ``drop``'s incoming state dropped
+    (zeros in its place): what a body that lost one link of the chain
+    would give."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    x, dt, a, b, c, d = args
+    cut = drop * chunk
+    y1 = ssd_scan_plain(x[:, :cut], dt[:, :cut], a, b[:, :cut], c[:, :cut],
+                        d, chunk=chunk, h0=h0)
+    y2, h2 = ssd_scan_plain(x[:, cut:], dt[:, cut:], a, b[:, cut:],
+                            c[:, cut:], d, chunk=chunk,
+                            return_final_state=True)
+    return torch.cat([y1, y2], dim=1), h2
+
+
 def ssd_kernel_phase(dev, g):
     """#11 against its plain version in bf16 and fp32, y and the final
     state, at the serve path's prefill chunk (off the chunk grid, with a
-    non-zero h0) and the cache-free forward's shape; times both shapes
-    in bf16."""
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    non-zero h0) and the cache-free forward's shape, each within
+    KERNEL_TOL (bf16) or SSD_TOL_F32 of the largest |want|; in bf16 also
+    per (row, position, head) of y and (row, head, P row) of the state
+    within ROW_TOL of that row's largest |want|, and bitwise repeatable.
+    Then the same two shapes with long-memory inputs (dt scaled by
+    SSD_LONG_DT, with h0): the per-row gate, and that gate shown to
+    reject the plain result with one chunk's incoming state dropped.
+    Times both shapes in bf16, with the unfused yardstick beside them."""
+    from repro_torch.kernels.ssd_scan import ssd_plan, ssd_scan, \
+        ssd_scan_plain
 
     H, P, G, S, C = (MAMBA[k] for k in ("H", "P", "G", "S", "CHUNK"))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def inputs(b, length, dtype):
+    def inputs(b, length, dtype, dt_scale=1.0):
         def r(*shape):
             return torch.randn(*shape, generator=g, device=dev)
         return ((r(b, length, H, P).to(dtype),
-                 torch.nn.functional.softplus(r(b, length, H)).to(dtype),
+                 (torch.nn.functional.softplus(r(b, length, H))
+                  * dt_scale).to(dtype),
                  -torch.exp(r(H)), (r(b, length, G, S) * 0.3).to(dtype),
                  (r(b, length, G, S) * 0.3).to(dtype), r(H)),
                 r(b, H, P, S) * 0.5)
 
     timed = {}
-    for tag, b, length, with_h0 in (("serve chunk", 1, 188, True),
-                                    ("cache-free", 4, 2048, False)):
+    for tag, b, length, with_h0, dt_scale in (
+            ("serve chunk", 1, 188, True, 1.0),
+            ("cache-free", 4, 2048, False, 1.0),
+            ("serve chunk, long memory", 1, 188, True, SSD_LONG_DT),
+            ("cache-free, long memory", 4, 2048, True, SSD_LONG_DT)):
+        long_memory = dt_scale != 1.0
         for dtype, tol in ((torch.bfloat16, KERNEL_TOL),
                            (torch.float32, SSD_TOL_F32)):
-            args, h0 = inputs(b, length, dtype)
+            if long_memory and dtype != torch.bfloat16:
+                continue
+            args, h0 = inputs(b, length, dtype, dt_scale)
             h0 = h0 if with_h0 else None
             f = lambda: ssd_scan(*args, chunk=C, h0=h0,
                                  return_final_state=True)
@@ -1388,16 +1486,40 @@ def ssd_kernel_phase(dev, g):
                 errs.append(err)
             if dtype != torch.bfloat16:
                 continue
+            plan = ssd_plan(b, length, H, P, G, S, C, n_sm)
+            log(f"  ssd_scan [{tag}] plan: {plan.n_items} items of {plan.ht} "
+                f"heads x {plan.pw} P columns, {plan.nj} chunks")
+            row_gate("ssd_scan", tag, {"y": (y, wy), "state": (h, wh)})
+            y2, h2 = f()
+            same = bool(torch.equal(y2, y) and torch.equal(h2, h))
+            log(f"  ssd_scan [{tag}] bitwise repeatable: {same}")
+            if not same:
+                raise SystemExit(f"ssd_scan is not bitwise repeatable ({tag})")
+            if long_memory:
+                drop = plan.nj // 2
+                dy, dh = ssd_plain_dropped(args, C, h0, drop)
+                row_gate("ssd_scan", f"{tag}: plain with chunk {drop}'s "
+                         f"incoming state dropped",
+                         {"y": (dy, wy), "state": (dh, wh)}, expect=False)
+                continue
             byts, flops = ssd_work(b, length, H, P, G, S, C, 2, with_h0)
             bms, by = bound(byts, flops)
+            u = lambda: ssd_unfused(*args, C, h0)
+            uy, uh = u()
+            _, urel = rel_err(uy, wy)
+            _, urel_h = rel_err(uh, wh)
             timed[tag] = dict(max_abs_err=errs[0], ms=time_ms(f, 20),
                               plain_ms=time_ms(p_, 3), bound_ms=bms,
-                              bound_by=by, library_ms=None)
+                              bound_by=by, library_ms=None,
+                              unfused_ms=time_ms(u, 5))
             t = timed[tag]
             log(f"  ssd_scan [{tag}] kernel_ms={t['ms']:.4f} plain_ms="
                 f"{t['plain_ms']:.4f} bound_ms={bms:.4f} ({by}: "
                 f"{byts / 1e6:.3f} MB, {flops / 1e9:.3f} GFLOP) "
-                f"library_ms=null (no PyTorch call computes the scan)")
+                f"library_ms=null (no PyTorch call computes the scan); "
+                f"unfused_ms={t['unfused_ms']:.4f} (batched einsum "
+                f"chunks, for reference only; its rel err y {urel:.3e}, "
+                f"state {urel_h:.3e})")
     return {"ssd_scan": dict(
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:102",
@@ -1635,10 +1757,11 @@ RECORDED_FMA_MS = {"fused_attention_masked": 0.1408,
 
 def tensor_core_usage() -> dict:
     """Logs one line with the HMMA (tensor-core) instructions in the
-    SASS of each instantiation of the bf16 tensor-core bodies (#1, #2,
-    #4, #5, #7-#10; fails if cuobjdump is missing or one has none);
-    returns {kernel: (registers, spill bytes)} of its D = 128
-    instantiation, from its ptxas report."""
+    SASS of each instantiation of the bf16 tensor-core bodies (#1-#11;
+    fails if cuobjdump is missing or one has none);
+    returns {kernel: (registers, spill bytes)} of its main-width
+    instantiation (D = 128; #11's 64-column P slice), from its ptxas
+    report."""
     from repro_torch.kernels import build
     parts, usage = [], {}
     for name, symbols in build.TENSOR_CORE_BODIES.items():

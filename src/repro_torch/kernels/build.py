@@ -71,7 +71,8 @@ KERNELS = {
         [_P] * 6 + [_I] * 10 + [_F, _F, _I, _I, _P]),
     "ssd_scan": (
         "ssd_scan.cu", "ssd_scan_launch",
-        [_P] * 9 + [_I] * 7 + [_LL] * 8 + [_I, _I, _P]),
+        [_P] * 9 + [_I] * 7 + [_LL] * 8 + [_I, _I, _P, _LL, _LL, _LL, _I,
+                                           _I, _P, _P]),
 }
 
 #: kernel name -> the kernels of its bf16 tensor-core body (C linkage,
@@ -81,7 +82,8 @@ KERNELS = {
 #: one-pass shapes (the split-KV body, fp32 FMAs, serves decode shapes);
 #: fused_qproj_attention_fwd is fused_qproj_attention_masked's kernel
 #: without lengths; the decode megakernels' bodies are cooperative
-#: launches of one block per SM.
+#: launches of one block per SM; the SSD scan's, a P slice of 64 (the
+#: whole head of mamba2-130m) and one of any width.
 TENSOR_CORE_BODIES = {
     "fused_attention_masked": ("masked_mma_kernel_d128",
                                "masked_mma_kernel_any"),
@@ -99,7 +101,8 @@ TENSOR_CORE_BODIES = {
     "fused_decode_block": ("decode_mma_kernel_d128",
                            "decode_mma_kernel_any"),
     "fused_decode_block_paged": ("paged_decode_mma_kernel_d128",
-                                 "paged_decode_mma_kernel_any")}
+                                 "paged_decode_mma_kernel_any"),
+    "ssd_scan": ("ssd_mma_kernel_p64", "ssd_mma_kernel_any")}
 
 #: dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -19,6 +19,19 @@ before ``exp`` (it is positive and would overflow; inf * 0 is NaN).  A
 ragged last chunk is masked, not padded: past L, dt counts as 0, so the
 state is that after the last position, as with the JAX zero padding.
 
+In bf16 the kernel runs its chunks in parallel on the tensor cores (the
+notes of the ``.cu`` file): :func:`ssd_plan` is that body's work
+partition and workspace layout, a function of the shapes and the SM
+count alone, and :func:`ssd_scan_by_plan` its arithmetic in fp32 and in
+its chunk-parallel form (the state-free part of every work item, then
+the chain of states, then the outputs).  The workspace (a ticket, the
+chain's flags and two state slots a chain) is kept per (device, stream),
+grown to the largest plan it has served, and never cleared: the ticket
+only counts up (each launch is told where it began) and each launch's
+flags hold its own epoch, so a serve path's prefill chunks of many
+lengths share one.  fp32 inputs, and bf16 shapes off the
+tensor-core grid, run the first (FMA) body.
+
 No impl differentiates: the TPU kernel has no backward, so the wrapper
 raises ``NotImplementedError`` on an input that requires grad with
 autograd on, on either device.
@@ -26,17 +39,23 @@ autograd on, on either device.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterator, NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.fused_attention import _sm_count
 
 #: the kernel's limits (csrc/ssd_scan.cu kMaxP, kMaxS, kMaxChunk)
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 128
-#: rows of the decay-score matrix held in shared memory at once
+#: rows of the FMA body's decay-score matrix held in shared memory at once
 ROW_BLOCK = 32
 SMEM_LIMIT = 232448          # bytes of shared memory one block may use
+#: the bf16 body's geometry (csrc/ssd_scan.cu, namespace ssd): row
+#: strides (bf16) of its C, B and h tiles and of its x tiles, and the P
+#: slice widths it takes
+TILE_STRIDE, X_STRIDE = 136, 72
+SLICE_WIDTHS = (64, 32, 16)
 
 
 def check_no_grad(name: str, tensors: dict) -> None:
@@ -107,11 +126,197 @@ def ssd_scan_plain(x, dt, a, b, c, d=None, *, chunk: int = 128,
 
 
 def smem_bytes(chunk: int, p: int, s: int) -> int:
-    """Shared memory of one kernel block (csrc/ssd_scan.cu ``smem_floats``):
+    """Shared memory of one FMA block (csrc/ssd_scan.cu ``smem_floats``):
     the x, B and C tiles, the state, a row block of the decay-score
     matrix and three per-position vectors, all fp32, rows padded by one."""
     return 4 * (chunk * p + 2 * chunk * (s + 1) + p * (s + 1)
                 + ROW_BLOCK * (chunk + 1) + 3 * chunk)
+
+
+class SsdPlan(NamedTuple):
+    """The bf16 body's partition of one shape: ``n_items`` work items
+    (chunk, row, group, tile of ``ht`` heads, slice of ``pw`` P columns),
+    chunk-major in ticket order (:func:`ssd_items`); ``nht`` head tiles a
+    group (the last may be short), ``nps`` slices; each item computes
+    C B^T once for its heads.  ``n_chains`` (row, head, slice) states
+    pass from chunk to chunk through the workspace: the ticket at 0, the
+    flags (chain, chunk) at ``flags_at``, two fp32 (pw, S) slots a chain
+    at ``slots_at``."""
+    nj: int
+    ht: int
+    nht: int
+    pw: int
+    nps: int
+    n_items: int
+    n_chains: int
+    smem_bytes: int
+    flags_at: int
+    slots_at: int
+    workspace_bytes: int
+
+
+def _up256(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+def mma_smem_bytes(chunk: int, pw: int, ht: int) -> int:
+    """Shared memory of one bf16 block (csrc/ssd_scan.cu
+    ``ssd::smem_bytes``): C, B, two x tiles and h as a bf16 pair, C B^T
+    in fp32, dt of the item's heads, cum, w and the scores' column
+    factors of two heads."""
+    return 2 * (2 * chunk * TILE_STRIDE + 2 * chunk * X_STRIDE
+                + 2 * pw * TILE_STRIDE) \
+        + 4 * (chunk * (chunk + 8) + ht * chunk + 6 * chunk) + 16
+
+
+def ssd_plan(b: int, length: int, h: int, p: int, g: int, s: int,
+             chunk: int, n_sm: int) -> Optional[SsdPlan]:
+    """The bf16 body's partition, or None where the shape is off its grid
+    (chunk, S or P not a multiple of 16: the FMA body takes it).  Of the
+    slice widths and head tiles that fit shared memory it takes the one
+    with the least estimated time, waves of ``n_sm`` items times an
+    item's multiply-adds (C B^T's causal half once, then per head the
+    scores' product, C h and the state's); ties go to fewer items (fewer
+    C B^T recomputed), then wider slices."""
+    if chunk % 16 or s % 16 or p % 16:
+        return None
+    nj, rep = -(-length // chunk), h // g
+    cb = chunk * chunk * s // 2
+    best = None
+    for pw in SLICE_WIDTHS:
+        if p % pw:
+            continue
+        head = chunk * chunk * pw // 2 + 2 * chunk * pw * s
+        for nht in range(1, rep + 1):
+            ht = -(-rep // nht)
+            if -(-rep // ht) != nht \
+                    or mma_smem_bytes(chunk, pw, ht) > SMEM_LIMIT:
+                continue
+            items = b * nj * g * nht * (p // pw)
+            key = (-(-items // n_sm) * (cb + ht * head), items, -pw)
+            if best is None or key < best[0]:
+                best = (key, pw, ht, nht, items)
+    _, pw, ht, nht, items = best
+    nps = p // pw
+    chains = b * h * nps
+    flags_at = 256
+    slots_at = _up256(flags_at + 8 * chains * nj)
+    return SsdPlan(nj, ht, nht, pw, nps, items, chains,
+                   mma_smem_bytes(chunk, pw, ht), flags_at, slots_at,
+                   slots_at + 8 * chains * pw * s)
+
+
+def ssd_items(plan: SsdPlan, b: int, h: int, g: int) -> Iterator[tuple]:
+    """The work items in ticket order, as the kernel decodes its ticket:
+    (chunk, row, group, first head, heads, first P column)."""
+    rep = h // g
+    for item in range(plan.n_items):
+        ps, rest = item % plan.nps, item // plan.nps
+        tile, rest = rest % plan.nht, rest // plan.nht
+        gi, rest = rest % g, rest // g
+        bi, j = rest % b, rest // b
+        h_lo = gi * rep + tile * plan.ht
+        yield j, bi, gi, h_lo, min(plan.ht, (gi + 1) * rep - h_lo), \
+            ps * plan.pw
+
+
+def ssd_scan_by_plan(x, dt, a, b, c, d=None, *, chunk: int = 128,
+                     h0: Optional[torch.Tensor] = None, n_sm: int = 132):
+    """The bf16 body's arithmetic in fp32, in its chunk-parallel form:
+    every item of :func:`ssd_plan` does its state-free part (the cumsum,
+    C B^T once for its heads, the masked scores, y's intra-chunk part,
+    the chunk's own state X^T (B o w)); then the chain passes each
+    (row, head, slice) state along the chunks; then each item adds
+    exp(cum) C h_{j-1}^T and d x.  Returns (y fp32, final state)."""
+    bsz, length, h, p = x.shape
+    g, s = b.shape[2], b.shape[3]
+    plan = ssd_plan(bsz, length, h, p, g, s, chunk, n_sm)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    x, dt, b, c, a = x.float(), dt.float(), b.float(), c.float(), a.float()
+    y = torch.zeros((bsz, length, h, p), **f32)
+    own = torch.zeros((plan.nj, bsz, h, p, s), **f32)
+    decay = torch.zeros((plan.nj, bsz, h), **f32)
+    cums = {}
+    for j, bi, gi, h_lo, nh, p0 in ssd_items(plan, bsz, h, g):
+        rows, cols = slice(j * chunk, (j + 1) * chunk), \
+            slice(p0, p0 + plan.pw)
+        cm, bm = c[bi, rows, gi], b[bi, rows, gi]
+        n = cm.shape[0]
+        cb = cm @ bm.T                                  # once per item
+        tri = torch.tril(torch.ones((n, n), dtype=torch.bool,
+                                    device=x.device))
+        for hh in range(h_lo, h_lo + nh):
+            dtv = dt[bi, rows, hh]
+            cum = torch.cumsum(dtv * a[hh], 0)
+            rel = torch.where(tri, cum[:, None] - cum[None, :], 0.0)
+            scores = torch.where(tri, cb * torch.exp(rel) * dtv[None], 0.0)
+            xs = x[bi, rows, hh, cols]
+            y[bi, rows, hh, cols] = scores @ xs
+            w = torch.exp(cum[-1] - cum) * dtv
+            own[j, bi, hh, cols] = xs.T @ (bm * w[:, None])
+            decay[j, bi, hh] = torch.exp(cum[-1])
+            cums[j, bi, hh] = cum
+    state = torch.zeros((bsz, h, p, s), **f32) if h0 is None \
+        else h0.float().clone()
+    prev = []
+    for j in range(plan.nj):                            # the chain
+        prev.append(state)
+        state = decay[j][..., None, None] * state + own[j]
+    for j, bi, gi, h_lo, nh, p0 in ssd_items(plan, bsz, h, g):
+        rows, cols = slice(j * chunk, (j + 1) * chunk), \
+            slice(p0, p0 + plan.pw)
+        for hh in range(h_lo, h_lo + nh):
+            y[bi, rows, hh, cols] += torch.exp(cums[j, bi, hh])[:, None] \
+                * (c[bi, rows, gi] @ prev[j][bi, hh, cols].T)
+    if d is not None:
+        y = y + d.float()[None, None, :, None] * x
+    return y, state
+
+
+#: (device, stream) -> [workspace, the epoch of its last launch, the
+#: tickets its launches have drawn]
+_WORKSPACES: dict = {}
+
+#: stamps of a traced bf16 launch, per item: its start, then per head of
+#: its tile the head's start, its own state done, the incoming state
+#: received, its state published, its y done
+STAMPS_PER_HEAD = 5
+#: None, or a contiguous int64 CUDA tensor of (n_items, 1 + 5 ht) of the
+#: launch's plan: while it is set, each bf16 launch writes every item's
+#: globaltimer (ns) at each stamp into it (time_ssd_scan.py reads it)
+PHASE_TRACE: Optional[torch.Tensor] = None
+
+
+def _trace_ptr(x, plan: SsdPlan) -> Optional[int]:
+    t = PHASE_TRACE
+    if t is None:
+        return None
+    shape = (plan.n_items, 1 + STAMPS_PER_HEAD * plan.ht)
+    if t.dtype != torch.int64 or tuple(t.shape) != shape \
+            or not t.is_contiguous() or t.device != x.device:
+        raise ValueError(f"PHASE_TRACE must be a contiguous int64 {shape} "
+                         f"tensor on {x.device}")
+    return t.data_ptr()
+
+
+def _workspace(x, plan: SsdPlan) -> tuple:
+    """(workspace, epoch, ticket base) of a launch: the current stream's
+    workspace, zeroed when made and made anew (larger) when the plan
+    needs more; this launch's epoch on it (its flags' value; it keeps
+    counting across a regrowth, so no flag ever holds a later one); the
+    ticket's value before this launch draws its n_items.  Launches on one
+    stream run in order, so they share it; two streams never do."""
+    key = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    entry = _WORKSPACES.get(key)
+    if entry is None or entry[0].numel() < plan.workspace_bytes:
+        epoch = 0 if entry is None else entry[1]
+        entry = [torch.zeros(plan.workspace_bytes, dtype=torch.uint8,
+                             device=x.device), epoch, 0]
+        _WORKSPACES[key] = entry
+    entry[1] += 1
+    base = entry[2]
+    entry[2] += plan.n_items
+    return entry[0], entry[1], base
 
 
 def _check_inner(name: str, key: str, t: torch.Tensor) -> None:
@@ -173,6 +378,9 @@ def ssd_scan(x, dt, a, b, c, d=None, *, chunk: int = 128,
     h0 = None if h0 is None else h0.float().contiguous()
     y = torch.empty((bsz, length, h, p), dtype=x.dtype, device=x.device)
     hout = torch.empty((bsz, h, p, s), dtype=torch.float32, device=x.device)
+    plan = None if x.dtype != torch.bfloat16 else ssd_plan(
+        bsz, length, h, p, g, s, chunk, _sm_count(x.device.index))
+    ws, epoch, base = (None, 0, 0) if plan is None else _workspace(x, plan)
     build.launch("ssd_scan", x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                  b.data_ptr(), c.data_ptr(),
                  0 if d is None else d.data_ptr(),
@@ -180,7 +388,12 @@ def ssd_scan(x, dt, a, b, c, d=None, *, chunk: int = 128,
                  hout.data_ptr(), bsz, length, h, p, g, s, chunk,
                  x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
                  b.stride(0), b.stride(1), c.stride(0), c.stride(1),
-                 build.dtype_code(x), build.dtype_code(dt))
+                 build.dtype_code(x), build.dtype_code(dt),
+                 0 if ws is None else ws.data_ptr(),
+                 0 if ws is None else ws.numel(), epoch, base,
+                 0 if plan is None else plan.ht,
+                 0 if plan is None else plan.nps,
+                 None if plan is None else _trace_ptr(x, plan))
     return (y, hout) if return_final_state else y
 
 

@@ -42,8 +42,13 @@ backward through a one-layer model on the kernels reaches wq, wk and
 wv; the serve kernels refuse a tensor that requires grad.  The
 Mamba-2 SSD scan (#11) matches its plain version in fp32 and
 bf16, with and without an initial state, on and off the chunk grid, at
-one and several groups; reads strided views; and a 2-layer full-width
-mamba2-130m forward on it matches the plain versions.
+one and several groups, over 1, 2 and 16 chunks and head tiles that do
+not divide H/G; its bf16 tensor-core body holds per row (also with a
+long memory, dt scaled by 0.05), is bitwise repeatable (a zero h0 gives
+what no h0 gives), keeps one workspace a stream, grown as needed, stamps
+its phases in order when traced; it
+reads strided views, aligned or not, bit for bit as their copies; and a
+2-layer full-width mamba2-130m forward on it matches the plain versions.
 """
 
 import pytest
@@ -736,20 +741,42 @@ SSD_CASES = [
     (2, 256, 4, 64, 2, 128, 64, False),     # on the chunk grid, G = 2
     (2, 75, 8, 32, 4, 64, 32, True),        # off the grid, G = 4
     (1, 128, 2, 64, 1, 32, 128, False),     # one chunk
+    # the bf16 body: 16 chunks (the cache-free forward's shape), head
+    # tiles that do not divide H/G at G = 1, 2 and 4 (tests/
+    # test_torch_ssd_plan.py holds them so), one ragged chunk at P = 32
+    (4, 2048, 24, 64, 1, 128, 128, False),
+    (1, 2048, 9, 64, 1, 128, 128, True),
+    (2, 300, 16, 64, 2, 128, 64, True),
+    (2, 300, 20, 64, 4, 128, 64, False),
+    (1, 100, 4, 32, 1, 128, 128, True),
 ]
+#: the bf16 body's cases held per row, also with dt scaled by 0.05 (a
+#: long memory: the state carries across chunks): B, L, H, P, G, S, chunk
+SSD_ROW_CASES = [(1, 188, 24, 64, 1, 128, 128), (4, 2048, 24, 64, 1, 128, 128),
+                 (1, 2048, 9, 64, 1, 128, 128), (2, 300, 20, 64, 4, 128, 64),
+                 (2, 75, 8, 32, 4, 64, 32)]
 
 
-def _ssd_inputs(dev, dtype, B, L, H, P, G, S, seed=0):
+def _ssd_inputs(dev, dtype, B, L, H, P, G, S, seed=0, dt_scale=0.1):
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def r(*s):
         return torch.randn(*s, generator=g, device=dev)
 
     return dict(x=r(B, L, H, P).to(dtype),
-                dt=(torch.nn.functional.softplus(r(B, L, H)) * 0.1).to(dtype),
+                dt=(torch.nn.functional.softplus(r(B, L, H))
+                    * dt_scale).to(dtype),
                 a=-torch.exp(r(H)), b=(r(B, L, G, S) * 0.3).to(dtype),
                 c=(r(B, L, G, S) * 0.3).to(dtype), d=r(H),
                 h0=r(B, H, P, S) * 0.5)
+
+
+def _row_rel(got, want):
+    """The largest, over the rows (the last dimension), of a row's max
+    |got - want| over its max |want|."""
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    scale = want.abs().amax(-1).clamp_min(1e-30)
+    return ((got - want).abs().amax(-1) / scale).max().item()
 
 
 @pytest.mark.cuda
@@ -774,6 +801,118 @@ def test_ssd_scan_matches_plain(cuda_device, dtype, tol, B, L, H, P, G, S,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt_scale", [1.0, 0.1, 0.05])
+@pytest.mark.parametrize("B,L,H,P,G,S,chunk", SSD_ROW_CASES)
+def test_ssd_scan_bf16_body_per_row(cuda_device, B, L, H, P, G, S, chunk,
+                                    dt_scale):
+    """The bf16 tensor-core body per (row, position, head) of y and per
+    (row, head, P row) of the state, within 2e-2 of that row's largest
+    |want|, with h0; at dt's full scale a steep decay leaves rows whose
+    y cancels to near zero; with dt scaled by 0.05 the state carries
+    across the chunks, so a dropped or stale incoming state would show."""
+    from repro_torch.kernels.ssd_scan import (ssd_plan, ssd_scan,
+                                              ssd_scan_plain)
+    assert ssd_plan(B, L, H, P, G, S, chunk, 132) is not None
+    t = _ssd_inputs(cuda_device, torch.bfloat16, B, L, H, P, G, S, seed=1,
+                    dt_scale=dt_scale)
+    args = (t["x"], t["dt"], t["a"], t["b"], t["c"], t["d"])
+    y, h = ssd_scan(*args, chunk=chunk, h0=t["h0"], return_final_state=True)
+    wy, wh = ssd_scan_plain(*args, chunk=chunk, h0=t["h0"],
+                            return_final_state=True)
+    torch.cuda.synchronize()
+    assert _row_rel(y, wy) <= 2e-2 and _row_rel(h, wh) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,P,G,S,chunk", SSD_ROW_CASES[:3])
+def test_ssd_scan_is_bitwise_repeatable(cuda_device, B, L, H, P, G, S,
+                                        chunk):
+    """y and the final state are the same bits on every call (fixed
+    summation orders; the workspace is reused with a new epoch), and a
+    zero h0 gives what no h0 gives."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    t = _ssd_inputs(cuda_device, torch.bfloat16, B, L, H, P, G, S, seed=2,
+                    dt_scale=0.05)
+    args = (t["x"], t["dt"], t["a"], t["b"], t["c"], t["d"])
+    runs = [ssd_scan(*args, chunk=chunk, h0=t["h0"], return_final_state=True)
+            for _ in range(3)]
+    for y, h in runs[1:]:
+        assert torch.equal(y, runs[0][0]) and torch.equal(h, runs[0][1])
+    none = ssd_scan(*args, chunk=chunk, return_final_state=True)
+    zero = ssd_scan(*args, chunk=chunk, h0=torch.zeros_like(t["h0"]),
+                    return_final_state=True)
+    assert torch.equal(none[0], zero[0]) and torch.equal(none[1], zero[1])
+
+
+@pytest.mark.cuda
+def test_ssd_scan_workspace_is_kept_per_stream(cuda_device):
+    """One workspace per (device, stream), grown when a larger plan needs
+    it; each launch takes the next epoch and its tickets after the last
+    launch's; shapes alternating on it, and a launch on another stream
+    (its own workspace), give what each gives alone."""
+    from repro_torch.kernels import ssd_scan as sk
+    H, P, G, S = 24, 64, 1, 128
+    small = _ssd_inputs(cuda_device, torch.bfloat16, 1, 188, H, P, G, S,
+                        seed=3)
+    large = _ssd_inputs(cuda_device, torch.bfloat16, 2, 700, H, P, G, S,
+                        seed=4)
+
+    def run(t):
+        return sk.ssd_scan(t["x"], t["dt"], t["a"], t["b"], t["c"], t["d"],
+                           chunk=128, h0=t["h0"], return_final_state=True)
+
+    sk._WORKSPACES.clear()
+    want_small = run(small)
+    (key, (ws, epoch, drawn)), = sk._WORKSPACES.items()
+    assert epoch == 1 and drawn == sk.ssd_plan(
+        1, 188, H, P, G, S, 128, torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count).n_items
+    want_large = run(large)
+    grown = sk._WORKSPACES[key][0]
+    assert grown.numel() >= ws.numel() and sk._WORKSPACES[key][1] == 2
+    for _ in range(2):
+        for t, want in ((small, want_small), (large, want_large)):
+            got = run(t)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+    assert len(sk._WORKSPACES) == 1 and sk._WORKSPACES[key][0] is grown
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = run(small)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert len(sk._WORKSPACES) == 2 and torch.equal(got[0], want_small[0])
+
+
+@pytest.mark.cuda
+def test_ssd_scan_phase_trace(cuda_device):
+    """A traced launch stamps every item's start and, per head of its
+    tile, its phases in order; the traced result equals the untraced."""
+    from repro_torch.kernels import ssd_scan as sk
+    B, L, H, P, G, S = 1, 300, 24, 64, 1, 128
+    t = _ssd_inputs(cuda_device, torch.bfloat16, B, L, H, P, G, S, seed=5)
+    args = (t["x"], t["dt"], t["a"], t["b"], t["c"], t["d"])
+    n_sm = torch.cuda.get_device_properties(cuda_device) \
+        .multi_processor_count
+    plan = sk.ssd_plan(B, L, H, P, G, S, 128, n_sm)
+    want = sk.ssd_scan(*args, chunk=128, h0=t["h0"])
+    sk.PHASE_TRACE = torch.zeros(
+        (plan.n_items, 1 + sk.STAMPS_PER_HEAD * plan.ht), dtype=torch.int64,
+        device=cuda_device)
+    try:
+        got = sk.ssd_scan(*args, chunk=128, h0=t["h0"])
+        torch.cuda.synchronize()
+        trace = sk.PHASE_TRACE.cpu()
+    finally:
+        sk.PHASE_TRACE = None
+    assert torch.equal(got, want)
+    for row, (_, _, _, _, nh, _) in zip(trace, sk.ssd_items(plan, B, H, G)):
+        stamps = row[:1 + sk.STAMPS_PER_HEAD * nh]
+        assert (stamps > 0).all() and (stamps[1:] >= stamps[:-1]).all()
+
+
+@pytest.mark.cuda
 def test_ssd_scan_reads_views_through_their_strides(cuda_device):
     """x, b and c as views into one wider tensor (the model's conv
     output) give the contiguous copies' result bit for bit; no d."""
@@ -791,6 +930,31 @@ def test_ssd_scan_reads_views_through_their_strides(cuda_device):
     want = ssd_scan(x.contiguous(), dt, a, b.contiguous(), c.contiguous(),
                     chunk=128)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_aligned_views_take_the_copies(cuda_device):
+    """The conv output's layout of mamba2-130m (rows of H*P + 2*G*S,
+    16-byte aligned: the bf16 body's cp.async path) against the
+    contiguous copies, bit for bit, on both sides of the chunk grid."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    B, L, H, P, S = 2, 300, 24, 64, 128
+    wide = torch.randn(B, L, H * P + 2 * S, generator=g,
+                       device=cuda_device).to(torch.bfloat16)
+    x = wide[..., :H * P].reshape(B, L, H, P)
+    b = wide[..., H * P:H * P + S].reshape(B, L, 1, S)
+    c = wide[..., H * P + S:].reshape(B, L, 1, S)
+    dt = (torch.rand(B, L, H, generator=g, device=cuda_device) * 0.1) \
+        .to(torch.bfloat16)
+    a = -torch.rand(H, generator=g, device=cuda_device)
+    d = torch.randn(H, generator=g, device=cuda_device)
+    h0 = torch.randn(B, H, P, S, generator=g, device=cuda_device)
+    got = ssd_scan(x, dt, a, b, c, d, chunk=128, h0=h0,
+                   return_final_state=True)
+    want = ssd_scan(x.contiguous(), dt, a, b.contiguous(), c.contiguous(),
+                    d, chunk=128, h0=h0, return_final_state=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda
