@@ -27,8 +27,17 @@ Phases, in order:
                share.  With the same weights: the mix through the paged
                engine with a pool that forces a preempt and a resume
                (the dense serve's tokens, fused_decode_block_paged, KV
-               memory and concurrency), and a demotions=1 paged run
-               whose decode takes fused_qproj_attention_paged;
+               memory and concurrency), a demotions=1 paged run
+               whose decode takes fused_qproj_attention_paged, and
+               the chaos phase: the paged mix under ServingSupervisor
+               with the audit on every step, fault-free (the batcher's
+               tokens, the host time per step of both), with every
+               fault kind (a cuda kernel fault, times=2, that takes
+               decode from #6 down to #5 and #4 and cooloff back to
+               #6; a NaN, an OOM, a preemption storm), a seeded
+               schedule twice (the same ledger and fired log), and a
+               crash restored from a snapshot (the uncrashed tokens;
+               snapshot size, write and restore times);
   5. qwen   -- qwen3-8b at full width, depth cut to 4 layers, two
                prompts; its decode past C = 2N runs fused_attention_masked
                on the dense engine and fused_attention_paged on the paged
@@ -1053,6 +1062,7 @@ def serve_phase(dev):
     dense_tokens = {r.uid: r.generated for r in finished}
     launches.update(paged_serve_phase(args, cfg, params, dense_tokens, dev))
     launches.update(rung_down_phase(args, cfg, params, dev))
+    launches.update(chaos_phase(args, cfg, params, dev))
     del params
     torch.cuda.empty_cache()
     return launches
@@ -1240,6 +1250,340 @@ def rung_down_phase(args, cfg, params, dev):
     worst = compare_logits("rung-down", runs[0][0], runs[1][0])
     log(f"rung-down: ok (worst rel {worst:.4e} against the plain versions)")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# chaos phase: fault-tolerant serving on the paged engine
+# ---------------------------------------------------------------------------
+
+#: clean steps before one demotion level decays in the chaos phase
+CHAOS_COOLOFF = 2
+#: snapshot period and crash step of the chaos phase's crash run
+CHAOS_SNAPSHOT_EVERY, CHAOS_CRASH_AT = 3, 10
+CHAOS_DIR = ROOT / "build" / "chaos_snapshots"
+
+
+def _recorded(eng, batcher, store):
+    """Wrap ``eng``'s two launch phases so ``store[(uid, i)]`` holds the
+    logits that sampled request ``uid``'s token ``i`` (a prefill's first
+    token, then each decode step's; a quarantined step's are replaced by
+    its replay's)."""
+    advance, decode = eng._advance_prefills, eng.decode_once
+    fresh = set()
+
+    def advance_prefills():
+        inserted = advance()
+        fresh.clear()
+        for slot, _ in inserted:
+            fresh.add(slot)
+            req = batcher.slots[slot]
+            store[(req.uid, len(req.generated))] = \
+                eng.prefill_logits[slot].float()
+        return inserted
+
+    def decode_once():
+        out = decode()
+        if out is not None:
+            for i, req in enumerate(batcher.slots):
+                if req is not None and eng.live[i]:
+                    # a row inserted this step is fed its first token
+                    # before this one
+                    n = len(req.generated) + (i in fresh)
+                    store[(req.uid, n)] = eng.last_logits[i].float()
+        return out
+
+    eng._advance_prefills, eng.decode_once = advance_prefills, decode_once
+
+
+def tie_check(phase, got, want, max_new) -> int:
+    """``got``'s tokens against ``want``'s, request by request.  Where a
+    request's stream differs, the logits that sampled its first
+    differing token must agree with ``want``'s within LOGIT_TOL and its
+    argmax may flip only where ``want``'s top-2 margin is under it (the
+    argmax tie).  Returns the number of requests that differ."""
+    differ = 0
+    for uid, want_toks in sorted(want["tokens"].items()):
+        toks = got["tokens"].get(uid)
+        if toks is None or len(toks) != max_new:
+            raise SystemExit(f"{phase}: request {uid} did not finish its "
+                             f"budget ({toks})")
+        if toks == want_toks:
+            continue
+        differ += 1
+        i = next(j for j, (a, b) in enumerate(zip(toks, want_toks))
+                 if a != b)
+        log(f"  {phase}: request {uid} differs from token {i} "
+            f"({toks[i]} against {want_toks[i]}); its logits:")
+        compare_logits(f"{phase}, request {uid}", [got["logits"][(uid, i)]],
+                       [want["logits"][(uid, i)]])
+    return differ
+
+
+def chaos_phase(args, cfg, params, dev):
+    """Fault-tolerant serving on the card: the serve phase's mix through
+    the paged engine (page 16, the paged serve's pool, which forces a
+    preempt) under ``ServingSupervisor`` with the audit on every step.
+
+    1. Fault-free: the tokens of ``RequestBatcher.serve`` on the same
+       engine settings (the tie rule of :func:`tie_check`), and the host
+       time per step of the two.
+    2. Every fault kind: a ``cuda`` kernel fault (times=2) at the first
+       step that only decodes, so #6 fails, its retry one rung down (#5)
+       fails too, and the step runs at demotion 2 (#4); cooloff walks
+       back 2 -> 1 -> 0; then a NaN at a live slot, an OOM (times=1) on
+       that request's resume, and a preemption storm of 2.  Every kind
+       must fire, the plan's ledger must show the kernel-failure
+       rung-down, #4 must launch at demotion 2, #5 at demotion 1 and #6
+       again at demotion 0, and the tokens must be the fault-free ones
+       (tie rule).
+    3. The seeded schedule (``FaultInjector.from_seed(0, ...,
+       impl="cuda")``) twice: the same ledger JSON and fired log, and
+       the fault-free tokens (tie rule).
+    4. A crash: snapshots every CHAOS_SNAPSHOT_EVERY steps; after step
+       CHAOS_CRASH_AT engine, batcher and supervisor are dropped and the
+       latest snapshot restored into fresh ones; the finished tokens
+       must equal the fault-free run's exactly.
+    Returns the launches of step 2's run."""
+    import shutil
+
+    from repro_torch import lower
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import (FaultInjector, FaultSpec, RequestBatcher,
+                                   ServingSupervisor)
+
+    card = card_line()
+    pages_for = lambda n: -(-n // PAGE)
+    num_pages = 2 + sum(
+        pages_for(len(r.prompt) + 1) for r in serve.make_requests(
+            cfg, args.requests, args.max_new,
+            prompt_lens=PROMPT_LENS)[:args.batch])
+
+    def stack():
+        """A fresh paged engine (its own plan handle, on a cleared plan
+        cache, so its downgrade ledger is this run's) and batcher with
+        the mix submitted."""
+        lower.clear_plan_cache()
+        plan = lower.serving_plan(cfg, args.max_len, device=dev, paged=True,
+                                  page_size=PAGE)
+        eng = paged_engine(params, cfg, args, plan, num_pages, dev)
+        batcher = RequestBatcher(args.batch, max_len=args.max_len)
+        for req in serve.make_requests(cfg, args.requests, args.max_new,
+                                       prompt_lens=PROMPT_LENS):
+            batcher.submit(req)
+        return eng, batcher
+
+    def recovery(eng):
+        return [g.reason for g in eng.plan.downgrades()
+                if "kernel-failure recovery" in g.reason]
+
+    def supervised(inj=None, crash_at=None, **kw):
+        """One supervised run; per step: (demotions at its start, its
+        ops.CALLS, the rows live at its end)."""
+        eng, batcher = stack()
+        store, per_step, snap_s = {}, [], []
+        _recorded(eng, batcher, store)
+        ckpt = None
+        if crash_at is not None:
+            shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+            ckpt = CheckpointManager(str(CHAOS_DIR), keep_last=2)
+        sup = ServingSupervisor(
+            eng, batcher, injector=inj, cooloff=CHAOS_COOLOFF,
+            audit_every=1, ckpt=ckpt,
+            checkpoint_every=CHAOS_SNAPSHOT_EVERY if ckpt else None, **kw)
+        step, checkpoint = sup.step, sup.checkpoint
+
+        def traced():
+            before, level = collections.Counter(ops.CALLS), eng.demotions
+            step()
+            per_step.append((level, collections.Counter(ops.CALLS) - before,
+                             [i for i in range(args.batch) if eng.live[i]]))
+            if sup.t == crash_at:
+                raise _Crash
+
+        def timed_checkpoint(blocking=True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint(blocking)
+            snap_s.append(time.perf_counter() - t0)
+
+        sup.step, sup.checkpoint = traced, timed_checkpoint
+        ops.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            finished = sup.serve(max_steps=2000)
+        except _Crash:
+            finished = None
+        torch.cuda.synchronize()
+        out = {"secs": time.perf_counter() - t0, "steps": sup.t,
+               "logits": store, "per_step": per_step, "snap_s": snap_s,
+               "launches": dict(build.LAUNCHES), "recovery": recovery(eng),
+               "fired": None if inj is None else list(inj.fired),
+               "ledger": sup.ledger.to_json(), "sup": sup}
+        if finished is not None:
+            if sup.failed:
+                raise SystemExit(f"chaos: requests failed "
+                                 f"{[r.uid for r in sup.failed]}")
+            out["tokens"] = {r.uid: list(r.generated) for r in finished}
+        return out
+
+    # 1. fault-free: the batcher's run, the supervisor's, the batcher's
+    def unsupervised():
+        eng, batcher = stack()
+        out, steps = {"logits": {}}, [0]
+        _recorded(eng, batcher, out["logits"])
+        engine_step = eng.step
+
+        def counted_step():
+            steps[0] += 1
+            return engine_step()
+
+        eng.step = counted_step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finished = batcher.serve(eng, max_steps=2000)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) / steps[0] * 1e3
+        out["tokens"] = {r.uid: list(r.generated) for r in finished}
+        return out
+
+    # the first run warms up; the timed ones go in turns: supervised,
+    # plain, plain, supervised
+    plain = unsupervised()
+    base = supervised()
+    plain_ms = [unsupervised()["ms"] for _ in range(2)]
+    sup_ms = [base["secs"] / base["steps"] * 1e3]
+    again = supervised()
+    sup_ms.append(again["secs"] / again["steps"] * 1e3)
+    if base["recovery"] or base["fired"]:
+        raise SystemExit("chaos: a rung-down in the fault-free run")
+    n = tie_check("chaos fault-free", base, plain, args.max_new)
+    if again["tokens"] != base["tokens"]:
+        raise SystemExit("chaos: two fault-free supervised runs differ")
+    log(f"chaos: fault-free supervised run (audit every step): "
+        f"{base['steps']} steps, {len(base['tokens'])} requests; tokens "
+        f"equal to RequestBatcher.serve's for "
+        f"{len(base['tokens']) - n}/{len(base['tokens'])} (the rest "
+        f"argmax ties)")
+    log(f"  host time per step: supervised {sup_ms[0]:.3f}, {sup_ms[1]:.3f} "
+        f"ms, RequestBatcher.serve {plain_ms[0]:.3f}, {plain_ms[1]:.3f} ms "
+        f"(in turns; a first, warm-up run of the batcher "
+        f"{plain['ms']:.3f} ms): overhead "
+        f"{statistics.mean(sup_ms) - statistics.mean(plain_ms):+.3f} ms a "
+        f"step ({card})")
+    del plain, again
+
+    # 2. every fault kind; the kernel fault at the first step that only
+    # decodes (prefill chunks run dense: every call is a paged one)
+    per_step = base["per_step"]
+    k = next(t for t, (_, calls, _) in enumerate(per_step)
+             if t >= 3 and calls and all(e.endswith("_paged")
+                                         for e, _ in calls))
+    if len(per_step) <= k + 9:
+        raise SystemExit(f"chaos: the fault-free run ends at step "
+                         f"{len(per_step)}, before the schedule")
+    nan_slot = next((i for i in per_step[k + 5][2] if i in per_step[k + 6][2]),
+                    None)
+    if nan_slot is None:
+        raise SystemExit(f"chaos: no row live through step {k + 6}")
+    schedule = [FaultSpec("kernel", step=k, impl="cuda", times=2),
+                FaultSpec("nan", step=k + 6, slot=nan_slot),
+                FaultSpec("oom", step=k + 7, times=1),
+                FaultSpec("preempt", step=k + 9, count=2)]
+    specs = [(f.kind, f.step, f.slot, f.times, f.count) for f in schedule]
+    log(f"chaos: schedule (kind, step, slot, times, count) {specs}, "
+        f"cooloff {CHAOS_COOLOFF}")
+    inj = FaultInjector(schedule)
+    run = supervised(inj)
+    rows = [(i.step, i.slot, i.fault, i.action)
+            for i in run["sup"].ledger.incidents]
+    log(f"  fired: {run['fired']}")
+    log(f"  ledger: {rows}")
+    by_level = collections.defaultdict(collections.Counter)
+    for t, (level, calls, _) in enumerate(run["per_step"]):
+        # the fault's step ran its last attempt at demotion 2; a step
+        # starting at 0 after it runs once the demotion has decayed
+        label = 2 if t == k else "after" if t > k and level == 0 else level
+        by_level[label].update(calls)
+    shown = {lv: dict(c) for lv, c in by_level.items()}
+    log(f"  calls by demotion: {shown}")
+    log(f"  launches: {run['launches']}")
+    kinds = {f[1] for f in run["fired"]}
+    if kinds != {"kernel", "nan", "oom", "preempt"}:
+        raise SystemExit(f"chaos: fault kinds fired {kinds}")
+    if run["fired"][:2] != [(k, "kernel", "decode_block/cuda"),
+                            (k, "kernel", "qproj_attention/cuda")]:
+        raise SystemExit(f"chaos: the kernel fault did not fail #6 and "
+                         f"then #5: {run['fired'][:2]}")
+    if not run["recovery"]:
+        raise SystemExit("chaos: no kernel-failure rung-down on the plan's "
+                         "ledger")
+    want = {2: ("attention_paged", "cuda"),
+            1: ("qproj_attention_paged", "cuda"),
+            "after": ("decode_block_paged", "cuda")}
+    missing = [(lv, e) for lv, e in want.items() if not by_level[lv][e]]
+    if missing or run["sup"].engine.demotions:
+        raise SystemExit(f"chaos: not launched at their demotion: {missing}"
+                         f"; demotions left {run['sup'].engine.demotions}")
+    n = tie_check("chaos all kinds", run, base, args.max_new)
+    log(f"chaos: all kinds ok ({run['steps']} steps; tokens equal to the "
+        f"fault-free run's for {len(run['tokens']) - n}/"
+        f"{len(run['tokens'])}, the rest argmax ties; #4, #5 and #6 "
+        f"launched at demotions 2, 1 and 0; audit clean every step; "
+        f"rung-downs on the plan's ledger: {len(run['recovery'])})")
+    launches = run["launches"]
+    del run
+
+    # 3. the seeded schedule, twice
+    seeded = [supervised(FaultInjector.from_seed(
+        0, steps=base["steps"], slots=args.batch, rate=0.3, impl="cuda"),
+        retry_budget=8) for _ in range(2)]
+    a, b = seeded
+    log(f"chaos: seeded schedule (seed 0, rate 0.3): fired {a['fired']}")
+    if a["fired"] != b["fired"] or a["ledger"] != b["ledger"]:
+        raise SystemExit("chaos: the seeded ledger or fired log differs "
+                         "between two runs")
+    n = [tie_check(f"chaos seeded run {i}", r, base, args.max_new)
+         for i, r in enumerate(seeded)]
+    log(f"chaos: seeded ok (ledger of {len(a['sup'].ledger)} incidents and "
+        f"the fired log identical in two runs; requests whose tokens "
+        f"differ from the fault-free run's, argmax ties: {n})")
+    del seeded, a, b
+
+    # 4. a crash and a restore from the latest snapshot
+    crashed = supervised(crash_at=CHAOS_CRASH_AT)
+    latest, snap_s = crashed["sup"].ckpt.latest_step(), crashed["snap_s"]
+    mb = sum(f.stat().st_size for f in
+             (CHAOS_DIR / f"step_{latest:09d}").iterdir()) / 1e6
+    del crashed                   # the crash: engine, batcher, supervisor
+    gc.collect()
+    eng, batcher = stack()        # restore replaces the queue
+    sup = ServingSupervisor(eng, batcher, cooloff=CHAOS_COOLOFF,
+                            audit_every=1,
+                            ckpt=CheckpointManager(str(CHAOS_DIR)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sup.restore()
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    tokens = {r.uid: list(r.generated) for r in sup.serve(max_steps=2000)}
+    shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+    log(f"chaos: crash after step {CHAOS_CRASH_AT}, restored the snapshot "
+        f"of step {latest} ({mb:.3f} MB) in {restore_ms:.3f} ms; snapshots "
+        f"written in {[round(x * 1e3, 3) for x in snap_s]} ms ({card})")
+    if sup.failed or tokens != base["tokens"]:
+        raise SystemExit("chaos: the restored run's tokens differ from the "
+                         "uncrashed run's")
+    log("chaos: restore ok (tokens equal to the uncrashed run's)")
+    del eng, batcher, sup, base
+    gc.collect()
+    return launches
+
+
+class _Crash(Exception):
+    """Ends a chaos run at its crash step (the simulated crash)."""
 
 
 def timed_decode(eng, steps):

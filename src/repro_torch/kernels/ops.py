@@ -45,6 +45,17 @@ paged-KV kernel.
 ``CALLS[(entry, impl)]`` counts calls per entry point and impl, with
 ``_paged`` appended to the entry of a paged call; the kernels' own
 launch counts are ``build.LAUNCHES``.
+
+A fault injector installed with :func:`set_fault_injector` (the serving
+layer's ``serve.faults.FaultInjector``) is consulted by every attention
+entry point once its impl is resolved, before any refusal onto the
+reference, with the plain entry name also for a paged call, as the JAX
+package's ``_resolve`` consults it.  It may raise
+:class:`KernelLaunchError`, on which the serving supervisor rungs down;
+a call that raises is not counted.  ``ssd`` has no injection point, as
+in the JAX package.  Only the injector raises that error: a kernel that
+fails to build or launch, or a wrapper that refuses a shape, raises its
+own error, which nothing here catches.
 """
 
 from __future__ import annotations
@@ -69,7 +80,8 @@ from repro_torch.kernels.fused_qproj_attention import (
 from repro_torch.kernels import ssd_scan as _ssd
 
 __all__ = ["attention", "qproj_attention", "decode_block", "ssd",
-           "ssd_step", "CALLS", "reset_counts", "reset_downgrade_warnings"]
+           "ssd_step", "CALLS", "reset_counts", "reset_downgrade_warnings",
+           "KernelLaunchError", "set_fault_injector"]
 
 IMPLS = ("cuda", "torch", "reference")
 CALLS: collections.Counter = collections.Counter()
@@ -86,6 +98,29 @@ def reset_counts() -> None:
 
 def reset_downgrade_warnings() -> None:
     _warned_downgrade_reasons.clear()
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch failed at dispatch: raised by an installed fault
+    injector (``serve/faults.py``); the serving supervisor recovers by
+    rung-down on the lowering ladder."""
+
+
+#: the process-wide fault-injection hook; None outside chaos runs
+_fault_injector = None
+
+
+def set_fault_injector(inj) -> None:
+    """Install (or clear, with ``None``) a fault injector whose
+    ``on_kernel(entry, impl)`` runs after each attention entry point
+    resolves its impl."""
+    global _fault_injector
+    _fault_injector = inj
+
+
+def _maybe_inject(entry: str, impl: str) -> None:
+    if _fault_injector is not None:
+        _fault_injector.on_kernel(entry, impl)
 
 
 def _downgrade(plan, reason: str, kernel: str) -> str:
@@ -188,6 +223,7 @@ def attention(q, k, v, *, causal: bool = True,
                                 causal=causal, scale=scale,
                                 q_offset=q_offset, impl=impl, plan=plan)
     impl = _resolve("attention", impl, plan, q.device)
+    _maybe_inject("attention", impl)
     if lengths is None:
         _count("attention", impl)
         if impl == "reference":
@@ -234,6 +270,7 @@ def qproj_attention(x, wq, k, v, *, causal: bool = True,
                                       plan=plan)
     sq = x.shape[1]
     impl = _resolve("qproj_attention", impl, plan, x.device)
+    _maybe_inject("qproj_attention", impl)
     if lengths is None:
         _count("qproj_attention", impl)
         if impl == "reference":
@@ -282,6 +319,7 @@ def decode_block(x, wq, k, v, wo, residual, lengths, *,
                                    rope_theta=rope_theta, impl=impl,
                                    plan=plan)
     impl = _resolve("decode_block", impl, plan, x.device)
+    _maybe_inject("decode_block", impl)
     if impl != "reference":
         reason = _masked_unsupported(x, lengths, False, None, 1)
         if reason is not None:
@@ -308,10 +346,13 @@ def decode_block(x, wq, k, v, wo, residual, lengths, *,
 def _paged_impl(entry: str, x, lengths, block_tables, causal, q_offset,
                 sq: int, page: int, impl: str, plan) -> str:
     """Resolve a paged call's impl, refusing onto the reference what the
-    paged kernels cannot express; counts the call."""
+    paged kernels cannot express; counts the call.  The fault injector
+    sees the plain ``entry`` name, as the JAX package names a paged
+    call."""
     if lengths is None:
         raise ValueError(f"paged {entry} requires lengths")
     impl = _resolve(entry, impl, plan, x.device)
+    _maybe_inject(entry, impl)
     if impl != "reference":
         reason = _paged_unsupported(x, lengths, block_tables, causal,
                                     q_offset, sq, page)

@@ -36,9 +36,18 @@ row, which insert, preempt and resume carry like KV rows; free rows
 decode too, and their state is overwritten at the next insert.  The
 paged engine refuses such a config.
 
-Left for the fault-tolerance slice: the JAX engine's fault injector
-hooks, ``rollback_slot``, NaN injection and the insert backlog that
-makes a prefill step retry-safe.
+Fault tolerance (``serve/supervisor.py``) rests on three properties of
+the engine, as in the JAX package.  A prefill step is retry-safe: the
+completions of a step whose later chunk raised wait on
+``_insert_backlog`` for the retry to report them.  A decode step is
+retry-safe: host mirrors and ``cache_len`` advance only after the step
+ran, and the K/V a raised attempt wrote in place lie past each row's
+length, where the retry writes them again.  ``rollback_slot`` rewinds a
+row's length and token; it refuses a config with Mamba-2 layers, whose
+conv tail and SSM state a decode step overwrites in place (the JAX
+engine rewinds the length alone there, and its stream then differs
+from the fault-free one).  ``fault_injector`` (on the engine and its
+``PageAllocator``) is consulted only in chaos runs.
 """
 
 from __future__ import annotations
@@ -271,8 +280,15 @@ class ContinuousBatchingEngine:
         self.row_ctx = [0] * batch_size   # host mirror of cache_len
         self.live = [False] * batch_size
         self._pending: dict = {}          # slot -> in-flight prefill
+        # completed inserts whose (slot, first_token) the caller has not
+        # been handed yet: they survive a launch that raises later in
+        # the same _advance_prefills, so its retry reports them
+        self._insert_backlog: list = []
         #: standing rung-down count (0: the planned path)
         self.demotions = 0
+        #: the serving layer's fault injector (serve/faults.py); None
+        #: outside chaos runs
+        self.fault_injector = None
         self.last_dispatch = None
         #: the last decode step's last-position logits (B, vocab), on
         #: the device; the last prefill chunk's, per slot
@@ -305,8 +321,9 @@ class ContinuousBatchingEngine:
 
     def _advance_prefills(self) -> list:
         """One prefill chunk per pending request; insert the ones that
-        complete.  Returns [(slot, first_token), ...]."""
-        inserted = []
+        complete.  Returns [(slot, first_token), ...], with those of an
+        earlier call that raised after inserting them."""
+        inserted = self._insert_backlog
         for slot, p in list(self._pending.items()):
             total = p["tokens"].shape[1]
             chunk = self.prefill_chunk or total
@@ -328,6 +345,7 @@ class ContinuousBatchingEngine:
                 self.live[slot] = True
                 del self._pending[slot]
                 inserted.append((slot, res.next_token))
+        self._insert_backlog = []
         return inserted
 
     def _insert(self, res: PrefillResult, slot: int) -> None:
@@ -350,12 +368,24 @@ class ContinuousBatchingEngine:
             dispatch = lower
         return dispatch
 
+    def _inject_nan(self) -> None:
+        """Fault hook: poison one live slot's logits and last token this
+        step if the installed injector says so (chaos runs only)."""
+        inj = self.fault_injector
+        if inj is None:
+            return
+        slot = inj.nan_slot()
+        if slot is None or slot >= self.batch_size or not self.live[slot]:
+            return
+        self.last_logits[slot] = float("nan")
+        self.state.last_token[slot] = 0
+
     def decode_once(self):
         """One whole-batch decode step over the live rows.  Returns the
         (B,) last tokens as numpy, or None when no row is live.  Host
         mirrors advance only after the step ran, so a step that raises
-        (``OutOfPages`` from the paged engine's in-step ``ensure``) can
-        be run again."""
+        (``OutOfPages`` from the paged engine's in-step ``ensure``, an
+        injected ``KernelLaunchError``) can be run again."""
         if not any(self.live):
             self.last_logits = None
             return None
@@ -370,6 +400,7 @@ class ContinuousBatchingEngine:
             active=torch.tensor(self.live, device=self.device),
             block_tables=getattr(self.state, "block_tables", None),
             impl=self.impl)
+        self._inject_nan()
         for i in range(self.batch_size):
             if self.live[i]:
                 self.row_ctx[i] += 1
@@ -381,6 +412,26 @@ class ContinuousBatchingEngine:
         inserted)``."""
         inserted = self._advance_prefills()
         return self.decode_once(), inserted
+
+    def rollback_slot(self, slot: int, ctx: int, token: int) -> None:
+        """Rewind row ``slot`` to a known-good (context, last token), the
+        supervisor's quarantine primitive.  The rewound step's K/V write
+        lies past the restored length, where the kernels never read it
+        and a replay writes the same values.  A Mamba-2 layer's conv tail
+        and SSM state cannot be rewound so (a decode step overwrites them
+        in place), so a config with such layers raises."""
+        ssm = [i for i in range(self.cfg.n_layers)
+               if self.cfg.block_kind(i) != "attn"]
+        if ssm:
+            raise NotImplementedError(
+                f"rollback_slot: layers {ssm} of {self.cfg.name} hold a "
+                "conv tail and an SSM state that the decode step "
+                "overwrote in place; rewinding cache_len alone would "
+                "replay from the advanced state (the JAX engine does, "
+                "and its tokens then differ from the fault-free run's)")
+        self.state.cache_len[slot] = int(ctx)
+        self.state.last_token[slot] = int(token)
+        self.row_ctx[slot] = int(ctx)
 
     def can_resume(self, pre: "PreemptedRequest") -> bool:
         """Dense rows are allocated up front: a snapshot can always
@@ -453,6 +504,9 @@ class PageAllocator:
         #: bookkeeping oddities worth surfacing (a release of an
         #: already-released key): recorded, never raised
         self.notes: list = []
+        #: the serving layer's fault injector (serve/faults.py): every
+        #: alloc, and so every ensure that grows, consults it first
+        self.fault_injector = None
 
     @property
     def num_free(self) -> int:
@@ -470,6 +524,8 @@ class PageAllocator:
         """Append ``n`` fresh pages to ``key``'s list.  All or nothing:
         raises :class:`OutOfPages`, allocating none, when the free list
         is short."""
+        if self.fault_injector is not None:
+            self.fault_injector.on_alloc(key, n)
         if n > len(self._free):
             raise OutOfPages(
                 f"need {n} pages for {key!r} but only {len(self._free)} "

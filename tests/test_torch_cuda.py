@@ -1009,3 +1009,72 @@ def test_two_layer_mamba2_forward_on_the_kernel(cuda_device):
         assert _rel(outs[0][:, -1], got[:, -1]) <= 5e-2
         s0, s1 = (c["scan"][0]["mamba"]["ssm"] for c in caches)
         assert _rel(s0, s1) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_supervisor_rungs_the_decode_megakernel_down_on_the_card(
+        cuda_device):
+    """The dense engine under the supervisor, starcoder2-7b smoke in fp32
+    past C = 2N = 64: an injected ``cuda`` kernel fault (times=1) at a
+    decode step stops #3 before its launch; the retry runs one rung down
+    (#2 at M=1) for that step and the next two, cooloff brings #3 back,
+    and the tokens are the fault-free run's."""
+    import collections
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models.weights import init_params
+    from repro_torch.serve import (ContinuousBatchingEngine, FaultInjector,
+                                   FaultSpec, Request, RequestBatcher,
+                                   ServingSupervisor, make_serving_plan)
+    cfg = configs.get_config("starcoder2-7b", smoke=True)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, g, cuda_device)
+    # three chunks of at most 32: both rows are live from step 2 on
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g,
+                             device=cuda_device).tolist() for n in (70, 80)]
+
+    def run(inj):
+        eng = ContinuousBatchingEngine(
+            params, cfg, batch_size=2, max_len=128,
+            plan=make_serving_plan(cfg, 128, device=cuda_device),
+            prefill_chunk=32, device=cuda_device)
+        bat = RequestBatcher(2, max_len=128)
+        for uid, p in enumerate(prompts):
+            bat.submit(Request(uid=uid, prompt=p, max_new_tokens=10))
+        sup = ServingSupervisor(eng, bat, injector=inj, cooloff=2,
+                                audit_every=1)
+        per_step, step = [], sup.step
+
+        def traced():
+            before = collections.Counter(ops.CALLS)
+            step()
+            per_step.append(collections.Counter(ops.CALLS) - before)
+
+        sup.step = traced
+        fin = sup.serve(max_steps=40)
+        return {r.uid: r.generated for r in fin}, per_step, sup, eng
+
+    want, base, _, _ = run(None)
+    build.reset_launches()
+    inj = FaultInjector([FaultSpec("kernel", step=4, impl="cuda", times=1)])
+    got, per_step, sup, eng = run(inj)
+    assert inj.fired == [(4, "kernel", "decode_block/cuda")]
+    assert got == want
+    layers = cfg.n_layers
+    assert all(base[t][("decode_block", "cuda")] == layers
+               for t in range(2, len(base)))
+    for t in (4, 5, 6):                      # the demoted steps: #2, M=1
+        assert per_step[t][("qproj_attention", "cuda")] == layers
+        assert ("decode_block", "cuda") not in per_step[t]
+    assert all(per_step[t][("decode_block", "cuda")] == layers
+               for t in range(7, len(per_step)))
+    assert build.LAUNCHES["fused_decode_block"] == \
+        layers * (len(per_step) - 2 - 3)
+    assert build.LAUNCHES["fused_qproj_attention_masked"] >= 3 * layers
+    assert [(i.step, i.action) for i in sup.ledger.incidents] == [
+        (4, "rung-down to demotion level 1"), (4, "decode retry succeeded"),
+        (6, "demotion decayed to 0")]
+    assert any("kernel-failure recovery" in dg.reason
+               for dg in eng.last_dispatch.plan.downgrades)
+    assert eng.demotions == 0

@@ -1,7 +1,7 @@
 """The port's boundaries: no file under src/repro_torch/, and not
-chip_smoke.py, time_mma_widths.py, time_decode.py or
-time_decode_block.py, imports JAX or
-anything of the JAX package; the entry points default to the card and
+chip_smoke.py or a root timing script (time_mma_widths.py,
+time_decode.py, time_decode_block.py, time_masked_mma.py,
+time_ssd_scan.py), imports JAX or anything of the JAX package; the entry points default to the card and
 raise without one;
 each kernel source names the TPU kernel it replaces (#11, ssd_scan, by
 file and line) and defines the tensor-core kernels build names; the
@@ -21,7 +21,9 @@ PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                       ROOT / "time_mma_widths.py",
                                       ROOT / "time_decode.py",
-                                      ROOT / "time_decode_block.py"]
+                                      ROOT / "time_decode_block.py",
+                                      ROOT / "time_masked_mma.py",
+                                      ROOT / "time_ssd_scan.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro", "flax"}
 
 
@@ -64,7 +66,13 @@ MAMBA_MODULES = ["configs/mamba2_130m.py", "kernels/ssd_scan.py",
                  "models/mamba.py", "kernels/csrc/ssd_scan.cu"]
 
 
-@pytest.mark.parametrize("rel", TRAINING_MODULES + MAMBA_MODULES)
+#: the fault-tolerance slice's modules
+FAULT_MODULES = ["serve/faults.py", "serve/audit.py", "serve/snapshot.py",
+                 "serve/supervisor.py"]
+
+
+@pytest.mark.parametrize("rel", TRAINING_MODULES + MAMBA_MODULES
+                         + FAULT_MODULES)
 def test_training_modules_are_checked(rel):
     path = PORT / rel
     assert path.exists()
