@@ -17,14 +17,27 @@ Phases, in order:
                version's, the card's bound and a library yardstick; each
                paged kernel also bit for bit against its dense kernel on
                the gathered cache;
-  4. serve  -- the port's launch/serve path: starcoder2-7b at full width
+  4. plan   -- the DSE's ranking on the card: three cells of
+               validate_costmodel_torch.py (starcoder2-7b at full width,
+               one block, prefill M = 64 and 256, decode M = 1 at
+               C = 1024), each candidate kernel path's attention
+               sub-block timed and its peak memory read beside the
+               plan's predicted cycles and peak words;
+  5. serve  -- the port's launch/serve path: starcoder2-7b at full width
                and depth, random weights from a seed, 6 requests through
                the continuous-batching engine; every dense kernel must
                launch, and one request rerun with impl forced to the
                plain versions must give the same logits within
                tolerance; then the mix again and a steady decode window
                under torch.profiler: device time by kernel and idle
-               share.  With the same weights: the mix through the paged
+               share.  Every serve reads its plans from the DSE
+               (lowering.lower on a plan-cache miss) on a cleared plan
+               cache after a garbage collection, prints each cold
+               lowering's host ms, the run's collections and its tok/s
+               (host ms per step in the chaos phase) with and without
+               that plan resolution, and checks each served plan has a
+               source schedule and one alike BlockPlan a layer.  With
+               the same weights: the mix through the paged
                engine with a pool that forces a preempt and a resume
                (the dense serve's tokens, fused_decode_block_paged, KV
                memory and concurrency), a demotions=1 paged run
@@ -38,18 +51,22 @@ Phases, in order:
                schedule twice (the same ledger and fired log), and a
                crash restored from a snapshot (the uncrashed tokens;
                snapshot size, write and restore times);
-  5. qwen   -- qwen3-8b at full width, depth cut to 4 layers, two
+  6. new dense -- qwen3-14b (GQA group 5) and starcoder2-15b (group
+               12) at full width, cut to 4 layers: the serve mix's
+               prompts through launch/serve (#1-#3; qwen3-14b's qk-norm
+               takes #1 only), one request against the plain versions;
+  7. qwen   -- qwen3-8b at full width, depth cut to 4 layers, two
                prompts; its decode past C = 2N runs fused_attention_masked
                on the dense engine and fused_attention_paged on the paged
                one;
-  6. mamba forward -- mamba2-130m at full width and depth (24 layers),
+  8. mamba forward -- mamba2-130m at full width and depth (24 layers),
                the cache-free models.transformer.forward at B=4, L=2048,
                bf16, no grad: the TPU's #11 path, 24 ssd_scan launches;
                each layer's ssd_scan against the plain version on the
                same inputs, and the logits against the plain versions'
                in fp32 compute (bf16 logits reported beside the plain
                versions' own spread at another chunk size);
-  7. mamba serve -- launch/serve.run on mamba2-130m at full depth with
+  9. mamba serve -- launch/serve.run on mamba2-130m at full depth with
                the dense serve's mix (no serving plan): tokens, tok/s,
                median decode step, ssd_scan launches against 24 x the
                prompts' multi-token prefill chunks; one request again on
@@ -57,14 +74,14 @@ Phases, in order:
                beside them on the same inputs, and its logits on the
                kernel against the plain versions' in fp32 compute; then
                the mix and a steady decode window under torch.profiler;
-  8. qproj train -- the cache-free ops.qproj_attention entry point,
+  10. qproj train -- the cache-free ops.qproj_attention entry point,
                forward and backward at starcoder2-7b's training shapes
                (fused_qproj_attention_fwd, then the two backward
                kernels), its four gradients against the plain versions;
-  9. train parity -- starcoder2-7b at full width cut to 2 layers: the
+  11. train parity -- starcoder2-7b at full width cut to 2 layers: the
                loss and every gradient of one batch, then two AdamW
                steps, on the kernels and on the plain versions;
-  10. train -- launch/train.train_loop at full width and depth: 32
+  12. train -- launch/train.train_loop at full width and depth: 32
                layers, remat full, bf16 moments, B=2, seq 2048, 3 steps:
                loss, grad_norm, step time, tokens/s, peak memory and the
                training kernels' launches per step; every per-layer
@@ -901,6 +918,68 @@ def _one_request_logits(eng, prompt, forced_tokens=None,
     return logits, fed
 
 
+#: host seconds of every garbage collection since the first plan_clock()
+_GC = {"secs": 0.0, "t0": None}
+
+
+def _gc_timer(phase, info):
+    if phase == "start":
+        _GC["t0"] = time.perf_counter()
+    elif _GC["t0"] is not None:
+        _GC["secs"] += time.perf_counter() - _GC["t0"]
+
+
+def plan_clock() -> tuple:
+    """(cold lowerings, their host seconds) so far; the difference of two
+    readings is the plan resolution a run paid (``lowering.lower`` on a
+    plan-cache miss: host time, no kernel)."""
+    from repro_torch.lower import cache
+    if _gc_timer not in gc.callbacks:
+        gc.callbacks.append(_gc_timer)
+    return cache.lowering_totals() + (_GC["secs"],)
+
+
+def plan_since(before: tuple) -> tuple:
+    """(cold lowerings, their host seconds, garbage collections' host
+    seconds) since ``before``; a collection that ran inside a lowering
+    is counted in both."""
+    return tuple(a - b for a, b in zip(plan_clock(), before))
+
+
+def log_lowerings(count: int, indent: str = "  ") -> None:
+    """The last ``count`` cold lowerings, each (config, phase, bucket,
+    decode tokens M, blocks) with its host ms."""
+    from repro_torch.lower import cache
+    rows = list(cache.LOWERINGS)[-count:] if count else []
+    log(f"{indent}cold lowerings ({count}): " + ", ".join(
+        f"{c} {p} bucket {b} M={m} x{nb} {s * 1e3:.1f} ms"
+        for c, p, b, m, nb, s in rows))
+
+
+def check_served_plans(phase: str, plan, cfg) -> None:
+    """Every plan a serve resolved came from ``lowering.lower``: a source
+    schedule, one BlockPlan a layer, all alike."""
+    bad = [p for p in plan.plans() if p.source is None
+           or p.n_blocks != cfg.n_layers or len(p.blocks) != cfg.n_layers
+           or len({(b.kernel_path, b.tiling) for b in p.blocks}) != 1]
+    if bad or not plan.plans():
+        raise SystemExit(f"{phase}: served plans without a homogeneous "
+                         f"lowering: {bad}")
+
+
+def log_rates(phase: str, gen: int, secs: float, spent: tuple,
+              resolutions: int) -> None:
+    """tok/s over the run's wall time, and without its plan resolution
+    (``spent`` from :func:`plan_since`: the cold lowerings, host time
+    apart from the steps; the run's garbage collections beside)."""
+    n_low, plan_s, gc_s = spent
+    log(f"  {phase}: {gen} tokens in {secs:.3f}s = {gen / secs:.2f} tok/s "
+        f"with plan resolution; {n_low} cold lowerings took "
+        f"{plan_s * 1e3:.1f} ms, so {gen / (secs - plan_s):.2f} tok/s "
+        f"without; {resolutions} plan resolutions; garbage collection "
+        f"{gc_s * 1e3:.1f} ms in the run")
+
+
 #: whole-batch decode steps in each steady decode window
 DECODE_WINDOW = 8
 
@@ -1007,10 +1086,14 @@ def serve_phase(dev):
     log(f"  prompts: {[len(r.prompt) for r in requests]} tokens, "
         f"chunk {args.prefill_chunk}, max_len {args.max_len}")
 
+    lower.clear_plan_cache()       # the serve pays its cold lowerings
+    gc.collect()                   # and no garbage of an earlier phase
+    before = plan_clock()
     ops.reset_counts()
     out = serve.run(args, cfg, params, requests)
     launches = collections.Counter(build.LAUNCHES)
     calls = dict(ops.CALLS)
+    spent = plan_since(before)
     finished, secs = out["finished"], out["seconds"]
     gen = sum(len(r.generated) for r in finished)
     steps = out["decode_step_s"]
@@ -1020,6 +1103,9 @@ def serve_phase(dev):
     log(f"  finished {len(finished)}/{len(requests)} requests, {gen} "
         f"tokens in {secs:.3f}s = {gen / secs:.2f} tok/s; decode steps "
         f"{len(steps)}, median step {step_ms:.3f} ms")
+    log_rates("serve", gen, secs, spent, len(out["plan"].resolutions))
+    log_lowerings(spent[0])
+    check_served_plans("serve", out["plan"], cfg)
     log(f"  launches: {dict(launches)}")
     log(f"  calls by impl: "
         f"{ {f'{e}/{i}': n for (e, i), n in sorted(calls.items())} }")
@@ -1150,10 +1236,13 @@ def paged_serve_phase(args, cfg, params, dense_tokens, dev):
     for req in requests:
         batcher.submit(req)
     ops.reset_counts()
+    gc.collect()
+    before = plan_clock()
     t0 = time.perf_counter()
     finished = batcher.serve(eng, max_steps=2000)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    spent = plan_since(before)
     launches = dict(build.LAUNCHES)
     gen = sum(len(r.generated) for r in finished)
     step_ms = sorted(step_s)[len(step_s) // 2] * 1e3
@@ -1173,6 +1262,9 @@ def paged_serve_phase(args, cfg, params, dense_tokens, dev):
         f"pool's {num_pages - 1} pages holds "
         f"{(num_pages - 1) * PAGE // args.max_len} rows of max_len; "
         f"preempts {counts['preempt']}, resumes {counts['resume']}")
+    log_rates("paged serve", gen, secs, spent, len(plan.resolutions))
+    log_lowerings(spent[0])
+    check_served_plans("paged serve", plan, cfg)
     log(f"  launches: {launches}")
     paged_downs = [g.reason for g in plan.downgrades() if "paged" in g.reason]
     if len(finished) != len(requests) or any(
@@ -1411,6 +1503,8 @@ def chaos_phase(args, cfg, params, dev):
         sup.step, sup.checkpoint = traced, timed_checkpoint
         ops.reset_counts()
         torch.cuda.synchronize()
+        gc.collect()
+        before = plan_clock()
         t0 = time.perf_counter()
         try:
             finished = sup.serve(max_steps=2000)
@@ -1418,6 +1512,7 @@ def chaos_phase(args, cfg, params, dev):
             finished = None
         torch.cuda.synchronize()
         out = {"secs": time.perf_counter() - t0, "steps": sup.t,
+               "plan": plan_since(before),
                "logits": store, "per_step": per_step, "snap_s": snap_s,
                "launches": dict(build.LAUNCHES), "recovery": recovery(eng),
                "fired": None if inj is None else list(inj.fired),
@@ -1442,10 +1537,14 @@ def chaos_phase(args, cfg, params, dev):
 
         eng.step = counted_step
         torch.cuda.synchronize()
+        gc.collect()
+        before = plan_clock()
         t0 = time.perf_counter()
         finished = batcher.serve(eng, max_steps=2000)
         torch.cuda.synchronize()
         out["ms"] = (time.perf_counter() - t0) / steps[0] * 1e3
+        out["plan"] = plan_since(before)
+        out["bare_ms"] = out["ms"] - out["plan"][1] / steps[0] * 1e3
         out["tokens"] = {r.uid: list(r.generated) for r in finished}
         return out
 
@@ -1453,10 +1552,13 @@ def chaos_phase(args, cfg, params, dev):
     # plain, plain, supervised
     plain = unsupervised()
     base = supervised()
-    plain_ms = [unsupervised()["ms"] for _ in range(2)]
-    sup_ms = [base["secs"] / base["steps"] * 1e3]
+    plains = [unsupervised() for _ in range(2)]
+    plain_ms = [p["ms"] for p in plains]
     again = supervised()
-    sup_ms.append(again["secs"] / again["steps"] * 1e3)
+    sup_ms = [r["secs"] / r["steps"] * 1e3 for r in (base, again)]
+    sup_bare = [(r["secs"] - r["plan"][1]) / r["steps"] * 1e3
+                for r in (base, again)]
+    plain_bare = [p["bare_ms"] for p in plains]
     if base["recovery"] or base["fired"]:
         raise SystemExit("chaos: a rung-down in the fault-free run")
     n = tie_check("chaos fault-free", base, plain, args.max_new)
@@ -1473,7 +1575,18 @@ def chaos_phase(args, cfg, params, dev):
         f"{plain['ms']:.3f} ms): overhead "
         f"{statistics.mean(sup_ms) - statistics.mean(plain_ms):+.3f} ms a "
         f"step ({card})")
-    del plain, again
+    gcs = ", ".join(f"{r['plan'][2] * 1e3:.1f}"
+                    for r in (base, again, plains[0], plains[1]))
+    log(f"  without plan resolution (each run clears the plan cache and "
+        f"pays {base['plan'][0]} cold lowerings: supervised "
+        f"{base['plan'][1] * 1e3:.1f}, {again['plan'][1] * 1e3:.1f} ms, "
+        f"batcher {plains[0]['plan'][1] * 1e3:.1f}, "
+        f"{plains[1]['plan'][1] * 1e3:.1f} ms; garbage collection {gcs} "
+        f"ms): supervised {sup_bare[0]:.3f}, {sup_bare[1]:.3f} ms, "
+        f"RequestBatcher.serve {plain_bare[0]:.3f}, {plain_bare[1]:.3f} ms "
+        f"a step: overhead "
+        f"{statistics.mean(sup_bare) - statistics.mean(plain_bare):+.3f} ms")
+    del plain, again, plains
 
     # 2. every fault kind; the kernel fault at the first step that only
     # decodes (prefill chunks run dense: every call is a paged one)
@@ -1610,6 +1723,7 @@ def qwen_phase(dev):
         "--arch", "qwen3-8b", "--layers", "4", "--batch", "2",
         "--max-len", "512", "--prefill-chunk", "256", "--device", "cuda"])
     cfg, params = serve.model_for(args)
+    before = plan_clock()
     plan = lower.serving_plan(cfg, args.max_len, device=dev)
     eng = ContinuousBatchingEngine(
         params, cfg, batch_size=args.batch, max_len=args.max_len, plan=plan,
@@ -1631,6 +1745,8 @@ def qwen_phase(dev):
         f"layers, prompts 300/333, {steps} decode steps: decode paths "
         f"{sorted(paths)}, launches {launches}, tokens {toks.tolist()}, "
         f"{step_ms}")
+    log_lowerings(plan_since(before)[0])
+    check_served_plans("qwen", plan, cfg)
     if launches.get("fused_attention_masked", 0) == 0:
         raise SystemExit("qwen: decode never launched "
                          "fused_attention_masked")
@@ -1665,6 +1781,106 @@ def qwen_phase(dev):
     del params, eng
     torch.cuda.empty_cache()
     return launches
+
+
+#: the two dense configs added with the DSE core: full width, depth cut
+NEW_DENSE = ("qwen3-14b", "starcoder2-15b")
+NEW_DENSE_LAYERS = 4
+
+
+def new_dense_phase(dev):
+    """qwen3-14b (GQA group 5) and starcoder2-15b (group 12) at full
+    width, cut to NEW_DENSE_LAYERS layers: the serve mix's prompts (4
+    requests, 8 new tokens each) through ``serve.run`` on plans lowered
+    by the DSE, then one request on the kernels against the same steps
+    on the plain versions (LOGIT_TOL).  starcoder2-15b must launch
+    #1-#3; qwen3-14b's qk-norm walks its Q-fusion rungs down to #1 (a
+    downgrade on the plan's ledger, as qwen3-8b's).  Returns the
+    launches of the two serves."""
+    from repro_torch import lower
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    launches = collections.Counter()
+    for arch in NEW_DENSE:
+        args = serve.parser().parse_args([
+            "--arch", arch, "--layers", str(NEW_DENSE_LAYERS), "--batch",
+            "4", "--requests", "4", "--max-len", "1024", "--max-new", "8",
+            "--prefill-chunk", "256", "--device", "cuda"])
+        cfg, params = serve.model_for(args)
+        requests = serve.make_requests(cfg, args.requests, args.max_new,
+                                       prompt_lens=PROMPT_LENS)
+        lower.clear_plan_cache()
+        gc.collect()
+        before = plan_clock()
+        ops.reset_counts()
+        out = serve.run(args, cfg, params, requests)
+        torch.cuda.synchronize()
+        got = dict(build.LAUNCHES)
+        spent = plan_since(before)
+        finished = out["finished"]
+        gen = sum(len(r.generated) for r in finished)
+        steps = out["decode_step_s"]
+        log(f"{arch}: d_model={cfg.d_model}, {cfg.n_heads} query heads over "
+            f"{cfg.kv_heads} KV heads (group {cfg.n_heads // cfg.kv_heads}), "
+            f"cut to {cfg.n_layers} layers; {len(finished)}/{len(requests)} "
+            f"requests, median decode step "
+            f"{sorted(steps)[len(steps) // 2] * 1e3:.3f} ms; launches {got}")
+        log_rates(arch, gen, out["seconds"], spent,
+                  len(out["plan"].resolutions))
+        log_lowerings(spent[0])
+        check_served_plans(arch, out["plan"], cfg)
+        downs = sorted({d.reason for d in out["plan"].downgrades()})
+        log(f"  plan ledger: {downs or 'no downgrade'}")
+        want = ("fused_attention_masked",) if cfg.qk_norm else DENSE_KERNELS
+        missing = [n for n in want if not got.get(n)]
+        extra = [n for n in got if n not in want]
+        if missing or extra or len(finished) != len(requests) or any(
+                len(r.generated) != args.max_new for r in finished):
+            raise SystemExit(f"{arch}: kernels missing {missing}, "
+                             f"unexpected {extra}, or a request short")
+        if cfg.qk_norm and not any("qk-norm" in d for d in downs):
+            raise SystemExit(f"{arch}: no qk-norm downgrade on the ledger")
+        launches.update(got)
+        runs = []
+        for plan_dev in (dev, torch.device("cpu")):
+            plan = lower.ServingPlan(cfg=cfg, max_len=args.max_len,
+                                     device=plan_dev, n_blocks=cfg.n_layers)
+            eng = ContinuousBatchingEngine(
+                params, cfg, batch_size=1, max_len=args.max_len, plan=plan,
+                dtype=cfg.torch_dtype(), prefill_chunk=args.prefill_chunk,
+                device=dev)
+            runs.append(_one_request_logits(eng, requests[1].prompt,
+                                            runs[0][1] if runs else None))
+            del eng
+        worst = compare_logits(arch, runs[0][0], runs[1][0])
+        log(f"{arch}: ok (prompt {len(requests[1].prompt)} tokens, prefill "
+            f"+ {DECODE_COMPARED} decode steps, worst rel {worst:.4e})")
+        del params, out
+        torch.cuda.empty_cache()
+    return launches
+
+
+#: the three cells of validate_costmodel_torch.py the smoke run takes:
+#: prefill either side of M = N = 128, decode past C = 2N = 256
+PLAN_CELLS = (("prefill", 64, 64), ("prefill", 256, 256),
+              ("decode", 1, 1024))
+
+
+def plan_phase(dev):
+    """The DSE's ranking on the card: starcoder2-7b at full width, one
+    block, the three PLAN_CELLS of ``validate_costmodel_torch.py``;
+    each candidate path's attention sub-block timed and its peak
+    memory read, against the plan's predicted cycles and peak words.
+    Launches here are not the main path's."""
+    import validate_costmodel_torch as vc
+    rows = vc.validate(dev, PLAN_CELLS, log=log)
+    vc.print_rows(rows, log=lambda t: log("  " + t))
+    tot = vc.print_agreement(rows, log=lambda t: log("  " + t))
+    log(f"plan: ok ({len(rows)} candidates in {len(PLAN_CELLS)} cells; "
+        f"latency ranking {vc._frac(*tot['latency'])}, memory "
+        f"{vc._frac(*tot['memory'])}; {card_line()})")
 
 
 # ---------------------------------------------------------------------------
@@ -2794,7 +3010,9 @@ def main() -> int:
     results.update(train_kernel_phase(dev, g, check_kernel))
     results.update(ssd_kernel_phase(dev, g))
     log("kernels: " + ", ".join(f"{n} ok" for n in results))
+    plan_phase(dev)
     launches = serve_phase(dev)
+    launches.update(new_dense_phase(dev))
     launches.update(qwen_phase(dev))
     launches.update(mamba_forward_phase(dev))
     launches.update(mamba_serve_phase(dev))

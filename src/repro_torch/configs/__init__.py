@@ -12,6 +12,8 @@ from typing import Optional
 ARCHS = {
     "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 

@@ -26,8 +26,13 @@ are page pools (num_pages, Hkv, page, D) and each entry point takes its
 paged kernel (``fused_attention_paged``, ``fused_qproj_attention_paged``,
 ``fused_decode_block_paged``), its plain version, or the oracle over
 the gathered pool.  A ``plan`` (``lower.runtime.PlanDispatch``) supplies the
-impl and receives downgrade records; without one, ``auto`` means the
-kernel on a CUDA tensor and the plain version on a CPU one.
+impl and receives downgrade records.  Without one, ``auto`` resolves
+through the plan cache as in the JAX package: the call's shapes alone
+key a plan (``lower.cache.kernel_plan``), whose kernel path picks the
+kernel (``cuda`` on a CUDA tensor, ``torch`` on a CPU one) or, below
+the crossovers, the unfused ``reference``, and that plan receives the
+call's downgrade records.  ``schedule_for`` is the paper's shape rule
+by name.
 
 A call the masked kernels cannot express (a dtype outside fp32/bf16/
 fp16, malformed lengths, an explicit causal offset other than the
@@ -78,16 +83,28 @@ from repro_torch.kernels.fused_qproj_attention import (
     fused_qproj_attention_masked_plain, fused_qproj_attention_paged,
     fused_qproj_attention_paged_plain)
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.core.fusion import select_schedule
+from repro_torch.lower import cache as _plan_cache
+from repro_torch.lower import lowering as _lowering
+from repro_torch.lower import runtime as _plan_rt
 
 __all__ = ["attention", "qproj_attention", "decode_block", "ssd",
-           "ssd_step", "CALLS", "reset_counts", "reset_downgrade_warnings",
-           "KernelLaunchError", "set_fault_injector"]
+           "ssd_step", "schedule_for", "CALLS", "reset_counts",
+           "reset_downgrade_warnings", "KernelLaunchError",
+           "set_fault_injector"]
 
 IMPLS = ("cuda", "torch", "reference")
 CALLS: collections.Counter = collections.Counter()
 
 _MASKED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _warned_downgrade_reasons: set = set()
+
+
+def schedule_for(seq_q: int, d_head: int) -> str:
+    """The paper's shape rule with M = query rows, N = head width:
+    'fuse_pv' (Fig. 5c) for M > N, 'fuse_q_qkt' (Fig. 5b) for M < N,
+    'lbl' at M == N."""
+    return select_schedule(seq_q, d_head)
 
 
 def reset_counts() -> None:
@@ -188,15 +205,34 @@ def _paged_unsupported(x, lengths, block_tables, causal: bool, q_offset,
     return _masked_unsupported(x, lengths, causal, q_offset, sq)
 
 
-def _resolve(entry: str, impl: str, plan, device) -> str:
+def _auto_dispatch(entry: str, sq: int, skv: int, d: int, hq: int,
+                   hkv: int, lengths_masked: bool, device):
+    """Resolve a plan-less ``impl="auto"`` through the plan cache: the
+    shape-only plan legalised for this entry point on ``device``.  None
+    where the shapes are no DSE workload (``lowering.supported``); the
+    caller then takes the device's kernel or plain version."""
+    if not _lowering.supported(_plan_cache.head_config(d, hq, hkv)):
+        return None
+    plan = _plan_cache.kernel_plan(seq_q=sq, seq_kv=skv, d_head=d,
+                                   n_heads=hq, n_kv_heads=hkv)
+    return _plan_rt.dispatch(plan, device=device, entry=entry,
+                             lengths_masked=lengths_masked)
+
+
+def _resolve(entry: str, impl: str, plan, device, shapes=None):
+    """(impl, plan) of one call: a given plan's impl, or for a
+    plan-less ``auto`` the shape-only plan's (``shapes`` = (Sq, Skv, D,
+    Hq, Hkv, lengths_masked)), or the device's where none applies."""
     if impl == "auto":
+        if plan is None and shapes is not None:
+            plan = _auto_dispatch(entry, *shapes, device)
         if plan is not None:
             impl = plan.impl
         else:
             impl = "cuda" if device.type == "cuda" else "torch"
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
-    return impl
+    return impl, plan
 
 
 def _count(entry: str, impl: str) -> None:
@@ -222,7 +258,9 @@ def attention(q, k, v, *, causal: bool = True,
         return _attention_paged(q, k, v, lengths, block_tables,
                                 causal=causal, scale=scale,
                                 q_offset=q_offset, impl=impl, plan=plan)
-    impl = _resolve("attention", impl, plan, q.device)
+    impl, plan = _resolve("attention", impl, plan, q.device,
+                          (sq, k.shape[2], q.shape[3], q.shape[1],
+                           k.shape[1], lengths is not None))
     _maybe_inject("attention", impl)
     if lengths is None:
         _count("attention", impl)
@@ -269,7 +307,9 @@ def qproj_attention(x, wq, k, v, *, causal: bool = True,
                                       rope_theta=rope_theta, impl=impl,
                                       plan=plan)
     sq = x.shape[1]
-    impl = _resolve("qproj_attention", impl, plan, x.device)
+    impl, plan = _resolve("qproj_attention", impl, plan, x.device,
+                          (sq, k.shape[2], wq.shape[-1], wq.shape[1],
+                           k.shape[1], lengths is not None))
     _maybe_inject("qproj_attention", impl)
     if lengths is None:
         _count("qproj_attention", impl)
@@ -318,7 +358,9 @@ def decode_block(x, wq, k, v, wo, residual, lengths, *,
                                    block_tables, scale=scale,
                                    rope_theta=rope_theta, impl=impl,
                                    plan=plan)
-    impl = _resolve("decode_block", impl, plan, x.device)
+    impl, plan = _resolve("decode_block", impl, plan, x.device,
+                          (1, k.shape[2], wq.shape[-1], wq.shape[1],
+                           k.shape[1], True))
     _maybe_inject("decode_block", impl)
     if impl != "reference":
         reason = _masked_unsupported(x, lengths, False, None, 1)
@@ -344,14 +386,19 @@ def decode_block(x, wq, k, v, wo, residual, lengths, *,
 # ---------------------------------------------------------------------------
 
 def _paged_impl(entry: str, x, lengths, block_tables, causal, q_offset,
-                sq: int, page: int, impl: str, plan) -> str:
+                sq: int, pool, d: int, hq: int, impl: str, plan) -> str:
     """Resolve a paged call's impl, refusing onto the reference what the
-    paged kernels cannot express; counts the call.  The fault injector
+    paged kernels cannot express; counts the call.  ``pool`` is the V
+    page pool (num_pages, Hkv, page, Dv): a plan-less ``auto`` keys its
+    plan on the table's depth, max_pages * page.  The fault injector
     sees the plain ``entry`` name, as the JAX package names a paged
     call."""
     if lengths is None:
         raise ValueError(f"paged {entry} requires lengths")
-    impl = _resolve(entry, impl, plan, x.device)
+    page = pool.shape[2]
+    impl, plan = _resolve(entry, impl, plan, x.device,
+                          (sq, block_tables.shape[-1] * page, d, hq,
+                           pool.shape[1], True))
     _maybe_inject(entry, impl)
     if impl != "reference":
         reason = _paged_unsupported(x, lengths, block_tables, causal,
@@ -365,7 +412,8 @@ def _paged_impl(entry: str, x, lengths, block_tables, causal, q_offset,
 def _attention_paged(q, k_pool, v_pool, lengths, block_tables, *, causal,
                      scale, q_offset, impl, plan):
     impl = _paged_impl("attention", q, lengths, block_tables, causal,
-                       q_offset, q.shape[2], v_pool.shape[2], impl, plan)
+                       q_offset, q.shape[2], v_pool, q.shape[3], q.shape[1],
+                       impl, plan)
     if impl == "reference":
         return ref.paged_attention_reference(
             q, k_pool, v_pool, lengths, block_tables, causal=causal,
@@ -383,7 +431,8 @@ def _attention_paged(q, k_pool, v_pool, lengths, block_tables, *, causal,
 def _qproj_attention_paged(x, wq, k_pool, v_pool, lengths, block_tables, *,
                            causal, scale, q_offset, rope_theta, impl, plan):
     impl = _paged_impl("qproj_attention", x, lengths, block_tables, causal,
-                       q_offset, x.shape[1], v_pool.shape[2], impl, plan)
+                       q_offset, x.shape[1], v_pool, wq.shape[-1],
+                       wq.shape[1], impl, plan)
     if impl == "reference":
         return ref.paged_qproj_attention_reference(
             x, wq, k_pool, v_pool, lengths, block_tables, causal=causal,
@@ -402,7 +451,8 @@ def _qproj_attention_paged(x, wq, k_pool, v_pool, lengths, block_tables, *,
 def _decode_block_paged(x, wq, k_pool, v_pool, wo, residual, lengths,
                         block_tables, *, scale, rope_theta, impl, plan):
     impl = _paged_impl("decode_block", x, lengths, block_tables, False,
-                       None, 1, v_pool.shape[2], impl, plan)
+                       None, 1, v_pool, wq.shape[-1], wq.shape[1], impl,
+                       plan)
     if impl == "reference":
         return ref.paged_decode_block_reference(
             x, wq, k_pool, v_pool, wo, residual, lengths, block_tables,
@@ -437,7 +487,7 @@ def ssd(x, dt, a, b, c, d=None, *, chunk: int = 128, impl: str = "auto",
     state fp32."""
     _ssd.check_no_grad("ops.ssd", {"x": x, "dt": dt, "a": a, "b": b,
                                    "c": c, "d": d, "h0": h0})
-    impl = _resolve("ssd", impl, None, x.device)
+    impl, _ = _resolve("ssd", impl, None, x.device)
     _count("ssd", impl)
     if impl == "reference":
         return ref.ssd_reference(x, dt, a, b, c, d, h0=h0,

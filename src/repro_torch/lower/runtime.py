@@ -16,8 +16,9 @@ as the serving context grows.
   path that step.  A paged plan (``paged=True``) legalises every
   dispatch for a KV page pool read through block tables.
 
-Tiles are not part of a plan here: each CUDA kernel picks its own for
-Hopper.
+A dispatch carries the plan's tiles (``codesign.plan_tiling``: the
+tiles the CUDA kernel for its path launches) for the record only; the
+kernels fix their own at compile time.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Optional
 import torch
 
 from repro_torch.lower import cache as plan_cache
+from repro_torch.lower import lowering
 from repro_torch.lower.plan import (DECODE_MEGAKERNEL, FUSED_ATTENTION,
                                     QPROJ_ATTENTION, UNFUSED, ExecutionPlan)
 from repro_torch.models.common import resolve_device
@@ -49,11 +51,14 @@ def impl_for(path: str, device) -> str:
 @dataclasses.dataclass
 class PlanDispatch:
     """What one attention call site needs from the plan: the legalised
-    path, its impl, and the plan for downgrade records."""
+    path, its impl, the plan's tiles (a record: the kernels keep their
+    own) and the plan for downgrade records."""
 
     plan: ExecutionPlan
     path: str                   # legalised kernel path
     impl: str                   # cuda | torch | reference
+    block_q: int
+    block_k: int
     paged: bool = False         # the call site passes a KV page pool and
     #                             block tables instead of dense caches
 
@@ -68,7 +73,8 @@ class PlanDispatch:
         return self.path == DECODE_MEGAKERNEL
 
     def __repr__(self) -> str:
-        return f"<PlanDispatch {self.path}/{self.impl} of {self.plan!r}>"
+        return (f"<PlanDispatch {self.path}/{self.impl} "
+                f"blocks=({self.block_q},{self.block_k}) of {self.plan!r}>")
 
 
 def dispatch(plan: ExecutionPlan, *, device,
@@ -103,7 +109,7 @@ def dispatch(plan: ExecutionPlan, *, device,
             if entry in ("qproj_attention", "decode_block") \
                     and not qk_norm:
                 new = QPROJ_ATTENTION
-            elif plan.fuse_scores:
+            elif plan.block(0).fuse_scores:
                 new = FUSED_ATTENTION
             else:
                 new = UNFUSED
@@ -116,7 +122,7 @@ def dispatch(plan: ExecutionPlan, *, device,
         if qk_norm:
             blocked.append("qk-norm between projection and scores")
         if blocked:
-            new = FUSED_ATTENTION if plan.fuse_scores else UNFUSED
+            new = FUSED_ATTENTION if plan.block(0).fuse_scores else UNFUSED
             plan.record_downgrade("; ".join(blocked), path, new)
             path = new
     if rope and path in (QPROJ_ATTENTION, DECODE_MEGAKERNEL):
@@ -135,7 +141,9 @@ def dispatch(plan: ExecutionPlan, *, device,
             plan.record_downgrade(
                 f"paged KV block tables unsupported on impl '{impl}': "
                 "pool gathered to masked-dense", path, path)
-    return PlanDispatch(plan=plan, path=path, impl=impl, paged=paged)
+    t = plan.tiling
+    return PlanDispatch(plan=plan, path=path, impl=impl, block_q=t.block_q,
+                        block_k=t.block_kv, paged=paged)
 
 
 #: the lowering ladder, top rung first; rung-down recovery walks it
@@ -210,6 +218,10 @@ class ServingPlan:
         self._plans[id(plan)] = plan
         return d
 
+    def plans(self) -> list:
+        """The ExecutionPlans this handle resolved, in first-use order."""
+        return list(self._plans.values())
+
     def downgrades(self) -> list:
         """Every downgrade recorded on the ExecutionPlans this handle
         resolved.  Plans are cached and shared by every handle of the
@@ -253,14 +265,13 @@ def serving_plan(cfg, max_len: int, *, device="cuda", n_blocks=None,
                  paged: bool = False,
                  page_size: Optional[int] = None) -> Optional[ServingPlan]:
     """The ServingPlan for ``cfg`` on ``device``, which defaults to the
-    card and raises without one; None when ``cfg`` is not lowerable, as
-    in the JAX package (``lowering.supported``: only GQA attention
-    blocks are DSE workloads, not MLA, SSM or hybrid ones): the engine
-    then keeps its config-driven dispatch.  ``paged``/``page_size``: plan for a
-    paged KV pool; ``max_len`` must then be a multiple of the page
-    size."""
+    card and raises without one; None when ``cfg`` is not lowerable
+    (``lowering.supported``: only GQA attention blocks are DSE
+    workloads, not MLA, SSM or hybrid ones): the engine then keeps its
+    config-driven dispatch.  ``paged``/``page_size``: plan for a paged
+    KV pool; ``max_len`` must then be a multiple of the page size."""
     dev = resolve_device(device)
-    if cfg.attention != "gqa" or cfg.block_kind(0) != "attn":
+    if not lowering.supported(cfg):
         return None
     if paged and page_size is not None and max_len % page_size:
         raise ValueError(

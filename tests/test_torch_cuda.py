@@ -49,6 +49,9 @@ what no h0 gives), keeps one workspace a stream, grown as needed, stamps
 its phases in order when traced; it
 reads strided views, aligned or not, bit for bit as their copies; and a
 2-layer full-width mamba2-130m forward on it matches the plain versions.
+qwen3-14b and starcoder2-15b (GQA groups 5 and 12) serve one layer at
+full width on the kernels their DSE-lowered plans pick, against the
+plain versions.
 """
 
 import pytest
@@ -1078,3 +1081,63 @@ def test_supervisor_rungs_the_decode_megakernel_down_on_the_card(
     assert any("kernel-failure recovery" in dg.reason
                for dg in eng.last_dispatch.plan.downgrades)
     assert eng.demotions == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,group", [("qwen3-14b", 5),
+                                        ("starcoder2-15b", 12)])
+def test_new_gqa_group_serves_on_the_kernels(cuda_device, arch, group):
+    """qwen3-14b (40 query heads over 8 KV heads) and starcoder2-15b (48
+    over 4) at full width, cut to one layer, bf16: one 300-token prompt
+    (a 256-row chunk, then 44 rows past C = 2N) and four decode steps
+    on the dense engine with its plan lowered by the DSE, against the
+    same steps on the plain versions (a plan on the CPU device) within
+    5e-2 of the largest logit.  starcoder2-15b runs #1, #2 and #3;
+    qwen3-14b's qk-norm walks its Q-fusion rungs down to #1, recorded
+    on the plan."""
+    import dataclasses
+
+    from repro_torch import configs, lower
+    from repro_torch.models.weights import init_params
+    from repro_torch.serve import ContinuousBatchingEngine
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=1)
+    assert cfg.n_heads // cfg.kv_heads == group
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, g, cuda_device)
+    prompt = torch.randint(0, cfg.vocab_size, (300,), generator=g,
+                           device=cuda_device).tolist()
+    runs = []
+    for plan_dev in (cuda_device, torch.device("cpu")):
+        plan = lower.ServingPlan(cfg=cfg, max_len=512, device=plan_dev,
+                                 n_blocks=cfg.n_layers)
+        eng = ContinuousBatchingEngine(params, cfg, batch_size=1,
+                                       max_len=512, plan=plan,
+                                       dtype=torch.bfloat16,
+                                       prefill_chunk=256, device=cuda_device)
+        build.reset_launches()
+        eng.begin_prefill(0, prompt)
+        while not eng.live[0]:
+            eng._advance_prefills()
+        logits, fed = [eng.prefill_logits[0].float()], []
+        for i in range(4):
+            if runs:
+                eng.state.last_token[0] = runs[0][1][i]
+            fed.append(int(eng.state.last_token[0]))
+            eng.decode_once()
+            logits.append(eng.last_logits[0].float())
+        runs.append((logits, fed, dict(build.LAUNCHES), plan))
+    (got, _, launches, plan), (want, _, plain, _) = runs
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 5e-2 * b.abs().max().item()
+    assert not plain
+    assert all(p.source is not None and len({b.kernel_path
+                                             for b in p.blocks}) == 1
+               for p in plan._plans.values())
+    assert launches["fused_attention_masked"] >= 1
+    if cfg.qk_norm:
+        assert set(launches) == {"fused_attention_masked"}
+        assert any("qk-norm" in d.reason for d in plan.downgrades())
+    else:
+        assert launches["fused_qproj_attention_masked"] == 1
+        assert launches["fused_decode_block"] == 4

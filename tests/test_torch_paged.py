@@ -202,8 +202,13 @@ def test_ops_paged_impls_refusals_and_counts():
         got = ops.attention(q, kp, vp, lengths=lens, block_tables=tbl,
                             impl=impl)
         torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
-    assert ops.CALLS[("attention_paged", "torch")] == 2
-    assert ops.CALLS[("attention_paged", "reference")] == 1
+    # plan-less auto keys the shape-only plan on the table's depth,
+    # 4 pages x 16 = 64 = 2N: the unfused reference
+    assert lower.kernel_plan(seq_q=1, seq_kv=max_pages * page, d_head=d,
+                             n_heads=hq, n_kv_heads=hkv
+                             ).kernel_path == lower.UNFUSED
+    assert ops.CALLS[("attention_paged", "torch")] == 1
+    assert ops.CALLS[("attention_paged", "reference")] == 2
     assert not build.LAUNCHES
     with pytest.raises(ValueError, match="requires lengths"):
         ops.attention(q, kp, vp, block_tables=tbl)
@@ -227,7 +232,8 @@ def test_ops_paged_impls_refusals_and_counts():
         "paged-KV kernel unavailable: block_tables must be integral, got "
         "torch.float32",
         "paged-KV kernel unavailable: page size 12 not sublane-aligned (8)"]
-    assert ops.CALLS[("attention_paged", "reference")] == 4
+    # the two above (auto's and the explicit one) and the three refusals
+    assert ops.CALLS[("attention_paged", "reference")] == 5
 
 
 def test_page_allocator_matches_jax():

@@ -6,6 +6,10 @@
   batcher and supervisor, finish; the tokens equal the uncrashed run's,
   which are the JAX supervisor's on the same weights (qwen3-8b smoke,
   fp32).
+* The same crash and restore on mamba2-130m smoke through the dense
+  engine (no plan: Mamba-2 blocks are no DSE workload): the conv tails
+  and SSM states come back from the snapshot, the audit is clean and
+  the tokens equal the JAX supervisor's uncrashed run.
 * A round trip whose checkpoint holds an in-flight prefill and a paused
   request, dense and paged: every tensor of the restored engine, its
   pending side cache and the paused KV snapshot equal the live ones bit
@@ -110,6 +114,52 @@ def test_crash_snapshot_restore_matches_the_uncrashed_run(qwen, tmp_path):
     fin = sup2.serve(max_steps=80)
     assert not sup2.failed
     assert _tokens(fin) == want
+
+
+def test_mamba2_crash_snapshot_restore_matches_the_uncrashed_run(tmp_path):
+    jcfg = jax_configs.get_config("mamba2-130m", smoke=True)
+    jparams, _ = init_params_and_axes(jax.random.PRNGKey(0), jcfg)
+    cfg = configs.get_config("mamba2-130m", smoke=True)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
+                               device="cpu")
+    prompts = _prompts(cfg.vocab_size)
+    assert J.make_serving_plan(jcfg, 64) is None
+    jeng = J.ContinuousBatchingEngine(jparams, jcfg, batch_size=4,
+                                      max_len=64, prefill_chunk=16)
+    jbat = J.RequestBatcher(batch_size=4, eos_id=-1, max_len=64)
+    for u, p in enumerate(prompts):
+        jbat.submit(J.Request(uid=u, prompt=p, max_new_tokens=6))
+    want = _tokens(J.ServingSupervisor(jeng, jbat).serve(max_steps=60))
+
+    def stack():
+        assert make_serving_plan(cfg, 64, device="cpu") is None
+        return (ContinuousBatchingEngine(params, cfg, batch_size=4,
+                                         max_len=64, prefill_chunk=16,
+                                         device="cpu"),
+                RequestBatcher(batch_size=4, eos_id=-1, max_len=64))
+
+    eng, bat = stack()
+    for u, p in enumerate(prompts):
+        bat.submit(Request(uid=u, prompt=p, max_new_tokens=6))
+    mgr = CheckpointManager(str(tmp_path), keep_last=3)
+    sup = ServingSupervisor(eng, bat, ckpt=mgr, checkpoint_every=3,
+                            audit_every=1)
+    for _ in range(7):                     # checkpoints land at t=3, 6
+        assert bat.active or eng._pending
+        sup.step()
+    assert mgr.latest_step() == 6
+    del sup, eng, bat                      # the crash
+
+    eng2, bat2 = stack()
+    sup2 = ServingSupervisor(eng2, bat2,
+                             ckpt=CheckpointManager(str(tmp_path)),
+                             audit_every=1)
+    sup2.restore()
+    assert sup2.t == 6 and audit_engine(eng2, bat2) == []
+    fin = sup2.serve(max_steps=80)
+    assert not sup2.failed
+    assert _tokens(fin) == want
+    assert all(len(t) == 6 for t in want.values())
 
 
 def _equal_trees(a, b):
