@@ -86,10 +86,27 @@ Phases, in order:
                loss, grad_norm, step time, tokens/s, peak memory and the
                training kernels' launches per step; every per-layer
                gradient finite and non-zero; then one step under
-               torch.profiler, by part.
+               torch.profiler, by part;
+  13. frontends -- hubert-xlarge (48 layers, 16 heads of 80, non-causal)
+               and internvl2-2b (24 layers) at full width and depth:
+               hubert's encoder forward on audio frames (B=2, S=4096:
+               48 launches of #7, logits against the plain versions),
+               then three training steps on {"embeds", "targets"}
+               batches under each remat policy (none, full, dots: step
+               ms, tokens/s, peak memory, launches, garbage collection's
+               host time, a profiled step's device time and idle share,
+               the first loss equal across them); internvl2-2b served with 256 patch rows
+               before 300 text tokens (B=4, prefill on the plan's path,
+               16 decode steps, logits against the plain versions, the
+               plan's path per call), then one training step on its VLM
+               batch (remat full: step ms, peak memory).
 The kernel phase also holds the four training kernels (#7-#10) to their
 plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
-causal) and the Mamba-2 SSD scan (#11) to its plain version in bf16 and
+causal), #7-#9 at hubert-xlarge's (B=2, 16 heads of 80, S = 4096,
+non-causal: the _any instantiations; per row, a dropped tile rejected,
+bitwise repeatable, timed against non-causal SDPA and its backward), #1
+and #3 at internvl2-2b's prefill and decode shapes (each kernel's record
+carries these as "hubert" and "internvl") and the Mamba-2 SSD scan (#11) to its plain version in bf16 and
 fp32 at the serve path's prefill chunk (B=1, L=188, with an initial
 state) and the cache-free forward's shape (B=4, L=2048), and times
 them beside the unfused yardstick (ssd_unfused: every chunk batched
@@ -125,6 +142,7 @@ prints no ok line.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import json
 import math
@@ -413,16 +431,18 @@ def kernel_phase(dev, g):
     sq = 256
     q, k, v = rnd(1, HQ, sq, D), rnd(1, HKV, skv, D), rnd(1, HKV, skv, D)
     lens = torch.tensor([sq], dtype=torch.int32, device=dev)
-    f1 = lambda: fused_attention_masked(q, k, v, lens, causal=True)
-    p1 = lambda: fused_attention_masked_plain(q, k, v, lens, causal=True)
-    out1, want1 = f1(), p1()
     tag = "B=1 Sq=256 chunk"
-    err = check("fused_attention_masked", out1, want1, tag)
-    masked_gates("fused_attention_masked", tag, out1, want1, f1, sq,
-                 lambda rows, end: fused_attention_masked_plain(
-                     q[:, :, rows:].contiguous(), k, v,
-                     torch.tensor([end], dtype=torch.int32, device=dev),
-                     causal=False))
+    results["fused_attention_masked"] = dict(
+        source="src/repro_torch/kernels/csrc/fused_attention.cu",
+        replaces="src/repro/kernels/fused_attention.py:310",
+        **masked_attention_record(
+            q, k, v, lens, tag,
+            lambda out, want, run: masked_gates(
+                "fused_attention_masked", tag, out, want, run, sq,
+                lambda rows, end: fused_attention_masked_plain(
+                    q[:, :, rows:].contiguous(), k, v,
+                    torch.tensor([end], dtype=torch.int32, device=dev),
+                    causal=False))))
     for (b_, sq_, ls, causal) in [(3, 5, [0, 77, 130], True),
                                   (3, 1, [0, 63, 65], False),
                                   (2, 40, [40, 1000], True)]:
@@ -433,23 +453,7 @@ def kernel_phase(dev, g):
               fused_attention_masked(qq, kk, vv, ll, causal=causal),
               fused_attention_masked_plain(qq, kk, vv, ll, causal=causal),
               f"Sq={sq_} lengths={ls} causal={causal}")
-    ent, rows = _valid_cols([sq], sq, True)
-    byts = 2 * (q.numel() * 2 + sum(rows) * HKV * D * 2) + 4
-    flops = 4 * HQ * D * sum(ent)
-    bms, by = bound(byts, flops)
-    # the yardstick: SDPA with a boolean mask, GQA heads expanded
-    mask = mask_of(lens, sq, skv, dev)
-    ke = k.repeat_interleave(HQ // HKV, 1)
-    ve = v.repeat_interleave(HQ // HKV, 1)
-    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, ke, ve, attn_mask=mask)
-    results["fused_attention_masked"] = dict(
-        source="src/repro_torch/kernels/csrc/fused_attention.cu",
-        replaces="src/repro/kernels/fused_attention.py:310",
-        max_abs_err=err, ms=time_ms(f1, 20), plain_ms=time_ms(p1, 3),
-        bound_ms=bms, bound_by=by,
-        library_ms=lib_ms("SDPA for fused_attention_masked",
-                          lambda: time_ms(lib, 20)))
+    ke, ve = (t.repeat_interleave(HQ // HKV, 1) for t in (k, v))
 
     # -- 2. fused_qproj_attention_masked: a ragged later chunk -----------
     sq, total = 188, 700          # a 700-token prompt's third chunk
@@ -535,8 +539,6 @@ def kernel_phase(dev, g):
         return check_decode_with("fused_decode_block", dense_decode,
                                  (xx, kk, vv, rr, ll), tag)
 
-    p3 = lambda: fused_decode_block_plain(x, wq, k, v, wo, res, lens,
-                                          rope_theta=theta)
     tag = "B=4 lengths=[301..705]"
     out, err = check_decode(x, k, v, res, lens, tag)
     zero = torch.zeros_like(res)
@@ -551,14 +553,6 @@ def kernel_phase(dev, g):
     pairs = [(wq, wo)] + [(rnd(E, HQ, D, scale=E ** -0.5),
                            rnd(HQ, D, E, scale=(HQ * D) ** -0.5))
                           for _ in range(WEIGHT_COPIES - 1)]
-    turn = [0]
-
-    def f3():
-        w_q, w_o = pairs[turn[0] % WEIGHT_COPIES]
-        turn[0] += 1
-        return fused_decode_block(x, w_q, k, v, w_o, res, lens,
-                                  rope_theta=theta)
-
     for ls in ([0, 1, 257], [64, 0, 1023]):
         ll = torch.tensor(ls, dtype=torch.int32, device=dev)
         bb = len(ls)
@@ -569,29 +563,96 @@ def kernel_phase(dev, g):
         if zero and not torch.equal(got[zero], rr[zero]):
             raise SystemExit("fused_decode_block: a length-0 row must "
                              "return its residual")
-    kv_rows = int(lens.sum())
-    byts = 2 * (3 * b * E + wq.numel() + wo.numel()
-                + kv_rows * HKV * 2 * D) + 4 * b
-    flops = 2 * b * E * HQ * D + 4 * HQ * D * kv_rows + 2 * b * HQ * D * E
-    bms, by = bound(byts, flops)
     results["fused_decode_block"] = dict(
         source="src/repro_torch/kernels/csrc/fused_decode_block.cu",
         replaces="src/repro/kernels/fused_decode_block.py:258",
-        max_abs_err=err, ms=time_ms(f3, 20), plain_ms=time_ms(p3, 3),
-        bound_ms=bms, bound_by=by, library_ms=None,
-        unfused_ms=unfused_ms(
-            "fused_decode_block", x, wq,
-            *(t.repeat_interleave(HQ // HKV, 1) for t in (k, v)),
-            ref.rope_positions(1, skv, lengths=lens), theta,
-            mask_of(lens, 1, skv, dev), iters=20, out_proj=(pairs, res)))
+        **decode_block_record(x, res, pairs, k, v, lens, theta, tag, err))
     results.update(paged_kernel_phase(dev, g, check, check_decode_with,
                                       pairs))
     for name, r in results.items():
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"  {name}: kernel_ms={r['ms']:.4f} plain_ms="
-            f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-            f"({r['bound_by']}) library_ms={lib}")
+        log_record(name, r)
     return results
+
+
+def log_record(name, r, tag=None) -> None:
+    """One line of a kernel's record: its time, its plain version's, its
+    bound and its library yardstick (or unfused path)."""
+    lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    unfused = f" unfused_ms={r['unfused_ms']:.4f}" if "unfused_ms" in r \
+        else ""
+    log(f"  {name}{f' [{tag}]' if tag else ''}: kernel_ms={r['ms']:.4f} "
+        f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+        f"({r['bound_by']}) library_ms={lib}{unfused}")
+
+
+def masked_attention_record(q, k, v, lens, tag, gates=None) -> dict:
+    """#1 (causal) on q (B, Hq, Sq, D) over a dense cache k, v at these
+    lengths, against its plain version (then ``gates(out, want, run)``
+    where given): its record, with the bound over the score entries and
+    KV rows the lengths need, and SDPA with a boolean mask, GQA heads
+    expanded, as the yardstick."""
+    from repro_torch.kernels.fused_attention import (
+        fused_attention_masked, fused_attention_masked_plain)
+
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    f1 = lambda: fused_attention_masked(q, k, v, lens, causal=True)
+    p1 = lambda: fused_attention_masked_plain(q, k, v, lens, causal=True)
+    out, want = f1(), p1()
+    err = check_kernel("fused_attention_masked", out, want, tag)
+    if gates is not None:
+        gates(out, want, f1)
+    del out, want
+    ent, rows = _valid_cols(lens.tolist(), sq, True)
+    bms, by = bound(2 * (2 * q.numel() + sum(rows) * hkv * d * 2) + 4 * b,
+                    4 * hq * d * sum(ent))
+    mask = mask_of(lens, sq, skv, q.device)
+    ke, ve = (t.repeat_interleave(hq // hkv, 1) for t in (k, v))
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, ke, ve, attn_mask=mask)
+    return dict(max_abs_err=err, ms=time_ms(f1, 20), plain_ms=time_ms(p1, 3),
+                bound_ms=bms, bound_by=by,
+                library_ms=lib_ms(f"SDPA for fused_attention_masked [{tag}]",
+                                  lambda: time_ms(lib, 20)))
+
+
+def decode_block_record(x, res, pairs, k, v, lens, theta, tag, err) -> dict:
+    """#3's record at x, res (B, 1, E) over a dense cache k, v at these
+    lengths (``err``: its checks' largest error): timed over the
+    WEIGHT_COPIES ``pairs`` of (Wq, Wo) in turn, so that no call finds
+    its weights in L2, with its bound and the unfused path's time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_decode_block import (
+        fused_decode_block, fused_decode_block_plain)
+
+    b, _, e = x.shape
+    wq, wo = pairs[0]
+    hq, d = wq.shape[1], wq.shape[2]
+    hkv, skv = k.shape[1], k.shape[2]
+    turn = [0]
+
+    def f3():
+        w_q, w_o = pairs[turn[0] % WEIGHT_COPIES]
+        turn[0] += 1
+        return fused_decode_block(x, w_q, k, v, w_o, res, lens,
+                                  rope_theta=theta)
+
+    p3 = lambda: fused_decode_block_plain(x, wq, k, v, wo, res, lens,
+                                          rope_theta=theta)
+    kv_rows = int(lens.sum())
+    bms, by = bound(2 * (3 * b * e + wq.numel() + wo.numel()
+                         + kv_rows * hkv * 2 * d) + 4 * b,
+                    2 * b * e * hq * d + 4 * hq * d * kv_rows
+                    + 2 * b * hq * d * e)
+    return dict(
+        max_abs_err=err, ms=time_ms(f3, 20), plain_ms=time_ms(p3, 3),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        unfused_ms=unfused_ms(
+            f"fused_decode_block [{tag}]", x, wq,
+            *(t.repeat_interleave(hq // hkv, 1) for t in (k, v)),
+            ref.rope_positions(1, skv, lengths=lens), theta,
+            mask_of(lens, 1, skv, x.device), iters=20,
+            out_proj=(pairs, res)))
 
 
 QWEN = dict(E=4096, HQ=32, HKV=8, D=128)
@@ -2416,7 +2477,8 @@ def row_gate(name, tag, outs, lse=None, expect=True,
     return errs
 
 
-def dropped_tile(q, k, v, do, o_p, lse_p, delta, want_q, want_k, want_v):
+def dropped_tile(q, k, v, do, o_p, lse_p, delta, want_q, want_k, want_v,
+                 causal=True):
     """Plain results with one tile of work left out, to try the row gate
     on: #7's and #8's last row tile without its last key tile (the walk
     one tile short for the heaviest rows), and #9's walk one step short
@@ -2426,39 +2488,154 @@ def dropped_tile(q, k, v, do, o_p, lse_p, delta, want_q, want_k, want_v):
         fused_attention_bwd_dkv_plain, fused_attention_bwd_dq_plain,
         fused_attention_fwd_plain)
     t, sq = 64, q.shape[2]
+    kw = dict(causal=causal, q_offset=sq - t if causal else None)
     o_m, lse_m, dq_m = o_p.clone(), lse_p.clone(), want_q.clone()
     o_t, lse_t = fused_attention_fwd_plain(
-        q[:, :, -t:], k[:, :, :-t], v[:, :, :-t], q_offset=sq - t)
+        q[:, :, -t:], k[:, :, :-t], v[:, :, :-t], **kw)
     o_m[:, :, -t:], lse_m[:, :, -t:] = o_t, lse_t
     dq_m[:, :, -t:] = fused_attention_bwd_dq_plain(
         q[:, :, -t:], k[:, :, :-t], v[:, :, :-t], do[:, :, -t:],
-        lse_p[:, :, -t:], delta[:, :, -t:], q_offset=sq - t)
+        lse_p[:, :, -t:], delta[:, :, -t:], **kw)
     group = q.shape[1] // k.shape[1]
     heads = [h * group + group - 1 for h in range(k.shape[1])]
     part = lambda x: x[:, heads, -t:].float()
     ck, cv = fused_attention_bwd_dkv_plain(
         part(q), k.float(), v.float(), part(do), lse_p[:, heads, -t:],
-        delta[:, heads, -t:], q_offset=sq - t)
+        delta[:, heads, -t:], **kw)
     return (o_m, lse_m, dq_m, (want_k.float() - ck).to(want_k.dtype),
             (want_v.float() - cv).to(want_v.dtype))
 
 
-def train_kernel_phase(dev, g, check):
-    """#7, #8, #9 at starcoder2-7b's training shapes (bf16, causal, B=2,
-    Sq = Skv = 2048) and #10's forward on x (2, 2048, 4608), each against
-    its plain version, timed on CUDA events, with its bound and its
-    library yardstick (SDPA's forward for #7; SDPA's backward, forward +
-    backward less the forward, for #8 and #9 together: SDPA splits the
-    backward its own way, so that one number stands in both rows)."""
+def attention_train_records(q, k, v, do, causal, tag) -> dict:
+    """#7, #8 and #9 on q, do (B, Hq, S, D) and k, v (B, Hkv, S, D),
+    causal or not: each against its plain version, held per row, the
+    row gate shown to reject a plain result with a tile dropped, bitwise
+    repeatable; timed on CUDA events, with its bound and its library
+    yardstick (SDPA's forward for #7; SDPA's backward, forward + backward
+    less the forward, for #8 and #9 together: SDPA splits the backward
+    its own way, so that one number stands in both rows).  Returns
+    {kernel: record}."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_attention import (
         fused_attention_bwd_dkv, fused_attention_bwd_dkv_plain,
         fused_attention_bwd_dq, fused_attention_bwd_dq_plain,
         fused_attention_fwd, fused_attention_fwd_plain)
+
+    kw = dict(causal=causal)
+    b, hq, sq, d = q.shape
+    ent = _causal_entries(b, hq, sq) if causal else b * hq * sq * k.shape[2]
+    qb, kvb = q.numel() * 2, k.numel() * 2       # bf16 bytes
+    rowb = b * hq * sq * 4                       # an fp32 (B, Hq, Sq) row
+    gqa = dict(enable_gqa=True) if hq != k.shape[1] else {}
+    sdpa = lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
+        q_, k_, v_, is_causal=causal, **gqa)
+    what = "causal" if causal else "non-causal"
+
+    o, lse = fused_attention_fwd(q, k, v, **kw)
+    o_p, lse_p = fused_attention_fwd_plain(q, k, v, **kw)
+    err7 = max(check_kernel("fused_attention_fwd", o, o_p, f"{tag} o"),
+               check_kernel("fused_attention_fwd", lse, lse_p, f"{tag} lse"))
+    row_gate("fused_attention_fwd", tag, {"o": (o, o_p)}, (lse, lse_p))
+    again = fused_attention_fwd(q, k, v, **kw)
+    if not (torch.equal(again[0], o) and torch.equal(again[1], lse)):
+        raise SystemExit("fused_attention_fwd is not deterministic")
+    del o, lse, again
+
+    delta = ref.attention_delta(o_p, do)
+    args = (q, k, v, do, lse_p, delta)
+    dq = fused_attention_bwd_dq(*args, **kw)
+    want_q = fused_attention_bwd_dq_plain(*args, **kw)
+    err8 = check_kernel("fused_attention_bwd_dq", dq, want_q, f"{tag} dq")
+    # Causal row 0 sees one key: p = 1 and dp = delta, so its dq is 0 in
+    # exact arithmetic and both sides hold rounding noise, which its own
+    # largest |want| cannot scale.  The per-row gate then takes rows 1..,
+    # and row 0 must stay noise: within ZERO_ROW_TOL of the largest |want|.
+    first = 1 if causal else 0
+    rows = f"{tag} rows 1.." if causal else tag
+    row_gate("fused_attention_bwd_dq", rows,
+             {"dq": (dq[:, :, first:], want_q[:, :, first:])})
+    if causal:
+        top = want_q.float().abs().max().item()
+        row0, row0_p = (x[:, :, 0].float().abs().max().item() / top
+                        for x in (dq, want_q))
+        log(f"  fused_attention_bwd_dq [{tag}] row 0 (dq = 0 exactly): "
+            f"largest |dq| {row0:.3e} of the largest |want|, plain "
+            f"{row0_p:.3e} (tol {ZERO_ROW_TOL})")
+        if row0 > ZERO_ROW_TOL:
+            raise SystemExit("fused_attention_bwd_dq: row 0 is not zero")
+    if not torch.equal(fused_attention_bwd_dq(*args, **kw), dq):
+        raise SystemExit("fused_attention_bwd_dq is not deterministic")
+    dk, dv = fused_attention_bwd_dkv(*args, **kw)
+    want_k, want_v = fused_attention_bwd_dkv_plain(*args, **kw)
+    err9 = max(check_kernel("fused_attention_bwd_dkv", dk, want_k,
+                            f"{tag} dk"),
+               check_kernel("fused_attention_bwd_dkv", dv, want_v,
+                            f"{tag} dv"))
+    row_gate("fused_attention_bwd_dkv", tag,
+             {"dk": (dk, want_k), "dv": (dv, want_v)})
+    again = fused_attention_bwd_dkv(*args, **kw)
+    if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
+        raise SystemExit("fused_attention_bwd_dkv is not deterministic")
+    log(f"  #7, #8, #9 [{tag}] bitwise repeatable")
+    del dq, dk, dv, again
+    o_m, lse_m, dq_m, dk_m, dv_m = dropped_tile(
+        q, k, v, do, o_p, lse_p, delta, want_q, want_k, want_v, causal)
+    row_gate("fused_attention_fwd", f"{tag}, plain with a key tile dropped",
+             {"o": (o_m, o_p)}, (lse_m, lse_p), expect=False)
+    row_gate("fused_attention_bwd_dq",
+             f"{rows}, plain with a key tile dropped",
+             {"dq": (dq_m[:, :, first:], want_q[:, :, first:])},
+             expect=False)
+    row_gate("fused_attention_bwd_dkv",
+             f"{tag}, plain with a query tile dropped",
+             {"dk": (dk_m, want_k), "dv": (dv_m, want_v)}, expect=False)
+    del o_m, lse_m, dq_m, dk_m, dv_m, want_q, want_k, want_v, o_p
+
+    results = {}
+    f7 = lambda: fused_attention_fwd(q, k, v, **kw)
+    bms, by = bound(2 * qb + 2 * kvb + rowb, 4 * d * ent)
+    results["fused_attention_fwd"] = dict(
+        max_abs_err=err7, ms=time_ms(f7, 10),
+        plain_ms=time_ms(lambda: fused_attention_fwd_plain(q, k, v, **kw),
+                         2, 1),
+        bound_ms=bms, bound_by=by,
+        library_ms=lib_ms(f"SDPA forward, {what}, for fused_attention_fwd "
+                          f"[{tag}]", lambda: time_ms(lambda: sdpa(q, k, v),
+                                                      10)))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    fwd_g = lambda: sdpa(qg, kg, vg)
+    both = lambda: torch.autograd.grad(fwd_g(), (qg, kg, vg), do)
+    lib_bwd = lib_ms(f"SDPA backward, {what} (forward + backward less "
+                     f"forward: dq, dk and dv together) for "
+                     f"fused_attention_bwd_dq and _dkv [{tag}]",
+                     lambda: time_ms(both, 5) - time_ms(fwd_g, 5))
+    bms, by = bound(2 * qb + 2 * kvb + 2 * rowb + qb, 6 * d * ent)
+    results["fused_attention_bwd_dq"] = dict(
+        max_abs_err=err8,
+        ms=time_ms(lambda: fused_attention_bwd_dq(*args, **kw), 5),
+        plain_ms=time_ms(lambda: fused_attention_bwd_dq_plain(*args, **kw),
+                         2, 1),
+        bound_ms=bms, bound_by=by, library_ms=lib_bwd)
+    bms, by = bound(2 * qb + 2 * kvb + 2 * rowb + 2 * kvb, 8 * d * ent)
+    results["fused_attention_bwd_dkv"] = dict(
+        max_abs_err=err9,
+        ms=time_ms(lambda: fused_attention_bwd_dkv(*args, **kw), 5),
+        plain_ms=time_ms(lambda: fused_attention_bwd_dkv_plain(*args, **kw),
+                         2, 1),
+        bound_ms=bms, bound_by=by, library_ms=lib_bwd)
+    return results
+
+
+def train_kernel_phase(dev, g, check):
+    """#7, #8, #9 at starcoder2-7b's training shapes (bf16, causal, B=2,
+    Sq = Skv = 2048) as attention_train_records holds them, and #10's
+    forward on x (2, 2048, 4608) against its plain version, timed on
+    CUDA events, with its bound and the unfused path's time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_attention import fused_attention_fwd_plain
     from repro_torch.kernels.fused_qproj_attention import (
         fused_qproj_attention_fwd, fused_qproj_attention_fwd_plain)
 
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     bf = torch.bfloat16
     E, HQ, HKV, D = (STARCODER[k] for k in ("E", "HQ", "HKV", "D"))
     b, sq, theta = TRAIN_B, TRAIN_SEQ, 1e5
@@ -2472,94 +2649,15 @@ def train_kernel_phase(dev, g, check):
     ent = _causal_entries(b, HQ, sq)
     qb, kvb = q.numel() * 2, k.numel() * 2       # bf16 bytes
     rowb = b * HQ * sq * 4                       # an fp32 (B, Hq, Sq) row
-    results = {}
-
-    o, lse = fused_attention_fwd(q, k, v)
-    o_p, lse_p = fused_attention_fwd_plain(q, k, v)
-    err = max(check("fused_attention_fwd", o, o_p, f"B={b} S={sq} o"),
-              check("fused_attention_fwd", lse, lse_p, f"B={b} S={sq} lse"))
-    row_gate("fused_attention_fwd", f"B={b} S={sq}", {"o": (o, o_p)},
-             (lse, lse_p))
-    f7 = lambda: fused_attention_fwd(q, k, v)
-    lib7 = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
-    bms, by = bound(2 * qb + 2 * kvb + rowb, 4 * D * ent)
-    results["fused_attention_fwd"] = dict(
-        source="src/repro_torch/kernels/csrc/fused_attention.cu",
-        replaces="src/repro/kernels/fused_attention.py:155",
-        max_abs_err=err, ms=time_ms(f7, 10),
-        plain_ms=time_ms(lambda: fused_attention_fwd_plain(q, k, v), 2, 1),
-        bound_ms=bms, bound_by=by,
-        library_ms=lib_ms("SDPA forward for fused_attention_fwd",
-                          lambda: time_ms(lib7, 10)))
-    del o, lse
-
-    delta = ref.attention_delta(o_p, do)
-    args = (q, k, v, do, lse_p, delta)
-    dq = fused_attention_bwd_dq(*args)
-    dk, dv = fused_attention_bwd_dkv(*args)
-    tag = f"B={b} S={sq}"
-    want_q = fused_attention_bwd_dq_plain(*args)
-    err8 = check("fused_attention_bwd_dq", dq, want_q, f"{tag} dq")
-    # Causal row 0 sees one key: p = 1 and dp = delta, so its dq is 0 in
-    # exact arithmetic and both sides hold rounding noise, which its own
-    # largest |want| cannot scale.  The per-row gate takes rows 1.., and
-    # row 0 must stay noise: within ZERO_ROW_TOL of the largest |want|.
-    row_gate("fused_attention_bwd_dq", f"{tag} rows 1..",
-             {"dq": (dq[:, :, 1:], want_q[:, :, 1:])})
-    top = want_q.float().abs().max().item()
-    row0, row0_p = (x[:, :, 0].float().abs().max().item() / top
-                    for x in (dq, want_q))
-    log(f"  fused_attention_bwd_dq [{tag}] row 0 (dq = 0 exactly): largest "
-        f"|dq| {row0:.3e} of the largest |want|, plain {row0_p:.3e} (tol "
-        f"{ZERO_ROW_TOL})")
-    if row0 > ZERO_ROW_TOL:
-        raise SystemExit("fused_attention_bwd_dq: row 0 is not zero")
-    if not torch.equal(fused_attention_bwd_dq(*args), dq):
-        raise SystemExit("fused_attention_bwd_dq is not deterministic")
-    want_k, want_v = fused_attention_bwd_dkv_plain(*args)
-    err9 = max(check("fused_attention_bwd_dkv", dk, want_k, f"{tag} dk"),
-               check("fused_attention_bwd_dkv", dv, want_v, f"{tag} dv"))
-    row_gate("fused_attention_bwd_dkv", tag,
-             {"dk": (dk, want_k), "dv": (dv, want_v)})
-    again = fused_attention_bwd_dkv(*args)
-    if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
-        raise SystemExit("fused_attention_bwd_dkv is not deterministic")
-    o_m, lse_m, dq_m, dk_m, dv_m = dropped_tile(
-        q, k, v, do, o_p, lse_p, delta, want_q, want_k, want_v)
-    row_gate("fused_attention_fwd", f"{tag}, plain with a key tile dropped",
-             {"o": (o_m, o_p)}, (lse_m, lse_p), expect=False)
-    row_gate("fused_attention_bwd_dq",
-             f"{tag} rows 1.., plain with a key tile dropped",
-             {"dq": (dq_m[:, :, 1:], want_q[:, :, 1:])}, expect=False)
-    row_gate("fused_attention_bwd_dkv",
-             f"{tag}, plain with a query tile dropped",
-             {"dk": (dk_m, want_k), "dv": (dv_m, want_v)}, expect=False)
-    del dq, dk, dv, want_q, want_k, want_v, again
-    del o_m, lse_m, dq_m, dk_m, dv_m
-    # the library's backward: SDPA forward + backward less its forward
-    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-    fwd_g = lambda: sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
-    both = lambda: torch.autograd.grad(fwd_g(), (qg, kg, vg), do)
-    lib_bwd = lib_ms("SDPA backward (forward + backward less forward: "
-                     "dq, dk and dv together) for fused_attention_bwd_dq "
-                     "and _dkv",
-                     lambda: time_ms(both, 5) - time_ms(fwd_g, 5))
-    bms, by = bound(2 * qb + 2 * kvb + 2 * rowb + qb, 6 * D * ent)
-    results["fused_attention_bwd_dq"] = dict(
-        source="src/repro_torch/kernels/csrc/fused_attention_bwd.cu",
-        replaces="src/repro/kernels/fused_attention.py:537",
-        max_abs_err=err8, ms=time_ms(lambda: fused_attention_bwd_dq(*args), 5),
-        plain_ms=time_ms(lambda: fused_attention_bwd_dq_plain(*args), 2, 1),
-        bound_ms=bms, bound_by=by, library_ms=lib_bwd)
-    bms, by = bound(2 * qb + 2 * kvb + 2 * rowb + 2 * kvb, 8 * D * ent)
-    results["fused_attention_bwd_dkv"] = dict(
-        source="src/repro_torch/kernels/csrc/fused_attention_bwd.cu",
-        replaces="src/repro/kernels/fused_attention.py:564",
-        max_abs_err=err9,
-        ms=time_ms(lambda: fused_attention_bwd_dkv(*args), 5),
-        plain_ms=time_ms(lambda: fused_attention_bwd_dkv_plain(*args), 2, 1),
-        bound_ms=bms, bound_by=by, library_ms=lib_bwd)
-    del qg, kg, vg, o_p, lse_p, delta, args
+    sources = {"fused_attention_fwd": ("fused_attention.cu", 155),
+               "fused_attention_bwd_dq": ("fused_attention_bwd.cu", 537),
+               "fused_attention_bwd_dkv": ("fused_attention_bwd.cu", 564)}
+    results = {
+        name: dict(source=f"src/repro_torch/kernels/csrc/{sources[name][0]}",
+                   replaces=f"src/repro/kernels/fused_attention.py:"
+                            f"{sources[name][1]}", **r)
+        for name, r in attention_train_records(
+            q, k, v, do, True, f"B={b} S={sq}").items()}
 
     x, wq = rnd(b, sq, E), rnd(E, HQ, D, scale=E ** -0.5)
     f10 = lambda: fused_qproj_attention_fwd(x, wq, k, v, rope_theta=theta)
@@ -2625,10 +2723,7 @@ def train_kernel_phase(dev, g, check):
                               ref.rope_positions(sq, sq, device=dev), theta,
                               iters=5))
     for name, r in results.items():
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"  {name}: kernel_ms={r['ms']:.4f} plain_ms="
-            f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-            f"({r['bound_by']}) library_ms={lib}")
+        log_record(name, r)
     return results
 
 
@@ -2804,6 +2899,60 @@ def qproj_train_phase(dev, g):
     return launches
 
 
+@contextlib.contextmanager
+def checked_grads(phase, counts, unused=(), after=None):
+    """``train.step.value_and_grad`` patched for the block: each call's
+    gradient leaves (all but the top-level keys ``unused``) checked finite
+    and non-zero, their number appended to ``counts``; then
+    ``after(grads)`` where given."""
+    from repro_torch.train import step as train_step
+
+    value_and_grad = train_step.value_and_grad
+
+    def checked(*a, **kw):
+        out = value_and_grad(*a, **kw)
+        counts.append(check_grads_nonzero(
+            {k: v for k, v in out[1].items() if k not in unused}, phase))
+        if after is not None:
+            after(out[1])
+        return out
+
+    train_step.value_and_grad = checked
+    try:
+        yield
+    finally:
+        train_step.value_and_grad = value_and_grad
+
+
+def profiled_step(step_fn, state, batch, title, top):
+    """One more training step under torch.profiler, AdamW in a range of
+    its own; logs its device time by kernel and idle share.  Returns
+    (state, loss, the profile, device busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import step as train_step
+
+    adamw = train_step.adamw_update
+
+    def ranged(*a, **kw):
+        with torch.profiler.record_function("adamw_update"):
+            return adamw(*a, **kw)
+
+    torch.cuda.synchronize()
+    train_step.adamw_update = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        train_step.adamw_update = adamw
+    return state, loss, prof, device_report(prof, wall, title, top=top)
+
+
 def train_phase(dev):
     """``launch/train.train_loop`` at full width and depth: starcoder2-7b,
     32 layers, remat full, bf16 AdamW moments, B=2, seq 2048, lr 3e-4, 3
@@ -2826,16 +2975,12 @@ def train_phase(dev):
     torch.cuda.reset_peak_memory_stats()
     per_step, total = [], collections.Counter()
     grad_leaves, peaks = [], collections.defaultdict(float)
-    value_and_grad = train_step.value_and_grad
 
-    def checked(*a, **kw):
-        out = value_and_grad(*a, **kw)
+    def on_grads(grads):
         # the peak of init (first step) or the forward and backward
         peaks["forward + backward"] = max(peaks["forward + backward"],
                                           torch.cuda.max_memory_allocated())
-        grad_leaves.append(check_grads_nonzero(out[1], "train"))
         torch.cuda.reset_peak_memory_stats()
-        return out
 
     def on_step(step, metrics, secs):
         peaks["optimizer"] = max(peaks["optimizer"],
@@ -2852,15 +2997,12 @@ def train_phase(dev):
         f"params and moments, B={TRAIN_B} seq {TRAIN_SEQ} lr {TRAIN_LR}, "
         f"3 steps")
     build.reset_launches()
-    train_step.value_and_grad = checked
     t0 = time.perf_counter()
-    try:
+    with checked_grads("train", grad_leaves, after=on_grads):
         state, losses = train.train_loop(
             cfg, steps=3, batch=TRAIN_B, seq=TRAIN_SEQ, lr=TRAIN_LR,
             moment_dtype="bfloat16", device=dev, on_step=on_step,
             log_every=1)
-    finally:
-        train_step.value_and_grad = value_and_grad
     wall = time.perf_counter() - t0
     peak = max(peaks.values())
     pbytes = sum(t.numel() * t.element_size()
@@ -2886,34 +3028,17 @@ def train_phase(dev):
                          f", predicted {want}")
 
     # one more step under the profiler: where a step's time goes
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import SyntheticTokenDataset
     ds = SyntheticTokenDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_B, seed=0,
                                structured=True)
     batch = {"tokens": torch.from_numpy(ds.batch(3)).long().to(dev)}
-    step_fn = train_step.make_train_step(cfg, lr=TRAIN_LR)
-    adamw = train_step.adamw_update
-
-    def ranged(*a, **kw):
-        with torch.profiler.record_function("adamw_update"):
-            return adamw(*a, **kw)
-
-    torch.cuda.synchronize()
-    train_step.adamw_update = ranged
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state, m = step_fn(state, batch)
-            loss = float(m["loss"])
-            wall = time.perf_counter() - t0
-    finally:
-        train_step.adamw_update = adamw
-    busy = device_report(prof, wall, "profiled training step", top=14)
+    state, loss, prof, busy = profiled_step(
+        train_step.make_train_step(cfg, lr=TRAIN_LR), state, batch,
+        "profiled training step", 14)
     n_params = sum(t.numel() for t in _leaves(state.params))
     train_breakdown(prof, busy, cfg, n_params)
     log(f"  profiled step: loss {loss:.6f}")
-    del state, m
+    del state, prof
     torch.cuda.empty_cache()
     return total
 
@@ -2978,6 +3103,404 @@ def train_breakdown(prof, busy_ms: float, cfg, n_params: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# frontends: hubert-xlarge and internvl2-2b at full width and depth
+# ---------------------------------------------------------------------------
+
+#: hubert-xlarge's train_4k sequence (4096 frames) with the batch cut from
+#: 256 to 2: the encoder forward and the training steps under each remat
+HUBERT_B, HUBERT_S, HUBERT_STEPS = 2, 4096, 3
+REMATS = ("none", "full", "dots")
+#: internvl2-2b's serve: B=4 rows of 256 patch rows and 300 text tokens
+#: (556 prompt rows), max_len 1024, 16 greedy decode steps
+VLM_B, VLM_TEXT, VLM_MAX_LEN, VLM_NEW = 4, 300, 1024, 16
+#: its training batch: the train_4k layout at seq 2048 (256 patch rows,
+#: 1793 tokens: 1792 text rows and their targets), B=4
+VLM_TRAIN_TEXT = 2048 - 256 + 1
+
+
+def frontend_kernel_phase(dev, g) -> dict:
+    """The kernels at the frontends' shapes, held as at their main
+    shapes: #7, #8 and #9 at hubert-xlarge's training shape (B=2, 16 of
+    16 heads of 80, S = 4096, non-causal: the ``_any`` instantiations);
+    #1 at internvl2-2b's prefill (B=4, 556 rows into a 1024-row cache,
+    16 query heads over 8 of 128, causal) and #3 at its decode (B=4,
+    M=1, contexts 557-560, E = 2048).  Returns {kernel: {"hubert" or
+    "internvl": record}}."""
+    from repro_torch.kernels.fused_decode_block import (
+        fused_decode_block, fused_decode_block_plain)
+
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev)
+                * scale).to(bf)
+
+    out = collections.defaultdict(dict)
+    b, h, s, d = HUBERT_B, 16, HUBERT_S, 80
+    tag = f"hubert B={b} H=16/16 S={s} D={d} non-causal"
+    for name, r in attention_train_records(
+            *(rnd(b, h, s, d) for _ in range(4)), False, tag).items():
+        out[name]["hubert"] = dict(shape=tag, **r)
+    torch.cuda.empty_cache()
+
+    # internvl2-2b: #1 over the 556-row prompt, #3 at its decode
+    E, HQ, HKV, D, theta = 2048, 16, 8, 128, 1e6
+    b, sq = VLM_B, 256 + VLM_TEXT
+    tag = f"internvl B={b} Sq={sq} into {VLM_MAX_LEN} Hq={HQ}/{HKV} D={D}"
+    k, v = rnd(b, HKV, VLM_MAX_LEN, D), rnd(b, HKV, VLM_MAX_LEN, D)
+    lens = torch.full((b,), sq, dtype=torch.int32, device=dev)
+    out["fused_attention_masked"]["internvl"] = dict(
+        shape=tag, **masked_attention_record(rnd(b, HQ, sq, D), k, v, lens,
+                                             tag))
+    lens = torch.tensor([sq + 1 + i for i in range(b)], dtype=torch.int32,
+                        device=dev)
+    tag = f"internvl B={b} M=1 lengths={lens.tolist()} E={E}"
+    x, res = rnd(b, 1, E), rnd(b, 1, E)
+    pairs = [(rnd(E, HQ, D, scale=E ** -0.5),
+              rnd(HQ, D, E, scale=(HQ * D) ** -0.5))
+             for _ in range(WEIGHT_COPIES)]
+    wq, wo = pairs[0]
+    zero = torch.zeros_like(res)
+    err = check_kernel(
+        "fused_decode_block",
+        fused_decode_block(x, wq, k, v, wo, zero, lens, rope_theta=theta),
+        fused_decode_block_plain(x, wq, k, v, wo, zero, lens,
+                                 rope_theta=theta), f"{tag} zero residual")
+    out["fused_decode_block"]["internvl"] = dict(
+        shape=tag, **decode_block_record(x, res, pairs, k, v, lens, theta,
+                                         tag, err))
+    for name, shapes in out.items():
+        for r in shapes.values():
+            log_record(name, r, r["shape"])
+    del k, v, x, res, pairs, wq, wo
+    torch.cuda.empty_cache()
+    return dict(out)
+
+
+def _train_steps(cfg, batches, phase, dev, unused=(), profiled=False,
+                 keep_first=False):
+    """``train.step.train_step`` over ``batches`` from fresh parameters
+    drawn from seed 0, bf16 moments, lr TRAIN_LR: per step (loss,
+    grad_norm, host ms between synchronizes, launches), the peak of
+    max_memory_allocated over the steps, the gradient leaves checked
+    finite and non-zero per step (all but ``unused``: hubert's token
+    embedding, which its batches never read), the host seconds of
+    garbage collection during the steps and, with ``keep_first``, a host
+    copy of the first step's gradients (else None).  ``profiled``: then
+    one more step on the first batch under torch.profiler."""
+    from repro_torch import tree
+    from repro_torch.kernels import build
+    from repro_torch.train import step as train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = train_step.init_train_state(gen, cfg, moment_dtype="bfloat16",
+                                        device=dev)
+    step_fn = train_step.make_train_step(cfg, lr=TRAIN_LR)
+    leaves, first = [], []
+
+    def keep(grads):
+        if keep_first and not first:
+            first.append(tree.map(lambda t: t.cpu(), grads))
+
+    rows = []
+    plan_clock()                    # installs the collections' timer
+    gc_s = _GC["secs"]
+    with checked_grads(phase, leaves, unused, after=keep):
+        for batch in batches:
+            build.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            rows.append((loss, float(m["grad_norm"]),
+                         (time.perf_counter() - t0) * 1e3,
+                         dict(build.LAUNCHES)))
+    peak = torch.cuda.max_memory_allocated()
+    gc_s = _GC["secs"] - gc_s
+    if profiled:
+        state, _, _, _ = profiled_step(step_fn, state, batches[0],
+                                       f"{phase}: profiled step", 5)
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, peak, base, leaves, gc_s, (first[0] if first else None)
+
+
+#: remat changes what the backward keeps, not what it computes: under
+#: ``full`` and ``dots`` each step's loss and grad_norm within REMAT_REL
+#: of ``none``'s, relative, and every per-layer leaf of the first step's
+#: gradients within REMAT_REL of its largest |none|.  Measured on an H100
+#: 80GB HBM3 (700 W), hubert's 48 layers at B=2, S=4096: the losses and
+#: grad_norms of all three steps equal to the 6 printed digits.  The
+#: recompute replays the same kernels and cuBLAS calls on the same
+#: inputs, so a wrong selective recompute (a saved tensor read in place
+#: of another, a stale one) moves some layer's gradients by far more.
+REMAT_REL = 1e-3
+
+
+def remat_gate(runs, dev) -> None:
+    """Holds ``full`` and ``dots`` to ``none``: {remat: (rows of
+    _train_steps, host copy of the first step's gradients)}."""
+    ref_rows, ref_grads = runs["none"]
+    want = _grad_leaves(ref_grads)
+    for remat in ("full", "dots"):
+        rows, grads = runs[remat]
+        worst = ("", -1.0)
+        for (name, a), (_, b) in zip(_grad_leaves(grads), want):
+            a, b = a.to(dev).float(), b.to(dev).float()
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            rel = err / scale if scale > 0 else err
+            worst = max(worst, (name, rel), key=lambda w: w[1])
+        steps = [max(abs(x - y) / abs(y) for x, y in zip(r[:2], q[:2]))
+                 for r, q in zip(rows, ref_rows)]
+        log(f"  remat {remat} against none: step-0 gradients, worst leaf "
+            f"{worst[0]} at {worst[1]:.3e} of its largest |none|; loss and "
+            f"grad_norm per step, worst relative "
+            f"{', '.join(f'{x:.3e}' for x in steps)} (tol {REMAT_REL})")
+        if worst[1] > REMAT_REL or max(steps) > REMAT_REL:
+            raise SystemExit(f"frontends: remat {remat} disagrees with none")
+    # the forward does not change with the policy: the first loss is
+    # bit-equal under all three
+    firsts = {r: v[0][0][0] for r, v in runs.items()}
+    log(f"  step-0 loss under none/full/dots: {firsts}")
+    if len(set(firsts.values())) != 1:
+        raise SystemExit("frontends: the remat policies' first losses differ")
+
+
+def frontends_phase(dev):
+    """hubert-xlarge (48 layers) and internvl2-2b (24 layers) at full
+    width and depth, bf16, random weights from seed 0, through the port's
+    entry points: hubert's encoder forward (#7, 48 launches) and three
+    training steps under each remat policy, ``full`` and ``dots`` held
+    to ``none`` (remat_gate); internvl2-2b served with its
+    patch embeddings (prefill on the plan's path, 16 decode steps)
+    against the plain versions, then one training step.  Returns the
+    launches of the driven runs."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.internvl2_2b import PATCH_TOKENS
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.weights import init_params
+    from repro_torch.serve import engine
+
+    total = collections.Counter()
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+
+    # -- hubert-xlarge: the encoder forward ------------------------------
+    cfg = configs.get_config("hubert-xlarge")
+    params = init_params(cfg, g, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    emb = torch.randn(HUBERT_B, HUBERT_S, cfg.frontend_dim, generator=g,
+                      device=dev).to(bf)
+    log(f"frontends: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
+        f"heads {cfg.n_heads} of {cfg.head_dim} non-causal, {n_params} "
+        f"parameters; "
+        f"encoder forward B={HUBERT_B} S={HUBERT_S} frames of "
+        f"{cfg.frontend_dim}, bf16, no grad")
+    with torch.no_grad():
+        tf.forward(params, cfg, None, emb[:, :256])     # warm-up
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        logits = tf.forward(params, cfg, None, emb)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(build.LAUNCHES)
+        total.update(launches)
+        build.reset_launches()
+        plain = tf.forward(params, cfg, None, emb, impl="torch")
+        if build.LAUNCHES:
+            raise SystemExit(f"frontends: impl torch launched "
+                             f"{dict(build.LAUNCHES)}")
+    want = (HUBERT_B, HUBERT_S, cfg.vocab_size)
+    log(f"  encoder forward: {fwd_ms:.1f} ms, launches {launches}, logits "
+        f"{tuple(logits.shape)}")
+    if tuple(logits.shape) != want or not torch.isfinite(logits).all():
+        raise SystemExit(f"frontends: hubert logits {tuple(logits.shape)} "
+                         f"or not finite")
+    if launches != {"fused_attention_fwd": cfg.n_layers}:
+        raise SystemExit(f"frontends: hubert forward launches {launches}")
+    err, rel = rel_err(logits, plain)
+    agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    log(f"  against the plain versions (impl torch), {cfg.n_layers} bf16 "
+        f"layers: "
+        f"max_abs_err={err:.4e} rel={rel:.4e} (tol {LOGIT_TOL}), argmax "
+        f"agreement {agree:.4f}")
+    if rel > LOGIT_TOL:
+        raise SystemExit("frontends: hubert logits disagree with the plain "
+                         "versions")
+    del logits, plain, params, emb
+    torch.cuda.empty_cache()
+
+    # -- hubert-xlarge: training under none, full and dots ---------------
+    tok = HUBERT_B * HUBERT_S
+    batches = []
+    for _ in range(HUBERT_STEPS):
+        batches.append({
+            "embeds": torch.randn(HUBERT_B, HUBERT_S, cfg.frontend_dim,
+                                  generator=g, device=dev).to(bf),
+            "targets": torch.randint(0, cfg.vocab_size,
+                                     (HUBERT_B, HUBERT_S), generator=g,
+                                     device=dev)})
+    runs = {}
+    for remat in REMATS:
+        rc = dataclasses.replace(cfg, remat=remat)
+        rows, peak, base, leaves, gc_s, first = _train_steps(
+            rc, batches, f"hubert {remat}", dev, unused=("embed",),
+            profiled=True, keep_first=True)
+        log(f"  train remat={remat}: B={HUBERT_B} S={HUBERT_S} (train_4k's "
+            f"sequence, batch cut from 256), bf16 params and moments, "
+            f"{HUBERT_STEPS} steps")
+        for i, (loss, gn, ms, ln) in enumerate(rows):
+            log(f"    step {i}: loss {loss:.6f} grad_norm {gn:.6f} "
+                f"{ms:.1f} ms, launches {ln}")
+        med = statistics.median(r[2] for r in rows[1:])
+        log(f"    step time: median of steps 2-3 {med:.1f} ms; "
+            f"{tok / med * 1e3:.1f} training tokens/s; peak memory "
+            f"{peak / 1e9:.3f} GB (max_memory_allocated, {base / 1e9:.3f} "
+            f"GB allocated before); gradient leaves checked per step "
+            f"{leaves}; garbage collection {gc_s * 1e3:.1f} ms of host "
+            f"time over the {HUBERT_STEPS} steps")
+        fwd = cfg.n_layers * (1 if remat == "none" else 2)
+        want = {"fused_attention_fwd": fwd,
+                "fused_attention_bwd_dq": cfg.n_layers,
+                "fused_attention_bwd_dkv": cfg.n_layers}
+        if any(r[3] != want for r in rows):
+            raise SystemExit(f"frontends: hubert {remat} launches "
+                             f"{[r[3] for r in rows]}, predicted {want}")
+        if not all(math.isfinite(r[0]) for r in rows):
+            raise SystemExit(f"frontends: hubert {remat} losses {rows}")
+        for r in rows:
+            total.update(r[3])
+        runs[remat] = (rows, first)
+    remat_gate(runs, dev)
+    del runs, batches
+
+    # -- internvl2-2b: served with its patch embeddings ------------------
+    cfg = configs.get_config("internvl2-2b")
+    params = init_params(cfg, g, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    emb = torch.randn(VLM_B, PATCH_TOKENS, cfg.frontend_dim, generator=g,
+                      device=dev).to(bf)
+    toks = torch.randint(0, cfg.vocab_size, (VLM_B, VLM_TEXT), generator=g,
+                         device=dev)
+    rows = PATCH_TOKENS + VLM_TEXT
+    log(f"frontends: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
+        f"heads {cfg.n_heads} over {cfg.kv_heads} of {cfg.head_dim}, "
+        f"{n_params} parameters; B={VLM_B}, {PATCH_TOKENS} patch rows of "
+        f"{cfg.frontend_dim} + {VLM_TEXT} text tokens = {rows} prompt rows, "
+        f"max_len {VLM_MAX_LEN}, {VLM_NEW} greedy decode steps")
+    before = plan_clock()
+    plan = engine.make_serving_plan(cfg, VLM_MAX_LEN, device=dev)
+    runs, calls = [], []
+    with torch.no_grad():
+        for impl in ("auto", "torch"):
+            state = engine.init_decode_state(cfg, VLM_B, VLM_MAX_LEN, bf,
+                                             plan=plan, device=dev)
+            build.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = engine.prefill(params, cfg, toks, state, embeds=emb,
+                                   plan=plan, impl=impl)
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t0) * 1e3
+            if state.cache_len.tolist() != [rows] * VLM_B:
+                raise SystemExit(f"frontends: cache_len "
+                                 f"{state.cache_len.tolist()}")
+            logits, fed, step_ms = [], [], []
+            for i in range(VLM_NEW):
+                if runs:
+                    state.last_token.copy_(runs[0]["fed"][i])
+                fed.append(state.last_token.clone())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, lg = engine.decode_step(params, cfg, state,
+                                               plan=plan, impl=impl)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                logits.append(lg.float())
+            runs.append(dict(logits=logits, fed=fed, pre_ms=pre_ms,
+                             step_ms=step_ms, launches=dict(build.LAUNCHES),
+                             tokens=state.last_token.tolist()))
+            calls.append(len(plan.resolutions))
+    served, plain = runs
+    total.update(served["launches"])
+    paths = [f"{r[0]} {r[1]} {r[3]}" for r in plan.resolutions[:calls[0]]]
+    log(f"  plan path per call of the served run (phase, context, path): "
+        + ", ".join(paths))
+    log_lowerings(plan_since(before)[0])
+    check_served_plans("frontends", plan, cfg)
+    log(f"  served: prefill {served['pre_ms']:.1f} ms, decode median "
+        f"{statistics.median(served['step_ms']):.3f} ms "
+        f"({min(served['step_ms']):.3f}-{max(served['step_ms']):.3f}), "
+        f"launches {served['launches']}, last tokens {served['tokens']}; "
+        f"plain versions: prefill {plain['pre_ms']:.1f} ms, decode median "
+        f"{statistics.median(plain['step_ms']):.3f} ms, launches "
+        f"{plain['launches']}")
+    if plain["launches"]:
+        raise SystemExit("frontends: impl torch launched a kernel")
+    want = {"fused_attention_masked": cfg.n_layers,
+            "fused_decode_block": VLM_NEW * cfg.n_layers}
+    if served["launches"] != want:
+        raise SystemExit(f"frontends: internvl launches "
+                         f"{served['launches']}, predicted {want}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(served["logits"], plain["logits"])):
+        # per row: within LOGIT_TOL of its largest |logit|; a flipped
+        # argmax only where the plain top-2 margin is inside that
+        top2 = torch.topk(b, 2, dim=-1).values
+        scale = b.abs().amax(-1)
+        rel = ((a - b).abs().amax(-1) / scale).max().item()
+        margin = (top2[:, 0] - top2[:, 1]) / scale
+        flipped = a.argmax(-1) != b.argmax(-1)
+        worst = max(worst, rel)
+        log(f"  parity step {i}: worst row rel={rel:.4e} (tol {LOGIT_TOL}), "
+            f"argmax flipped in {int(flipped.sum())} of {VLM_B} rows")
+        if not torch.isfinite(a).all() or rel > LOGIT_TOL or bool(
+                (flipped & (margin > LOGIT_TOL)).any()):
+            raise SystemExit(f"frontends: served logits disagree at step {i}")
+    log(f"  served logits against the plain versions: worst rel "
+        f"{worst:.4e} over {VLM_B} rows x {VLM_NEW} steps (tol {LOGIT_TOL})")
+    del runs, served, plain, state, params
+    torch.cuda.empty_cache()
+
+    # -- internvl2-2b: one training step on the VLM batch ----------------
+    rc = dataclasses.replace(cfg, remat="full")
+    batch = {"embeds": torch.randn(VLM_B, PATCH_TOKENS, cfg.frontend_dim,
+                                   generator=g, device=dev).to(bf),
+             "tokens": torch.randint(0, cfg.vocab_size,
+                                     (VLM_B, VLM_TRAIN_TEXT), generator=g,
+                                     device=dev)}
+    rows_, peak, base, leaves, _, _ = _train_steps(rc, [batch],
+                                                   "internvl train", dev)
+    loss, gn, ms, ln = rows_[0]
+    log(f"  train: remat full, bf16 params and moments, batch embeds "
+        f"{tuple(batch['embeds'].shape)} tokens {tuple(batch['tokens'].shape)}"
+        f": loss {loss:.6f} grad_norm {gn:.6f}, one step {ms:.1f} ms, "
+        f"launches {ln}, peak memory {peak / 1e9:.3f} GB ({base / 1e9:.3f} "
+        f"GB allocated before); gradient leaves checked {leaves}")
+    want = {"fused_attention_fwd": 2 * cfg.n_layers,
+            "fused_attention_bwd_dq": cfg.n_layers,
+            "fused_attention_bwd_dkv": cfg.n_layers}
+    if ln != want or not math.isfinite(loss):
+        raise SystemExit(f"frontends: internvl train launches {ln} "
+                         f"(predicted {want}), loss {loss}")
+    total.update(ln)
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3009,6 +3532,7 @@ def main() -> int:
     results = kernel_phase(dev, g)
     results.update(train_kernel_phase(dev, g, check_kernel))
     results.update(ssd_kernel_phase(dev, g))
+    frontend = frontend_kernel_phase(dev, g)
     log("kernels: " + ", ".join(f"{n} ok" for n in results))
     plan_phase(dev)
     launches = serve_phase(dev)
@@ -3019,6 +3543,7 @@ def main() -> int:
     launches.update(qproj_train_phase(dev, g))
     launches.update(train_parity_phase(dev))
     launches.update(train_phase(dev))
+    launches.update(frontends_phase(dev))
     missing = [n for n in build.KERNELS if launches[n] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on any path: {missing}")
@@ -3033,6 +3558,9 @@ def main() -> int:
     for name, (regs, spill) in usage.items():
         if name != "fused_attention_paged":
             results[name].update(registers=regs, spill_bytes=spill)
+    # the frontends' shapes of #1, #3 and #7-#9 ride with their rows
+    for name, shapes in frontend.items():
+        results[name].update(shapes)
     record = [dict(name=n, route="cuda", launches=launches[n], **r)
               for n, r in results.items()]
     print(json.dumps({"kernels": record}))

@@ -1,8 +1,9 @@
 """The architectures the port runs so far, with the JAX package's
 dims: ``get_config(arch, smoke=...)`` returns the full published config
 or its reduced same-family smoke twin.  ``list_archs("dense")`` names
-the dense GQA decoders, ``list_archs("ssm")`` the attention-free
-Mamba-2 stacks."""
+the dense GQA stacks (the decoders, the hubert-xlarge encoder and the
+internvl2-2b VLM backbone, whose stub frontends feed ``frontend_proj``),
+``list_archs("ssm")`` the attention-free Mamba-2 stacks."""
 
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ ARCHS = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
 }
 
 

@@ -5,8 +5,12 @@ without its host mesh, which waits for the multi-device slice).
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
         --smoke --steps 20 --batch 8 --seq 128 --device cpu
 
-Dense archs only: the Mamba-2 SSD scan has no backward (neither has the
-JAX package's ssd_scan kernel).
+Every attention arch trains (``configs.list_archs("dense")``), on token
+batches as the JAX launcher does: the encoder hubert-xlarge non-causal
+with ``targets = tokens``, the VLM internvl2-2b on text alone (its
+patch-embedding batches go through ``train.step`` directly).
+mamba2-130m does not: the Mamba-2 SSD scan has no backward (neither has
+the JAX package's ssd_scan kernel).
 """
 
 from __future__ import annotations

@@ -49,6 +49,15 @@ def _cache_write(cache_len, b: int, s: int, device):
                               device=device), start, False)
 
 
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, E) by w (E, H, D) as (B, H, S, D): one 2-D product, as
+    the JAX package's einsum is one dot_general without batch
+    dimensions (``aten.mm``, which ``remat="dots"`` keeps)."""
+    b, s, _ = x.shape
+    return (x @ w.reshape(w.shape[0], -1)).view(
+        b, s, w.shape[1], w.shape[2]).transpose(1, 2)
+
+
 def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, cache: Optional[dict] = None,
                 cache_len=None, block_tables: Optional[torch.Tensor] = None,
@@ -80,13 +89,13 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
         and not cfg.qk_norm
     theta = float(cfg.rope_theta) if cfg.rope_theta else None
 
-    k_new = torch.einsum("bsd,dhe->bhse", x, params["wk"].to(dt))
-    v_new = torch.einsum("bsd,dhe->bhse", x, params["wv"].to(dt))
+    k_new = _heads(x, params["wk"].to(dt))
+    v_new = _heads(x, params["wv"].to(dt))
     if cfg.qk_norm:
         k_new = rms_norm(k_new, params["k_norm"])
     k_new = rope(k_new, positions, cfg.rope_theta)
     if not fuse_q:
-        q = torch.einsum("bsd,dhe->bhse", x, params["wq"].to(dt))
+        q = _heads(x, params["wq"].to(dt))
         if cfg.qk_norm:
             q = rms_norm(q, params["q_norm"])
         q = rope(q, positions, cfg.rope_theta)
@@ -143,7 +152,8 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                               q_offset=q_off, lengths=lengths,
                               block_tables=block_tables, plan=plan,
                               impl=impl)
-    out = torch.einsum("bhse,hed->bsd", o, params["wo"].to(dt))
+    wo = params["wo"].to(dt)
+    out = o.transpose(1, 2).reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
     if residual is not None:
         out = residual + out
     return out, new_cache

@@ -12,21 +12,38 @@ tensors, so cache appends land in the stacked cache in place.  Paged
 caches (page pools, the body's with the leading ``n_periods`` axis)
 take the same walk, with one block table shared by every layer.
 
+A modality frontend's stub (hubert-xlarge's audio frames,
+internvl2-2b's image patches) enters as ``embeds`` (B, S_f,
+frontend_dim): ``embeds @ frontend_proj`` is placed before the token
+embeddings, and positions and ``cache_len`` run over the whole
+concatenated sequence.
+
 A cache-free forward with autograd on is a training forward: each layer
-is rematerialised per ``cfg.remat`` (``"full"``: its activations are
-recomputed in the backward, ``torch.utils.checkpoint`` around the layer,
-as ``jax.checkpoint`` around the JAX package's scanned period), and its
-attention runs the differentiable ``kernels.ops`` path.  Gradients reach
+is rematerialised per ``cfg.remat`` and its attention runs the
+differentiable ``kernels.ops`` path.  ``"full"`` recomputes all of a
+layer's activations in the backward (``torch.utils.checkpoint`` around
+the layer, as ``jax.checkpoint`` around the JAX package's scanned
+period).  ``"dots"`` is JAX's ``dots_with_no_batch_dims_saveable``: a
+selective checkpoint that keeps the outputs of the products with no
+batch dimension, the layer's 2-D ``aten.mm`` calls (the q/k/v/o
+projections and the MLP's products, each ``x @ W`` folded over the
+leading dimensions), and recomputes the rest: norms, RoPE, the MLP's
+activation and the attention.  The attention kernels launch through
+``ctypes``, outside the dispatcher, so no policy sees them: under
+``"dots"`` the forward kernel runs again in the backward, as under
+``"full"`` (and as JAX recomputes its ``pallas_call``).  Gradients reach
 whatever leaves the caller marks: ``train.step`` hands in one view per
 layer of each stacked leaf, so every layer's gradient is written once.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
@@ -34,14 +51,14 @@ from repro_torch.models.common import ModelConfig, mlp_forward, rms_norm
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Admit the stacks the port runs: dense GQA decoders and pure
-    Mamba-2 stacks.  MoE, MLA, the attention/mamba hybrid and modality
-    frontends are refused."""
+    """Admit the stacks the port runs: dense GQA stacks (causal or not,
+    with or without a modality frontend's stub projection) and pure
+    Mamba-2 stacks.  MoE, MLA and the attention/mamba hybrid are
+    refused."""
     dense = cfg.attn_every == 1 and cfg.attention == "gqa"
-    if cfg.moe or cfg.frontend != "none" or not (dense
-                                                 or cfg.attn_every == 0):
+    if cfg.moe or not (dense or cfg.attn_every == 0):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense GQA decoders and pure "
+            f"{cfg.name}: the port runs dense GQA stacks and pure "
             "Mamba-2 stacks only")
 
 
@@ -78,39 +95,57 @@ def _layer_forward(lp: dict, cfg: ModelConfig, kind: str, x, positions,
     return x + mlp_forward(lp["mlp"], h, cfg.mlp)
 
 
-def _remat(cfg: ModelConfig) -> bool:
-    """Whether a training forward recomputes each layer in the
-    backward (``cfg.remat``)."""
-    if cfg.remat == "full":
-        return True
+#: the products ``"dots"`` keeps: JAX's dot_general without batch
+#: dimensions, which a 2-D ``x @ W`` reaches as ``aten.mm``
+DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def dots_policy(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of ``remat="dots"``: save a
+    product without batch dimensions, recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if func in DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig) -> Optional[dict]:
+    """The ``torch.utils.checkpoint`` options around each layer of a
+    training forward (``cfg.remat``), or None to keep every
+    activation."""
     if cfg.remat == "none":
-        return False
+        return None
+    if cfg.remat == "full":
+        return {"use_reentrant": False}
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            f"{cfg.name}: remat='dots' (JAX's dots_with_no_batch_dims_"
-            "saveable policy) is not ported; use 'full' or 'none'")
+        return {"use_reentrant": False, "context_fn": functools.partial(
+            create_selective_checkpoint_contexts, dots_policy)}
     raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
 
 
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
             cache: Optional[dict] = None, cache_len=None,
             positions: Optional[torch.Tensor] = None, plan=None,
             block_tables: Optional[torch.Tensor] = None,
             return_aux: bool = False, impl: str = "auto"):
-    """tokens: (B, S) integer ids.  ``cache``/``cache_len``: KV-cached
-    mode; ``cache_len`` is an int (the whole batch at one context) or a
-    (B,) tensor of per-row write positions.  ``plan``: a
-    ``lower.runtime.PlanDispatch`` routing every attention block.
-    ``block_tables``: (B, max_pages) int32 page table of paged caches,
-    shared by every layer.  ``impl``: the ``kernels.ops`` impl of every
-    attention and SSD call (``torch`` forces the plain versions on the
-    card).
-    Returns logits (B, S, vocab), plus the cache (updated in place) when
-    one is given, plus, with ``return_aux``, the auxiliary losses (zeros:
-    the dense stack has no MoE)."""
+    """tokens: (B, S) integer ids and/or embeds: (B, S_f, frontend_dim)
+    (the stub modality frontend, placed before the tokens).
+    ``cache``/``cache_len``: KV-cached mode; ``cache_len`` is an int
+    (the whole batch at one context) or a (B,) tensor of per-row write
+    positions.  ``plan``: a ``lower.runtime.PlanDispatch`` routing every
+    attention block.  ``block_tables``: (B, max_pages) int32 page table
+    of paged caches, shared by every layer.  ``impl``: the
+    ``kernels.ops`` impl of every attention and SSD call (``torch``
+    forces the plain versions on the card).
+    Returns logits (B, S_f + S, vocab), plus the cache (updated in
+    place) when one is given, plus, with ``return_aux``, the auxiliary
+    losses (zeros: the dense stack has no MoE)."""
     check_ported(cfg)
     dt = cfg.torch_dtype()
-    x = params["embed"].to(dt)[tokens]
+    parts = []
+    if embeds is not None:
+        parts.append(embeds.to(dt) @ params["frontend_proj"].to(dt))
+    if tokens is not None:
+        parts.append(params["embed"].to(dt)[tokens])
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     b, s, _ = x.shape
     if positions is None:
         ar = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -120,14 +155,14 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             start = 0 if cache_len is None else int(cache_len)
             positions = (start + ar)[None, :].expand(b, s)
 
-    remat = cache is None and torch.is_grad_enabled() and _remat(cfg)
+    remat = _remat(cfg) if cache is None and torch.is_grad_enabled() \
+        else None
 
     def layer(i, lp, lc, x):
         kind = cfg.block_kind(i)
-        if remat:
+        if remat is not None:
             return checkpoint(_layer_forward, lp, cfg, kind, x, positions,
-                              None, None, plan, None, impl,
-                              use_reentrant=False)
+                              None, None, plan, None, impl, **remat)
         return _layer_forward(lp, cfg, kind, x, positions, lc, cache_len,
                               plan, block_tables, impl)
 

@@ -3,6 +3,8 @@ the bridge from the JAX package's parameter tree (and its AdamW
 state).
 
 Both give the JAX tree's structure and layout: ``embed`` (V, E),
+``frontend_proj`` (F, E) for a config with a stub modality frontend
+(``cfg.frontend != "none"``, F = ``cfg.frontend_dim``),
 ``prefix_layers`` (list), ``layers`` (one dict per period position,
 leaves stacked over ``n_periods``), ``final_norm``, ``lm_head`` (E, V);
 per attention layer ``pre_norm``, ``attn`` {``wq`` (E, Hq, D),
@@ -115,6 +117,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                  "ffn_norm": ones(n, e), "mlp": mlp}
     p = {"embed": w(cfg.vocab_size, e, scale=0.02, lead=1)[0],
          "prefix_layers": [], "layers": [layer], "final_norm": ones(e)}
+    if cfg.frontend != "none":
+        p["frontend_proj"] = w(cfg.frontend_dim or e, e, lead=1)[0]
     if not cfg.tie_embeddings:
         p["lm_head"] = w(e, cfg.vocab_size, scale=0.02, lead=1)[0]
     return p

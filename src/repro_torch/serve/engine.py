@@ -104,15 +104,19 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
 
 
 def prefill(params, cfg: ModelConfig, tokens, state: DecodeState, *,
-            plan=None) -> DecodeState:
-    """Run the whole prompt at once, filling the caches."""
-    dispatch = None if plan is None else plan.prefill_dispatch(
-        tokens.shape[1])
-    logits, cache = tf.forward(params, cfg, tokens, cache=state.cache,
-                               cache_len=0, plan=dispatch)
+            embeds=None, plan=None, impl: str = "auto") -> DecodeState:
+    """Run the whole prompt at once, filling the caches.  ``embeds``
+    (B, S_f, frontend_dim): a stub frontend's rows, placed before the
+    ``tokens`` (either may be None); the plan's prefill dispatch and
+    the new ``cache_len`` count the rows of both.  ``impl``: as
+    :func:`decode_step`'s."""
+    rows = sum(t.shape[1] for t in (embeds, tokens) if t is not None)
+    dispatch = None if plan is None else plan.prefill_dispatch(rows)
+    logits, cache = tf.forward(params, cfg, tokens, embeds,
+                               cache=state.cache, cache_len=0,
+                               plan=dispatch, impl=impl)
     return DecodeState(cache=cache,
-                       cache_len=torch.full_like(state.cache_len,
-                                                 tokens.shape[1]),
+                       cache_len=torch.full_like(state.cache_len, rows),
                        last_token=greedy_sample(logits))
 
 

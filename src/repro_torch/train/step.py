@@ -63,15 +63,19 @@ def init_train_state(generator: Optional[torch.Generator],
 def loss_fn(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
     """Next-token cross entropy (+ the MoE aux terms, zero for the dense
     stack).  batch: {"tokens": (B, S+1)} integer ids on the parameters'
-    device, optional "mask" (B, S) and, for a non-causal model,
+    device, or with a stub frontend {"embeds", "tokens"} (the VLM: the
+    loss covers the text suffix only) or {"embeds", "targets"} (the
+    encoder); optional "mask" (B, S) and, for a non-causal model,
     "targets"."""
-    tokens = batch["tokens"]
-    if cfg.causal:
+    tokens, embeds = batch.get("tokens"), batch.get("embeds")
+    if tokens is not None and cfg.causal:
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
     else:
         inputs, targets = tokens, batch.get("targets", tokens)
-    logits, aux = tf.forward(params, cfg, inputs, return_aux=True,
+    logits, aux = tf.forward(params, cfg, inputs, embeds, return_aux=True,
                              impl=impl)
+    if embeds is not None and tokens is not None:
+        logits = logits[:, -targets.shape[1]:]
     loss = cross_entropy(logits, targets, batch.get("mask"))
     total = loss + 0.01 * aux["moe_lb_loss"] + 0.001 * aux["moe_z_loss"]
     metrics = {"loss": loss.detach(), "moe_lb_loss": aux["moe_lb_loss"],
@@ -119,7 +123,7 @@ def train_step(state: TrainState, batch, cfg: ModelConfig, *,
     the metrics are the last slice's."""
     params = state.params
     if microbatches > 1:
-        n = batch["tokens"].shape[0] // microbatches
+        n = next(iter(batch.values())).shape[0] // microbatches
         acc = tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                              device=p.device), params)
         for i in range(microbatches):

@@ -51,7 +51,12 @@ reads strided views, aligned or not, bit for bit as their copies; and a
 2-layer full-width mamba2-130m forward on it matches the plain versions.
 qwen3-14b and starcoder2-15b (GQA groups 5 and 12) serve one layer at
 full width on the kernels their DSE-lowered plans pick, against the
-plain versions.
+plain versions.  The modality frontends: #1, #2 and #7-#9 at
+hubert-xlarge's heads (16 of 80, non-causal, lengths off the tiles);
+hubert at full width, 2 layers, trains on the kernels under each remat
+policy (#7 recomputed under "full" and "dots") against the plain
+versions; internvl2-2b serves 256 patch rows before its text on #1 and
+#3 against the plain versions.
 """
 
 import pytest
@@ -405,6 +410,8 @@ MASKED_CASES = [
     (4, 32, 8, 70, 300, 128, [0, 1, 64, 300]),
     (4, 32, 8, 70, 200, 64, [63, 65, 200, 0]),
     (4, 32, 8, 70, 150, 40, [65, 150, 1, 64]),
+    # hubert-xlarge's heads (16 of 80, no grouping), rows off the tile
+    (4, 16, 16, 130, 200, 80, [0, 65, 130, 200]),
 ]
 
 
@@ -592,6 +599,10 @@ TRAIN_CASES = [
     # rows that see no column (o = 0, lse = -1e30), keys no row sees
     (1, 4, 2, 130, 70, 64, 64, True, None),     # Sq > Skv: rows 0..59
     (1, 4, 2, 200, 150, 64, 64, True, -100),    # a whole tile of each
+    # hubert-xlarge's heads: non-causal, D = Dv = 80, 16 of 16, lengths
+    # off the 64-row and 64-key tiles (the _any instantiations)
+    (1, 16, 16, 200, 200, 80, 80, False, None),
+    (2, 16, 16, 130, 260, 80, 80, False, None),
 ]
 
 
@@ -1141,3 +1152,93 @@ def test_new_gqa_group_serves_on_the_kernels(cuda_device, arch, group):
     else:
         assert launches["fused_qproj_attention_masked"] == 1
         assert launches["fused_decode_block"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat,fwd", [("none", 1), ("full", 2),
+                                       ("dots", 2)])
+def test_hubert_trains_on_the_kernels_under_each_remat(cuda_device, remat,
+                                                       fwd):
+    """hubert-xlarge at full width (16 heads of 80, non-causal), cut to
+    2 layers, bf16: the loss and every gradient of one {"embeds",
+    "targets"} batch of 2 x 300 frames on the kernels against the plain
+    versions (loss within 1e-2 relative, each leaf within 2e-2 of its
+    largest).  #7 launches once a layer, twice under "full" and "dots"
+    (it runs outside the dispatcher, so the selective checkpoint
+    recomputes it), #8 and #9 once a layer."""
+    import dataclasses
+
+    from repro_torch import configs, tree
+    from repro_torch.models.weights import init_params
+    from repro_torch.train import step
+    cfg = dataclasses.replace(configs.get_config("hubert-xlarge"),
+                              n_layers=2, remat=remat)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, g, cuda_device)
+    batch = {"embeds": torch.randn(2, 300, cfg.frontend_dim, generator=g,
+                                   device=cuda_device).to(torch.bfloat16),
+             "targets": torch.randint(0, cfg.vocab_size, (2, 300),
+                                      generator=g, device=cuda_device)}
+    build.reset_launches()
+    (loss, _), grads = step.value_and_grad(params, cfg, batch)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {
+        "fused_attention_fwd": fwd * cfg.n_layers,
+        "fused_attention_bwd_dq": cfg.n_layers,
+        "fused_attention_bwd_dkv": cfg.n_layers}
+    build.reset_launches()
+    (want, _), plain = step.value_and_grad(params, cfg, batch, impl="torch")
+    assert not build.LAUNCHES
+    assert abs(loss.item() - want.item()) <= 1e-2 * abs(want.item())
+    for a, b in zip(tree.leaves(grads), tree.leaves(plain)):
+        assert torch.isfinite(a.float()).all()
+        assert _rel(a, b) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_vlm_serves_patch_embeddings_on_the_kernels(cuda_device):
+    """internvl2-2b at full width, cut to one layer, bf16: 256 patch rows
+    before 44 text tokens (B = 2) prefilled with the serving plan
+    (#1 over 300 rows), then four decode steps (#3 past C = 2N), against
+    the same steps on the plain versions within 5e-2 of the largest
+    logit; the prefill's ``cache_len`` counts the patch rows."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.internvl2_2b import PATCH_TOKENS
+    from repro_torch.models.weights import init_params
+    from repro_torch.serve import engine
+    cfg = dataclasses.replace(configs.get_config("internvl2-2b"), n_layers=1)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, g, cuda_device)
+    emb = torch.randn(2, PATCH_TOKENS, cfg.frontend_dim, generator=g,
+                      device=cuda_device).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (2, 44), generator=g,
+                         device=cuda_device)
+    plan = engine.make_serving_plan(cfg, 512, device=cuda_device)
+    runs = []
+    with torch.no_grad():
+        for impl in ("auto", "torch"):
+            state = engine.init_decode_state(cfg, 2, 512, torch.bfloat16,
+                                             plan=plan, device=cuda_device)
+            build.reset_launches()
+            state = engine.prefill(params, cfg, toks, state, embeds=emb,
+                                   plan=plan, impl=impl)
+            assert state.cache_len.tolist() == [300, 300]
+            logits = []
+            for i in range(4):
+                if runs:
+                    state.last_token.copy_(runs[0][1][i])
+                fed = state.last_token.clone()
+                state, lg = engine.decode_step(params, cfg, state,
+                                               plan=plan, impl=impl)
+                logits.append((lg.float(), fed))
+            runs.append(([x for x, _ in logits], [f for _, f in logits],
+                         dict(build.LAUNCHES)))
+    (got, _, launches), (want, _, plain) = runs
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 5e-2 * b.abs().max().item()
+    assert not plain
+    assert launches == {"fused_attention_masked": 1,
+                        "fused_decode_block": 4}

@@ -85,8 +85,13 @@ DSE_MODULES = [f"core/{m}.py" for m in (
     "lower/runtime.py", "configs/qwen3_14b.py", "configs/starcoder2_15b.py"]
 
 
+#: the modality-frontend slice's modules (remat="dots" lives in
+#: models/transformer.py, checked with every port module above)
+FRONTEND_MODULES = ["configs/hubert_xlarge.py", "configs/internvl2_2b.py"]
+
+
 @pytest.mark.parametrize("rel", TRAINING_MODULES + MAMBA_MODULES
-                         + FAULT_MODULES + DSE_MODULES)
+                         + FAULT_MODULES + DSE_MODULES + FRONTEND_MODULES)
 def test_training_modules_are_checked(rel):
     path = PORT / rel
     assert path.exists()
@@ -110,6 +115,8 @@ def _entry_points():
                                           prefill_request)
     cfg = configs.get_config("starcoder2-7b", smoke=True)
     ssm = configs.get_config("mamba2-130m", smoke=True)
+    audio = configs.get_config("hubert-xlarge", smoke=True)
+    vlm = configs.get_config("internvl2-2b", smoke=True)
     return [
         lambda: serving_plan(cfg, 64),
         lambda: make_serving_plan(cfg, 64),
@@ -133,10 +140,12 @@ def _entry_points():
         lambda: init_params(ssm, torch.Generator()),
         lambda: ContinuousBatchingEngine(None, ssm, batch_size=1,
                                          max_len=64),
+        lambda: init_train_state(None, audio),
+        lambda: init_decode_state(vlm, 1, 64),
     ]
 
 
-@pytest.mark.parametrize("i", range(17))
+@pytest.mark.parametrize("i", range(19))
 def test_default_device_is_cuda_and_raises_without_it(i):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
