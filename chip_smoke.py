@@ -99,14 +99,41 @@ Phases, in order:
                before 300 text tokens (B=4, prefill on the plan's path,
                16 decode steps, logits against the plain versions, the
                plan's path per call), then one training step on its VLM
-               batch (remat full: step ms, peak memory).
+               batch (remat full: step ms, peak memory);
+  14. moe   -- phi3.5-moe-42b-a6.6b at full width (16 experts of 6400,
+               top-2; 32 query heads over 8 KV heads), every earlier
+               phase's weights freed first.  Served at 28 of its 32
+               layers (73.3 GB of bf16 weights) with the serve phase's
+               mix: launch/serve.run on the dense engine (#1-#3; median
+               step against the weights' bytes floor, tok/s with and
+               without plan resolution, peak memory), the dense engine
+               again and the paged engine (page 16, the paged serve's
+               pool: a preempt and its resume, #6); a steady B=4 decode
+               window, then profiled (device time by kernel and by MoE
+               op, the expert products' TFLOP/s, idle share); the paged
+               engine at its own rung and one and two rungs down (#6,
+               #5, #4).  Gates: (a) each attention call of one
+               request's plain run (its first chunk, later chunks, 4
+               decode steps) and of the three paged runs, the kernel
+               beside the plain version on the same input and cache,
+               KERNEL_TOL; (b) 4 layers in fp32 compute, prefill + 8
+               decode steps on #1-#3, logits within MOE_FP32_TOL of the
+               plain versions'; (c) the paged tokens equal the dense
+               engine's.  Then launch/train.train_loop at 4
+               layers (remat full, bf16 moments, B=2, seq 2048, 3
+               steps: loss, moe_lb_loss, moe_z_loss, step ms, tokens/s,
+               peak memory, #7-#9 launches), the first step's gradients
+               taken twice from the same state and equal bit for bit;
+               then one step under torch.profiler, by part and by MoE
+               op.
 The kernel phase also holds the four training kernels (#7-#10) to their
 plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal), #7-#9 at hubert-xlarge's (B=2, 16 heads of 80, S = 4096,
 non-causal: the _any instantiations; per row, a dropped tile rejected,
-bitwise repeatable, timed against non-causal SDPA and its backward), #1
-and #3 at internvl2-2b's prefill and decode shapes (each kernel's record
-carries these as "hubert" and "internvl") and the Mamba-2 SSD scan (#11) to its plain version in bf16 and
+bitwise repeatable, timed against non-causal SDPA and its backward) and
+at phi3.5-moe's (B=2, 32 query heads over 8 of 128, S = 2048, causal),
+#1 and #3 at internvl2-2b's prefill and decode shapes (each kernel's
+record carries these as "hubert", "phi35moe" and "internvl") and the Mamba-2 SSD scan (#11) to its plain version in bf16 and
 fp32 at the serve path's prefill chunk (B=1, L=188, with an initial
 state) and the cache-free forward's shape (B=4, L=2048), and times
 them beside the unfused yardstick (ssd_unfused: every chunk batched
@@ -1215,9 +1242,9 @@ def serve_phase(dev):
     return launches
 
 
-def compare_logits(phase, got, want) -> float:
-    """Step by step, ``got`` logits against ``want``'s within LOGIT_TOL
-    of the largest |logit|; a flipped argmax fails only when the top-2
+def compare_logits(phase, got, want, tol=LOGIT_TOL) -> float:
+    """Step by step, ``got`` logits against ``want``'s within ``tol`` of
+    the largest |logit|; a flipped argmax fails only when the top-2
     margin of ``want`` exceeds that.  Returns the worst relative
     error."""
     worst = 0.0
@@ -1230,9 +1257,9 @@ def compare_logits(phase, got, want) -> float:
         margin = float(top2[0] - top2[1]) / float(b.abs().max())
         flipped = int(a.argmax()) != int(b.argmax())
         log(f"  parity step {i}: max_abs_err={err:.4e} rel={rel:.4e} "
-            f"tol={LOGIT_TOL} argmax {'FLIPPED' if flipped else 'same'} "
+            f"tol={tol} argmax {'FLIPPED' if flipped else 'same'} "
             f"(top-2 margin {margin:.3e})")
-        if rel > LOGIT_TOL or (flipped and margin > LOGIT_TOL):
+        if rel > tol or (flipped and margin > tol):
             raise SystemExit(f"{phase}: logits disagree at step {i}")
     return worst
 
@@ -3048,14 +3075,23 @@ def train_gemm_flops(cfg) -> float:
     forward (every layer's projections and MLP, and the LM head), the
     remat recompute (each layer again, less its last GEMM, w_down,
     whose output no saved tensor needs, so the recompute stops before
-    it) and the backward (two products per forward GEMM)."""
+    it) and the backward (two products per forward GEMM).  A MoE layer
+    computes its experts on the capacity buffer, E x C rows a batch row
+    (its own routing group), beside the router's product; the combine
+    saves w_down's output, so its recompute runs every product."""
+    from repro_torch.models import moe
     e, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     n_mlp = 3 if cfg.mlp == "silu_glu" else 2
-    layer = e * cfg.n_heads * hd * 2 + e * cfg.kv_heads * hd * 2 \
-        + n_mlp * e * f
+    attn = e * cfg.n_heads * hd * 2 + e * cfg.kv_heads * hd * 2
+    if cfg.moe:
+        rows = cfg.n_experts * moe.capacity(cfg, TRAIN_SEQ) / TRAIN_SEQ
+        layer = attn + rows * n_mlp * e * cfg.d_expert + e * cfg.n_experts
+        last = 0
+    else:
+        layer, last = attn + n_mlp * e * f, f * e
     tok = 2 * TRAIN_B * TRAIN_SEQ               # 2 FLOP per MAC per token
     fwd = tok * (cfg.n_layers * layer + e * cfg.vocab_size)
-    recompute = tok * cfg.n_layers * (layer - f * e)
+    recompute = tok * cfg.n_layers * (layer - last)
     return fwd + recompute + 2 * fwd
 
 
@@ -3110,6 +3146,31 @@ def train_breakdown(prof, busy_ms: float, cfg, n_params: int) -> None:
 #: 256 to 2: the encoder forward and the training steps under each remat
 HUBERT_B, HUBERT_S, HUBERT_STEPS = 2, 4096, 3
 REMATS = ("none", "full", "dots")
+#: phi3.5-moe's training attention: B=2, 32 query heads over 8 KV heads
+#: of 128, S = 2048, causal (the MoE phase's train_loop shape)
+MOE_ATTN = (2, 32, 8, 2048, 128)
+
+
+def moe_kernel_phase(dev, g) -> dict:
+    """#7, #8 and #9 at phi3.5-moe's training shape (MOE_ATTN), held as
+    at their main shapes by attention_train_records.  Returns {kernel:
+    {"phi35moe": record}}."""
+    bf = torch.bfloat16
+    b, hq, hkv, s, d = MOE_ATTN
+    tag = f"phi35moe B={b} H={hq}/{hkv} S={s} D={d} causal"
+    q, do = (torch.randn(b, hq, s, d, generator=g, device=dev).to(bf)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, s, d, generator=g, device=dev).to(bf)
+            for _ in range(2))
+    out = {}
+    for name, r in attention_train_records(q, k, v, do, True, tag).items():
+        out[name] = {"phi35moe": dict(shape=tag, **r)}
+        log_record(name, r, tag)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return out
+
+
 #: internvl2-2b's serve: B=4 rows of 256 patch rows and 300 text tokens
 #: (556 prompt rows), max_len 1024, 16 greedy decode steps
 VLM_B, VLM_TEXT, VLM_MAX_LEN, VLM_NEW = 4, 300, 1024, 16
@@ -3502,6 +3563,545 @@ def frontends_phase(dev):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# MoE: phi3.5-moe at full width, served at 28 layers, trained at 4
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+#: the served depth: all 32 layers' bf16 weights (83.7 GB) leave the
+#: 85.5 GB card no room for the KV cache, the init's fp32 temporaries
+#: and the CUDA context; 28 layers are 73.3 GB with the embeddings
+MOE_SERVE_LAYERS = 28
+#: the depth of the fp32-compute logits gate and of the training run
+MOE_SHORT_LAYERS = 4
+#: decode steps of the fp32-compute logits gate
+MOE_LOGIT_STEPS = 8
+#: gate (b)'s limit, relative to the largest |logit|: the fp32-compute
+#: run on the kernels against the plain versions read 9.9853e-06 on an
+#: H100 (700 W); a tile lost or mis-scaled would err by percents
+MOE_FP32_TOL = 1e-4
+#: the ops of the MoE FFN whose device time the profiled decode window
+#: logs (the expert products are the aten::bmm calls: decode runs the
+#: attention in the megakernel, with no bmm)
+MOE_OPS = ("aten::mm", "aten::bmm", "aten::_softmax", "aten::sort",
+           "aten::searchsorted", "aten::gather", "aten::scatter",
+           "aten::cat", "aten::silu", "aten::mul", "aten::sum",
+           "aten::one_hot")
+
+
+def _moe_first(params, n: int) -> dict:
+    """``params`` cut to its first ``n`` body layers (views)."""
+    from repro_torch import tree
+    return dict(params, layers=[tree.map(lambda t: t[:n], lp)
+                                for lp in params["layers"]])
+
+
+def _serve_counted(eng, cfg, args):
+    """The serve mix's requests (made anew) through a RequestBatcher on
+    ``eng``, preempts and resumes counted and each decode step timed.
+    Returns (tokens by uid, counts, step seconds, wall seconds)."""
+    from repro_torch.launch import serve
+    from repro_torch.serve import RequestBatcher
+    requests = serve.make_requests(cfg, args.requests, args.max_new,
+                                   prompt_lens=PROMPT_LENS)
+    batcher = RequestBatcher(args.batch, max_len=args.max_len)
+    counts, step_s = {"preempt": 0, "resume": 0}, []
+    orig = eng.preempt, eng.resume, eng.decode_once
+
+    def preempt(slot):
+        counts["preempt"] += 1
+        return orig[0](slot)
+
+    def resume(pre, slot):
+        counts["resume"] += 1
+        return orig[1](pre, slot)
+
+    def decode_once():
+        t = time.perf_counter()
+        out = orig[2]()
+        if out is not None:
+            step_s.append(time.perf_counter() - t)
+        return out
+
+    eng.preempt, eng.resume, eng.decode_once = preempt, resume, decode_once
+    for req in requests:
+        batcher.submit(req)
+    t0 = time.perf_counter()
+    finished = batcher.serve(eng, max_steps=2000)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if len(finished) != len(requests) or any(
+            len(r.generated) != args.max_new for r in finished):
+        raise SystemExit("moe: a served request did not finish its budget")
+    return ({r.uid: list(r.generated) for r in finished}, counts, step_s,
+            secs)
+
+
+def _attention_side_by_side(pairs):
+    """Patch ``models.attention.gqa_forward`` so each call with a cache
+    and a fused plan dispatch also runs that path's kernel and its plain
+    version on the call's input and a copy of its cache, both on a zero
+    residual (the sub-block's own output), appending (path, rows, paged,
+    rel err) to ``pairs``.  The call itself then runs as it was asked.
+    The compared calls' launches are taken back out of the counts.
+    Returns the original."""
+    import dataclasses
+
+    from repro_torch.kernels import build
+    from repro_torch.models import attention as attn
+    orig = attn.gqa_forward
+
+    def both(params, cfg, x, positions, *, cache=None, plan=None,
+             residual=None, **kw):
+        if cache is not None and plan is not None \
+                and plan.impl in ("cuda", "torch"):
+            zero = torch.zeros_like(residual)
+            outs, saved = [], collections.Counter(build.LAUNCHES)
+            for impl in ("cuda", "torch"):
+                outs.append(orig(
+                    params, cfg, x, positions,
+                    cache={k: v.clone() for k, v in cache.items()},
+                    plan=dataclasses.replace(plan, impl=impl),
+                    residual=zero, **kw)[0])
+            # the comparison's launches are not the run's
+            build.LAUNCHES.clear()
+            build.LAUNCHES.update(saved)
+            pairs.append((plan.path, x.shape[1], plan.paged,
+                          rel_err(outs[0], outs[1])[1]))
+        return orig(params, cfg, x, positions, cache=cache, plan=plan,
+                    residual=residual, **kw)
+
+    attn.gqa_forward = both
+    return orig
+
+
+def _side_by_side_gate(phase, pairs, want_paths) -> None:
+    """Every compared attention call within KERNEL_TOL, and the paths of
+    ``want_paths`` among them."""
+    by = collections.defaultdict(list)
+    for path, rows, paged, rel in pairs:
+        by[(path, "paged" if paged else "dense",
+            "decode" if rows == 1 else "chunk")].append(rel)
+    for key, rels in sorted(by.items()):
+        log(f"  {phase}: {'/'.join(key)}: {len(rels)} calls, worst rel "
+            f"{max(rels):.4e} tol={KERNEL_TOL}")
+    bad = [p for p in pairs if p[3] > KERNEL_TOL]
+    missing = [p for p in want_paths if p not in {k[0] for k in by}]
+    if bad or missing or not pairs:
+        raise SystemExit(f"{phase}: kernel against plain version beyond "
+                         f"tolerance {bad[:4]} or paths never compared "
+                         f"{missing}")
+
+
+def moe_decode_window(args, cfg, params, requests, floor_ms) -> None:
+    """A steady window of whole-batch decode steps, every row live: its
+    step on the host clock against the bytes floor, then again under
+    torch.profiler, by kernel and by MoE op, the expert products' rate
+    beside."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import lower
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    plan = lower.serving_plan(cfg, args.max_len, device=args.device)
+    eng = ContinuousBatchingEngine(
+        params, cfg, batch_size=args.batch, max_len=args.max_len, plan=plan,
+        dtype=cfg.torch_dtype(), prefill_chunk=args.prefill_chunk,
+        device=args.device)
+    for slot, req in enumerate(requests[:args.batch]):
+        eng.begin_prefill(slot, req.prompt)
+    while not all(eng.live):
+        eng.step()
+    eng.decode_once()
+    _, step_txt = timed_decode(eng, DECODE_WINDOW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_WINDOW):
+        eng.decode_once()
+    host_ms = (time.perf_counter() - t0) / DECODE_WINDOW * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DECODE_WINDOW):
+            eng.decode_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"  moe decode window: B={args.batch} live, contexts {eng.row_ctx}; "
+        f"each step synchronised: {step_txt}; {DECODE_WINDOW} steps back to "
+        f"back {host_ms:.3f} ms/step against the {floor_ms:.3f} ms bytes "
+        f"floor ({floor_ms / host_ms:.4f} of it); then {DECODE_WINDOW} "
+        f"profiled {wall / DECODE_WINDOW * 1e3:.3f} ms/step")
+    busy = device_report(prof, wall, "moe profiled decode window", top=10,
+                         also=("decode_mma_kernel",))
+    log(f"  moe decode window: device busy {busy / DECODE_WINDOW:.3f} "
+        f"ms/step; against the back-to-back step, idle share "
+        f"{1 - busy / DECODE_WINDOW / host_ms:.4f}")
+    rows = args.batch * moe.capacity(cfg, 1)     # one token a group
+    ff = cfg.d_expert or cfg.d_ff
+    moe_op_table(prof, DECODE_WINDOW, bmm=(
+        cfg.n_layers * 3 * 2 * cfg.n_experts * rows * cfg.d_model * ff,
+        cfg.n_layers * 3 * cfg.n_experts * cfg.d_model * ff * 2,
+        f"E x C = {cfg.n_experts} x {rows} rows"))
+    del eng
+
+
+def moe_op_table(prof, steps: int, bmm=None) -> None:
+    """The device time a step of each op of MOE_OPS in a profile of
+    ``steps`` steps (each op's kernels, children included); with ``bmm``
+    = (FLOP, weight bytes, label) a step, the expert products' rates."""
+    from torch.autograd import DeviceType
+    ops = {e.key: e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.key in MOE_OPS}
+    for key in MOE_OPS:
+        e = ops.get(key)
+        if e is None:
+            continue
+        ms = e.device_time_total / 1e3 / steps
+        extra = ""
+        if key == "aten::bmm" and bmm is not None and ms > 0:
+            flops, wbytes, label = bmm
+            extra = (f"; {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s on "
+                     f"{flops / 1e12:.3f} TFLOP a step ({label}), "
+                     f"{wbytes / (ms * 1e-3) / 1e12:.3f} TB/s of expert "
+                     f"weights")
+        log(f"    {key:20s} x{e.count // steps:<5d} a step, device "
+            f"{ms:.3f} ms a step{extra}")
+
+
+def moe_serve(dev):
+    """phi3.5-moe at full width cut to MOE_SERVE_LAYERS: the serve mix
+    through launch/serve.run (dense engine), again with the routing
+    recorded, through the paged engine (page 16, the paged serve's pool:
+    a preempt and its resume) with gate (c), a steady profiled decode
+    window, the paged engine one and two rungs down (#5, #4), gate (a)
+    on a plain run and gate (b) at MOE_SHORT_LAYERS in fp32 compute.
+    Returns the launches of the driven serves."""
+    import dataclasses
+
+    from repro_torch import lower
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    args = serve.parser().parse_args([
+        "--arch", MOE_ARCH, "--layers", str(MOE_SERVE_LAYERS), "--batch",
+        "4", "--requests", "6", "--max-len", "1024", "--max-new", "16",
+        "--prefill-chunk", "256", "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    cfg, params = serve.model_for(args)
+    torch.cuda.synchronize()
+    wbytes = sum(t.numel() * t.element_size()
+                 for t in _leaves(params) if t is not params["embed"])
+    floor_ms = wbytes / PEAK_BYTES * 1e3
+    log(f"moe serve: {cfg.name} d_model={cfg.d_model}, {cfg.n_experts} "
+        f"experts of {cfg.d_expert} top-{cfg.top_k}, {cfg.n_heads} query "
+        f"heads over {cfg.kv_heads} KV heads, cut to {cfg.n_layers} of 32 "
+        f"layers; bf16 random weights (seed 0) in {time.time() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated (init "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB); | {card_line()}")
+    log(f"  weights read per decode step {wbytes / 1e9:.3f} GB (every "
+        f"expert: the capacity layout computes all {cfg.n_experts} each "
+        f"step): floor {floor_ms:.3f} ms at {PEAK_BYTES / 1e12} TB/s")
+    requests = serve.make_requests(cfg, args.requests, args.max_new,
+                                   prompt_lens=PROMPT_LENS)
+
+    # the dense serve through the launcher
+    lower.clear_plan_cache()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    before = plan_clock()
+    ops.reset_counts()
+    out = serve.run(args, cfg, params, requests)
+    launches = collections.Counter(build.LAUNCHES)
+    spent = plan_since(before)
+    finished, steps = out["finished"], out["decode_step_s"]
+    gen = sum(len(r.generated) for r in finished)
+    step_ms = statistics.median(steps) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    free = total_mem - torch.cuda.max_memory_reserved()
+    log(f"  dense serve: {len(finished)}/{len(requests)} requests, {gen} "
+        f"tokens in {out['seconds']:.3f}s; decode steps {len(steps)}, median "
+        f"step {step_ms:.3f} ms against the {floor_ms:.3f} ms floor; peak "
+        f"memory {peak / 1e9:.3f} GB allocated, "
+        f"{torch.cuda.max_memory_reserved() / 1e9:.3f} GB reserved of the "
+        f"card's {total_mem / 1e9:.3f} GB: {free / 1e9:.3f} GB left")
+    log_rates("moe dense serve", gen, out["seconds"], spent,
+              len(out["plan"].resolutions))
+    log_lowerings(spent[0])
+    check_served_plans("moe serve", out["plan"], cfg)
+    log(f"  launches: {dict(launches)}")
+    missing = [n for n in DENSE_KERNELS if launches[n] == 0]
+    if missing or len(finished) != len(requests) or any(
+            len(r.generated) != args.max_new for r in finished):
+        raise SystemExit(f"moe serve: kernels never launched {missing}, or "
+                         "a request short")
+    if free < 4e9:
+        log(f"  moe serve: under 4 GB of the card left at "
+            f"{cfg.n_layers} layers")
+    served = {r.uid: r.generated for r in finished}
+    del out, finished
+
+    # gate (c): the dense engine again and the paged engine; the paged
+    # tokens equal to the dense
+    plan = lower.serving_plan(cfg, args.max_len, device=dev)
+    dense = _serve_counted(ContinuousBatchingEngine(
+        params, cfg, batch_size=args.batch, max_len=args.max_len, plan=plan,
+        dtype=cfg.torch_dtype(), prefill_chunk=args.prefill_chunk,
+        device=dev), cfg, args)
+    log(f"  dense engine again, routing recorded: tokens "
+        f"{'equal to' if dense[0] == served else 'NOT equal to'} the "
+        f"launcher's serve")
+    pages_for = lambda n: -(-n // PAGE)
+    num_pages = 2 + sum(pages_for(len(r.prompt) + 1)
+                        for r in requests[:args.batch])
+    lower.clear_plan_cache()
+    before = plan_clock()
+    ops.reset_counts()
+    plan = lower.serving_plan(cfg, args.max_len, device=dev, paged=True,
+                              page_size=PAGE)
+    paged = _serve_counted(paged_engine(params, cfg, args, plan, num_pages,
+                                       dev), cfg, args)
+    got = dict(build.LAUNCHES)
+    spent = plan_since(before)
+    toks, counts, steps, secs = paged
+    log(f"  paged serve: pool {num_pages} pages of {PAGE}, preempts "
+        f"{counts['preempt']}, resumes {counts['resume']}; decode steps "
+        f"{len(steps)}, median step {statistics.median(steps) * 1e3:.3f} "
+        f"ms; launches {got}")
+    log_rates("moe paged serve", sum(map(len, toks.values())), secs, spent,
+              len(plan.resolutions))
+    if not counts["preempt"] or counts["resume"] != counts["preempt"] \
+            or not got.get("fused_decode_block_paged"):
+        raise SystemExit(f"moe paged serve: {counts}, launches {got}")
+    differ = sorted(u for u in dense[0] if toks.get(u) != dense[0][u])
+    log(f"  gate (c): paged tokens equal to the dense engine's for "
+        f"{len(dense[0]) - len(differ)}/{len(dense[0])} requests")
+    if differ:
+        raise SystemExit(f"moe gate (c): paged tokens differ from the "
+                         f"dense engine's for requests {differ}")
+    launches.update(got)
+    del dense, paged
+
+    moe_decode_window(args, cfg, params, requests, floor_ms)
+
+    # gate (a): one request on the plain versions, each attention call's
+    # kernel beside its plain version on the same input; then the paged
+    # engine at its own rung and one and two rungs down (#6, #5, #4) on
+    # the kernels, compared so
+    prompt = requests[1].prompt
+    pairs = []
+    orig = _attention_side_by_side(pairs)
+    try:
+        eng = ContinuousBatchingEngine(
+            params, cfg, batch_size=1, max_len=args.max_len,
+            plan=lower.ServingPlan(cfg=cfg, max_len=args.max_len,
+                                   device=torch.device("cpu"),
+                                   n_blocks=cfg.n_layers),
+            dtype=cfg.torch_dtype(), prefill_chunk=args.prefill_chunk,
+            device=dev)
+        _one_request_logits(eng, prompt)
+        del eng
+        _side_by_side_gate(f"gate (a), prompt {len(prompt)} tokens", pairs,
+                           ("fused_attention", "qproj_attention",
+                            "decode_megakernel"))
+        for demotions in (0, 1, 2):
+            del pairs[:]
+            plan = lower.ServingPlan(cfg=cfg, max_len=args.max_len,
+                                     device=dev, n_blocks=cfg.n_layers,
+                                     paged=True, page_size=PAGE)
+            eng = paged_engine(params, cfg, args, plan,
+                               args.max_len // PAGE + 1, dev, batch=1)
+            eng.demotions = demotions
+            ops.reset_counts()
+            _one_request_logits(eng, prompt)
+            got = dict(build.LAUNCHES)
+            step = f"{eng.last_dispatch.path}/{eng.last_dispatch.impl}"
+            del eng
+            log(f"  rung-down: demotions={demotions}, decode on {step}, "
+                f"launches {got}")
+            _side_by_side_gate(f"rung-down {demotions}", pairs,
+                               {0: ("decode_megakernel",)}.get(demotions,
+                                                               ()))
+            want = {0: "fused_decode_block_paged",
+                    1: "fused_qproj_attention_paged",
+                    2: "fused_attention_paged"}[demotions]
+            if not got.get(want):
+                raise SystemExit(f"moe rung-down: {want} never launched")
+            launches.update({want: got[want]})
+    finally:
+        attn.gqa_forward = orig
+
+    # gate (b): MOE_SHORT_LAYERS layers in fp32 compute, bf16 weights
+    cfg32 = dataclasses.replace(cfg, n_layers=MOE_SHORT_LAYERS,
+                                compute_dtype="float32")
+    p32 = _moe_first(params, MOE_SHORT_LAYERS)
+    runs = []
+    for plan_dev in (dev, torch.device("cpu")):
+        eng = ContinuousBatchingEngine(
+            p32, cfg32, batch_size=1, max_len=args.max_len,
+            plan=lower.ServingPlan(cfg=cfg32, max_len=args.max_len,
+                                   device=plan_dev, n_blocks=cfg32.n_layers),
+            dtype=cfg32.torch_dtype(), prefill_chunk=args.prefill_chunk,
+            device=dev)
+        ops.reset_counts()
+        runs.append(_one_request_logits(eng, prompt,
+                                        runs[0][1] if runs else None,
+                                        steps=MOE_LOGIT_STEPS))
+        runs[-1] += (dict(build.LAUNCHES),)
+        del eng
+    fp32_launches, plain_launches = runs[0][2], runs[1][2]
+    worst = compare_logits("moe fp32", runs[0][0], runs[1][0],
+                           tol=MOE_FP32_TOL)
+    log(f"  gate (b): {cfg32.n_layers} layers, fp32 compute, prompt "
+        f"{len(prompt)} tokens, prefill + {MOE_LOGIT_STEPS} decode steps: "
+        f"worst rel {worst:.4e} (tol {MOE_FP32_TOL}); launches "
+        f"{fp32_launches}, on the plain versions {plain_launches}")
+    unrun = [n for n in DENSE_KERNELS if not fp32_launches.get(n)]
+    if unrun or any(plain_launches.values()):
+        raise SystemExit(f"moe gate (b): kernels never launched in fp32 "
+                         f"{unrun}, or the plain run launched "
+                         f"{plain_launches}")
+    del params, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_train(dev):
+    """``launch/train.train_loop`` on phi3.5-moe at full width cut to
+    MOE_SHORT_LAYERS: remat full, bf16 moments, B=2, seq 2048, 3 steps.
+    The first step's gradients are taken twice from the same state and
+    must be equal bit for bit; every per-layer leaf finite and non-zero.
+    Returns the launches of the 3 steps."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.train import step as train_step
+
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH),
+                              n_layers=MOE_SHORT_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    per_step, total, grad_leaves = [], collections.Counter(), []
+    value_and_grad = train_step.value_and_grad
+    first, repeat = {}, {}
+
+    def capture(*a, **kw):
+        if not first:
+            first.update(a=a, kw=kw)
+        return value_and_grad(*a, **kw)
+
+    def twice(grads):
+        """The first call's gradients again from the same state (its
+        launches not counted), compared bit for bit."""
+        if repeat:
+            return
+        saved = collections.Counter(build.LAUNCHES)
+        _, again = value_and_grad(*first["a"], **first["kw"])
+        build.LAUNCHES.clear()
+        build.LAUNCHES.update(saved)
+        pairs = list(zip(_grad_leaves(grads), _grad_leaves(again)))
+        repeat["differ"] = [n for (n, a), (_, b) in pairs
+                            if not torch.equal(a, b)]
+        repeat["leaves"] = len(pairs)
+        first.clear()
+        del again, pairs
+
+    def on_step(step, metrics, secs):
+        per_step.append((step, float(metrics["loss"]),
+                         float(metrics["moe_lb_loss"]),
+                         float(metrics["moe_z_loss"]),
+                         float(metrics["grad_norm"]), secs,
+                         {n: build.LAUNCHES[n] for n in TRAIN_KERNELS}))
+        total.update(build.LAUNCHES)
+        build.reset_launches()
+
+    log(f"moe train: {cfg.name} d_model={cfg.d_model}, {cfg.n_experts} "
+        f"experts of {cfg.d_expert}, cut to {cfg.n_layers} layers, remat "
+        f"{cfg.remat}, bf16 params and moments, B={TRAIN_B} seq {TRAIN_SEQ} "
+        f"lr {TRAIN_LR}, 3 steps; | {card_line()}")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    train_step.value_and_grad = capture
+    try:
+        with checked_grads("moe train", grad_leaves, after=twice):
+            state, losses = train.train_loop(
+                cfg, steps=3, batch=TRAIN_B, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                moment_dtype="bfloat16", device=dev, on_step=on_step,
+                log_every=1)
+    finally:
+        train_step.value_and_grad = value_and_grad
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    pbytes = sum(t.numel() * t.element_size() for t in _leaves(state.params))
+    obytes = sum(t.numel() * t.element_size() for m in
+                 (state.opt.mu, state.opt.nu) for t in _leaves(m))
+    for step, loss, lb, z, gn, secs, launches in per_step:
+        log(f"  step {step}: loss {loss:.6f} moe_lb_loss {lb:.6f} "
+            f"moe_z_loss {z:.6f} grad_norm {gn:.6f} {secs * 1e3:.1f} ms, "
+            f"launches {launches}")
+    med = statistics.median(p[5] for p in per_step[1:])
+    tok = TRAIN_B * TRAIN_SEQ
+    log(f"  step time: median of steps 2-3 {med * 1e3:.1f} ms; "
+        f"{tok / med:.1f} training tokens/s; wall {wall:.1f}s incl. init "
+        f"and the first step's second gradient")
+    log(f"  peak memory {peak / 1e9:.3f} GB (max_memory_allocated, the "
+        f"first step's two gradient sets included); parameters "
+        f"{pbytes / 1e9:.3f} GB, moments {obytes / 1e9:.3f} GB, gradients "
+        f"{pbytes / 1e9:.3f} GB: state {(2 * pbytes + obytes) / 1e9:.3f} GB")
+    log(f"  first step's gradients taken twice: "
+        f"{repeat['leaves'] - len(repeat['differ'])}/{repeat['leaves']} "
+        f"leaves equal bit for bit; gradient leaves checked non-zero per "
+        f"call: {grad_leaves}")
+    want = _train_launches(cfg)
+    if len(per_step) != 3 or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"moe train: losses {losses}")
+    if any(p[6] != want for p in per_step):
+        raise SystemExit(f"moe train: launches per step "
+                         f"{[p[6] for p in per_step]}, predicted {want}")
+    if repeat["differ"]:
+        raise SystemExit(f"moe train: gradients not bitwise repeatable: "
+                         f"{repeat['differ'][:8]}")
+    if not all(p[2] > 0 and p[3] > 0 for p in per_step):
+        raise SystemExit("moe train: zero aux losses")
+
+    # one more step under the profiler: where a step's time goes
+    from repro_torch.data import SyntheticTokenDataset
+    ds = SyntheticTokenDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_B, seed=0,
+                               structured=True)
+    batch = {"tokens": torch.from_numpy(ds.batch(3)).long().to(dev)}
+    state, loss, prof, busy = profiled_step(
+        train_step.make_train_step(cfg, lr=TRAIN_LR), state, batch,
+        "moe profiled training step", 12)
+    train_breakdown(prof, busy, cfg,
+                    sum(t.numel() for t in _leaves(state.params)))
+    moe_op_table(prof, 1)
+    log(f"  profiled step: loss {loss:.6f}")
+    del state, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def moe_phase(dev):
+    """phi3.5-moe: the serve (moe_serve), then the training run
+    (moe_train), every earlier phase's weights freed first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"moe: device memory allocated before the phase "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    launches = moe_serve(dev)
+    launches.update(moe_train(dev))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3533,6 +4133,8 @@ def main() -> int:
     results.update(train_kernel_phase(dev, g, check_kernel))
     results.update(ssd_kernel_phase(dev, g))
     frontend = frontend_kernel_phase(dev, g)
+    for name, shapes in moe_kernel_phase(dev, g).items():
+        frontend.setdefault(name, {}).update(shapes)
     log("kernels: " + ", ".join(f"{n} ok" for n in results))
     plan_phase(dev)
     launches = serve_phase(dev)
@@ -3544,6 +4146,7 @@ def main() -> int:
     launches.update(train_parity_phase(dev))
     launches.update(train_phase(dev))
     launches.update(frontends_phase(dev))
+    launches.update(moe_phase(dev))
     missing = [n for n in build.KERNELS if launches[n] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on any path: {missing}")
@@ -3558,7 +4161,8 @@ def main() -> int:
     for name, (regs, spill) in usage.items():
         if name != "fused_attention_paged":
             results[name].update(registers=regs, spill_bytes=spill)
-    # the frontends' shapes of #1, #3 and #7-#9 ride with their rows
+    # the frontends' and phi3.5-moe's shapes of #1, #3 and #7-#9 ride
+    # with their rows
     for name, shapes in frontend.items():
         results[name].update(shapes)
     record = [dict(name=n, route="cuda", launches=launches[n], **r)

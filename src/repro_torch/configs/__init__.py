@@ -3,7 +3,9 @@ dims: ``get_config(arch, smoke=...)`` returns the full published config
 or its reduced same-family smoke twin.  ``list_archs("dense")`` names
 the dense GQA stacks (the decoders, the hubert-xlarge encoder and the
 internvl2-2b VLM backbone, whose stub frontends feed ``frontend_proj``),
-``list_archs("ssm")`` the attention-free Mamba-2 stacks."""
+``list_archs("moe")`` the GQA stacks whose FFN is a Mixture-of-Experts
+(phi3.5-moe), ``list_archs("ssm")`` the attention-free Mamba-2
+stacks."""
 
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ ARCHS = {
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "internvl2-2b": "repro_torch.configs.internvl2_2b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe",
 }
 
 
@@ -27,10 +30,15 @@ def get_config(arch: str, smoke: bool = False):
 
 
 def family(arch: str) -> str:
-    """``"ssm"`` for an attention-free stack, else ``"dense"``."""
-    return "ssm" if get_config(arch).attn_every == 0 else "dense"
+    """``"ssm"`` for an attention-free stack, ``"moe"`` for one with
+    Mixture-of-Experts FFNs, else ``"dense"``."""
+    cfg = get_config(arch)
+    if cfg.attn_every == 0:
+        return "ssm"
+    return "moe" if cfg.moe else "dense"
 
 
 def list_archs(family_: Optional[str] = None) -> list:
-    """Every arch, or those of one family (``"dense"`` or ``"ssm"``)."""
+    """Every arch, or those of one family (``"dense"``, ``"moe"`` or
+    ``"ssm"``)."""
     return [a for a in ARCHS if family_ is None or family(a) == family_]

@@ -5,10 +5,12 @@ without its host mesh, which waits for the multi-device slice).
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
         --smoke --steps 20 --batch 8 --seq 128 --device cpu
 
-Every attention arch trains (``configs.list_archs("dense")``), on token
-batches as the JAX launcher does: the encoder hubert-xlarge non-causal
-with ``targets = tokens``, the VLM internvl2-2b on text alone (its
-patch-embedding batches go through ``train.step`` directly).
+Every attention arch trains (``configs.list_archs("dense")`` and
+``list_archs("moe")``), on token batches as the JAX launcher does: the
+encoder hubert-xlarge non-causal with ``targets = tokens``, the VLM
+internvl2-2b on text alone (its patch-embedding batches go through
+``train.step`` directly), phi3.5-moe with its load-balance and z-loss
+terms added to the loss.
 mamba2-130m does not: the Mamba-2 SSD scan has no backward (neither has
 the JAX package's ssd_scan kernel).
 """
@@ -101,7 +103,8 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float,
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-8b",
-                    choices=configs.list_archs("dense"))
+                    choices=(configs.list_archs("dense")
+                             + configs.list_archs("moe")))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)

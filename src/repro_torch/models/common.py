@@ -19,8 +19,8 @@ import torch.nn.functional as F
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The JAX package's ModelConfig, field for field (the port serves
-    only its dense GQA members so far)."""
+    """The JAX package's ModelConfig, field for field (the port runs its
+    GQA members, dense or MoE, and its pure Mamba-2 ones so far)."""
 
     name: str
     n_layers: int

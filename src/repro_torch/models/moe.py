@@ -1,0 +1,162 @@
+"""Mixture-of-Experts FFN of the port (``repro/models/moe.py`` on one
+device): phi3.5-moe's 16 experts top-2, deepseek-v3's routed experts
+with a shared one.
+
+Dispatch is sort-based token choice with a static capacity, step for
+step with the JAX package's global path (the one it takes with no mesh):
+
+  1. the router in fp32 (``x.float() @ router``, the router leaf fp32
+     whatever the parameter dtype), softmax, top-k in ``jax.lax.top_k``'s
+     tie order (the lower expert id first), weights renormalised;
+  2. per group (a batch row, or ``moe_group_size`` tokens when the
+     batch divides into such groups) the token copies stably sorted by
+     expert id, each copy's rank within its expert from a searchsorted;
+  3. copies at rank >= C (:func:`capacity`) go to a sentinel slot E·C,
+     cut off the (E·C + 1, d) buffer;
+  4. the expert products on the (B, E, C, d) buffer, batched over
+     experts;
+  5. the combine: each copy read back at its slot (the sentinel row
+     zero), the permutation inverted, the k copies of a token weighted
+     and summed.
+
+The dispatch places tokens without a duplicate index in any backward
+but the discarded sentinel row's: x expanded to its k copies in token
+order, permuted by the sort (a permutation: its backward scatter has
+unique indices) and placed at the slots.  So a backward on CUDA is
+bitwise repeatable, where a gather ``x[order // k]`` would accumulate
+each token's k copies by atomics.
+
+Aux losses: the switch-style load balance and the router z-loss, fp32.
+The mesh paths of the JAX package (``moe_local_dispatch``,
+``moe_shard_map_ep``) wait for the multi-device slice; with no mesh the
+JAX package takes this global path too.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ModelConfig, mlp_forward
+
+
+def init_moe(cfg: ModelConfig, draw: Callable) -> dict:
+    """The MoE leaves of one layer (``repro/models/moe.py:32-51``):
+    ``router`` (d, E) fp32, ``w_gate``/``w_up`` (E, d, ff), ``w_down``
+    (E, ff, d) and, with ``n_shared_experts``, a ``shared`` MLP of width
+    ff·n_shared.  ``draw(*shape, dtype=None)`` draws one leaf (the
+    caller's init rule and leading axes; ``dtype`` None: the parameter
+    dtype)."""
+    d, e = cfg.d_model, cfg.n_experts
+    ff = cfg.d_expert or cfg.d_ff
+    p = {"router": draw(d, e, dtype=torch.float32),
+         "w_gate": draw(e, d, ff), "w_up": draw(e, d, ff),
+         "w_down": draw(e, ff, d)}
+    if cfg.n_shared_experts:
+        sff = ff * cfg.n_shared_experts
+        p["shared"] = {"w_up": draw(d, sff), "w_down": draw(sff, d)}
+        if cfg.mlp == "silu_glu":
+            p["shared"]["w_gate"] = draw(d, sff)
+    return p
+
+
+def capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
+    """Slots per expert and group: ``int(s·k/E·cf)`` rounded up to a
+    multiple of 8, at least 8 (Python integers, as JAX's
+    ``_capacity``)."""
+    c = int(tokens_per_group * cfg.top_k / cfg.n_experts
+            * cfg.capacity_factor)
+    return max(8, -(-c // 8) * 8)
+
+
+def top_k(probs: torch.Tensor, k: int) -> tuple:
+    """(values, indices) of the k largest along the last axis in
+    ``jax.lax.top_k``'s order: descending, ties to the lower index
+    (``torch.topk`` breaks ties otherwise)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(router: torch.Tensor, x: torch.Tensor, k: int) -> tuple:
+    """x (B, S, d) -> (router logits, probabilities, top-k weights
+    renormalised, top-k expert ids), all but the ids fp32."""
+    logits = x.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = top_k(probs, k)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    return logits, probs, topw, topi
+
+
+def _dispatch(x, topi, cap: int, e: int):
+    """x (B, S, d), topi (B, S, k) -> ((B, E, C, d) buffer, slot, order),
+    slot and order (B, S·k)."""
+    b, s, d = x.shape
+    k = topi.shape[-1]
+    flat = topi.reshape(b, s * k)
+    order = torch.argsort(flat, dim=-1, stable=True)
+    sorted_ids = torch.gather(flat, 1, order)
+    first = torch.searchsorted(sorted_ids, sorted_ids, side="left")
+    rank = torch.arange(s * k, device=x.device) - first
+    slot = torch.where(rank < cap, sorted_ids * cap + rank,
+                       torch.full_like(rank, e * cap))
+    copies = x.unsqueeze(2).expand(b, s, k, d).reshape(b, s * k, d)
+    placed = torch.gather(copies, 1, order[..., None].expand(-1, -1, d))
+    buf = x.new_zeros((b, e * cap + 1, d)).scatter(
+        1, slot[..., None].expand(-1, -1, d), placed)
+    return buf[:, :-1].reshape(b, e, cap, d), slot, order
+
+
+def _combine(out_buf, slot, order, topw, s: int, k: int):
+    """The (B, E, C, d) expert outputs back to (B, S, d): each copy read
+    at its slot, unsorted, and its token's k copies weighted and summed
+    in fp32 (one rounding to the compute dtype, as the JAX einsum)."""
+    b, e, cap, d = out_buf.shape
+    dt = out_buf.dtype
+    flat = torch.cat([out_buf.reshape(b, e * cap, d),
+                      out_buf.new_zeros((b, 1, d))], dim=1)
+    copies = torch.gather(flat, 1, slot[..., None].expand(-1, -1, d))
+    inv = torch.argsort(order, dim=-1, stable=True)
+    per_tok = torch.gather(copies, 1, inv[..., None].expand(-1, -1, d))
+    per_tok = per_tok.reshape(b, s, k, d).float()
+    w = topw.to(dt).float()[..., None]
+    return (per_tok * w).sum(dim=2).to(dt)
+
+
+def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                aux: bool = True):
+    """x: (B, S, d) -> (y (B, S, d), aux dict), the aux dict
+    ``{"moe_lb_loss", "moe_z_loss"}`` (fp32 scalars), or empty without
+    ``aux``."""
+    dt = x.dtype
+    b_in, s_in, d = x.shape
+    g = cfg.moe_group_size
+    grouped = bool(g) and (b_in * s_in) % g == 0 and g < s_in * b_in
+    if grouped:
+        x = x.reshape(b_in * s_in // g, g, d)
+    b, s, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = capacity(cfg, s)
+
+    logits, probs, topw, topi = route(params["router"], x, k)
+
+    buf, slot, order = _dispatch(x, topi, cap, e)
+    gate = torch.einsum("becd,edf->becf", buf, params["w_gate"].to(dt))
+    up = torch.einsum("becd,edf->becf", buf, params["w_up"].to(dt))
+    h = F.silu(gate.float()).to(dt) * up
+    out_buf = torch.einsum("becf,efd->becd", h, params["w_down"].to(dt))
+    y = _combine(out_buf, slot, order, topw, s, k)
+
+    if "shared" in params:
+        y = y + mlp_forward(params["shared"], x, cfg.mlp)
+    if grouped:
+        y = y.reshape(b_in, s_in, d)
+    if not aux:
+        return y, {}
+    onehot = F.one_hot(topi, e).float()                      # (B,S,k,E)
+    frac_tokens = onehot.mean(dim=(0, 1, 2)) * e
+    mean_probs = probs.mean(dim=(0, 1)) * e
+    lb_loss = torch.mean(frac_tokens * mean_probs)
+    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return y, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}

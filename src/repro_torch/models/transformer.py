@@ -1,7 +1,9 @@
 """The decoder stack of the port (``repro/models/transformer.py``):
-dense GQA attention layers, and the Mamba-2 layers of a pure-mamba stack
-(``cfg.block_kind(i) == "mamba"``: pre-norm, the mamba block, the
-residual add, and no FFN sublayer).
+GQA attention layers whose FFN is a dense MLP or a Mixture-of-Experts
+(``cfg.ffn_kind(i) == "moe"``, ``models/moe.py``; a dense prefix of
+``first_dense_layers`` before them), and the Mamba-2 layers of a
+pure-mamba stack (``cfg.block_kind(i) == "mamba"``: pre-norm, the mamba
+block, the residual add, and no FFN sublayer).
 
 Parameters keep the JAX package's tree: ``prefix_layers`` (a list) and
 ``layers`` (one dict per position in the layer period, every leaf with
@@ -26,9 +28,11 @@ the layer, as ``jax.checkpoint`` around the JAX package's scanned
 period).  ``"dots"`` is JAX's ``dots_with_no_batch_dims_saveable``: a
 selective checkpoint that keeps the outputs of the products with no
 batch dimension, the layer's 2-D ``aten.mm`` calls (the q/k/v/o
-projections and the MLP's products, each ``x @ W`` folded over the
-leading dimensions), and recomputes the rest: norms, RoPE, the MLP's
-activation and the attention.  The attention kernels launch through
+projections, the MLP's products and the MoE router, each ``x @ W``
+folded over the leading dimensions), and recomputes the rest: norms,
+RoPE, the MLP's activation, the attention and the MoE's dispatch,
+expert products (``aten.bmm``, batched over experts) and combine.  A
+checkpointed layer returns its MoE aux losses beside its output.  The attention kernels launch through
 ``ctypes``, outside the dispatcher, so no policy sees them: under
 ``"dots"`` the forward kernel runs again in the backward, as under
 ``"full"`` (and as JAX recomputes its ``pallas_call``).  Gradients reach
@@ -47,16 +51,18 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, mlp_forward, rms_norm
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Admit the stacks the port runs: dense GQA stacks (causal or not,
-    with or without a modality frontend's stub projection) and pure
-    Mamba-2 stacks.  MoE, MLA and the attention/mamba hybrid are
+    """Admit the stacks the port runs: GQA stacks (causal or not, with
+    or without a modality frontend's stub projection) whose FFNs are
+    dense MLPs or Mixture-of-Experts, with or without a dense prefix,
+    and pure Mamba-2 stacks.  MLA and the attention/mamba hybrid are
     refused."""
-    dense = cfg.attn_every == 1 and cfg.attention == "gqa"
-    if cfg.moe or not (dense or cfg.attn_every == 0):
+    gqa = cfg.attn_every == 1 and cfg.attention == "gqa"
+    if not (gqa or cfg.attn_every == 0):
         raise NotImplementedError(
             f"{cfg.name}: the port runs dense GQA stacks and pure "
             "Mamba-2 stacks only")
@@ -70,9 +76,13 @@ def _index(tree, j: int):
     return tree[j]
 
 
-def _layer_forward(lp: dict, cfg: ModelConfig, kind: str, x, positions,
-                   layer_cache, cache_len, plan, block_tables=None,
-                   impl="auto"):
+def _layer_forward(lp: dict, cfg: ModelConfig, kinds: tuple, x,
+                   positions, layer_cache, cache_len, plan,
+                   block_tables=None, impl="auto", aux=False):
+    """One layer of ``kinds`` (``cfg.block_kind(i)``,
+    ``cfg.ffn_kind(i)``): (x, its MoE aux losses, empty for a dense FFN
+    or without ``aux``)."""
+    kind, ffn_kind = kinds
     h = rms_norm(x, lp["pre_norm"])
     if kind == "mamba":
         h, _ = mb.mamba_forward(
@@ -89,10 +99,13 @@ def _layer_forward(lp: dict, cfg: ModelConfig, kind: str, x, positions,
             cache=None if layer_cache is None else layer_cache["attn"],
             cache_len=cache_len, block_tables=block_tables, plan=plan,
             residual=x, impl=impl)
-    if "mlp" not in lp:
-        return x                    # pure mamba2: no FFN sublayer
+    if "ffn_norm" not in lp:
+        return x, {}                # pure mamba2: no FFN sublayer
     h = rms_norm(x, lp["ffn_norm"])
-    return x + mlp_forward(lp["mlp"], h, cfg.mlp)
+    if ffn_kind == "moe" and "moe" in lp:
+        h, layer_aux = moe_mod.moe_forward(lp["moe"], cfg, h, aux=aux)
+        return x + h, layer_aux
+    return x + mlp_forward(lp["mlp"], h, cfg.mlp), {}
 
 
 #: the products ``"dots"`` keeps: JAX's dot_general without batch
@@ -136,8 +149,9 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
     ``kernels.ops`` impl of every attention and SSD call (``torch``
     forces the plain versions on the card).
     Returns logits (B, S_f + S, vocab), plus the cache (updated in
-    place) when one is given, plus, with ``return_aux``, the auxiliary
-    losses (zeros: the dense stack has no MoE)."""
+    place) when one is given, plus, with ``return_aux``, the MoE
+    auxiliary losses summed over the layers (fp32 zeros for a stack
+    without MoE)."""
     check_ported(cfg)
     dt = cfg.torch_dtype()
     parts = []
@@ -159,20 +173,25 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
         else None
 
     def layer(i, lp, lc, x):
-        kind = cfg.block_kind(i)
+        kind = (cfg.block_kind(i), cfg.ffn_kind(i))
         if remat is not None:
             return checkpoint(_layer_forward, lp, cfg, kind, x, positions,
-                              None, None, plan, None, impl, **remat)
+                              None, None, plan, None, impl, return_aux,
+                              **remat)
         return _layer_forward(lp, cfg, kind, x, positions, lc, cache_len,
-                              plan, block_tables, impl)
+                              plan, block_tables, impl, return_aux)
 
+    aux = []                            # each layer's aux losses
     for i, lp in enumerate(params["prefix_layers"]):
-        x = layer(i, lp, None if cache is None else cache["prefix"][i], x)
+        x, la = layer(i, lp, None if cache is None else cache["prefix"][i],
+                      x)
+        aux.append(la)
     for j in range(cfg.n_periods):
         for pos in range(cfg.layer_period):
             lc = None if cache is None else _index(cache["scan"][pos], j)
-            x = layer(cfg.first_dense_layers + pos,
-                      _index(params["layers"][pos], j), lc, x)
+            x, la = layer(cfg.first_dense_layers + pos,
+                          _index(params["layers"][pos], j), lc, x)
+            aux.append(la)
 
     x = rms_norm(x, params["final_norm"])
     if "lm_head" in params:
@@ -182,7 +201,8 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
     out = [logits] if cache is None else [logits, cache]
     if return_aux:
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        out.append({"moe_lb_loss": zero, "moe_z_loss": zero})
+        out.append({key: sum((la[key] for la in aux if key in la), zero)
+                    for key in ("moe_lb_loss", "moe_z_loss")})
     return out[0] if len(out) == 1 else tuple(out)
 
 

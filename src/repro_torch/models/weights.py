@@ -5,11 +5,16 @@ state).
 Both give the JAX tree's structure and layout: ``embed`` (V, E),
 ``frontend_proj`` (F, E) for a config with a stub modality frontend
 (``cfg.frontend != "none"``, F = ``cfg.frontend_dim``),
-``prefix_layers`` (list), ``layers`` (one dict per period position,
-leaves stacked over ``n_periods``), ``final_norm``, ``lm_head`` (E, V);
-per attention layer ``pre_norm``, ``attn`` {``wq`` (E, Hq, D),
-``wk``/``wv`` (E, Hkv, D), ``wo`` (Hq, D, E)[, ``q_norm``, ``k_norm``]},
-``ffn_norm`` and ``mlp`` {``w_up``, ``w_down``[, ``w_gate``]}; per
+``prefix_layers`` (a list of the ``first_dense_layers`` dense-FFN
+layers before the body, without a leading axis), ``layers`` (one dict
+per period position, leaves stacked over ``n_periods``), ``final_norm``,
+``lm_head`` (E, V); per attention layer ``pre_norm``, ``attn`` {``wq``
+(E, Hq, D), ``wk``/``wv`` (E, Hkv, D), ``wo`` (Hq, D, E)[, ``q_norm``,
+``k_norm``]}, ``ffn_norm`` and either ``mlp`` {``w_up``, ``w_down``[,
+``w_gate``]} or, where ``cfg.ffn_kind(i) == "moe"``, ``moe``
+{``router`` (E, X) in fp32 whatever the parameter dtype,
+``w_gate``/``w_up`` (X, E, Fx), ``w_down`` (X, Fx, E)[, ``shared``, an
+MLP of width Fx·n_shared]} (X experts of width Fx = ``d_expert``); per
 mamba layer ``pre_norm`` and ``mamba`` {``in_proj`` (E, 2 d_inner +
 2 G S + H), ``conv_w`` (W, d_inner + 2 G S), ``conv_b``, ``a_log``,
 ``d_skip`` and ``dt_bias`` (H,) in fp32 whatever the parameter dtype,
@@ -18,28 +23,32 @@ mamba layer ``pre_norm`` and ``mamba`` {``in_proj`` (E, 2 d_inner +
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 
 from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, resolve_device
 from repro_torch.models.transformer import check_ported
 from repro_torch.optim.adamw import AdamWState
+from repro_torch.tree import map as tree_map
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda", dtype=None):
     """The JAX parameter tree (leaves already ``np.asarray``'d by the
     caller) as tensors on ``device``, same structure.  ``dtype`` casts
-    the floating leaves; default: keep each leaf's dtype (numpy's
+    the floating leaves but the MoE router, which stays fp32 as the
+    JAX package keeps it; default: keep each leaf's dtype (numpy's
     bfloat16 extension type becomes torch.bfloat16 exactly)."""
     dev = resolve_device(device)
     check_ported(cfg)
 
-    def conv(x):
+    def conv(x, key=None):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v, k) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return [conv(v) for v in x]
         arr = np.asarray(x)
@@ -47,7 +56,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda", dtype=None):
             t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(arr))       # a writable copy
-        if dtype is not None and t.is_floating_point():
+        if dtype is not None and t.is_floating_point() and key != "router":
             t = t.to(dtype)
         return t.to(dev)
 
@@ -79,48 +88,56 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     :func:`params_from_numpy` instead."""
     dev = resolve_device(device)
     check_ported(cfg)
-    if cfg.first_dense_layers:
-        raise NotImplementedError(f"{cfg.name}: no dense prefix is ported")
     dt = cfg.torch_dtype("param")
-    n = cfg.n_periods
     e = cfg.d_model
 
-    def w(*shape, scale=None, lead=n, dtype=dt):
-        return _stacked(shape, lead, generator, dev, dtype, scale)
+    def w(*shape, scale=None, lead=1, dtype=None):
+        return _stacked(shape, lead, generator, dev, dtype or dt, scale)
 
     def ones(*shape, dtype=dt):
         return torch.ones(shape, dtype=dtype, device=dev)
 
-    if cfg.attn_every == 0:
-        d_in, hs, _, g, s = mb.dims(cfg)
-        conv_dim = d_in + 2 * g * s
-        f32 = torch.float32
-        layer = {"pre_norm": ones(n, e), "mamba": {
-            "in_proj": w(e, 2 * d_in + 2 * g * s + hs),
-            "conv_w": w(cfg.conv_width, conv_dim, scale=0.5),
-            "conv_b": w(conv_dim, scale=0.01),
-            "a_log": w(hs, scale=1.0, dtype=f32),
-            "d_skip": ones(n, hs, dtype=f32),
-            "dt_bias": w(hs, scale=0.5, dtype=f32),
-            "norm": ones(n, d_in),
-            "out_proj": w(d_in, e)}}
-    else:
+    def layer(i, n):
+        """Layer ``i``'s leaves with a leading axis of ``n``."""
+        draw = functools.partial(w, lead=n)
+        if cfg.block_kind(i) == "mamba":
+            d_in, hs, _, g, s = mb.dims(cfg)
+            conv_dim = d_in + 2 * g * s
+            f32 = torch.float32
+            return {"pre_norm": ones(n, e), "mamba": {
+                "in_proj": draw(e, 2 * d_in + 2 * g * s + hs),
+                "conv_w": draw(cfg.conv_width, conv_dim, scale=0.5),
+                "conv_b": draw(conv_dim, scale=0.01),
+                "a_log": draw(hs, scale=1.0, dtype=f32),
+                "d_skip": ones(n, hs, dtype=f32),
+                "dt_bias": draw(hs, scale=0.5, dtype=f32),
+                "norm": ones(n, d_in),
+                "out_proj": draw(d_in, e)}}
         h, hk, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        attn = {"wq": w(e, h, dh), "wk": w(e, hk, dh), "wv": w(e, hk, dh),
-                "wo": w(h, dh, e)}
+        attn = {"wq": draw(e, h, dh), "wk": draw(e, hk, dh),
+                "wv": draw(e, hk, dh), "wo": draw(h, dh, e)}
         if cfg.qk_norm:
             attn["q_norm"], attn["k_norm"] = ones(n, dh), ones(n, dh)
-        mlp = {"w_up": w(e, cfg.d_ff), "w_down": w(cfg.d_ff, e)}
+        out = {"pre_norm": ones(n, e), "attn": attn, "ffn_norm": ones(n, e)}
+        if cfg.ffn_kind(i) == "moe":
+            out["moe"] = moe_mod.init_moe(cfg, draw)
+            return out
+        mlp = {"w_up": draw(e, cfg.d_ff), "w_down": draw(cfg.d_ff, e)}
         if cfg.mlp == "silu_glu":
-            mlp["w_gate"] = w(e, cfg.d_ff)
-        layer = {"pre_norm": ones(n, e), "attn": attn,
-                 "ffn_norm": ones(n, e), "mlp": mlp}
-    p = {"embed": w(cfg.vocab_size, e, scale=0.02, lead=1)[0],
-         "prefix_layers": [], "layers": [layer], "final_norm": ones(e)}
+            mlp["w_gate"] = draw(e, cfg.d_ff)
+        out["mlp"] = mlp
+        return out
+
+    prefix = [tree_map(lambda t: t[0], layer(i, 1))
+              for i in range(cfg.first_dense_layers)]
+    body = [layer(cfg.first_dense_layers + pos, cfg.n_periods)
+            for pos in range(cfg.layer_period)]
+    p = {"embed": w(cfg.vocab_size, e, scale=0.02)[0],
+         "prefix_layers": prefix, "layers": body, "final_norm": ones(e)}
     if cfg.frontend != "none":
-        p["frontend_proj"] = w(cfg.frontend_dim or e, e, lead=1)[0]
+        p["frontend_proj"] = w(cfg.frontend_dim or e, e)[0]
     if not cfg.tie_embeddings:
-        p["lm_head"] = w(e, cfg.vocab_size, scale=0.02, lead=1)[0]
+        p["lm_head"] = w(e, cfg.vocab_size, scale=0.02)[0]
     return p
 
 

@@ -61,8 +61,9 @@ def init_train_state(generator: Optional[torch.Generator],
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
-    """Next-token cross entropy (+ the MoE aux terms, zero for the dense
-    stack).  batch: {"tokens": (B, S+1)} integer ids on the parameters'
+    """Next-token cross entropy plus 0.01 times the MoE load-balance
+    loss and 0.001 times its z-loss, each summed over the layers (zero
+    for a stack without MoE); the metrics report the three terms.  batch: {"tokens": (B, S+1)} integer ids on the parameters'
     device, or with a stub frontend {"embeds", "tokens"} (the VLM: the
     loss covers the text suffix only) or {"embeds", "targets"} (the
     encoder); optional "mask" (B, S) and, for a non-causal model,
@@ -78,8 +79,9 @@ def loss_fn(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
         logits = logits[:, -targets.shape[1]:]
     loss = cross_entropy(logits, targets, batch.get("mask"))
     total = loss + 0.01 * aux["moe_lb_loss"] + 0.001 * aux["moe_z_loss"]
-    metrics = {"loss": loss.detach(), "moe_lb_loss": aux["moe_lb_loss"],
-               "moe_z_loss": aux["moe_z_loss"]}
+    metrics = {"loss": loss.detach(),
+               "moe_lb_loss": aux["moe_lb_loss"].detach(),
+               "moe_z_loss": aux["moe_z_loss"].detach()}
     return total, metrics
 
 

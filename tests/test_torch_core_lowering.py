@@ -1,5 +1,6 @@
 """The port's schedule lowering (``repro_torch.lower``) against the JAX
-package's (``repro.lower``): for every ported dense config, at smoke
+package's (``repro.lower``): for every ported dense config and
+phi3.5-moe (a GQA stack whose FFN is MoE), at smoke
 width and at its full width with one and two blocks, prefill rows
 across M = N and decode contexts across C = 2N at one and four decode
 tokens, with the decision rule's choice and every forced flag
@@ -23,7 +24,8 @@ from repro_torch.kernels import fused_attention as fa
 from repro_torch.kernels import fused_decode_block as fdb
 from repro_torch.kernels import ops
 
-DENSE = ["starcoder2-7b", "qwen3-8b", "qwen3-14b", "starcoder2-15b"]
+DENSE = ["starcoder2-7b", "qwen3-8b", "qwen3-14b", "starcoder2-15b",
+         "phi3.5-moe-42b-a6.6b"]
 
 #: (fuse_q, fuse_scores, fuse_block): the rule's choice, then forced
 FLAGS = [(None, None, None), (False, False, None), (True, False, None),

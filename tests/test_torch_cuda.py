@@ -56,7 +56,10 @@ hubert-xlarge's heads (16 of 80, non-causal, lengths off the tiles);
 hubert at full width, 2 layers, trains on the kernels under each remat
 policy (#7 recomputed under "full" and "dots") against the plain
 versions; internvl2-2b serves 256 patch rows before its text on #1 and
-#3 against the plain versions.
+#3 against the plain versions.  phi3.5-moe at full width, one layer:
+its gradients (B = 4, S = 256, bf16) bitwise repeatable, a zero router
+routing every token to experts 0 and 1 on the card (JAX's tie order),
+and its MoE FFN in fp32 compute within 1e-4 of the CPU's.
 """
 
 import pytest
@@ -1242,3 +1245,95 @@ def test_vlm_serves_patch_embeddings_on_the_kernels(cuda_device):
     assert not plain
     assert launches == {"fused_attention_masked": 1,
                         "fused_decode_block": 4}
+
+
+def _moe_layer(dev, **over):
+    """phi3.5-moe at full width cut to one layer, bf16 random weights
+    from seed 0 on ``dev``."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.weights import init_params
+    cfg = dataclasses.replace(configs.get_config("phi3.5-moe-42b-a6.6b"),
+                              n_layers=1, **over)
+    g = torch.Generator(device=dev).manual_seed(0)
+    return cfg, init_params(cfg, g, dev)
+
+
+@pytest.mark.cuda
+def test_moe_layer_gradients_are_bitwise_repeatable(cuda_device):
+    """One phi3.5 layer (attention on #7-#9, the 16-expert MoE) at full
+    width, bf16, B = 4, S = 256: two forward and backward passes give
+    the same loss, aux losses and gradients bit for bit.  The dispatch
+    permutes the token copies (unique indices), so no backward
+    accumulates by atomics but the discarded sentinel row's."""
+    from repro_torch import tree
+    from repro_torch.train import step
+    cfg, params = _moe_layer(cuda_device, remat="full")
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 257),
+                                     generator=g, device=cuda_device)}
+    runs = []
+    for _ in range(2):
+        build.reset_launches()
+        (loss, m), grads = step.value_and_grad(params, cfg, batch)
+        torch.cuda.synchronize()
+        runs.append((loss, m, grads, dict(build.LAUNCHES)))
+    (l1, m1, g1, n1), (l2, m2, g2, n2) = runs
+    assert n1 == n2 == {"fused_attention_fwd": 2,
+                        "fused_attention_bwd_dq": 1,
+                        "fused_attention_bwd_dkv": 1}
+    assert torch.equal(l1, l2)
+    for key in ("moe_lb_loss", "moe_z_loss"):
+        assert torch.equal(m1[key], m2[key]) and m1[key].item() > 0
+    router = g1["layers"][0]["moe"]["router"]
+    assert router.dtype == torch.float32 and router.abs().max() > 0
+    for a, b in zip(tree.leaves(g1), tree.leaves(g2)):
+        assert torch.isfinite(a.float()).all()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_moe_zero_router_picks_the_first_experts_on_cuda(cuda_device):
+    """Every token ties across the 16 experts: the port routes it to
+    experts 0 and 1, as ``jax.lax.top_k`` does, on the card too."""
+    from repro_torch.models import moe
+    cfg, params = _moe_layer(cuda_device)
+    lp = params["layers"][0]["moe"]
+    lp = {k: v[0] for k, v in lp.items()}
+    lp["router"] = torch.zeros_like(lp["router"])
+    x = torch.randn(2, 64, cfg.d_model, device=cuda_device).to(torch.bfloat16)
+    with torch.no_grad():
+        y, _ = moe.moe_forward(lp, cfg, x)
+        topi = moe.route(lp["router"], x, cfg.top_k)[3]
+    assert (topi == torch.arange(cfg.top_k, device=cuda_device)).all()
+    assert torch.isfinite(y.float()).all()
+    _, idx = moe.top_k(torch.full((5, 16), 1 / 16, device=cuda_device), 2)
+    assert idx.tolist() == [[0, 1]] * 5
+
+
+@pytest.mark.cuda
+def test_moe_layer_fp32_on_cuda_matches_the_cpu(cuda_device):
+    """phi3.5's MoE FFN at full width (16 experts of 6400) in fp32
+    compute, its bf16 weights cast, B = 2, S = 64: the card's output
+    within 1e-4 of the CPU's, relative to the largest, and the same
+    routing."""
+    from repro_torch.models import moe
+    cfg, params = _moe_layer(cuda_device, compute_dtype="float32")
+    lp = {k: v[0] for k, v in params["layers"][0]["moe"].items()}
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(2, 64, cfg.d_model, generator=g, device=cuda_device)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        on = {k: v.to(dev) for k, v in lp.items()}
+        with torch.no_grad():
+            y, aux = moe.moe_forward(on, cfg, x.to(dev))
+            topi = moe.route(on["router"], x.to(dev), cfg.top_k)[3]
+        outs.append((y.cpu(), {k: v.cpu() for k, v in aux.items()},
+                     topi.cpu()))
+    (y, aux, topi), (want, jaux, wtopi) = outs
+    assert torch.equal(topi, wtopi)
+    assert _rel(y, want) <= 1e-4
+    for key in aux:
+        assert abs(aux[key].item() - jaux[key].item()) <= \
+            1e-5 * abs(jaux[key].item())

@@ -17,8 +17,8 @@ encoder (non-causal, audio frames alone) and the internvl2-2b VLM
   ``launch.serve.run`` for both archs: the JAX launchers' losses and
   tokens;
 * the non-causal flag reaching every attention call of hubert's paths,
-  none refused onto the reference; ``check_ported`` still refusing MoE,
-  MLA and the hybrid.
+  none refused onto the reference; ``check_ported`` admitting MoE and
+  still refusing MLA and the hybrid.
 """
 
 import dataclasses
@@ -398,10 +398,15 @@ def _port_cfg(jcfg) -> ModelConfig:
 @pytest.mark.parametrize("arch,what", [
     ("phi3.5-moe-42b-a6.6b", "MoE"), ("deepseek-v3-671b", "MLA"),
     ("jamba-1.5-large-398b", "hybrid")])
-def test_check_ported_still_refuses_moe_mla_and_the_hybrid(arch, what):
+def test_check_ported_admits_moe_and_refuses_mla_and_the_hybrid(arch,
+                                                                 what):
     cfg = _port_cfg(jax_configs.get_config(arch, smoke=True))
-    with pytest.raises(NotImplementedError, match="dense GQA"):
+    if what == "MoE":
         tf.check_ported(cfg)
+        tf.check_ported(_port_cfg(jax_configs.get_config(arch)))
+    else:
+        with pytest.raises(NotImplementedError, match="dense GQA"):
+            tf.check_ported(cfg)
     if what == "MLA":
         mla = dataclasses.replace(configs.get_config("qwen3-8b", smoke=True),
                                   attention="mla")

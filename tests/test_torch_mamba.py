@@ -397,16 +397,15 @@ def test_ssd_refuses_a_tensor_that_requires_grad():
         assert ssd_scan(x, dt, a, b, c, d, chunk=8).shape == x.shape
 
 
-def test_transformer_refuses_the_hybrid_and_moe():
+def test_transformer_refuses_the_hybrid_and_admits_moe():
     import dataclasses
     jamba = jax_configs.get_config("jamba-1.5-large-398b", smoke=True)
     cfg = dataclasses.replace(configs.get_config(ARCH, smoke=True),
                               attn_every=jamba.attn_every)
     with pytest.raises(NotImplementedError, match="pure"):
         tf.check_ported(cfg)
-    with pytest.raises(NotImplementedError, match="pure"):
-        tf.check_ported(dataclasses.replace(
-            configs.get_config("qwen3-8b", smoke=True), moe=True))
+    tf.check_ported(dataclasses.replace(
+        configs.get_config("qwen3-8b", smoke=True), moe=True, n_experts=4))
     tf.check_ported(configs.get_config(ARCH))
     tf.check_ported(configs.get_config("qwen3-8b"))
 
