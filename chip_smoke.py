@@ -125,7 +125,26 @@ Phases, in order:
                peak memory, #7-#9 launches), the first step's gradients
                taken twice from the same state and equal bit for bit;
                then one step under torch.profiler, by part and by MoE
-               op.
+               op;
+  15. mla   -- deepseek-v3-671b at full width cut to 4 layers (3
+               dense-prefix layers, 1 MoE layer of 256 experts: 30.2 GB
+               of bf16 weights), every earlier phase's weights freed
+               first.  #1's wide body (D 576, Dv 512, 128 query heads
+               over one latent head, V its first 512 columns) against
+               its plain version at the decode (B=4, C 1153-2048) and
+               prefill (Sq 1024, C 2048) shapes in bf16 and fp32, per
+               row, bitwise repeatable, a dropped tile rejected, timed
+               beside SDPA; then MLA_PROMPTS through launch/serve.run
+               (chunks of 1024, max_len 2048, 24 new tokens), the
+               regimes counted from ops.CALLS and build.LAUNCHES:
+               chunks of more than 512 rows on #1, of at most 512 on the
+               reference, decode at C <= 1152 on the reference and past
+               it on #1, a request crossing C = 1152 mid-decode.  Gates:
+               (a) the mix again with every attention call beside #1's
+               plain version on its input, per row; (b) the 4 layers in
+               fp32 compute (the weights upcast) on the kernels against
+               the plain versions, 1e-4.  A profiled B=4 decode window
+               gives the device's busy time and idle share.
 The kernel phase also holds the four training kernels (#7-#10) to their
 plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal), #7-#9 at hubert-xlarge's (B=2, 16 heads of 80, S = 4096,
@@ -2405,8 +2424,9 @@ RECORDED_FMA_MS = {"fused_attention_masked": 0.1408,
 
 def tensor_core_usage() -> dict:
     """Logs one line with the HMMA (tensor-core) instructions in the
-    SASS of each instantiation of the bf16 tensor-core bodies (#1-#11;
-    fails if cuobjdump is missing or one has none);
+    SASS of each instantiation of the bf16 tensor-core bodies (#1-#11,
+    and #1's wide body with its registers and spill; fails if cuobjdump
+    is missing or one has none);
     returns {kernel: (registers, spill bytes)} of its main-width
     instantiation (D = 128; #11's 64-column P slice), from its ptxas
     report."""
@@ -2420,6 +2440,13 @@ def tensor_core_usage() -> dict:
         parts.append(f"{name} " + ", ".join(f"{s} {n} HMMA"
                                             for s, n in counts.items()))
         usage[name] = build.ptxas_usage(build.ptxas_report(name), symbols[0])
+    for name, (symbol, _) in build.WIDE_BODIES.items():
+        n = build.sass_hmma(name, symbol)
+        regs, spill = build.ptxas_usage(build.ptxas_report(name), symbol)
+        if not n:
+            raise SystemExit(f"{name}: no HMMA in {symbol}'s SASS")
+        parts.append(f"{name} wide body {symbol} {n} HMMA ({regs} "
+                     f"registers, {spill} B spill)")
     log("sass: " + "; ".join(parts) + " (cuobjdump -sass)")
     return usage
 
@@ -4102,6 +4129,443 @@ def moe_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# MLA: deepseek-v3 at full width, served through #1's wide body
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v3-671b"
+#: the served depth: the 3 dense-prefix layers and 1 MoE layer (15.11 G
+#: parameters, 30.2 GB in bf16)
+MLA_LAYERS = 4
+#: the absorbed call's widths: 128 query heads of r_kv + rope = 576 over
+#: one latent head, V its first 512 columns, scaled by (128 + 64)^-0.5
+MLA_HQ, MLA_D, MLA_DV = 128, 576, 512
+MLA_SCALE = 192 ** -0.5
+#: the shape-only plans' crossovers at that head config: decode fuses at
+#: C > 2N = 1152; prefill buckets M to a power of two, so chunks of more
+#: than 512 rows fuse (576 and 577 alike)
+MLA_CROSS, MLA_PREFILL_EDGE = 2 * MLA_D, 512
+#: the served mix, B = 4, chunks of 1024, max_len 2048, 24 new tokens.
+#: Prompt lengths chosen in [900, 1700) so every regime shows: 1140
+#: (chunks 1024 on #1 and 116 on the reference; the deepest of the first
+#: four, whose decode crosses C = 1152 at its 13th step), 950, 1000 and
+#: 900 (one chunk each on #1, decode at C <= 1152 on the reference),
+#: then 1600 (chunks 1024 and 576, both on #1) and 1300 (1024 on #1, 276
+#: on the reference), decoding past C = 1152 on #1
+MLA_PROMPTS = (1140, 950, 1000, 900, 1600, 1300)
+MLA_NEW, MLA_CHUNK, MLA_MAX_LEN = 24, 1024, 2048
+#: gate (b): one 1200-token request (a 1024-row chunk on #1's fp32 one
+#: pass, 176 rows on the reference), then 8 decode steps at C 1201-1208
+#: on #1's fp32 split, all 4 layers in fp32 compute, against the plain
+#: versions
+MLA_FP32_PROMPT, MLA_FP32_STEPS = 1200, 8
+#: gate (b)'s limit, relative to the largest |logit|, as phi3.5-moe's
+MLA_FP32_TOL = 1e-4
+#: #1's tolerance per row in fp32 (FMAs in another order; bf16 takes
+#: ROW_TOL)
+WIDE_FP32_TOL = 1e-4
+
+
+def mla_attention_record(q, k, lens, tag) -> dict:
+    """#1's wide body on q (B, 128, Sq, 576) over the latent k (B, 1, C,
+    576), V its first 512 columns, causal at ``lens``: per row against
+    the plain version (ROW_TOL in bf16, WIDE_FP32_TOL in fp32), bitwise
+    repeatable, and that gate shown to reject the plain result with the
+    deepest rows' last 32 keys (a tile's worth) dropped.  Its record:
+    times, the bound over the score entries and latent rows these
+    lengths need, and SDPA with a boolean mask (heads broadcast over
+    the one latent head) as the yardstick."""
+    from repro_torch.kernels.chunked import chunked_attention
+    from repro_torch.kernels.fused_attention import (
+        WIDE_TILE, fused_attention_masked, fused_attention_masked_plain)
+    name = "fused_attention_masked"
+    v = k[..., :MLA_DV]
+    b, hq, sq, d = q.shape
+    f = lambda: fused_attention_masked(q, k, v, lens, scale=MLA_SCALE)
+    p = lambda: fused_attention_masked_plain(q, k, v, lens, scale=MLA_SCALE)
+    out, want = f(), p()
+    if not torch.isfinite(out.float()).all():
+        raise SystemExit(f"{name} [{tag}]: non-finite output")
+    if not torch.equal(f(), out):
+        raise SystemExit(f"{name} [{tag}] is not deterministic")
+    log(f"  {name} [{tag}] bitwise repeatable")
+    # the deepest rows without their last WIDE_TILE keys
+    cut = want.clone()
+    r0 = max(0, sq - 64)
+    offs = lens - sq + r0
+    cut[:, :, r0:] = chunked_attention(
+        q[:, :, r0:], k, v, causal=True, scale=MLA_SCALE, q_offset=offs,
+        lengths=lens - WIDE_TILE)
+    if q.dtype == torch.bfloat16:
+        row_gate(name, tag, {"o": (out, want)})
+        row_gate(name, f"{tag}, plain without the last {WIDE_TILE} keys",
+                 {"o": (cut, want)}, expect=False)
+    else:
+        e, e_cut = row_err(out, want), row_err(cut, want)
+        log(f"  {name} [{tag}] per row {e:.3e} (tol {WIDE_FP32_TOL}); plain "
+            f"without the last {WIDE_TILE} keys {e_cut:.3e}: "
+            f"{'rejected, as it must be' if e_cut > WIDE_FP32_TOL else 'FAIL'}")
+        if e > WIDE_FP32_TOL or e_cut <= WIDE_FP32_TOL:
+            raise SystemExit(f"{name} [{tag}]: fp32 per-row gate")
+    err = rel_err(out, want)[0]
+    del out, want, cut
+    ent, rows = _valid_cols(lens.tolist(), sq, True)
+    el = q.element_size()
+    bms, by = bound(el * (q.numel() + b * hq * sq * MLA_DV
+                          + sum(rows) * d) + 4 * b,
+                    2 * hq * (d + MLA_DV) * sum(ent))
+    mask = mask_of(lens, sq, k.shape[2], q.device)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=MLA_SCALE, enable_gqa=True)
+    return dict(max_abs_err=err, ms=time_ms(f, 10), plain_ms=time_ms(p, 3),
+                bound_ms=bms, bound_by=by,
+                library_ms=lib_ms(f"SDPA (boolean mask) for {name} [{tag}]",
+                                  lambda: time_ms(lib, 5)))
+
+
+def mla_kernel_phase(dev, g) -> dict:
+    """#1's wide body at MLA's served shapes, bf16 and fp32: decode (B=4,
+    Sq=1, C 1153-2048: the split into KV chunks) and a second prefill
+    chunk (B=1, Sq=1024, C=2048: one pass).  Returns {kernel:
+    {"mla_decode": record, "mla_prefill": record}} (the bf16 records;
+    fp32's are logged)."""
+    from repro_torch.kernels.fused_attention import wide_chunks
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for key, b, sq, lens in (("mla_decode", 4, 1, [1153, 1400, 1800, 2048]),
+                             ("mla_prefill", 1, 1024, [2048])):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(b, MLA_HQ, sq, MLA_D, generator=g,
+                            device=dev).to(dtype)
+            k = torch.randn(b, 1, MLA_MAX_LEN, MLA_D, generator=g,
+                            device=dev).to(dtype)
+            ll = torch.tensor(lens, dtype=torch.int32, device=dev)
+            n = wide_chunks(b, MLA_HQ, 1, sq, n_sms, dtype)
+            tag = (f"MLA B={b} H={MLA_HQ}/1 Sq={sq} C={MLA_MAX_LEN} "
+                   f"lengths={lens} D={MLA_D} Dv={MLA_DV} "
+                   f"{str(dtype)[6:]} {n} KV chunks")
+            r = mla_attention_record(q, k, ll, tag)
+            log_record("fused_attention_masked", r, tag)
+            if dtype == torch.bfloat16:
+                out[key] = dict(shape=tag, **r)
+            del q, k
+            torch.cuda.empty_cache()
+    return {"fused_attention_masked": out}
+
+
+def _mla_requests(cfg):
+    from repro_torch.serve import Request
+    rng = torch.Generator().manual_seed(0)
+    return [Request(uid=uid, prompt=torch.randint(
+        0, cfg.vocab_size, (n,), generator=rng).tolist(),
+        max_new_tokens=MLA_NEW) for uid, n in enumerate(MLA_PROMPTS)]
+
+
+@contextlib.contextmanager
+def _mla_recorders(calls, steps, gate=False):
+    """While open: every ``ops.attention`` call appends [rows, the impl
+    it ran (from ops.CALLS), #1 launches it made (build.LAUNCHES), and
+    with ``gate`` its per-row error against #1's plain version on the
+    same input]; every dense engine decode step appends (C = the deepest
+    live row + 1, its impl, {slot: context} of the live rows)."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.fused_attention import (
+        fused_attention_masked_plain)
+    from repro_torch.serve import engine as em
+    attention, decode_once = ops.attention, em.ContinuousBatchingEngine.decode_once
+
+    def attention_recorded(q, k, v, **kw):
+        before = collections.Counter(ops.CALLS)
+        n = build.LAUNCHES["fused_attention_masked"]
+        out = attention(q, k, v, **kw)
+        impl = next(i for (e, i), c in ops.CALLS.items()
+                    if e == "attention" and c > before[(e, i)])
+        rec = [q.shape[2], impl, build.LAUNCHES["fused_attention_masked"] - n,
+               None]
+        if gate and kw.get("lengths") is not None:
+            want = fused_attention_masked_plain(
+                q, k, v, kw["lengths"].to(torch.int32),
+                causal=kw.get("causal", True), scale=kw.get("scale"))
+            rec[3] = row_err(out, want)
+        calls.append(rec)
+        return out
+
+    def decode_recorded(self):
+        live = {i: c for i, (c, a) in enumerate(zip(self.row_ctx,
+                                                      self.live)) if a}
+        out = decode_once(self)
+        if out is not None:
+            steps.append((max(live.values()) + 1, self.last_dispatch.impl,
+                          live))
+        return out
+
+    ops.attention = attention_recorded
+    em.ContinuousBatchingEngine.decode_once = decode_recorded
+    try:
+        yield
+    finally:
+        ops.attention = attention
+        em.ContinuousBatchingEngine.decode_once = decode_once
+
+
+def mla_regimes(calls, steps) -> dict:
+    """The served run's regimes, counted: (i) prefill chunks of more than
+    512 rows on #1, (ii) chunks of 2-512 rows on the reference, (iii)
+    decode steps at C <= 1152 on the reference, (iv) at C > 1152 on #1,
+    (v) rows whose request crossed C = 1152 mid-decode (a reference step
+    and a later #1 step of one unbroken run of the row); #1's launches at
+    each shape.  Every call must be consistent with its regime."""
+    chunks = [c for c in calls if c[0] > 1]
+    dec = [c for c in calls if c[0] == 1]
+    n = {"i": sum(1 for r, i, l, _ in chunks if r > MLA_PREFILL_EDGE
+                  and i == "cuda" and l == 1),
+         "ii": sum(1 for r, i, l, _ in chunks if r <= MLA_PREFILL_EDGE
+                   and i == "reference" and l == 0),
+         "iii": sum(1 for c, i, _ in steps if c <= MLA_CROSS
+                    and i == "reference"),
+         "iv": sum(1 for c, i, _ in steps if c > MLA_CROSS and i == "cuda")}
+    odd = [c for c in chunks if (c[0] > MLA_PREFILL_EDGE) != (c[1] == "cuda")
+           or c[2] != (c[1] == "cuda")]
+    odd += [s[:2] for s in steps if (s[0] > MLA_CROSS) != (s[1] == "cuda")]
+    crossed = set()
+    for a, (_, ia, la) in enumerate(steps):
+        for bb in range(a + 1, len(steps)):
+            _, ib, lb = steps[bb]
+            crossed |= {s for s in la if s in lb and ia == "reference"
+                        and ib == "cuda" and lb[s] - la[s] == bb - a
+                        and la[s] + 1 <= MLA_CROSS < lb[s] + 1}
+    n["v"] = len(crossed)
+    n["launches_decode"] = sum(c[2] for c in dec)
+    n["launches_prefill"] = sum(c[2] for c in chunks)
+    if odd or not all(n[k] for k in ("i", "ii", "iii", "iv", "v")):
+        raise SystemExit(f"mla serve: regimes {n}, calls off their plan "
+                         f"{odd[:6]}")
+    return n
+
+
+def _upcast(tree) -> None:
+    """Every floating leaf of ``tree`` as fp32, in place, largest first,
+    each bf16 leaf dropped once its copy is made."""
+    slots = []
+
+    def walk(t):
+        items = t.items() if isinstance(t, dict) else enumerate(t)
+        for k, v in items:
+            if isinstance(v, (dict, list)):
+                walk(v)
+            elif v.is_floating_point() and v.dtype != torch.float32:
+                slots.append((v.numel(), t, k))
+    walk(tree)
+    for _, t, k in sorted(slots, key=lambda s: -s[0]):
+        t[k] = t[k].float()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mla_phase(dev, g):
+    """deepseek-v3-671b at full width, MLA_LAYERS layers, bf16, random
+    weights from seed 0, every earlier phase's weights freed first: the
+    kernel records of #1's wide body (mla_kernel_phase); the mix of
+    MLA_PROMPTS through launch/serve.run on the dense engine, its
+    regimes counted (mla_regimes); gate (a): the mix again with every
+    attention call beside #1's plain version on the same input, per
+    row; a steady B=4 decode window, then profiled; gate (b): the
+    weights upcast to fp32 (the bf16 ones freed), all MLA_LAYERS layers
+    in fp32 compute on the kernels against the plain versions.  Returns
+    (launches of the served run, #1's MLA records)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import lower
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"mla: device memory allocated before the phase "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB | {card_line()}")
+    records = mla_kernel_phase(dev, g)
+    args = serve.parser().parse_args([
+        "--arch", MLA_ARCH, "--layers", str(MLA_LAYERS), "--batch", "4",
+        "--requests", str(len(MLA_PROMPTS)), "--max-len", str(MLA_MAX_LEN),
+        "--max-new", str(MLA_NEW), "--prefill-chunk", str(MLA_CHUNK),
+        "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    cfg, params = serve.model_for(args)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in _leaves(params))
+    wbytes = sum(t.numel() * t.element_size()
+                 for t in _leaves(params) if t is not params["embed"])
+    floor_ms = wbytes / PEAK_BYTES * 1e3
+    latent = (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2
+    per_head = cfg.n_heads * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+                              + cfg.v_head_dim) * 2
+    log(f"mla serve: {cfg.name} d_model={cfg.d_model}, {cfg.n_heads} heads "
+        f"(q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, rope "
+        f"{cfg.qk_rope_head_dim}, nope {cfg.qk_nope_head_dim}, v "
+        f"{cfg.v_head_dim}), {cfg.first_dense_layers} dense-prefix layers "
+        f"(d_ff {cfg.d_ff}) then MoE ({cfg.n_experts} experts of "
+        f"{cfg.d_expert}, top-{cfg.top_k}, {cfg.n_shared_experts} shared), "
+        f"cut to {cfg.n_layers} of 61 layers; {n_params / 1e9:.3f} G bf16 "
+        f"parameters (seed 0) in {time.time() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated (init peak "
+        f"{init_peak / 1e9:.3f} GB); | {card_line()}")
+    log(f"  weights read per decode step {wbytes / 1e9:.3f} GB (all but the "
+        f"embedding; the capacity layout computes every expert): floor "
+        f"{floor_ms:.3f} ms at {PEAK_BYTES / 1e12} TB/s")
+    log(f"  latent cache: {latent} B a token a layer ((kv_lora + rope) x 2 B) "
+        f"against per-head K/V's {per_head} B ({cfg.n_heads} heads x (nope "
+        f"+ rope + v) x 2 B): {per_head / latent:.1f}x less; "
+        f"{latent * cfg.n_layers * args.batch * args.max_len / 1e6:.3f} MB "
+        f"for the batch's {args.batch} x {args.max_len} rows")
+    requests = _mla_requests(cfg)
+
+    # the served run, through the launcher
+    lower.clear_plan_cache()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    before = plan_clock()
+    ops.reset_counts()
+    calls, steps = [], []
+    with _mla_recorders(calls, steps):
+        out = serve.run(args, cfg, params, requests)
+    launches = collections.Counter(build.LAUNCHES)
+    spent = plan_since(before)
+    finished, step_s = out["finished"], out["decode_step_s"]
+    gen = sum(len(r.generated) for r in finished)
+    peak = torch.cuda.max_memory_allocated()
+    served = {r.uid: list(r.generated) for r in finished}
+    log(f"  dense serve: prompts {list(MLA_PROMPTS)}, {len(finished)}/"
+        f"{len(requests)} requests, {gen} tokens in {out['seconds']:.3f}s; "
+        f"decode steps {len(step_s)}, median step "
+        f"{statistics.median(step_s) * 1e3:.3f} ms against the "
+        f"{floor_ms:.3f} ms floor; peak memory {peak / 1e9:.3f} GB "
+        f"allocated; plan {out['plan']} (MLA is no DSE workload: the engine "
+        f"resolves the shape-only plan of the {MLA_HQ} x {MLA_D} heads) | "
+        f"{card_line()}")
+    log_rates("mla dense serve", gen, out["seconds"], spent, len(steps))
+    log_lowerings(spent[0])
+    reg = mla_regimes(calls, steps)
+    log(f"  regimes: (i) {reg['i']} prefill chunks of > {MLA_PREFILL_EDGE} "
+        f"rows on #1, (ii) {reg['ii']} chunks of <= {MLA_PREFILL_EDGE} rows "
+        f"on the reference, (iii) {reg['iii']} decode steps at C <= "
+        f"{MLA_CROSS} on the reference, (iv) {reg['iv']} at C > {MLA_CROSS} "
+        f"on #1, (v) {reg['v']} request(s) crossing C = {MLA_CROSS} "
+        f"mid-decode; #1 launches: {reg['launches_decode']} at decode "
+        f"(B<=4, Sq=1), {reg['launches_prefill']} at prefill chunks; "
+        f"ops.CALLS {dict(ops.CALLS)}; launches {dict(launches)}")
+    if len(finished) != len(requests) or any(
+            len(r.generated) != MLA_NEW for r in finished):
+        raise SystemExit("mla serve: a request did not finish its budget")
+    records["fused_attention_masked"]["mla_decode"]["launches"] = \
+        reg["launches_decode"]
+    records["fused_attention_masked"]["mla_prefill"]["launches"] = \
+        reg["launches_prefill"]
+    del out, finished
+
+    # gate (a): the mix again, each attention call beside #1's plain
+    # version on its own input (the reference's calls too)
+    calls_a, steps_a = [], []
+    with _mla_recorders(calls_a, steps_a, gate=True):
+        again = serve.run(args, cfg, params, _mla_requests(cfg))
+    toks = {r.uid: list(r.generated) for r in again["finished"]}
+    del again
+    by = collections.defaultdict(list)
+    for rows, impl, _, e in calls_a:
+        by[("decode" if rows == 1 else "chunk", impl)].append(e)
+    for key, errs in sorted(by.items()):
+        log(f"  gate (a): {'/'.join(key)}: {len(errs)} calls (4 layers "
+            f"each), worst per row {max(errs):.4e} (tol {ROW_TOL})")
+    worst = max(e for _, _, _, e in calls_a)
+    log(f"  gate (a): tokens {'equal to' if toks == served else 'NOT equal to'}"
+        f" the served run's")
+    if worst > ROW_TOL:
+        raise SystemExit(f"mla gate (a): an attention call at {worst:.4e}")
+
+    # a steady decode window, every row live past C = 1152
+    eng = ContinuousBatchingEngine(
+        params, cfg, batch_size=args.batch, max_len=args.max_len,
+        dtype=cfg.torch_dtype(), prefill_chunk=args.prefill_chunk,
+        device=dev)
+    for slot, req in enumerate(sorted(requests, key=lambda r: -len(
+            r.prompt))[:args.batch]):
+        eng.begin_prefill(slot, req.prompt)
+    while not all(eng.live):
+        eng._advance_prefills()
+    eng.decode_once()
+    _, step_txt = timed_decode(eng, DECODE_WINDOW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_WINDOW):
+        eng.decode_once()
+    host_ms = (time.perf_counter() - t0) / DECODE_WINDOW * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DECODE_WINDOW):
+            eng.decode_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"  mla decode window: B={args.batch} live, contexts {eng.row_ctx} "
+        f"({eng.last_dispatch.path}/{eng.last_dispatch.impl}); each step "
+        f"synchronised: {step_txt}; {DECODE_WINDOW} steps back to back "
+        f"{host_ms:.3f} ms/step against the {floor_ms:.3f} ms bytes floor "
+        f"({floor_ms / host_ms:.4f} of it); then {DECODE_WINDOW} profiled "
+        f"{wall / DECODE_WINDOW * 1e3:.3f} ms/step")
+    busy = device_report(prof, wall, "mla profiled decode window", top=10,
+                         also=("masked_wide",))
+    log(f"  mla decode window: device busy {busy / DECODE_WINDOW:.3f} "
+        f"ms/step; against the back-to-back step, idle share "
+        f"{1 - busy / DECODE_WINDOW / host_ms:.4f} | {card_line()}")
+    moe_op_table(prof, DECODE_WINDOW)
+    del eng, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gate (b): all MLA_LAYERS layers in fp32 compute, the bf16 weights
+    # upcast in place (the bf16 leaves freed as they go)
+    _upcast(params)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                param_dtype="float32")
+    prompt = torch.randint(0, cfg.vocab_size, (MLA_FP32_PROMPT,),
+                           generator=torch.Generator().manual_seed(1)).tolist()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for impl in ("auto", "torch"):
+        eng = ContinuousBatchingEngine(
+            params, cfg32, batch_size=1, max_len=args.max_len,
+            dtype=torch.float32, prefill_chunk=args.prefill_chunk,
+            device=dev, impl=impl)
+        ops.reset_counts()
+        runs.append(_one_request_logits(eng, prompt,
+                                        runs[0][1] if runs else None,
+                                        steps=MLA_FP32_STEPS))
+        runs[-1] += (dict(build.LAUNCHES), dict(ops.CALLS))
+        del eng
+    worst = compare_logits("mla fp32", runs[0][0], runs[1][0],
+                           tol=MLA_FP32_TOL)
+    log(f"  gate (b): all {cfg32.n_layers} layers in fp32 (weights upcast, "
+        f"{sum(t.numel() * 4 for t in _leaves(params)) / 1e9:.3f} GB; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB), prompt "
+        f"{len(prompt)} tokens in chunks of {args.prefill_chunk}, + "
+        f"{MLA_FP32_STEPS} decode steps: worst rel {worst:.4e} (tol "
+        f"{MLA_FP32_TOL}); kernels: launches {runs[0][2]}, calls "
+        f"{runs[0][3]}; plain versions: launches {runs[1][2]}, calls "
+        f"{runs[1][3]}")
+    if runs[0][2].get("fused_attention_masked", 0) != \
+            cfg32.n_layers * (1 + MLA_FP32_STEPS) or any(runs[1][2].values()):
+        raise SystemExit("mla gate (b): #1 not on the fp32 chunk and every "
+                         "decode step, or the plain run launched a kernel")
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4147,6 +4611,10 @@ def main() -> int:
     launches.update(train_phase(dev))
     launches.update(frontends_phase(dev))
     launches.update(moe_phase(dev))
+    mla_launches, mla_records = mla_phase(dev, g)
+    launches.update(mla_launches)
+    for name, shapes in mla_records.items():
+        frontend.setdefault(name, {}).update(shapes)
     missing = [n for n in build.KERNELS if launches[n] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on any path: {missing}")
@@ -4161,8 +4629,8 @@ def main() -> int:
     for name, (regs, spill) in usage.items():
         if name != "fused_attention_paged":
             results[name].update(registers=regs, spill_bytes=spill)
-    # the frontends' and phi3.5-moe's shapes of #1, #3 and #7-#9 ride
-    # with their rows
+    # the frontends', phi3.5-moe's and deepseek-v3's (MLA) shapes of #1,
+    # #3 and #7-#9 ride with their rows
     for name, shapes in frontend.items():
         results[name].update(shapes)
     record = [dict(name=n, route="cuda", launches=launches[n], **r)

@@ -4,7 +4,9 @@ or its reduced same-family smoke twin.  ``list_archs("dense")`` names
 the dense GQA stacks (the decoders, the hubert-xlarge encoder and the
 internvl2-2b VLM backbone, whose stub frontends feed ``frontend_proj``),
 ``list_archs("moe")`` the GQA stacks whose FFN is a Mixture-of-Experts
-(phi3.5-moe), ``list_archs("ssm")`` the attention-free Mamba-2
+(phi3.5-moe), ``list_archs("mla")`` the Multi-head Latent Attention
+stacks (deepseek-v3, whose FFNs are a dense prefix and then
+Mixture-of-Experts), ``list_archs("ssm")`` the attention-free Mamba-2
 stacks."""
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ ARCHS = {
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "internvl2-2b": "repro_torch.configs.internvl2_2b",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3",
 }
 
 
@@ -30,15 +33,18 @@ def get_config(arch: str, smoke: bool = False):
 
 
 def family(arch: str) -> str:
-    """``"ssm"`` for an attention-free stack, ``"moe"`` for one with
+    """``"ssm"`` for an attention-free stack, ``"mla"`` for one with
+    Multi-head Latent Attention, ``"moe"`` for a GQA stack with
     Mixture-of-Experts FFNs, else ``"dense"``."""
     cfg = get_config(arch)
     if cfg.attn_every == 0:
         return "ssm"
+    if cfg.attention == "mla":
+        return "mla"
     return "moe" if cfg.moe else "dense"
 
 
 def list_archs(family_: Optional[str] = None) -> list:
-    """Every arch, or those of one family (``"dense"``, ``"moe"`` or
-    ``"ssm"``)."""
+    """Every arch, or those of one family (``"dense"``, ``"moe"``,
+    ``"mla"`` or ``"ssm"``)."""
     return [a for a in ARCHS if family_ is None or family(a) == family_]

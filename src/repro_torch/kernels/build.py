@@ -104,6 +104,14 @@ TENSOR_CORE_BODIES = {
                                  "paged_decode_mma_kernel_any"),
     "ssd_scan": ("ssd_mma_kernel_p64", "ssd_mma_kernel_any")}
 
+#: kernel name -> the kernels of its wide body (C linkage), which it
+#: runs past head width 128 (MLA's latent heads, D 576, Dv 512;
+#: csrc/masked_wide.cuh): bf16 on the tensor cores, then fp32 on FMAs.
+#: Launched through the kernel's own entry point and counted as its
+#: launches.
+WIDE_BODIES = {"fused_attention_masked": ("masked_wide_mma_kernel",
+                                          "masked_wide_fma_kernel")}
+
 #: dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -7,6 +7,13 @@
 // per-row valid prefix lengths[b], causal rows anchored at
 // lengths[b] - Sq + r, KV blocks past the prefix skipped, and rows with
 // no valid column emitting zeros.
+// Past the narrow bodies' width (D or Dv over 128: Multi-head Latent
+// Attention's absorbed form, D 576, Dv 512, 128 query heads over one
+// latent head), fused_attention_masked runs the wide body of
+// masked_wide.cuh (its notes: V read from K's staged tile, 16 warps of
+// row group x column quarter, its own split into KV chunks at decode),
+// launched as masked_wide_mma_kernel (bf16) or masked_wide_fma_kernel
+// (fp32).
 // Replaces the TPU kernel src/repro/kernels/fused_attention.py
 // fused_attention_paged (pallas_call at :408, body _paged_fwd_kernel
 // :341): the same attention with K/V read from a page pool through
@@ -111,6 +118,7 @@
 // fused_attention_fwd_launch, not a fallback.
 #include "common.cuh"
 #include "masked_mma.cuh"
+#include "masked_wide.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -917,10 +925,91 @@ int run_masked(int dtype, const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// The wide body's two instantiations (masked_wide.cuh), with names of
+// their own (C linkage): bf16 on the tensor cores, fp32 on FMAs.
+extern "C" __global__ void __launch_bounds__(rt::wide::kThreads, 1)
+    masked_wide_mma_kernel(const rt::mma::bf16* __restrict__ q,
+                           const rt::mma::bf16* __restrict__ k,
+                           const int* __restrict__ lengths, int skv,
+                           rt::mma::bf16* __restrict__ out,
+                           float* __restrict__ part, int* __restrict__ counter,
+                           int Hq, int Hkv, int Sq, int D, int Dv, int causal,
+                           float scale, int n_chunks, bool vec) {
+  rt::wide::mma_body(q, k, lengths, skv, out, part, counter, Hq, Hkv, Sq, D,
+                     Dv, causal, scale, n_chunks, vec);
+}
+
+extern "C" __global__ void __launch_bounds__(rt::wide::kThreads, 1)
+    masked_wide_fma_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const int* __restrict__ lengths, int skv,
+                           float* __restrict__ out, float* __restrict__ part,
+                           int* __restrict__ counter, int Hq, int Hkv, int Sq,
+                           int D, int Dv, int causal, float scale,
+                           int n_chunks, bool vec) {
+  rt::wide::fma_body(q, k, lengths, skv, out, part, counter, Hq, Hkv, Sq, D,
+                     Dv, causal, scale, n_chunks, vec);
+}
+
+namespace {
+
+// fused_attention_masked past the narrow bodies' kMaxD: the wide body,
+// which reads V as the first Dv columns of K's rows, so v must be k
+// itself (the wrapper passes k's pointer for a column prefix of k), with
+// Dv <= D <= 576 and Dv <= 512, and n_chunks >= 1 (1: one pass, no
+// partials; the wrapper's wide_chunks).
+int wide_launch(int dtype, const void* q, const void* k, const void* v,
+                const int* lengths, void* out, float* part, int* counter,
+                int B, int Hq, int Hkv, int Sq, int Skv, int D, int Dv,
+                int causal, int n_chunks, float scale, cudaStream_t stream) {
+  namespace w = rt::wide;
+  if (v != k || Dv > D || D > w::kMaxD || Dv > w::kMaxDv || D % 2 ||
+      Dv % 2 || n_chunks < 1 || (n_chunks > 1 && (!part || !counter)))
+    return (int)cudaErrorInvalidValue;
+  const bool bf = dtype == rt::kBF16;
+  if (!bf && dtype != rt::kF32) return (int)cudaErrorInvalidValue;
+  const int rows = bf ? w::kMmaRows : w::kFmaRows;
+  // the merge's weights and sums borrow Q's (bf16) or K's (fp32) tiles
+  const int64_t scratch = bf ? w::kQElems / 2 : 2 * w::kBk * w::kSf;
+  if ((int64_t)rows * (n_chunks + 1) > scratch)
+    return (int)cudaErrorInvalidValue;
+  const int n_rt = ((Hq / Hkv) * Sq + rows - 1) / rows;
+  dim3 grid(n_rt * n_chunks, B * Hkv);
+  const uintptr_t align = reinterpret_cast<uintptr_t>(q) |
+                          reinterpret_cast<uintptr_t>(k);
+  if (bf) {
+    const bool vec = D % 8 == 0 && align % 16 == 0;
+    cudaFuncSetAttribute(masked_wide_mma_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         w::kMmaSmemBytes);
+    masked_wide_mma_kernel<<<grid, w::kThreads, w::kMmaSmemBytes, stream>>>(
+        static_cast<const rt::mma::bf16*>(q),
+        static_cast<const rt::mma::bf16*>(k), lengths, Skv,
+        static_cast<rt::mma::bf16*>(out), part, counter, Hq, Hkv, Sq, D, Dv,
+        causal, scale, n_chunks, vec);
+  } else {
+    const bool vec = D % 4 == 0 && align % 16 == 0;
+    cudaFuncSetAttribute(masked_wide_fma_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         w::kFmaSmemBytes);
+    masked_wide_fma_kernel<<<grid, w::kThreads, w::kFmaSmemBytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), lengths,
+        Skv, static_cast<float*>(out), part, counter, Hq, Hkv, Sq, D, Dv,
+        causal, scale, n_chunks, vec);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int fused_attention_masked_launch(
     const void* q, const void* k, const void* v, const int* lengths, void* out,
     float* part, int* counter, int B, int Hq, int Hkv, int Sq, int Skv, int D,
     int Dv, int causal, int n_chunks, float scale, int dtype, void* stream) {
+  if (D > rt::kMaxD || Dv > rt::kMaxD)
+    return wide_launch(dtype, q, k, v, lengths, out, part, counter, B, Hq,
+                       Hkv, Sq, Skv, D, Dv, causal, n_chunks, scale,
+                       static_cast<cudaStream_t>(stream));
   return run_masked<rt::DenseKV>(dtype, q, k, v, lengths,
                                  rt::KVSource{nullptr, 0, 0, Skv}, out, part,
                                  counter, B, Hq, Hkv, Sq, D, Dv, causal,

@@ -20,7 +20,12 @@ as fp32 FMAs in fp32 (16 rows).  Where that grid would have fewer
 blocks than the card has SMs (decode), both run a split-KV body
 instead, by one rule on the shapes and dtype (:func:`split_chunks`), so
 the paged kernel still gives the masked kernel's output on the
-gathered cache bit for bit.
+gathered cache bit for bit.  Past MAX_HEAD_DIM (up to D = 576, Dv =
+512: MLA's absorbed form, 128 query heads over one latent head) the
+masked kernel runs a wide body of its own (``csrc/masked_wide.cuh``),
+which reads V as the first Dv columns of K's rows (the wrapper takes
+such a view of k, and no other V there), with its own split into KV
+chunks where its grid would leave SMs idle (:func:`wide_chunks`).
 ``fused_attention`` replaces the TPU ``custom_vjp`` ``fused_attention``
 (forward ``_fwd``, backward ``_bwd``'s dq and dk/dv kernels).
 """
@@ -35,8 +40,17 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.chunked import chunked_attention
 
-#: widest head the CUDA kernels take (csrc/common.cuh kMaxD)
+#: widest head the CUDA kernels take (csrc/common.cuh kMaxD), but for
+#: fused_attention_masked's wide body
 MAX_HEAD_DIM = 128
+#: widest K and V heads of fused_attention_masked's wide body, which runs
+#: past MAX_HEAD_DIM: MLA's absorbed form (csrc/masked_wide.cuh kMaxD,
+#: kMaxDv); it reads V as the first Dv columns of K's rows
+WIDE_MAX_D, WIDE_MAX_DV = 576, 512
+#: keys per tile of the wide body, and its query rows per block: 64 on
+#: the tensor cores in bf16, 16 on FMAs in fp32
+WIDE_TILE = 32
+WIDE_ROWS = {torch.bfloat16: 64, torch.float32: 16}
 #: query rows per block and keys per tile of the masked and paged
 #: kernels' fp32 one-pass body and their split-KV body (csrc/common.cuh
 #: kRows, kTileK)
@@ -79,18 +93,39 @@ def split_chunks(b: int, hq: int, hkv: int, sq: int, n_sms: int,
     return n if n >= 2 else 0
 
 
-def chunk_bounds(length: int, n_chunks: int) -> list:
+def chunk_bounds(length: int, n_chunks: int, tile: int = TILE) -> list:
     """The key ranges [start, end) that the split body's chunks of one
     row cover, in chunk order, as ``csrc/fused_attention.cu``
-    ``split_kernel`` cuts them: the row's ceil(length / TILE) tiles in
-    chunks of ceil(tiles / n_chunks) whole tiles, the last one ending at
-    ``length``.  A length-0 row has none."""
-    tiles = -(-length // TILE)
+    ``split_kernel`` (``tile`` = TILE) and the wide body
+    (``csrc/masked_wide.cuh``, ``tile`` = WIDE_TILE) cut them: the row's
+    ceil(length / tile) tiles in chunks of ceil(tiles / n_chunks) whole
+    tiles, the last one ending at ``length``.  A length-0 row has
+    none."""
+    tiles = -(-length // tile)
     if tiles == 0:
         return []
     per = -(-tiles // n_chunks)
-    return [(t * TILE, min(length, (t + per) * TILE))
+    return [(t * tile, min(length, (t + per) * tile))
             for t in range(0, tiles, per)]
+
+
+def wide_chunks(b: int, hq: int, hkv: int, sq: int, n_sms: int,
+                dtype: torch.dtype = torch.bfloat16) -> int:
+    """KV chunks per row tile of the wide body: 1 (one pass, no
+    partials) where its grid of row tiles (WIDE_ROWS[dtype] rows each)
+    has at least the card's ``n_sms`` blocks, else floor(n_sms / that
+    grid): one block fits an SM (its shared memory), so one wave."""
+    blocks = one_pass_blocks(b, hq, hkv, sq, WIDE_ROWS[dtype])
+    return 1 if blocks >= n_sms else max(1, n_sms // blocks)
+
+
+def is_column_prefix(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether ``v`` is the first Dv columns of ``k``'s rows (one
+    storage, one start, ``k``'s strides): MLA's V, a view of its latent
+    cache, which the wide body reads from K's tile."""
+    return (v.data_ptr() == k.data_ptr() and v.dtype == k.dtype
+            and v.shape[:-1] == k.shape[:-1] and v.stride() == k.stride()
+            and v.shape[-1] <= k.shape[-1])
 
 
 def kv_split(q: torch.Tensor, v: torch.Tensor, n_sms: int) -> int:
@@ -211,6 +246,8 @@ def fused_attention_masked(q, k, v, lengths, *, causal: bool = True,
         raise ValueError(f"fused_attention_masked: shapes q{tuple(q.shape)}"
                          f" k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"lengths{tuple(lengths.shape)}")
+    if max(d, dv) > MAX_HEAD_DIM:
+        return _masked_wide(q, k, v, lengths, causal, scale)
     check_cuda_args("fused_attention_masked", {"q": q, "k": k, "v": v},
                     lengths, (d, dv))
     scale = scale if scale is not None else d ** -0.5
@@ -220,6 +257,41 @@ def fused_attention_masked(q, k, v, lengths, *, causal: bool = True,
                  v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                  _ptr(part), _ptr(counter), b, hq, hkv, sq, skv, d, dv,
                  int(causal), n_chunks, float(scale), build.dtype_code(q))
+    return out
+
+
+def _masked_wide(q, k, v, lengths, causal: bool, scale):
+    """#1 past MAX_HEAD_DIM on the wide body: D <= WIDE_MAX_D, Dv <=
+    min(D, WIDE_MAX_DV), both even, and ``v`` the first Dv columns of
+    ``k``'s rows (MLA's latent cache and its view), which the kernel
+    reads once, from K's tile; raises on anything else."""
+    name = "fused_attention_masked"
+    b, hq, sq, d = q.shape
+    _, hkv, skv, dv = v.shape
+    if d > WIDE_MAX_D or dv > min(d, WIDE_MAX_DV) or d % 2 or dv % 2:
+        raise ValueError(f"{name}: head widths D={d}, Dv={dv}: the wide "
+                         f"body takes even D <= {WIDE_MAX_D} and Dv <= "
+                         f"min(D, {WIDE_MAX_DV})")
+    if not is_column_prefix(k, v):
+        raise ValueError(f"{name}: past head width {MAX_HEAD_DIM} v must "
+                         "be the first Dv columns of k's rows (a view of "
+                         "k), which the wide body reads from K's tile")
+    check_cuda_args(name, {"q": q, "k": k}, lengths, ())
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
+    n_chunks = wide_chunks(b, hq, hkv, sq, _sm_count(q.device.index),
+                           q.dtype)
+    part = counter = None
+    if n_chunks > 1:
+        part = torch.empty(b * hq * sq * n_chunks * (dv + 2),
+                           dtype=torch.float32, device=q.device)
+        counter = torch.zeros(one_pass_blocks(b, hq, hkv, sq,
+                                              WIDE_ROWS[q.dtype]),
+                              dtype=torch.int32, device=q.device)
+    build.launch(name, q.data_ptr(), k.data_ptr(), k.data_ptr(),
+                 lengths.data_ptr(), out.data_ptr(), _ptr(part),
+                 _ptr(counter), b, hq, hkv, sq, skv, d, dv, int(causal),
+                 n_chunks, float(scale), build.dtype_code(q))
     return out
 
 

@@ -74,7 +74,7 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.fused_attention import (
     fused_attention, fused_attention_masked, fused_attention_masked_plain,
-    fused_attention_paged, fused_attention_paged_plain)
+    fused_attention_paged, fused_attention_paged_plain, is_column_prefix)
 from repro_torch.kernels.fused_decode_block import (
     fused_decode_block, fused_decode_block_paged,
     fused_decode_block_paged_plain, fused_decode_block_plain)
@@ -84,8 +84,6 @@ from repro_torch.kernels.fused_qproj_attention import (
     fused_qproj_attention_paged_plain)
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.core.fusion import select_schedule
-from repro_torch.lower import cache as _plan_cache
-from repro_torch.lower import lowering as _lowering
 from repro_torch.lower import runtime as _plan_rt
 
 __all__ = ["attention", "qproj_attention", "decode_block", "ssd",
@@ -211,12 +209,10 @@ def _auto_dispatch(entry: str, sq: int, skv: int, d: int, hq: int,
     shape-only plan legalised for this entry point on ``device``.  None
     where the shapes are no DSE workload (``lowering.supported``); the
     caller then takes the device's kernel or plain version."""
-    if not _lowering.supported(_plan_cache.head_config(d, hq, hkv)):
-        return None
-    plan = _plan_cache.kernel_plan(seq_q=sq, seq_kv=skv, d_head=d,
-                                   n_heads=hq, n_kv_heads=hkv)
-    return _plan_rt.dispatch(plan, device=device, entry=entry,
-                             lengths_masked=lengths_masked)
+    return _plan_rt.shape_dispatch(seq_q=sq, seq_kv=skv, d_head=d,
+                                   n_heads=hq, n_kv_heads=hkv,
+                                   device=device, entry=entry,
+                                   lengths_masked=lengths_masked)
 
 
 def _resolve(entry: str, impl: str, plan, device, shapes=None):
@@ -279,9 +275,12 @@ def attention(q, k, v, *, causal: bool = True,
                                        q_offset=q_offset, lengths=lengths)
     lengths = lengths.to(torch.int32)
     if impl == "cuda":
-        return fused_attention_masked(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), lengths,
-                                      causal=causal, scale=scale)
+        k = k.contiguous()
+        # MLA's V, a column prefix of its latent K, is passed as the view
+        # it is: the wide body reads it from K's tile
+        return fused_attention_masked(
+            q.contiguous(), k, v if is_column_prefix(k, v)
+            else v.contiguous(), lengths, causal=causal, scale=scale)
     return fused_attention_masked_plain(q, k, v, lengths, causal=causal,
                                         scale=scale)
 

@@ -10,10 +10,16 @@ from a seeded generator.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --smoke --requests 6 --max-new 16 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --layers 4 --max-len 2048 \
+        --prefill-chunk 1024
 
 A Mamba-2 config has no serving plan: its prefill chunks run the SSD
 scan kernel seeded with each row's state, its decode the one-token
-update.
+update.  An MLA config (deepseek-v3) has none either: the engine
+resolves its latent attention on the shape-only plan at each chunk and
+step.  ``--layers`` keeps the config's dense prefix, so deepseek-v3
+cut to 4 layers runs its 3 dense-FFN layers and one MoE layer.
 """
 
 from __future__ import annotations

@@ -35,7 +35,7 @@ from repro_torch.lower.plan import (DECODE_MEGAKERNEL, FUSED_ATTENTION,
 from repro_torch.models.common import resolve_device
 
 __all__ = ["PlanDispatch", "dispatch", "impl_for", "rung_down",
-           "ServingPlan", "serving_plan"]
+           "shape_dispatch", "ServingPlan", "serving_plan"]
 
 
 def impl_for(path: str, device) -> str:
@@ -144,6 +144,22 @@ def dispatch(plan: ExecutionPlan, *, device,
     t = plan.tiling
     return PlanDispatch(plan=plan, path=path, impl=impl, block_q=t.block_q,
                         block_k=t.block_kv, paged=paged)
+
+
+def shape_dispatch(*, seq_q: int, seq_kv: int, d_head: int, n_heads: int,
+                   n_kv_heads: int, device, entry: str = "attention",
+                   lengths_masked: bool = False) -> Optional[PlanDispatch]:
+    """The shape-only plan of one call (``lower.cache.kernel_plan``:
+    ``seq_q`` rows against ``seq_kv`` columns, ``n_heads`` heads of
+    ``d_head`` over ``n_kv_heads``) legalised for ``entry`` on
+    ``device``; None where that head config is no DSE workload."""
+    if not lowering.supported(plan_cache.head_config(d_head, n_heads,
+                                                     n_kv_heads)):
+        return None
+    plan = plan_cache.kernel_plan(seq_q=seq_q, seq_kv=seq_kv, d_head=d_head,
+                                  n_heads=n_heads, n_kv_heads=n_kv_heads)
+    return dispatch(plan, device=device, entry=entry,
+                    lengths_masked=lengths_masked)
 
 
 #: the lowering ladder, top rung first; rung-down recovery walks it

@@ -1,6 +1,6 @@
-"""GQA attention block of the port (the GQA half of
-``repro/models/attention.py``), dispatching to the kernel the serving
-plan picked through ``kernels.ops``.
+"""Attention blocks of the port (``repro/models/attention.py``): GQA
+and MLA (deepseek-v3's Multi-head Latent Attention), dispatching to the
+kernel the serving plan picked through ``kernels.ops``.
 
 KV-cached calls (decode, chunked prefill) append the new K/V to the
 cache and pass a ``lengths`` mask; the masked kernels anchor causal
@@ -20,6 +20,16 @@ Unlike the JAX package, the cache append is an in-place write into the
 caller's cache tensors (an indexed assignment for per-row and paged
 appends, a slice assignment for the uniform one), and the returned
 cache is the same dict: serving never keeps the pre-append cache.
+
+MLA caches the *latent*, one shared "KV head" of (B, S, r_kv + rope)
+rows (576 wide at deepseek-v3's widths) instead of per-head K and V,
+and its cached calls run the absorbed form: ``q_nope @ W_UK`` moves the
+queries into latent space, so K is the latent row and V its first r_kv
+columns, a view of the same storage, and attention runs at D = r_kv +
+rope, Dv = r_kv over the one latent head, scaled by (nope + rope)^-0.5
+as the per-head form is.  The cache-free call (training, a plain
+forward) forms per-head K and V and runs at D = nope + rope, Dv = v.
+Paged latent caches are refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -159,9 +169,163 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return out, new_cache
 
 
+def init_gqa(cfg: ModelConfig, draw, ones) -> dict:
+    """A GQA block's leaves: ``draw(*shape)`` for each projection,
+    ``ones(d)`` for each qk-norm, in the JAX tree's keys."""
+    h, hk, dh, e = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_model
+    p = {"wq": draw(e, h, dh), "wk": draw(e, hk, dh),
+         "wv": draw(e, hk, dh), "wo": draw(h, dh, e)}
+    if cfg.qk_norm:
+        p["q_norm"], p["k_norm"] = ones(dh), ones(dh)
+    return p
+
+
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    device, lead: tuple = ()) -> dict:
     """Zeroed (*lead, B, Hkv, max_len, Dh) K and V buffers."""
     shape = (*lead, batch, cfg.kv_heads, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3)
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ModelConfig, draw, ones) -> dict:
+    """An MLA block's leaves (the JAX package's ``init_mla``):
+    ``draw(*shape)`` for each projection, ``ones(r)`` for its two norms,
+    ``q_a_norm`` (r_q,) and ``kv_a_norm`` (r_kv,)."""
+    d, h = cfg.d_model, cfg.n_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope_d, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                        cfg.v_head_dim)
+    return {"wq_a": draw(d, r_q), "q_a_norm": ones(r_q),
+            "wq_b": draw(r_q, h, nope + rope_d),
+            "wkv_a": draw(d, r_kv + rope_d), "kv_a_norm": ones(r_kv),
+            "wk_b": draw(r_kv, h, nope), "wv_b": draw(r_kv, h, dv),
+            "wo": draw(h, dv, d)}
+
+
+def _mla_q(params, cfg: ModelConfig, x, positions, dt):
+    """(q_nope, q_rope), each (B, H, S, .): the low-rank query, normed,
+    expanded per head, its rope part rotated."""
+    cq = rms_norm(x @ params["wq_a"].to(dt), params["q_a_norm"])
+    q = _heads(cq, params["wq_b"].to(dt))
+    nope = cfg.qk_nope_head_dim
+    return q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)
+
+
+def _mla_latent(params, cfg: ModelConfig, x, positions, dt):
+    """(c, k_rope): the normed latent (B, S, r_kv) and the shared rope
+    key (B, S, rope), rotated."""
+    ckv = x @ params["wkv_a"].to(dt)
+    r = cfg.kv_lora_rank
+    c = rms_norm(ckv[..., :r], params["kv_a_norm"])
+    k_rope = rope(ckv[..., r:][:, None], positions, cfg.rope_theta)[:, 0]
+    return c, k_rope
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """The softmax scale of both MLA forms: the per-head query width
+    (nope + rope)^-0.5, never the latent width's."""
+    return (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+
+
+def mla_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, cache: Optional[dict] = None,
+                cache_len=None, block_tables: Optional[torch.Tensor] = None,
+                plan=None, residual: Optional[torch.Tensor] = None,
+                impl: str = "auto"):
+    """x: (B, S, E).  Without ``cache``: per-head K/V, causal attention
+    at D = nope + rope, Dv = v (the differentiable training attention).
+    With ``cache``: append the latent rows at ``cache_len`` (in place,
+    along axis 1 of the (B, max_len, r_kv + rope) leaf) and attend in
+    the absorbed form over the valid prefix, one latent KV head: K the
+    latent, V its first r_kv columns (a view of K's storage).  ``plan``:
+    a ``lower.runtime.PlanDispatch`` whose impl the attention call takes
+    (no Q or Wo fusion here, as in the JAX package).  ``residual`` is
+    added to the output.  Returns (out, cache)."""
+    if block_tables is not None:
+        raise NotImplementedError(
+            "paged KV is not supported for MLA latent caches")
+    dt = x.dtype
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope = _mla_q(params, cfg, x, positions, dt)
+    c, k_rope = _mla_latent(params, cfg, x, positions, dt)
+    scale = mla_scale(cfg)
+
+    if cache is None:
+        k_nope = _heads(c, params["wk_b"].to(dt))
+        v = _heads(c, params["wv_b"].to(dt))
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, None].expand(
+            b, h, s, cfg.qk_rope_head_dim)], dim=-1)
+        o = ops.attention(q, k, v, causal=cfg.causal, scale=scale,
+                          plan=plan, impl=impl)
+        new_cache = None
+    else:
+        # absorbed: q_nope @ W_UK, per head, into latent space
+        q_lat = q_nope @ params["wk_b"].to(dt).permute(1, 2, 0)
+        q_full = torch.cat([q_lat, q_rope], dim=-1)
+        latent_new = torch.cat([c, k_rope], dim=-1)
+        starts, lengths, q_off, per_row = _cache_write(cache_len, b, s,
+                                                       x.device)
+        buf = cache["latent"]
+        if per_row:
+            buf[torch.arange(b, device=x.device), starts.long()] = \
+                latent_new[:, 0].to(buf.dtype)
+        else:
+            if starts + s > buf.shape[1]:
+                raise ValueError(f"cache append at {starts}+{s} overruns "
+                                 f"max_len {buf.shape[1]}")
+            buf[:, starts:starts + s] = latent_new.to(buf.dtype)
+        new_cache = cache
+        k_lat = buf.to(dt)[:, None]                  # (B, 1, S, r + rope)
+        v_lat = k_lat[..., :cfg.kv_lora_rank]        # its first r columns
+        o_lat = ops.attention(q_full, k_lat, v_lat, causal=cfg.causal,
+                              q_offset=q_off, scale=scale, lengths=lengths,
+                              plan=plan, impl=impl)  # (B, H, S, r)
+        o = o_lat @ params["wv_b"].to(dt).transpose(0, 1)
+    wo = params["wo"].to(dt)
+    out = o.transpose(1, 2).reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    if residual is not None:
+        out = residual + out
+    return out, new_cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device, lead: tuple = ()) -> dict:
+    """The zeroed latent cache (*lead, B, max_len, r_kv + rope)."""
+    width = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    return {"latent": torch.zeros((*lead, batch, max_len, width),
+                                  dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg: ModelConfig, draw, ones) -> dict:
+    """The config's attention leaves: :func:`init_mla` or
+    :func:`init_gqa`."""
+    if cfg.attention == "mla":
+        return init_mla(cfg, draw, ones)
+    return init_gqa(cfg, draw, ones)
+
+
+def attention_forward(params: dict, cfg: ModelConfig, x, positions, **kw):
+    """The config's attention block: :func:`mla_forward` or
+    :func:`gqa_forward`."""
+    if cfg.attention == "mla":
+        return mla_forward(params, cfg, x, positions, **kw)
+    return gqa_forward(params, cfg, x, positions, **kw)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
+               lead: tuple = ()) -> dict:
+    """The config's attention cache: the latent or the K/V buffers."""
+    if cfg.attention == "mla":
+        return init_mla_cache(cfg, batch, max_len, dtype, device, lead)
+    return init_gqa_cache(cfg, batch, max_len, dtype, device, lead)

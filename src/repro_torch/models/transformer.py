@@ -1,9 +1,10 @@
 """The decoder stack of the port (``repro/models/transformer.py``):
-GQA attention layers whose FFN is a dense MLP or a Mixture-of-Experts
-(``cfg.ffn_kind(i) == "moe"``, ``models/moe.py``; a dense prefix of
-``first_dense_layers`` before them), and the Mamba-2 layers of a
-pure-mamba stack (``cfg.block_kind(i) == "mamba"``: pre-norm, the mamba
-block, the residual add, and no FFN sublayer).
+attention layers (GQA, or deepseek-v3's MLA) whose FFN is a dense MLP
+or a Mixture-of-Experts (``cfg.ffn_kind(i) == "moe"``,
+``models/moe.py``; a dense prefix of ``first_dense_layers`` before
+them), and the Mamba-2 layers of a pure-mamba stack
+(``cfg.block_kind(i) == "mamba"``: pre-norm, the mamba block, the
+residual add, and no FFN sublayer).
 
 Parameters keep the JAX package's tree: ``prefix_layers`` (a list) and
 ``layers`` (one dict per position in the layer period, every leaf with
@@ -56,15 +57,15 @@ from repro_torch.models.common import ModelConfig, mlp_forward, rms_norm
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Admit the stacks the port runs: GQA stacks (causal or not, with
-    or without a modality frontend's stub projection) whose FFNs are
-    dense MLPs or Mixture-of-Experts, with or without a dense prefix,
-    and pure Mamba-2 stacks.  MLA and the attention/mamba hybrid are
-    refused."""
-    gqa = cfg.attn_every == 1 and cfg.attention == "gqa"
-    if not (gqa or cfg.attn_every == 0):
+    """Admit the stacks the port runs: attention stacks, GQA (causal or
+    not, with or without a modality frontend's stub projection) or MLA,
+    whose FFNs are dense MLPs or Mixture-of-Experts, with or without a
+    dense prefix, and pure Mamba-2 stacks.  The attention/mamba hybrid
+    is refused."""
+    attention = cfg.attn_every == 1 and cfg.attention in ("gqa", "mla")
+    if not (attention or cfg.attn_every == 0):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense GQA stacks and pure "
+            f"{cfg.name}: the port runs dense GQA or MLA stacks and pure "
             "Mamba-2 stacks only")
 
 
@@ -93,8 +94,8 @@ def _layer_forward(lp: dict, cfg: ModelConfig, kinds: tuple, x,
     else:
         # the attention block owns its residual add: the decode
         # megakernel folds it into the launch, every other path adds it
-        # in gqa_forward
-        x, _ = attn.gqa_forward(
+        # in the block's forward
+        x, _ = attn.attention_forward(
             lp["attn"], cfg, h, positions,
             cache=None if layer_cache is None else layer_cache["attn"],
             cache_len=cache_len, block_tables=block_tables, plan=plan,
@@ -210,14 +211,15 @@ def init_model_cache(cfg: ModelConfig, batch: int, max_len: int,
                      dtype=torch.bfloat16, device="cuda") -> dict:
     """Zeroed caches in the parameter tree's layout: a list for the
     prefix layers, ``n_periods``-stacked tensors for the body.  An
-    attention layer holds ``{"attn": {"k", "v"}}`` (``max_len`` rows), a
-    mamba layer ``{"mamba": {"conv", "ssm"}}`` (the SSM state fp32)."""
+    attention layer holds ``{"attn": {"k", "v"}}`` (``max_len`` rows) or,
+    for MLA, ``{"attn": {"latent"}}`` (``max_len`` latent rows), a mamba
+    layer ``{"mamba": {"conv", "ssm"}}`` (the SSM state fp32)."""
     check_ported(cfg)
 
     def layer(i, lead=()):
         if cfg.block_kind(i) == "attn":
-            return {"attn": attn.init_gqa_cache(cfg, batch, max_len, dtype,
-                                                device, lead)}
+            return {"attn": attn.init_cache(cfg, batch, max_len, dtype,
+                                            device, lead)}
         return {"mamba": mb.init_mamba_cache(cfg, batch, dtype, device,
                                              lead)}
     return {"prefix": [layer(i) for i in range(cfg.first_dense_layers)],

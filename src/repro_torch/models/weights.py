@@ -10,8 +10,11 @@ layers before the body, without a leading axis), ``layers`` (one dict
 per period position, leaves stacked over ``n_periods``), ``final_norm``,
 ``lm_head`` (E, V); per attention layer ``pre_norm``, ``attn`` {``wq``
 (E, Hq, D), ``wk``/``wv`` (E, Hkv, D), ``wo`` (Hq, D, E)[, ``q_norm``,
-``k_norm``]}, ``ffn_norm`` and either ``mlp`` {``w_up``, ``w_down``[,
-``w_gate``]} or, where ``cfg.ffn_kind(i) == "moe"``, ``moe``
+``k_norm``]} for GQA or, for MLA (``cfg.attention == "mla"``), {``wq_a``
+(E, r_q), ``q_a_norm`` (r_q,), ``wq_b`` (r_q, Hq, nope + rope),
+``wkv_a`` (E, r_kv + rope), ``kv_a_norm`` (r_kv,), ``wk_b`` (r_kv, Hq,
+nope), ``wv_b`` (r_kv, Hq, v), ``wo`` (Hq, v, E)}, ``ffn_norm`` and
+either ``mlp`` {``w_up``, ``w_down``[, ``w_gate``]} or, where ``cfg.ffn_kind(i) == "moe"``, ``moe``
 {``router`` (E, X) in fp32 whatever the parameter dtype,
 ``w_gate``/``w_up`` (X, E, Fx), ``w_down`` (X, Fx, E)[, ``shared``, an
 MLP of width Fx·n_shared]} (X experts of width Fx = ``d_expert``); per
@@ -29,6 +32,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, resolve_device
@@ -113,11 +117,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 "dt_bias": draw(hs, scale=0.5, dtype=f32),
                 "norm": ones(n, d_in),
                 "out_proj": draw(d_in, e)}}
-        h, hk, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        attn = {"wq": draw(e, h, dh), "wk": draw(e, hk, dh),
-                "wv": draw(e, hk, dh), "wo": draw(h, dh, e)}
-        if cfg.qk_norm:
-            attn["q_norm"], attn["k_norm"] = ones(n, dh), ones(n, dh)
+        attn = attn_mod.init_attention(cfg, draw,
+                                       lambda *shape: ones(n, *shape))
         out = {"pre_norm": ones(n, e), "attn": attn, "ffn_norm": ones(n, e)}
         if cfg.ffn_kind(i) == "moe":
             out["moe"] = moe_mod.init_moe(cfg, draw)

@@ -30,6 +30,14 @@ the batch state's tensors.  A preempted snapshot is therefore a host
 copy of gathered pages, never a view into the pool, whose pages are
 overwritten once reissued.
 
+An MLA config (deepseek-v3) has no serving plan either: the engine
+resolves each prefill chunk and decode step of its latent cache on the
+shape-only plan of the absorbed call at the context the host mirrors
+know (``_latent_dispatch``), so its decode path changes at C = 2N as a
+planned GQA config's does; its latent leaf rides insert, preempt,
+resume and snapshots like a K/V leaf, and the paged engine refuses it,
+as in the JAX package.
+
 A Mamba-2 config has no serving plan (``serving_plan`` returns None, as
 in the JAX package): its layers hold a conv tail and an SSM state per
 row, which insert, preempt and resume carry like KV rows; free rows
@@ -59,6 +67,7 @@ import numpy as np
 import torch
 
 from repro_torch.lower import rung_down, serving_plan
+from repro_torch.lower.runtime import shape_dispatch
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig, resolve_device
 
@@ -336,6 +345,9 @@ class ContinuousBatchingEngine:
             if self.plan is not None:
                 dispatch = self._demoted(self.plan.chunk_dispatch(
                     p["pos"] + piece.shape[1], piece.shape[1]))
+            elif self.cfg.attention == "mla":
+                dispatch = self._demoted(self._latent_dispatch(
+                    piece.shape[1], p["pos"] + piece.shape[1]))
             logits, p["cache"] = tf.forward(
                 self.params, self.cfg, piece, cache=p["cache"],
                 cache_len=p["pos"], plan=dispatch, impl=self.impl)
@@ -358,6 +370,22 @@ class ContinuousBatchingEngine:
     def _before_decode(self) -> None:
         """Hook run right before each decode launch (the paged engine
         grows the page lists of rows crossing a page boundary here)."""
+
+    def _latent_dispatch(self, rows: int, ctx: int):
+        """MLA has no serving plan (its blocks are no DSE workload, as in
+        the JAX package), so its absorbed attention call takes the
+        shape-only plan of its heads (Hq query heads of r_kv + rope over
+        the one latent head) at ``rows`` new rows and ``ctx`` columns,
+        the deepest live row's context, which the host mirrors know.
+        Resolved inside ``kernels.ops`` the plan would be keyed on the
+        latent buffer's max_len at every step, and the decode path would
+        never change with the context."""
+        cfg = self.cfg
+        return shape_dispatch(
+            seq_q=rows, seq_kv=ctx,
+            d_head=cfg.kv_lora_rank + cfg.qk_rope_head_dim,
+            n_heads=cfg.n_heads, n_kv_heads=1, device=self.device,
+            lengths_masked=True)
 
     def _demoted(self, dispatch):
         """The standing ``demotions`` count applied to a resolved
@@ -398,6 +426,10 @@ class ContinuousBatchingEngine:
         if self.plan is not None:
             dispatch = self._demoted(self.plan.step_dispatch(
                 [c for c, alive in zip(self.row_ctx, self.live) if alive]))
+        elif self.cfg.attention == "mla":
+            dispatch = self._demoted(self._latent_dispatch(
+                1, 1 + max(c for c, alive in zip(self.row_ctx, self.live)
+                           if alive)))
         self.last_dispatch = dispatch
         self.state, self.last_logits = decode_step(
             self.params, self.cfg, self.state, dispatch=dispatch,

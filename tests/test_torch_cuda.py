@@ -1337,3 +1337,133 @@ def test_moe_layer_fp32_on_cuda_matches_the_cpu(cuda_device):
     for key in aux:
         assert abs(aux[key].item() - jaux[key].item()) <= \
             1e-5 * abs(jaux[key].item())
+
+
+# ---------------------------------------------------------------------------
+# #1's wide body: MLA's absorbed form (D 576, Dv 512, 128 heads over 1)
+# ---------------------------------------------------------------------------
+
+MLA_SCALE = 192 ** -0.5
+
+
+def _latent(dev, dtype, b, sq, skv, hq=128, d=576, seed=0):
+    """q (B, Hq, Sq, D) and the latent k (B, 1, Skv, D) from a seed."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, hq, sq, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, 1, skv, d, generator=g, device=dev).to(dtype)
+    return q, k
+
+
+def _rows_rel(got, want):
+    """Each output row's max error over that row's largest |want|."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    return err / want.float().abs().amax(-1).clamp_min(1e-30)
+
+
+#: (tag, B, Sq, Skv, lengths): decode past C = 2N = 1152 (the split into
+#: KV chunks), a first and a second 1024-row prefill chunk (one pass)
+WIDE_SHAPES = [("decode", 4, 1, 2048, [1153, 1400, 1800, 2048]),
+               ("prefill_first", 1, 1024, 2048, [1024]),
+               ("prefill_second", 1, 1024, 2048, [2048])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=[s[0] for s in WIDE_SHAPES])
+def test_wide_masked_matches_plain_per_row(cuda_device, dtype, tol, shape):
+    """The wide body at MLA's widths, V the first 512 columns of the
+    latent K: every row within the dtype's tolerance of the plain
+    version, bitwise repeatable, counted as #1's launch, in as many KV
+    chunks as ``wide_chunks`` says."""
+    from repro_torch.kernels.fused_attention import wide_chunks
+    _, b, sq, skv, lens = shape
+    q, k = _latent(cuda_device, dtype, b, sq, skv)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    build.reset_launches()
+    got = fused_attention_masked(q, k, k[..., :512], lengths,
+                                 scale=MLA_SCALE)
+    assert build.LAUNCHES["fused_attention_masked"] == 1
+    want = fused_attention_masked_plain(q, k, k[..., :512], lengths,
+                                        scale=MLA_SCALE)
+    assert got.shape == (b, 128, sq, 512)
+    assert torch.isfinite(got.float()).all()
+    assert _rows_rel(got, want).max().item() <= tol
+    assert torch.equal(fused_attention_masked(q, k, k[..., :512], lengths,
+                                              scale=MLA_SCALE), got)
+    n = wide_chunks(b, 128, 1, sq, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count, dtype)
+    assert (n > 1) == (sq == 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_wide_masked_edges(cuda_device, dtype, tol):
+    """Lengths 0, 1 and on either side of the 32-key tile, a group of 8
+    over Sq = 5 (a block's rows span query heads under the causal
+    anchor), non-causal, and narrower heads past 128 (D 192 and Dv 130,
+    D 250 and Dv 250): per row within tolerance; a length-0 row is 0."""
+    cases = [(8, 1, 96, [0, 1, 31, 33], 576, 512, True),
+             (8, 5, 300, [70, 5], 576, 512, True),
+             (8, 3, 100, [64, 32], 576, 512, False),
+             (16, 2, 80, [80, 41], 192, 130, True),
+             (4, 4, 70, [65, 9], 250, 250, True)]
+    for hq, sq, skv, lens, d, dv, causal in cases:
+        q, k = _latent(cuda_device, dtype, len(lens), sq, skv, hq, d)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+        got = fused_attention_masked(q, k, k[..., :dv], lengths,
+                                     causal=causal, scale=MLA_SCALE)
+        want = fused_attention_masked_plain(q, k, k[..., :dv], lengths,
+                                            causal=causal, scale=MLA_SCALE)
+        live = want.float().abs().amax(-1) > 0
+        assert (got.float()[~live] == 0).all()
+        assert _rows_rel(got, want)[live].max().item() <= tol, (hq, sq, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_masked_row_gate_rejects_a_dropped_tile(cuda_device, dtype):
+    """The per-row gate the wide body passes rejects, for every batch
+    row at the decode shape, the plain result without that row's last
+    32 keys (a tile's worth of the wide body)."""
+    from repro_torch.kernels.fused_attention import WIDE_TILE
+    q, k = _latent(cuda_device, dtype, 4, 1, 2048)
+    lens = [1153, 1400, 1800, 2048]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    got = fused_attention_masked(q, k, k[..., :512], lengths,
+                                 scale=MLA_SCALE)
+    short = torch.tensor([n - WIDE_TILE for n in lens],
+                         dtype=torch.int32, device=cuda_device)
+    cut = fused_attention_masked_plain(q, k, k[..., :512], short,
+                                       causal=False, scale=MLA_SCALE)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert (_rows_rel(cut, got).amax(1) > tol).all()
+
+
+@pytest.mark.cuda
+def test_wide_masked_refuses_what_it_cannot_take(cuda_device):
+    """D 578 or Dv 514, a V that is not K's column prefix, and the
+    training forward (#7) at MLA's cache-free widths (D 192, Dv 128)
+    raise; nothing falls back."""
+    q, k = _latent(cuda_device, torch.bfloat16, 1, 1, 64, 8, 578)
+    lengths = torch.tensor([64], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head widths"):
+        fused_attention_masked(q, k, k[..., :512], lengths)
+    q, k = _latent(cuda_device, torch.bfloat16, 1, 1, 64, 8, 576)
+    k2 = torch.cat([k, k[..., :2]], dim=-1)
+    with pytest.raises(ValueError, match="head widths"):
+        fused_attention_masked(q, k, k2[..., :514], lengths)
+    with pytest.raises(ValueError, match="column"):
+        fused_attention_masked(q, k, k[..., :512].contiguous(), lengths)
+    qf, kf = _latent(cuda_device, torch.bfloat16, 1, 16, 16, 4, 192)
+    with pytest.raises(ValueError, match="at most 128"):
+        fused_attention_fwd(qf, kf, kf[..., :128].contiguous())
+
+
+@pytest.mark.cuda
+def test_wide_body_runs_on_the_tensor_cores(cuda_device):
+    """The wide body's bf16 kernel has HMMA in its SASS, its fp32 one
+    none (FMAs)."""
+    for name, (mma_symbol, fma_symbol) in build.WIDE_BODIES.items():
+        build.build_all([name])
+        assert build.sass_hmma(name, mma_symbol) > 0
+        assert build.sass_hmma(name, fma_symbol) == 0

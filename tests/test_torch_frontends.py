@@ -400,8 +400,10 @@ def _port_cfg(jcfg) -> ModelConfig:
     ("jamba-1.5-large-398b", "hybrid")])
 def test_check_ported_admits_moe_and_refuses_mla_and_the_hybrid(arch,
                                                                  what):
+    """MoE and (since the MLA slice) MLA stacks are admitted, smoke and
+    full; the attention/mamba hybrid stays refused."""
     cfg = _port_cfg(jax_configs.get_config(arch, smoke=True))
-    if what == "MoE":
+    if what in ("MoE", "MLA"):
         tf.check_ported(cfg)
         tf.check_ported(_port_cfg(jax_configs.get_config(arch)))
     else:
@@ -410,7 +412,7 @@ def test_check_ported_admits_moe_and_refuses_mla_and_the_hybrid(arch,
     if what == "MLA":
         mla = dataclasses.replace(configs.get_config("qwen3-8b", smoke=True),
                                   attention="mla")
-        with pytest.raises(NotImplementedError, match="dense GQA"):
-            tf.check_ported(mla)
+        tf.check_ported(mla)
+        tf.check_ported(configs.get_config("deepseek-v3-671b"))
     for ok in ARCHS:
         tf.check_ported(configs.get_config(ok))

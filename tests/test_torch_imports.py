@@ -189,6 +189,11 @@ def test_tensor_core_kernels_are_defined_by_their_sources():
         assert 'extern "C" __global__' in text
         for symbol, full in zip(symbols, ("true", "false")):
             assert f"_MMA_KERNEL({symbol}, {full})" in text
+    for name, symbols in build.WIDE_BODIES.items():
+        text = (PORT / "kernels" / "csrc" / build.KERNELS[name][0]) \
+            .read_text()
+        for symbol in symbols:
+            assert f"    {symbol}(" in text
 
 
 REPORT = """\
