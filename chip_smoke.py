@@ -144,15 +144,31 @@ Phases, in order:
                plain version on its input, per row; (b) the 4 layers in
                fp32 compute (the weights upcast) on the kernels against
                the plain versions, 1e-4.  A profiled B=4 decode window
-               gives the device's busy time and idle share.
+               gives the device's busy time and idle share;
+  16. mla train -- deepseek-v3-671b's dense layers at full width: 3
+               MLA layers (128 heads, D 192, Dv 128) with a d_ff 18432
+               SwiGLU, no MoE, no prefix (3.60 G parameters), every
+               earlier phase's weights freed first.  The loss and every
+               gradient of one B=2, seq 2048 batch on the kernels
+               against the plain versions (PARITY_REL, KERNEL_TOL);
+               then launch/train.train_loop (remat full, bf16 moments,
+               B=2, seq 2048, 3 steps: loss, step ms, tokens/s, peak
+               memory against the 28.8 GB state, #7/#8/#9 6/3/3 a
+               step), the first step's gradients taken twice and equal
+               bit for bit, every gradient leaf finite and non-zero;
+               then one profiled step by part.
 The kernel phase also holds the four training kernels (#7-#10) to their
 plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal), #7-#9 at hubert-xlarge's (B=2, 16 heads of 80, S = 4096,
 non-causal: the _any instantiations; per row, a dropped tile rejected,
 bitwise repeatable, timed against non-causal SDPA and its backward) and
-at phi3.5-moe's (B=2, 32 query heads over 8 of 128, S = 2048, causal),
-#1 and #3 at internvl2-2b's prefill and decode shapes (each kernel's
-record carries these as "hubert", "phi35moe" and "internvl") and the Mamba-2 SSD scan (#11) to its plain version in bf16 and
+at phi3.5-moe's (B=2, 32 query heads over 8 of 128, S = 2048, causal)
+and at MLA's training shape (B=2, 128 over 128 heads, S = 2048, causal,
+D 192, Dv 128: the *_mma_kernel_d192 instantiations, beside SDPA, whose
+backend is named; and in fp32 per row within TRAIN_FP32_TOL), #1 and
+#3 at internvl2-2b's prefill and decode shapes (each kernel's record
+carries these as "hubert", "phi35moe", "mla" and "internvl") and the
+Mamba-2 SSD scan (#11) to its plain version in bf16 and
 fp32 at the serve path's prefill chunk (B=1, L=188, with an initial
 state) and the cache-free forward's shape (B=4, L=2048), and times
 them beside the unfused yardstick (ssd_unfused: every chunk batched
@@ -2427,7 +2443,7 @@ def tensor_core_usage() -> dict:
     SASS of each instantiation of the bf16 tensor-core bodies (#1-#11,
     and #1's wide body with its registers and spill; fails if cuobjdump
     is missing or one has none);
-    returns {kernel: (registers, spill bytes)} of its main-width
+    returns {kernel: (symbol, registers, spill bytes)} of its main-width
     instantiation (D = 128; #11's 64-column P slice), from its ptxas
     report."""
     from repro_torch.kernels import build
@@ -2439,7 +2455,8 @@ def tensor_core_usage() -> dict:
                              f"SASS: {counts}")
         parts.append(f"{name} " + ", ".join(f"{s} {n} HMMA"
                                             for s, n in counts.items()))
-        usage[name] = build.ptxas_usage(build.ptxas_report(name), symbols[0])
+        usage[name] = (symbols[0], *build.ptxas_usage(
+            build.ptxas_report(name), symbols[0]))
     for name, (symbol, _) in build.WIDE_BODIES.items():
         n = build.sass_hmma(name, symbol)
         regs, spill = build.ptxas_usage(build.ptxas_report(name), symbol)
@@ -2560,6 +2577,24 @@ def dropped_tile(q, k, v, do, o_p, lse_p, delta, want_q, want_k, want_v,
             (want_v.float() - cv).to(want_v.dtype))
 
 
+#: the aten operator each SDPA backend runs under
+SDPA_OPS = {"aten::_scaled_dot_product_flash_attention": "flash",
+            "aten::_scaled_dot_product_efficient_attention":
+                "efficient (memory-efficient, CUTLASS)",
+            "aten::_scaled_dot_product_cudnn_attention": "cuDNN",
+            "aten::_scaled_dot_product_attention_math": "math"}
+
+
+def sdpa_backend(call) -> str:
+    """The backend PyTorch's SDPA dispatcher took for ``call()``, from the
+    aten operator a host-side profile of one call shows."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+    seen = {e.key for e in prof.key_averages()}
+    return next((b for op, b in SDPA_OPS.items() if op in seen), "unknown")
+
+
 def attention_train_records(q, k, v, do, causal, tag) -> dict:
     """#7, #8 and #9 on q, do (B, Hq, S, D) and k, v (B, Hkv, S, D),
     causal or not: each against its plain version, held per row, the
@@ -2577,13 +2612,20 @@ def attention_train_records(q, k, v, do, causal, tag) -> dict:
 
     kw = dict(causal=causal)
     b, hq, sq, d = q.shape
+    d_v = v.shape[-1]
     ent = _causal_entries(b, hq, sq) if causal else b * hq * sq * k.shape[2]
-    qb, kvb = q.numel() * 2, k.numel() * 2       # bf16 bytes
+    # bytes of q (and dq), k (dk), v (dv), o and do (Dv wide)
+    qb, kb, vb, ob = (x.numel() * x.element_size() for x in (q, k, v, do))
     rowb = b * hq * sq * 4                       # an fp32 (B, Hq, Sq) row
     gqa = dict(enable_gqa=True) if hq != k.shape[1] else {}
     sdpa = lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
         q_, k_, v_, is_causal=causal, **gqa)
     what = "causal" if causal else "non-causal"
+    backend = sdpa_backend(lambda: sdpa(q, k, v))
+    what += f", the {backend} backend"
+    if d_v != d:
+        log(f"  SDPA at D {d} != Dv {d_v} [{tag}]: the dispatcher takes the "
+            f"{backend} backend (flash requires D = Dv)")
 
     o, lse = fused_attention_fwd(q, k, v, **kw)
     o_p, lse_p = fused_attention_fwd_plain(q, k, v, **kw)
@@ -2647,7 +2689,9 @@ def attention_train_records(q, k, v, do, causal, tag) -> dict:
 
     results = {}
     f7 = lambda: fused_attention_fwd(q, k, v, **kw)
-    bms, by = bound(2 * qb + 2 * kvb + rowb, 4 * d * ent)
+    # products: S = Q.K^T (2 D a score entry), O = P.V (2 Dv); #8 adds
+    # dP = dO.V^T and dQ = dS.K, #9 computes S, dP, dV = P^T.dO, dK
+    bms, by = bound(qb + kb + vb + ob + rowb, 2 * (d + d_v) * ent)
     results["fused_attention_fwd"] = dict(
         max_abs_err=err7, ms=time_ms(f7, 10),
         plain_ms=time_ms(lambda: fused_attention_fwd_plain(q, k, v, **kw),
@@ -2655,7 +2699,14 @@ def attention_train_records(q, k, v, do, causal, tag) -> dict:
         bound_ms=bms, bound_by=by,
         library_ms=lib_ms(f"SDPA forward, {what}, for fused_attention_fwd "
                           f"[{tag}]", lambda: time_ms(lambda: sdpa(q, k, v),
-                                                      10)))
+                                                      10)),
+        library_backend=backend)
+    if backend == "math" and d > d_v:
+        # the math backend materialises S: flash at V zero-padded to D
+        # is the faster yardstick there
+        vp = torch.nn.functional.pad(v, (0, d - d_v))
+        lib_ms(f"SDPA forward, flash with V zero-padded to {d} [{tag}]",
+               lambda: time_ms(lambda: sdpa(q, k, vp), 10))
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
     fwd_g = lambda: sdpa(qg, kg, vg)
     both = lambda: torch.autograd.grad(fwd_g(), (qg, kg, vg), do)
@@ -2663,14 +2714,16 @@ def attention_train_records(q, k, v, do, causal, tag) -> dict:
                      f"forward: dq, dk and dv together) for "
                      f"fused_attention_bwd_dq and _dkv [{tag}]",
                      lambda: time_ms(both, 5) - time_ms(fwd_g, 5))
-    bms, by = bound(2 * qb + 2 * kvb + 2 * rowb + qb, 6 * d * ent)
+    bms, by = bound(2 * qb + kb + vb + ob + 2 * rowb,
+                    (4 * d + 2 * d_v) * ent)
     results["fused_attention_bwd_dq"] = dict(
         max_abs_err=err8,
         ms=time_ms(lambda: fused_attention_bwd_dq(*args, **kw), 5),
         plain_ms=time_ms(lambda: fused_attention_bwd_dq_plain(*args, **kw),
                          2, 1),
         bound_ms=bms, bound_by=by, library_ms=lib_bwd)
-    bms, by = bound(2 * qb + 2 * kvb + 2 * rowb + 2 * kvb, 8 * d * ent)
+    bms, by = bound(qb + 2 * kb + 2 * vb + ob + 2 * rowb,
+                    4 * (d + d_v) * ent)
     results["fused_attention_bwd_dkv"] = dict(
         max_abs_err=err9,
         ms=time_ms(lambda: fused_attention_bwd_dkv(*args, **kw), 5),
@@ -3110,6 +3163,12 @@ def train_gemm_flops(cfg) -> float:
     e, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     n_mlp = 3 if cfg.mlp == "silu_glu" else 2
     attn = e * cfg.n_heads * hd * 2 + e * cfg.kv_heads * hd * 2
+    if cfg.attention == "mla":          # its six projections' MACs
+        h, rq, rkv = cfg.n_heads, cfg.q_lora_rank, cfg.kv_lora_rank
+        nope, rope_d, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                            cfg.v_head_dim)
+        attn = (e * rq + rq * h * (nope + rope_d) + e * (rkv + rope_d)
+                + rkv * h * nope + rkv * h * dv + h * dv * e)
     if cfg.moe:
         rows = cfg.n_experts * moe.capacity(cfg, TRAIN_SEQ) / TRAIN_SEQ
         layer = attn + rows * n_mlp * e * cfg.d_expert + e * cfg.n_experts
@@ -3998,21 +4057,19 @@ def moe_serve(dev):
     return launches
 
 
-def moe_train(dev):
-    """``launch/train.train_loop`` on phi3.5-moe at full width cut to
-    MOE_SHORT_LAYERS: remat full, bf16 moments, B=2, seq 2048, 3 steps.
-    The first step's gradients are taken twice from the same state and
-    must be equal bit for bit; every per-layer leaf finite and non-zero.
-    Returns the launches of the 3 steps."""
-    import dataclasses
-
-    from repro_torch import configs
+def short_train(cfg, phase, dev, after_profile=None):
+    """``launch/train.train_loop`` on ``cfg`` (a full-width config cut in
+    depth): remat full, bf16 moments, B=2, seq 2048, 3 steps.  The first
+    step's gradients are taken twice from the same state and must be
+    equal bit for bit; every per-layer leaf finite and non-zero; the
+    launches of #7-#9 a step as _train_launches predicts; the aux losses
+    positive where ``cfg.moe``.  Then one more step under the profiler,
+    by part, and ``after_profile(prof)`` where given.  Returns the
+    launches of the 3 steps."""
     from repro_torch.kernels import build
     from repro_torch.launch import train
     from repro_torch.train import step as train_step
 
-    cfg = dataclasses.replace(configs.get_config(MOE_ARCH),
-                              n_layers=MOE_SHORT_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4041,24 +4098,21 @@ def moe_train(dev):
         first.clear()
         del again, pairs
 
+    aux = ("moe_lb_loss", "moe_z_loss") if cfg.moe else ()
+
     def on_step(step, metrics, secs):
         per_step.append((step, float(metrics["loss"]),
-                         float(metrics["moe_lb_loss"]),
-                         float(metrics["moe_z_loss"]),
+                         [float(metrics[k]) for k in aux],
                          float(metrics["grad_norm"]), secs,
                          {n: build.LAUNCHES[n] for n in TRAIN_KERNELS}))
         total.update(build.LAUNCHES)
         build.reset_launches()
 
-    log(f"moe train: {cfg.name} d_model={cfg.d_model}, {cfg.n_experts} "
-        f"experts of {cfg.d_expert}, cut to {cfg.n_layers} layers, remat "
-        f"{cfg.remat}, bf16 params and moments, B={TRAIN_B} seq {TRAIN_SEQ} "
-        f"lr {TRAIN_LR}, 3 steps; | {card_line()}")
     build.reset_launches()
     t0 = time.perf_counter()
     train_step.value_and_grad = capture
     try:
-        with checked_grads("moe train", grad_leaves, after=twice):
+        with checked_grads(phase, grad_leaves, after=twice):
             state, losses = train.train_loop(
                 cfg, steps=3, batch=TRAIN_B, seq=TRAIN_SEQ, lr=TRAIN_LR,
                 moment_dtype="bfloat16", device=dev, on_step=on_step,
@@ -4070,11 +4124,11 @@ def moe_train(dev):
     pbytes = sum(t.numel() * t.element_size() for t in _leaves(state.params))
     obytes = sum(t.numel() * t.element_size() for m in
                  (state.opt.mu, state.opt.nu) for t in _leaves(m))
-    for step, loss, lb, z, gn, secs, launches in per_step:
-        log(f"  step {step}: loss {loss:.6f} moe_lb_loss {lb:.6f} "
-            f"moe_z_loss {z:.6f} grad_norm {gn:.6f} {secs * 1e3:.1f} ms, "
-            f"launches {launches}")
-    med = statistics.median(p[5] for p in per_step[1:])
+    for step, loss, auxes, gn, secs, launches in per_step:
+        log(f"  step {step}: loss {loss:.6f} " + "".join(
+            f"{k} {x:.6f} " for k, x in zip(aux, auxes)) +
+            f"grad_norm {gn:.6f} {secs * 1e3:.1f} ms, launches {launches}")
+    med = statistics.median(p[4] for p in per_step[1:])
     tok = TRAIN_B * TRAIN_SEQ
     log(f"  step time: median of steps 2-3 {med * 1e3:.1f} ms; "
         f"{tok / med:.1f} training tokens/s; wall {wall:.1f}s incl. init "
@@ -4089,15 +4143,15 @@ def moe_train(dev):
         f"call: {grad_leaves}")
     want = _train_launches(cfg)
     if len(per_step) != 3 or not all(math.isfinite(x) for x in losses):
-        raise SystemExit(f"moe train: losses {losses}")
-    if any(p[6] != want for p in per_step):
-        raise SystemExit(f"moe train: launches per step "
-                         f"{[p[6] for p in per_step]}, predicted {want}")
+        raise SystemExit(f"{phase}: losses {losses}")
+    if any(p[5] != want for p in per_step):
+        raise SystemExit(f"{phase}: launches per step "
+                         f"{[p[5] for p in per_step]}, predicted {want}")
     if repeat["differ"]:
-        raise SystemExit(f"moe train: gradients not bitwise repeatable: "
+        raise SystemExit(f"{phase}: gradients not bitwise repeatable: "
                          f"{repeat['differ'][:8]}")
-    if not all(p[2] > 0 and p[3] > 0 for p in per_step):
-        raise SystemExit("moe train: zero aux losses")
+    if not all(x > 0 for p in per_step for x in p[2]):
+        raise SystemExit(f"{phase}: zero aux losses")
 
     # one more step under the profiler: where a step's time goes
     from repro_torch.data import SyntheticTokenDataset
@@ -4106,15 +4160,34 @@ def moe_train(dev):
     batch = {"tokens": torch.from_numpy(ds.batch(3)).long().to(dev)}
     state, loss, prof, busy = profiled_step(
         train_step.make_train_step(cfg, lr=TRAIN_LR), state, batch,
-        "moe profiled training step", 12)
+        f"{phase} profiled training step", 12)
     train_breakdown(prof, busy, cfg,
                     sum(t.numel() for t in _leaves(state.params)))
-    moe_op_table(prof, 1)
+    if after_profile is not None:
+        after_profile(prof)
     log(f"  profiled step: loss {loss:.6f}")
     del state, prof
     gc.collect()
     torch.cuda.empty_cache()
     return total
+
+
+def moe_train(dev):
+    """``short_train`` on phi3.5-moe at full width cut to
+    MOE_SHORT_LAYERS, with the MoE ops of the profiled step.  Returns the
+    launches of the 3 steps."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH),
+                              n_layers=MOE_SHORT_LAYERS)
+    log(f"moe train: {cfg.name} d_model={cfg.d_model}, {cfg.n_experts} "
+        f"experts of {cfg.d_expert}, cut to {cfg.n_layers} layers, remat "
+        f"{cfg.remat}, bf16 params and moments, B={TRAIN_B} seq {TRAIN_SEQ} "
+        f"lr {TRAIN_LR}, 3 steps; | {card_line()}")
+    return short_train(cfg, "moe train", dev,
+                       after_profile=lambda prof: moe_op_table(prof, 1))
 
 
 def moe_phase(dev):
@@ -4566,6 +4639,176 @@ def mla_phase(dev, g):
     return launches, records
 
 
+# ---------------------------------------------------------------------------
+# MLA training: deepseek-v3's dense layers through #7-#9 at D 192 / Dv 128
+# ---------------------------------------------------------------------------
+
+#: deepseek-v3's cache-free training attention: B=2, 128 query heads over
+#: 128 (group 1), S = 2048, causal, D = nope 128 + rope 64, Dv = 128, at
+#: the kernels' default scale D^-0.5 = 192^-0.5, MLA's own
+MLA_ATTN = (2, 128, 2048, 192, 128)
+#: #7-#9's fp32 tolerance per row (FMAs summing in another order than
+#: the plain versions; bf16 takes ROW_TOL), and on lse, absolute
+TRAIN_FP32_TOL = 1e-4
+#: the trained depth: deepseek-v3's dense-layer math (MLA and a SwiGLU of
+#: d_ff 18432) as a body of 3 layers without MoE or prefix (3.60 G
+#: parameters, 28.8 GB of state with bf16 moments).  One MoE layer alone
+#: is 11.3 G parameters, about 90 GB with its gradients and moments: no
+#: depth that holds one fits one card.
+MLA_TRAIN_LAYERS = 3
+
+
+def fp32_train_gate(q, k, v, do, tag) -> None:
+    """#7, #8 and #9 in fp32 (the FMA bodies) against their plain
+    versions: o, dq (rows 1..: causal row 0 is 0 exactly), dk and dv per
+    row and lse absolute within TRAIN_FP32_TOL; bitwise repeatable; the
+    gate shown to reject the plain results with a tile dropped."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import fused_attention as fa
+
+    o, lse = fa.fused_attention_fwd(q, k, v)
+    o_p, lse_p = fa.fused_attention_fwd_plain(q, k, v)
+    delta = ref.attention_delta(o_p, do)
+    args = (q, k, v, do, lse_p, delta)
+    dq = fa.fused_attention_bwd_dq(*args)
+    dk, dv = fa.fused_attention_bwd_dkv(*args)
+    want_q = fa.fused_attention_bwd_dq_plain(*args)
+    want_k, want_v = fa.fused_attention_bwd_dkv_plain(*args)
+
+    def errs(o_, lse_, dq_, dk_, dv_):
+        return {"o": row_err(o_, o_p), "dq": row_err(dq_[:, :, 1:],
+                                                     want_q[:, :, 1:]),
+                "dk": row_err(dk_, want_k), "dv": row_err(dv_, want_v),
+                "lse_abs": (lse_ - lse_p).abs().max().item()}
+
+    got = errs(o, lse, dq, dk, dv)
+    again = (*fa.fused_attention_fwd(q, k, v),
+             fa.fused_attention_bwd_dq(*args),
+             *fa.fused_attention_bwd_dkv(*args))
+    same = all(torch.equal(a, b) for a, b in zip(again, (o, lse, dq, dk, dv)))
+    dropped = errs(*dropped_tile(q, k, v, do, o_p, lse_p, delta, want_q,
+                                 want_k, want_v))
+    ok = all(e <= TRAIN_FP32_TOL for e in got.values())
+    rejected = any(e > TRAIN_FP32_TOL for e in dropped.values())
+    log(f"  #7, #8, #9 fp32 [{tag}] per row " + " ".join(
+        f"{n}={e:.3e}" for n, e in got.items()) +
+        f" (tol {TRAIN_FP32_TOL}) {'ok' if ok else 'FAIL'}; bitwise "
+        f"repeatable {same}; plain with a tile dropped " + " ".join(
+            f"{n}={e:.3e}" for n, e in dropped.items()) +
+        (" rejected, as it must be" if rejected else " PASSED"))
+    if not (ok and same and rejected):
+        raise SystemExit(f"#7-#9 fp32 gate failed [{tag}]")
+
+
+def mla_train_kernel_phase(dev, g) -> dict:
+    """#7, #8 and #9 at MLA's training shape (MLA_ATTN, the
+    ``*_mma_kernel_d192`` instantiations in bf16): as at their main
+    shapes by attention_train_records (per row, a dropped tile rejected,
+    bitwise repeatable, timed beside SDPA, whose backend is named), then
+    in fp32 by fp32_train_gate.  Returns {kernel: {"mla": record}}, each
+    with its instantiation's registers and spill."""
+    from repro_torch.kernels import build
+
+    b, h, s, d, dv = MLA_ATTN
+    tag = f"mla B={b} H={h}/{h} S={s} D={d} Dv={dv} causal"
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    q, k, v, do = rnd(b, h, s, d), rnd(b, h, s, d), rnd(b, h, s, dv), \
+        rnd(b, h, s, dv)
+    out = {}
+    recs = attention_train_records(*(x.to(torch.bfloat16)
+                                     for x in (q, k, v, do)), True, tag)
+    for name, r in recs.items():
+        sym = build.TENSOR_CORE_BODIES[name][2]
+        regs, spill = build.ptxas_usage(build.ptxas_report(name), sym)
+        out[name] = {"mla": dict(shape=tag, instantiation=sym,
+                                 registers=regs, spill_bytes=spill, **r)}
+        log_record(name, out[name]["mla"], tag)
+    fp32_train_gate(q, k, v, do, tag)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_train_cfg():
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(MLA_ARCH),
+                               n_layers=MLA_TRAIN_LAYERS,
+                               first_dense_layers=0, moe=False)
+
+
+def mla_train_parity(cfg, dev) -> None:
+    """The loss and every gradient leaf of one B=2, seq 2048 batch on the
+    kernels against impl forced to the plain versions, at the trained
+    config's full width and depth (the plain attention's fp32 S x S
+    tensors, 4.3 GB each, fit beside it): loss within PARITY_REL,
+    each leaf within KERNEL_TOL of its largest; #7-#9 launched as
+    _train_launches predicts, nothing by the plain run."""
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.kernels import build
+    from repro_torch.models.weights import init_params
+    from repro_torch.train import step as train_step
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, dev)
+    ds = SyntheticTokenDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_B, seed=0,
+                               structured=True)
+    batch = {"tokens": torch.from_numpy(ds.batch(0)).long().to(dev)}
+    runs = {}
+    for impl in ("auto", "torch"):
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        (loss, _), grads = train_step.value_and_grad(params, cfg, batch,
+                                                     impl=impl)
+        torch.cuda.synchronize()
+        runs[impl] = (float(loss), grads, dict(build.LAUNCHES),
+                      torch.cuda.max_memory_allocated())
+    (l_k, g_k, launches, peak_k), (l_p, g_p, plain_l, peak_p) = \
+        runs["auto"], runs["torch"]
+    log(f"mla train parity: B={TRAIN_B} seq {TRAIN_SEQ}, {cfg.n_layers} "
+        f"layers at full width, bf16; launches on the kernels {launches}, "
+        f"on the plain versions {plain_l or 'none'}; peak "
+        f"{peak_k / 1e9:.3f} GB (kernels), {peak_p / 1e9:.3f} GB (plain)")
+    if {n: launches.get(n, 0) for n in TRAIN_KERNELS} != \
+            _train_launches(cfg) or plain_l:
+        raise SystemExit(f"mla train parity: launches {launches}, plain "
+                         f"{plain_l}")
+    n = check_grads_nonzero(g_k, "mla train parity")
+    worst = ("none", -1.0)
+    for (name, a), (_, b) in zip(_grad_leaves(g_k), _grad_leaves(g_p)):
+        worst = max(worst, (name, rel_err(a, b)[1]), key=lambda w: w[1])
+    ok = abs(l_k - l_p) <= PARITY_REL * abs(l_p) and worst[1] <= KERNEL_TOL
+    log(f"  loss {l_k:.6f} vs plain {l_p:.6f} (tol rel {PARITY_REL}); {n} "
+        f"gradient leaves, worst {worst[0]} rel {worst[1]:.4e} (tol "
+        f"{KERNEL_TOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("mla train parity: loss or gradients disagree")
+    del params, runs, g_k, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mla_train_phase(dev):
+    """deepseek-v3's dense layers at full width (mla_train_cfg), every
+    earlier phase's weights freed first: the parity of the kernels
+    against the plain versions (mla_train_parity), then short_train.
+    Returns the launches of the 3 steps."""
+    cfg = mla_train_cfg()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"mla train: {cfg.name} d_model={cfg.d_model}, {cfg.n_heads} heads "
+        f"(D {cfg.qk_nope_head_dim} + {cfg.qk_rope_head_dim}, Dv "
+        f"{cfg.v_head_dim}), d_ff {cfg.d_ff}, its dense layers as a body of "
+        f"{cfg.n_layers} without MoE, remat {cfg.remat}, bf16 params and "
+        f"moments, B={TRAIN_B} seq {TRAIN_SEQ} lr {TRAIN_LR}, 3 steps; "
+        f"device memory allocated before "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB | {card_line()}")
+    mla_train_parity(cfg, dev)
+    return short_train(cfg, "mla train", dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4599,6 +4842,8 @@ def main() -> int:
     frontend = frontend_kernel_phase(dev, g)
     for name, shapes in moe_kernel_phase(dev, g).items():
         frontend.setdefault(name, {}).update(shapes)
+    for name, shapes in mla_train_kernel_phase(dev, g).items():
+        frontend.setdefault(name, {}).update(shapes)
     log("kernels: " + ", ".join(f"{n} ok" for n in results))
     plan_phase(dev)
     launches = serve_phase(dev)
@@ -4615,6 +4860,7 @@ def main() -> int:
     launches.update(mla_launches)
     for name, shapes in mla_records.items():
         frontend.setdefault(name, {}).update(shapes)
+    launches.update(mla_train_phase(dev))
     missing = [n for n in build.KERNELS if launches[n] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on any path: {missing}")
@@ -4626,9 +4872,10 @@ def main() -> int:
     # registers and spill of the instantiation each kernel's timed call
     # ran: #4's table shape (decode) runs the split-KV body, not its
     # tensor-core one, so it has none here
-    for name, (regs, spill) in usage.items():
+    for name, (symbol, regs, spill) in usage.items():
         if name != "fused_attention_paged":
-            results[name].update(registers=regs, spill_bytes=spill)
+            results[name].update(instantiation=symbol, registers=regs,
+                                 spill_bytes=spill)
     # the frontends', phi3.5-moe's and deepseek-v3's (MLA) shapes of #1,
     # #3 and #7-#9 ride with their rows
     for name, shapes in frontend.items():

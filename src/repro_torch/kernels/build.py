@@ -78,8 +78,10 @@ KERNELS = {
 #: kernel name -> the kernels of its bf16 tensor-core body (C linkage,
 #: so the names are the source's own): the D = Dv = 128 instantiation
 #: that the serve and training paths run, then the one for any even
-#: width.  The masked and paged kernels' bf16 bodies serve their
-#: one-pass shapes (the split-KV body, fp32 FMAs, serves decode shapes);
+#: width, and for the training attention's three kernels (#7-#9) the one
+#: for D in (128, 192], Dv <= 128 that MLA's training runs.  The masked
+#: and paged kernels' bf16 bodies serve their one-pass shapes (the
+#: split-KV body, fp32 FMAs, serves decode shapes);
 #: fused_qproj_attention_fwd is fused_qproj_attention_masked's kernel
 #: without lengths; the decode megakernels' bodies are cooperative
 #: launches of one block per SM; the SSD scan's, a P slice of 64 (the
@@ -93,9 +95,12 @@ TENSOR_CORE_BODIES = {
                               "paged_mma_kernel_any"),
     "fused_qproj_attention_paged": ("qproj_paged_mma_kernel_d128",
                                     "qproj_paged_mma_kernel_any"),
-    "fused_attention_fwd": ("fwd_mma_kernel_d128", "fwd_mma_kernel_any"),
-    "fused_attention_bwd_dq": ("dq_mma_kernel_d128", "dq_mma_kernel_any"),
-    "fused_attention_bwd_dkv": ("dkv_mma_kernel_d128", "dkv_mma_kernel_any"),
+    "fused_attention_fwd": ("fwd_mma_kernel_d128", "fwd_mma_kernel_any",
+                            "fwd_mma_kernel_d192"),
+    "fused_attention_bwd_dq": ("dq_mma_kernel_d128", "dq_mma_kernel_any",
+                               "dq_mma_kernel_d192"),
+    "fused_attention_bwd_dkv": ("dkv_mma_kernel_d128", "dkv_mma_kernel_any",
+                                "dkv_mma_kernel_d192"),
     "fused_qproj_attention_fwd": ("qproj_mma_kernel_d128",
                                   "qproj_mma_kernel_any"),
     "fused_decode_block": ("decode_mma_kernel_d128",

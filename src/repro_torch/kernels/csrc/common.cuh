@@ -63,14 +63,24 @@ constexpr int kRows = 16;
 constexpr int kRowsPerWarp = kRows / kWarps;
 constexpr int kTileK = 64;
 constexpr int kMaxD = 128;
-constexpr int kKStride = kMaxD + 1;  // pad K rows: conflict-free column reads
 
-// Dynamic shared memory of the body, in floats.
-constexpr int kSmemFloats = kRows * kMaxD      // q tile
-                            + kTileK * kKStride  // K tile
-                            + kTileK * kMaxD     // V tile
-                            + kRows * kTileK;    // p tile
-constexpr int kSmemBytes = kSmemFloats * 4;
+// The widest heads of the training attention (fused_attention_fwd and
+// its backward): Multi-head Latent Attention's D = nope 128 + rope 64,
+// with Dv 128.  Past kMaxD, which sizes every other body, they take
+// instantiations of their own.
+constexpr int kTrainMaxD = 192;
+constexpr int kTrainMaxDv = 128;
+
+// Dynamic shared memory of the body with Q and K rows up to kMD wide
+// (V's up to kMaxD), in bytes.
+template <int kMD>
+constexpr int smem_bytes() {
+  return 4 * (kRows * kMD           // q tile
+              + kTileK * (kMD + 1)  // K tile
+              + kTileK * kMaxD      // V tile
+              + kRows * kTileK);    // p tile
+}
+constexpr int kSmemBytes = smem_bytes<kMaxD>();
 
 // Where a kernel's KV lives, as its launch gives it: a dense cache
 // (tbl == nullptr) or a paged pool read through (B, max_pages) block
@@ -174,7 +184,8 @@ struct RowInfo {
 };
 
 // The masked online-softmax body for the kRows rows whose Q (fp32,
-// already rounded to K's dtype, kMaxD stride) sits in q_s.  k / v are
+// already rounded to K's dtype, kMD stride: Q and K widths up to kMD,
+// V's up to kMaxD) sits in q_s.  k / v are
 // the whole K/V arrays, addressed through the policy kv (DenseKV or
 // PagedKV) for this (b, kv-head).  Columns c < kv_end are walked; a
 // row sees column c iff c < len and c <= anchor (the end-anchored
@@ -183,7 +194,7 @@ struct RowInfo {
 // valid column emits 0.  lse (nullable; the training kernels pass it)
 // receives each row's m + log(l) in fp32, l = 0 counted as 1, at
 // out_off / Dv: the outputs are (B, Hq, Sq, Dv) and lse (B, Hq, Sq).
-template <typename T, typename KV>
+template <typename T, typename KV, int kMD = kMaxD>
 __device__ void masked_attention_rows(float* smem, const RowInfo* rows,
                                       const T* __restrict__ k,
                                       const T* __restrict__ v, KV kv,
@@ -191,9 +202,10 @@ __device__ void masked_attention_rows(float* smem, const RowInfo* rows,
                                       float* __restrict__ lse, int len,
                                       int kv_end, int D, int Dv,
                                       float scale) {
+  constexpr int kKS = kMD + 1;  // pad K rows: conflict-free column reads
   float* q_s = smem;
-  float* k_s = q_s + kRows * kMaxD;
-  float* v_s = k_s + kTileK * kKStride;
+  float* k_s = q_s + kRows * kMD;
+  float* v_s = k_s + kTileK * kKS;
   float* p_s = v_s + kTileK * kMaxD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
@@ -216,7 +228,7 @@ __device__ void masked_attention_rows(float* smem, const RowInfo* rows,
     if (KV::kStaged) __syncthreads();
     for (int idx = tid; idx < kTileK * D; idx += kThreads) {
       const int j = idx / D, d = idx - j * D;
-      k_s[j * kKStride + d] = j < nk ? to_f(k[kv.row(j0 + j) * D + d]) : 0.f;
+      k_s[j * kKS + d] = j < nk ? to_f(k[kv.row(j0 + j) * D + d]) : 0.f;
     }
     for (int idx = tid; idx < kTileK * Dv; idx += kThreads) {
       const int j = idx / Dv, d = idx - j * Dv;
@@ -228,13 +240,13 @@ __device__ void masked_attention_rows(float* smem, const RowInfo* rows,
     float s[kRowsPerWarp][2];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) s[i][0] = s[i][1] = 0.f;
-    const float* k0 = k_s + lane * kKStride;
-    const float* k1 = k_s + (lane + 32) * kKStride;
+    const float* k0 = k_s + lane * kKS;
+    const float* k1 = k_s + (lane + 32) * kKS;
     for (int d = 0; d < D; ++d) {
       const float a = k0[d], b = k1[d];
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float q = q_s[(warp * kRowsPerWarp + i) * kMaxD + d];
+        const float q = q_s[(warp * kRowsPerWarp + i) * kMD + d];
         s[i][0] = fmaf(q, a, s[i][0]);
         s[i][1] = fmaf(q, b, s[i][1]);
       }

@@ -111,8 +111,20 @@
 // is not a multiple of 8 (or a plane not 16-byte aligned) is staged by
 // plain loads instead of cp.async.  K/V (8 MB at B=2, seq 2048) stay in
 // the 50 MB L2, so each query head's block rereads them from there.
+// MLA's cache-free training attention (deepseek-v3: 128 heads over 128,
+// D = nope 128 + rope 64 = 192, Dv = 128; B=2, S=2048, causal) does
+// 2 * (D + Dv) * B*Hq*Sq*(Sq+1)/2 = 343.8 GFLOP against 0.67 GB of Q, K,
+// V, O and lse: 0.3476 ms at 989 TFLOP/s, bound by the operations.  Q
+// and K past 128 wide take an instantiation of the same body,
+// fwd_mma_kernel_d192 (mma.cuh Width::kD192): K rows padded to 200
+// elements (400 bytes, 16 modulo 128: still free of bank conflicts),
+// V's kept at 136, Q's twelve A fragments held in registers, widths
+// zero-padded to 192 and 128 in the fragments so the products' loops
+// are the compiler's; 84 KB of shared memory and 228 registers, two
+// blocks per SM.  Widths past D 192 or Dv 128 are refused.
 // fp32 inputs take masked_attention_kernel without lengths, the FMA
-// body: the card tests hold fp32 to 1e-4, which neither bf16 nor TF32
+// body (sized for 192 where D is past 128, with its own shared memory):
+// the card tests hold fp32 to 1e-4, which neither bf16 nor TF32
 // tensor cores can, and no path of the port runs the training attention
 // in fp32 on the card.  The split is a dispatch on the dtype code in
 // fused_attention_fwd_launch, not a fallback.
@@ -123,7 +135,8 @@
 
 namespace {
 
-template <typename T, typename KV>
+// kMD: the widest Q and K rows (q_s's stride); V's are at most kMaxD.
+template <typename T, typename KV, int kMD = rt::kMaxD>
 __global__ void __launch_bounds__(rt::kThreads)
     masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
@@ -168,7 +181,7 @@ __global__ void __launch_bounds__(rt::kThreads)
       const int h = kvh * group + g;
       val = rt::to_f(q[(((int64_t)b * Hq + h) * Sq + pos) * D + d]);
     }
-    q_s[i * rt::kMaxD + d] = val;
+    q_s[i * kMD + d] = val;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -179,7 +192,7 @@ __global__ void __launch_bounds__(rt::kThreads)
     kv_end_s = end;
   }
   __syncthreads();
-  rt::masked_attention_rows<T>(smem, rows, k, v,
+  rt::masked_attention_rows<T, KV, kMD>(smem, rows, k, v,
                                KV::make(src, b, kvh, Hkv, scratch), out,
                                lse, len, kv_end_s, D, Dv, scale);
 }
@@ -591,42 +604,49 @@ __device__ __forceinline__ void body(const bf16* __restrict__ q,
 namespace fwd {
 
 using rt::mma::bf16;
+using rt::mma::Width;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBq = 16 * kWarps;  // query rows per block, 16 per warp
 constexpr int kBk = 64;           // keys per tile
-constexpr int kS = rt::mma::kStride;
 // two buffers of (K, V); Q is staged in the second K buffer, read into
 // registers before that buffer's first tile is loaded
-constexpr int kSmemBytes = 4 * kBk * kS * 2;
+template <Width W>
+constexpr int smem_bytes() {
+  using Wd = rt::mma::Widths<W>;
+  return 2 * kBk * (Wd::kSK + Wd::kSV) * 2;
+}
 static_assert(kBq <= kBk, "the Q tile must fit a K buffer");
 
 // One block: query rows [r0, r0 + 64) of plane bh = b * Hq + h, the row
 // tile y counted from the last (heaviest under the causal mask) first.
-// kFull: D = Dv = 128 and 16-byte copies, known to the compiler, so the
-// width guards and the loaders' divisions fold away (on an H100, 0.41
-// against 0.63 ms at the training shape).  Launched as
-// fwd_mma_kernel_d128 or _any below, 3 blocks per SM (168 registers, 68
-// KB of shared memory each).
-template <bool kFull>
+// W: the widths it serves (mma.cuh Width).  kD128 folds the width
+// guards and the loaders' divisions away (on an H100, 0.41 against 0.63
+// ms for kAny at the training shape).  Launched as fwd_mma_kernel_d128
+// or _any below, 3 blocks per SM (168 registers, 68 KB of shared memory
+// each), or as fwd_mma_kernel_d192 (Q's 12 A fragments held in
+// registers, K rows of 200 elements: 84 KB, 2 blocks per SM).
+template <Width W>
 __device__ __forceinline__ void fwd_mma_body(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ out,
     float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int D, int Dv,
     int causal, int q_offset, float scale, bool vec) {
   using namespace rt::mma;
+  using Wd = Widths<W>;
+  constexpr int kSK = Wd::kSK, kSV = Wd::kSV, kNd = Wd::kNd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // two buffers of kBk rows
-  bf16* v_s = k_s + 2 * kBk * kS;                  // two buffers of kBk rows
-  bf16* q_s = k_s + kBk * kS;                      // K's second buffer
+  bf16* v_s = k_s + 2 * kBk * kSK;                 // two buffers of kBk rows
+  bf16* q_s = k_s + kBk * kSK;                     // K's second buffer
   const int bh = blockIdx.x;
   const int b = bh / Hq, h = bh - b * Hq;
   const int kvh = h / (Hq / Hkv);
   const int r0 = (gridDim.y - 1 - blockIdx.y) * kBq;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  if (kFull) D = Dv = 128, vec = true;
-  const int Dp = (D + 15) & ~15, Dvp = (Dv + 15) & ~15;
+  if (W == Width::kD128) D = Dv = 128, vec = true;
+  const int Dp = Wd::dp(D), Dvp = Wd::dvp(Dv);
   const bf16* qp = q + (int64_t)bh * Sq * D;
   const bf16* kp = k + ((int64_t)b * Hkv + kvh) * Skv * D;
   const bf16* vp = v + ((int64_t)b * Hkv + kvh) * Skv * Dv;
@@ -635,19 +655,19 @@ __device__ __forceinline__ void fwd_mma_body(
   const int kv_end = causal ? max(0, min(Skv, q_offset + last + 1)) : Skv;
   const int n_tiles = (kv_end + kBk - 1) / kBk;
 
-  load_tile<kBq, kThreads>(q_s, qp, r0, Sq, D, Dp, vec);
+  load_tile<kBq, kThreads, kSK>(q_s, qp, r0, Sq, D, Dp, vec);
   if (n_tiles > 0) {
-    load_tile<kBk, kThreads>(k_s, kp, 0, Skv, D, Dp, vec);
-    load_tile<kBk, kThreads>(v_s, vp, 0, Skv, Dv, Dvp, vec);
+    load_tile<kBk, kThreads, kSK>(k_s, kp, 0, Skv, D, Dp, vec);
+    load_tile<kBk, kThreads, kSV>(v_s, vp, 0, Skv, Dv, Dvp, vec);
   }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[8][4];  // Q's A fragments, 16 columns each
+  uint32_t qf[kNd][4];  // Q's A fragments, 16 columns each
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < kNd; ++kk)
     if (kk * 16 < Dp)
-      ldsm_x4(qf[kk], q_s + warp * 16 * kS + kk * 16 + a_off(lane));
+      ldsm_x4(qf[kk], q_s + warp * 16 * kSK + kk * 16 + a_off<kSK>(lane));
   __syncthreads();  // Q read before tile 1 overwrites it
 
   // this lane's rows: wr + gid and wr + gid + 8
@@ -663,16 +683,16 @@ __device__ __forceinline__ void fwd_mma_body(
     const int j0 = t * kBk;
     if (t + 1 < n_tiles) {
       const int nb = (t + 1) & 1;
-      load_tile<kBk, kThreads>(k_s + nb * kBk * kS, kp, j0 + kBk, Skv, D, Dp,
-                               vec);
-      load_tile<kBk, kThreads>(v_s + nb * kBk * kS, vp, j0 + kBk, Skv, Dv,
-                               Dvp, vec);
+      load_tile<kBk, kThreads, kSK>(k_s + nb * kBk * kSK, kp, j0 + kBk, Skv,
+                                    D, Dp, vec);
+      load_tile<kBk, kThreads, kSV>(v_s + nb * kBk * kSV, vp, j0 + kBk, Skv,
+                                    Dv, Dvp, vec);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile t has landed
     __syncthreads();
-    const bf16* ks = k_s + (t & 1) * kBk * kS;
-    const bf16* vs = v_s + (t & 1) * kBk * kS;
+    const bf16* ks = k_s + (t & 1) * kBk * kSK;
+    const bf16* vs = v_s + (t & 1) * kBk * kSV;
 
     // S = Q.K^T: n-tile n holds keys j0 + 8n + 2tig, +1
     float s[8][4];
@@ -681,12 +701,12 @@ __device__ __forceinline__ void fwd_mma_body(
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < kNd; ++kk) {
       if (kk * 16 >= Dp) break;
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bf[4];
-        ldsm_x4(bf, ks + np * 16 * kS + kk * 16 + bn_off(lane));
+        ldsm_x4(bf, ks + np * 16 * kSK + kk * 16 + bn_off<kSK>(lane));
         mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
         mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
       }
@@ -749,7 +769,7 @@ __device__ __forceinline__ void fwd_mma_body(
       for (int np = 0; np < 8; ++np) {
         if (np * 16 >= Dvp) break;
         uint32_t bf[4];
-        ldsm_x4_t(bf, vs + kk * 16 * kS + np * 16 + bk_off(lane));
+        ldsm_x4_t(bf, vs + kk * 16 * kSV + np * 16 + bk_off<kSV>(lane));
         mma_bf16(acc[2 * np], pa, bf[0], bf[1]);
         mma_bf16(acc[2 * np + 1], pa, bf[2], bf[3]);
       }
@@ -782,21 +802,24 @@ __device__ __forceinline__ void fwd_mma_body(
 }  // namespace fwd
 }  // namespace
 
-// The body's two instantiations as kernels with names of their own (C
+// The body's instantiations as kernels with names of their own (C
 // linkage), so the build's ptxas report and the SASS name each one:
-// fwd_mma_kernel_d128 is the one the training path runs.
-#define FWD_MMA_KERNEL(name, full)                                          \
-  extern "C" __global__ void __launch_bounds__(fwd::kThreads, 3) name(     \
+// fwd_mma_kernel_d128 is the one the GQA training path runs,
+// fwd_mma_kernel_d192 the one MLA's does.
+#define FWD_MMA_KERNEL(name, width, blocks)                                 \
+  extern "C" __global__ void __launch_bounds__(fwd::kThreads, blocks) name( \
       const rt::mma::bf16* __restrict__ q,                                  \
       const rt::mma::bf16* __restrict__ k,                                  \
       const rt::mma::bf16* __restrict__ v, rt::mma::bf16* __restrict__ out, \
       float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int D,     \
       int Dv, int causal, int q_offset, float scale, bool vec) {            \
-    fwd::fwd_mma_body<full>(q, k, v, out, lse, Hq, Hkv, Sq, Skv, D, Dv,     \
-                            causal, q_offset, scale, vec);                  \
+    fwd::fwd_mma_body<rt::mma::Width::width>(q, k, v, out, lse, Hq, Hkv,    \
+                                             Sq, Skv, D, Dv, causal,        \
+                                             q_offset, scale, vec);         \
   }
-FWD_MMA_KERNEL(fwd_mma_kernel_d128, true)
-FWD_MMA_KERNEL(fwd_mma_kernel_any, false)
+FWD_MMA_KERNEL(fwd_mma_kernel_d128, kD128, 3)
+FWD_MMA_KERNEL(fwd_mma_kernel_any, kAny, 3)
+FWD_MMA_KERNEL(fwd_mma_kernel_d192, kD192, 2)
 #undef FWD_MMA_KERNEL
 
 // The one-pass body's instantiations as kernels with names of their own
@@ -858,12 +881,16 @@ int launch(const void* q, const void* k, const void* v, void* out,
            cudaStream_t stream) {
   const bool vec = rt::mma::vec_ok(q, D) && rt::mma::vec_ok(k, D) &&
                    rt::mma::vec_ok(v, Dv);
+  // by the widths alone (the caller refuses D > 192 or Dv > 128)
   auto kern = vec && D == 128 && Dv == 128 ? fwd_mma_kernel_d128
                                            : fwd_mma_kernel_any;
+  int smem = smem_bytes<Width::kAny>();
+  if (D > rt::kMaxD)
+    kern = fwd_mma_kernel_d192, smem = smem_bytes<Width::kD192>();
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemBytes);
+                       smem);
   dim3 grid(B * Hq, (Sq + kBq - 1) / kBq);
-  kern<<<grid, kThreads, kSmemBytes, stream>>>(
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Hq, Hkv,
       Sq, Skv, D, Dv, causal, q_offset, scale, vec);
@@ -873,19 +900,22 @@ int launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace fwd
 
 // The FMA one-pass body (masked_attention_rows), which fp32 runs: the
-// masked and paged kernels' one-pass shapes and the training forward.
-template <typename KV>
+// masked and paged kernels' one-pass shapes and the training forward,
+// with Q and K rows up to kMD wide (kTrainMaxD: the training forward's
+// MLA widths, an instantiation of its own with its own shared memory).
+template <typename KV, int kMD = rt::kMaxD>
 int fma_launch(int dtype, const void* q, const void* k, const void* v,
                const int* lengths, rt::KVSource src, void* out, float* lse,
                int B, int Hq, int Hkv, int Sq, int D, int Dv, int causal,
                int q_offset, float scale, cudaStream_t stream) {
   if (dtype != rt::kF32) return (int)cudaErrorInvalidValue;
-  auto kern = masked_attention_kernel<float, KV>;
+  auto kern = masked_attention_kernel<float, KV, kMD>;
+  constexpr int smem = rt::smem_bytes<kMD>();
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       rt::kSmemBytes);
+                       smem);
   const int n_rows = (Hq / Hkv) * Sq;
   dim3 grid((n_rows + rt::kRows - 1) / rt::kRows, B * Hkv);
-  kern<<<grid, rt::kThreads, rt::kSmemBytes, stream>>>(
+  kern<<<grid, rt::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), lengths, src, static_cast<float*>(out),
       lse, Hq, Hkv, Sq, D, Dv, causal, q_offset, scale);
@@ -1018,17 +1048,25 @@ extern "C" int fused_attention_masked_launch(
 
 // bf16 runs the tensor-core body, fp32 the FMA body (masked_attention_rows
 // without lengths): a dispatch on the dtype, stated in the notes above.
+// Widths past D 192 or Dv 128 are refused.
 extern "C" int fused_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* out, float* lse, int B,
     int Hq, int Hkv, int Sq, int Skv, int D, int Dv, int causal,
     int q_offset, float scale, int dtype, void* stream) {
+  if (D < 1 || Dv < 1 || D > rt::kTrainMaxD || Dv > rt::kTrainMaxDv)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kBF16)
     return fwd::launch(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, D, Dv, causal,
-                       q_offset, scale, static_cast<cudaStream_t>(stream));
-  return fma_launch<rt::DenseKV>(dtype, q, k, v, nullptr,
-                                 rt::KVSource{nullptr, 0, 0, Skv}, out, lse,
-                                 B, Hq, Hkv, Sq, D, Dv, causal, q_offset,
-                                 scale, static_cast<cudaStream_t>(stream));
+                       q_offset, scale, s);
+  const rt::KVSource src{nullptr, 0, 0, Skv};
+  if (D > rt::kMaxD)
+    return fma_launch<rt::DenseKV, rt::kTrainMaxD>(
+        dtype, q, k, v, nullptr, src, out, lse, B, Hq, Hkv, Sq, D, Dv, causal,
+        q_offset, scale, s);
+  return fma_launch<rt::DenseKV>(dtype, q, k, v, nullptr, src, out, lse, B,
+                                 Hq, Hkv, Sq, D, Dv, causal, q_offset, scale,
+                                 s);
 }
 
 extern "C" int fused_attention_paged_launch(

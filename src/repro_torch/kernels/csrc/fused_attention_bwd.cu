@@ -91,6 +91,22 @@
 // path of the port runs the training attention in fp32 on the card.
 // The split is a dispatch on the dtype code in
 // fused_attention_bwd_dkv_launch, not a fallback.
+// MLA's cache-free heads (D = 128 + 64 = 192, Dv = 128, 128 heads over
+// 128, B=2, S=2048, causal): dq's three products are (4 D + 2 Dv) = 1024
+// FLOP a score entry, 550.0 GFLOP, 0.5561 ms; dk/dv's four, 4 (D + Dv)
+// = 1280, 687.5 GFLOP, 0.6952 ms; both bound by the operations.  Their
+// bf16 bodies take an instantiation of their own there
+// (dq_mma_kernel_d192, dkv_mma_kernel_d192; mma.cuh Width::kD192): Q
+// and K rows padded to 200 elements, widths zero-padded to 192 and 128
+// in the fragments.  dq's accumulator grows to 16 x 192 a warp (96
+// registers), so Q's A fragments are read from a shared tile of their
+// own at every step instead of held (dO's stay held): 243 registers,
+// 109 KB, two blocks per SM.  dk/dv's accumulators take 160 registers
+// (dK 96, dV 64), so K's and V's A fragments are read from their shared
+// tiles by ldmatrix at every step: 255 registers, no spill, 212 KB, one
+// block per SM.  fp32 takes dq_kernel and dkv_kernel sized for 192,
+// each with its own shared memory.  Widths past D 192 or Dv 128 are
+// refused.
 // Levers for a later change: wgmma with TMA tile loads in dq and dk/dv,
 // and a single backward walk that also emits dq (the dk/dv block
 // already holds every ds it needs; dq then needs a cross-block sum).
@@ -103,54 +119,62 @@ constexpr int kThreads = 128;
 constexpr int kBq = 16;       // query rows per tile
 constexpr int kBkDq = 64;     // keys per tile of the dq walk
 constexpr int kBkDkv = 32;    // keys per dk/dv block
-constexpr int kMaxD = rt::kMaxD;
-constexpr int kStride = rt::kKStride;
-constexpr int kT = kMaxD / 32;  // dims per lane
 
-constexpr int kDqSmemFloats = 2 * kBq * kMaxD      // q, dO tiles
-                              + 2 * kBkDq * kStride  // K, V tiles
-                              + kBq * kBkDq;         // ds tile
-constexpr int kDkvSmemFloats = 2 * kBkDkv * kStride  // K, V tiles
-                               + 2 * kBq * kMaxD      // q, dO tiles
-                               + 2 * kBq * kBkDkv     // p, ds tiles
-                               + 2 * kBq;             // lse, delta
+// The FMA bodies are instantiated for rows up to kMD wide: kMaxD (128),
+// and kTrainMaxD (192, MLA's D; V and dO stay within it), each with its
+// own shared memory.  Tiles of Q and dO have stride kMD, of K and V kMD
+// + 1 (conflict-free column reads); a lane owns kMD / 32 dims.
+template <int kMD>
+constexpr int dq_smem_bytes() {
+  return 4 * (2 * kBq * kMD              // q, dO tiles
+              + 2 * kBkDq * (kMD + 1)    // K, V tiles
+              + kBq * kBkDq);            // ds tile
+}
+template <int kMD>
+constexpr int dkv_smem_bytes() {
+  return 4 * (2 * kBkDkv * (kMD + 1)     // K, V tiles
+              + 2 * kBq * kMD            // q, dO tiles
+              + 2 * kBq * kBkDkv         // p, ds tiles
+              + 2 * kBq);                // lse, delta
+}
 
 // rows [r0, r0 + kBq) of a (rows, width) plane into an fp32 tile of
-// stride kMaxD; rows past n_rows load zeros
-template <typename T>
+// stride kS; rows past n_rows load zeros
+template <int kS, typename T>
 __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
                                           int r0, int n_rows, int width) {
   for (int idx = threadIdx.x; idx < kBq * width; idx += kThreads) {
     const int i = idx / width, d = idx - i * width;
-    dst[i * kMaxD + d] =
+    dst[i * kS + d] =
         r0 + i < n_rows ? rt::to_f(src[(int64_t)(r0 + i) * width + d]) : 0.f;
   }
 }
 
 // keys [j0, j0 + n) of a (Skv, width) plane into an fp32 tile of stride
-// kStride; the tile's rows past n load zeros
-template <typename T>
+// kS; the tile's rows past n load zeros
+template <int kS, typename T>
 __device__ __forceinline__ void load_keys(float* dst, const T* __restrict__ src,
                                           int j0, int n, int tile,
                                           int width) {
   for (int idx = threadIdx.x; idx < tile * width; idx += kThreads) {
     const int j = idx / width, d = idx - j * width;
-    dst[j * kStride + d] =
+    dst[j * kS + d] =
         j < n ? rt::to_f(src[(int64_t)(j0 + j) * width + d]) : 0.f;
   }
 }
 
-template <typename T>
+template <typename T, int kMD>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv, int D,
               int Dv, int causal, int q_offset, float scale) {
+  constexpr int kStride = kMD + 1, kT = kMD / 32;
   extern __shared__ float smem[];
   float* q_s = smem;
-  float* do_s = q_s + kBq * kMaxD;
-  float* k_s = do_s + kBq * kMaxD;
+  float* do_s = q_s + kBq * kMD;
+  float* k_s = do_s + kBq * kMD;
   float* v_s = k_s + kBkDq * kStride;
   float* ds_s = v_s + kBkDq * kStride;
   const int bh = blockIdx.y;  // b * Hq + h
@@ -161,8 +185,8 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t plane = (int64_t)bh * Sq;  // row of (b, h, 0)
   const int64_t kv_plane = ((int64_t)b * Hkv + kvh) * Skv;
 
-  load_rows(q_s, q + plane * D, r0, Sq, D);
-  load_rows(do_s, dout + plane * Dv, r0, Sq, Dv);
+  load_rows<kMD>(q_s, q + plane * D, r0, Sq, D);
+  load_rows<kMD>(do_s, dout + plane * Dv, r0, Sq, Dv);
   float lse_r[4], dl_r[4];
   int anchor[4];
 #pragma unroll
@@ -186,8 +210,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int j0 = 0; j0 < kv_end; j0 += kBkDq) {
     const int nk = min(kBkDq, kv_end - j0);
     __syncthreads();  // previous tile consumed (and q/dO loaded)
-    load_keys(k_s, k + kv_plane * D, j0, nk, kBkDq, D);
-    load_keys(v_s, v + kv_plane * Dv, j0, nk, kBkDq, Dv);
+    load_keys<kStride>(k_s, k + kv_plane * D, j0, nk, kBkDq, D);
+    load_keys<kStride>(v_s, v + kv_plane * Dv, j0, nk, kBkDq, Dv);
     __syncthreads();
 
     // s = q.k and dp = dO.v: lane owns columns lane and lane + 32
@@ -200,7 +224,7 @@ __global__ void __launch_bounds__(kThreads)
       const float a = k0[d], c = k1[d];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float x = q_s[(warp * 4 + i) * kMaxD + d];
+        const float x = q_s[(warp * 4 + i) * kMD + d];
         s[i][0] = fmaf(x, a, s[i][0]);
         s[i][1] = fmaf(x, c, s[i][1]);
       }
@@ -211,7 +235,7 @@ __global__ void __launch_bounds__(kThreads)
       const float a = v0[d], c = v1[d];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float x = do_s[(warp * 4 + i) * kMaxD + d];
+        const float x = do_s[(warp * 4 + i) * kMD + d];
         dp[i][0] = fmaf(x, a, dp[i][0]);
         dp[i][1] = fmaf(x, c, dp[i][1]);
       }
@@ -255,7 +279,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, int kMD>
 __global__ void __launch_bounds__(kThreads)
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
@@ -263,12 +287,13 @@ __global__ void __launch_bounds__(kThreads)
                T* __restrict__ dk, T* __restrict__ dv, int Hq, int Hkv,
                int Sq, int Skv, int D, int Dv, int causal, int q_offset,
                float scale) {
+  constexpr int kStride = kMD + 1, kT = kMD / 32;
   extern __shared__ float smem[];
   float* k_s = smem;
   float* v_s = k_s + kBkDkv * kStride;
   float* q_s = v_s + kBkDkv * kStride;
-  float* do_s = q_s + kBq * kMaxD;
-  float* p_s = do_s + kBq * kMaxD;
+  float* do_s = q_s + kBq * kMD;
+  float* p_s = do_s + kBq * kMD;
   float* ds_s = p_s + kBq * kBkDkv;
   float* lse_s = ds_s + kBq * kBkDkv;
   float* dl_s = lse_s + kBq;
@@ -280,8 +305,8 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t kv_plane = (int64_t)bk * Skv;
 
-  load_keys(k_s, k + kv_plane * D, j0, nk, kBkDkv, D);
-  load_keys(v_s, v + kv_plane * Dv, j0, nk, kBkDkv, Dv);
+  load_keys<kStride>(k_s, k + kv_plane * D, j0, nk, kBkDkv, D);
+  load_keys<kStride>(v_s, v + kv_plane * Dv, j0, nk, kBkDkv, Dv);
 
   float acc_k[8][kT], acc_v[8][kT];
 #pragma unroll
@@ -297,8 +322,8 @@ __global__ void __launch_bounds__(kThreads)
       // per-pair causal skip: the tile's last row sees none of our keys
       if (causal && q_offset + min(r0 + kBq, Sq) - 1 < j0) continue;
       __syncthreads();  // previous tile consumed (and K/V loaded)
-      load_rows(q_s, q + plane * D, r0, Sq, D);
-      load_rows(do_s, dout + plane * Dv, r0, Sq, Dv);
+      load_rows<kMD>(q_s, q + plane * D, r0, Sq, D);
+      load_rows<kMD>(do_s, dout + plane * Dv, r0, Sq, Dv);
       if (threadIdx.x < kBq) {
         const int r = r0 + threadIdx.x;
         lse_s[threadIdx.x] = r < Sq ? lse[plane + r] : 0.f;
@@ -315,14 +340,14 @@ __global__ void __launch_bounds__(kThreads)
         const float a = kr[d];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          s[i] = fmaf(q_s[(warp * 4 + i) * kMaxD + d], a, s[i]);
+          s[i] = fmaf(q_s[(warp * 4 + i) * kMD + d], a, s[i]);
       }
       const float* vr = v_s + lane * kStride;
       for (int d = 0; d < Dv; ++d) {
         const float a = vr[d];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          dp[i] = fmaf(do_s[(warp * 4 + i) * kMaxD + d], a, dp[i]);
+          dp[i] = fmaf(do_s[(warp * 4 + i) * kMD + d], a, dp[i]);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -341,8 +366,8 @@ __global__ void __launch_bounds__(kThreads)
         float o[kT], x[kT];
 #pragma unroll
         for (int t = 0; t < kT; ++t) {
-          o[t] = do_s[i * kMaxD + lane + 32 * t];
-          x[t] = q_s[i * kMaxD + lane + 32 * t];
+          o[t] = do_s[i * kMD + lane + 32 * t];
+          x[t] = q_s[i * kMD + lane + 32 * t];
         }
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
@@ -376,6 +401,7 @@ __global__ void __launch_bounds__(kThreads)
 namespace dkv {
 
 using rt::mma::bf16;
+using rt::mma::Width;
 // kGroups warp groups of 4 warps share a block's 64 keys (16 per warp of
 // a group) and take its query tiles in turn: group w the tiles it with
 // it % kGroups == w.  They add their partial dK, dV in group order at
@@ -385,22 +411,36 @@ constexpr int kWarps = 4 * kGroups;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBk = 64;  // keys per block
 constexpr int kBq = 64;  // query rows per tile
-constexpr int kS = rt::mma::kStride;
 // K, V; two buffers of kGroups (Q, dO) tiles; two of kGroups (lse, delta)
-constexpr int kSmemBytes =
-    (2 * kBk + 4 * kGroups * kBq) * kS * 2 + 4 * kGroups * kBq * 4;
-// the groups' partial sums, exchanged through the (Q, dO) buffers
-static_assert((kGroups - 1) * 4 * 32 * 128 * 4 <= 4 * kGroups * kBq * kS * 2,
-              "partial sums must fit the Q/dO buffers");
+template <Width W>
+constexpr int smem_bytes() {
+  using Wd = rt::mma::Widths<W>;
+  return (kBk + 2 * kGroups * kBq) * (Wd::kSK + Wd::kSV) * 2 +
+         4 * kGroups * kBq * 4;
+}
+// the groups' partial sums (dK's 2 kNd n-tiles, dV's 2 kNdv), exchanged
+// through the Q buffers
+template <Width W>
+constexpr bool partials_fit() {
+  using Wd = rt::mma::Widths<W>;
+  return (kGroups - 1) * 4 * 32 * (2 * Wd::kNd + 2 * Wd::kNdv) * 4 * 4 <=
+         2 * kGroups * kBq * Wd::kSK * 2;
+}
+static_assert(partials_fit<Width::kD128>() && partials_fit<Width::kD192>(),
+              "partial sums must fit the Q buffers");
 
 // One block: keys [j0, j0 + 64) of plane bk = b * Hkv + kvh, key tile
-// blockIdx.y = 0 (the heaviest under the causal mask) first.  kFull: D =
-// Dv = 128 and 16-byte copies, known to the compiler, so the width
-// guards and the loaders' divisions fold away and the products of
-// neighbouring steps interleave (with a runtime width every 16-wide
-// step sits behind its own branch): on an H100, 0.77 against 1.55 ms at
-// the training shape.  Launched as dkv_mma_kernel_d128 or _any below.
-template <bool kFull>
+// blockIdx.y = 0 (the heaviest under the causal mask) first.  W: the
+// widths it serves (mma.cuh Width).  kD128 folds the width guards and
+// the loaders' divisions away and lets the products of neighbouring
+// steps interleave (with a runtime width every 16-wide step sits behind
+// its own branch): on an H100, 0.77 against 1.55 ms for kAny at the
+// training shape.  Below kD192, K's and V's A fragments are loaded once
+// and held in registers (253 of them at D = 128); at kD192 dK's
+// accumulator alone takes 96 registers and dV's 64, so K's and V's
+// fragments are read from their shared tiles by ldmatrix at every step
+// instead.  Launched as dkv_mma_kernel_d128, _any or _d192 below.
+template <Width W>
 __device__ __forceinline__ void dkv_mma_body(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -409,12 +449,16 @@ __device__ __forceinline__ void dkv_mma_body(
     int Skv, int D, int Dv, int causal, int q_offset, float scale,
     bool vec) {
   using namespace rt::mma;
+  using Wd = Widths<W>;
+  constexpr int kSK = Wd::kSK, kSV = Wd::kSV;
+  constexpr int kNd = Wd::kNd, kNdv = Wd::kNdv;
+  constexpr bool kKvInSmem = W == Width::kD192;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + kBk * kS;
-  bf16* q_s = v_s + kBk * kS;                // 2 x kGroups tiles of kBq
-  bf16* do_s = q_s + 2 * kGroups * kBq * kS;  // 2 x kGroups tiles of kBq
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kGroups * kBq * kS);
+  bf16* v_s = k_s + kBk * kSK;
+  bf16* q_s = v_s + kBk * kSV;                 // 2 x kGroups tiles of kBq
+  bf16* do_s = q_s + 2 * kGroups * kBq * kSK;  // 2 x kGroups tiles of kBq
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kGroups * kBq * kSV);
   float* dl_s = lse_s + 2 * kGroups * kBq;
   const int bk = blockIdx.x;
   const int b = bk / Hkv, kvh = bk - b * Hkv;
@@ -423,8 +467,8 @@ __device__ __forceinline__ void dkv_mma_body(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wg = warp >> 2, wi = warp & 3;  // warp group, warp in it
   const int gid = lane >> 2, tig = lane & 3;
-  if (kFull) D = Dv = 128, vec = true;
-  const int Dp = (D + 15) & ~15, Dvp = (Dv + 15) & ~15;
+  if (W == Width::kD128) D = Dv = 128, vec = true;
+  const int Dp = Wd::dp(D), Dvp = Wd::dvp(Dv);
   const int64_t kv_plane = (int64_t)bk * Skv;
   const int nq = (Sq + kBq - 1) / kBq;
   // per-pair causal skip: query tiles whose last row sees none of our
@@ -437,8 +481,9 @@ __device__ __forceinline__ void dkv_mma_body(
   const int nqi = nq - qi0, n_it = group * nqi;
   const int n_steps = (n_it + kGroups - 1) / kGroups;
 
-  load_tile<kBk, kThreads>(k_s, k + kv_plane * D, j0, Skv, D, Dp, vec);
-  load_tile<kBk, kThreads>(v_s, v + kv_plane * Dv, j0, Skv, Dv, Dvp, vec);
+  load_tile<kBk, kThreads, kSK>(k_s, k + kv_plane * D, j0, Skv, D, Dp, vec);
+  load_tile<kBk, kThreads, kSV>(v_s, v + kv_plane * Dv, j0, Skv, Dv, Dvp,
+                                vec);
   // step st's tiles into buffer st & 1
   auto load_step = [&](int st) {
     for (int w = 0; w < kGroups; ++w) {
@@ -447,10 +492,10 @@ __device__ __forceinline__ void dkv_mma_body(
       const int g = it / nqi, r0 = (qi0 + it - g * nqi) * kBq;
       const int64_t plane = ((int64_t)b * Hq + kvh * group + g) * Sq;
       const int slot = (st & 1) * kGroups + w;
-      load_tile<kBq, kThreads>(q_s + slot * kBq * kS, q + plane * D, r0, Sq,
-                               D, Dp, vec);
-      load_tile<kBq, kThreads>(do_s + slot * kBq * kS, dout + plane * Dv, r0,
-                               Sq, Dv, Dvp, vec);
+      load_tile<kBq, kThreads, kSK>(q_s + slot * kBq * kSK, q + plane * D, r0,
+                                    Sq, D, Dp, vec);
+      load_tile<kBq, kThreads, kSV>(do_s + slot * kBq * kSV,
+                                    dout + plane * Dv, r0, Sq, Dv, Dvp, vec);
       load_row_vec<kBq, kThreads>(lse_s + slot * kBq, lse + plane, r0, Sq);
       load_row_vec<kBq, kThreads>(dl_s + slot * kBq, delta + plane, r0, Sq);
     }
@@ -460,32 +505,35 @@ __device__ __forceinline__ void dkv_mma_body(
 
   // this lane's keys: wk + gid and wk + gid + 8
   const int wk = j0 + wi * 16;
-  float dk_acc[16][4], dv_acc[16][4];  // n-tile n: columns 8n + 2tig, +1
+  // n-tile n: columns 8n + 2tig, +1 (dV's past 2 kNdv are never used)
+  float dk_acc[2 * kNd][4], dv_acc[2 * kNd][4];
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int n = 0; n < 2 * kNd; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-  uint32_t kf[8][4], vf[8][4];  // K's and V's A fragments
+  uint32_t kf[kNd][4], vf[kNd][4];  // K's and V's A fragments
+#define DKV_K_FRAG(kk) \
+  ldsm_x4(kf[kk], k_s + wi * 16 * kSK + (kk) * 16 + a_off<kSK>(lane))
+#define DKV_V_FRAG(kk) \
+  ldsm_x4(vf[kk], v_s + wi * 16 * kSV + (kk) * 16 + a_off<kSV>(lane))
 
   for (int st = 0; st < n_steps; ++st) {
     if (st + 1 < n_steps) load_step(st + 1);
     cp_async_commit();
     cp_async_wait<1>();  // step st (and, at st = 0, K and V) has landed
     __syncthreads();
-    if (st == 0) {
+    if (!kKvInSmem && st == 0) {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        if (kk * 16 < Dp)
-          ldsm_x4(kf[kk], k_s + wi * 16 * kS + kk * 16 + a_off(lane));
-        if (kk * 16 < Dvp)
-          ldsm_x4(vf[kk], v_s + wi * 16 * kS + kk * 16 + a_off(lane));
+      for (int kk = 0; kk < kNd; ++kk) {
+        if (kk * 16 < Dp) DKV_K_FRAG(kk);
+        if (kk < kNdv && kk * 16 < Dvp) DKV_V_FRAG(kk);
       }
     }
     const int it = kGroups * st + wg;
     if (it < n_it) {
       const int slot = (st & 1) * kGroups + wg;
-      const bf16* qs = q_s + slot * kBq * kS;
-      const bf16* dos = do_s + slot * kBq * kS;
+      const bf16* qs = q_s + slot * kBq * kSK;
+      const bf16* dos = do_s + slot * kBq * kSV;
       const float* ls = lse_s + slot * kBq;
       const float* dls = dl_s + slot * kBq;
       const int g = it / nqi, r0 = (qi0 + it - g * nqi) * kBq;
@@ -498,15 +546,17 @@ __device__ __forceinline__ void dkv_mma_body(
         // + 2tig, +1
         float sc[2][4] = {}, dpt[2][4] = {};
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < kNd; ++kk) {
           uint32_t bf[4];
           if (kk * 16 < Dp) {
-            ldsm_x4(bf, qs + 16 * sub * kS + kk * 16 + bn_off(lane));
+            if (kKvInSmem) DKV_K_FRAG(kk);
+            ldsm_x4(bf, qs + 16 * sub * kSK + kk * 16 + bn_off<kSK>(lane));
             mma_bf16(sc[0], kf[kk], bf[0], bf[1]);
             mma_bf16(sc[1], kf[kk], bf[2], bf[3]);
           }
-          if (kk * 16 < Dvp) {
-            ldsm_x4(bf, dos + 16 * sub * kS + kk * 16 + bn_off(lane));
+          if (kk < kNdv && kk * 16 < Dvp) {
+            if (kKvInSmem) DKV_V_FRAG(kk);
+            ldsm_x4(bf, dos + 16 * sub * kSV + kk * 16 + bn_off<kSV>(lane));
             mma_bf16(dpt[0], vf[kk], bf[0], bf[1]);
             mma_bf16(dpt[1], vf[kk], bf[2], bf[3]);
           }
@@ -536,15 +586,15 @@ __device__ __forceinline__ void dkv_mma_body(
         c_to_a(pa, sc[0], sc[1]);
         c_to_a(da, dpt[0], dpt[1]);
 #pragma unroll
-        for (int np = 0; np < 8; ++np) {
+        for (int np = 0; np < kNd; ++np) {
           uint32_t bf[4];
-          if (np * 16 < Dvp) {
-            ldsm_x4_t(bf, dos + 16 * sub * kS + np * 16 + bk_off(lane));
+          if (np < kNdv && np * 16 < Dvp) {
+            ldsm_x4_t(bf, dos + 16 * sub * kSV + np * 16 + bk_off<kSV>(lane));
             mma_bf16(dv_acc[2 * np], pa, bf[0], bf[1]);
             mma_bf16(dv_acc[2 * np + 1], pa, bf[2], bf[3]);
           }
           if (np * 16 < Dp) {
-            ldsm_x4_t(bf, qs + 16 * sub * kS + np * 16 + bk_off(lane));
+            ldsm_x4_t(bf, qs + 16 * sub * kSK + np * 16 + bk_off<kSK>(lane));
             mma_bf16(dk_acc[2 * np], da, bf[0], bf[1]);
             mma_bf16(dk_acc[2 * np + 1], da, bf[2], bf[3]);
           }
@@ -553,22 +603,26 @@ __device__ __forceinline__ void dkv_mma_body(
     }
     __syncthreads();  // step st consumed before its buffers are refilled
   }
+#undef DKV_K_FRAG
+#undef DKV_V_FRAG
   cp_async_wait<0>();
 
-  // groups 1.. hand their partial sums to group 0 through the Q/dO
-  // buffers, element (n, e) of lane l of warp wi at [(n * 4 + e) * 32 + l]
+  // groups 1.. hand their partial sums to group 0 through the Q
+  // buffers, element (n, e) of lane l of warp wi at [(n * 4 + e) * 32 +
+  // l]: dK's 2 kNd n-tiles, then dV's 2 kNdv
   float* red = reinterpret_cast<float*>(q_s);
-  const int red_warp = 2 * 16 * 4 * 32;  // floats per warp: dK and dV
+  constexpr int kDvAt = 2 * kNd * 4;             // dV's first (n * 4 + e)
+  constexpr int red_warp = (kDvAt + 2 * kNdv * 4) * 32;  // floats a warp
   if (kGroups > 1) {
     __syncthreads();
     if (wg > 0) {
       float* r = red + ((wg - 1) * 4 + wi) * red_warp + lane;
 #pragma unroll
-      for (int n = 0; n < 16; ++n)
+      for (int n = 0; n < 2 * kNd; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           r[(n * 4 + e) * 32] = dk_acc[n][e];
-          r[(64 + n * 4 + e) * 32] = dv_acc[n][e];
+          if (n < 2 * kNdv) r[(kDvAt + n * 4 + e) * 32] = dv_acc[n][e];
         }
     }
     __syncthreads();
@@ -576,11 +630,11 @@ __device__ __forceinline__ void dkv_mma_body(
     for (int w = 1; w < kGroups; ++w) {
       const float* r = red + ((w - 1) * 4 + wi) * red_warp + lane;
 #pragma unroll
-      for (int n = 0; n < 16; ++n)
+      for (int n = 0; n < 2 * kNd; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           dk_acc[n][e] += r[(n * 4 + e) * 32];
-          dv_acc[n][e] += r[(64 + n * 4 + e) * 32];
+          if (n < 2 * kNdv) dv_acc[n][e] += r[(kDvAt + n * 4 + e) * 32];
         }
     }
   }
@@ -592,13 +646,13 @@ __device__ __forceinline__ void dkv_mma_body(
     bf16* dkr = dk + (kv_plane + key) * D;
     bf16* dvr = dv + (kv_plane + key) * Dv;
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
+    for (int n = 0; n < 2 * kNd; ++n) {
       const int col = 8 * n + 2 * tig;
       if (col < D) {
         dkr[col] = __float2bfloat16_rn(dk_acc[n][2 * i]);
         dkr[col + 1] = __float2bfloat16_rn(dk_acc[n][2 * i + 1]);
       }
-      if (col < Dv) {
+      if (n < 2 * kNdv && col < Dv) {
         dvr[col] = __float2bfloat16_rn(dv_acc[n][2 * i]);
         dvr[col + 1] = __float2bfloat16_rn(dv_acc[n][2 * i + 1]);
       }
@@ -612,23 +666,31 @@ __device__ __forceinline__ void dkv_mma_body(
 namespace dqm {
 
 using rt::mma::bf16;
+using rt::mma::Width;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBq = 16 * kWarps;  // query rows per block, 16 per warp
 constexpr int kBk = 64;           // keys per tile
 constexpr int kHalf = kBk / 2;    // keys per step of the walk
-constexpr int kS = rt::mma::kStride;
-// two buffers of (K, V); Q and dO are staged in the second K and V
-// buffers, read into registers before those buffers' first tile lands
-constexpr int kSmemBytes = 4 * kBk * kS * 2;
+// two buffers of (K, V); dO is staged in the second V buffer, read into
+// registers before that buffer's first tile lands, and so is Q in the
+// second K buffer below kD192; at kD192 Q keeps a tile of its own
+template <Width W>
+constexpr int smem_bytes() {
+  using Wd = rt::mma::Widths<W>;
+  return (2 * kBk * (Wd::kSK + Wd::kSV) +
+          (W == Width::kD192 ? kBq * Wd::kSK : 0)) * 2;
+}
 static_assert(kBq <= kBk, "the Q and dO tiles must fit a K/V buffer");
 
 // One block: query rows [r0, r0 + 64) of plane bh = b * Hq + h, the row
 // tile y counted from the last (heaviest under the causal mask) first.
-// kFull: D = Dv = 128 and 16-byte copies, known to the compiler, as in
-// fwd_mma_body.  Launched as dq_mma_kernel_d128 or _any below, 2 blocks
-// per SM.
-template <bool kFull>
+// W: the widths it serves (mma.cuh Width), as in fwd_mma_body.  Below
+// kD192 Q's and dO's A fragments are held in registers; at kD192 dQ's
+// accumulator takes 96 registers, so Q's 12 fragments are read from its
+// shared tile by ldmatrix at every step instead (dO's 8 stay held).
+// Launched as dq_mma_kernel_d128, _any or _d192 below, 2 blocks per SM.
+template <Width W>
 __device__ __forceinline__ void dq_mma_body(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -636,19 +698,24 @@ __device__ __forceinline__ void dq_mma_body(
     bf16* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv, int D, int Dv,
     int causal, int q_offset, float scale, bool vec) {
   using namespace rt::mma;
+  using Wd = Widths<W>;
+  constexpr int kSK = Wd::kSK, kSV = Wd::kSV;
+  constexpr int kNd = Wd::kNd, kNdv = Wd::kNdv;
+  constexpr bool kQInSmem = W == Width::kD192;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // two buffers of kBk rows
-  bf16* v_s = k_s + 2 * kBk * kS;                  // two buffers of kBk rows
-  bf16* q_s = k_s + kBk * kS;                      // K's second buffer
-  bf16* do_s = v_s + kBk * kS;                     // V's second buffer
+  bf16* v_s = k_s + 2 * kBk * kSK;                 // two buffers of kBk rows
+  // K's second buffer, or (kD192) a tile past V's buffers
+  bf16* q_s = kQInSmem ? v_s + 2 * kBk * kSV : k_s + kBk * kSK;
+  bf16* do_s = v_s + kBk * kSV;                    // V's second buffer
   const int bh = blockIdx.x;
   const int b = bh / Hq, h = bh - b * Hq;
   const int kvh = h / (Hq / Hkv);
   const int r0 = (gridDim.y - 1 - blockIdx.y) * kBq;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  if (kFull) D = Dv = 128, vec = true;
-  const int Dp = (D + 15) & ~15, Dvp = (Dv + 15) & ~15;
+  if (W == Width::kD128) D = Dv = 128, vec = true;
+  const int Dp = Wd::dp(D), Dvp = Wd::dvp(Dv);
   const int64_t plane = (int64_t)bh * Sq;  // row of (b, h, 0)
   const bf16* kp = k + ((int64_t)b * Hkv + kvh) * Skv * D;
   const bf16* vp = v + ((int64_t)b * Hkv + kvh) * Skv * Dv;
@@ -657,22 +724,25 @@ __device__ __forceinline__ void dq_mma_body(
   const int kv_end = causal ? max(0, min(Skv, q_offset + last + 1)) : Skv;
   const int n_tiles = (kv_end + kBk - 1) / kBk;
 
-  load_tile<kBq, kThreads>(q_s, q + plane * D, r0, Sq, D, Dp, vec);
-  load_tile<kBq, kThreads>(do_s, dout + plane * Dv, r0, Sq, Dv, Dvp, vec);
+  load_tile<kBq, kThreads, kSK>(q_s, q + plane * D, r0, Sq, D, Dp, vec);
+  load_tile<kBq, kThreads, kSV>(do_s, dout + plane * Dv, r0, Sq, Dv, Dvp,
+                                vec);
   if (n_tiles > 0) {
-    load_tile<kBk, kThreads>(k_s, kp, 0, Skv, D, Dp, vec);
-    load_tile<kBk, kThreads>(v_s, vp, 0, Skv, Dv, Dvp, vec);
+    load_tile<kBk, kThreads, kSK>(k_s, kp, 0, Skv, D, Dp, vec);
+    load_tile<kBk, kThreads, kSV>(v_s, vp, 0, Skv, Dv, Dvp, vec);
   }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[8][4], df[8][4];  // Q's and dO's A fragments, 16 columns each
+  // Q's and dO's A fragments, 16 columns each (Q's reloaded per step at
+  // kD192)
+  uint32_t qf[kNd][4], df[kNd][4];  // dO's past kNdv are never used
+  const bf16* qw = q_s + warp * 16 * kSK + a_off<kSK>(lane);
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    if (kk * 16 < Dp)
-      ldsm_x4(qf[kk], q_s + warp * 16 * kS + kk * 16 + a_off(lane));
-    if (kk * 16 < Dvp)
-      ldsm_x4(df[kk], do_s + warp * 16 * kS + kk * 16 + a_off(lane));
+  for (int kk = 0; kk < kNd; ++kk) {
+    if (!kQInSmem && kk * 16 < Dp) ldsm_x4(qf[kk], qw + kk * 16);
+    if (kk < kNdv && kk * 16 < Dvp)
+      ldsm_x4(df[kk], do_s + warp * 16 * kSV + kk * 16 + a_off<kSV>(lane));
   }
   __syncthreads();  // Q and dO read before tile 1 overwrites them
 
@@ -685,9 +755,9 @@ __device__ __forceinline__ void dq_mma_body(
     lse_r[i] = row < Sq ? lse[plane + row] : 0.f;
     dl_r[i] = row < Sq ? delta[plane + row] : 0.f;
   }
-  float acc[16][4];  // dQ: n-tile n holds columns 8n + 2tig, +1
+  float acc[2 * kNd][4];  // dQ: n-tile n holds columns 8n + 2tig, +1
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int n = 0; n < 2 * kNd; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -695,16 +765,16 @@ __device__ __forceinline__ void dq_mma_body(
     const int j0 = t * kBk;
     if (t + 1 < n_tiles) {
       const int nb = (t + 1) & 1;
-      load_tile<kBk, kThreads>(k_s + nb * kBk * kS, kp, j0 + kBk, Skv, D, Dp,
-                               vec);
-      load_tile<kBk, kThreads>(v_s + nb * kBk * kS, vp, j0 + kBk, Skv, Dv,
-                               Dvp, vec);
+      load_tile<kBk, kThreads, kSK>(k_s + nb * kBk * kSK, kp, j0 + kBk, Skv,
+                                    D, Dp, vec);
+      load_tile<kBk, kThreads, kSV>(v_s + nb * kBk * kSV, vp, j0 + kBk, Skv,
+                                    Dv, Dvp, vec);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile t has landed
     __syncthreads();
-    const bf16* ks = k_s + (t & 1) * kBk * kS;
-    const bf16* vs = v_s + (t & 1) * kBk * kS;
+    const bf16* ks = k_s + (t & 1) * kBk * kSK;
+    const bf16* vs = v_s + (t & 1) * kBk * kSV;
 
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
@@ -713,8 +783,8 @@ __device__ __forceinline__ void dq_mma_body(
       // Skv (p = 0), or no live row
       if (wr >= Sq || jh >= Skv || (causal && jh > q_offset + wr + 15))
         continue;
-      const bf16* kh = ks + hf * kHalf * kS;
-      const bf16* vh = vs + hf * kHalf * kS;
+      const bf16* kh = ks + hf * kHalf * kSK;
+      const bf16* vh = vs + hf * kHalf * kSV;
       // S = Q.K^T and dP = dO.V^T: n-tile n holds keys jh + 8n + 2tig, +1
       float s[4][4], dp[4][4];
 #pragma unroll
@@ -722,17 +792,18 @@ __device__ __forceinline__ void dq_mma_body(
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < kNd; ++kk) {
+        if (kQInSmem) ldsm_x4(qf[kk], qw + kk * 16);
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
           uint32_t bf[4];
           if (kk * 16 < Dp) {
-            ldsm_x4(bf, kh + np * 16 * kS + kk * 16 + bn_off(lane));
+            ldsm_x4(bf, kh + np * 16 * kSK + kk * 16 + bn_off<kSK>(lane));
             mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
             mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
           }
-          if (kk * 16 < Dvp) {
-            ldsm_x4(bf, vh + np * 16 * kS + kk * 16 + bn_off(lane));
+          if (kk < kNdv && kk * 16 < Dvp) {
+            ldsm_x4(bf, vh + np * 16 * kSV + kk * 16 + bn_off<kSV>(lane));
             mma_bf16(dp[2 * np], df[kk], bf[0], bf[1]);
             mma_bf16(dp[2 * np + 1], df[kk], bf[2], bf[3]);
           }
@@ -764,10 +835,10 @@ __device__ __forceinline__ void dq_mma_body(
         uint32_t da[4];
         c_to_a(da, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-        for (int np = 0; np < 8; ++np) {
+        for (int np = 0; np < kNd; ++np) {
           if (np * 16 >= Dp) break;
           uint32_t bf[4];
-          ldsm_x4_t(bf, kh + kk * 16 * kS + np * 16 + bk_off(lane));
+          ldsm_x4_t(bf, kh + kk * 16 * kSK + np * 16 + bk_off<kSK>(lane));
           mma_bf16(acc[2 * np], da, bf[0], bf[1]);
           mma_bf16(acc[2 * np + 1], da, bf[2], bf[3]);
         }
@@ -783,7 +854,7 @@ __device__ __forceinline__ void dq_mma_body(
     if (row >= Sq) continue;
     bf16* o = dq + (plane + row) * D;
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
+    for (int n = 0; n < 2 * kNd; ++n) {
       const int col = 8 * n + 2 * tig;
       if (col < D) {
         o[col] = __float2bfloat16_rn(acc[n][2 * i]);
@@ -796,10 +867,11 @@ __device__ __forceinline__ void dq_mma_body(
 }  // namespace dqm
 }  // namespace
 
-// The body's two instantiations as kernels with names of their own (C
+// The bodies' instantiations as kernels with names of their own (C
 // linkage), so the build's ptxas report and the SASS name each one:
-// dkv_mma_kernel_d128 is the one the training path runs.
-#define DKV_MMA_KERNEL(name, full)                                          \
+// *_d128 is the one the GQA training path runs, *_d192 the one MLA's
+// does.
+#define DKV_MMA_KERNEL(name, width)                                         \
   extern "C" __global__ void __launch_bounds__(dkv::kThreads) name(         \
       const rt::mma::bf16* __restrict__ q,                                  \
       const rt::mma::bf16* __restrict__ k,                                  \
@@ -808,16 +880,16 @@ __device__ __forceinline__ void dq_mma_body(
       const float* __restrict__ delta, rt::mma::bf16* __restrict__ dk,      \
       rt::mma::bf16* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,     \
       int D, int Dv, int causal, int q_offset, float scale, bool vec) {     \
-    dkv::dkv_mma_body<full>(q, k, v, dout, lse, delta, dk, dv, Hq, Hkv, Sq, \
-                            Skv, D, Dv, causal, q_offset, scale, vec);      \
+    dkv::dkv_mma_body<rt::mma::Width::width>(q, k, v, dout, lse, delta, dk, \
+                                             dv, Hq, Hkv, Sq, Skv, D, Dv,   \
+                                             causal, q_offset, scale, vec); \
   }
-DKV_MMA_KERNEL(dkv_mma_kernel_d128, true)
-DKV_MMA_KERNEL(dkv_mma_kernel_any, false)
+DKV_MMA_KERNEL(dkv_mma_kernel_d128, kD128)
+DKV_MMA_KERNEL(dkv_mma_kernel_any, kAny)
+DKV_MMA_KERNEL(dkv_mma_kernel_d192, kD192)
 #undef DKV_MMA_KERNEL
 
-// dq's two instantiations: dq_mma_kernel_d128 is the one the training
-// path runs.
-#define DQ_MMA_KERNEL(name, full)                                           \
+#define DQ_MMA_KERNEL(name, width)                                          \
   extern "C" __global__ void __launch_bounds__(dqm::kThreads, 2) name(      \
       const rt::mma::bf16* __restrict__ q,                                  \
       const rt::mma::bf16* __restrict__ k,                                  \
@@ -826,14 +898,17 @@ DKV_MMA_KERNEL(dkv_mma_kernel_any, false)
       const float* __restrict__ delta, rt::mma::bf16* __restrict__ dq,      \
       int Hq, int Hkv, int Sq, int Skv, int D, int Dv, int causal,          \
       int q_offset, float scale, bool vec) {                                \
-    dqm::dq_mma_body<full>(q, k, v, dout, lse, delta, dq, Hq, Hkv, Sq, Skv, \
-                           D, Dv, causal, q_offset, scale, vec);            \
+    dqm::dq_mma_body<rt::mma::Width::width>(q, k, v, dout, lse, delta, dq,  \
+                                            Hq, Hkv, Sq, Skv, D, Dv,        \
+                                            causal, q_offset, scale, vec);  \
   }
-DQ_MMA_KERNEL(dq_mma_kernel_d128, true)
-DQ_MMA_KERNEL(dq_mma_kernel_any, false)
+DQ_MMA_KERNEL(dq_mma_kernel_d128, kD128)
+DQ_MMA_KERNEL(dq_mma_kernel_any, kAny)
+DQ_MMA_KERNEL(dq_mma_kernel_d192, kD192)
 #undef DQ_MMA_KERNEL
 
 namespace {
+
 namespace dkv {
 
 int launch(const void* q, const void* k, const void* v, const void* dout,
@@ -842,12 +917,16 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            int q_offset, float scale, cudaStream_t stream) {
   const bool vec = rt::mma::vec_ok(q, D) && rt::mma::vec_ok(k, D) &&
                    rt::mma::vec_ok(v, Dv) && rt::mma::vec_ok(dout, Dv);
+  // by the widths alone (the entry point refuses D > 192 or Dv > 128)
   auto kern = vec && D == 128 && Dv == 128 ? dkv_mma_kernel_d128
                                            : dkv_mma_kernel_any;
+  int smem = smem_bytes<Width::kAny>();
+  if (D > rt::kMaxD)
+    kern = dkv_mma_kernel_d192, smem = smem_bytes<Width::kD192>();
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemBytes);
+                       smem);
   dim3 grid(B * Hkv, (Skv + kBk - 1) / kBk);
-  kern<<<grid, kThreads, kSmemBytes, stream>>>(
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
       delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Hq, Hkv, Sq,
@@ -865,12 +944,16 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            float scale, cudaStream_t stream) {
   const bool vec = rt::mma::vec_ok(q, D) && rt::mma::vec_ok(k, D) &&
                    rt::mma::vec_ok(v, Dv) && rt::mma::vec_ok(dout, Dv);
+  // by the widths alone (the entry point refuses D > 192 or Dv > 128)
   auto kern = vec && D == 128 && Dv == 128 ? dq_mma_kernel_d128
                                            : dq_mma_kernel_any;
+  int smem = smem_bytes<Width::kAny>();
+  if (D > rt::kMaxD)
+    kern = dq_mma_kernel_d192, smem = smem_bytes<Width::kD192>();
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemBytes);
+                       smem);
   dim3 grid(B * Hq, (Sq + kBq - 1) / kBq);
-  kern<<<grid, kThreads, kSmemBytes, stream>>>(
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
       delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Skv, D, Dv, causal,
@@ -880,13 +963,14 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace dqm
 
-template <typename T>
+// The FMA bodies, at kMaxD or (D past it) kTrainMaxD.
+template <typename T, int kMD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int Hq,
               int Hkv, int Sq, int Skv, int D, int Dv, int causal,
               int q_offset, float scale, cudaStream_t stream) {
-  auto kern = dq_kernel<T>;
-  const int bytes = kDqSmemFloats * 4;
+  auto kern = dq_kernel<T, kMD>;
+  constexpr int bytes = dq_smem_bytes<kMD>();
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        bytes);
   dim3 grid((Sq + kBq - 1) / kBq, B * Hq);
@@ -897,13 +981,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int kMD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
                int B, int Hq, int Hkv, int Sq, int Skv, int D, int Dv,
                int causal, int q_offset, float scale, cudaStream_t stream) {
-  auto kern = dkv_kernel<T>;
-  const int bytes = kDkvSmemFloats * 4;
+  auto kern = dkv_kernel<T, kMD>;
+  constexpr int bytes = dkv_smem_bytes<kMD>();
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        bytes);
   dim3 grid((Skv + kBkDkv - 1) / kBkDkv, B * Hkv);
@@ -915,18 +999,29 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+bool widths_ok(int D, int Dv) {
+  return D >= 1 && Dv >= 1 && D <= rt::kTrainMaxD && Dv <= rt::kTrainMaxDv;
+}
+
 }  // namespace
 
+// Widths past D 192 or Dv 128 are refused.
 extern "C" int fused_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, int B, int Hq, int Hkv,
     int Sq, int Skv, int D, int Dv, int causal, int q_offset, float scale,
     int dtype, void* stream) {
+  if (!widths_ok(D, Dv)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case rt::kF32:
-      return launch_dq<float>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq,
-                              Skv, D, Dv, causal, q_offset, scale, s);
+      if (D > rt::kMaxD)
+        return launch_dq<float, rt::kTrainMaxD>(q, k, v, dout, lse, delta, dq,
+                                                B, Hq, Hkv, Sq, Skv, D, Dv,
+                                                causal, q_offset, scale, s);
+      return launch_dq<float, rt::kMaxD>(q, k, v, dout, lse, delta, dq, B, Hq,
+                                         Hkv, Sq, Skv, D, Dv, causal,
+                                         q_offset, scale, s);
     case rt::kBF16:  // the tensor-core body; fp32 keeps the FMA body
       return dqm::launch(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Skv,
                          D, Dv, causal, q_offset, scale, s);
@@ -939,11 +1034,18 @@ extern "C" int fused_attention_bwd_dkv_launch(
     const float* lse, const float* delta, void* dk, void* dv, int B, int Hq,
     int Hkv, int Sq, int Skv, int D, int Dv, int causal, int q_offset,
     float scale, int dtype, void* stream) {
+  if (!widths_ok(D, Dv)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case rt::kF32:
-      return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv,
-                               Sq, Skv, D, Dv, causal, q_offset, scale, s);
+      if (D > rt::kMaxD)
+        return launch_dkv<float, rt::kTrainMaxD>(q, k, v, dout, lse, delta,
+                                                 dk, dv, B, Hq, Hkv, Sq, Skv,
+                                                 D, Dv, causal, q_offset,
+                                                 scale, s);
+      return launch_dkv<float, rt::kMaxD>(q, k, v, dout, lse, delta, dk, dv,
+                                          B, Hq, Hkv, Sq, Skv, D, Dv, causal,
+                                          q_offset, scale, s);
     case rt::kBF16:  // the tensor-core body; fp32 keeps the FMA body
       return dkv::launch(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq,
                          Skv, D, Dv, causal, q_offset, scale, s);

@@ -88,18 +88,6 @@ constexpr int kFmaSmemBytes =
 static_assert(kThreads >= kMaxDv, "merge and fp32 P.V: a thread per column");
 static_assert(kFmaRows * kBk == kThreads, "fp32 scores: a thread each");
 
-// Offsets, in elements of a kS-stride bf16 tile, of the row this lane
-// hands ldmatrix.x4 (as mma.cuh's a_off, bn_off, bk_off at kStride).
-__device__ __forceinline__ int a_off(int lane) {
-  return (lane & 15) * kS + (lane >> 4) * 8;
-}
-__device__ __forceinline__ int bn_off(int lane) {
-  return ((lane & 7) + ((lane >> 4) << 3)) * kS + ((lane >> 3) & 1) * 8;
-}
-__device__ __forceinline__ int bk_off(int lane) {
-  return ((lane & 7) + (((lane >> 3) & 1) << 3)) * kS + (lane >> 4) * 8;
-}
-
 // What a block owns: rows [r0, r0 + n) of the group * Sq rows of one
 // (batch row b, KV head kvh), and tiles [t0, t1) of chunk c.
 struct Block {
@@ -336,11 +324,12 @@ __device__ __forceinline__ void mma_body(
     if (live) {
       for (int kk = kk0; kk < kk1; ++kk) {
         uint32_t a[4];
-        ldsm_x4(a, q_s + rg * 16 * kS + kk * 16 + a_off(lane));
+        ldsm_x4(a, q_s + rg * 16 * kS + kk * 16 + mma::a_off<kS>(lane));
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
           uint32_t bf[4];
-          ldsm_x4(bf, ks_ + np * 16 * kS + kk * 16 + bn_off(lane));
+          ldsm_x4(bf,
+                  ks_ + np * 16 * kS + kk * 16 + mma::bn_off<kS>(lane));
           mma_bf16(s[2 * np], a, bf[0], bf[1]);
           mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
         }
@@ -413,7 +402,8 @@ __device__ __forceinline__ void mma_body(
         for (int np = 0; np < 8; ++np) {
           if (col0 + np * 16 >= Dvp) break;
           uint32_t bf[4];
-          ldsm_x4_t(bf, ks_ + kk * 16 * kS + col0 + np * 16 + bk_off(lane));
+          ldsm_x4_t(bf, ks_ + kk * 16 * kS + col0 + np * 16 +
+                            mma::bk_off<kS>(lane));
           mma_bf16(acc[2 * np], pa, bf[0], bf[1]);
           mma_bf16(acc[2 * np + 1], pa, bf[2], bf[3]);
         }

@@ -29,8 +29,38 @@ using bf16 = __nv_bfloat16;
 
 // Row stride of every bf16 tile in shared memory, in elements: widths
 // up to 128 plus 8, so the eight 16-byte rows one ldmatrix reads start
-// 16 bytes apart modulo 128 and fall in distinct banks.
+// 16 bytes apart modulo 128 and fall in distinct banks.  (192 + 8, the
+// stride of the training bodies' Q and K tiles at MLA's widths, is 400
+// bytes: 16 modulo 128 too.)
 constexpr int kStride = 128 + 8;
+
+// The widths an instantiation of the training bodies (fwd_mma_body,
+// dq_mma_body, dkv_mma_body) serves:
+//   kAny: D, Dv <= 128, known at run time;
+//   kD128: D = Dv = 128 and 16-byte copies, known to the compiler, so
+//     the width guards and the loaders' divisions fold away;
+//   kD192: D in (128, 192], Dv <= 128 (MLA's training heads: D = nope
+//     128 + rope 64, Dv 128), zero-padded to 192 and 128 in the
+//     fragments, so the products' loops are the compiler's too; D and
+//     Dv at run time guard only the loads and the stores.
+enum class Width { kAny, kD128, kD192 };
+
+template <Width W>
+struct Widths {
+  static constexpr int kMaxD = W == Width::kD192 ? 192 : 128;  // Q, K
+  static constexpr int kMaxDv = 128;                           // V, dO
+  static constexpr int kSK = kMaxD + 8;   // row stride of Q and K tiles
+  static constexpr int kSV = kMaxDv + 8;  // of V and dO tiles
+  static constexpr int kNd = kMaxD / 16;  // 16-column steps of Q and K
+  static constexpr int kNdv = kMaxDv / 16;
+  // padded widths: D's and Dv's own below kD192, known above
+  static __device__ __forceinline__ int dp(int d) {
+    return W == Width::kD192 ? kMaxD : (d + 15) & ~15;
+  }
+  static __device__ __forceinline__ int dvp(int dv) {
+    return W == Width::kD192 ? kMaxDv : (dv + 15) & ~15;
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -82,21 +112,24 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// Offsets, in elements of a kStride tile, of the row this lane hands
-// ldmatrix.x4 for:
+// Offsets, in elements of a tile of row stride kS (default kStride), of
+// the row this lane hands ldmatrix.x4 for:
 //   an A fragment (16 rows x 16 columns at (0, 0));
+template <int kS = kStride>
 __device__ __forceinline__ int a_off(int lane) {
-  return (lane & 15) * kStride + (lane >> 4) * 8;
+  return (lane & 15) * kS + (lane >> 4) * 8;
 }
 //   the B fragments of two n-tiles read from n-major rows (16 rows = n,
 //   16 columns = k), as K rows are for Q.K^T;
+template <int kS = kStride>
 __device__ __forceinline__ int bn_off(int lane) {
-  return ((lane & 7) + ((lane >> 4) << 3)) * kStride + ((lane >> 3) & 1) * 8;
+  return ((lane & 7) + ((lane >> 4) << 3)) * kS + ((lane >> 3) & 1) * 8;
 }
 //   the B fragments of two n-tiles read, transposed, from k-major rows
 //   (16 rows = k, 16 columns = n), as V rows are for P.V.
+template <int kS = kStride>
 __device__ __forceinline__ int bk_off(int lane) {
-  return ((lane & 7) + (((lane >> 3) & 1) << 3)) * kStride + (lane >> 4) * 8;
+  return ((lane & 7) + (((lane >> 3) & 1) << 3)) * kS + (lane >> 4) * 8;
 }
 
 // 16 bytes global -> shared, asynchronously; zeros when !valid (src
@@ -127,12 +160,13 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows [r0, r0 + kRows) of a (n_rows, width) bf16 plane into a tile of
-// stride kStride, columns [0, wp), wp = width rounded up to 16; rows
-// past n_rows and columns past width are zeros.  vec: width % 8 == 0
-// and the plane 16-byte aligned, so each 16-byte chunk is one cp.async
-// (the caller commits and waits); otherwise element by element, plain
-// loads and stores, visible after the caller's next __syncthreads().
-template <int kRows, int kThreads>
+// stride kS (default kStride), columns [0, wp), wp = width rounded up
+// to 16 or past it; rows past n_rows and columns past width are zeros.
+// vec: width % 8 == 0 and the plane 16-byte aligned, so each 16-byte
+// chunk is one cp.async (the caller commits and waits); otherwise
+// element by element, plain loads and stores, visible after the
+// caller's next __syncthreads().
+template <int kRows, int kThreads, int kS = kStride>
 __device__ __forceinline__ void load_tile(bf16* dst,
                                           const bf16* __restrict__ src,
                                           int r0, int n_rows, int width,
@@ -142,13 +176,13 @@ __device__ __forceinline__ void load_tile(bf16* dst,
     for (int i = threadIdx.x; i < kRows * cpr; i += kThreads) {
       const int j = i / cpr, c = i - j * cpr;
       const bool ok = r0 + j < n_rows && c * 8 < width;
-      cp_async16(dst + j * kStride + c * 8,
+      cp_async16(dst + j * kS + c * 8,
                  ok ? src + (int64_t)(r0 + j) * width + c * 8 : src, ok);
     }
   } else {
     for (int i = threadIdx.x; i < kRows * wp; i += kThreads) {
       const int j = i / wp, d = i - j * wp;
-      dst[j * kStride + d] = r0 + j < n_rows && d < width
+      dst[j * kS + d] = r0 + j < n_rows && d < width
                                  ? src[(int64_t)(r0 + j) * width + d]
                                  : __float2bfloat16(0.f);
     }

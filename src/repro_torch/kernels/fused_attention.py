@@ -27,7 +27,12 @@ which reads V as the first Dv columns of K's rows (the wrapper takes
 such a view of k, and no other V there), with its own split into KV
 chunks where its grid would leave SMs idle (:func:`wide_chunks`).
 ``fused_attention`` replaces the TPU ``custom_vjp`` ``fused_attention``
-(forward ``_fwd``, backward ``_bwd``'s dq and dk/dv kernels).
+(forward ``_fwd``, backward ``_bwd``'s dq and dk/dv kernels).  Its three
+kernels take heads up to TRAIN_MAX_D and TRAIN_MAX_DV wide, past
+MAX_HEAD_DIM for Q and K: MLA's cache-free training attention (D = nope
+128 + rope 64, Dv 128, 128 heads, group 1) runs instantiations of their
+bodies of its own (``*_mma_kernel_d192`` in bf16, the FMA bodies sized
+for 192 in fp32).
 """
 
 from __future__ import annotations
@@ -41,8 +46,12 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.chunked import chunked_attention
 
 #: widest head the CUDA kernels take (csrc/common.cuh kMaxD), but for
-#: fused_attention_masked's wide body
+#: fused_attention_masked's wide body and the training attention
 MAX_HEAD_DIM = 128
+#: widest Q/K and V heads of the training attention (fused_attention_fwd,
+#: _bwd_dq, _bwd_dkv; csrc/common.cuh kTrainMaxD, kTrainMaxDv): MLA's
+#: cache-free heads, D = nope 128 + rope 64, Dv 128
+TRAIN_MAX_D, TRAIN_MAX_DV = 192, 128
 #: widest K and V heads of fused_attention_masked's wide body, which runs
 #: past MAX_HEAD_DIM: MLA's absorbed form (csrc/masked_wide.cuh kMaxD,
 #: kMaxDv); it reads V as the first Dv columns of K's rows
@@ -165,13 +174,15 @@ def _ptr(t) -> Optional[int]:
 
 
 def check_cuda_args(name: str, tensors: dict,
-                    lengths: Optional[torch.Tensor], head_dims) -> None:
+                    lengths: Optional[torch.Tensor], head_dims,
+                    limits=None) -> None:
     """The wrappers' shared checks: no input that autograd tracks (a
     kernel's output has no grad_fn, so it would cut the graph silently:
     differentiable calls go through :func:`fused_attention` and
     ``fused_qproj_attention``); every tensor on one CUDA device, of one
     float dtype, contiguous; lengths, where the kernel takes them, (B,)
-    int32 on that device; head widths even and at most MAX_HEAD_DIM."""
+    int32 on that device; head widths even and each at most its limit in
+    ``limits`` (default MAX_HEAD_DIM)."""
     if torch.is_grad_enabled():
         tracked = [k for k, t in tensors.items() if t.requires_grad]
         if tracked:
@@ -195,10 +206,10 @@ def check_cuda_args(name: str, tensors: dict,
             or lengths.ndim != 1 or not lengths.is_contiguous()):
         raise ValueError(f"{name}: lengths must be a contiguous (B,) "
                          f"int32 tensor on {first.device}")
-    for n in head_dims:
-        if n > MAX_HEAD_DIM or n % 2:
+    for n, most in zip(head_dims, limits or [MAX_HEAD_DIM] * len(head_dims)):
+        if n > most or n % 2:
             raise ValueError(f"{name}: head width {n} must be even and at "
-                             f"most {MAX_HEAD_DIM}")
+                             f"most {most}")
 
 
 def check_block_tables(name: str, block_tables: torch.Tensor, b: int,
@@ -391,7 +402,7 @@ def fused_attention_fwd(q, k, v, *, causal: bool = True,
     b, hq, hkv, sq, skv, d, dv = _train_shapes("fused_attention_fwd",
                                                q, k, v)
     check_cuda_args("fused_attention_fwd", {"q": q, "k": k, "v": v}, None,
-                    (d, dv))
+                    (d, dv), (TRAIN_MAX_D, TRAIN_MAX_DV))
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -407,7 +418,8 @@ def _bwd_args(name, q, k, v, do, lse, delta):
     if do.shape != (b, hq, sq, dv):
         raise ValueError(f"{name}: do{tuple(do.shape)} is not "
                          f"{(b, hq, sq, dv)}")
-    check_cuda_args(name, {"q": q, "k": k, "v": v, "do": do}, None, (d, dv))
+    check_cuda_args(name, {"q": q, "k": k, "v": v, "do": do}, None, (d, dv),
+                    (TRAIN_MAX_D, TRAIN_MAX_DV))
     _check_rows(name, (b, hq, sq), lse=lse, delta=delta)
     return b, hq, hkv, sq, skv, d, dv
 

@@ -89,9 +89,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters in ``cfg.param_dtype`` on ``device``, drawn
     from ``generator`` (which must live on that device).  Not the JAX
     package's numbers for the same seed: tests share weights through
-    :func:`params_from_numpy` instead."""
+    :func:`params_from_numpy` instead.  Raises ValueError where no layer
+    follows the dense prefix (``n_layers <= first_dense_layers``), a
+    depth the JAX package cannot build either."""
     dev = resolve_device(device)
     check_ported(cfg)
+    if cfg.n_periods < 1:
+        raise ValueError(
+            f"{cfg.name}: no layer follows the dense prefix (n_layers "
+            f"{cfg.n_layers}, first_dense_layers {cfg.first_dense_layers}); "
+            "cut the prefix with the depth")
     dt = cfg.torch_dtype("param")
     e = cfg.d_model
 

@@ -171,13 +171,15 @@ def test_supported_agrees_with_jax_on_every_arch(arch):
 
 #: (Sq, Skv, D, Hq, Hkv) of the plan-less ``impl="auto"`` calls the port's
 #: tests make (tests/test_torch_kernels.py, tests/test_torch_paged.py,
-#: the training tests at seq 96, 40 and 24, smoke decode), and a group 5
-#: and a group 12 call at the new configs' widths
+#: the training tests at seq 96, 40 and 24, smoke decode), a group 5
+#: and a group 12 call at the new configs' widths, and MLA's cache-free
+#: training call (128 heads of D 192 over 128, S 2048)
 AUTO_SHAPES = [(3, 64, 32, 6, 2), (1, 64, 32, 4, 2), (96, 96, 32, 4, 2),
                (40, 40, 32, 4, 2), (24, 24, 32, 4, 2), (1, 200, 32, 4, 2),
                (4, 300, 32, 4, 2), (2048, 2048, 128, 36, 4),
                (1, 4096, 128, 40, 8), (1, 200, 128, 48, 4),
-               (300, 300, 128, 40, 8), (1, 257, 128, 48, 4)]
+               (300, 300, 128, 40, 8), (1, 257, 128, 48, 4),
+               (2048, 2048, 192, 128, 128)]
 
 
 @pytest.mark.parametrize("shape", AUTO_SHAPES)

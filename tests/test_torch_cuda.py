@@ -59,7 +59,14 @@ versions; internvl2-2b serves 256 patch rows before its text on #1 and
 #3 against the plain versions.  phi3.5-moe at full width, one layer:
 its gradients (B = 4, S = 256, bf16) bitwise repeatable, a zero router
 routing every token to experts 0 and 1 on the card (JAX's tie order),
-and its MoE FFN in fp32 compute within 1e-4 of the CPU's.
+and its MoE FFN in fp32 compute within 1e-4 of the CPU's.  MLA training:
+#7-#9 at D 192 / Dv 128 (the ``*_mma_kernel_d192`` instantiations in
+bf16, the FMA bodies sized for 192 in fp32) and at D 160 / Dv 96 and D
+130 / Dv 66, per row against their plain versions, bitwise repeatable,
+that gate shown to reject a dropped key tile and a dropped query tile;
+D 200 or Dv 136 refused by the wrappers and the C entry points; two
+MLA layers at those head widths train on the kernels against the plain
+versions.
 """
 
 import pytest
@@ -1442,8 +1449,8 @@ def test_wide_masked_row_gate_rejects_a_dropped_tile(cuda_device, dtype):
 @pytest.mark.cuda
 def test_wide_masked_refuses_what_it_cannot_take(cuda_device):
     """D 578 or Dv 514, a V that is not K's column prefix, and the
-    training forward (#7) at MLA's cache-free widths (D 192, Dv 128)
-    raise; nothing falls back."""
+    training forward (#7) past MLA's cache-free widths (D 200 over Dv
+    128) raise; nothing falls back."""
     q, k = _latent(cuda_device, torch.bfloat16, 1, 1, 64, 8, 578)
     lengths = torch.tensor([64], dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="head widths"):
@@ -1454,8 +1461,8 @@ def test_wide_masked_refuses_what_it_cannot_take(cuda_device):
         fused_attention_masked(q, k, k2[..., :514], lengths)
     with pytest.raises(ValueError, match="column"):
         fused_attention_masked(q, k, k[..., :512].contiguous(), lengths)
-    qf, kf = _latent(cuda_device, torch.bfloat16, 1, 16, 16, 4, 192)
-    with pytest.raises(ValueError, match="at most 128"):
+    qf, kf = _latent(cuda_device, torch.bfloat16, 1, 16, 16, 4, 200)
+    with pytest.raises(ValueError, match="at most 192"):
         fused_attention_fwd(qf, kf, kf[..., :128].contiguous())
 
 
@@ -1467,3 +1474,177 @@ def test_wide_body_runs_on_the_tensor_cores(cuda_device):
         build.build_all([name])
         assert build.sass_hmma(name, mma_symbol) > 0
         assert build.sass_hmma(name, fma_symbol) == 0
+
+
+# ---------------------------------------------------------------------------
+# MLA training: #7-#9's *_mma_kernel_d192 instantiations (bf16) and the
+# FMA bodies sized for 192 (fp32)
+# ---------------------------------------------------------------------------
+
+#: b, hq, hkv, sq, skv, d, dv, causal, q_offset: MLA's cache-free heads
+#: (D = nope 128 + rope 64, Dv 128, group 1) off the 64-row and 64-key
+#: tiles; non-causal over a group of 2; and widths inside (128, 192] that
+#: the instantiation zero-pads in its fragments: D 160 over Dv 96 with
+#: Sq < Skv, D 130 over Dv 66 (not multiples of 8: plain loads) under an
+#: explicit causal offset
+MLA_TRAIN_CASES = [(2, 8, 8, 300, 300, 192, 128, True, None),
+                   (1, 4, 2, 200, 200, 192, 128, False, None),
+                   (1, 4, 4, 72, 160, 160, 96, True, None),
+                   (1, 2, 1, 64, 160, 130, 66, True, 30)]
+
+
+def _per_row(got, want):
+    """Each row's max |got - want| over the row's largest |want|, the
+    largest over the rows; a row whose |want| stays below 1e-3 of the
+    tensor's largest (dq's causal row 0, exactly 0 in exact arithmetic;
+    a row that sees no key) is held against the tensor's largest."""
+    got, want = got.float(), want.float()
+    top = want.abs().max()
+    scale = want.abs().amax(-1)
+    scale = torch.where(scale > 1e-3 * top, scale, top.clamp_min(1e-30))
+    return ((got - want).abs().amax(-1) / scale).max().item()
+
+
+def _train_outputs(q, k, v, do, plain=False, **kw):
+    """(o, lse, dq, dk, dv): #7, then #8 and #9 on the plain forward's
+    lse and delta, or (``plain``) their plain versions."""
+    o_p, lse_p = fused_attention_fwd_plain(q, k, v, **kw)
+    delta = ref.attention_delta(o_p, do)
+    a = (q, k, v, do, lse_p, delta)
+    if plain:
+        return (o_p, lse_p, fused_attention_bwd_dq_plain(*a, **kw),
+                *fused_attention_bwd_dkv_plain(*a, **kw))
+    return (*fused_attention_fwd(q, k, v, **kw),
+            fused_attention_bwd_dq(*a, **kw),
+            *fused_attention_bwd_dkv(*a, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,dv,causal,q_offset",
+                         MLA_TRAIN_CASES)
+def test_mla_training_widths_match_plain_per_row(cuda_device, dtype, tol, b,
+                                                 hq, hkv, sq, skv, d, dv,
+                                                 causal, q_offset):
+    """o, dq, dk and dv per row within tol of the plain versions, lse
+    within 1e-3 (bf16) or 1e-4 (fp32) absolute; one launch each; the
+    five outputs bitwise repeatable."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda_device).to(dtype)
+    q, k, v, do = r(b, hq, sq, d), r(b, hkv, skv, d), r(b, hkv, skv, dv), \
+        r(b, hq, sq, dv)
+    kw = dict(causal=causal, q_offset=q_offset)
+    build.reset_launches()
+    got = _train_outputs(q, k, v, do, **kw)
+    assert dict(build.LAUNCHES) == {"fused_attention_fwd": 1,
+                                    "fused_attention_bwd_dq": 1,
+                                    "fused_attention_bwd_dkv": 1}
+    want = _train_outputs(q, k, v, do, plain=True, **kw)
+    for name, a, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.isfinite(a.float()).all(), name
+        if name == "lse":
+            lse_tol = 1e-3 if dtype == torch.bfloat16 else 1e-4
+            assert (a - w).abs().max().item() <= lse_tol
+        else:
+            assert _per_row(a, w) <= tol, name
+    again = _train_outputs(q, k, v, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_mla_training_row_gate_rejects_a_dropped_tile(cuda_device, dtype,
+                                                      tol):
+    """At MLA's widths the per-row gate the kernels pass rejects the
+    plain results with one tile of work dropped: o with the last 64
+    rows' last 64 keys left out (a key tile of #7's walk), dk and dv
+    with the last 64 query rows left out (a query tile of #9's walk)."""
+    b, h, s, d, dv = 1, 4, 256, 192, 128
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    r = lambda *sh: torch.randn(*sh, generator=g,
+                                device=cuda_device).to(dtype)
+    q, k, v, do = r(b, h, s, d), r(b, h, s, d), r(b, h, s, dv), \
+        r(b, h, s, dv)
+    o, _, _, dk, dvv = _train_outputs(q, k, v, do)
+    o_p, lse_p, _, dk_p, dv_p = _train_outputs(q, k, v, do, plain=True)
+    assert max(_per_row(o, o_p), _per_row(dk, dk_p),
+               _per_row(dvv, dv_p)) <= tol
+    t = 64
+    o_m = o_p.clone()
+    o_m[:, :, -t:] = fused_attention_fwd_plain(
+        q[:, :, -t:], k[:, :, :-t], v[:, :, :-t], q_offset=s - t)[0]
+    assert _per_row(o_m, o_p) > tol
+    delta = ref.attention_delta(o_p, do)
+    dk_m, dv_m = fused_attention_bwd_dkv_plain(
+        q[:, :, :-t], k, v, do[:, :, :-t], lse_p[:, :, :-t],
+        delta[:, :, :-t], q_offset=0)
+    assert _per_row(dk_m, dk_p) > tol and _per_row(dv_m, dv_p) > tol
+
+
+@pytest.mark.cuda
+def test_training_attention_refuses_past_mla_widths(cuda_device):
+    """D 200 over Dv 128 and D 192 over Dv 136: #7, #8 and #9 raise in
+    their wrappers, and their C entry points refuse the widths too
+    (the launch raises, nothing is counted); nothing falls back."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    bf = torch.bfloat16
+    for d, dv, most in ((200, 128, 192), (192, 136, 128)):
+        q, k = (torch.randn(1, 2, 64, d, generator=g, device=cuda_device)
+                .to(bf) for _ in range(2))
+        v, do = (torch.randn(1, 2, 64, dv, generator=g,
+                             device=cuda_device).to(bf) for _ in range(2))
+        lse = torch.zeros(1, 2, 64, device=cuda_device)
+        for call in (lambda: fused_attention_fwd(q, k, v),
+                     lambda: fused_attention_bwd_dq(q, k, v, do, lse, lse),
+                     lambda: fused_attention_bwd_dkv(q, k, v, do, lse, lse)):
+            with pytest.raises(ValueError, match=f"at most {most}"):
+                call()
+        build.reset_launches()
+        with pytest.raises(RuntimeError, match="launch failed"):
+            build.launch("fused_attention_fwd", q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), do.data_ptr(), lse.data_ptr(), 1, 2, 2,
+                         64, 64, d, dv, 1, 0, d ** -0.5, build.dtype_code(q))
+        assert not build.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_mla_layers_train_on_the_d192_kernels(cuda_device):
+    """deepseek-v3's dense-layer form (MLA, no MoE, no prefix) at its
+    head widths (8 heads of D = 128 + 64, Dv = 128) with a narrow model
+    (d_model 1024), 2 layers, bf16, remat full: the loss and every
+    gradient of one 2 x 300 token batch on the kernels against the plain
+    versions (loss within 1e-2 relative, each leaf within 2e-2 of its
+    largest); #7 twice a layer (the recompute), #8 and #9 once; the
+    gradients bitwise repeatable."""
+    import dataclasses
+
+    from repro_torch import configs, tree
+    from repro_torch.models.weights import init_params
+    from repro_torch.train import step
+    cfg = dataclasses.replace(
+        configs.get_config("deepseek-v3-671b"), n_layers=2,
+        first_dense_layers=0, moe=False, d_model=1024, n_heads=8,
+        n_kv_heads=8, q_lora_rank=256, kv_lora_rank=128, d_ff=2048,
+        vocab_size=1024)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, g, cuda_device)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 301),
+                                     generator=g, device=cuda_device)}
+    build.reset_launches()
+    (loss, _), grads = step.value_and_grad(params, cfg, batch)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {
+        "fused_attention_fwd": 2 * cfg.n_layers,
+        "fused_attention_bwd_dq": cfg.n_layers,
+        "fused_attention_bwd_dkv": cfg.n_layers}
+    _, again = step.value_and_grad(params, cfg, batch)
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(grads),
+                                                 tree.leaves(again)))
+    build.reset_launches()
+    (want, _), plain = step.value_and_grad(params, cfg, batch, impl="torch")
+    assert not build.LAUNCHES
+    assert abs(loss.item() - want.item()) <= 1e-2 * abs(want.item())
+    for a, b in zip(tree.leaves(grads), tree.leaves(plain)):
+        assert torch.isfinite(a.float()).all() and a.abs().max() > 0
+        assert _rel(a, b) <= 2e-2

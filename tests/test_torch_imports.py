@@ -187,8 +187,12 @@ def test_tensor_core_kernels_are_defined_by_their_sources():
         text = (PORT / "kernels" / "csrc" / build.KERNELS[name][0]) \
             .read_text()
         assert 'extern "C" __global__' in text
-        for symbol, full in zip(symbols, ("true", "false")):
-            assert f"_MMA_KERNEL({symbol}, {full})" in text
+        # the main-width instantiation, the one for any width, and the
+        # training bodies' MLA widths (mma.cuh Width, where the body is
+        # templated on it)
+        for symbol, args in zip(symbols, (("true", "kD128"),
+                                          ("false", "kAny"), ("kD192",))):
+            assert any(f"_MMA_KERNEL({symbol}, {a}" in text for a in args)
     for name, symbols in build.WIDE_BODIES.items():
         text = (PORT / "kernels" / "csrc" / build.KERNELS[name][0]) \
             .read_text()

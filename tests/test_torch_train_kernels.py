@@ -7,7 +7,8 @@ schedule) and the autograd Functions around them to the Pallas kernels
 in interpret mode, on the same numpy inputs, in fp32:
 
 * the forward's o and lse against ``_fwd``: 1e-5 (sums in other
-  orders, nothing rounds);
+  orders, nothing rounds), also at MLA's training widths (D 192, Dv
+  128, off the 64-row grid);
 * the backward's dq, dk, dv against ``_bwd`` on the same residuals and
   cotangent: 1e-4;
 * ``fused_attention``'s gradients against ``jax.grad`` of the JAX
@@ -59,8 +60,9 @@ CASES = [
     (1, 6, 2, 72, 160, 32, 32, True, None),      # Sq < Skv, default anchor
     (2, 6, 2, 64, 160, 32, 32, True, 30),        # explicit q_offset
     (1, 6, 3, 96, 96, 32, 16, True, None),       # Dv != D
+    (1, 2, 2, 130, 130, 192, 128, True, None),   # MLA: D 192, Dv 128
 ]
-IDS = ["g1", "g3", "full", "suffix", "offset", "dv16"]
+IDS = ["g1", "g3", "full", "suffix", "offset", "dv16", "mla"]
 
 
 def _inputs(b, hq, hkv, sq, skv, d, dv, seed=0):
@@ -102,7 +104,8 @@ def test_forward_and_backward_plain_match_pallas(b, hq, hkv, sq, skv, d,
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,dv,causal,q_offset",
-                         CASES[1:3] + CASES[4:5], ids=IDS[1:3] + IDS[4:5])
+                         CASES[1:3] + CASES[4:5] + CASES[6:],
+                         ids=IDS[1:3] + IDS[4:5] + IDS[6:])
 def test_fused_attention_grads_match_jax(b, hq, hkv, sq, skv, d, dv,
                                          causal, q_offset):
     q, k, v, g = _inputs(b, hq, hkv, sq, skv, d, dv, seed=1)
