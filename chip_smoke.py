@@ -156,7 +156,30 @@ Phases, in order:
                memory against the 28.8 GB state, #7/#8/#9 6/3/3 a
                step), the first step's gradients taken twice and equal
                bit for bit, every gradient leaf finite and non-zero;
-               then one profiled step by part.
+               then one profiled step by part;
+  17. mamba train -- mamba2-130m at full width and depth (24 layers):
+               launch/train.train_loop, remat full, bf16 moments, B=8,
+               seq 2048, 3 steps, through short_train (step ms, tokens/s,
+               peak memory, the first step's gradients bit for bit, a
+               profiled step by part); no ssd_scan launch in a step (the
+               kernel has no backward: under autograd ops.ssd takes the
+               plain scan, counted as ("ssd", "torch"));
+  18. jamba serve -- jamba-1.5-large-398b at full width cut to one
+               period of 8 layers (attention at offset 3: 64 query heads
+               over 8 of 128; seven Mamba-2 layers of 256 heads of 64 in
+               8 groups, state 128) with dense FFNs (moe=False: 9.008 G
+               parameters, 18.02 GB in bf16; the MoE period is 90.49 GB),
+               every earlier phase's weights freed first.  The serve mix
+               through launch/serve.run with no serving plan: ssd_scan on
+               each Mamba layer's multi-token chunks, the attention layer
+               on the shape-only plan at the cache's max_len (#1 for
+               decode and the chunks it fuses); the median decode step
+               against the bytes floor, tok/s, peak memory.  Gates: (a)
+               one request on the plain versions, each Mamba layer's #11
+               and the attention layer's #1 beside them on the same
+               inputs, KERNEL_TOL; (b) that request in fp32 compute on the
+               kernels against the plain versions, JAMBA_FP32_TOL; then a
+               profiled B=4 decode window (device time, idle share).
 The kernel phase also holds the four training kernels (#7-#10) to their
 plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal), #7-#9 at hubert-xlarge's (B=2, 16 heads of 80, S = 4096,
@@ -167,10 +190,11 @@ and at MLA's training shape (B=2, 128 over 128 heads, S = 2048, causal,
 D 192, Dv 128: the *_mma_kernel_d192 instantiations, beside SDPA, whose
 backend is named; and in fp32 per row within TRAIN_FP32_TOL), #1 and
 #3 at internvl2-2b's prefill and decode shapes (each kernel's record
-carries these as "hubert", "phi35moe", "mla" and "internvl") and the
-Mamba-2 SSD scan (#11) to its plain version in bf16 and
-fp32 at the serve path's prefill chunk (B=1, L=188, with an initial
-state) and the cache-free forward's shape (B=4, L=2048), and times
+carries these as "hubert", "phi35moe", "mla" and "internvl"), #11 and #1
+at jamba's shapes (jamba_kernel_phase: "jamba", "jamba_prefill",
+"jamba_decode") and the Mamba-2 SSD scan (#11) to its plain version in
+bf16 and fp32 at the serve path's prefill chunk (B=1, L=188, with an
+initial state) and the cache-free forward's shape (B=4, L=2048), and times
 them beside the unfused yardstick (ssd_unfused: every chunk batched
 through einsum, the states passed by one product; for reference only);
 in bf16 the same two shapes again with long-memory inputs (dt scaled by
@@ -222,6 +246,8 @@ import torch  # noqa: E402
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+#: the H100's float32 rate outside the tensor cores
+PEAK_FP32 = 67e12
 
 STARCODER = dict(E=4608, HQ=36, HKV=4, D=128)
 #: the kernels the dense serve path runs
@@ -2121,10 +2147,28 @@ def ssd_kernel_phase(dev, g):
     SSD_LONG_DT, with h0): the per-row gate, and that gate shown to
     reject the plain result with one chunk's incoming state dropped.
     Times both shapes in bf16, with the unfused yardstick beside them."""
+    timed = ssd_records(dev, g, MAMBA, (
+        ("serve chunk", 1, 188, True, 1.0),
+        ("cache-free", 4, 2048, False, 1.0),
+        ("serve chunk, long memory", 1, 188, True, SSD_LONG_DT),
+        ("cache-free, long memory", 4, 2048, True, SSD_LONG_DT)))
+    return {"ssd_scan": dict(
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:102",
+        **timed["cache-free"])}
+
+
+def ssd_records(dev, g, dims, cases) -> dict:
+    """ssd_kernel_phase's checks and timings of #11 at the heads of
+    ``dims`` (H, P, G, S, CHUNK), for each case (tag, B, L, with h0, dt
+    scale): bf16 and fp32 against the plain version, in bf16 per row
+    and bitwise repeatable; a long-memory case (dt scale below 1)
+    shows the per-row gate rejecting a dropped incoming state, every
+    other case is timed.  Returns {tag: record} of the timed cases."""
     from repro_torch.kernels.ssd_scan import ssd_plan, ssd_scan, \
         ssd_scan_plain
 
-    H, P, G, S, C = (MAMBA[k] for k in ("H", "P", "G", "S", "CHUNK"))
+    H, P, G, S, C = (dims[k] for k in ("H", "P", "G", "S", "CHUNK"))
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def inputs(b, length, dtype, dt_scale=1.0):
@@ -2138,11 +2182,7 @@ def ssd_kernel_phase(dev, g):
                 r(b, H, P, S) * 0.5)
 
     timed = {}
-    for tag, b, length, with_h0, dt_scale in (
-            ("serve chunk", 1, 188, True, 1.0),
-            ("cache-free", 4, 2048, False, 1.0),
-            ("serve chunk, long memory", 1, 188, True, SSD_LONG_DT),
-            ("cache-free, long memory", 4, 2048, True, SSD_LONG_DT)):
+    for tag, b, length, with_h0, dt_scale in cases:
         long_memory = dt_scale != 1.0
         for dtype, tol in ((torch.bfloat16, KERNEL_TOL),
                            (torch.float32, SSD_TOL_F32)):
@@ -2203,10 +2243,7 @@ def ssd_kernel_phase(dev, g):
                 f"unfused_ms={t['unfused_ms']:.4f} (batched einsum "
                 f"chunks, for reference only; its rel err y {urel:.3e}, "
                 f"state {urel_h:.3e})")
-    return {"ssd_scan": dict(
-        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
-        replaces="src/repro/kernels/ssd_scan.py:102",
-        **timed["cache-free"])}
+    return timed
 
 
 def _ssd_side_by_side(ops, worst):
@@ -2470,11 +2507,12 @@ def tensor_core_usage() -> dict:
 
 def _train_launches(cfg) -> dict:
     """The training kernels' launches in one forward and backward with
-    remat "full": each layer's forward runs twice (the forward and the
-    recompute), its backward once."""
-    return {"fused_attention_fwd": 2 * cfg.n_layers,
-            "fused_attention_bwd_dq": cfg.n_layers,
-            "fused_attention_bwd_dkv": cfg.n_layers}
+    remat "full": each attention layer's forward runs twice (the forward
+    and the recompute), its backward once; a Mamba-2 layer launches
+    none."""
+    n = sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
+    return {"fused_attention_fwd": 2 * n, "fused_attention_bwd_dq": n,
+            "fused_attention_bwd_dkv": n}
 
 
 def _causal_entries(b, hq, sq):
@@ -3150,7 +3188,7 @@ def train_phase(dev):
     return total
 
 
-def train_gemm_flops(cfg) -> float:
+def train_gemm_flops(cfg, batch=TRAIN_B) -> float:
     """The GEMM operations of one training step from the shapes: the
     forward (every layer's projections and MLP, and the LM head), the
     remat recompute (each layer again, less its last GEMM, w_down,
@@ -3158,8 +3196,19 @@ def train_gemm_flops(cfg) -> float:
     it) and the backward (two products per forward GEMM).  A MoE layer
     computes its experts on the capacity buffer, E x C rows a batch row
     (its own routing group), beside the router's product; the combine
-    saves w_down's output, so its recompute runs every product."""
-    from repro_torch.models import moe
+    saves w_down's output, so its recompute runs every product.  A
+    Mamba-2 layer (a pure Mamba-2 stack's, without FFN) has in_proj and
+    out_proj, and the plain scan's four batched products a chunk (C B^T
+    and the scores' product with x over C x C, C.h and the state update
+    over P x S), which cuBLAS runs too; out_proj is its last."""
+    from repro_torch.models import mamba, moe
+    if cfg.attn_every == 0:
+        d_in, h, _, g, s = mamba.dims(cfg)
+        e = cfg.d_model
+        layer = e * (2 * d_in + 2 * g * s + h) + d_in * e + scan_macs(cfg)
+        tok = 2 * batch * TRAIN_SEQ
+        fwd = tok * (cfg.n_layers * layer + e * cfg.vocab_size)
+        return fwd + tok * cfg.n_layers * (layer - d_in * e) + 2 * fwd
     e, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     n_mlp = 3 if cfg.mlp == "silu_glu" else 2
     attn = e * cfg.n_heads * hd * 2 + e * cfg.kv_heads * hd * 2
@@ -3175,13 +3224,24 @@ def train_gemm_flops(cfg) -> float:
         last = 0
     else:
         layer, last = attn + n_mlp * e * f, f * e
-    tok = 2 * TRAIN_B * TRAIN_SEQ               # 2 FLOP per MAC per token
+    tok = 2 * batch * TRAIN_SEQ                 # 2 FLOP per MAC per token
     fwd = tok * (cfg.n_layers * layer + e * cfg.vocab_size)
     recompute = tok * cfg.n_layers * (layer - last)
     return fwd + recompute + 2 * fwd
 
 
-def train_breakdown(prof, busy_ms: float, cfg, n_params: int) -> None:
+def scan_macs(cfg) -> int:
+    """The plain SSD scan's multiply-adds a token and Mamba-2 layer: per
+    head, C B^T and the scores' product with x (C x S and C x P a row of
+    a chunk of C), C.h and the state update (P x S each)."""
+    from repro_torch.models import mamba
+    _, h, p, _, s = mamba.dims(cfg)
+    c = cfg.ssd_chunk
+    return h * (c * s + c * p + 2 * s * p)
+
+
+def train_breakdown(prof, busy_ms: float, cfg, n_params: int,
+                    batch=TRAIN_B) -> None:
     """A profiled training step's device time by part: the three
     training kernels (by their CUDA kernel names), the GEMMs (cuBLAS
     kernel names), the optimizer (device time under the adamw_update
@@ -3212,7 +3272,7 @@ def train_breakdown(prof, busy_ms: float, cfg, n_params: int) -> None:
         log(f"    {ms:10.3f} ms {100 * ms / busy_ms:6.2f}% {part}")
     log(f"    {opt:10.3f} ms {100 * opt / busy_ms:6.2f}% the adamw_update "
         f"range on the device (the optimizer; its kernels are in 'other')")
-    flops = train_gemm_flops(cfg)
+    flops = train_gemm_flops(cfg, batch)
     gemm = parts["GEMMs (cuBLAS)"]
     rate = flops / (gemm / 1e3)                 # FLOP/s
     log(f"  GEMMs: {flops:.4e} FLOP counted from the shapes in "
@@ -3779,11 +3839,12 @@ def _side_by_side_gate(phase, pairs, want_paths) -> None:
                          f"{missing}")
 
 
-def moe_decode_window(args, cfg, params, requests, floor_ms) -> None:
+def decode_window(args, cfg, params, requests, floor_ms,
+                  label="moe") -> None:
     """A steady window of whole-batch decode steps, every row live: its
     step on the host clock against the bytes floor, then again under
-    torch.profiler, by kernel and by MoE op, the expert products' rate
-    beside."""
+    torch.profiler, by kernel and, for a MoE config, by MoE op, the
+    expert products' rate beside.  ``label`` starts each line."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import lower
@@ -3813,16 +3874,20 @@ def moe_decode_window(args, cfg, params, requests, floor_ms) -> None:
             eng.decode_once()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    log(f"  moe decode window: B={args.batch} live, contexts {eng.row_ctx}; "
+    log(f"  {label} decode window: B={args.batch} live, contexts {eng.row_ctx}; "
         f"each step synchronised: {step_txt}; {DECODE_WINDOW} steps back to "
         f"back {host_ms:.3f} ms/step against the {floor_ms:.3f} ms bytes "
         f"floor ({floor_ms / host_ms:.4f} of it); then {DECODE_WINDOW} "
         f"profiled {wall / DECODE_WINDOW * 1e3:.3f} ms/step")
-    busy = device_report(prof, wall, "moe profiled decode window", top=10,
+    busy = device_report(prof, wall, f"{label} profiled decode window",
+                         top=10,
                          also=("decode_mma_kernel",))
-    log(f"  moe decode window: device busy {busy / DECODE_WINDOW:.3f} "
+    log(f"  {label} decode window: device busy {busy / DECODE_WINDOW:.3f} "
         f"ms/step; against the back-to-back step, idle share "
         f"{1 - busy / DECODE_WINDOW / host_ms:.4f}")
+    if not cfg.moe:
+        del eng
+        return
     rows = args.batch * moe.capacity(cfg, 1)     # one token a group
     ff = cfg.d_expert or cfg.d_ff
     moe_op_table(prof, DECODE_WINDOW, bmm=(
@@ -3972,7 +4037,7 @@ def moe_serve(dev):
     launches.update(got)
     del dense, paged
 
-    moe_decode_window(args, cfg, params, requests, floor_ms)
+    decode_window(args, cfg, params, requests, floor_ms)
 
     # gate (a): one request on the plain versions, each attention call's
     # kernel beside its plain version on the same input; then the paged
@@ -4057,15 +4122,16 @@ def moe_serve(dev):
     return launches
 
 
-def short_train(cfg, phase, dev, after_profile=None):
-    """``launch/train.train_loop`` on ``cfg`` (a full-width config cut in
-    depth): remat full, bf16 moments, B=2, seq 2048, 3 steps.  The first
-    step's gradients are taken twice from the same state and must be
-    equal bit for bit; every per-layer leaf finite and non-zero; the
-    launches of #7-#9 a step as _train_launches predicts; the aux losses
-    positive where ``cfg.moe``.  Then one more step under the profiler,
-    by part, and ``after_profile(prof)`` where given.  Returns the
-    launches of the 3 steps."""
+def short_train(cfg, phase, dev, after_profile=None, batch=TRAIN_B):
+    """``launch/train.train_loop`` on ``cfg`` (a full-width config, cut in
+    depth where it must be): remat full, bf16 moments, B=``batch``, seq
+    2048, 3 steps.  The first step's gradients are taken twice from the
+    same state and must be equal bit for bit; every per-layer leaf
+    finite and non-zero; the launches of #7-#9 a step as _train_launches
+    predicts, and none of #11 (no backward: training scans on the plain
+    version); the aux losses positive where ``cfg.moe``.  Then one more
+    step under the profiler, by part, and ``after_profile(prof)`` where
+    given.  Returns the launches of the 3 steps."""
     from repro_torch.kernels import build
     from repro_torch.launch import train
     from repro_torch.train import step as train_step
@@ -4104,7 +4170,8 @@ def short_train(cfg, phase, dev, after_profile=None):
         per_step.append((step, float(metrics["loss"]),
                          [float(metrics[k]) for k in aux],
                          float(metrics["grad_norm"]), secs,
-                         {n: build.LAUNCHES[n] for n in TRAIN_KERNELS}))
+                         {n: build.LAUNCHES[n] for n in TRAIN_KERNELS},
+                         build.LAUNCHES["ssd_scan"]))
         total.update(build.LAUNCHES)
         build.reset_launches()
 
@@ -4114,7 +4181,7 @@ def short_train(cfg, phase, dev, after_profile=None):
     try:
         with checked_grads(phase, grad_leaves, after=twice):
             state, losses = train.train_loop(
-                cfg, steps=3, batch=TRAIN_B, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                cfg, steps=3, batch=batch, seq=TRAIN_SEQ, lr=TRAIN_LR,
                 moment_dtype="bfloat16", device=dev, on_step=on_step,
                 log_every=1)
     finally:
@@ -4124,12 +4191,12 @@ def short_train(cfg, phase, dev, after_profile=None):
     pbytes = sum(t.numel() * t.element_size() for t in _leaves(state.params))
     obytes = sum(t.numel() * t.element_size() for m in
                  (state.opt.mu, state.opt.nu) for t in _leaves(m))
-    for step, loss, auxes, gn, secs, launches in per_step:
+    for step, loss, auxes, gn, secs, launches, _ in per_step:
         log(f"  step {step}: loss {loss:.6f} " + "".join(
             f"{k} {x:.6f} " for k, x in zip(aux, auxes)) +
             f"grad_norm {gn:.6f} {secs * 1e3:.1f} ms, launches {launches}")
     med = statistics.median(p[4] for p in per_step[1:])
-    tok = TRAIN_B * TRAIN_SEQ
+    tok = batch * TRAIN_SEQ
     log(f"  step time: median of steps 2-3 {med * 1e3:.1f} ms; "
         f"{tok / med:.1f} training tokens/s; wall {wall:.1f}s incl. init "
         f"and the first step's second gradient")
@@ -4147,6 +4214,9 @@ def short_train(cfg, phase, dev, after_profile=None):
     if any(p[5] != want for p in per_step):
         raise SystemExit(f"{phase}: launches per step "
                          f"{[p[5] for p in per_step]}, predicted {want}")
+    if any(p[6] for p in per_step):
+        raise SystemExit(f"{phase}: ssd_scan launched in a training step "
+                         f"{[p[6] for p in per_step]}")
     if repeat["differ"]:
         raise SystemExit(f"{phase}: gradients not bitwise repeatable: "
                          f"{repeat['differ'][:8]}")
@@ -4155,14 +4225,14 @@ def short_train(cfg, phase, dev, after_profile=None):
 
     # one more step under the profiler: where a step's time goes
     from repro_torch.data import SyntheticTokenDataset
-    ds = SyntheticTokenDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_B, seed=0,
+    ds = SyntheticTokenDataset(cfg.vocab_size, TRAIN_SEQ, batch, seed=0,
                                structured=True)
-    batch = {"tokens": torch.from_numpy(ds.batch(3)).long().to(dev)}
+    feed = {"tokens": torch.from_numpy(ds.batch(3)).long().to(dev)}
     state, loss, prof, busy = profiled_step(
-        train_step.make_train_step(cfg, lr=TRAIN_LR), state, batch,
+        train_step.make_train_step(cfg, lr=TRAIN_LR), state, feed,
         f"{phase} profiled training step", 12)
     train_breakdown(prof, busy, cfg,
-                    sum(t.numel() for t in _leaves(state.params)))
+                    sum(t.numel() for t in _leaves(state.params)), batch)
     if after_profile is not None:
         after_profile(prof)
     log(f"  profiled step: loss {loss:.6f}")
@@ -4809,6 +4879,315 @@ def mla_train_phase(dev):
     return short_train(cfg, "mla train", dev)
 
 
+# ---------------------------------------------------------------------------
+# Mamba-2 training, and jamba: the attention/Mamba-2 hybrid served
+# ---------------------------------------------------------------------------
+
+#: mamba2-130m's training batch: 8 rows of 2048 tokens (B=2 would leave a
+#: 130 M-parameter step to the launch rate)
+MAMBA_TRAIN_B = 8
+
+
+def mamba_train_phase(dev):
+    """``short_train`` on mamba2-130m at full width and depth (24 layers,
+    remat full, bf16 moments, B=MAMBA_TRAIN_B, seq 2048, 3 steps).  Under
+    autograd ``ops.ssd`` takes the plain scan (#11 has no backward): no
+    ssd_scan launch in a step, ("ssd", "torch") calls counted.  Returns
+    the launches of the 3 steps."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+
+    cfg = configs.get_config("mamba2-130m")
+    log(f"mamba train: {cfg.name} {cfg.n_layers} layers d_model="
+        f"{cfg.d_model}, {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}; remat {cfg.remat}, bf16 params and moments, "
+        f"B={MAMBA_TRAIN_B} seq {TRAIN_SEQ} lr {TRAIN_LR}, 3 steps; "
+        f"| {card_line()}")
+    # the scan's products run in the forward, the recompute and twice in
+    # the backward, 2 FLOP a multiply-add
+    scan = 4 * 2 * MAMBA_TRAIN_B * TRAIN_SEQ * cfg.n_layers * scan_macs(cfg)
+    proj = train_gemm_flops(cfg, MAMBA_TRAIN_B) - scan
+    floor = proj / PEAK_BF16 + scan / PEAK_FP32
+    log(f"  operations floor of a step {floor * 1e3:.3f} ms: the "
+        f"projections and LM head {proj / 1e12:.3f} TFLOP at the bf16 "
+        f"peak, the plain scan's products {scan / 1e12:.3f} TFLOP in fp32 "
+        f"at {PEAK_FP32 / 1e12:.0f} TFLOP/s (CUDA cores; tf32 is off)")
+    ops.reset_counts()
+    launches = short_train(cfg, "mamba train", dev, batch=MAMBA_TRAIN_B)
+    calls = {f"{e}/{i}": n for (e, i), n in sorted(ops.CALLS.items())}
+    log(f"  mamba train: ops calls {calls}; ssd_scan launches over the 3 "
+        f"steps {launches['ssd_scan']}")
+    if not ops.CALLS[("ssd", "torch")] or ops.CALLS[("ssd", "cuda")] \
+            or launches["ssd_scan"]:
+        raise SystemExit("mamba train: the scan did not run on the plain "
+                         "version alone")
+    return launches
+
+
+JAMBA_ARCH = "jamba-1.5-large-398b"
+#: the served cut: one full-width period (8 layers: attention at offset
+#: 3, seven Mamba-2 layers) with dense FFNs.  With its four 16-expert
+#: MoE layers the period is 90.49 GB of bf16 weights, more than the card
+#: holds; phi3.5-moe holds the MoE FFN at full width.
+JAMBA_LAYERS = 8
+#: jamba's Mamba-2 heads (256 of 64, 8 groups, state 128) and attention
+#: heads (64 query heads over 8 KV heads of 128)
+JAMBA_SSD = dict(H=256, P=64, G=8, S=128, CHUNK=128)
+JAMBA_ATTN = dict(HQ=64, HKV=8, D=128)
+#: gate (b)'s limit, relative to the largest |logit|: the one period in
+#: fp32 compute on the kernels against the plain versions
+JAMBA_FP32_TOL = 1e-4
+
+
+def jamba_cfg():
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(JAMBA_ARCH),
+                               n_layers=JAMBA_LAYERS, moe=False)
+
+
+def jamba_kernel_phase(dev, g) -> dict:
+    """#11 and #1 at jamba's served shapes, held as at their main shapes:
+    #11 on a prefill chunk (B=1, L=256, with h0: 256 heads of 64 in 8
+    groups, state 128) in bf16 and fp32, per row, bitwise repeatable,
+    the gate shown to reject a dropped incoming state at long-memory
+    inputs, timed beside the unfused yardstick; #1 (64 query heads over
+    8 of 128) on a second prefill chunk (B=1, Sq=256 at C=512 in a
+    1024-row cache: per row, bitwise repeatable, a dropped key tile
+    rejected) and at decode (B=4, M=1, contexts PAGED_LENS: per row,
+    bitwise repeatable), each timed beside SDPA.  Returns {kernel:
+    {"jamba..." : record}}."""
+    from repro_torch.kernels.fused_attention import \
+        fused_attention_masked_plain
+
+    out = collections.defaultdict(dict)
+    timed = ssd_records(dev, g, JAMBA_SSD, (
+        ("jamba chunk", 1, 256, True, 1.0),
+        ("jamba chunk, long memory", 1, 256, True, SSD_LONG_DT)))
+    tag = "jamba B=1 L=256 h0 H=256 P=64 G=8 S=128 chunk 128"
+    out["ssd_scan"]["jamba"] = dict(shape=tag, **timed["jamba chunk"])
+
+    bf = torch.bfloat16
+    HQ, HKV, D = (JAMBA_ATTN[k] for k in ("HQ", "HKV", "D"))
+    skv = 1024
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+
+    sq, total = 256, 512
+    q, k, v = rnd(1, HQ, sq, D), rnd(1, HKV, skv, D), rnd(1, HKV, skv, D)
+    lens = torch.tensor([total], dtype=torch.int32, device=dev)
+    tag = f"jamba B=1 Sq={sq} C={total} Hq={HQ}/{HKV} D={D}"
+    out["fused_attention_masked"]["jamba_prefill"] = dict(
+        shape=tag, **masked_attention_record(
+            q, k, v, lens, tag,
+            lambda o, want, run: masked_gates(
+                "fused_attention_masked", tag, o, want, run, total,
+                lambda rows, end: fused_attention_masked_plain(
+                    q[:, :, rows:].contiguous(), k, v,
+                    torch.tensor([end], dtype=torch.int32, device=dev),
+                    causal=False))))
+    b = len(PAGED_LENS)
+    q, k, v = rnd(b, HQ, 1, D), rnd(b, HKV, skv, D), rnd(b, HKV, skv, D)
+    lens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
+    tag = f"jamba B={b} M=1 lengths={PAGED_LENS} Hq={HQ}/{HKV} D={D}"
+
+    def decode_gates(o, want, run):
+        if not torch.equal(run(), o):
+            raise SystemExit(f"fused_attention_masked [{tag}] is not "
+                             f"deterministic")
+        log(f"  fused_attention_masked [{tag}] bitwise repeatable")
+        row_gate("fused_attention_masked", tag, {"o": (o, want)})
+
+    out["fused_attention_masked"]["jamba_decode"] = dict(
+        shape=tag, **masked_attention_record(q, k, v, lens, tag,
+                                             decode_gates))
+    for name, shapes in out.items():
+        for r in shapes.values():
+            log_record(name, r, r["shape"])
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(out)
+
+
+def _attention_calls_side_by_side(ops, worst):
+    """An ``ops.attention`` that, on each cached call (one with lengths),
+    also runs #1 and its plain version on the call's inputs, appending
+    (rows, the kernel's error relative to the plain output's largest
+    magnitude) to ``worst``; the comparison's launches are taken back
+    out of the counts, and the call itself runs as it was asked.
+    Returns (the original, the wrapper)."""
+    from repro_torch.kernels import build
+    orig = ops.attention
+
+    def both(q, k, v, **kw):
+        if kw.get("lengths") is not None and kw.get("block_tables") is None:
+            saved = collections.Counter(build.LAUNCHES)
+            got, want = (orig(q, k, v, **dict(kw, impl=impl, plan=None))
+                         for impl in ("cuda", "torch"))
+            build.LAUNCHES.clear()
+            build.LAUNCHES.update(saved)
+            worst.append((q.shape[2], rel_err(got, want)[1]))
+        return orig(q, k, v, **kw)
+    return orig, both
+
+
+def jamba_serve_phase(dev):
+    """One full-width period of jamba (jamba_cfg: 9.008 G parameters,
+    18.02 GB in bf16), random weights from seed 0, every earlier phase's
+    weights freed first: the serve mix through launch/serve.run (no
+    serving plan: the Mamba layers' prefill chunks on #11, the attention
+    layer on the shape-only plan at the cache's max_len, #1 for decode
+    and the chunks it fuses), the median decode step against the bytes
+    floor, tok/s and peak memory; gate (a): one request on the plain
+    versions with each layer's #11 and #1 run beside them on the same
+    inputs (KERNEL_TOL); gate (b): that request with the compute in fp32,
+    the kernels against the plain versions (JAMBA_FP32_TOL); then a
+    steady B=4 decode window, profiled.  Returns the serve's launches."""
+    import dataclasses
+
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.models.weights import init_params
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = jamba_cfg()
+    args = serve.parser().parse_args([
+        "--arch", JAMBA_ARCH, "--batch", "4", "--requests", "6",
+        "--max-len", "1024", "--max-new", "16", "--prefill-chunk", "256",
+        "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = init_params(cfg, g, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    all_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    wbytes = all_bytes - params["embed"].numel() * \
+        params["embed"].element_size()
+    floor_ms = wbytes / PEAK_BYTES * 1e3
+    mamba = [i for i in range(cfg.n_layers) if cfg.block_kind(i) == "mamba"]
+    log(f"jamba serve: {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} query heads over {cfg.kv_heads} of {cfg.head_dim}; "
+        f"Mamba-2 {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, G "
+        f"{cfg.ssm_groups}, state {cfg.ssm_state}; d_ff {cfg.d_ff}) cut to "
+        f"one period of {cfg.n_layers} layers (attention at {cfg.attn_offset},"
+        f" Mamba-2 at {mamba}), dense FFNs (moe=False); {n_params} "
+        f"parameters, {all_bytes / 1e9:.3f} GB bf16, random (seed 0), in "
+        f"{time.time() - t0:.1f}s (init peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB); | {card_line()}")
+    log(f"  weights read per decode step (the embedding table aside) "
+        f"{wbytes / 1e9:.3f} GB: floor {floor_ms:.3f} ms at "
+        f"{PEAK_BYTES / 1e12} TB/s; all weights {all_bytes / 1e9:.3f} GB: "
+        f"{all_bytes / PEAK_BYTES * 1e3:.3f} ms")
+    requests = serve.make_requests(cfg, args.requests, args.max_new,
+                                   prompt_lens=PROMPT_LENS)
+    lens = [len(r.prompt) for r in requests]
+    chunks = sum(sum(1 for st in range(0, n, args.prefill_chunk)
+                     if n - st > 1) for n in lens)
+    predicted = len(mamba) * chunks
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    out = serve.run(args, cfg, params, requests)
+    launches = collections.Counter(build.LAUNCHES)
+    calls = {f"{e}/{i}": n for (e, i), n in sorted(ops.CALLS.items())}
+    finished, secs = out["finished"], out["seconds"]
+    gen = sum(len(r.generated) for r in finished)
+    steps = out["decode_step_s"]
+    step_ms = statistics.median(steps) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  served {len(finished)}/{len(requests)} requests (prompts {lens},"
+        f" chunk {args.prefill_chunk}), {gen} tokens in {secs:.3f}s = "
+        f"{gen / secs:.2f} tok/s; decode steps {len(steps)}, median step "
+        f"{step_ms:.3f} ms against the {floor_ms:.3f} ms floor; peak memory "
+        f"{peak / 1e9:.3f} GB")
+    log(f"  launches {dict(launches)} (ssd_scan predicted {predicted}: "
+        f"{len(mamba)} Mamba layers x {chunks} multi-token chunks); calls "
+        f"by impl {calls}")
+    if out["plan"] is not None:
+        raise SystemExit("jamba serve: a serving plan for the hybrid")
+    if len(finished) != len(requests) or any(
+            len(r.generated) != args.max_new for r in finished):
+        raise SystemExit("jamba serve: not every request finished")
+    if launches["ssd_scan"] != predicted \
+            or not launches["fused_attention_masked"] \
+            or set(+launches) != {"ssd_scan", "fused_attention_masked"}:
+        raise SystemExit(f"jamba serve: launches {dict(launches)}, "
+                         f"ssd_scan predicted {predicted}")
+    del out, finished
+
+    # gate (a): one request on the plain versions, each layer's #11 and
+    # #1 beside them on the same inputs
+    prompt = requests[1].prompt
+    ssd_worst, attn_worst = [], []
+    orig_ssd, both_ssd = _ssd_side_by_side(ops, ssd_worst)
+    orig_attn, both_attn = _attention_calls_side_by_side(ops, attn_worst)
+
+    def one(c, impl, forced=None, side=False):
+        eng = ContinuousBatchingEngine(
+            params, c, batch_size=1, max_len=args.max_len,
+            dtype=c.torch_dtype(), prefill_chunk=args.prefill_chunk,
+            device=dev, impl=impl)
+        if side:
+            ops.ssd, ops.attention = both_ssd, both_attn
+        try:
+            ops.reset_counts()
+            return _one_request_logits(eng, prompt, forced) + (
+                dict(build.LAUNCHES),)
+        finally:
+            ops.ssd, ops.attention = orig_ssd, orig_attn
+
+    k_logits, toks, _ = one(cfg, "auto")
+    p_logits, _, _ = one(cfg, "torch", toks, side=True)
+    for i, (a, b) in enumerate(zip(k_logits, p_logits)):
+        err, rel = rel_err(a, b)
+        log(f"  bf16 step {i}: kernels against plain versions max_abs_err="
+            f"{err:.4e} rel={rel:.4e}, argmax "
+            f"{'same' if int(a.argmax()) == int(b.argmax()) else 'FLIPPED'}")
+    n_chunks = sum(1 for st in range(0, len(prompt), args.prefill_chunk)
+                   if len(prompt) - st > 1)
+    by_rows = collections.defaultdict(list)
+    for rows, rel in attn_worst:
+        by_rows["decode" if rows == 1 else "chunk"].append(rel)
+    log(f"  gate (a), prompt {len(prompt)} tokens: each Mamba layer's "
+        f"ssd_scan against the plain version on its inputs: worst rel "
+        f"{max(ssd_worst):.4e} over {len(ssd_worst)} calls; the attention "
+        f"layer's #1: " + ", ".join(
+            f"{k} {len(v)} calls worst rel {max(v):.4e}"
+            for k, v in sorted(by_rows.items())) + f" (tol {KERNEL_TOL})")
+    if len(ssd_worst) != len(mamba) * n_chunks \
+            or len(attn_worst) != len(range(0, len(prompt),
+                                            args.prefill_chunk)) \
+            + DECODE_COMPARED \
+            or max(ssd_worst + [r for _, r in attn_worst]) > KERNEL_TOL:
+        raise SystemExit("jamba gate (a): a kernel disagrees with its plain "
+                         "version, or a call was not compared")
+
+    # gate (b): the compute in fp32, kernels against plain versions
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    k32, toks32, k_l = one(cfg32, "auto")
+    p32, _, p_l = one(cfg32, "torch", toks32)
+    worst32 = compare_logits("jamba fp32", k32, p32, tol=JAMBA_FP32_TOL)
+    log(f"  gate (b): {cfg.n_layers} layers, fp32 compute, prompt "
+        f"{len(prompt)} tokens, prefill + {DECODE_COMPARED} decode steps: "
+        f"worst rel {worst32:.4e} (tol {JAMBA_FP32_TOL}); launches {k_l}, on "
+        f"the plain versions {p_l}")
+    if not k_l.get("ssd_scan") or not k_l.get("fused_attention_masked") \
+            or any(p_l.values()):
+        raise SystemExit(f"jamba gate (b): kernels never launched in fp32 "
+                         f"{k_l}, or the plain run launched {p_l}")
+    decode_window(args, cfg, params, requests, floor_ms, label="jamba")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4844,23 +5223,37 @@ def main() -> int:
         frontend.setdefault(name, {}).update(shapes)
     for name, shapes in mla_train_kernel_phase(dev, g).items():
         frontend.setdefault(name, {}).update(shapes)
+    for name, shapes in jamba_kernel_phase(dev, g).items():
+        frontend.setdefault(name, {}).update(shapes)
     log("kernels: " + ", ".join(f"{n} ok" for n in results))
-    plan_phase(dev)
-    launches = serve_phase(dev)
-    launches.update(new_dense_phase(dev))
-    launches.update(qwen_phase(dev))
-    launches.update(mamba_forward_phase(dev))
-    launches.update(mamba_serve_phase(dev))
-    launches.update(qproj_train_phase(dev, g))
-    launches.update(train_parity_phase(dev))
-    launches.update(train_phase(dev))
-    launches.update(frontends_phase(dev))
-    launches.update(moe_phase(dev))
-    mla_launches, mla_records = mla_phase(dev, g)
+    log(f"phase kernels: done at {time.time() - t0:.1f}s")
+
+    def timed(name, fn, *a):
+        """``fn(*a)``, its seconds and the run's so far logged."""
+        t = time.time()
+        out = fn(*a)
+        log(f"phase {name}: {time.time() - t:.1f}s (done at "
+            f"{time.time() - t0:.1f}s)")
+        return out
+
+    timed("plan", plan_phase, dev)
+    launches = timed("serve", serve_phase, dev)
+    launches.update(timed("new dense", new_dense_phase, dev))
+    launches.update(timed("qwen", qwen_phase, dev))
+    launches.update(timed("mamba forward", mamba_forward_phase, dev))
+    launches.update(timed("mamba serve", mamba_serve_phase, dev))
+    launches.update(timed("qproj train", qproj_train_phase, dev, g))
+    launches.update(timed("train parity", train_parity_phase, dev))
+    launches.update(timed("train", train_phase, dev))
+    launches.update(timed("frontends", frontends_phase, dev))
+    launches.update(timed("moe", moe_phase, dev))
+    mla_launches, mla_records = timed("mla", mla_phase, dev, g)
     launches.update(mla_launches)
     for name, shapes in mla_records.items():
         frontend.setdefault(name, {}).update(shapes)
-    launches.update(mla_train_phase(dev))
+    launches.update(timed("mla train", mla_train_phase, dev))
+    launches.update(timed("mamba train", mamba_train_phase, dev))
+    launches.update(timed("jamba serve", jamba_serve_phase, dev))
     missing = [n for n in build.KERNELS if launches[n] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on any path: {missing}")

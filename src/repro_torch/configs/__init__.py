@@ -7,7 +7,8 @@ internvl2-2b VLM backbone, whose stub frontends feed ``frontend_proj``),
 (phi3.5-moe), ``list_archs("mla")`` the Multi-head Latent Attention
 stacks (deepseek-v3, whose FFNs are a dense prefix and then
 Mixture-of-Experts), ``list_archs("ssm")`` the attention-free Mamba-2
-stacks."""
+stacks, ``list_archs("hybrid")`` the attention/Mamba-2 interleaves
+(jamba-1.5, whose FFNs alternate dense and Mixture-of-Experts)."""
 
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ ARCHS = {
     "internvl2-2b": "repro_torch.configs.internvl2_2b",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_15_large",
 }
 
 
@@ -33,12 +35,15 @@ def get_config(arch: str, smoke: bool = False):
 
 
 def family(arch: str) -> str:
-    """``"ssm"`` for an attention-free stack, ``"mla"`` for one with
-    Multi-head Latent Attention, ``"moe"`` for a GQA stack with
-    Mixture-of-Experts FFNs, else ``"dense"``."""
+    """``"ssm"`` for an attention-free stack, ``"hybrid"`` for one
+    that interleaves attention and Mamba-2 layers (whatever its FFNs),
+    ``"mla"`` for one with Multi-head Latent Attention, ``"moe"`` for a
+    GQA stack with Mixture-of-Experts FFNs, else ``"dense"``."""
     cfg = get_config(arch)
     if cfg.attn_every == 0:
         return "ssm"
+    if cfg.attn_every > 1:
+        return "hybrid"
     if cfg.attention == "mla":
         return "mla"
     return "moe" if cfg.moe else "dense"
@@ -46,5 +51,5 @@ def family(arch: str) -> str:
 
 def list_archs(family_: Optional[str] = None) -> list:
     """Every arch, or those of one family (``"dense"``, ``"moe"``,
-    ``"mla"`` or ``"ssm"``)."""
+    ``"mla"``, ``"ssm"`` or ``"hybrid"``)."""
     return [a for a in ARCHS if family_ is None or family(a) == family_]

@@ -6,18 +6,21 @@ the lowering layer turns into serving plans.
 Every module is pure Python, copied with its names and arithmetic so
 that results are bit-equal to the reference's, and imported from here
 without JAX.  ``codesign`` is the card's counterpart: its tiles are the
-CUDA kernels' own.  ``allocation`` (the heterogeneous genetic
-allocator) is not ported: it serves the multi-device lowering, which
-the port has not reached, and nothing on the serving path calls it.
+CUDA kernels' own.  ``allocation`` is the heterogeneous genetic
+allocator (Stream's step 4: attention heads to cores, and on a
+heterogeneous platform each head's softmax core); it is analytical
+only, and nothing on the card calls it.
 
 Units across the API: latency in cycles (Mcycles = 1e6 in reprs),
 energy in pJ, memory in words (2 bytes/word).
 """
-from repro_torch.core import (analytical, codesign, costmodel, engine,
-                              interconnect, spacegen)
+from repro_torch.core import (allocation, analytical, codesign, costmodel,
+                              engine, interconnect, spacegen)
 from repro_torch.core.accelerator import (Accelerator, Core, MemoryLevel,
                                           SIMDUnit, gap8, multi_core_array,
                                           pe_array_64x64, tpu_v5e_like)
+from repro_torch.core.allocation import (GAResult, heads_schedule,
+                                         optimize_allocation)
 from repro_torch.core.costmodel import AnalyticalCostModel, CostModel
 from repro_torch.core.dependencies import ALL, Requirement, required_inputs
 from repro_torch.core.fusion import (PhasePlan, best_schedule, explore,
@@ -43,10 +46,11 @@ from repro_torch.core.workload import (INPUT, KVCACHE, PHASES, WEIGHT,
                                        parallel_heads, transformer_block)
 
 __all__ = [
-    "analytical", "codesign", "costmodel", "engine", "interconnect",
-    "spacegen",
+    "allocation", "analytical", "codesign", "costmodel", "engine",
+    "interconnect", "spacegen",
     "Accelerator", "Core", "MemoryLevel", "SIMDUnit",
     "gap8", "multi_core_array", "pe_array_64x64", "tpu_v5e_like",
+    "GAResult", "heads_schedule", "optimize_allocation",
     "AnalyticalCostModel", "CostModel",
     "ALL", "Requirement", "required_inputs",
     "PhasePlan", "best_schedule", "explore", "fuse_all", "fuse_pv",

@@ -478,15 +478,24 @@ def ssd(x, dt, a, b, c, d=None, *, chunk: int = 128, impl: str = "auto",
     state or None.  ``impl``: ``cuda`` (kernel #11, with or without h0:
     where the JAX package sends a call with h0 to its lax chunked scan,
     the kernel computes that function), ``torch`` (the plain version, the
-    port of that lax scan) or ``reference`` (the sequential oracle);
-    ``auto`` is the kernel on a CUDA tensor and the plain version on a
-    CPU one.  No impl differentiates: an input that requires grad with
-    autograd on raises ``NotImplementedError`` (the TPU kernel has no
-    backward).  Returns y, and with ``return_final_state`` the final
-    state fp32."""
-    _ssd.check_no_grad("ops.ssd", {"x": x, "dt": dt, "a": a, "b": b,
-                                   "c": c, "d": d, "h0": h0})
+    port of that lax scan) or ``reference`` (the sequential oracle).
+
+    ``auto`` is decided on the grad mode before the call, as the JAX
+    package's ``default_impl`` sends every call off the TPU to its
+    differentiable lax scan: where autograd would track an input
+    (``torch.is_grad_enabled()`` and one requires grad, a training
+    forward) it is the plain version on either device, counted as
+    ``("ssd", "torch")``; otherwise the kernel on a CUDA tensor and the
+    plain version on a CPU one.  This is no fallback: nothing is tried
+    first.  The kernel has no backward (nor has the TPU kernel), so
+    ``impl="cuda"`` on a tracked input raises ``NotImplementedError``.
+    Returns y, and with ``return_final_state`` the final state fp32."""
+    inputs = {"x": x, "dt": dt, "a": a, "b": b, "c": c, "d": d, "h0": h0}
+    if impl == "auto" and _ssd.tracked(inputs):
+        impl = "torch"
     impl, _ = _resolve("ssd", impl, None, x.device)
+    if impl == "cuda":
+        _ssd.check_no_grad("ops.ssd", inputs)
     _count("ssd", impl)
     if impl == "reference":
         return ref.ssd_reference(x, dt, a, b, c, d, h0=h0,

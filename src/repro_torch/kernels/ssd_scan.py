@@ -32,9 +32,10 @@ flags hold its own epoch, so a serve path's prefill chunks of many
 lengths share one.  fp32 inputs, and bf16 shapes off the
 tensor-core grid, run the first (FMA) body.
 
-No impl differentiates: the TPU kernel has no backward, so the wrapper
+The kernel has no backward (nor has the TPU kernel), so the wrapper
 raises ``NotImplementedError`` on an input that requires grad with
-autograd on, on either device.
+autograd on, on either device.  :func:`ssd_scan_plain` differentiates:
+training reaches it through ``ops.ssd``'s grad-mode dispatch.
 """
 
 from __future__ import annotations
@@ -58,16 +59,24 @@ TILE_STRIDE, X_STRIDE = 136, 72
 SLICE_WIDTHS = (64, 32, 16)
 
 
+def tracked(tensors: dict) -> list:
+    """The names of the inputs autograd would track: with grad mode on,
+    those that require grad."""
+    if not torch.is_grad_enabled():
+        return []
+    return [k for k, t in tensors.items()
+            if t is not None and t.requires_grad]
+
+
 def check_no_grad(name: str, tensors: dict) -> None:
     """Refuse, on any device, an input that autograd would track."""
-    if torch.is_grad_enabled():
-        tracked = [k for k, t in tensors.items()
-                   if t is not None and t.requires_grad]
-        if tracked:
-            raise NotImplementedError(
-                f"{name}: {tracked} require grad, but the SSD scan has no "
-                "backward (the JAX package's ssd_scan kernel has none); "
-                "call it under torch.no_grad()")
+    names = tracked(tensors)
+    if names:
+        raise NotImplementedError(
+            f"{name}: {names} require grad, but the SSD scan kernel has no "
+            "backward (the JAX package's ssd_scan kernel has none); call "
+            "it under torch.no_grad(), or ops.ssd with impl 'auto' or "
+            "'torch', which differentiates through the plain version")
 
 
 def _pad_seq(t: torch.Tensor, length: int) -> torch.Tensor:

@@ -18,8 +18,11 @@ A Mamba-2 config has no serving plan: its prefill chunks run the SSD
 scan kernel seeded with each row's state, its decode the one-token
 update.  An MLA config (deepseek-v3) has none either: the engine
 resolves its latent attention on the shape-only plan at each chunk and
-step.  ``--layers`` keeps the config's dense prefix, so deepseek-v3
-cut to 4 layers runs its 3 dense-FFN layers and one MoE layer.
+step.  The attention/Mamba-2 hybrid (jamba) has none: its Mamba layers
+run as mamba2's, its attention layers resolve the shape-only plan at
+the cache's max_len.  ``--layers`` keeps the config's dense prefix, so
+deepseek-v3 cut to 4 layers runs its 3 dense-FFN layers and one MoE
+layer.
 """
 
 from __future__ import annotations

@@ -5,14 +5,16 @@ without its host mesh, which waits for the multi-device slice).
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
         --smoke --steps 20 --batch 8 --seq 128 --device cpu
 
-Every attention arch trains (``configs.list_archs("dense")`` and
-``list_archs("moe")``), on token batches as the JAX launcher does: the
-encoder hubert-xlarge non-causal with ``targets = tokens``, the VLM
-internvl2-2b on text alone (its patch-embedding batches go through
-``train.step`` directly), phi3.5-moe with its load-balance and z-loss
-terms added to the loss.
-mamba2-130m does not: the Mamba-2 SSD scan has no backward (neither has
-the JAX package's ssd_scan kernel).
+Every arch trains (``configs.list_archs()``, as the JAX launcher takes
+it), on token batches as the JAX launcher does: the encoder
+hubert-xlarge non-causal with ``targets = tokens``, the VLM internvl2-2b
+on text alone (its patch-embedding batches go through ``train.step``
+directly), the Mixture-of-Experts stacks (phi3.5-moe, deepseek-v3,
+jamba) with their load-balance and z-loss terms added to the loss, and
+the Mamba-2 layers (mamba2-130m, jamba's) through the plain SSD scan,
+which ``kernels.ops.ssd`` takes under autograd (the kernel has no
+backward, nor has the JAX package's ssd_scan kernel, and JAX trains
+through its lax scan).
 """
 
 from __future__ import annotations
@@ -103,8 +105,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float,
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-8b",
-                    choices=(configs.list_archs("dense")
-                             + configs.list_archs("moe")))
+                    choices=configs.list_archs())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -124,6 +125,7 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    """Parse ``argv``, train, print the summary; returns the losses."""
     args = parser().parse_args(argv)
     cfg = configs.get_config(args.arch, smoke=args.smoke)
     if args.layers is not None:
@@ -136,6 +138,7 @@ def main(argv=None):
                            device=args.device)
     print(f"done: {len(losses)} steps in {time.time()-t0:.1f}s; "
           f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    return losses
 
 
 if __name__ == "__main__":

@@ -2,9 +2,11 @@
 attention layers (GQA, or deepseek-v3's MLA) whose FFN is a dense MLP
 or a Mixture-of-Experts (``cfg.ffn_kind(i) == "moe"``,
 ``models/moe.py``; a dense prefix of ``first_dense_layers`` before
-them), and the Mamba-2 layers of a pure-mamba stack
-(``cfg.block_kind(i) == "mamba"``: pre-norm, the mamba block, the
-residual add, and no FFN sublayer).
+them), and Mamba-2 layers (``cfg.block_kind(i) == "mamba"``: pre-norm,
+the mamba block, the residual add).  A pure Mamba-2 stack's layers have
+no FFN sublayer; the hybrid's (jamba: ``attn_every`` 8, attention at
+``attn_offset``) have one, dense or MoE by ``cfg.ffn_kind(i)``, as its
+attention layers do.
 
 Parameters keep the JAX package's tree: ``prefix_layers`` (a list) and
 ``layers`` (one dict per position in the layer period, every leaf with
@@ -60,13 +62,13 @@ def check_ported(cfg: ModelConfig) -> None:
     """Admit the stacks the port runs: attention stacks, GQA (causal or
     not, with or without a modality frontend's stub projection) or MLA,
     whose FFNs are dense MLPs or Mixture-of-Experts, with or without a
-    dense prefix, and pure Mamba-2 stacks.  The attention/mamba hybrid
-    is refused."""
-    attention = cfg.attn_every == 1 and cfg.attention in ("gqa", "mla")
-    if not (attention or cfg.attn_every == 0):
+    dense prefix; pure Mamba-2 stacks; and the attention/Mamba-2 hybrid
+    (``attn_every > 1``, jamba).  A stack whose attention layers have
+    no attention flavour the port knows is refused."""
+    if cfg.attn_every != 0 and cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense GQA or MLA stacks and pure "
-            "Mamba-2 stacks only")
+            f"{cfg.name}: the port runs GQA or MLA attention layers "
+            f"(attention={cfg.attention!r})")
 
 
 def _index(tree, j: int):

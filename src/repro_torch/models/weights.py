@@ -21,7 +21,10 @@ MLP of width Fx·n_shared]} (X experts of width Fx = ``d_expert``); per
 mamba layer ``pre_norm`` and ``mamba`` {``in_proj`` (E, 2 d_inner +
 2 G S + H), ``conv_w`` (W, d_inner + 2 G S), ``conv_b``, ``a_log``,
 ``d_skip`` and ``dt_bias`` (H,) in fp32 whatever the parameter dtype,
-``norm`` (d_inner,), ``out_proj`` (d_inner, E)}, with no FFN.
+``norm`` (d_inner,), ``out_proj`` (d_inner, E)}, then the FFN sublayer
+(``ffn_norm`` and ``mlp`` or ``moe``, by ``cfg.ffn_kind(i)``) in a
+hybrid stack, and none in a pure Mamba-2 one (``attn_every == 0`` and
+``d_ff == 0``, the JAX package's ``_init_layer`` rule).
 """
 
 from __future__ import annotations
@@ -115,7 +118,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             d_in, hs, _, g, s = mb.dims(cfg)
             conv_dim = d_in + 2 * g * s
             f32 = torch.float32
-            return {"pre_norm": ones(n, e), "mamba": {
+            out = {"pre_norm": ones(n, e), "mamba": {
                 "in_proj": draw(e, 2 * d_in + 2 * g * s + hs),
                 "conv_w": draw(cfg.conv_width, conv_dim, scale=0.5),
                 "conv_b": draw(conv_dim, scale=0.01),
@@ -124,9 +127,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 "dt_bias": draw(hs, scale=0.5, dtype=f32),
                 "norm": ones(n, d_in),
                 "out_proj": draw(d_in, e)}}
-        attn = attn_mod.init_attention(cfg, draw,
-                                       lambda *shape: ones(n, *shape))
-        out = {"pre_norm": ones(n, e), "attn": attn, "ffn_norm": ones(n, e)}
+            if cfg.attn_every == 0 and cfg.d_ff == 0:
+                return out          # a pure Mamba-2 stack: no FFN
+        else:
+            out = {"pre_norm": ones(n, e), "attn": attn_mod.init_attention(
+                cfg, draw, lambda *shape: ones(n, *shape))}
+        out["ffn_norm"] = ones(n, e)
         if cfg.ffn_kind(i) == "moe":
             out["moe"] = moe_mod.init_moe(cfg, draw)
             return out

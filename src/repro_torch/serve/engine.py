@@ -44,6 +44,18 @@ row, which insert, preempt and resume carry like KV rows; free rows
 decode too, and their state is overwritten at the next insert.  The
 paged engine refuses such a config.
 
+The attention/Mamba-2 hybrid (jamba) has no serving plan either, and
+its cache mixes both: K/V at the attention layers, the conv tail and
+fp32 SSM state at the Mamba layers, each carried as above through
+insert, preempt, resume and snapshots.  The engine passes its attention
+layers no dispatch (there is no override like MLA's
+``_latent_dispatch``): each call resolves ``impl="auto"`` inside
+``kernels.ops`` on the shape-only plan keyed on the K buffer's length,
+the cache's ``max_len``, as the JAX package's ``_auto_dispatch`` keys
+on ``k.shape[2]``, so its decode path does not change with the
+context.  ``rollback_slot`` and the paged engine refuse the hybrid, as
+they refuse any config with Mamba-2 layers.
+
 Fault tolerance (``serve/supervisor.py``) rests on three properties of
 the engine, as in the JAX package.  A prefill step is retry-safe: the
 completions of a step whose later chunk raised wait on

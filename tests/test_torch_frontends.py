@@ -400,15 +400,15 @@ def _port_cfg(jcfg) -> ModelConfig:
     ("jamba-1.5-large-398b", "hybrid")])
 def test_check_ported_admits_moe_and_refuses_mla_and_the_hybrid(arch,
                                                                  what):
-    """MoE and (since the MLA slice) MLA stacks are admitted, smoke and
-    full; the attention/mamba hybrid stays refused."""
+    """MoE, (since the MLA slice) MLA and (since the hybrid slice) the
+    attention/Mamba-2 hybrid stacks are admitted, smoke and full; the
+    hybrid with an attention flavour the port does not run is refused."""
     cfg = _port_cfg(jax_configs.get_config(arch, smoke=True))
-    if what in ("MoE", "MLA"):
-        tf.check_ported(cfg)
-        tf.check_ported(_port_cfg(jax_configs.get_config(arch)))
-    else:
-        with pytest.raises(NotImplementedError, match="dense GQA"):
-            tf.check_ported(cfg)
+    tf.check_ported(cfg)
+    tf.check_ported(_port_cfg(jax_configs.get_config(arch)))
+    if what == "hybrid":
+        with pytest.raises(NotImplementedError, match="GQA or MLA"):
+            tf.check_ported(dataclasses.replace(cfg, attention="none"))
     if what == "MLA":
         mla = dataclasses.replace(configs.get_config("qwen3-8b", smoke=True),
                                   attention="mla")

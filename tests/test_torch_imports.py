@@ -90,8 +90,15 @@ DSE_MODULES = [f"core/{m}.py" for m in (
 FRONTEND_MODULES = ["configs/hubert_xlarge.py", "configs/internvl2_2b.py"]
 
 
+#: the hybrid slice's modules (Mamba-2 training lives in kernels/ops.py
+#: and kernels/ssd_scan.py, checked above) and the GA allocator's
+HYBRID_MODULES = ["configs/jamba_15_large.py", "core/allocation.py",
+                  "configs/gap8_cct.py"]
+
+
 @pytest.mark.parametrize("rel", TRAINING_MODULES + MAMBA_MODULES
-                         + FAULT_MODULES + DSE_MODULES + FRONTEND_MODULES)
+                         + FAULT_MODULES + DSE_MODULES + FRONTEND_MODULES
+                         + HYBRID_MODULES)
 def test_training_modules_are_checked(rel):
     path = PORT / rel
     assert path.exists()
@@ -117,6 +124,7 @@ def _entry_points():
     ssm = configs.get_config("mamba2-130m", smoke=True)
     audio = configs.get_config("hubert-xlarge", smoke=True)
     vlm = configs.get_config("internvl2-2b", smoke=True)
+    hybrid = configs.get_config("jamba-1.5-large-398b", smoke=True)
     return [
         lambda: serving_plan(cfg, 64),
         lambda: make_serving_plan(cfg, 64),
@@ -142,10 +150,13 @@ def _entry_points():
                                          max_len=64),
         lambda: init_train_state(None, audio),
         lambda: init_decode_state(vlm, 1, 64),
+        lambda: init_params(hybrid, torch.Generator()),
+        lambda: ContinuousBatchingEngine(None, hybrid, batch_size=1,
+                                         max_len=64),
     ]
 
 
-@pytest.mark.parametrize("i", range(19))
+@pytest.mark.parametrize("i", range(21))
 def test_default_device_is_cuda_and_raises_without_it(i):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")

@@ -17,6 +17,8 @@ widths, so decode fuses past C = 2N = 128):
 * the paged engine's refusal, with the JAX package's error.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -303,3 +305,38 @@ def test_paged_engine_refuses_mla_like_jax():
                                       device="cpu")
     assert str(got.value) == str(want.value)
     assert "MLA" in str(got.value)
+
+
+def test_decode_path_below_2n_differs_from_jax_as_recorded(monkeypatch):
+    """Recorded, not fixed (the JAX package is not edited): JAX's engine
+    passes MLA no plan, so under ``attn_impl="auto"`` (the full config's;
+    the smoke config pins ``xla``) ``ops._auto_dispatch`` keys each
+    absorbed call on the latent buffer's length, ``max_len`` (160 > 2N =
+    128): its decode fuses at every context.  The port's engine resolves on the
+    host-known context (``_latent_dispatch``): below 2N the reference,
+    past it #1.  At context 41 the two paths differ; past 2N they agree.
+    The tokens agree either way (test_dense_token_stream_matches_jax_engine)."""
+    from repro.kernels import ops as jops
+    cfg, jcfg, jparams, params = _weights()
+    keys = []
+    auto = jops._auto_dispatch
+
+    def spy(entry, sq, skv, d, hq, hkv, lengths_masked, interpret):
+        out = auto(entry, sq, skv, d, hq, hkv, lengths_masked, interpret)
+        keys.append((sq, skv, d, hq, hkv, out.path))
+        return out
+
+    monkeypatch.setattr(jops, "_auto_dispatch", spy)
+    state = jax_engine.init_decode_state(jcfg, 1, MAX_LEN, jnp.float32)
+    state = jax_engine.DecodeState(
+        cache=state.cache, cache_len=jnp.full((1,), 40, jnp.int32),
+        last_token=jnp.zeros((1,), jnp.int32))
+    jax_engine.decode_step(jparams, dataclasses.replace(
+        jcfg, attn_impl="auto"), state)
+    latent = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    assert keys and set(keys) == {(1, MAX_LEN, latent, cfg.n_heads, 1,
+                                   "fused_attention")}
+    eng = _engine(cfg, params)
+    assert 2 * latent == 128
+    assert eng._latent_dispatch(1, 41).path == "unfused"
+    assert eng._latent_dispatch(1, 129).path == "fused_attention"
