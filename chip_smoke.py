@@ -179,7 +179,28 @@ Phases, in order:
                and the attention layer's #1 beside them on the same
                inputs, KERNEL_TOL; (b) that request in fp32 compute on the
                kernels against the plain versions, JAMBA_FP32_TOL; then a
-               profiled B=4 decode window (device time, idle share).
+               profiled B=4 decode window (device time, idle share);
+  19. mesh  -- the multi-device slice: two gloo ranks spawned once on
+               cuda:0 (launch.mesh.spawn), their collectives staged
+               through host memory.  (a) starcoder2-7b at full width,
+               4 layers, the serve mix through RequestBatcher with
+               head_parallel_decode under lower_to_mesh (the DSE's
+               round-robin head allocation on multi_core_array(2)): #1
+               and #2 launched on each rank's prefill chunks; (b) the
+               same with distributed_decode (sequence-sharded); each
+               against a mesh of one rank and the mesh-less engine on
+               #1-#3 (bf16: tie_check, logits within LOGIT_TOL) and, in
+               fp32 compute, against one rank (tokens equal, logits
+               within MESH_TOL); (c) phi3.5-moe's MoE layer at full
+               width, global, moe_shard_map_ep and moe_local_dispatch:
+               outputs and the expert weights' gradients of sum(y**2)
+               per row within ROW_TOL of the global path's; (d)
+               data-parallel launch/train.train_loop, 2 layers, B=2 a
+               rank, seq 1024, 3 steps: #7-#9 on each rank, losses
+               within MESH_TRAIN_REL of rank 0's single-rank B=4 run;
+               (e) remesh_state of that state to each rank alone, every
+               leaf bit-equal.  Each sub-phase's seconds and peak
+               memory a rank.
 The kernel phase also holds the four training kernels (#7-#10) to their
 plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal), #7-#9 at hubert-xlarge's (B=2, 16 heads of 80, S = 4096,
@@ -5188,6 +5209,354 @@ def jamba_serve_phase(dev):
     return launches
 
 
+#: the mesh phase: two gloo ranks sharing cuda:0
+MESH_RANKS = 2
+MESH_LAYERS = 4
+MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 2, 1024, 3
+#: the mesh phase's serve mix: prompts past C = 2N = 256, 16 new tokens
+MESH_REQUESTS, MESH_MAX_NEW = 4, 16
+#: the mesh of 2 ranks against the mesh of 1: logits per step within
+#: this of the largest |logit| (fp32 partial sums in another order)
+MESH_TOL = 1e-3
+#: the data-parallel losses against the single-rank B=4 run (bf16)
+MESH_TRAIN_REL = 2e-2
+MOE_MESH = dict(B=2, S=256)
+
+
+def _mesh_serve(cfg, params, args, dev, ctx) -> dict:
+    """The mesh phase's requests (made anew) through a RequestBatcher on
+    a ContinuousBatchingEngine under ``ctx`` (a mesh or a null
+    context): tokens by request, the logits that sampled each token,
+    the kernels launched and the calls by impl."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.serve.batcher import RequestBatcher
+    from repro_torch.serve.engine import (ContinuousBatchingEngine,
+                                          make_serving_plan)
+
+    requests = serve.make_requests(cfg, args.requests, args.max_new,
+                                   prompt_lens=PROMPT_LENS)
+    plan = make_serving_plan(cfg, max_len=args.max_len, device=dev)
+    eng = ContinuousBatchingEngine(
+        params, cfg, batch_size=args.batch, max_len=args.max_len, plan=plan,
+        dtype=cfg.torch_dtype(), prefill_chunk=args.prefill_chunk,
+        device=dev)
+    batcher = RequestBatcher(args.batch, max_len=args.max_len)
+    store = {}
+    _recorded(eng, batcher, store)
+    for req in requests:
+        batcher.submit(req)
+    build.reset_launches()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    with ctx:
+        done = batcher.serve(eng, max_steps=64 * len(requests))
+    torch.cuda.synchronize()
+    return {"tokens": {r.uid: r.generated for r in done}, "logits": store,
+            "launches": dict(build.LAUNCHES), "calls": dict(ops.CALLS),
+            "seconds": time.perf_counter() - t0, "plan": plan}
+
+
+def _last_logits(run) -> list:
+    """Each request's logits of its last token, in uid order."""
+    return [run["logits"][(uid, len(toks) - 1)]
+            for uid, toks in sorted(run["tokens"].items())]
+
+
+def _mesh_gate(phase, two, one, alone, rank) -> None:
+    """In bf16: the mesh of 2 ranks against the mesh of 1 and against
+    the mesh-less engine on #1-#3, each step's logits within LOGIT_TOL
+    and the tokens through tie_check (the partial sums' order moves bf16
+    roundings through the layers)."""
+    for name, want in (("1 rank", one), ("the mesh-less engine (#1-#3)",
+                                         alone)):
+        differ = tie_check(f"mesh {phase}", two, want, MESH_MAX_NEW)
+        worst = compare_logits(f"mesh {phase}", _last_logits(two),
+                               _last_logits(want))
+        log(f"  [rank {rank}] {phase}: 2 ranks against {name}: last-step "
+            f"logits worst rel {worst:.3e} (tol {LOGIT_TOL}), {differ} of "
+            f"{len(want['tokens'])} requests differ (argmax ties only)")
+
+
+def _mesh_gate32(phase, two, one, rank) -> None:
+    """In fp32 compute: the mesh of 2 ranks against the mesh of 1,
+    tokens equal and every step's logits within MESH_TOL of the
+    largest."""
+    if two["tokens"] != one["tokens"]:
+        raise SystemExit(f"mesh {phase}: the tokens of 2 ranks differ "
+                         f"from 1 rank's: {two['tokens']} {one['tokens']}")
+    worst = max((two["logits"][key] - want).abs().max().item()
+                / want.abs().max().item()
+                for key, want in one["logits"].items())
+    log(f"  [rank {rank}] {phase} fp32: 2 ranks against 1, tokens equal, "
+        f"logits of {len(one['logits'])} steps worst {worst:.3e} of the "
+        f"largest (tol {MESH_TOL})")
+    if worst > MESH_TOL:
+        raise SystemExit(f"mesh {phase}: 2 ranks disagree with 1 in fp32")
+
+
+def _peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _mesh_sub(name, rank, stats, fn, *a, **kw):
+    """``fn(*a, **kw)`` timed, with this rank's peak memory, into
+    ``stats``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    stats[name] = (time.perf_counter() - t0, _peak_gb())
+    log(f"  [rank {rank}] mesh ({name}): {stats[name][0]:.1f}s, peak "
+        f"{stats[name][1]:.2f} GB")
+    return out
+
+
+def _mesh_decode(rank, dev, stats) -> dict:
+    """(a) head-parallel and (b) sequence-sharded decode of starcoder2-7b
+    at full width, 4 layers, on 2 ranks; rank 0 also serves the mix on a
+    mesh of 1 rank and on the mesh-less engine.  Returns this rank's
+    launches of the two 2-rank serves."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch import lower
+    from repro_torch.core import accelerator as acc
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.mesh_lowering import lower_to_mesh, \
+        mesh_for_cores
+    from repro_torch.sharding import set_rules_for_mesh
+
+    args = serve.parser().parse_args([
+        "--arch", "starcoder2-7b", "--layers", str(MESH_LAYERS),
+        "--batch", "4", "--requests", str(MESH_REQUESTS), "--max-len",
+        "1024", "--max-new", str(MESH_MAX_NEW), "--prefill-chunk", "256",
+        "--device", "cuda"])
+    base, params = serve.model_for(args)
+    cfgs = {"hp": dc.replace(base, head_parallel_decode=True),
+            "dist": dc.replace(base, distributed_decode=True)}
+    mesh = mesh_for_cores(2, device=dev)
+    alone = Mesh(("data", "model"), (1, 1), device=dev)
+    rr = tuple(h % 2 for h in range(base.n_heads))
+    decode_plan = lower.serving_plan(base, args.max_len, device=dev) \
+        .decode_dispatch(args.max_len).plan
+    lowered = lower_to_mesh(decode_plan, acc.multi_core_array(2), rr,
+                            mesh=mesh)
+    if rank == 0:
+        log("  " + lowered.describe().replace("\n", "\n  "))
+    launches = collections.Counter()
+    runs = {}
+
+    def ctx(tag, m):
+        return lowered.activate() if tag == "hp" and m is mesh \
+            else set_rules_for_mesh(m)
+
+    for tag, sub in (("hp", "a"), ("dist", "b")):
+        run = _mesh_sub(f"{sub}: {tag} 2 ranks", rank, stats, _mesh_serve,
+                        cfgs[tag], params, args, dev, ctx(tag, mesh))
+        runs[tag] = run
+        launches.update(run["launches"])
+        log(f"  [rank {rank}] ({sub}) {tag}: {len(run['tokens'])} requests "
+            f"in {run['seconds']:.2f}s, launches {run['launches']}, "
+            f"calls {run['calls']}; ledger "
+            f"{run['plan'].plans()[-1].notes[-1:]}")
+        for name in DENSE_KERNELS[:2]:
+            if run["launches"].get(name, 0) == 0:
+                raise SystemExit(f"mesh ({sub}): rank {rank} never "
+                                 f"launched {name}")
+    if rank == 0:
+        ref = _mesh_sub("a/b: mesh-less", rank, stats, _mesh_serve, base,
+                        params, args, dev, contextlib.nullcontext())
+        for tag, sub in (("hp", "a"), ("dist", "b")):
+            one = _mesh_sub(f"{sub}: {tag} 1 rank", rank, stats,
+                            _mesh_serve, cfgs[tag], params, args, dev,
+                            ctx(tag, alone))
+            _mesh_gate(f"({sub}) {tag}", runs[tag], one, ref, rank)
+    # the same in fp32 compute, where the 2-rank sums' order shows at
+    # fp32 rounding, not at bf16's
+    _upcast(params)
+    for tag, sub in (("hp", "a"), ("dist", "b")):
+        c32 = dc.replace(cfgs[tag], compute_dtype="float32")
+        two = _mesh_sub(f"{sub}: {tag} 2 ranks fp32", rank, stats,
+                        _mesh_serve, c32, params, args, dev, ctx(tag, mesh))
+        launches.update(two["launches"])
+        if rank == 0:
+            one = _mesh_sub(f"{sub}: {tag} 1 rank fp32", rank, stats,
+                            _mesh_serve, c32, params, args, dev,
+                            ctx(tag, alone))
+            _mesh_gate32(f"({sub}) {tag}", two, one, rank)
+    dist.barrier()
+    del params, runs
+    return dict(launches)
+
+
+def _moe_mesh(rank, dev, stats) -> None:
+    """(c) phi3.5-moe's MoE layer at full width on 2 ranks: the global
+    path, moe_shard_map_ep and moe_local_dispatch (capacity factor E/k:
+    nothing dropped), outputs and the gradients of sum(y**2) by the
+    expert weights per row within ROW_TOL of the global path's."""
+    import dataclasses as dc
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import mesh_over_ranks
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import moe_local
+    from repro_torch.models.weights import init_params
+    from repro_torch.sharding import set_rules_for_mesh
+
+    full = configs.get_config(MOE_ARCH)
+    cfg = dc.replace(full, n_layers=1,
+                     capacity_factor=full.n_experts / full.top_k)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = {k: v[0] for k, v in
+              init_params(cfg, g, dev)["layers"][0]["moe"].items()}
+    x = torch.randn(MOE_MESH["B"], MOE_MESH["S"], cfg.d_model, generator=g,
+                    device=dev).to(cfg.torch_dtype())
+    mesh = mesh_over_ranks((1, MESH_RANKS), ("data", "model"), device=dev)
+
+    def run(c, ctx):
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with ctx:
+            y, aux = moe_mod.moe_forward(leaves, c, x)
+            (y.float() ** 2).sum().backward()
+        return y.detach(), {k: leaves[k].grad for k in
+                            ("w_gate", "w_up", "w_down")}, aux
+
+    want = run(cfg, contextlib.nullcontext())
+    for flag in ("moe_shard_map_ep", "moe_local_dispatch"):
+        got = _mesh_sub(f"c: {flag}", rank, stats, run,
+                        dc.replace(cfg, **{flag: True}),
+                        set_rules_for_mesh(mesh))
+        errs = {"y": row_err(got[0], want[0])}
+        errs.update({k: row_err(got[1][k], want[1][k]) for k in want[1]})
+        log(f"  [rank {rank}] (c) {flag}: per row "
+            + " ".join(f"{k}={e:.3e}" for k, e in errs.items())
+            + f" (tol {ROW_TOL}); aux "
+            + " ".join(f"{k}={float(v.detach()):.4e}"
+                       for k, v in got[2].items())
+            + (f"; the JAX package's fallback to the global path "
+               f"{'taken' if moe_local._FALLBACK_LOGGED else 'not taken'}"
+               if flag == "moe_local_dispatch" else ""))
+        if max(errs.values()) > ROW_TOL:
+            raise SystemExit(f"mesh (c) {flag}: disagrees with the global "
+                             "path")
+    del params, want, got
+
+
+def _train_mesh(rank, dev, stats) -> tuple:
+    """(d) data-parallel training of starcoder2-7b at full width, 2
+    layers, B=2 a rank (4 in all), seq 1024, 3 steps, against rank 0's
+    single-rank B=4 run; (e) remesh_state of the trained state from the
+    2 ranks to each rank alone, every leaf bit-equal to the state.
+    Returns this rank's launches of the data-parallel run."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch import configs, tree
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.models.weights import param_axes
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.runtime import remesh_state
+    from repro_torch.sharding import param_shardings
+    from repro_torch.train.step import TrainState
+
+    cfg = dc.replace(configs.get_config("starcoder2-7b"),
+                     n_layers=MESH_TRAIN_LAYERS)
+    kw = dict(steps=MESH_TRAIN_STEPS, batch=2 * MESH_RANKS,
+              seq=MESH_TRAIN_SEQ, lr=TRAIN_LR, moment_dtype="bfloat16",
+              device=dev, log_every=MESH_TRAIN_STEPS)
+    mesh = make_host_mesh(data=MESH_RANKS, device=dev)
+    build.reset_launches()
+    state, losses = _mesh_sub("d: data-parallel", rank, stats,
+                              train.train_loop, cfg, mesh=mesh, **kw)
+    launches = dict(build.LAUNCHES)
+    per_step = {n: launches.get(n, 0) / MESH_TRAIN_STEPS
+                for n in TRAIN_KERNELS[:3]}
+    log(f"  [rank {rank}] (d) losses {losses}, launches a step {per_step}")
+    missing = [n for n, c in per_step.items() if c == 0]
+    if missing:
+        raise SystemExit(f"mesh (d): rank {rank} never launched {missing}")
+    if rank == 0:
+        _, want = _mesh_sub("d: 1 rank B=4", rank, stats, train.train_loop,
+                            cfg, **kw)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        log(f"  [rank 0] (d) single-rank B=4 losses {want}: worst rel "
+            f"{rel:.3e} (tol {MESH_TRAIN_REL})")
+        if rel > MESH_TRAIN_REL:
+            raise SystemExit("mesh (d): data-parallel losses disagree")
+    dist.barrier()
+    torch.cuda.empty_cache()
+
+    axes = param_axes(cfg)
+    state_axes = TrainState(params=axes, opt=AdamWState(step=(), mu=axes,
+                                                        nu=axes))
+    shardings = param_shardings(state_axes, mesh)
+    blocks = tree.map(lambda s, t: s.local(t), shardings, state)
+    alone = Mesh(("data", "model"), (1, 1), device=dev)
+    moved = _mesh_sub("e: remesh 2 -> 1", rank, stats, remesh_state, blocks,
+                      state_axes, alone, None, mesh=mesh)
+    pairs = list(zip(tree.leaves(moved), tree.leaves(state)))
+    differ = sum(not torch.equal(a, b) for a, b in pairs)
+    log(f"  [rank {rank}] (e) remesh_state: {len(pairs)} leaves, "
+        f"{sum(b.numel() for _, b in pairs) / 1e9:.3f} G elements, "
+        f"{differ} differ from the gathered state")
+    if differ:
+        raise SystemExit("mesh (e): remesh_state changed a leaf")
+    return launches
+
+
+def mesh_rank(rank, dev):
+    """One rank of the mesh phase: (a)-(e) in turn.  Returns (launches,
+    {sub-phase: (seconds, peak GB)})."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stats = {}
+    launches = collections.Counter(_mesh_decode(rank, dev, stats))
+    gc.collect()
+    torch.cuda.empty_cache()
+    _moe_mesh(rank, dev, stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(_train_mesh(rank, dev, stats))
+    return dict(launches), stats
+
+
+def mesh_phase(dev):
+    """The multi-device slice on one card: MESH_RANKS gloo ranks share
+    cuda:0 (launch.mesh.spawn, one spawn for every sub-phase): (a)
+    head-parallel serve under lower_to_mesh, (b) sequence-sharded decode,
+    (c) phi3.5-moe's expert-parallel and local dispatch, (d)
+    data-parallel training, (e) remesh_state.  Returns the launches of
+    both ranks."""
+    from repro_torch.launch.mesh import spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"mesh: {MESH_RANKS} gloo ranks share one card ({card_line()}); "
+        "their collectives are staged through host memory over gloo, so "
+        "the times below say nothing of an NVLink's")
+    init = ROOT / "build" / "mesh_init"
+    init.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    out = spawn(MESH_RANKS, mesh_rank, backend="gloo",
+                devices=["cuda:0"] * MESH_RANKS, init_file=str(init),
+                timeout=600, threads=2)
+    launches = collections.Counter()
+    for rank, (lc, stats) in enumerate(out):
+        launches.update(lc)
+        log(f"mesh: rank {rank} " + "; ".join(
+            f"{k} {s:.1f}s peak {m:.2f} GB" for k, (s, m) in stats.items()))
+    log(f"mesh: {time.perf_counter() - t0:.1f}s with the ranks' start-up; "
+        f"launches of both ranks {dict(launches)}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -5254,6 +5623,7 @@ def main() -> int:
     launches.update(timed("mla train", mla_train_phase, dev))
     launches.update(timed("mamba train", mamba_train_phase, dev))
     launches.update(timed("jamba serve", jamba_serve_phase, dev))
+    launches.update(timed("mesh", mesh_phase, dev))
     missing = [n for n in build.KERNELS if launches[n] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on any path: {missing}")

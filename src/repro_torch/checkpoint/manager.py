@@ -12,7 +12,8 @@ Layout:  <dir>/step_<N>/
 * async -- save() copies the leaves to the host and returns; a
   background thread writes them; wait() joins;
 * resumable -- restore(like) rebuilds the tree of ``like``'s structure
-  on each leaf's device and dtype;
+  on each leaf's device and dtype; with ``shardings`` each leaf comes
+  back as this rank's block of it;
 * retention -- keep_last prunes old steps after a successful publish.
 
 numpy has no bfloat16, so a bf16 leaf is stored as its raw 16-bit
@@ -177,10 +178,12 @@ class CheckpointManager:
                 f"manifest {tuple(meta['shape'])}/{meta['dtype']}")
         return _from_host(arr, meta["dtype"])
 
-    def restore(self, like: Any, step: Optional[int] = None
-                ) -> tuple[Any, dict]:
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Optional[Any] = None) -> tuple[Any, dict]:
         """Rebuild the tree of ``like``'s structure; each tensor leaf
-        lands on its ``like`` leaf's device."""
+        lands on its ``like`` leaf's device.  ``shardings`` (a tree of
+        ``sharding.NamedSharding`` of the same structure, or None): each
+        leaf comes back as this rank's block of it."""
         path, step = self._checkpoint_path(step)
         manifest = self._load_manifest(path, step)
         leaves_like = tree.leaves(like)
@@ -189,9 +192,17 @@ class CheckpointManager:
                 f"checkpoint step {step}: {len(manifest['leaves'])} "
                 f"leaves on disk vs {len(leaves_like)} in the supplied "
                 f"structure — checkpoint/model structure mismatch")
+        shard_leaves = ([None] * len(leaves_like) if shardings is None
+                        else tree.leaves(shardings))
+        if len(shard_leaves) != len(leaves_like):
+            raise ValueError(f"{len(shard_leaves)} shardings for "
+                             f"{len(leaves_like)} leaves")
         out = []
-        for meta, ref in zip(manifest["leaves"], leaves_like):
+        for meta, ref, shard in zip(manifest["leaves"], leaves_like,
+                                    shard_leaves):
             t = self._load_leaf(path, meta, step)
+            if shard is not None:
+                t = shard.local(t).contiguous()
             if isinstance(ref, torch.Tensor):
                 t = t.to(ref.device)
             out.append(t)

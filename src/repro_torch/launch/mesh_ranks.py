@@ -1,0 +1,175 @@
+"""Per-rank bodies of the multi-device checks: module-level functions,
+so ``launch.mesh.spawn`` can start them (a spawned rank imports its
+function by name).  Each takes ``(rank, device, ...)`` with numpy or
+tensor inputs, builds its mesh over the running ranks, and returns what
+its check compares (tensors on the CPU): the CPU tests run them on gloo
+ranks, the card test and ``chip_smoke.py`` on two gloo ranks sharing
+``cuda:0``."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+from repro_torch.launch.mesh import mesh_over_ranks
+from repro_torch.launch.mesh_lowering import mesh_for_cores
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.weights import params_from_numpy
+from repro_torch.sharding import set_rules_for_mesh
+from repro_torch.serve import distributed_decode as dd
+
+AXES = ("data", "model")
+
+
+def _cpu(t):
+    return t.detach().cpu() if isinstance(t, torch.Tensor) else t
+
+
+def decode_attention(rank, device, shape, q, k, v, lengths, wo) -> dict:
+    """``distributed_decode_attention`` and
+    ``head_parallel_decode_attention`` on a (data, model) mesh of
+    ``shape`` over the running ranks."""
+    mesh = mesh_over_ranks(shape, AXES, device=device)
+    args = [t.to(device) for t in (q, k, v, lengths, wo)]
+    with set_rules_for_mesh(mesh):
+        out = {"dist": dd.distributed_decode_attention(*args[:4]),
+               "hp": dd.head_parallel_decode_attention(*args)}
+    return {k_: _cpu(v_) for k_, v_ in out.items()}
+
+
+def mesh_ledger(plan) -> list:
+    """The downgrades and notes the multi-device decode paths left on
+    a serving plan's ExecutionPlans, in order."""
+    out = []
+    for p in plan.plans():
+        out += [("downgrade", d.reason, d.from_path, d.to_path)
+                for d in p.downgrades if "decode" in d.reason
+                and ("shard" in d.reason or "partial" in d.reason)]
+        out += [("note", n) for n in p.notes if "decode over axis" in n]
+    return out
+
+
+def serve_tokens(rank, device, cfg, params_np, prompts, max_len: int,
+                 steps: int, flag: str) -> dict:
+    """The JAX mesh parity test's run: two prompts through a
+    ``ContinuousBatchingEngine`` (batch 2), ``steps`` engine steps, on
+    ``mesh_for_cores(2)`` with the config's ``flag``
+    (``head_parallel_decode`` or ``distributed_decode``) set and a
+    serving plan.  Returns the tokens of every step, how often the
+    flag's attention ran, and the plan's mesh ledger."""
+    from repro_torch import lower
+    from repro_torch.serve.engine import (ContinuousBatchingEngine,
+                                          make_serving_plan)
+
+    cfg = dataclasses.replace(cfg, **{flag: True})
+    params = params_from_numpy(params_np, cfg, device=device)
+    name = {"head_parallel_decode": "head_parallel_decode_attention",
+            "distributed_decode": "distributed_decode_attention"}[flag]
+    calls = {"n": 0}
+    orig = getattr(attn_mod, name)
+
+    def counting(*a, **kw):
+        calls["n"] += 1
+        return orig(*a, **kw)
+
+    setattr(attn_mod, name, counting)
+    try:
+        lower.clear_plan_cache()
+        plan = make_serving_plan(cfg, max_len, device=device)
+        mesh = mesh_for_cores(2, device=device)
+        with set_rules_for_mesh(mesh):
+            eng = ContinuousBatchingEngine(params, cfg, batch_size=2,
+                                           max_len=max_len, plan=plan,
+                                           device=device)
+            for slot, p in enumerate(prompts):
+                eng.begin_prefill(slot, p)
+            toks = []
+            for _ in range(steps):
+                t, _ins = eng.step()
+                toks.append(None if t is None else np.asarray(t).tolist())
+    finally:
+        setattr(attn_mod, name, orig)
+    return {"tokens": toks, "calls": calls["n"], "ledger": mesh_ledger(plan)}
+
+
+def moe_paths(rank, device, shapes, cfg, params_np, x) -> dict:
+    """``moe.moe_forward`` on the global path (no mesh) and, on each
+    (data, model) mesh of ``shapes``, with ``moe_shard_map_ep`` and with
+    ``moe_local_dispatch``: (y, aux, gradients of sum(y**2) by leaf)
+    for each."""
+    params = params_from_numpy(params_np, cfg, device=device)
+    x = x.to(device)
+
+    def run(c):
+        leaves = tree.map(lambda p: p.detach().requires_grad_(), params)
+        y, aux = moe_mod.moe_forward(leaves, c, x)
+        (y.float() ** 2).sum().backward()
+        return {"y": _cpu(y), "aux": {k: _cpu(v) for k, v in aux.items()},
+                "grads": tree.map(lambda p: _cpu(p.grad), leaves)}
+
+    out = {"global": run(cfg)}
+    for shape in shapes:
+        mesh = mesh_over_ranks(shape, AXES, device=device)
+        with set_rules_for_mesh(mesh):
+            for flag in ("moe_shard_map_ep", "moe_local_dispatch"):
+                out[(tuple(shape), flag)] = run(
+                    dataclasses.replace(cfg, **{flag: True}))
+    return out
+
+
+def train_data_parallel(rank, device, cfg, params_np, loop_kw) -> dict:
+    """``launch.train.train_loop`` on a data mesh over every running
+    rank, from ``params_np``: its losses and final parameters."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(data=dist.get_world_size(), device=device)
+    params = params_from_numpy(params_np, cfg, device=device)
+    state, losses = train_mod.train_loop(cfg, mesh=mesh, params=params,
+                                         device=device, **loop_kw)
+    return {"losses": losses, "params": tree.map(_cpu, state.params)}
+
+
+def remesh(rank, device, state, axes, shape, ckpt_dir) -> dict:
+    """The elastic round trips from a (data, model) mesh of ``shape``
+    over the running ranks to this rank alone: ``remesh_state`` of this
+    rank's blocks of ``state``, and ``ElasticRunner`` restoring a
+    checkpoint of ``state`` on the large mesh, then on the small."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.runtime import ElasticRunner, remesh_state
+    from repro_torch.sharding import param_shardings
+
+    big = mesh_over_ranks(shape, AXES, device=device)
+    alone = Mesh(AXES, (1, 1), device=device)
+    blocks = tree.map(lambda s, x: s.local(x).clone(),
+                      param_shardings(axes, big), state)
+    moved = remesh_state(blocks, axes, alone, mesh=big)
+    ckpt = CheckpointManager(ckpt_dir)
+    if rank == 0:
+        ckpt.save(0, state, extras={"next_step": 1}, blocking=True)
+    dist.barrier()
+    restored = {}
+    for name, factory in (("big", lambda: big), ("alone", lambda: alone)):
+        runner = ElasticRunner(ckpt, axes, factory)
+        got, extras, mesh = runner.restore_on_current_mesh(state)
+        restored[name] = (tree.map(_cpu, got), extras,
+                          tuple(mesh.devices.shape))
+    dist.barrier()
+    shapes = tree.map(lambda x: tuple(x.shape), blocks)
+    return {"blocks": shapes, "moved": tree.map(_cpu, moved),
+            "restored": restored}
+
+
+def in_turn(rank, device, calls) -> list:
+    """Each ``(body, args)`` of ``calls`` in turn on the same ranks (one
+    spawn pays process and device start-up once): their results."""
+    return [body(rank, device, *args) for body, args in calls]

@@ -1,9 +1,15 @@
 """Training entry point of the port: data pipeline -> train step ->
-checkpoint, on the card by default (a copy of ``repro.launch.train``
-without its host mesh, which waits for the multi-device slice).
+checkpoint, on the card by default (a copy of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
         --smoke --steps 20 --batch 8 --seq 128 --device cpu
+
+``--mesh`` trains data-parallel, as the JAX launcher's
+``make_host_mesh(data=len(jax.devices()))`` does: one rank per device
+the host exposes (``torch.cuda.device_count()``; on the CPU the
+``--ranks`` the caller passes, where JAX's tests force host devices),
+each on its block of every batch's rows, the gradients averaged before
+the update (``train/step.py``).  Rank 0 logs and writes checkpoints.
 
 Every arch trains (``configs.list_archs()``, as the JAX launcher takes
 it), on token batches as the JAX launcher does: the encoder
@@ -20,9 +26,11 @@ through its lax scan).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import time
+from pathlib import Path
 
 import torch
 
@@ -31,7 +39,9 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import SyntheticTokenDataset, make_batch_iterator
 from repro_torch.models.common import resolve_device
 from repro_torch.optim.adamw import cosine_schedule
+from repro_torch.launch.mesh import make_host_mesh, spawn
 from repro_torch.runtime import StepTimer
+from repro_torch.sharding import set_rules_for_mesh
 from repro_torch.train import step as train_mod
 
 
@@ -59,14 +69,17 @@ def build(cfg, *, batch: int, seq: int, lr: float, steps: int,
 
 def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float,
                ckpt_dir=None, checkpoint_every=50, log_every=10,
-               on_step=None, **kw):
+               on_step=None, mesh=None, **kw):
     """Train ``steps`` steps; returns (state, losses).  ``on_step(step,
     metrics, seconds)`` (optional) sees each step's metrics and its time
-    on the host clock, the device synchronised.  Keyword arguments go to
+    on the host clock, the device synchronised.  ``mesh``: train under
+    it (data-parallel over its data axes; every rank of it calls this);
+    rank 0 alone logs and saves.  Keyword arguments go to
     :func:`build`."""
     state, step_fn, ds = build(cfg, batch=batch, seq=seq, lr=lr,
                                steps=steps, **kw)
     dev = state.opt.step.device
+    lead = mesh is None or mesh.rank == 0
     ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start = 0
     if ckpt and ckpt.latest_step() is not None:
@@ -82,18 +95,20 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float,
                 break
             timer.start()
             batch_tree = {"tokens": torch.from_numpy(rows).long().to(dev)}
-            state, metrics = step_fn(state, batch_tree)
+            with (set_rules_for_mesh(mesh) if mesh is not None
+                  else contextlib.nullcontext()):
+                state, metrics = step_fn(state, batch_tree)
             loss = float(metrics["loss"])        # waits for the step
             straggler = timer.stop()
             losses.append(loss)
             if on_step is not None:
                 on_step(step, metrics, timer.times[-1])
-            if step % log_every == 0:
+            if lead and step % log_every == 0:
                 print(f"step {step:5d} loss {loss:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.3f} "
                       f"lr {float(metrics['lr']):.2e}"
                       + (" [straggler]" if straggler else ""), flush=True)
-            if ckpt and (step + 1) % checkpoint_every == 0:
+            if ckpt and lead and (step + 1) % checkpoint_every == 0:
                 ckpt.save(step, state, extras={"next_step": step + 1})
     finally:
         it.close()
@@ -121,7 +136,23 @@ def parser() -> argparse.ArgumentParser:
                     choices=["float32", "bfloat16"],
                     help="AdamW moment dtype (bfloat16 halves their "
                          "memory)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="data-parallel over one rank per device")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="with --mesh on the CPU: the rank count "
+                         "(on the card: torch.cuda.device_count())")
+    ap.add_argument("--init-file", default=None,
+                    help="with --mesh: the file:// rendezvous file "
+                         "(default: one under the checkout's build/)")
     return ap
+
+
+def _rank_train(rank, device, cfg, loop_kw):
+    """One data-parallel rank of :func:`main`: its losses."""
+    mesh = make_host_mesh(data=torch.distributed.get_world_size(),
+                          device=device)
+    _, losses = train_loop(cfg, mesh=mesh, device=device, **loop_kw)
+    return losses
 
 
 def main(argv=None):
@@ -130,12 +161,30 @@ def main(argv=None):
     cfg = configs.get_config(args.arch, smoke=args.smoke)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    loop_kw = dict(steps=args.steps, batch=args.batch, seq=args.seq,
+                   lr=args.lr, ckpt_dir=args.ckpt_dir,
+                   microbatches=args.microbatches,
+                   moment_dtype=args.moment_dtype)
     t0 = time.time()
-    _, losses = train_loop(cfg, steps=args.steps, batch=args.batch,
-                           seq=args.seq, lr=args.lr, ckpt_dir=args.ckpt_dir,
-                           microbatches=args.microbatches,
-                           moment_dtype=args.moment_dtype,
-                           device=args.device)
+    if args.mesh:
+        dev = resolve_device(args.device)
+        if dev.type == "cuda":
+            world = torch.cuda.device_count()
+            devices = [f"cuda:{i}" for i in range(world)]
+        else:
+            if args.ranks is None:
+                raise SystemExit("--mesh on the CPU needs --ranks")
+            world, devices = args.ranks, ["cpu"] * args.ranks
+        init_file = args.init_file or str(
+            Path(__file__).resolve().parents[3] / "build" / "train_mesh_init")
+        Path(init_file).parent.mkdir(parents=True, exist_ok=True)
+        # one rank per card: NCCL; CPU ranks: gloo
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        losses = spawn(world, _rank_train, backend=backend, devices=devices,
+                       init_file=init_file, args=(cfg, loop_kw),
+                       timeout=24 * 3600)[0]
+    else:
+        _, losses = train_loop(cfg, device=args.device, **loop_kw)
     print(f"done: {len(losses)} steps in {time.time()-t0:.1f}s; "
           f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
     return losses

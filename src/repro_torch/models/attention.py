@@ -40,6 +40,9 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, rms_norm, rope
+from repro_torch.serve.distributed_decode import (
+    distributed_decode_attention, head_parallel_decode_attention)
+from repro_torch.sharding import rules as shrules
 
 
 def _cache_write(cache_len, b: int, s: int, device):
@@ -95,8 +98,17 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
         raise NotImplementedError(
             "paged KV is a decode-time storage format; prefill runs "
             "dense and is paged at insert() time")
-    fuse_q = decode and plan is not None and plan.fuse_q \
-        and not cfg.qk_norm
+    # the multi-device decode paths, inert without an active mesh:
+    # ``dist`` the sequence-sharded partial-softmax combine, ``hp`` the
+    # DSE head->core allocation lowered onto the mesh's model axis (each
+    # rank its heads at full depth, one psum of the output partials)
+    mesh = shrules.active_mesh()
+    dist = decode and cfg.distributed_decode and s == 1 \
+        and mesh is not None
+    hp = decode and cfg.head_parallel_decode and s == 1 and not dist \
+        and mesh is not None
+    fuse_q = decode and not dist and not hp and plan is not None \
+        and plan.fuse_q and not cfg.qk_norm
     theta = float(cfg.rope_theta) if cfg.rope_theta else None
 
     k_new = _heads(x, params["wk"].to(dt))
@@ -122,6 +134,10 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
             if not per_row:
                 raise NotImplementedError(
                     "paged KV requires per-row (B,) cache_len")
+            if hp or dist:
+                raise NotImplementedError(
+                    "paged KV does not compose with the distributed "
+                    "decode paths yet")
             # page-indirect append: row r's token lands at offset
             # starts % page of its current page
             page = kc.shape[2]
@@ -144,7 +160,16 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
             vc[:, :, starts:starts + s] = v_new.to(vc.dtype)
         new_cache = cache
         k_buf, v_buf = kc.to(dt), vc.to(dt)
-        if fuse_q:
+        if hp:
+            out = head_parallel_decode_attention(
+                q, k_buf, v_buf, lengths, params["wo"].to(dt), plan=plan)
+            if residual is not None:
+                out = residual + out
+            return out, new_cache
+        if dist:
+            o = distributed_decode_attention(q, k_buf, v_buf, lengths,
+                                             plan=plan)
+        elif fuse_q:
             wq = params["wq"].to(dt)
             if plan.fuse_wo and s == 1 and residual is not None:
                 out = ops.decode_block(x, wq, k_buf, v_buf,

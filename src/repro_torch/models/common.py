@@ -65,7 +65,8 @@ class ModelConfig:
     # MLP flavour
     mlp: str = "silu_glu"               # silu_glu | gelu
     tie_embeddings: bool = False
-    # multi-device options of the JAX package (not ported yet)
+    # multi-device paths, inert without an active mesh
+    # (sharding.set_rules_for_mesh)
     distributed_decode: bool = False
     head_parallel_decode: bool = False
     moe_local_dispatch: bool = False

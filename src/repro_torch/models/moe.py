@@ -27,9 +27,13 @@ bitwise repeatable, where a gather ``x[order // k]`` would accumulate
 each token's k copies by atomics.
 
 Aux losses: the switch-style load balance and the router z-loss, fp32.
-The mesh paths of the JAX package (``moe_local_dispatch``,
-``moe_shard_map_ep``) wait for the multi-device slice; with no mesh the
-JAX package takes this global path too.
+
+Under an active mesh with a "model" axis (``sharding.set_rules_for_mesh``)
+two flags of the JAX package take their mesh paths:
+``moe_local_dispatch`` routes each rank's own tokens
+(``models/moe_local.py``), and ``moe_shard_map_ep`` runs step 4 as
+explicit expert parallelism (:func:`_expert_compute_shard_map`).  With
+no mesh both are inert, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, mlp_forward
+from repro_torch.sharding import rules as shrules
+from repro_torch.sharding.collectives import all_to_all, shard_map
 
 
 def init_moe(cfg: ModelConfig, draw: Callable) -> dict:
@@ -124,11 +130,64 @@ def _combine(out_buf, slot, order, topw, s: int, k: int):
     return (per_tok * w).sum(dim=2).to(dt)
 
 
+def ep_mesh():
+    """The active mesh if it has a "model" axis (where the mesh paths
+    run), else None."""
+    mesh = shrules.active_mesh()
+    if mesh is not None and "model" in mesh.axis_names:
+        return mesh
+    return None
+
+
+def _expert_compute_shard_map(buf, params: dict, dt):
+    """Explicit expert parallelism over the mesh's "model" axis: each
+    rank sends its groups' slots for every other rank's experts there
+    (an all-to-all on the expert dim), runs its resident experts on
+    every rank's slots, and a second all-to-all routes the results
+    back.  buf: (G, E, C, d) -> (G, E, C, d)."""
+    mesh = ep_mesh()
+    sizes = shrules.mesh_sizes(mesh)
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    bspec = batch_axes if len(batch_axes) != 1 else batch_axes[0]
+    wg, wu, wd = (params["w_gate"].to(dt), params["w_up"].to(dt),
+                  params["w_down"].to(dt))
+
+    def body(buf, wg, wu, wd):
+        # buf: (G_l, E, C, d); w*: (E/n_ep, ...), this rank's experts
+        buf = all_to_all(buf, mesh, "model", split_axis=1, concat_axis=0)
+        # -> (G_l·n_ep, E/n_ep, C, d): every model peer's slots for the
+        #    experts this rank owns
+        g = torch.einsum("gecd,edf->gecf", buf, wg)
+        u = torch.einsum("gecd,edf->gecf", buf, wu)
+        h = F.silu(g.float()).to(buf.dtype) * u
+        out = torch.einsum("gecf,efd->gecd", h, wd)
+        return all_to_all(out, mesh, "model", split_axis=0, concat_axis=1)
+
+    batch_tuple = batch_axes if isinstance(bspec, tuple) else (bspec,)
+    full = sizes["model"]
+    for a in batch_tuple:
+        full *= sizes[a]
+    if buf.shape[0] % full == 0:
+        gspec = (*batch_tuple, "model")   # groups over every axis
+    else:
+        gspec = bspec                     # fallback: model-replicated
+    fn = shard_map(body, mesh,
+                   in_specs=((gspec, None, None, None),
+                             ("model", None, None),
+                             ("model", None, None),
+                             ("model", None, None)),
+                   out_specs=(gspec, None, None, None))
+    return fn(buf, wg, wu, wd)
+
+
 def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                 aux: bool = True):
     """x: (B, S, d) -> (y (B, S, d), aux dict), the aux dict
     ``{"moe_lb_loss", "moe_z_loss"}`` (fp32 scalars), or empty without
     ``aux``."""
+    if cfg.moe_local_dispatch and ep_mesh() is not None:
+        from repro_torch.models.moe_local import moe_forward_local
+        return moe_forward_local(params, cfg, x, aux=aux)
     dt = x.dtype
     b_in, s_in, d = x.shape
     g = cfg.moe_group_size
@@ -142,10 +201,18 @@ def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     logits, probs, topw, topi = route(params["router"], x, k)
 
     buf, slot, order = _dispatch(x, topi, cap, e)
-    gate = torch.einsum("becd,edf->becf", buf, params["w_gate"].to(dt))
-    up = torch.einsum("becd,edf->becf", buf, params["w_up"].to(dt))
-    h = F.silu(gate.float()).to(dt) * up
-    out_buf = torch.einsum("becf,efd->becd", h, params["w_down"].to(dt))
+    if cfg.moe_shard_map_ep and ep_mesh() is not None:
+        out_buf = _expert_compute_shard_map(buf, params, dt)
+    else:
+        # ``moe_expert_major_dispatch`` is a layout constraint in the
+        # JAX package (``constrain`` of the buffer), without a numeric
+        # effect: it takes this global path
+        gate = torch.einsum("becd,edf->becf", buf,
+                            params["w_gate"].to(dt))
+        up = torch.einsum("becd,edf->becf", buf, params["w_up"].to(dt))
+        h = F.silu(gate.float()).to(dt) * up
+        out_buf = torch.einsum("becf,efd->becd", h,
+                               params["w_down"].to(dt))
     y = _combine(out_buf, slot, order, topw, s, k)
 
     if "shared" in params:

@@ -155,6 +155,76 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
+def _mlp_axes(cfg: ModelConfig) -> dict:
+    p = {"w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+    if cfg.mlp == "silu_glu":
+        p["w_gate"] = ("embed", "mlp")
+    return p
+
+
+def _layer_axes(cfg: ModelConfig, i: int) -> dict:
+    """Layer ``i``'s logical axes, in its leaves' keys (the JAX package's
+    ``_init_layer``)."""
+    out = {"pre_norm": ("embed_act",)}
+    if cfg.block_kind(i) == "mamba":
+        out["mamba"] = {
+            "in_proj": ("embed", "inner"), "conv_w": ("conv", "inner"),
+            "conv_b": ("inner",), "a_log": ("ssm_heads",),
+            "d_skip": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+            "norm": ("inner",), "out_proj": ("inner", "embed")}
+        if cfg.attn_every == 0 and cfg.d_ff == 0:
+            return out
+    elif cfg.attention == "mla":
+        out["attn"] = {
+            "wq_a": ("embed", "latent"), "q_a_norm": ("latent",),
+            "wq_b": ("latent", "heads", "head_dim"),
+            "wkv_a": ("embed", "latent"), "kv_a_norm": ("latent",),
+            "wk_b": ("latent", "heads", "head_dim"),
+            "wv_b": ("latent", "heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
+    else:
+        out["attn"] = {"wq": ("embed", "heads", "head_dim"),
+                       "wk": ("embed", "kv_heads", "head_dim"),
+                       "wv": ("embed", "kv_heads", "head_dim"),
+                       "wo": ("heads", "head_dim", "embed")}
+        if cfg.qk_norm:
+            out["attn"]["q_norm"] = ("head_dim",)
+            out["attn"]["k_norm"] = ("head_dim",)
+    out["ffn_norm"] = ("embed_act",)
+    if cfg.ffn_kind(i) == "moe":
+        moe = {"router": ("embed", "experts"),
+               "w_gate": ("experts", "expert_embed", "expert_mlp"),
+               "w_up": ("experts", "expert_embed", "expert_mlp"),
+               "w_down": ("experts", "expert_mlp", "expert_embed")}
+        if cfg.n_shared_experts:
+            moe["shared"] = _mlp_axes(cfg)
+        out["moe"] = moe
+    else:
+        out["mlp"] = _mlp_axes(cfg)
+    return out
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of :func:`init_params`' tree, a
+    tree of the same structure with a tuple of axis names per leaf: the
+    axes tree the JAX package's ``init_params_and_axes`` returns (a
+    stacked ``layers`` leaf gains a leading None)."""
+    check_ported(cfg)
+    p = {"embed": ("vocab", "embed"),
+         "prefix_layers": [_layer_axes(cfg, i)
+                           for i in range(cfg.first_dense_layers)],
+         "layers": [tree_map(lambda ax: (None,) + ax,
+                             _layer_axes(cfg, cfg.first_dense_layers + pos),
+                             is_leaf=lambda x: isinstance(x, tuple))
+                    for pos in range(cfg.layer_period)],
+         "final_norm": ("embed_act",)}
+    if cfg.frontend != "none":
+        p["frontend_proj"] = ("embed_act", "embed")
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ("embed", "vocab")
+    return p
+
+
 def adamw_state_from_numpy(step, mu, nu, cfg: ModelConfig, device="cuda"):
     """The JAX package's ``AdamWState`` (its ``step``, ``mu`` and ``nu``
     already ``np.asarray``'d by the caller) as the port's, on

@@ -1,6 +1,8 @@
-"""Fault tolerance of the port's training (a copy of the single-device
-half of ``repro/runtime``)."""
+"""Fault tolerance and elasticity of the port's training (a copy of
+``repro/runtime``)."""
 
-from repro_torch.runtime.elastic import StepTimer, run_with_restarts
+from repro_torch.runtime.elastic import (ElasticRunner, StepTimer,
+                                         remesh_state, run_with_restarts)
 
-__all__ = ["StepTimer", "run_with_restarts"]
+__all__ = ["ElasticRunner", "StepTimer", "remesh_state",
+           "run_with_restarts"]

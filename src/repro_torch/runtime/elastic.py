@@ -1,14 +1,18 @@
-"""Fault tolerance for training: a copy of ``StepTimer`` and
-``run_with_restarts`` from ``repro/runtime/elastic.py``.  The
-multi-device half there (``remesh_state``, ``ElasticRunner``) waits for
-the port's multi-device slice.
+"""Fault tolerance and elasticity for training: a copy of
+``repro/runtime/elastic.py``.
 
 * ``run_with_restarts`` -- the restart harness: a training loop that may
   raise (node failure, preemption) is re-entered from the latest
   checkpoint and the resumable data step.  The contract: every piece of
   mutable state is (checkpoint tree, data step), nothing else.
+* ``remesh_state`` -- elastic re-scaling: a state laid out on one mesh
+  re-laid onto another (2 ranks -> 1 after losing one, say).  The specs
+  come from the same logical rules on both meshes, so growing or
+  shrinking is a gather and a slice, not a code change.
 * ``StepTimer`` -- straggler detection: a robust step-time envelope;
   a step over k x median is flagged.
+* ``ElasticRunner`` -- restores the latest checkpoint onto whatever
+  mesh its factory builds after a restart.
 """
 
 from __future__ import annotations
@@ -18,7 +22,32 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from repro_torch import tree
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.sharding import logical_to_mesh_axes, param_shardings
+from repro_torch.sharding.collectives import gather_spec
+from repro_torch.sharding.rules import is_axes, local_slice
+
+
+def remesh_state(state: Any, axes: Any, new_mesh, rules=None, *,
+                 mesh=None) -> Any:
+    """Re-lay ``state`` (whose leaves carry the logical ``axes``, a tree
+    of the same structure with axis-name tuples for leaves) onto
+    ``new_mesh``: each leaf gathered from ``mesh``'s ranks (its leaves
+    are this rank's blocks under the rules' specs there; None: they are
+    global) to the host, then this rank's block of it on ``new_mesh``
+    taken, on ``new_mesh.device`` (or the leaf's device).  Host-gathers
+    then re-slices: the simple, always-correct path.  Every rank of
+    ``mesh`` must call it (the gather is collective)."""
+    def place(ax, x):
+        if mesh is not None:
+            x = gather_spec(x, logical_to_mesh_axes(ax, rules, mesh), mesh)
+        full = x.detach().cpu()
+        spec = logical_to_mesh_axes(ax, rules, new_mesh)
+        dev = new_mesh.device if new_mesh.device is not None else x.device
+        return local_slice(full, spec, new_mesh).contiguous().to(dev)
+
+    return tree.map(place, axes, state, is_leaf=is_axes)
 
 
 class StepTimer:
@@ -95,3 +124,24 @@ def run_with_restarts(
                 step = 0
             step_fn = make_step()
     return state, stats
+
+
+class ElasticRunner:
+    """Failure-aware wrapper that re-meshes when the rank set changes
+    between restarts (a test passes another mesh factory after a
+    "failure")."""
+
+    def __init__(self, ckpt: CheckpointManager, axes: Any,
+                 mesh_factory: Callable, rules=None):
+        self.ckpt = ckpt
+        self.axes = axes
+        self.mesh_factory = mesh_factory
+        self.rules = rules
+
+    def restore_on_current_mesh(self, like_state: Any):
+        """(state, extras, mesh): the latest checkpoint, each leaf this
+        rank's block on the factory's mesh."""
+        mesh = self.mesh_factory()
+        shardings = param_shardings(self.axes, mesh, self.rules)
+        state, extras = self.ckpt.restore(like_state, shardings=shardings)
+        return state, extras, mesh

@@ -1,0 +1,250 @@
+"""The collectives of the port's multi-device paths, over one process
+group per mesh axis, and the ``shard_map`` they run inside.
+
+``psum``, ``pmean``, ``pmax`` and the tiled ``all_to_all`` are thin
+``torch.autograd.Function``s with the backward ``jax.grad`` gives
+through the same collective inside ``shard_map(check_rep=False)``: the
+transpose of ``psum`` is ``psum`` (and of ``pmean`` ``pmean``), that of
+an ``all_to_all`` the inverse ``all_to_all``; ``pmax`` has none (JAX
+raises "Differentiation rule for 'pmax' not implemented", and so does
+this backward).
+
+:func:`shard_map` is JAX's ``shard_map`` over a port mesh, where every
+rank holds the global tensors (the state outside the bodies is
+replicated, as ``shard_map``'s global arrays are).  Each argument enters
+the body as this rank's block under its in-spec; each output leaves it
+all-gathered over the axes its out-spec names.  Their backwards are the
+transpose rules of JAX's ``shard_map``: an input's cotangent is
+gathered over its spec's axes and summed (``psum``) over the mesh axes
+its spec leaves out; an output's cotangent is sliced to this rank's
+block and divided by the size of the axes its spec leaves out.  Every
+rank computes the same loss from replicated outputs, so this gives each
+rank the global gradient, as JAX's transpose does.
+
+gloo, the one backend that runs two ranks on one card, takes no CUDA
+tensor for ``all_to_all`` and its reductions: under gloo a CUDA
+tensor's collective is staged through host memory, logged once per
+collective.  16-bit floats are reduced in fp32; gathers and
+all-to-alls move raw bytes.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.sharding.rules import local_slice, spec_axes
+
+#: the collectives already logged as staged through the host
+_STAGED_LOGGED: set = set()
+
+
+def _staged(op: str, t: torch.Tensor, group) -> bool:
+    """Whether ``op`` on ``t`` goes through host memory (a CUDA tensor
+    under gloo); logs the first such ``op``."""
+    if not (t.is_cuda and dist.get_backend(group) == "gloo"):
+        return False
+    if op not in _STAGED_LOGGED:
+        _STAGED_LOGGED.add(op)
+        print(f"collectives: gloo {op} of CUDA tensors staged through "
+              "host memory", flush=True)
+    return True
+
+
+def _axes(axis) -> tuple:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _reduce(t: torch.Tensor, mesh, axes, op) -> torch.Tensor:
+    """``op`` all-reduce of ``t`` over ``axes`` (one axis after another),
+    a new tensor of ``t``'s dtype and device."""
+    out = t
+    for a in _axes(axes):
+        if mesh.axis_size(a) == 1:
+            continue
+        group = mesh.group(a)
+        work = out.cpu() if _staged("all_reduce", out, group) else out
+        work = work.float() if work.element_size() == 2 else work.clone()
+        dist.all_reduce(work, op=op, group=group)
+        out = work.to(device=t.device, dtype=t.dtype)
+    return out if out is not t else t.clone()
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s raw bytes as a flat uint8 tensor: what gloo moves for a
+    gather or an all-to-all, whatever the dtype (it takes no 16-bit
+    integer, and a copy needs no arithmetic)."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The blocks of ``axis``'s ranks concatenated along ``dim``."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return x
+    group = mesh.group(axis)
+    staged = _staged("all_gather", x, group)
+    src = _bytes(x.cpu() if staged else x)
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat([p.view(x.dtype).reshape(x.shape) for p in parts],
+                    dim=dim)
+    return out.to(x.device) if staged else out
+
+
+def gather_spec(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The global tensor of which ``x`` is this rank's block under
+    ``spec`` (minor axes first, then major)."""
+    for dim, entry in enumerate(spec):
+        for a in reversed(spec_axes(entry)):
+            x = _all_gather(x, mesh, a, dim)
+    return x
+
+
+def _unmentioned(spec: tuple, mesh) -> tuple:
+    """The mesh axes of more than one rank that ``spec`` leaves out."""
+    named = {a for e in spec for a in spec_axes(e)}
+    return tuple(a for a in mesh.axis_names
+                 if a not in named and mesh.axis_size(a) > 1)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _reduce(x, mesh, axes, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _reduce(ct, ctx.mesh, ctx.axes, dist.ReduceOp.SUM), None, None
+
+
+class _Pmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _reduce(x, mesh, axes, dist.ReduceOp.MAX)
+
+    @staticmethod
+    def backward(ctx, ct):
+        raise NotImplementedError(
+            "Differentiation rule for 'pmax' not implemented (nor has "
+            "JAX one)")
+
+
+def psum(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """Sum over the ranks of ``axis`` (a name or a tuple of names)."""
+    return _Psum.apply(x, mesh, _axes(axis))
+
+
+def pmean(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """Mean over the ranks of ``axis``."""
+    n = math.prod(mesh.axis_size(a) for a in _axes(axis))
+    return psum(x, mesh, axis) / n
+
+
+def pmax(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """Elementwise max over the ranks of ``axis``; not differentiable."""
+    return _Pmax.apply(x, mesh, _axes(axis))
+
+
+def _a2a(x: torch.Tensor, mesh, axis: str, split_axis: int,
+         concat_axis: int) -> torch.Tensor:
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return x
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    group = mesh.group(axis)
+    staged = _staged("all_to_all", x, group)
+    src = x.cpu() if staged else x
+    blocks = torch.stack(src.chunk(n, dim=split_axis))
+    send = _bytes(blocks).reshape(n, -1)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    recv = recv.view(x.dtype).reshape(blocks.shape)
+    out = torch.cat(list(recv.unbind(0)), dim=concat_axis)
+    return out.to(x.device) if staged else out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
+        ctx.args = (mesh, axis, split_axis, concat_axis)
+        return _a2a(x, mesh, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        mesh, axis, split_axis, concat_axis = ctx.args
+        return (_AllToAll.apply(ct, mesh, axis, concat_axis, split_axis),
+                None, None, None, None)
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, *, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(..., tiled=True)``: ``x`` split into the
+    axis's rank count along ``split_axis``, block j sent to rank j, the
+    blocks received concatenated along ``concat_axis`` in rank order."""
+    return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)
+
+
+class _Enter(torch.autograd.Function):
+    """A global tensor into a ``shard_map`` body: this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return local_slice(x, spec, mesh).clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        ct = gather_spec(ct, ctx.spec, ctx.mesh)
+        rest = _unmentioned(ctx.spec, ctx.mesh)
+        if rest:
+            ct = _reduce(ct, ctx.mesh, rest, dist.ReduceOp.SUM)
+        return ct, None, None
+
+
+class _Exit(torch.autograd.Function):
+    """A ``shard_map`` body's output to the global tensor."""
+
+    @staticmethod
+    def forward(ctx, y, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return gather_spec(y, spec, mesh).clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        n = math.prod(ctx.mesh.axis_size(a)
+                      for a in _unmentioned(ctx.spec, ctx.mesh))
+        ct = local_slice(ct, ctx.spec, ctx.mesh)
+        return (ct / n if n > 1 else ct.clone()), None, None
+
+
+def _full_spec(spec, ndim: int) -> tuple:
+    spec = tuple(spec)
+    return spec + (None,) * (ndim - len(spec))
+
+
+def shard_map(fn: Callable, mesh, in_specs: Sequence[tuple], out_specs):
+    """``fn`` run on this rank's blocks of its global arguments (one
+    spec each); its output, a tensor (``out_specs`` its spec) or a tuple
+    of tensors (``out_specs`` a tuple of specs), all-gathered back to
+    global tensors.  A mesh of one rank calls ``fn`` on the arguments
+    themselves."""
+
+    def run(*args):
+        if mesh.size == 1:
+            return fn(*args)
+        local = [_Enter.apply(x, _full_spec(spec, x.ndim), mesh)
+                 for x, spec in zip(args, in_specs)]
+        outs = fn(*local)
+        if isinstance(outs, torch.Tensor):
+            return _Exit.apply(outs, _full_spec(out_specs, outs.ndim), mesh)
+        return tuple(_Exit.apply(y, _full_spec(s, y.ndim), mesh)
+                     for y, s in zip(outs, out_specs))
+
+    return run

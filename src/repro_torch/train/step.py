@@ -12,6 +12,18 @@ the stacked leaf itself would make every period's ``select`` backward
 allocate a zero tensor of the whole stacked leaf (5.4 GB for
 starcoder2-7b's ``w_up``) per layer.  The gradient tree comes back in
 the JAX package's layout.
+
+Under an active mesh (``sharding.set_rules_for_mesh``) whose data axes
+("pod", "data") span more than one rank, the step is data-parallel: each
+rank takes its block of the batch's rows, and the gradients are averaged
+over those axes (``psum`` / n, in fp32) before the int8 compression, the
+clipping and AdamW, so the gradient norm, the error feedback and the
+update see the global gradient, as they do under JAX's GSPMD.  The
+parameters stay replicated on every rank (JAX's FSDP shard of "embed"
+over data is a layout without a numeric effect).  The loss and the MoE
+aux metrics are the ranks' mean; with MoE FFNs the aux losses are each
+rank's own tokens' (moe_local_dispatch's per-shard semantics), where
+GSPMD computes them over the global batch.
 """
 
 from __future__ import annotations
@@ -37,6 +49,8 @@ from repro_torch.optim import (adamw_init, adamw_update,
                                error_feedback_init,
                                int8_compress_with_feedback)
 from repro_torch.optim.adamw import AdamWState, chunks
+from repro_torch.sharding import rules as shrules
+from repro_torch.sharding.collectives import pmean
 
 
 @dataclasses.dataclass
@@ -124,6 +138,9 @@ def train_step(state: TrainState, batch, cfg: ModelConfig, *,
     leading-batch slices in fp32 and divides, as the JAX package does;
     the metrics are the last slice's."""
     params = state.params
+    mesh, data_axes = _data_parallel()
+    if data_axes:
+        batch = _local_rows(batch, mesh, data_axes)
     if microbatches > 1:
         n = next(iter(batch.values())).shape[0] // microbatches
         acc = tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -141,6 +158,11 @@ def train_step(state: TrainState, batch, cfg: ModelConfig, *,
     else:
         (_, metrics), grads = value_and_grad(params, cfg, batch, impl=impl)
 
+    if data_axes:
+        for g in tree.leaves(grads):
+            g.copy_(pmean(g.float(), mesh, data_axes))
+        metrics = {k: pmean(v, mesh, data_axes) for k, v in metrics.items()}
+
     feedback = state.feedback
     if feedback is not None:
         grads, feedback = int8_compress_with_feedback(grads, feedback)
@@ -149,6 +171,25 @@ def train_step(state: TrainState, batch, cfg: ModelConfig, *,
         params, grads, state.opt, lr=lr, weight_decay=weight_decay)
     metrics = dict(metrics, **opt_metrics)
     return TrainState(params=params, opt=opt, feedback=feedback), metrics
+
+
+def _data_parallel() -> tuple:
+    """(the active mesh, its data axes of more than one rank)."""
+    mesh = shrules.active_mesh()
+    if mesh is None:
+        return None, ()
+    return mesh, tuple(a for a in ("pod", "data")
+                       if a in mesh.axis_names and mesh.axis_size(a) > 1)
+
+
+def _local_rows(batch: dict, mesh, data_axes: tuple) -> dict:
+    """This rank's block of the batch's rows over ``data_axes``."""
+    if "mask" in batch:
+        raise NotImplementedError(
+            "a masked batch under a data mesh: the loss's token mean "
+            "would be each rank's, not the global batch's")
+    spec = (data_axes,)
+    return {k: shrules.local_slice(v, spec, mesh) for k, v in batch.items()}
 
 
 def make_train_step(cfg: ModelConfig, **kw) -> Callable:

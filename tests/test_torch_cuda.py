@@ -69,6 +69,8 @@ MLA layers at those head widths train on the kernels against the plain
 versions.
 """
 
+import functools
+
 import pytest
 import torch
 
@@ -992,9 +994,16 @@ def test_ssd_scan_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="share"):
         ssd_scan(args[0], args[1], args[2], args[3].bfloat16(), args[4])
     args[0] = args[0].clone().requires_grad_()
-    for fn in (ssd_scan, ops.ssd):
+    for impl in ("kernel", "cuda"):
+        fn = ssd_scan if impl == "kernel" else functools.partial(
+            ops.ssd, impl="cuda")
         with pytest.raises(NotImplementedError, match="no backward"):
             fn(*args, chunk=16)
+    # impl="auto" under autograd takes the plain scan (the JAX package's
+    # differentiable lax scan off the TPU), counted as such
+    ops.reset_counts()
+    ops.ssd(*args, chunk=16)
+    assert ops.CALLS[("ssd", "torch")] == 1 and not ops.CALLS[("ssd", "cuda")]
 
 
 @pytest.mark.cuda
@@ -1648,3 +1657,34 @@ def test_mla_layers_train_on_the_d192_kernels(cuda_device):
     for a, b in zip(tree.leaves(grads), tree.leaves(plain)):
         assert torch.isfinite(a.float()).all() and a.abs().max() > 0
         assert _rel(a, b) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_head_parallel_decode_on_two_ranks_sharing_the_card(cuda_device,
+                                                            tmp_path):
+    """``head_parallel_decode_attention`` and the sequence-sharded combine
+    on two gloo ranks that share ``cuda:0`` (their collectives staged
+    through host memory) against the plain single-rank attention and
+    output projection on the card, fp32 at starcoder2-7b's widths (36
+    query heads over 4 of 128) with mixed lengths, one past every
+    column of the second rank's half."""
+    from repro_torch.launch import mesh_ranks
+    from repro_torch.launch.mesh import spawn
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    b, hq, hkv, c, d, e = 4, 36, 4, 256, 128, 512
+    q = torch.randn(b, hq, 1, d, generator=g, device=cuda_device)
+    k = torch.randn(b, hkv, c, d, generator=g, device=cuda_device)
+    v = torch.randn(b, hkv, c, d, generator=g, device=cuda_device)
+    wo = torch.randn(hq, d, e, generator=g, device=cuda_device) * 0.05
+    lengths = torch.tensor([256, 100, 1, 129], dtype=torch.int32,
+                           device=cuda_device)
+    out = spawn(2, mesh_ranks.decode_attention, backend="gloo",
+                devices=["cuda:0", "cuda:0"],
+                init_file=str(tmp_path / "init"),
+                args=((1, 2), q.cpu(), k.cpu(), v.cpu(), lengths.cpu(),
+                      wo.cpu()), timeout=300)
+    o = ref.attention_reference(q, k, v, causal=False, lengths=lengths)
+    want = torch.einsum("bhse,hed->bsd", o, wo)
+    for rank in range(2):
+        assert _rel(out[rank]["hp"].to(cuda_device), want) <= 1e-5
+        assert _rel(out[rank]["dist"].to(cuda_device), o) <= 1e-5

@@ -96,9 +96,17 @@ HYBRID_MODULES = ["configs/jamba_15_large.py", "core/allocation.py",
                   "configs/gap8_cct.py"]
 
 
+#: the multi-device slice's modules
+MESH_MODULES = ["sharding/__init__.py", "sharding/rules.py",
+                "sharding/collectives.py", "launch/mesh.py",
+                "launch/mesh_lowering.py", "launch/mesh_ranks.py",
+                "launch/dryrun.py", "serve/distributed_decode.py",
+                "models/moe_local.py"]
+
+
 @pytest.mark.parametrize("rel", TRAINING_MODULES + MAMBA_MODULES
                          + FAULT_MODULES + DSE_MODULES + FRONTEND_MODULES
-                         + HYBRID_MODULES)
+                         + HYBRID_MODULES + MESH_MODULES)
 def test_training_modules_are_checked(rel):
     path = PORT / rel
     assert path.exists()
@@ -178,6 +186,15 @@ def test_train_main_defaults_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train.main(["--smoke", "--steps", "1"])
+
+
+def test_train_mesh_defaults_to_cuda():
+    """``--mesh`` counts the card's devices: without a card it raises
+    before it starts a rank."""
+    from repro_torch.launch import train
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            train.main(["--smoke", "--steps", "1", "--mesh"])
 
 
 def test_kernel_sources_name_what_they_replace():
