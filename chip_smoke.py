@@ -195,12 +195,19 @@ Phases, in order:
                width, global, moe_shard_map_ep and moe_local_dispatch:
                outputs and the expert weights' gradients of sum(y**2)
                per row within ROW_TOL of the global path's; (d)
-               data-parallel launch/train.train_loop, 2 layers, B=2 a
+               launch/train.train_loop through FSDP (each rank holds
+               its blocks of the training state), 2 layers, B=2 a
                rank, seq 1024, 3 steps: #7-#9 on each rank, losses
-               within MESH_TRAIN_REL of rank 0's single-rank B=4 run;
-               (e) remesh_state of that state to each rank alone, every
-               leaf bit-equal.  Each sub-phase's seconds and peak
-               memory a rank.
+               within MESH_TRAIN_REL of rank 0's single-rank B=4 run,
+               the bytes each rank holds against launch/dryrun.py's
+               per-device figure for the mesh and its peak; (e)
+               remesh_state of those blocks to each rank alone, every
+               leaf bit-equal to the blocks gathered; (f) phi3.5-moe
+               at full width, 2 layers, through FSDP, B=1 a rank, 2
+               steps, as (d) against rank 0's single-rank B=2 run, and
+               step 0's load-balance loss within MESH_LB_REL of the
+               single rank's.  Each sub-phase's seconds and peak memory
+               a rank.
 The kernel phase also holds the four training kernels (#7-#10) to their
 plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal), #7-#9 at hubert-xlarge's (B=2, 16 heads of 80, S = 4096,
@@ -5213,13 +5220,23 @@ def jamba_serve_phase(dev):
 MESH_RANKS = 2
 MESH_LAYERS = 4
 MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 2, 1024, 3
+#: the FSDP sub-phases' archs; (f)'s steps
+MESH_ARCHS = {"d": "starcoder2-7b", "f": "phi3.5-moe-42b-a6.6b"}
+MESH_MOE_STEPS = 2
+#: PR 27's replicated data-parallel (d): the peak a rank (PERF.md, PR
+#: 27's final call; H100 80GB HBM3, 700.00 W), printed beside FSDP's
+PR27_MESH_PEAK_GB = 10.23
 #: the mesh phase's serve mix: prompts past C = 2N = 256, 16 new tokens
 MESH_REQUESTS, MESH_MAX_NEW = 4, 16
 #: the mesh of 2 ranks against the mesh of 1: logits per step within
 #: this of the largest |logit| (fp32 partial sums in another order)
 MESH_TOL = 1e-3
-#: the data-parallel losses against the single-rank B=4 run (bf16)
+#: the FSDP losses against the single-rank run of the global batch (bf16)
 MESH_TRAIN_REL = 2e-2
+#: (f)'s step-0 load-balance loss against the single rank's: both read
+#: the same weights and the global batch's means, so they differ only by
+#: fp32 sums in another order (per-rank means would be about 1e-2 off)
+MESH_LB_REL = 1e-4
 MOE_MESH = dict(B=2, S=256)
 
 
@@ -5447,73 +5464,138 @@ def _moe_mesh(rank, dev, stats) -> None:
     del params, want, got
 
 
-def _train_mesh(rank, dev, stats) -> tuple:
-    """(d) data-parallel training of starcoder2-7b at full width, 2
-    layers, B=2 a rank (4 in all), seq 1024, 3 steps, against rank 0's
-    single-rank B=4 run; (e) remesh_state of the trained state from the
-    2 ranks to each rank alone, every leaf bit-equal to the state.
-    Returns this rank's launches of the data-parallel run."""
+def _fsdp_run(rank, dev, stats, sub, per_rank, steps) -> tuple:
+    """``MESH_ARCHS[sub]`` at full width, MESH_TRAIN_LAYERS layers,
+    through launch/train.train_loop with FSDP on MESH_RANKS ranks, B =
+    ``per_rank`` a rank, then (rank 0) the single-rank run of the global
+    batch: #7-#9 launched on each rank, the losses within MESH_TRAIN_REL
+    of the single rank's (MoE: step 0's load-balance loss within
+    MESH_LB_REL), the bytes each rank holds against the dry-run's
+    per-device figure for the same mesh.  Returns (the state of blocks, the config, the mesh,
+    this rank's launches of the FSDP run)."""
     import dataclasses as dc
 
     import torch.distributed as dist
 
     from repro_torch import configs, tree
     from repro_torch.kernels import build
-    from repro_torch.launch import train
+    from repro_torch.launch import dryrun, train
     from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.launch.mesh_ranks import fsdp_train
+
+    arch = MESH_ARCHS[sub]
+    cfg = dc.replace(configs.get_config(arch), n_layers=MESH_TRAIN_LAYERS)
+    lb = {"FSDP": [], "1 rank": []}
+    kw = dict(steps=steps, batch=per_rank * MESH_RANKS, seq=MESH_TRAIN_SEQ,
+              lr=TRAIN_LR, moment_dtype="bfloat16", log_every=steps)
+    mesh = make_host_mesh(data=MESH_RANKS, device=dev)
+    build.reset_launches()
+    state, losses, held = _mesh_sub(
+        f"{sub}: FSDP", rank, stats, fsdp_train, cfg, mesh, dev,
+        on_step=lambda s, m, t: lb["FSDP"].append(float(m["moe_lb_loss"])),
+        **kw)
+    launches = dict(build.LAUNCHES)
+    per_step = {n: launches.get(n, 0) / steps for n in TRAIN_KERNELS[:3]}
+    log(f"  [rank {rank}] ({sub}) FSDP losses {losses}, launches a step "
+        f"{per_step}, {stats[f'{sub}: FSDP'][0] / steps:.2f}s a step")
+    missing = [n for n, c in per_step.items() if c == 0]
+    if missing:
+        raise SystemExit(f"mesh ({sub}): rank {rank} never launched "
+                         f"{missing}")
+    cell = dryrun.run_cell(arch, "train_4k", cfg=cfg,
+                           mesh=Mesh(("data", "model"), (MESH_RANKS, 1)),
+                           moment_dtype="bfloat16")["per_device_bytes"]
+    params = tree.leaves(dryrun.abstract_params(cfg)[0])
+    whole = sum(x.numel() * x.element_size() for x in params)
+    moments = 2 * 2 * sum(x.numel() for x in params)
+    gb = {k: v / 1e9 for k, v in held.items()}
+    log(f"  [rank {rank}] ({sub}) holds params {gb['params']:.3f} GB, "
+        f"gradients {gb['grads']:.3f}, AdamW {gb['optimizer']:.3f}: "
+        f"{sum(gb.values()):.3f} GB (dry-run per device: params "
+        f"{cell['params'] / 1e9:.3f}, optimizer {cell['optimizer'] / 1e9:.3f}"
+        f"); the whole state, which each rank held replicated in PR 27: "
+        f"{(2 * whole + moments) / 1e9:.3f} GB; peak "
+        f"{stats[f'{sub}: FSDP'][1]:.2f} GB a rank (PR 27's replicated "
+        f"(d), recorded: {PR27_MESH_PEAK_GB} GB)")
+    if (held["params"], held["optimizer"]) != (cell["params"],
+                                               cell["optimizer"]):
+        raise SystemExit(f"mesh ({sub}): rank {rank} holds other bytes "
+                         "than the dry-run's blocks")
+    if rank == 0:
+        _, want = _mesh_sub(
+            f"{sub}: 1 rank B={per_rank * MESH_RANKS}", rank, stats,
+            train.train_loop, cfg, device=dev,
+            on_step=lambda s, m, t: lb["1 rank"].append(
+                float(m["moe_lb_loss"])), **kw)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        log(f"  [rank 0] ({sub}) single-rank B={per_rank * MESH_RANKS} "
+            f"losses {want}: worst rel {rel:.3e} (tol {MESH_TRAIN_REL})")
+        if rel > MESH_TRAIN_REL:
+            raise SystemExit(f"mesh ({sub}): FSDP losses disagree with the "
+                             "single rank's")
+        if cfg.moe:
+            a, b = lb["FSDP"][0], lb["1 rank"][0]
+            lb_rel = abs(a - b) / abs(b)
+            log(f"  [rank 0] ({sub}) moe_lb_loss FSDP {lb['FSDP']}, single "
+                f"rank {lb['1 rank']}: step 0 rel {lb_rel:.3e} (tol "
+                f"{MESH_LB_REL})")
+            if not lb_rel <= MESH_LB_REL:
+                raise SystemExit(f"mesh ({sub}): the load-balance loss is "
+                                 "not the global batch's")
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return state, cfg, mesh, launches
+
+
+def _train_mesh(rank, dev, stats) -> dict:
+    """(d) FSDP training of starcoder2-7b at full width, 2 layers, B=2 a
+    rank, seq 1024, against rank 0's single-rank B=4 run; (e)
+    remesh_state of the trained blocks from the 2 ranks to each rank
+    alone, every leaf bit-equal to the blocks gathered; (f) FSDP
+    training of phi3.5-moe at full width, 2 layers, B=1 a rank, against
+    rank 0's single-rank B=2 run, its load-balance loss among the
+    gates.  Returns this rank's launches of the
+    two FSDP runs."""
+    from repro_torch import tree
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models.weights import param_axes
     from repro_torch.optim.adamw import AdamWState
     from repro_torch.runtime import remesh_state
-    from repro_torch.sharding import param_shardings
-    from repro_torch.train.step import TrainState
+    from repro_torch.train.step import TrainState, fsdp_layout, whole_state
 
-    cfg = dc.replace(configs.get_config("starcoder2-7b"),
-                     n_layers=MESH_TRAIN_LAYERS)
-    kw = dict(steps=MESH_TRAIN_STEPS, batch=2 * MESH_RANKS,
-              seq=MESH_TRAIN_SEQ, lr=TRAIN_LR, moment_dtype="bfloat16",
-              device=dev, log_every=MESH_TRAIN_STEPS)
-    mesh = make_host_mesh(data=MESH_RANKS, device=dev)
-    build.reset_launches()
-    state, losses = _mesh_sub("d: data-parallel", rank, stats,
-                              train.train_loop, cfg, mesh=mesh, **kw)
-    launches = dict(build.LAUNCHES)
-    per_step = {n: launches.get(n, 0) / MESH_TRAIN_STEPS
-                for n in TRAIN_KERNELS[:3]}
-    log(f"  [rank {rank}] (d) losses {losses}, launches a step {per_step}")
-    missing = [n for n, c in per_step.items() if c == 0]
-    if missing:
-        raise SystemExit(f"mesh (d): rank {rank} never launched {missing}")
-    if rank == 0:
-        _, want = _mesh_sub("d: 1 rank B=4", rank, stats, train.train_loop,
-                            cfg, **kw)
-        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
-        log(f"  [rank 0] (d) single-rank B=4 losses {want}: worst rel "
-            f"{rel:.3e} (tol {MESH_TRAIN_REL})")
-        if rel > MESH_TRAIN_REL:
-            raise SystemExit("mesh (d): data-parallel losses disagree")
-    dist.barrier()
-    torch.cuda.empty_cache()
+    state, cfg, mesh, launches = _fsdp_run(rank, dev, stats, "d", 2,
+                                           MESH_TRAIN_STEPS)
+    launches = collections.Counter(launches)
 
     axes = param_axes(cfg)
     state_axes = TrainState(params=axes, opt=AdamWState(step=(), mu=axes,
                                                         nu=axes))
-    shardings = param_shardings(state_axes, mesh)
-    blocks = tree.map(lambda s, t: s.local(t), shardings, state)
     alone = Mesh(("data", "model"), (1, 1), device=dev)
-    moved = _mesh_sub("e: remesh 2 -> 1", rank, stats, remesh_state, blocks,
+    moved = _mesh_sub("e: remesh 2 -> 1", rank, stats, remesh_state, state,
                       state_axes, alone, None, mesh=mesh)
-    pairs = list(zip(tree.leaves(moved), tree.leaves(state)))
+    whole = whole_state(state, fsdp_layout(cfg, mesh))
+    del state
+    pairs = list(zip(tree.leaves(moved), tree.leaves(whole)))
     differ = sum(not torch.equal(a, b) for a, b in pairs)
     log(f"  [rank {rank}] (e) remesh_state: {len(pairs)} leaves, "
         f"{sum(b.numel() for _, b in pairs) / 1e9:.3f} G elements, "
-        f"{differ} differ from the gathered state")
+        f"{differ} differ from the blocks gathered")
     if differ:
         raise SystemExit("mesh (e): remesh_state changed a leaf")
-    return launches
+    del moved, whole, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state, _, _, more = _fsdp_run(rank, dev, stats, "f", 1, MESH_MOE_STEPS)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(more)
+    return dict(launches)
 
 
 def mesh_rank(rank, dev):
-    """One rank of the mesh phase: (a)-(e) in turn.  Returns (launches,
+    """One rank of the mesh phase: (a)-(f) in turn.  Returns (launches,
     {sub-phase: (seconds, peak GB)})."""
     torch.backends.cuda.matmul.allow_tf32 = False
     stats = {}
@@ -5531,9 +5613,9 @@ def mesh_phase(dev):
     """The multi-device slice on one card: MESH_RANKS gloo ranks share
     cuda:0 (launch.mesh.spawn, one spawn for every sub-phase): (a)
     head-parallel serve under lower_to_mesh, (b) sequence-sharded decode,
-    (c) phi3.5-moe's expert-parallel and local dispatch, (d)
-    data-parallel training, (e) remesh_state.  Returns the launches of
-    both ranks."""
+    (c) phi3.5-moe's expert-parallel and local dispatch, (d) FSDP
+    training, (e) remesh_state, (f) phi3.5-moe's FSDP training.
+    Returns the launches of both ranks."""
     from repro_torch.launch.mesh import spawn
 
     gc.collect()

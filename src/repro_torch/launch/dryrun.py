@@ -113,15 +113,17 @@ def _nbytes(shape, dtype) -> int:
     return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
 
 
-def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
-             moment_dtype: str = "bfloat16") -> dict:
-    """One cell's per-device state bytes on a production mesh."""
+def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+             moment_dtype: str = "bfloat16", cfg=None, mesh=None) -> dict:
+    """One cell's per-device state bytes on a production mesh (or on
+    ``mesh``, a mesh's shape, and of ``cfg`` in place of the arch's
+    full config: what a training rank holds there)."""
     ok, why = configs.applicable(arch, shape_name)
     if not ok:
         return {"arch": arch, "shape": shape_name, "skipped": why}
-    cfg = configs.get_config(arch)
+    cfg = cfg or configs.get_config(arch)
     sh = configs.SHAPES[shape_name]
-    mesh = make_production_mesh(multi_pod=multi_pod)
+    mesh = mesh or make_production_mesh(multi_pod=multi_pod)
     params, axes = abstract_params(cfg)
     dtypes = {path: x.dtype for path, x in _paths(params)}
     per_device = {"params": 0, "optimizer": 0, "caches": 0, "inputs": 0}
@@ -163,7 +165,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
                 shrules.shard_shape(x.shape, spec, mesh), x.dtype)
     total = sum(per_device.values())
     return {"arch": arch, "shape": shape_name, "kind": sh.kind,
-            "mesh": "2x16x16" if multi_pod else "16x16",
+            "mesh": "x".join(str(n) for n in mesh.devices.shape),
             "devices": mesh.size,
             "n_params": sum(math.prod(x.shape) for x in tree.leaves(params)),
             "per_device_bytes": per_device,

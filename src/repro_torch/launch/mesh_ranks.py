@@ -121,19 +121,139 @@ def moe_paths(rank, device, shapes, cfg, params_np, x) -> dict:
     return out
 
 
+def fsdp_train(cfg, mesh, device, **loop_kw) -> tuple:
+    """``launch.train.train_loop`` on a data ``mesh`` (FSDP; every rank
+    calls it): (this rank's state of blocks, the losses, the bytes it
+    holds of parameters, gradients and AdamW state).  The gradient
+    buffers a step makes are ``zeros_like`` the parameter blocks
+    (``train.step.value_and_grad``), so their bytes are the blocks'."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.sharding.fsdp import held_bytes
+
+    state, losses = train_mod.train_loop(cfg, mesh=mesh, device=device,
+                                         **loop_kw)
+    return state, losses, {"params": held_bytes(state.params),
+                           "grads": held_bytes(state.params),
+                           "optimizer": held_bytes(state.opt)}
+
+
 def train_data_parallel(rank, device, cfg, params_np, loop_kw) -> dict:
-    """``launch.train.train_loop`` on a data mesh over every running
-    rank, from ``params_np``: its losses and final parameters."""
+    """:func:`fsdp_train` on a data mesh over every running rank, from
+    ``params_np``: its losses, the final parameters gathered from the
+    ranks' blocks, the bytes this rank holds and its blocks' shapes."""
     import torch.distributed as dist
 
-    from repro_torch.launch import train as train_mod
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import step as step_mod
 
     mesh = make_host_mesh(data=dist.get_world_size(), device=device)
     params = params_from_numpy(params_np, cfg, device=device)
-    state, losses = train_mod.train_loop(cfg, mesh=mesh, params=params,
-                                         device=device, **loop_kw)
-    return {"losses": losses, "params": tree.map(_cpu, state.params)}
+    state, losses, held = fsdp_train(cfg, mesh, device, params=params,
+                                     **loop_kw)
+    fsdp = step_mod.fsdp_layout(cfg, mesh)
+    return {"losses": losses,
+            "params": tree.map(_cpu, fsdp.full(state.params)),
+            "held": held,
+            "block_shapes": tree.map(lambda x: tuple(x.shape),
+                                     state.params)}
+
+
+def train_step_on_mesh(rank, device, cfg, params_np, batch, lr) -> dict:
+    """One ``train.step.train_step`` on a data mesh over every running
+    rank, from the blocks of ``params_np``, on the global ``batch`` (a
+    dict of CPU tensors): its metrics, the step's gradients
+    (``value_and_grad`` on this rank's rows, as the step takes them)
+    and the parameters after the step, both gathered from the
+    blocks."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.rules import local_slice
+    from repro_torch.train import step as step_mod
+
+    mesh = make_host_mesh(data=dist.get_world_size(), device=device)
+    fsdp = step_mod.fsdp_layout(cfg, mesh)
+    params = fsdp.place(params_from_numpy(params_np, cfg, device=device))
+    state = step_mod.init_train_state(None, cfg, device=device,
+                                      params=params)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    rows = {k: local_slice(v, (fsdp.axes,), mesh) for k, v in batch.items()}
+    with set_rules_for_mesh(mesh):
+        _, grads = step_mod.value_and_grad(state.params, cfg, rows,
+                                           fsdp=fsdp)
+        state, metrics = step_mod.train_step(state, batch, cfg, lr=lr)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": tree.map(_cpu, fsdp.full(grads)),
+            "params": tree.map(_cpu, fsdp.full(state.params))}
+
+
+class _Crash(Exception):
+    """The failure :func:`fsdp_state` injects into a training run."""
+
+
+def fsdp_state(rank, device, cfg, params_np, loop_kw, ckpt_dir) -> dict:
+    """``launch.train.train_loop`` with int8 gradient compression on a
+    data mesh over every running rank, three times: uninterrupted,
+    checkpointing its last step; crashed after the step before it,
+    checkpointed there; resumed from that checkpoint.  Returns the
+    losses, the uninterrupted run's checkpoint restored as this rank's
+    blocks (``restore(shardings=)``) beside its final state, the
+    resumed run's final state, the whole state as every rank and as
+    rank 0 alone keeps it, and the gradient norm and int8 scales of the
+    parameter blocks beside the whole tensors'."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.optim.compression import _quant_int8
+    from repro_torch.train import step as step_mod
+
+    mesh = make_host_mesh(data=dist.get_world_size(), device=device)
+    steps = loop_kw["steps"]
+
+    def run(name, **kw):
+        params = params_from_numpy(params_np, cfg, device=device)
+        return train_mod.train_loop(
+            cfg, mesh=mesh, params=params, device=device,
+            ckpt_dir=os.path.join(ckpt_dir, name), grad_compression=True,
+            **loop_kw, **kw)
+
+    def crash(step, metrics, seconds):
+        if step == steps - 1:
+            raise _Crash
+
+    state, losses = run("whole", checkpoint_every=steps)
+    dist.barrier()                      # rank 0 has written it
+    fsdp = step_mod.fsdp_layout(cfg, mesh)
+    restored, extras = CheckpointManager(
+        os.path.join(ckpt_dir, "whole")).restore(
+        state, shardings=step_mod.state_shardings(state, fsdp))
+    try:
+        run("crash", checkpoint_every=steps - 1, on_step=crash)
+    except _Crash:
+        pass
+    dist.barrier()
+    resumed, resumed_losses = run("crash", checkpoint_every=steps)
+    whole = step_mod.whole_state(state, fsdp)
+    kept = step_mod.whole_state(state, fsdp, keep=mesh.rank == 0)
+    shardings = tree.leaves(fsdp.shardings())
+    return {
+        "kept": None if kept is None else tree.map(_cpu, kept),
+        "losses": losses, "resumed_losses": resumed_losses,
+        "extras": extras, "restored": tree.map(_cpu, restored),
+        "state": tree.map(_cpu, state), "resumed": tree.map(_cpu, resumed),
+        "whole": tree.map(_cpu, whole),
+        "norm": (float(global_norm(state.params, fsdp.shardings())),
+                 float(global_norm(whole.params))),
+        "scales": ([float(_quant_int8(x.float(), sh)[1]) for x, sh in
+                    zip(tree.leaves(state.params), shardings)],
+                   [float(_quant_int8(x.float())[1])
+                    for x in tree.leaves(whole.params)]),
+        "specs": [sh.spec for sh in shardings]}
 
 
 def remesh(rank, device, state, axes, shape, ckpt_dir) -> dict:

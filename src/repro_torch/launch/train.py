@@ -4,12 +4,16 @@ checkpoint, on the card by default (a copy of ``repro.launch.train``).
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
         --smoke --steps 20 --batch 8 --seq 128 --device cpu
 
-``--mesh`` trains data-parallel, as the JAX launcher's
+``--mesh`` trains on a data mesh, as the JAX launcher's
 ``make_host_mesh(data=len(jax.devices()))`` does: one rank per device
 the host exposes (``torch.cuda.device_count()``; on the CPU the
 ``--ranks`` the caller passes, where JAX's tests force host devices),
-each on its block of every batch's rows, the gradients averaged before
-the update (``train/step.py``).  Rank 0 logs and writes checkpoints.
+each holding its FSDP blocks of the training state (JAX's
+``param_shardings`` placement, drawn as blocks) and running its block
+of every batch's rows (``train/step.py``).  Rank 0 logs; a checkpoint
+gathers the blocks leaf by leaf, rank 0 alone keeping and writing the
+global tensors, so its format is the single-rank one, and a restore
+takes each rank's blocks back (``restore(shardings=)``).
 
 Every arch trains (``configs.list_archs()``, as the JAX launcher takes
 it), on token batches as the JAX launcher does: the encoder
@@ -38,6 +42,7 @@ from repro_torch import configs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import SyntheticTokenDataset, make_batch_iterator
 from repro_torch.models.common import resolve_device
+from repro_torch.models.weights import init_params
 from repro_torch.optim.adamw import cosine_schedule
 from repro_torch.launch.mesh import make_host_mesh, spawn
 from repro_torch.runtime import StepTimer
@@ -47,16 +52,25 @@ from repro_torch.train import step as train_mod
 
 def build(cfg, *, batch: int, seq: int, lr: float, steps: int,
           moment_dtype="float32", grad_compression=False, microbatches=1,
-          seed=0, structured_data=True, device="cuda", params=None):
+          seed=0, structured_data=True, device="cuda", params=None,
+          mesh=None):
     """(state, step_fn, dataset).  Weights are drawn from a generator
-    seeded with ``seed`` on ``device`` unless ``params`` are given."""
+    seeded with ``seed`` on ``device`` unless ``params`` are given.
+    Under ``mesh`` with data axes of more than one rank the state is
+    this rank's FSDP blocks: random weights are drawn as blocks, each
+    slice cut as it is drawn (the single rank's draws); given
+    ``params`` are sliced; the moments are made as blocks."""
     dev = resolve_device(device)
-    gen = None
+    fsdp = train_mod.fsdp_layout(cfg, mesh)
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
+        params = (init_params(cfg, gen, dev) if fsdp is None
+                  else fsdp.init(cfg, gen, dev))
+    elif fsdp is not None:
+        params = fsdp.place(params)
     state = train_mod.init_train_state(
-        gen, cfg, moment_dtype=moment_dtype,
+        None, cfg, moment_dtype=moment_dtype,
         grad_compression=grad_compression, device=dev, params=params)
     sched = cosine_schedule(lr, warmup_steps=max(steps // 20, 1),
                             total_steps=steps)
@@ -73,17 +87,20 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float,
     """Train ``steps`` steps; returns (state, losses).  ``on_step(step,
     metrics, seconds)`` (optional) sees each step's metrics and its time
     on the host clock, the device synchronised.  ``mesh``: train under
-    it (data-parallel over its data axes; every rank of it calls this);
-    rank 0 alone logs and saves.  Keyword arguments go to
-    :func:`build`."""
+    it (FSDP over its data axes; every rank of it calls this, and the
+    state returned is this rank's blocks); rank 0 alone logs and
+    writes checkpoints.  Keyword arguments go to :func:`build`."""
     state, step_fn, ds = build(cfg, batch=batch, seq=seq, lr=lr,
-                               steps=steps, **kw)
+                               steps=steps, mesh=mesh, **kw)
     dev = state.opt.step.device
     lead = mesh is None or mesh.rank == 0
+    fsdp = train_mod.fsdp_layout(cfg, mesh)
     ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start = 0
     if ckpt and ckpt.latest_step() is not None:
-        state, extras = ckpt.restore(state)
+        state, extras = ckpt.restore(
+            state, shardings=None if fsdp is None
+            else train_mod.state_shardings(state, fsdp))
         start = extras["next_step"]
         print(f"resumed from step {start}")
     timer = StepTimer()
@@ -108,8 +125,13 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float,
                       f"gnorm {float(metrics['grad_norm']):.3f} "
                       f"lr {float(metrics['lr']):.2e}"
                       + (" [straggler]" if straggler else ""), flush=True)
-            if ckpt and lead and (step + 1) % checkpoint_every == 0:
-                ckpt.save(step, state, extras={"next_step": step + 1})
+            if ckpt and (step + 1) % checkpoint_every == 0:
+                # FSDP: every rank gathers, leaf by leaf; rank 0 alone
+                # keeps them, on the host
+                whole = state if fsdp is None else train_mod.whole_state(
+                    state, fsdp, device="cpu", keep=lead)
+                if lead:
+                    ckpt.save(step, whole, extras={"next_step": step + 1})
     finally:
         it.close()
         if ckpt:
@@ -137,7 +159,7 @@ def parser() -> argparse.ArgumentParser:
                     help="AdamW moment dtype (bfloat16 halves their "
                          "memory)")
     ap.add_argument("--mesh", action="store_true",
-                    help="data-parallel over one rank per device")
+                    help="FSDP on a data mesh of one rank per device")
     ap.add_argument("--ranks", type=int, default=None,
                     help="with --mesh on the CPU: the rank count "
                          "(on the card: torch.cuda.device_count())")

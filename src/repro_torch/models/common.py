@@ -189,15 +189,20 @@ def mlp_forward(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     return h @ params["w_down"].to(dt)
 
 
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Each token's negative log-likelihood, the logits in fp32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return lse - ll
+
+
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean cross entropy with the logits in fp32
     (``repro/models/common.py:256-266``); with ``mask``, the mean over
     the masked-in tokens (at least 1)."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    nll = lse - ll
+    nll = token_nll(logits, targets)
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)

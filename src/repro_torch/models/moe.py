@@ -27,6 +27,11 @@ bitwise repeatable, where a gather ``x[order // k]`` would accumulate
 each token's k copies by atomics.
 
 Aux losses: the switch-style load balance and the router z-loss, fp32.
+Under an active mesh whose data axes span more than one rank (training
+on a data mesh, each rank on its rows of the batch) the load balance's
+token fractions and mean probabilities are means over the global batch
+(a differentiable ``pmean``) before their product, as JAX's under
+GSPMD; the z-loss is a per-token mean, which the ranks' mean gives.
 
 Under an active mesh with a "model" axis (``sharding.set_rules_for_mesh``)
 two flags of the JAX package take their mesh paths:
@@ -45,7 +50,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, mlp_forward
 from repro_torch.sharding import rules as shrules
-from repro_torch.sharding.collectives import all_to_all, shard_map
+from repro_torch.sharding.collectives import all_to_all, pmean, shard_map
 
 
 def init_moe(cfg: ModelConfig, draw: Callable) -> dict:
@@ -224,6 +229,13 @@ def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     onehot = F.one_hot(topi, e).float()                      # (B,S,k,E)
     frac_tokens = onehot.mean(dim=(0, 1, 2)) * e
     mean_probs = probs.mean(dim=(0, 1)) * e
+    axes = shrules.data_axes()
+    if axes:
+        # means over the global batch, whose rows the data ranks share
+        # equally, before their product (GSPMD's global mean)
+        mesh = shrules.active_mesh()
+        frac_tokens = pmean(frac_tokens, mesh, axes)
+        mean_probs = pmean(mean_probs, mesh, axes)
     lb_loss = torch.mean(frac_tokens * mean_probs)
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return y, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}

@@ -56,6 +56,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, mlp_forward, rms_norm
+from repro_torch.tree import map as tree_map
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -81,10 +82,14 @@ def _index(tree, j: int):
 
 def _layer_forward(lp: dict, cfg: ModelConfig, kinds: tuple, x,
                    positions, layer_cache, cache_len, plan,
-                   block_tables=None, impl="auto", aux=False):
+                   block_tables=None, impl="auto", aux=False, gather=None):
     """One layer of ``kinds`` (``cfg.block_kind(i)``,
     ``cfg.ffn_kind(i)``): (x, its MoE aux losses, empty for a dense FFN
-    or without ``aux``)."""
+    or without ``aux``).  ``gather`` (FSDP): the layer's global weights
+    from its blocks ``lp``, gathered here so that a checkpointed layer
+    gathers them again in its recompute and frees them after it."""
+    if gather is not None:
+        lp = gather(lp)
     kind, ffn_kind = kinds
     h = rms_norm(x, lp["pre_norm"])
     if kind == "mamba":
@@ -141,7 +146,7 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
             cache: Optional[dict] = None, cache_len=None,
             positions: Optional[torch.Tensor] = None, plan=None,
             block_tables: Optional[torch.Tensor] = None,
-            return_aux: bool = False, impl: str = "auto"):
+            return_aux: bool = False, impl: str = "auto", fsdp=None):
     """tokens: (B, S) integer ids and/or embeds: (B, S_f, frontend_dim)
     (the stub modality frontend, placed before the tokens).
     ``cache``/``cache_len``: KV-cached mode; ``cache_len`` is an int
@@ -150,18 +155,27 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
     attention block.  ``block_tables``: (B, max_pages) int32 page table
     of paged caches, shared by every layer.  ``impl``: the
     ``kernels.ops`` impl of every attention and SSD call (``torch``
-    forces the plain versions on the card).
+    forces the plain versions on the card).  ``fsdp``: a
+    ``sharding.fsdp.FSDP`` whose blocks ``params`` are (training on a
+    data mesh): each layer's weights, the embedding, the unembedding and
+    the final norm are gathered at their use.
     Returns logits (B, S_f + S, vocab), plus the cache (updated in
     place) when one is given, plus, with ``return_aux``, the MoE
     auxiliary losses summed over the layers (fp32 zeros for a stack
     without MoE)."""
     check_ported(cfg)
     dt = cfg.torch_dtype()
+
+    def use(key):
+        if fsdp is None:
+            return params[key]
+        return fsdp.gather(params[key], fsdp.specs[key])
+
     parts = []
     if embeds is not None:
-        parts.append(embeds.to(dt) @ params["frontend_proj"].to(dt))
+        parts.append(embeds.to(dt) @ use("frontend_proj").to(dt))
     if tokens is not None:
-        parts.append(params["embed"].to(dt)[tokens])
+        parts.append(use("embed").to(dt)[tokens])
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     b, s, _ = x.shape
     if positions is None:
@@ -175,32 +189,44 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
     remat = _remat(cfg) if cache is None and torch.is_grad_enabled() \
         else None
 
-    def layer(i, lp, lc, x):
+    def layer(i, lp, lc, x, gather):
         kind = (cfg.block_kind(i), cfg.ffn_kind(i))
         if remat is not None:
             return checkpoint(_layer_forward, lp, cfg, kind, x, positions,
                               None, None, plan, None, impl, return_aux,
-                              **remat)
+                              gather, **remat)
         return _layer_forward(lp, cfg, kind, x, positions, lc, cache_len,
-                              plan, block_tables, impl, return_aux)
+                              plan, block_tables, impl, return_aux, gather)
+
+    if fsdp is None:
+        prefix_gather = [None] * len(params["prefix_layers"])
+        body_gather = [None] * cfg.layer_period
+    else:
+        prefix_gather = [functools.partial(fsdp.gather_tree, specs=s)
+                         for s in fsdp.specs["prefix_layers"]]
+        # a stacked leaf's spec leads with its period axis's None
+        body_gather = [functools.partial(fsdp.gather_tree, specs=tree_map(
+            lambda sp: sp[1:], s, is_leaf=lambda sp: isinstance(sp, tuple)))
+            for s in fsdp.specs["layers"]]
 
     aux = []                            # each layer's aux losses
     for i, lp in enumerate(params["prefix_layers"]):
         x, la = layer(i, lp, None if cache is None else cache["prefix"][i],
-                      x)
+                      x, prefix_gather[i])
         aux.append(la)
     for j in range(cfg.n_periods):
         for pos in range(cfg.layer_period):
             lc = None if cache is None else _index(cache["scan"][pos], j)
             x, la = layer(cfg.first_dense_layers + pos,
-                          _index(params["layers"][pos], j), lc, x)
+                          _index(params["layers"][pos], j), lc, x,
+                          body_gather[pos])
             aux.append(la)
 
-    x = rms_norm(x, params["final_norm"])
+    x = rms_norm(x, use("final_norm"))
     if "lm_head" in params:
-        logits = x @ params["lm_head"].to(dt)
+        logits = x @ use("lm_head").to(dt)
     else:
-        logits = x @ params["embed"].to(dt).T
+        logits = x @ use("embed").to(dt).T
     out = [logits] if cache is None else [logits, cache]
     if return_aux:
         zero = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -71,31 +71,57 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda", dtype=None):
 
 
 def _stacked(shape, lead: int, generator, device, dtype,
-             scale=None) -> torch.Tensor:
+             scale=None, cut=None) -> torch.Tensor:
     """``lead`` stacked draws of the JAX package's init: a normal
     truncated to [-2, 2] times ``scale`` (default 1/sqrt(fan_in),
-    fan_in = shape[0]), drawn in fp32 one slice at a time."""
+    fan_in = shape[0]), drawn in fp32 one slice at a time.  ``cut``
+    (FSDP): each slice is cut to this rank's block of the stacked
+    tensor as soon as it is drawn, and only the blocks are kept."""
     if scale is None:
         scale = 1.0 / math.sqrt(max(shape[0] if len(shape) > 1
                                     else shape[-1], 1))
-    out = torch.empty((lead, *shape), dtype=dtype, device=device)
+    full = (lead, *shape)
+    if cut is not None:
+        full = cut(torch.empty(full, device="meta")).shape
+    out = torch.empty(full, dtype=dtype, device=device)
     tmp = torch.empty(shape, dtype=torch.float32, device=device)
     for j in range(lead):
         torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0,
                                     generator=generator)
-        out[j] = tmp * scale
+        out[j] = tmp * scale if cut is None else cut((tmp * scale)[None])[0]
     return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> dict:
+                device="cuda", *, cuts=None) -> dict:
     """Random parameters in ``cfg.param_dtype`` on ``device``, drawn
     from ``generator`` (which must live on that device).  Not the JAX
     package's numbers for the same seed: tests share weights through
     :func:`params_from_numpy` instead.  Raises ValueError where no layer
     follows the dense prefix (``n_layers <= first_dense_layers``), a
-    depth the JAX package cannot build either."""
-    dev = resolve_device(device)
+    depth the JAX package cannot build either.  ``cuts`` (FSDP):
+    ``cuts(i)`` is the function that takes the i-th tensor made (in
+    :func:`draw_order`'s order), or any run of its leading axis, to
+    this rank's block of it; the tree then holds the blocks, from the
+    same draws."""
+    return _init_params(cfg, generator, resolve_device(device), cuts, [])
+
+
+def draw_order(cfg: ModelConfig) -> tuple:
+    """(a tree of :func:`init_params`' structure holding the index of
+    the tensor each leaf is made from, in the order they are made; the
+    shapes of those tensors): a leaf is its tensor, or that tensor's
+    one slice along a leading axis of 1."""
+    made = []
+    p = _init_params(cfg, None, torch.device("meta"), None, made)
+    index = {id(t): i for i, t in enumerate(made)}
+    order = tree_map(
+        lambda x: index[id(x if x._base is None else x._base)], p)
+    return order, [tuple(t.shape) for t in made]
+
+
+def _init_params(cfg: ModelConfig, generator, dev, cuts, made) -> dict:
+    """:func:`init_params`, appending each tensor made to ``made``."""
     check_ported(cfg)
     if cfg.n_periods < 1:
         raise ValueError(
@@ -105,11 +131,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     dt = cfg.torch_dtype("param")
     e = cfg.d_model
 
+    def cut():
+        return None if cuts is None else cuts(len(made))
+
     def w(*shape, scale=None, lead=1, dtype=None):
-        return _stacked(shape, lead, generator, dev, dtype or dt, scale)
+        made.append(_stacked(shape, lead, generator, dev, dtype or dt,
+                             scale, cut()))
+        return made[-1]
 
     def ones(*shape, dtype=dt):
-        return torch.ones(shape, dtype=dtype, device=dev)
+        c = cut()
+        if c is not None:
+            shape = c(torch.empty(shape, device="meta")).shape
+        made.append(torch.ones(shape, dtype=dtype, device=dev))
+        return made[-1]
 
     def layer(i, n):
         """Layer ``i``'s leaves with a leading axis of ``n``."""

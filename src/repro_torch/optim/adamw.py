@@ -22,6 +22,8 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import tree
+from repro_torch.sharding.collectives import psum
+from repro_torch.sharding.rules import sharded_axes
 
 #: elements of a leaf updated at once (fp32 temporaries of ~256 MB)
 CHUNK = 1 << 26
@@ -52,13 +54,26 @@ def chunks(t: torch.Tensor) -> list:
     return list(t.split(max(1, CHUNK // row), dim=0))
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient, in fp32."""
-    total = torch.zeros((), dtype=torch.float32,
-                        device=tree.leaves(grads)[0].device)
-    for g in tree.leaves(grads):
+def global_norm(grads, shardings=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient, in fp32.  With
+    ``shardings`` (a tree of ``NamedSharding``, the gradients being
+    blocks), each leaf's sum of squares is summed over the mesh axes
+    its spec splits it over, and over none for a whole leaf, so the norm
+    is the global tree's."""
+    leaves = tree.leaves(grads)
+    shards = ([None] * len(leaves) if shardings is None
+              else tree.leaves(shardings))
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for g, sh in zip(leaves, shards):
+        axes = sharded_axes(sh)
+        if not axes:                    # a whole leaf
+            for c in chunks(g):
+                total = total + c.float().square().sum()
+            continue
+        part = torch.zeros_like(total)
         for c in chunks(g):
-            total = total + c.float().square().sum()
+            part = part + c.float().square().sum()
+        total = total + psum(part, sh.mesh, axes)
     return torch.sqrt(total)
 
 
@@ -74,14 +89,16 @@ def clip_by_global_norm(grads, max_norm: float):
 def adamw_update(params, grads, state: AdamWState, *,
                  lr, b1: float = 0.9, b2: float = 0.95,
                  eps: float = 1e-8, weight_decay: float = 0.1,
-                 max_grad_norm: Optional[float] = 1.0):
+                 max_grad_norm: Optional[float] = 1.0, shardings=None):
     """One AdamW step.  ``lr`` may be a scalar or a schedule(step).
     Updates ``params`` and the moments in place and returns (params,
     state, {"grad_norm", "lr"}) as the JAX package returns its new
-    ones."""
+    ones.  ``shardings`` (FSDP: every tensor a block): the gradient
+    norm is the global tree's (:func:`global_norm`); the update is
+    elementwise, so each block updates where it lives."""
     step = state.step + 1
     lr_t = lr(step) if callable(lr) else lr
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     limit = math.inf if max_grad_norm is None else max_grad_norm
     scale = torch.clamp(limit / torch.clamp(gnorm, min=1e-9), max=1.0)
 

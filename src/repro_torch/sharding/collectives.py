@@ -7,7 +7,9 @@ through the same collective inside ``shard_map(check_rep=False)``: the
 transpose of ``psum`` is ``psum`` (and of ``pmean`` ``pmean``), that of
 an ``all_to_all`` the inverse ``all_to_all``; ``pmax`` has none (JAX
 raises "Differentiation rule for 'pmax' not implemented", and so does
-this backward).
+this backward).  :func:`gather_spec` and its transpose
+:func:`reduce_scatter` are plain functions, which FSDP's differentiable
+gather (``sharding/fsdp.py``) is built from.
 
 :func:`shard_map` is JAX's ``shard_map`` over a port mesh, where every
 rank holds the global tensors (the state outside the bodies is
@@ -24,7 +26,8 @@ rank the global gradient, as JAX's transpose does.
 gloo, the one backend that runs two ranks on one card, takes no CUDA
 tensor for ``all_to_all`` and its reductions: under gloo a CUDA
 tensor's collective is staged through host memory, logged once per
-collective.  16-bit floats are reduced in fp32; gathers and
+collective.  A reduce-scatter is an all-reduce and this rank's slice on
+every backend.  16-bit floats are reduced in fp32; gathers and
 all-to-alls move raw bytes.
 """
 
@@ -58,19 +61,30 @@ def _axes(axis) -> tuple:
     return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
-def _reduce(t: torch.Tensor, mesh, axes, op) -> torch.Tensor:
-    """``op`` all-reduce of ``t`` over ``axes`` (one axis after another),
-    a new tensor of ``t``'s dtype and device."""
+def _all_reduce(t: torch.Tensor, mesh, axes, op) -> torch.Tensor:
+    """``op`` all-reduce of ``t`` over ``axes`` (one axis after another,
+    a 16-bit ``t`` reduced in fp32 and rounded back after each), a new
+    tensor of ``t``'s dtype: on the host where a CUDA tensor is staged,
+    else on ``t``'s device."""
     out = t
     for a in _axes(axes):
         if mesh.axis_size(a) == 1:
             continue
         group = mesh.group(a)
         work = out.cpu() if _staged("all_reduce", out, group) else out
-        work = work.float() if work.element_size() == 2 else work.clone()
+        if work.element_size() == 2:
+            work = work.float()
+        elif work is out:               # the staged copy is new already
+            work = work.clone()
         dist.all_reduce(work, op=op, group=group)
-        out = work.to(device=t.device, dtype=t.dtype)
+        out = work.to(t.dtype)
     return out if out is not t else t.clone()
+
+
+def _reduce(t: torch.Tensor, mesh, axes, op) -> torch.Tensor:
+    """``op`` all-reduce of ``t`` over ``axes``, a new tensor of ``t``'s
+    dtype and device."""
+    return _all_reduce(t, mesh, axes, op).to(t.device)
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -102,6 +116,19 @@ def gather_spec(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
         for a in reversed(spec_axes(entry)):
             x = _all_gather(x, mesh, a, dim)
     return x
+
+
+def reduce_scatter(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block under ``spec`` of the sum over the ranks of the
+    spec's axes of their ``x`` (global tensors): the transpose of
+    :func:`gather_spec`, as an all-reduce and this rank's slice (staged
+    through host memory for a CUDA tensor under gloo, the slice alone
+    copied back).  Sums in ``x``'s dtype; the callers pass fp32."""
+    axes = tuple(a for e in spec for a in spec_axes(e))
+    if all(mesh.axis_size(a) == 1 for a in axes):
+        return x
+    total = _all_reduce(x, mesh, axes, dist.ReduceOp.SUM)
+    return local_slice(total, spec, mesh).to(x.device).contiguous()
 
 
 def _unmentioned(spec: tuple, mesh) -> tuple:

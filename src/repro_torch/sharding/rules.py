@@ -22,11 +22,16 @@ mesh axis name, or a tuple of mesh axis names (major first).
 :func:`shard_shape` and :func:`local_slice` take the place of JAX's
 ``NamedSharding``: the shape of one rank's block and that block.
 
-The port has no partitioner.  Each rank holds the full parameters and
-caches, and the multi-device paths run their ``shard_map`` bodies
-(``sharding.collectives.shard_map``) on their rank's slice of those
-global tensors.  JAX's ``constrain`` (``with_sharding_constraint``) is a
-layout hint without a numeric effect, so it has no counterpart here.
+The port has no partitioner.  Under a data mesh the training state
+lies in blocks, as JAX lays it out: each rank holds its block of every
+parameter, gradient, AdamW moment and error-feedback buffer under
+:func:`param_shardings`' specs over the data axes (FSDP, ZeRO-3:
+``sharding/fsdp.py``), and a layer gathers its weights when it runs.
+Serving state stays whole on every rank: the decode caches and the
+serving weights, on whose slices the multi-device decode and MoE paths
+run their ``shard_map`` bodies (``sharding.collectives.shard_map``).
+JAX's ``constrain`` (``with_sharding_constraint``) is a layout hint
+without a numeric effect, so it has no counterpart here.
 """
 
 from __future__ import annotations
@@ -80,6 +85,20 @@ def _current() -> tuple:
 def active_mesh():
     """The mesh :func:`set_rules_for_mesh` activated, or None."""
     return _current()[0]
+
+
+#: the mesh axes a batch's rows lie over, outermost first
+DATA_AXES = ("pod", "data")
+
+
+def data_axes(mesh=None) -> tuple:
+    """The data axes of ``mesh`` (default: the active one) that span
+    more than one rank; () without a mesh."""
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is None:
+        return ()
+    return tuple(a for a in DATA_AXES
+                 if a in mesh.axis_names and mesh.axis_size(a) > 1)
 
 
 @contextlib.contextmanager
@@ -214,6 +233,15 @@ class NamedSharding:
     def local(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's block of the global ``x``."""
         return local_slice(x, self.spec, self.mesh)
+
+
+def sharded_axes(sharding: Optional[NamedSharding]) -> tuple:
+    """The mesh axes of more than one rank that ``sharding`` splits its
+    leaf over (() for None or a whole leaf)."""
+    if sharding is None:
+        return ()
+    return tuple(a for e in sharding.spec for a in spec_axes(e)
+                 if sharding.mesh.axis_size(a) > 1)
 
 
 def logical_sharding(logical: Sequence[Optional[str]], mesh=None,

@@ -14,16 +14,21 @@ starcoder2-7b's ``w_up``) per layer.  The gradient tree comes back in
 the JAX package's layout.
 
 Under an active mesh (``sharding.set_rules_for_mesh``) whose data axes
-("pod", "data") span more than one rank, the step is data-parallel: each
-rank takes its block of the batch's rows, and the gradients are averaged
-over those axes (``psum`` / n, in fp32) before the int8 compression, the
-clipping and AdamW, so the gradient norm, the error feedback and the
-update see the global gradient, as they do under JAX's GSPMD.  The
-parameters stay replicated on every rank (JAX's FSDP shard of "embed"
-over data is a layout without a numeric effect).  The loss and the MoE
-aux metrics are the ranks' mean; with MoE FFNs the aux losses are each
-rank's own tokens' (moe_local_dispatch's per-shard semantics), where
-GSPMD computes them over the global batch.
+("pod", "data") span more than one rank, the step is FSDP (ZeRO-3), the
+JAX package's layout under GSPMD: the state is each rank's blocks
+(:func:`fsdp_layout`, ``sharding/fsdp.py``; ``launch.train.build``
+places them), each rank runs its block of the batch's rows, and the
+model gathers each layer's weights at their use and reduce-scatters
+their gradients back to the blocks, averaged over the data ranks in
+fp32.  Every rank computes the global batch's loss through
+differentiable ``psum``/``pmean``: the token mean over the global batch
+(with a mask, the ranks' masked sums over their summed token counts),
+the MoE load balance from global means (``models/moe.py``) and the
+z-loss as the ranks' mean; the metrics are those global values.  The
+gradient norm, the int8 scales and AdamW run on the blocks, each
+reading its leaf's global values where it needs them (``optim/``).
+Microbatches are slices of the global batch, each rank taking its rows
+of each, as JAX slices its global batch.
 """
 
 from __future__ import annotations
@@ -43,14 +48,16 @@ import torch._dynamo  # noqa: F401
 
 from repro_torch import tree
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import ModelConfig, cross_entropy
-from repro_torch.models.weights import init_params
+from repro_torch.models.common import ModelConfig, cross_entropy, token_nll
+from repro_torch.models.weights import init_params, param_axes
 from repro_torch.optim import (adamw_init, adamw_update,
                                error_feedback_init,
                                int8_compress_with_feedback)
 from repro_torch.optim.adamw import AdamWState, chunks
 from repro_torch.sharding import rules as shrules
-from repro_torch.sharding.collectives import pmean
+from repro_torch.sharding.collectives import pmean, psum
+from repro_torch.sharding.fsdp import FSDP
+from repro_torch.sharding.rules import NamedSharding
 
 
 @dataclasses.dataclass
@@ -65,8 +72,9 @@ def init_train_state(generator: Optional[torch.Generator],
                      grad_compression: bool = False, device="cuda",
                      params=None) -> TrainState:
     """A fresh state: ``params`` if given (e.g. the JAX package's, through
-    ``params_from_numpy``), else random ones drawn from ``generator``
-    on ``device``; zero moments in ``moment_dtype``."""
+    ``params_from_numpy``, or FSDP blocks), else random ones drawn from
+    ``generator`` on ``device``; zero moments in ``moment_dtype``, of
+    the parameters' shapes."""
     if params is None:
         params = init_params(cfg, generator, device)
     fb = error_feedback_init(params) if grad_compression else None
@@ -74,24 +82,74 @@ def init_train_state(generator: Optional[torch.Generator],
                       feedback=fb)
 
 
-def loss_fn(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
+@functools.lru_cache(maxsize=8)
+def fsdp_layout(cfg: ModelConfig, mesh) -> Optional[FSDP]:
+    """The FSDP blocks of ``cfg``'s training state on ``mesh``:
+    ``param_shardings`` of the parameters' logical axes on their global
+    shapes, laid out on the meta device; None without a mesh or where
+    no data axis of it spans more than one rank (the single-card
+    step)."""
+    if mesh is None or not shrules.data_axes(mesh):
+        return None
+    return FSDP(mesh, param_axes(cfg), init_params(cfg, None, "meta"))
+
+
+def state_shardings(state: TrainState, fsdp: FSDP) -> TrainState:
+    """A tree of ``state``'s structure holding each leaf's
+    ``NamedSharding``: the parameters' for the parameters, the moments
+    and the error feedback; the step whole."""
+    sh = fsdp.shardings()
+    return TrainState(
+        params=sh, opt=AdamWState(step=NamedSharding(fsdp.mesh, ()),
+                                  mu=sh, nu=sh),
+        feedback=None if state.feedback is None else sh)
+
+
+def whole_state(state: TrainState, fsdp: FSDP, *, device=None,
+                keep: bool = True) -> Optional[TrainState]:
+    """The global tensors of a state of blocks, leaf by leaf on
+    ``device`` (default: each leaf's); every rank calls it, and a rank
+    that does not ``keep`` them (``FSDP.full``) gets None."""
+    full = functools.partial(fsdp.full, device=device, keep=keep)
+    whole = TrainState(
+        params=full(state.params),
+        opt=AdamWState(step=state.opt.step, mu=full(state.opt.mu),
+                       nu=full(state.opt.nu)),
+        feedback=None if state.feedback is None else full(state.feedback))
+    return whole if keep else None
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, impl: str = "auto",
+            fsdp: Optional[FSDP] = None):
     """Next-token cross entropy plus 0.01 times the MoE load-balance
     loss and 0.001 times its z-loss, each summed over the layers (zero
     for a stack without MoE); the metrics report the three terms.  batch: {"tokens": (B, S+1)} integer ids on the parameters'
     device, or with a stub frontend {"embeds", "tokens"} (the VLM: the
     loss covers the text suffix only) or {"embeds", "targets"} (the
     encoder); optional "mask" (B, S) and, for a non-causal model,
-    "targets"."""
+    "targets".  ``fsdp``: ``params`` are its blocks and ``batch`` this
+    rank's rows of the global batch, whose loss every rank returns."""
     tokens, embeds = batch.get("tokens"), batch.get("embeds")
     if tokens is not None and cfg.causal:
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
     else:
         inputs, targets = tokens, batch.get("targets", tokens)
     logits, aux = tf.forward(params, cfg, inputs, embeds, return_aux=True,
-                             impl=impl)
+                             impl=impl, fsdp=fsdp)
     if embeds is not None and tokens is not None:
         logits = logits[:, -targets.shape[1]:]
-    loss = cross_entropy(logits, targets, batch.get("mask"))
+    mask = batch.get("mask")
+    if fsdp is None:
+        loss = cross_entropy(logits, targets, mask)
+    else:
+        mesh, axes = fsdp.mesh, fsdp.axes
+        nll = token_nll(logits, targets)
+        if mask is None:                # equal rows: the ranks' mean
+            loss = pmean(nll.mean(), mesh, axes)
+        else:
+            loss = psum((nll * mask).sum(), mesh, axes) / torch.clamp(
+                psum(mask.sum().float(), mesh, axes), min=1.0)
+        aux = dict(aux, moe_z_loss=pmean(aux["moe_z_loss"], mesh, axes))
     total = loss + 0.01 * aux["moe_lb_loss"] + 0.001 * aux["moe_z_loss"]
     metrics = {"loss": loss.detach(),
                "moe_lb_loss": aux["moe_lb_loss"].detach(),
@@ -118,14 +176,15 @@ def _trainable(params, grads):
 
 
 def value_and_grad(params, cfg: ModelConfig, batch, *,
-                   impl: str = "auto"):
+                   impl: str = "auto", fsdp: Optional[FSDP] = None):
     """((total loss, metrics), gradients): the gradients in the
     parameters' tree, layout and dtypes, each layer's written once into
-    its slice."""
+    its slice.  With ``fsdp``, ``params`` and the gradients are blocks,
+    each block's gradient the data ranks' mean of theirs."""
     grads = tree.map(torch.zeros_like, params)
     leaves = _trainable(params, grads)
     with torch.enable_grad():
-        total, metrics = loss_fn(leaves, cfg, batch, impl=impl)
+        total, metrics = loss_fn(leaves, cfg, batch, impl=impl, fsdp=fsdp)
         total.backward()
     return (total.detach(), metrics), grads
 
@@ -136,18 +195,28 @@ def train_step(state: TrainState, batch, cfg: ModelConfig, *,
     """One optimizer step, updating ``state`` in place and returning it
     with the metrics.  ``microbatches`` > 1 accumulates the gradients of
     leading-batch slices in fp32 and divides, as the JAX package does;
-    the metrics are the last slice's."""
+    the metrics are the last slice's.  Under a data mesh ``state``
+    holds this rank's blocks (:func:`fsdp_layout`) and ``batch`` is the
+    global batch."""
     params = state.params
-    mesh, data_axes = _data_parallel()
-    if data_axes:
-        batch = _local_rows(batch, mesh, data_axes)
+    fsdp = fsdp_layout(cfg, shrules.active_mesh())
+    if fsdp is not None:
+        fsdp.check_blocks(params)
+
+    def rows(b):
+        if fsdp is None:
+            return b
+        return {k: shrules.local_slice(v, (fsdp.axes,), fsdp.mesh)
+                for k, v in b.items()}
+
     if microbatches > 1:
         n = next(iter(batch.values())).shape[0] // microbatches
         acc = tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                              device=p.device), params)
         for i in range(microbatches):
-            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-            (_, metrics), g = value_and_grad(params, cfg, mb, impl=impl)
+            mb = rows({k: v[i * n:(i + 1) * n] for k, v in batch.items()})
+            (_, metrics), g = value_and_grad(params, cfg, mb, impl=impl,
+                                             fsdp=fsdp)
             for a, x in zip(tree.leaves(acc), tree.leaves(g)):
                 for ca, cx in zip(chunks(a), chunks(x)):
                     ca.add_(cx.float())
@@ -156,40 +225,20 @@ def train_step(state: TrainState, batch, cfg: ModelConfig, *,
             a.div_(microbatches)
         grads = acc
     else:
-        (_, metrics), grads = value_and_grad(params, cfg, batch, impl=impl)
+        (_, metrics), grads = value_and_grad(params, cfg, rows(batch),
+                                             impl=impl, fsdp=fsdp)
 
-    if data_axes:
-        for g in tree.leaves(grads):
-            g.copy_(pmean(g.float(), mesh, data_axes))
-        metrics = {k: pmean(v, mesh, data_axes) for k, v in metrics.items()}
-
+    shardings = None if fsdp is None else fsdp.shardings()
     feedback = state.feedback
     if feedback is not None:
-        grads, feedback = int8_compress_with_feedback(grads, feedback)
+        grads, feedback = int8_compress_with_feedback(grads, feedback,
+                                                      shardings)
 
     params, opt, opt_metrics = adamw_update(
-        params, grads, state.opt, lr=lr, weight_decay=weight_decay)
+        params, grads, state.opt, lr=lr, weight_decay=weight_decay,
+        shardings=shardings)
     metrics = dict(metrics, **opt_metrics)
     return TrainState(params=params, opt=opt, feedback=feedback), metrics
-
-
-def _data_parallel() -> tuple:
-    """(the active mesh, its data axes of more than one rank)."""
-    mesh = shrules.active_mesh()
-    if mesh is None:
-        return None, ()
-    return mesh, tuple(a for a in ("pod", "data")
-                       if a in mesh.axis_names and mesh.axis_size(a) > 1)
-
-
-def _local_rows(batch: dict, mesh, data_axes: tuple) -> dict:
-    """This rank's block of the batch's rows over ``data_axes``."""
-    if "mask" in batch:
-        raise NotImplementedError(
-            "a masked batch under a data mesh: the loss's token mean "
-            "would be each rank's, not the global batch's")
-    spec = (data_axes,)
-    return {k: shrules.local_slice(v, spec, mesh) for k, v in batch.items()}
 
 
 def make_train_step(cfg: ModelConfig, **kw) -> Callable:
