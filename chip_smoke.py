@@ -186,8 +186,15 @@ Phases, in order:
                4 layers, the serve mix through RequestBatcher with
                head_parallel_decode under lower_to_mesh (the DSE's
                round-robin head allocation on multi_core_array(2)): #1
-               and #2 launched on each rank's prefill chunks; (b) the
-               same with distributed_decode (sequence-sharded); each
+               and #2 launched on each rank's prefill chunks, each
+               launch per row against its plain version; (b) the same
+               with distributed_decode (sequence-sharded); both on the
+               sharded serving state (each rank its blocks, drawn from
+               seed 0: its heads, MLP columns, vocabulary rows and
+               cache slice), each rank's held bytes of parameters and
+               caches equal to launch/dryrun.py's per-device figure for
+               (1, 2) at B=4, max_len 1024, its peak beside the
+               replicated serve's on a mesh of one rank; each
                against a mesh of one rank and the mesh-less engine on
                #1-#3 (bf16: tie_check, logits within LOGIT_TOL) and, in
                fp32 compute, against one rank (tokens equal, logits
@@ -203,11 +210,23 @@ Phases, in order:
                per-device figure for the mesh and its peak; (e)
                remesh_state of those blocks to each rank alone, every
                leaf bit-equal to the blocks gathered; (f) phi3.5-moe
-               at full width, 2 layers, through FSDP, B=1 a rank, 2
+               at full width, 1 layer, through FSDP, B=1 a rank, 2
                steps, as (d) against rank 0's single-rank B=2 run, and
                step 0's load-balance loss within MESH_LB_REL of the
-               single rank's.  Each sub-phase's seconds and peak memory
-               a rank.
+               single rank's; (g) phi3.5-moe at full width, 2 layers,
+               served as (a) with moe_shard_map_ep on the sharded
+               serving state (8 of 16 experts a rank), its bytes, #1/#2
+               rows and peak as (a)'s; in fp32 compute tokens equal to
+               one rank's and the mesh-less engine's, logits within
+               MESH_TOL; in bf16 each MoE layer alone against the whole
+               layer with no mesh on the same inputs (a chunk of 256, a
+               decode batch of 4): top-k ids equal where the whole
+               layer's k-th and (k+1)-th probabilities are more than
+               MOE_ROUTE_MARGIN apart, output rows within ROW_TOL; the
+               bf16 streams beside both, where the 2-rank ones part
+               their first rerouted token's top-k margin within
+               MOE_ROUTE_MARGIN (a router near-tie).  Each sub-phase's
+               seconds and peak memory a rank.
 The kernel phase also holds the four training kernels (#7-#10) to their
 plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal), #7-#9 at hubert-xlarge's (B=2, 16 heads of 80, S = 4096,
@@ -5219,9 +5238,14 @@ def jamba_serve_phase(dev):
 #: the mesh phase: two gloo ranks sharing cuda:0
 MESH_RANKS = 2
 MESH_LAYERS = 4
+#: (g)'s depth: phi3.5-moe served on the sharded serving state
+MESH_MOE_LAYERS = 2
 MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 2, 1024, 3
 #: the FSDP sub-phases' archs; (f)'s steps
 MESH_ARCHS = {"d": "starcoder2-7b", "f": "phi3.5-moe-42b-a6.6b"}
+#: each FSDP sub-phase's depth: (f) cut from PR 28's 2 layers to 1 to
+#: keep the call's time with (g) added (its gates unchanged)
+MESH_DEPTH = {"d": MESH_TRAIN_LAYERS, "f": 1}
 MESH_MOE_STEPS = 2
 #: PR 27's replicated data-parallel (d): the peak a rank (PERF.md, PR
 #: 27's final call; H100 80GB HBM3, 700.00 W), printed beside FSDP's
@@ -5242,36 +5266,59 @@ MOE_MESH = dict(B=2, S=256)
 
 def _mesh_serve(cfg, params, args, dev, ctx) -> dict:
     """The mesh phase's requests (made anew) through a RequestBatcher on
-    a ContinuousBatchingEngine under ``ctx`` (a mesh or a null
+    a ContinuousBatchingEngine made under ``ctx`` (a mesh or a null
     context): tokens by request, the logits that sampled each token,
-    the kernels launched and the calls by impl."""
+    the kernels launched, the calls by impl and the bytes the engine
+    holds of parameters and caches (its blocks under a sharded
+    serve); for a MoE config each router call's top-(k+1) probabilities
+    and top-k ids, in call order ("routes")."""
     from repro_torch.kernels import build, ops
     from repro_torch.launch import serve
     from repro_torch.serve.batcher import RequestBatcher
     from repro_torch.serve.engine import (ContinuousBatchingEngine,
                                           make_serving_plan)
+    from repro_torch.sharding.fsdp import held_bytes
 
     requests = serve.make_requests(cfg, args.requests, args.max_new,
                                    prompt_lens=PROMPT_LENS)
     plan = make_serving_plan(cfg, max_len=args.max_len, device=dev)
-    eng = ContinuousBatchingEngine(
-        params, cfg, batch_size=args.batch, max_len=args.max_len, plan=plan,
-        dtype=cfg.torch_dtype(), prefill_chunk=args.prefill_chunk,
-        device=dev)
     batcher = RequestBatcher(args.batch, max_len=args.max_len)
     store = {}
-    _recorded(eng, batcher, store)
     for req in requests:
         batcher.submit(req)
+    from repro_torch.models import moe as moe_mod
+
+    routes, route = [], moe_mod.route
+
+    def recorded_route(router, x, k, *a):
+        out = route(router, x, k, *a)
+        top = torch.sort(out[1], dim=-1, descending=True).values
+        routes.append((top[..., :k + 1].cpu(),
+                       torch.sort(out[3], dim=-1).values.cpu()))
+        return out
+
     build.reset_launches()
     ops.reset_counts()
     t0 = time.perf_counter()
-    with ctx:
-        done = batcher.serve(eng, max_steps=64 * len(requests))
+    if cfg.moe:
+        moe_mod.route = recorded_route
+    try:
+        with ctx:
+            eng = ContinuousBatchingEngine(
+                params, cfg, batch_size=args.batch, max_len=args.max_len,
+                plan=plan, dtype=cfg.torch_dtype(),
+                prefill_chunk=args.prefill_chunk, device=dev)
+            _recorded(eng, batcher, store)
+            done = batcher.serve(eng, max_steps=64 * len(requests))
+    finally:
+        moe_mod.route = route
     torch.cuda.synchronize()
     return {"tokens": {r.uid: r.generated for r in done}, "logits": store,
+            "routes": routes,
             "launches": dict(build.LAUNCHES), "calls": dict(ops.CALLS),
-            "seconds": time.perf_counter() - t0, "plan": plan}
+            "seconds": time.perf_counter() - t0, "plan": plan,
+            "held": {"params": held_bytes(eng.params),
+                     "caches": held_bytes(eng.state)}}
 
 
 def _last_logits(run) -> list:
@@ -5295,21 +5342,180 @@ def _mesh_gate(phase, two, one, alone, rank) -> None:
             f"{len(want['tokens'])} requests differ (argmax ties only)")
 
 
-def _mesh_gate32(phase, two, one, rank) -> None:
-    """In fp32 compute: the mesh of 2 ranks against the mesh of 1,
-    tokens equal and every step's logits within MESH_TOL of the
-    largest."""
+def _moe_mesh_report(phase, two, one, alone, rank) -> None:
+    """An MoE serve in bf16, the mesh of 2 ranks against the mesh of 1
+    and against the mesh-less engine, and the mesh of 1 rank against the
+    mesh-less engine: every request finishes its budget with finite
+    logits, and each request's logits up to its first differing token
+    are reported.  The streams part, the 1-rank serve from the mesh-less
+    one too: a bf16 rounding moves a router near-tie and the token takes
+    another expert.  So where the 2-rank streams part, the first router
+    call that picks other experts (:func:`_first_reroute`) must do so
+    only at tokens whose top-k margin in the other serve is within
+    MOE_ROUTE_MARGIN; where no call reroutes, the dense rule of
+    :func:`tie_check` holds.  Each MoE layer alone is gated on the same
+    inputs (:func:`_moe_layer_gate`), and the streams in fp32
+    (:func:`_mesh_gate32`)."""
+    pairs = (("2 ranks", two, "1 rank", one),
+             ("2 ranks", two, "the mesh-less engine", alone),
+             ("1 rank", one, "the mesh-less engine", alone))
+    for label, got, name, want in pairs:
+        differ, worst, steps = 0, 0.0, 0
+        for uid, want_toks in sorted(want["tokens"].items()):
+            toks = got["tokens"].get(uid)
+            if toks is None or len(toks) != MESH_MAX_NEW:
+                raise SystemExit(f"mesh {phase}: request {uid} did not "
+                                 f"finish its budget ({toks})")
+            first = next((j for j, (a, b) in enumerate(zip(toks, want_toks))
+                          if a != b), len(toks))
+            differ += first < len(toks)
+            for j in range(len(toks)):
+                if not torch.isfinite(got["logits"][(uid, j)]).all():
+                    raise SystemExit(f"mesh {phase}: non-finite logits")
+            for j in range(first):
+                worst = max(worst, rel_err(got["logits"][(uid, j)],
+                                           want["logits"][(uid, j)])[1])
+                steps += 1
+        text, margin = _first_reroute(got["routes"], want["routes"])
+        log(f"  [rank {rank}] {phase} bf16: {label} against {name}: "
+            f"{differ} of {len(want['tokens'])} requests differ; {steps} "
+            f"steps' logits before each first difference, worst rel "
+            f"{worst:.3e}; {text}")
+        if label != "2 ranks" or not differ:
+            continue
+        if margin is None:
+            tie_check(f"mesh {phase}", got, want, MESH_MAX_NEW)
+        elif margin > MOE_ROUTE_MARGIN:
+            raise SystemExit(f"mesh {phase}: the 2-rank serve first "
+                             f"reroutes a token whose top-k margin is "
+                             f"{margin:.3e}, over {MOE_ROUTE_MARGIN:.3e}")
+
+
+def _first_reroute(got, want) -> tuple:
+    """Where two serves' router calls (``_mesh_serve``'s "routes", in
+    call order) first pick other top-k ids: (a line naming the call,
+    its tokens that differ and their top-k margins (the k-th less the
+    (k+1)-th probability) in both serves beside the call's least and
+    median margin in ``want``; the largest of those tokens' margins in
+    ``want``, or None where no call reroutes)."""
+    for i, ((gp, gi), (wp, wi)) in enumerate(zip(got, want)):
+        if gi.shape != wi.shape:
+            raise SystemExit(f"router call {i} has another shape")
+        differ = (gi != wi).any(-1)
+        if differ.any():
+            k = gi.shape[-1]
+            gm = (gp[..., k - 1] - gp[..., k])[differ]
+            wm = wp[..., k - 1] - wp[..., k]
+            margin = wm[differ].max().item()
+            return (f"first rerouted at router call {i} of {len(want)} "
+                    f"({tuple(gi.shape[:-1])} tokens): "
+                    f"{int(differ.sum())} tokens, top-k margins "
+                    f"{margin:.3e} at most in the second serve (tol "
+                    f"{MOE_ROUTE_MARGIN:.3e}), {gm.max().item():.3e} in "
+                    f"the first; the call's least margin "
+                    f"{wm.min().item():.3e}, median "
+                    f"{wm.median().item():.3e}", margin)
+    return f"no router call of {len(want)} reroutes", None
+
+
+#: (g)'s MoE layers alone in bf16: the inputs, (B, S) a prefill chunk
+#: and a decode batch, drawn from these seeds on every rank
+MOE_LAYER_INPUTS = (((1, 256), 11), ((4, 1), 12))
+#: the router's top-k may differ from the whole layer's only where the
+#: whole layer's k-th and (k+1)-th probabilities lie within this (2^-7,
+#: bf16's epsilon; the two compute the router's fp32 logits over other
+#: column blocks, so they differ by fp32 roundings, far below it)
+MOE_ROUTE_MARGIN = 2.0 ** -7
+
+
+def _moe_layer_inputs(cfg, dev) -> list:
+    """MOE_LAYER_INPUTS' bf16 inputs of a MoE layer (the same on every
+    rank)."""
+    out = []
+    for (b, s), seed in MOE_LAYER_INPUTS:
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        out.append(torch.randn(b, s, cfg.d_model, generator=g, device=dev)
+                   .to(torch.bfloat16))
+    return out
+
+
+def _moe_layers(cfg, params, dev, specs=None) -> list:
+    """Each MoE layer of ``params`` on ``_moe_layer_inputs``: (probs,
+    top-k ids, y) on the host, in bf16 compute; ``specs``: the layers'
+    serving specs (``params`` the rank's blocks, under a mesh)."""
+    from repro_torch import tree
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding.rules import active_mesh, splits
+
+    ls = None if specs is None else tf._unstack(specs["layers"][0])["moe"]
+    split = splits(ls and ls["router"], -1, active_mesh())
+    out = []
+    for j in range(cfg.n_periods):
+        lp = tree.map(lambda t: t[j], params["layers"][0]["moe"])
+        for x in _moe_layer_inputs(cfg, dev):
+            _, probs, _, topi = moe_mod.route(lp["router"], x, cfg.top_k,
+                                              split)
+            y, _ = moe_mod.moe_forward(lp, cfg, x, aux=False, specs=ls)
+            out.append((probs.cpu(), topi.cpu(), y.float().cpu()))
+    return out
+
+
+def _moe_layer_gate(phase, got, want, rank) -> None:
+    """(g)'s MoE layers alone in bf16, the rank's blocks against the
+    whole layer with no mesh on the same inputs: the top-k ids equal
+    wherever the whole layer's k-th and (k+1)-th probabilities are more
+    than MOE_ROUTE_MARGIN apart, and each output row within ROW_TOL of
+    the whole layer's in every routing group whose ids are all equal
+    (a rerouted token moves its group's capacity)."""
+    flips, near, worst, rows = 0, float("inf"), 0.0, 0
+    for (_, topi, y), (probs, want_i, want_y) in zip(got, want):
+        k = want_i.shape[-1]
+        top = torch.sort(probs, dim=-1, descending=True).values
+        margin = top[..., k - 1] - top[..., k]
+        differ = (torch.sort(topi, -1).values
+                  != torch.sort(want_i, -1).values).any(-1)
+        if differ.any():
+            flips += int(differ.sum())
+            near = min(near, float(margin[differ].min()))
+            if float(margin[differ].max()) > MOE_ROUTE_MARGIN:
+                raise SystemExit(f"mesh {phase}: rank {rank} routes a token "
+                                 "with a top-k margin of "
+                                 f"{float(margin[differ].max()):.3e} "
+                                 "otherwise than the whole layer")
+        same = ~differ.any(-1)                 # groups: the batch rows
+        if same.any():
+            worst = max(worst, row_err(y[same], want_y[same]))
+            rows += int(same.sum()) * y.shape[1]
+    log(f"  [rank {rank}] {phase} bf16 MoE layers alone (2 layers, a "
+        f"chunk of 256 and a decode batch of 4): against the whole layer "
+        f"with no mesh, {flips} tokens rerouted (margin tol "
+        f"{MOE_ROUTE_MARGIN:.3e}; the least rerouted margin "
+        f"{near:.3e}), {rows} rows per row worst {worst:.3e} (tol "
+        f"{ROW_TOL})")
+    if worst > ROW_TOL or not rows:
+        raise SystemExit(f"mesh {phase}: rank {rank}'s MoE layers in bf16 "
+                         "off the whole layer's")
+
+
+def _mesh_gate32(phase, two, one, rank, against: str = "1 rank") -> None:
+    """In fp32 compute: the mesh of 2 ranks against ``one`` (the mesh of
+    1 rank, or ``against``), tokens equal and every step's logits within
+    MESH_TOL of the largest."""
     if two["tokens"] != one["tokens"]:
         raise SystemExit(f"mesh {phase}: the tokens of 2 ranks differ "
-                         f"from 1 rank's: {two['tokens']} {one['tokens']}")
+                         f"from {against}'s: {two['tokens']} "
+                         f"{one['tokens']}")
     worst = max((two["logits"][key] - want).abs().max().item()
                 / want.abs().max().item()
                 for key, want in one["logits"].items())
-    log(f"  [rank {rank}] {phase} fp32: 2 ranks against 1, tokens equal, "
-        f"logits of {len(one['logits'])} steps worst {worst:.3e} of the "
-        f"largest (tol {MESH_TOL})")
+    log(f"  [rank {rank}] {phase} fp32: 2 ranks against {against}, tokens "
+        f"equal, logits of {len(one['logits'])} steps worst {worst:.3e} of "
+        f"the largest (tol {MESH_TOL})")
     if worst > MESH_TOL:
-        raise SystemExit(f"mesh {phase}: 2 ranks disagree with 1 in fp32")
+        raise SystemExit(f"mesh {phase}: 2 ranks disagree with {against} "
+                         "in fp32")
 
 
 def _peak_gb() -> float:
@@ -5330,31 +5536,99 @@ def _mesh_sub(name, rank, stats, fn, *a, **kw):
     return out
 
 
-def _mesh_decode(rank, dev, stats) -> dict:
-    """(a) head-parallel and (b) sequence-sharded decode of starcoder2-7b
-    at full width, 4 layers, on 2 ranks; rank 0 also serves the mix on a
-    mesh of 1 rank and on the mesh-less engine.  Returns this rank's
-    launches of the two 2-rank serves."""
+@contextlib.contextmanager
+def _kernel_rows(rows):
+    """Each launch of #1 and #2 (``ops.attention`` and
+    ``ops.qproj_attention`` with lengths, on a plan whose impl is
+    ``cuda``) also runs its plain version on the same inputs; (name, Hq,
+    rows, per-row error) appended to ``rows``.  The plain versions
+    launch nothing, so the counts are the run's."""
+    from repro_torch.kernels import ops
+    orig = ops.attention, ops.qproj_attention
+
+    def kernel(plan, lengths, block_tables):
+        return plan is not None and plan.impl == "cuda" \
+            and lengths is not None and block_tables is None
+
+    def attention(q, k, v, **kw):
+        out = orig[0](q, k, v, **kw)
+        if kernel(kw.get("plan"), kw.get("lengths"), kw.get("block_tables")):
+            want = ops.fused_attention_masked_plain(
+                q, k, v, kw["lengths"].to(torch.int32),
+                causal=kw.get("causal", True), scale=kw.get("scale"))
+            rows.append(("fused_attention_masked", q.shape[1], q.shape[2],
+                         row_err(out, want)))
+        return out
+
+    def qproj_attention(x, wq, k, v, **kw):
+        out = orig[1](x, wq, k, v, **kw)
+        if kernel(kw.get("plan"), kw.get("lengths"), kw.get("block_tables")):
+            want = ops.fused_qproj_attention_masked_plain(
+                x, wq, k, v, kw["lengths"].to(torch.int32),
+                causal=kw.get("causal", True), scale=kw.get("scale"),
+                rope_theta=kw.get("rope_theta"))
+            rows.append(("fused_qproj_attention_masked", wq.shape[1],
+                         x.shape[1], row_err(out, want)))
+        return out
+
+    ops.attention, ops.qproj_attention = attention, qproj_attention
+    try:
+        yield rows
+    finally:
+        ops.attention, ops.qproj_attention = orig
+
+
+def _rows_gate(phase, rank, rows) -> None:
+    """Every #1 and #2 launch of a sharded serve within ROW_TOL of its
+    plain version per row, and both launched."""
+    by = collections.defaultdict(list)
+    for name, heads, n, err in rows:
+        by[(name, heads)].append(err)
+    for (name, heads), errs in sorted(by.items()):
+        log(f"  [rank {rank}] {phase}: {name} over {heads} heads, "
+            f"{len(errs)} launches, per row worst {max(errs):.3e} (tol "
+            f"{ROW_TOL})")
+    names = {k[0] for k in by}
+    if set(DENSE_KERNELS[:2]) - names or any(
+            e > ROW_TOL for *_, e in rows):
+        raise SystemExit(f"mesh {phase}: rank {rank}'s #1/#2 launches "
+                         "missing or off their plain versions")
+
+
+def _sharded_serves(rank, dev, stats, arch, layers, runs,
+                    moe: bool = False) -> dict:
+    """``arch`` at full width, ``layers`` layers, served on 2 ranks with
+    the sharded serving state: each ``(tag, sub, flags)`` of ``runs``
+    on the blocks drawn from seed 0 (``serve.model_for`` with the
+    layout), held to the dry-run's per-device bytes for (1, 2) at B=4,
+    max_len 1024, its #1/#2 launches per row to their plain versions;
+    rank 0 first serves the mix with the whole weights on the mesh-less
+    engine and on a mesh of 1 rank (the replicated figure), and gates
+    the 2-rank runs against both in bf16 and against 1 rank in fp32
+    (``moe``: bf16 reported, fp32 gated against both, as
+    ``_moe_mesh_report`` says).  The head-parallel runs take
+    ``lower_to_mesh``'s context.  Returns this rank's launches of the
+    2-rank serves."""
     import dataclasses as dc
 
     import torch.distributed as dist
 
     from repro_torch import lower
     from repro_torch.core import accelerator as acc
-    from repro_torch.launch import serve
+    from repro_torch.launch import dryrun, serve
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.mesh_lowering import lower_to_mesh, \
         mesh_for_cores
     from repro_torch.sharding import set_rules_for_mesh
+    from repro_torch.serve.layout import serving_layout
 
     args = serve.parser().parse_args([
-        "--arch", "starcoder2-7b", "--layers", str(MESH_LAYERS),
-        "--batch", "4", "--requests", str(MESH_REQUESTS), "--max-len",
-        "1024", "--max-new", str(MESH_MAX_NEW), "--prefill-chunk", "256",
+        "--arch", arch, "--layers", str(layers), "--batch", "4",
+        "--requests", str(MESH_REQUESTS), "--max-len", "1024",
+        "--max-new", str(MESH_MAX_NEW), "--prefill-chunk", "256",
         "--device", "cuda"])
-    base, params = serve.model_for(args)
-    cfgs = {"hp": dc.replace(base, head_parallel_decode=True),
-            "dist": dc.replace(base, distributed_decode=True)}
+    base = serve.config_for(args)
+    cfgs = {tag: dc.replace(base, **flags) for tag, _, flags in runs}
     mesh = mesh_for_cores(2, device=dev)
     alone = Mesh(("data", "model"), (1, 1), device=dev)
     rr = tuple(h % 2 for h in range(base.n_heads))
@@ -5362,52 +5636,135 @@ def _mesh_decode(rank, dev, stats) -> dict:
         .decode_dispatch(args.max_len).plan
     lowered = lower_to_mesh(decode_plan, acc.multi_core_array(2), rr,
                             mesh=mesh)
-    if rank == 0:
+    if rank == 0 and "hp" in cfgs:
         log("  " + lowered.describe().replace("\n", "\n  "))
-    launches = collections.Counter()
-    runs = {}
 
     def ctx(tag, m):
-        return lowered.activate() if tag == "hp" and m is mesh \
+        return lowered.activate() if tag.startswith("hp") and m is mesh \
             else set_rules_for_mesh(m)
 
-    for tag, sub in (("hp", "a"), ("dist", "b")):
-        run = _mesh_sub(f"{sub}: {tag} 2 ranks", rank, stats, _mesh_serve,
-                        cfgs[tag], params, args, dev, ctx(tag, mesh))
-        runs[tag] = run
+    subs = "/".join(sub for _, sub, _ in runs)
+    refs, replicated = {}, {}
+    if rank == 0:
+        # the references first, with the whole weights (the blocks are
+        # not drawn yet, so the 1-rank peak is the replicated state's)
+        _, whole = serve.model_for(args)
+        if moe:
+            # the MoE layers alone, whole and with no mesh
+            layer_refs = _moe_layers(base, whole, dev)
+        refs["alone"] = _mesh_sub(f"{subs}: mesh-less", rank, stats,
+                                  _mesh_serve, base, whole, args, dev,
+                                  contextlib.nullcontext())
+        for tag, sub, _ in runs:
+            refs[tag] = _mesh_sub(f"{sub}: {tag} 1 rank", rank, stats,
+                                  _mesh_serve, cfgs[tag], whole, args, dev,
+                                  ctx(tag, alone))
+            replicated[tag] = (stats[f"{sub}: {tag} 1 rank"][1],
+                               refs[tag]["held"])
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    layout = serving_layout(cfgs[runs[0][0]], mesh)
+    _, blocks = serve.model_for(args, layout)
+    launches = collections.Counter()
+    for tag, sub, _ in runs:
+        rows = []
+        with _kernel_rows(rows):
+            run = _mesh_sub(f"{sub}: {tag} 2 ranks", rank, stats,
+                            _mesh_serve, cfgs[tag], blocks, args, dev,
+                            ctx(tag, mesh))
         launches.update(run["launches"])
         log(f"  [rank {rank}] ({sub}) {tag}: {len(run['tokens'])} requests "
             f"in {run['seconds']:.2f}s, launches {run['launches']}, "
             f"calls {run['calls']}; ledger "
             f"{run['plan'].plans()[-1].notes[-1:]}")
-        for name in DENSE_KERNELS[:2]:
-            if run["launches"].get(name, 0) == 0:
-                raise SystemExit(f"mesh ({sub}): rank {rank} never "
-                                 f"launched {name}")
-    if rank == 0:
-        ref = _mesh_sub("a/b: mesh-less", rank, stats, _mesh_serve, base,
-                        params, args, dev, contextlib.nullcontext())
-        for tag, sub in (("hp", "a"), ("dist", "b")):
-            one = _mesh_sub(f"{sub}: {tag} 1 rank", rank, stats,
-                            _mesh_serve, cfgs[tag], params, args, dev,
-                            ctx(tag, alone))
-            _mesh_gate(f"({sub}) {tag}", runs[tag], one, ref, rank)
+        _rows_gate(f"({sub}) {tag}", rank, rows)
+        cell = dryrun.run_cell(
+            arch, "decode_32k", cfg=cfgs[tag],
+            mesh=Mesh(("data", "model"), (1, 2)), batch=args.batch,
+            max_len=args.max_len)["per_device_bytes"]
+        held = run["held"]
+        log(f"  [rank {rank}] ({sub}) {tag}: holds params "
+            f"{held['params'] / 1e9:.4f} GB, caches "
+            f"{held['caches'] / 1e9:.4f} GB; dry-run per device (1, 2) "
+            f"B={args.batch} max_len {args.max_len}: params "
+            f"{cell['params'] / 1e9:.4f}, caches {cell['caches'] / 1e9:.4f}"
+            f"; peak {stats[f'{sub}: {tag} 2 ranks'][1]:.2f} GB a rank")
+        if (held["params"], held["caches"]) != (cell["params"],
+                                                cell["caches"]):
+            raise SystemExit(f"mesh ({sub}): rank {rank} holds other bytes "
+                             "than the dry-run's blocks")
+        if rank == 0:
+            peak, whole_held = replicated[tag]
+            log(f"  [rank 0] ({sub}) {tag}: the replicated state on a mesh "
+                f"of 1 rank in this call: params "
+                f"{whole_held['params'] / 1e9:.4f} GB, caches "
+                f"{whole_held['caches'] / 1e9:.4f} GB, peak {peak:.2f} GB")
+            gate = _moe_mesh_report if moe else _mesh_gate
+            gate(f"({sub}) {tag}", run, refs[tag], refs["alone"], rank)
+        if moe:
+            with ctx(tag, mesh):
+                got = _moe_layers(cfgs[tag], blocks, dev, layout.specs)
+            if rank == 0:
+                _moe_layer_gate(f"({sub}) {tag}", got, layer_refs, rank)
+    del refs
     # the same in fp32 compute, where the 2-rank sums' order shows at
     # fp32 rounding, not at bf16's
-    _upcast(params)
-    for tag, sub in (("hp", "a"), ("dist", "b")):
+    _upcast(blocks)
+    twos = {}
+    for tag, sub, _ in runs:
         c32 = dc.replace(cfgs[tag], compute_dtype="float32")
-        two = _mesh_sub(f"{sub}: {tag} 2 ranks fp32", rank, stats,
-                        _mesh_serve, c32, params, args, dev, ctx(tag, mesh))
-        launches.update(two["launches"])
-        if rank == 0:
+        twos[tag] = _mesh_sub(f"{sub}: {tag} 2 ranks fp32", rank, stats,
+                              _mesh_serve, c32, blocks, args, dev,
+                              ctx(tag, mesh))
+        launches.update(twos[tag]["launches"])
+    del blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        _, whole = serve.model_for(args)
+        _upcast(whole)
+        if moe:
+            alone32 = _mesh_sub(
+                f"{subs}: mesh-less fp32", rank, stats, _mesh_serve,
+                dc.replace(base, compute_dtype="float32"), whole, args, dev,
+                contextlib.nullcontext())
+        for tag, sub, _ in runs:
+            c32 = dc.replace(cfgs[tag], compute_dtype="float32")
             one = _mesh_sub(f"{sub}: {tag} 1 rank fp32", rank, stats,
-                            _mesh_serve, c32, params, args, dev,
+                            _mesh_serve, c32, whole, args, dev,
                             ctx(tag, alone))
-            _mesh_gate32(f"({sub}) {tag}", two, one, rank)
+            _mesh_gate32(f"({sub}) {tag}", twos[tag], one, rank)
+            if moe:
+                _mesh_gate32(f"({sub}) {tag}", twos[tag], alone32, rank,
+                             against="the mesh-less engine")
+        del whole
     dist.barrier()
-    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
     return dict(launches)
+
+
+def _mesh_decode(rank, dev, stats) -> dict:
+    """(a) head-parallel and (b) sequence-sharded decode of starcoder2-7b
+    at full width, MESH_LAYERS layers, on 2 ranks, each holding only its
+    blocks of the serving state.  Returns this rank's launches."""
+    return _sharded_serves(
+        rank, dev, stats, "starcoder2-7b", MESH_LAYERS,
+        [("hp", "a", {"head_parallel_decode": True}),
+         ("dist", "b", {"distributed_decode": True})])
+
+
+def _moe_serve_mesh(rank, dev, stats) -> dict:
+    """(g) phi3.5-moe at full width, MESH_MOE_LAYERS layers, served
+    head-parallel with expert parallelism (``moe_shard_map_ep``) on 2
+    ranks, each holding 8 of the 16 experts of every layer and its
+    blocks of the rest.  Returns this rank's launches."""
+    return _sharded_serves(
+        rank, dev, stats, MOE_ARCH, MESH_MOE_LAYERS,
+        [("hp+ep", "g", {"head_parallel_decode": True,
+                         "moe_shard_map_ep": True})], moe=True)
 
 
 def _moe_mesh(rank, dev, stats) -> None:
@@ -5465,7 +5822,7 @@ def _moe_mesh(rank, dev, stats) -> None:
 
 
 def _fsdp_run(rank, dev, stats, sub, per_rank, steps) -> tuple:
-    """``MESH_ARCHS[sub]`` at full width, MESH_TRAIN_LAYERS layers,
+    """``MESH_ARCHS[sub]`` at full width, ``MESH_DEPTH[sub]`` layers,
     through launch/train.train_loop with FSDP on MESH_RANKS ranks, B =
     ``per_rank`` a rank, then (rank 0) the single-rank run of the global
     batch: #7-#9 launched on each rank, the losses within MESH_TRAIN_REL
@@ -5484,7 +5841,7 @@ def _fsdp_run(rank, dev, stats, sub, per_rank, steps) -> tuple:
     from repro_torch.launch.mesh_ranks import fsdp_train
 
     arch = MESH_ARCHS[sub]
-    cfg = dc.replace(configs.get_config(arch), n_layers=MESH_TRAIN_LAYERS)
+    cfg = dc.replace(configs.get_config(arch), n_layers=MESH_DEPTH[sub])
     lb = {"FSDP": [], "1 rank": []}
     kw = dict(steps=steps, batch=per_rank * MESH_RANKS, seq=MESH_TRAIN_SEQ,
               lr=TRAIN_LR, moment_dtype="bfloat16", log_every=steps)
@@ -5552,7 +5909,7 @@ def _train_mesh(rank, dev, stats) -> dict:
     rank, seq 1024, against rank 0's single-rank B=4 run; (e)
     remesh_state of the trained blocks from the 2 ranks to each rank
     alone, every leaf bit-equal to the blocks gathered; (f) FSDP
-    training of phi3.5-moe at full width, 2 layers, B=1 a rank, against
+    training of phi3.5-moe at full width, 1 layer, B=1 a rank, against
     rank 0's single-rank B=2 run, its load-balance loss among the
     gates.  Returns this rank's launches of the
     two FSDP runs."""
@@ -5595,7 +5952,7 @@ def _train_mesh(rank, dev, stats) -> dict:
 
 
 def mesh_rank(rank, dev):
-    """One rank of the mesh phase: (a)-(f) in turn.  Returns (launches,
+    """One rank of the mesh phase: (a)-(g) in turn.  Returns (launches,
     {sub-phase: (seconds, peak GB)})."""
     torch.backends.cuda.matmul.allow_tf32 = False
     stats = {}
@@ -5606,6 +5963,9 @@ def mesh_rank(rank, dev):
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(_train_mesh(rank, dev, stats))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(_moe_serve_mesh(rank, dev, stats))
     return dict(launches), stats
 
 
@@ -5613,9 +5973,11 @@ def mesh_phase(dev):
     """The multi-device slice on one card: MESH_RANKS gloo ranks share
     cuda:0 (launch.mesh.spawn, one spawn for every sub-phase): (a)
     head-parallel serve under lower_to_mesh, (b) sequence-sharded decode,
-    (c) phi3.5-moe's expert-parallel and local dispatch, (d) FSDP
-    training, (e) remesh_state, (f) phi3.5-moe's FSDP training.
-    Returns the launches of both ranks."""
+    both on the sharded serving state, (c) phi3.5-moe's expert-parallel
+    and local dispatch, (d) FSDP training, (e) remesh_state, (f)
+    phi3.5-moe's FSDP training, (g) phi3.5-moe served head-parallel with
+    expert parallelism on the sharded serving state.  Returns the
+    launches of both ranks."""
     from repro_torch.launch.mesh import spawn
 
     gc.collect()

@@ -36,6 +36,7 @@ import json
 import math
 import os
 import sys
+from typing import Optional
 
 import torch
 
@@ -114,10 +115,15 @@ def _nbytes(shape, dtype) -> int:
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
-             moment_dtype: str = "bfloat16", cfg=None, mesh=None) -> dict:
+             moment_dtype: str = "bfloat16", cfg=None, mesh=None,
+             batch: Optional[int] = None,
+             max_len: Optional[int] = None) -> dict:
     """One cell's per-device state bytes on a production mesh (or on
     ``mesh``, a mesh's shape, and of ``cfg`` in place of the arch's
-    full config: what a training rank holds there)."""
+    full config: what a training rank holds there).  A decode cell
+    takes ``batch`` and ``max_len`` in place of the shape's, so its
+    figure is a serve's of that geometry (what a rank of the sharded
+    serving state holds)."""
     ok, why = configs.applicable(arch, shape_name)
     if not ok:
         return {"arch": arch, "shape": shape_name, "skipped": why}
@@ -145,20 +151,23 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                     shrules.shard_shape(x.shape, spec, mesh), x.dtype)
     specs = configs.input_specs(arch, shape_name, cfg)
     if sh.kind == "train":
-        batch = specs["batch"]
+        inputs = specs["batch"]
     elif sh.kind == "prefill":
-        batch = specs
+        inputs = specs
     else:
-        batch = {}
-    for x in batch.values():
+        inputs = {}
+    for x in inputs.values():
         spec = shrules.logical_to_mesh_axes(
             ("batch",) + (None,) * (x.ndim - 1), mesh=mesh, shape=x.shape)
         per_device["inputs"] += _nbytes(
             shrules.shard_shape(x.shape, spec, mesh), x.dtype)
+    if (batch is not None or max_len is not None) and sh.kind != "decode":
+        raise ValueError(f"{shape_name}: batch= and max_len= are a decode "
+                         "cell's")
     if sh.kind != "train" and arch not in configs.ENCODER_ONLY:
         b = sh.global_batch if sh.kind == "prefill" else specs["batch"]
-        state = init_decode_state(cfg, b, sh.seq_len, cfg.torch_dtype(),
-                                  device="meta")
+        state = init_decode_state(cfg, batch or b, max_len or sh.seq_len,
+                                  cfg.torch_dtype(), device="meta")
         for (path, x), (_, spec) in zip(_paths(state),
                                         decode_state_specs(state, mesh)):
             per_device["caches"] += _nbytes(

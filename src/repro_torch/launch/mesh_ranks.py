@@ -20,6 +20,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.weights import params_from_numpy
 from repro_torch.sharding import set_rules_for_mesh
+from repro_torch.sharding.collectives import gather_spec
+from repro_torch.sharding.rules import local_slice
 from repro_torch.serve import distributed_decode as dd
 
 AXES = ("data", "model")
@@ -32,12 +34,23 @@ def _cpu(t):
 def decode_attention(rank, device, shape, q, k, v, lengths, wo) -> dict:
     """``distributed_decode_attention`` and
     ``head_parallel_decode_attention`` on a (data, model) mesh of
-    ``shape`` over the running ranks."""
+    ``shape`` over the running ranks, each on this rank's blocks of the
+    global inputs (the rows over "data"; the time columns, or the
+    heads, over "model"), each output's rows gathered."""
     mesh = mesh_over_ranks(shape, AXES, device=device)
-    args = [t.to(device) for t in (q, k, v, lengths, wo)]
+
+    def block(t, *spec):
+        return local_slice(t.to(device), ("data",) + spec, mesh)
+
     with set_rules_for_mesh(mesh):
-        out = {"dist": dd.distributed_decode_attention(*args[:4]),
-               "hp": dd.head_parallel_decode_attention(*args)}
+        out = {"dist": dd.distributed_decode_attention(
+                   block(q), block(k, None, "model"), block(v, None, "model"),
+                   block(lengths)),
+               "hp": dd.head_parallel_decode_attention(
+                   block(q, "model"), block(k, "model"), block(v, "model"),
+                   block(lengths), local_slice(wo.to(device), ("model",),
+                                               mesh))}
+        out = {k_: gather_spec(v_, ("data",), mesh) for k_, v_ in out.items()}
     return {k_: _cpu(v_) for k_, v_ in out.items()}
 
 
@@ -53,22 +66,36 @@ def mesh_ledger(plan) -> list:
     return out
 
 
-def serve_tokens(rank, device, cfg, params_np, prompts, max_len: int,
-                 steps: int, flag: str) -> dict:
-    """The JAX mesh parity test's run: two prompts through a
-    ``ContinuousBatchingEngine`` (batch 2), ``steps`` engine steps, on
-    ``mesh_for_cores(2)`` with the config's ``flag``
-    (``head_parallel_decode`` or ``distributed_decode``) set and a
-    serving plan.  Returns the tokens of every step, how often the
-    flag's attention ran, and the plan's mesh ledger."""
+#: the attention function each decode flag routes through
+_FLAG_CALLS = {"head_parallel_decode": "head_parallel_decode_attention",
+               "distributed_decode": "distributed_decode_attention"}
+
+
+def _serve(device, cfg, params_np, prompts, max_len, steps, flags, shape,
+           swap_at=None, chunk=None) -> tuple:
+    """The mesh parity run on the sharded serving state: ``cfg`` with
+    each of ``flags`` set, its weights placed as this rank's blocks of
+    ``params_np``, two prompts through a ``ContinuousBatchingEngine``
+    (batch 2) with a serving plan for ``steps`` engine steps, on
+    ``mesh_for_cores(2)`` (``shape`` None) or a (data, model) mesh of
+    ``shape``, prefilled in ``chunk``-token chunks (None: whole
+    prompts).  ``swap_at``: after that many steps both rows are
+    preempted and resumed in each other's slot, so each row's blocks
+    travel through a snapshot (the tokens of later steps come back in
+    swapped columns).  Returns (the tokens of every step, how often the
+    decode flag's attention ran, the plan's mesh ledger, the engine)."""
     from repro_torch import lower
     from repro_torch.serve.engine import (ContinuousBatchingEngine,
                                           make_serving_plan)
+    from repro_torch.serve.layout import serving_layout
 
-    cfg = dataclasses.replace(cfg, **{flag: True})
-    params = params_from_numpy(params_np, cfg, device=device)
-    name = {"head_parallel_decode": "head_parallel_decode_attention",
-            "distributed_decode": "distributed_decode_attention"}[flag]
+    flags = (flags,) if isinstance(flags, str) else tuple(flags)
+    cfg = dataclasses.replace(cfg, **{f: True for f in flags})
+    mesh = mesh_for_cores(2, device=device) if shape is None \
+        else mesh_over_ranks(shape, AXES, device=device)
+    params = params_from_numpy(params_np, cfg, device=device,
+                               fsdp=serving_layout(cfg, mesh))
+    name = next(_FLAG_CALLS[f] for f in flags if f in _FLAG_CALLS)
     calls = {"n": 0}
     orig = getattr(attn_mod, name)
 
@@ -80,20 +107,50 @@ def serve_tokens(rank, device, cfg, params_np, prompts, max_len: int,
     try:
         lower.clear_plan_cache()
         plan = make_serving_plan(cfg, max_len, device=device)
-        mesh = mesh_for_cores(2, device=device)
         with set_rules_for_mesh(mesh):
             eng = ContinuousBatchingEngine(params, cfg, batch_size=2,
                                            max_len=max_len, plan=plan,
+                                           prefill_chunk=chunk,
                                            device=device)
             for slot, p in enumerate(prompts):
                 eng.begin_prefill(slot, p)
             toks = []
-            for _ in range(steps):
+            for i in range(steps):
+                if i == swap_at:
+                    pre = [eng.preempt(slot) for slot in (0, 1)]
+                    eng.resume(pre[0], 1)
+                    eng.resume(pre[1], 0)
                 t, _ins = eng.step()
                 toks.append(None if t is None else np.asarray(t).tolist())
     finally:
         setattr(attn_mod, name, orig)
-    return {"tokens": toks, "calls": calls["n"], "ledger": mesh_ledger(plan)}
+    return toks, calls["n"], mesh_ledger(plan), eng
+
+
+def serve_state(rank, device, cfg, params_np, prompts, max_len: int,
+                steps: int, flag, shape=None, swap_at=None,
+                chunk=None) -> dict:
+    """The mesh parity run (:func:`_serve`, ``flag`` a flag name or a
+    tuple of them) and what the rank holds: the tokens of every step,
+    how often the decode flag's attention ran and the plan's mesh
+    ledger, then the local shape of every parameter and decode-state
+    leaf by its path (``launch.dryrun``'s paths), the bytes it holds of
+    each, and their sums."""
+    from repro_torch.launch.dryrun import _paths
+    from repro_torch.sharding.fsdp import held_bytes
+
+    toks, calls, ledger, eng = _serve(device, cfg, params_np, prompts,
+                                      max_len, steps, flag, shape, swap_at,
+                                      chunk)
+    leaves = {"params": dict(_paths(eng.params)),
+              "state": dict(_paths(eng.state))}
+    return {"tokens": toks, "calls": calls, "ledger": ledger,
+            "shapes": {part: {k: tuple(x.shape) for k, x in t.items()}
+                       for part, t in leaves.items()},
+            "bytes": {part: {k: held_bytes(x) for k, x in t.items()}
+                      for part, t in leaves.items()},
+            "held": {"params": held_bytes(eng.params),
+                     "caches": held_bytes(eng.state)}}
 
 
 def moe_paths(rank, device, shapes, cfg, params_np, x) -> dict:
@@ -168,7 +225,6 @@ def train_step_on_mesh(rank, device, cfg, params_np, batch, lr) -> dict:
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.sharding.rules import local_slice
     from repro_torch.train import step as step_mod
 
     mesh = make_host_mesh(data=dist.get_world_size(), device=device)
@@ -293,3 +349,49 @@ def in_turn(rank, device, calls) -> list:
     """Each ``(body, args)`` of ``calls`` in turn on the same ranks (one
     spawn pays process and device start-up once): their results."""
     return [body(rank, device, *args) for body, args in calls]
+
+
+def sharded_pieces(rank, device, cfg, params_np, x, prefix, start: int,
+                   tokens) -> dict:
+    """Two items of the sharded serving state alone, on
+    ``mesh_for_cores(2)`` under ``distributed_decode``, beside the whole
+    state on this rank without a mesh: layer 0's ``gqa_forward`` of the
+    chunk ``x`` (B, S, d) at ``start`` over a cache whose K and V
+    (``prefix``, global (B, Hkv, max_len, D)) are this rank's time
+    columns (the chunk's K/V gathered over the heads, the columns turned
+    into heads by an ``all_to_all``): its output and the cache after,
+    gathered; the vocabulary lookup of ``tokens`` (B, S) on this rank's
+    ``embed`` rows, and a cache-free ``forward``'s logits on the
+    blocks."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.layout import serving_layout
+
+    cfg = dataclasses.replace(cfg, distributed_decode=True)
+    mesh = mesh_for_cores(2, device=device)
+    layout = serving_layout(cfg, mesh)
+    whole = params_from_numpy(params_np, cfg, device=device)
+    blocks = params_from_numpy(params_np, cfg, device=device, fsdp=layout)
+    x, tokens = x.to(device), tokens.to(device)
+    positions = (start + torch.arange(x.shape[1], device=device))[None]
+    cspec = (None, None, "model", None)
+
+    def layer0(p):
+        return {k: v[0] for k, v in p["layers"][0]["attn"].items()}
+
+    cache = {n: t.to(device).clone() for n, t in zip("kv", prefix)}
+    want, _ = attn_mod.gqa_forward(layer0(whole), cfg, x, positions,
+                                   cache=cache, cache_len=start)
+    mine = {n: local_slice(t.to(device), cspec, mesh).clone()
+            for n, t in zip("kv", prefix)}
+    with set_rules_for_mesh(mesh):
+        got, _ = attn_mod.gqa_forward(
+            layer0(blocks), cfg, x, positions, cache=mine, cache_len=start,
+            specs=tf._unstack(layout.specs["layers"][0])["attn"])
+        got_cache = {n: gather_spec(t, cspec, mesh) for n, t in mine.items()}
+        lookup = tf._lookup(blocks["embed"], tokens, layout.specs["embed"])
+        logits = tf.forward(blocks, cfg, tokens, fsdp=layout)
+    return {"attn": (_cpu(got), _cpu(want)),
+            "cache": {n: (_cpu(got_cache[n]), _cpu(cache[n])) for n in "kv"},
+            "lookup": (_cpu(lookup), _cpu(whole["embed"][tokens])),
+            "logits": (_cpu(logits), _cpu(tf.forward(whole, cfg, tokens))),
+            "embed_rows": tuple(blocks["embed"].shape)}

@@ -23,6 +23,20 @@ run as mamba2's, its attention layers resolve the shape-only plan at
 the cache's max_len.  ``--layers`` keeps the config's dense prefix, so
 deepseek-v3 cut to 4 layers runs its 3 dense-FFN layers and one MoE
 layer.
+
+``--mesh hp`` (``head_parallel_decode``) or ``--mesh dist``
+(``distributed_decode``) serves on ``--ranks`` gloo ranks laid out as
+``mesh_for_cores(ranks)`` (a (1, ranks) mesh), each holding only its
+blocks of the serving state (``serve.layout.serving_layout``): its
+heads, MLP columns, vocabulary rows, experts and cache slice, drawn
+from the same seed as a single rank's weights.  On the card the ranks
+share the cards round-robin (two ranks on one card: gloo stages their
+collectives through host memory); on the CPU pass ``--device cpu``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \
+        --smoke --mesh dist --ranks 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \
+        --layers 4 --max-len 1024 --prefill-chunk 256 --mesh hp
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -56,17 +71,40 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers "
                          "(default: the config's)")
+    ap.add_argument("--mesh", choices=sorted(MESH_FLAGS), default=None,
+                    help="serve the sharded serving state on --ranks "
+                         "ranks: head-parallel or sequence-sharded decode")
+    ap.add_argument("--ranks", type=int, default=2,
+                    help="with --mesh: the rank count (the model axis)")
+    ap.add_argument("--init-file", default=None,
+                    help="with --mesh: the file:// rendezvous file "
+                         "(default: one under the checkout's build/)")
     return ap
 
 
-def model_for(args):
-    """(config, random params) for the parsed arguments."""
+#: ``--mesh``'s choices: the config flag each sets
+MESH_FLAGS = {"hp": "head_parallel_decode", "dist": "distributed_decode"}
+
+
+def config_for(args):
+    """The config of the parsed arguments, with ``--mesh``'s flag."""
     cfg = configs.get_config(args.arch, smoke=args.smoke)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if getattr(args, "mesh", None):
+        cfg = dataclasses.replace(cfg, **{MESH_FLAGS[args.mesh]: True})
+    return cfg
+
+
+def model_for(args, fsdp=None):
+    """(config, random params) for the parsed arguments; ``fsdp`` (a
+    serving layout): this rank's blocks of the same draws."""
+    cfg = config_for(args)
     dev = resolve_device(args.device)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
+    if fsdp is not None:
+        return cfg, fsdp.init(cfg, g, dev)
     return cfg, init_params(cfg, g, dev)
 
 
@@ -118,19 +156,76 @@ def run(args, cfg, params, requests) -> dict:
             "decode_step_s": step_s, "plan": plan, "engine": eng}
 
 
+def _rank_serve(rank, device, args) -> dict:
+    """One rank of a ``--mesh`` serve: its blocks drawn, the requests
+    served on ``mesh_for_cores(args.ranks)``.  Returns what ``main``
+    prints and the bytes this rank holds."""
+    from repro_torch.launch.mesh_lowering import mesh_for_cores
+    from repro_torch.sharding import set_rules_for_mesh
+    from repro_torch.serve.layout import serving_layout
+    from repro_torch.sharding.fsdp import held_bytes
+
+    args.device = str(device)
+    mesh = mesh_for_cores(args.ranks, device=device)
+    layout = serving_layout(config_for(args), mesh)
+    cfg, params = model_for(args, layout)
+    with set_rules_for_mesh(mesh):
+        out = run(args, cfg, params,
+                  make_requests(cfg, args.requests, args.max_new))
+    eng = out.pop("engine")
+    out["held"] = {"params": held_bytes(eng.params),
+                   "caches": held_bytes(eng.state)}
+    out["finished"] = [(r.uid, r.prompt, r.generated)
+                       for r in out["finished"]]
+    out["plan"] = None if out["plan"] is None else \
+        sorted({p for (ph, _, _, p, _) in out["plan"].resolutions
+                if ph == "decode"})
+    return out
+
+
+def _serve_on_mesh(args) -> dict:
+    """``--mesh``: ``args.ranks`` gloo ranks over the cards (or the
+    CPU), each serving on its blocks; rank 0's result."""
+    from repro_torch.launch.mesh import spawn
+
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        count = torch.cuda.device_count()
+        devices = [f"cuda:{r % count}" for r in range(args.ranks)]
+    else:
+        devices = ["cpu"] * args.ranks
+    init_file = args.init_file or str(
+        Path(__file__).resolve().parents[3] / "build" / "serve_mesh_init")
+    Path(init_file).parent.mkdir(parents=True, exist_ok=True)
+    outs = spawn(args.ranks, _rank_serve, backend="gloo", devices=devices,
+                 init_file=init_file, args=(args,), timeout=24 * 3600)
+    for rank, o in enumerate(outs):
+        print(f"rank {rank} holds params {o['held']['params'] / 1e9:.3f} "
+              f"GB, caches {o['held']['caches'] / 1e9:.3f} GB")
+    return outs[0]
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
-    cfg, params = model_for(args)
-    out = run(args, cfg, params,
-              make_requests(cfg, args.requests, args.max_new))
-    finished, dt = out["finished"], out["seconds"]
+    if args.mesh:
+        out = _serve_on_mesh(args)
+        finished = [Request(uid=u, prompt=p, max_new_tokens=args.max_new,
+                            generated=g) for u, p, g in out["finished"]]
+        paths = out["plan"]
+    else:
+        cfg, params = model_for(args)
+        out = run(args, cfg, params,
+                  make_requests(cfg, args.requests, args.max_new))
+        finished = out["finished"]
+        paths = None if out["plan"] is None else sorted(
+            {p for (ph, _, _, p, _) in out["plan"].resolutions
+             if ph == "decode"})
+    dt = out["seconds"]
     total_tokens = sum(len(r.generated) for r in finished)
     print(f"served {len(finished)} requests, {total_tokens} tokens "
           f"in {dt:.2f}s ({total_tokens / max(dt, 1e-9):.1f} tok/s)")
-    if out["plan"] is not None:
-        paths = {p for (ph, _, _, p, _) in out["plan"].resolutions
-                 if ph == "decode"}
-        print(f"decode kernel paths used: {sorted(paths)}")
+    if paths is not None:
+        print(f"decode kernel paths used: {paths}")
     for r in finished[:3]:
         print(f"  req {r.uid}: prompt {len(r.prompt)} toks -> "
               f"{r.generated[:8]}...")

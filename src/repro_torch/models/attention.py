@@ -43,6 +43,7 @@ from repro_torch.models.common import ModelConfig, rms_norm, rope
 from repro_torch.serve.distributed_decode import (
     distributed_decode_attention, head_parallel_decode_attention)
 from repro_torch.sharding import rules as shrules
+from repro_torch.sharding.collectives import all_to_all, gather_spec, psum
 
 
 def _cache_write(cache_len, b: int, s: int, device):
@@ -71,11 +72,59 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         b, s, w.shape[1], w.shape[2]).transpose(1, 2)
 
 
+def _model_axis(mesh) -> tuple:
+    """(rank count, this rank's index) of ``mesh``'s "model" axis; (1,
+    0) without one."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1, 0
+    return mesh.axis_size("model"), mesh.axis_index("model")
+
+
+def _gather_heads(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's heads (dim 1) of ``x``, in rank order."""
+    return gather_spec(x, (None, "model"), mesh)
+
+
+def _write_columns(kc, vc, k_all, v_all, starts, s: int, per_row: bool,
+                   first: int) -> None:
+    """Write the new K/V (every head) into this rank's time columns
+    ``first``..``first + kc.shape[2]`` of the cache, in place: the rows
+    whose write position it owns (per-row decode), or the part of
+    ``starts``..``starts + s`` it owns (a chunk)."""
+    sl = kc.shape[2]
+    if per_row:
+        rows = torch.arange(kc.shape[0], device=kc.device)
+        loc = starts.long() - first
+        own = ((loc >= 0) & (loc < sl))[:, None, None]
+        at = loc.clamp(0, sl - 1)
+        for buf, new in ((kc, k_all), (vc, v_all)):
+            buf[rows, :, at] = torch.where(own, new[:, :, 0].to(buf.dtype),
+                                           buf[rows, :, at])
+        return
+    lo, hi = max(starts, first), min(starts + s, first + sl)
+    if lo < hi:
+        kc[:, :, lo - first:hi - first] = \
+            k_all[:, :, lo - starts:hi - starts].to(kc.dtype)
+        vc[:, :, lo - first:hi - first] = \
+            v_all[:, :, lo - starts:hi - starts].to(vc.dtype)
+
+
+def _query_kv_heads(t: torch.Tensor, first: int, count: int,
+                    group: int) -> torch.Tensor:
+    """The K or V heads (dim 1, every KV head) of the query heads
+    ``first``..``first + count``, one per query head: where the query
+    heads are this rank's block and the KV heads whole (their count
+    does not divide the ranks), so a rank's query heads may part a
+    KV group."""
+    idx = torch.arange(first, first + count, device=t.device) // group
+    return t.index_select(1, idx)
+
+
 def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, cache: Optional[dict] = None,
                 cache_len=None, block_tables: Optional[torch.Tensor] = None,
                 plan=None, residual: Optional[torch.Tensor] = None,
-                impl: str = "auto"):
+                impl: str = "auto", specs: Optional[dict] = None):
     """x: (B, S, E).  With ``cache``: append K/V at ``cache_len`` (in
     place) and attend over the valid prefix.  ``plan``: a
     ``lower.runtime.PlanDispatch``; ``plan.fuse_q`` hands x and Wq to
@@ -89,7 +138,23 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
     prefill runs dense and is paged when the engine inserts it.
     ``impl``: the ``kernels.ops`` impl of every attention call (``auto``
     follows the plan, else the device); a cache-free call is the
-    differentiable training attention.  Returns (out, cache)."""
+    differentiable training attention.
+
+    ``specs`` (the sharded serving state, ``serve/layout.py``): the
+    leaves' specs, which say which projections are this rank's heads
+    (``wq``/``wk``/``wv`` (E, H/n, D), ``wo`` (H/n, D, E)); each is
+    whole where its head count does not divide the "model" axis, as
+    JAX's rules fall back.  Every path attends over the rank's query
+    heads and one ``psum`` over "model" sums the ranks' output
+    partials; with the KV heads whole, each query head reads its own
+    KV head.  Under ``distributed_decode`` the cache holds this rank's
+    time columns of every KV head: the new K/V (and a decode step's q)
+    are gathered over the heads where they are blocks, the rank owning
+    a column writes it, a decode step runs the partial-softmax combine,
+    and a prefill chunk reads its heads' whole depth for the call: one
+    ``all_to_all`` turns the layer's columns into the rank's KV heads,
+    or, with the KV heads whole, the columns are gathered.
+    Returns (out, cache)."""
     dt = x.dtype
     b, s, _ = x.shape
     decode = cache is not None
@@ -107,8 +172,33 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
         and mesh is not None
     hp = decode and cfg.head_parallel_decode and s == 1 and not dist \
         and mesh is not None
+    if paged and (hp or dist):
+        raise NotImplementedError(
+            "paged KV does not compose with the distributed "
+            "decode paths yet")
+    n_model, r_model = _model_axis(mesh)
+    if (hp or dist) and n_model > 1 and specs is None:
+        raise ValueError(
+            "under a mesh with a model axis the decode paths run on the "
+            "sharded serving state, each rank its blocks "
+            "(serve.layout.serving_layout)")
+    # which projections are this rank's heads (the layout's specs)
+    q_split = shrules.splits(specs and specs["wq"], 1, mesh)
+    kv_split = shrules.splits(specs and specs["wk"], 1, mesh)
+    wo_split = shrules.splits(specs and specs["wo"], 0, mesh)
+    hq_l = params["wq"].shape[1]
+    # the rank's query heads over whole KV heads: each reads its own
+    expand = q_split and not kv_split
+    # a cache of this rank's time columns of every KV head
+    seq_split = decode and specs is not None and n_model > 1 \
+        and cfg.distributed_decode
     fuse_q = decode and not dist and not hp and plan is not None \
         and plan.fuse_q and not cfg.qk_norm
+
+    def own(t):
+        return _query_kv_heads(t, r_model * hq_l, hq_l,
+                               cfg.n_heads // cfg.kv_heads)
+
     theta = float(cfg.rope_theta) if cfg.rope_theta else None
 
     k_new = _heads(x, params["wk"].to(dt))
@@ -123,8 +213,9 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
         q = rope(q, positions, cfg.rope_theta)
 
     if not decode:
-        o = ops.attention(q, k_new, v_new, causal=cfg.causal, plan=plan,
-                          impl=impl)
+        o = ops.attention(q, *((own(k_new), own(v_new)) if expand
+                               else (k_new, v_new)),
+                          causal=cfg.causal, plan=plan, impl=impl)
         new_cache = None
     else:
         starts, lengths, q_off, per_row = _cache_write(cache_len, b, s,
@@ -134,10 +225,6 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
             if not per_row:
                 raise NotImplementedError(
                     "paged KV requires per-row (B,) cache_len")
-            if hp or dist:
-                raise NotImplementedError(
-                    "paged KV does not compose with the distributed "
-                    "decode paths yet")
             # page-indirect append: row r's token lands at offset
             # starts % page of its current page
             page = kc.shape[2]
@@ -146,6 +233,14 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                                     idx // page].long()
             kc[page_ids, :, idx % page] = k_new[:, :, 0].to(kc.dtype)
             vc[page_ids, :, idx % page] = v_new[:, :, 0].to(vc.dtype)
+        elif seq_split:
+            if not per_row and starts + s > kc.shape[2] * n_model:
+                raise ValueError(f"cache append at {starts}+{s} overruns "
+                                 f"max_len {kc.shape[2] * n_model}")
+            k_all, v_all = ((_gather_heads(t, mesh) for t in (k_new, v_new))
+                            if kv_split else (k_new, v_new))
+            _write_columns(kc, vc, k_all, v_all, starts, s, per_row,
+                           r_model * kc.shape[2])
         elif per_row:
             # continuous batching: row r appends at its own position
             rows = torch.arange(b, device=x.device)
@@ -160,6 +255,16 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
             vc[:, :, starts:starts + s] = v_new.to(vc.dtype)
         new_cache = cache
         k_buf, v_buf = kc.to(dt), vc.to(dt)
+        if seq_split and not dist:
+            # a chunk attends over its heads' whole prefix, for this
+            # call: the layer's time columns turned into this rank's KV
+            # heads, or every KV head's gathered
+            k_buf, v_buf = ((all_to_all(t, mesh, "model", split_axis=1,
+                                        concat_axis=2) if kv_split else
+                             gather_spec(t, (None, None, "model"), mesh))
+                            for t in (k_buf, v_buf))
+        if expand and not (hp or dist):
+            k_buf, v_buf = own(k_buf), own(v_buf)
         if hp:
             out = head_parallel_decode_attention(
                 q, k_buf, v_buf, lengths, params["wo"].to(dt), plan=plan)
@@ -167,11 +272,17 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 out = residual + out
             return out, new_cache
         if dist:
+            if q_split:
+                q = _gather_heads(q, mesh)
             o = distributed_decode_attention(q, k_buf, v_buf, lengths,
                                              plan=plan)
+            if wo_split:            # back to this rank's heads
+                hl = params["wo"].shape[0]
+                o = o[:, r_model * hl:(r_model + 1) * hl]
         elif fuse_q:
             wq = params["wq"].to(dt)
-            if plan.fuse_wo and s == 1 and residual is not None:
+            if plan.fuse_wo and s == 1 and residual is not None \
+                    and not wo_split:
                 out = ops.decode_block(x, wq, k_buf, v_buf,
                                        params["wo"].to(dt), residual,
                                        lengths, block_tables=block_tables,
@@ -189,6 +300,10 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                               impl=impl)
     wo = params["wo"].to(dt)
     out = o.transpose(1, 2).reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    if wo_split:
+        # the ranks' partials over their heads (GSPMD's heads-sharded
+        # einsum)
+        out = psum(out, mesh, "model")
     if residual is not None:
         out = residual + out
     return out, new_cache
@@ -340,12 +455,14 @@ def init_attention(cfg: ModelConfig, draw, ones) -> dict:
     return init_gqa(cfg, draw, ones)
 
 
-def attention_forward(params: dict, cfg: ModelConfig, x, positions, **kw):
+def attention_forward(params: dict, cfg: ModelConfig, x, positions, *,
+                      specs: Optional[dict] = None, **kw):
     """The config's attention block: :func:`mla_forward` or
-    :func:`gqa_forward`."""
+    :func:`gqa_forward` (``specs``: the sharded serving state's, which
+    covers GQA alone)."""
     if cfg.attention == "mla":
         return mla_forward(params, cfg, x, positions, **kw)
-    return gqa_forward(params, cfg, x, positions, **kw)
+    return gqa_forward(params, cfg, x, positions, specs=specs, **kw)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,

@@ -16,6 +16,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.collectives import psum
+from repro_torch.sharding.rules import active_mesh, splits
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -175,9 +178,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def mlp_forward(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp_forward(params: dict, x: torch.Tensor, kind: str,
+                specs: Optional[dict] = None) -> torch.Tensor:
     """Gated-SiLU or GELU MLP.  jax.nn.gelu defaults to the tanh
-    approximation, so the GELU here is the tanh form too."""
+    approximation, so the GELU here is the tanh form too.  ``specs``
+    (the sharded serving state): the leaves' specs; where they make the
+    hidden width this rank's block over "model" (``w_up``/``w_gate``
+    column blocks, ``w_down`` a row block), the local product is a
+    partial that one ``psum`` over "model" sums, the partition GSPMD
+    makes of JAX's ``constrain(h, ..., "mlp")``."""
     dt = x.dtype
     if kind == "silu_glu":
         g = x @ params["w_gate"].to(dt)
@@ -186,7 +195,11 @@ def mlp_forward(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     else:
         h = x @ params["w_up"].to(dt)
         h = F.gelu(h.float(), approximate="tanh").to(dt)
-    return h @ params["w_down"].to(dt)
+    out = h @ params["w_down"].to(dt)
+    mesh = active_mesh()
+    if specs is not None and splits(specs["w_down"], 0, mesh):
+        out = psum(out, mesh, "model")
+    return out
 
 
 def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -39,18 +39,28 @@ two flags of the JAX package take their mesh paths:
 (``models/moe_local.py``), and ``moe_shard_map_ep`` runs step 4 as
 explicit expert parallelism (:func:`_expert_compute_shard_map`).  With
 no mesh both are inert, as in the JAX package.
+
+Under the sharded serving state (``serve/layout.py``)
+the layer holds this rank's blocks: E/n experts, the router's E/n
+columns and the shared MLP's column blocks.  The router's local logits
+are gathered over "model" before the softmax, so routing is the global
+path's (the stable descending sort, capacity per group); the expert
+products run on this rank's experts, their outputs gathered over
+"model" (or ``moe_shard_map_ep``'s all-to-alls route the slots to
+them); the shared MLP's partials are summed (``mlp_forward``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, mlp_forward
 from repro_torch.sharding import rules as shrules
-from repro_torch.sharding.collectives import all_to_all, pmean, shard_map
+from repro_torch.sharding.collectives import (all_to_all, gather_spec, pmean,
+                                              shard_map)
 
 
 def init_moe(cfg: ModelConfig, draw: Callable) -> dict:
@@ -90,10 +100,16 @@ def top_k(probs: torch.Tensor, k: int) -> tuple:
     return vals[..., :k], idx[..., :k]
 
 
-def route(router: torch.Tensor, x: torch.Tensor, k: int) -> tuple:
+def route(router: torch.Tensor, x: torch.Tensor, k: int,
+          split: bool = False) -> tuple:
     """x (B, S, d) -> (router logits, probabilities, top-k weights
-    renormalised, top-k expert ids), all but the ids fp32."""
+    renormalised, top-k expert ids), all but the ids fp32.  ``split``:
+    ``router`` is this rank's block of expert columns over "model", and
+    every rank's logits are gathered first."""
     logits = x.float() @ router.float()
+    if split:
+        logits = gather_spec(logits, (None,) * (logits.ndim - 1)
+                             + ("model",), ep_mesh())
     probs = torch.softmax(logits, dim=-1)
     topw, topi = top_k(probs, k)
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
@@ -144,12 +160,16 @@ def ep_mesh():
     return None
 
 
-def _expert_compute_shard_map(buf, params: dict, dt):
+def _expert_compute_shard_map(buf, params: dict, dt,
+                              blocks: bool = False):
     """Explicit expert parallelism over the mesh's "model" axis: each
     rank sends its groups' slots for every other rank's experts there
     (an all-to-all on the expert dim), runs its resident experts on
     every rank's slots, and a second all-to-all routes the results
-    back.  buf: (G, E, C, d) -> (G, E, C, d)."""
+    back.  buf: (G, E, C, d) -> (G, E, C, d).  The expert weights are
+    global (each rank's sliced out), or with ``blocks`` this rank's E/n
+    experts already (the sharded serving state), which enter as they
+    are."""
     mesh = ep_mesh()
     sizes = shrules.mesh_sizes(mesh)
     batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
@@ -176,23 +196,43 @@ def _expert_compute_shard_map(buf, params: dict, dt):
         gspec = (*batch_tuple, "model")   # groups over every axis
     else:
         gspec = bspec                     # fallback: model-replicated
+    wspec = None if blocks else ("model", None, None)
     fn = shard_map(body, mesh,
-                   in_specs=((gspec, None, None, None),
-                             ("model", None, None),
-                             ("model", None, None),
-                             ("model", None, None)),
+                   in_specs=((gspec, None, None, None), wspec, wspec,
+                             wspec),
                    out_specs=(gspec, None, None, None))
     return fn(buf, wg, wu, wd)
 
 
+def _local_experts(buf, params: dict, dt):
+    """Step 4 on this rank's E/n experts (the sharded serving state's
+    blocks): their slots of ``buf`` (G, E, C, d) through their
+    products, every rank's outputs gathered over "model"."""
+    mesh = ep_mesh()
+    el = params["w_gate"].shape[0]
+    first = mesh.axis_index("model") * el
+    mine = buf[:, first:first + el]
+    gate = torch.einsum("becd,edf->becf", mine, params["w_gate"].to(dt))
+    up = torch.einsum("becd,edf->becf", mine, params["w_up"].to(dt))
+    h = F.silu(gate.float()).to(dt) * up
+    out = torch.einsum("becf,efd->becd", h, params["w_down"].to(dt))
+    return gather_spec(out, (None, "model"), mesh)
+
+
 def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                aux: bool = True):
+                aux: bool = True, specs: Optional[dict] = None):
     """x: (B, S, d) -> (y (B, S, d), aux dict), the aux dict
     ``{"moe_lb_loss", "moe_z_loss"}`` (fp32 scalars), or empty without
-    ``aux``."""
+    ``aux``.  ``specs`` (the sharded serving state): the leaves' specs,
+    which say whether the router and the experts are this rank's blocks
+    over "model"."""
     if cfg.moe_local_dispatch and ep_mesh() is not None:
         from repro_torch.models.moe_local import moe_forward_local
-        return moe_forward_local(params, cfg, x, aux=aux)
+        return moe_forward_local(params, cfg, x, aux=aux, specs=specs)
+    mesh = ep_mesh()
+    # this rank's experts, and their router columns, over "model"
+    experts_split = shrules.splits(specs and specs["w_gate"], 0, mesh)
+    router_split = shrules.splits(specs and specs["router"], -1, mesh)
     dt = x.dtype
     b_in, s_in, d = x.shape
     g = cfg.moe_group_size
@@ -203,11 +243,15 @@ def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     e, k = cfg.n_experts, cfg.top_k
     cap = capacity(cfg, s)
 
-    logits, probs, topw, topi = route(params["router"], x, k)
+    logits, probs, topw, topi = route(params["router"], x, k,
+                                      router_split)
 
     buf, slot, order = _dispatch(x, topi, cap, e)
-    if cfg.moe_shard_map_ep and ep_mesh() is not None:
-        out_buf = _expert_compute_shard_map(buf, params, dt)
+    if cfg.moe_shard_map_ep and mesh is not None:
+        out_buf = _expert_compute_shard_map(buf, params, dt,
+                                            experts_split)
+    elif experts_split:
+        out_buf = _local_experts(buf, params, dt)
     else:
         # ``moe_expert_major_dispatch`` is a layout constraint in the
         # JAX package (``constrain`` of the buffer), without a numeric
@@ -221,7 +265,8 @@ def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     y = _combine(out_buf, slot, order, topw, s, k)
 
     if "shared" in params:
-        y = y + mlp_forward(params["shared"], x, cfg.mlp)
+        y = y + mlp_forward(params["shared"], x, cfg.mlp,
+                            specs and specs["shared"])
     if grouped:
         y = y.reshape(b_in, s_in, d)
     if not aux:

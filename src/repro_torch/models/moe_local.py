@@ -27,16 +27,21 @@ import torch.nn.functional as F
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, mlp_forward
 from repro_torch.sharding import rules as shrules
-from repro_torch.sharding.collectives import all_to_all, pmean, shard_map
+from repro_torch.sharding.collectives import (all_to_all, gather_spec, pmean,
+                                              shard_map)
 
 #: whether the fallback to the global path was logged
 _FALLBACK_LOGGED: list = []
 
 
 def moe_forward_local(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                      aux: bool = True):
+                      aux: bool = True, specs=None):
     """``moe.moe_forward`` under a mesh with a "model" axis: x (B, S, d)
-    -> (y, aux dict)."""
+    -> (y, aux dict).  ``specs`` (the sharded serving state): where the
+    experts are this rank's blocks over "model" they enter as they are,
+    and where the router is, its columns are gathered (every rank
+    routes its own tokens over every expert: the in-spec JAX's
+    ``shard_map`` gives it, d x E fp32)."""
     mesh = moe_mod.ep_mesh()
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
@@ -51,7 +56,7 @@ def moe_forward_local(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                   "(the JAX package's fallback)", flush=True)
         return moe_mod.moe_forward(
             params, dataclasses.replace(cfg, moe_local_dispatch=False), x,
-            aux=aux)
+            aux=aux, specs=specs)
 
     all_axes = tuple(mesh.axis_names)
     t_local = tokens // n_dev
@@ -79,19 +84,23 @@ def moe_forward_local(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         zl = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
         return y, pmean(lb, mesh, all_axes), pmean(zl, mesh, all_axes)
 
+    router = params["router"].float()
+    if shrules.splits(specs and specs["router"], -1, mesh):
+        router = gather_spec(router, (None, "model"), mesh)
+    # local experts: sliced out of global weights, or already blocks
+    wspec = None if shrules.splits(specs and specs["w_gate"], 0, mesh) \
+        else ("model", None, None)
     fn = shard_map(body, mesh,
                    in_specs=((all_axes, None),       # tokens over every axis
                              (None, None),           # router replicated
-                             ("model", None, None),  # local experts
-                             ("model", None, None),
-                             ("model", None, None)),
+                             wspec, wspec, wspec),
                    out_specs=((all_axes, None), (), ()))
-    y, lb, zl = fn(x.reshape(tokens, d), params["router"].float(),
-                   params["w_gate"].to(dt), params["w_up"].to(dt),
-                   params["w_down"].to(dt))
+    y, lb, zl = fn(x.reshape(tokens, d), router, params["w_gate"].to(dt),
+                   params["w_up"].to(dt), params["w_down"].to(dt))
     y = y.reshape(b, s, d)
     if "shared" in params:
-        y = y + mlp_forward(params["shared"], x, cfg.mlp)
+        y = y + mlp_forward(params["shared"], x, cfg.mlp,
+                            specs and specs["shared"])
     if not aux:
         return y, {}
     return y, {"moe_lb_loss": lb, "moe_z_loss": zl}

@@ -56,7 +56,32 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, mlp_forward, rms_norm
+from repro_torch.sharding import rules as shrules
+from repro_torch.sharding.collectives import gather_spec, psum
 from repro_torch.tree import map as tree_map
+
+
+def _lookup(embed: torch.Tensor, tokens: torch.Tensor,
+            spec: Optional[tuple] = None) -> torch.Tensor:
+    """The rows of ``tokens`` in ``embed``: where ``spec`` makes it
+    this rank's block of rows over "model", its own tokens' rows, zeros
+    for the others', summed over the ranks (one holds each row, so the
+    sum is exact)."""
+    mesh = shrules.active_mesh()
+    if not shrules.splits(spec, 0, mesh):
+        return embed[tokens]
+    rows = embed.shape[0]
+    local = tokens - mesh.axis_index("model") * rows
+    own = (local >= 0) & (local < rows)
+    out = embed[local.clamp(0, rows - 1)] * own[..., None].to(embed.dtype)
+    return psum(out, mesh, "model")
+
+
+def _unstack(specs):
+    """The specs of one period's slice of stacked leaves: each spec
+    without its leading period axis."""
+    return tree_map(lambda sp: sp[1:], specs,
+                    is_leaf=lambda sp: isinstance(sp, tuple))
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -82,14 +107,19 @@ def _index(tree, j: int):
 
 def _layer_forward(lp: dict, cfg: ModelConfig, kinds: tuple, x,
                    positions, layer_cache, cache_len, plan,
-                   block_tables=None, impl="auto", aux=False, gather=None):
+                   block_tables=None, impl="auto", aux=False, gather=None,
+                   specs=None):
     """One layer of ``kinds`` (``cfg.block_kind(i)``,
     ``cfg.ffn_kind(i)``): (x, its MoE aux losses, empty for a dense FFN
     or without ``aux``).  ``gather`` (FSDP): the layer's global weights
     from its blocks ``lp``, gathered here so that a checkpointed layer
-    gathers them again in its recompute and frees them after it."""
+    gathers them again in its recompute and frees them after it.
+    ``specs`` (the sharded serving state): the layer's leaves' specs,
+    which say the sublayers which of ``lp``'s leaves are model-axis
+    blocks."""
     if gather is not None:
         lp = gather(lp)
+    specs = specs or {}
     kind, ffn_kind = kinds
     h = rms_norm(x, lp["pre_norm"])
     if kind == "mamba":
@@ -106,14 +136,15 @@ def _layer_forward(lp: dict, cfg: ModelConfig, kinds: tuple, x,
             lp["attn"], cfg, h, positions,
             cache=None if layer_cache is None else layer_cache["attn"],
             cache_len=cache_len, block_tables=block_tables, plan=plan,
-            residual=x, impl=impl)
+            residual=x, impl=impl, specs=specs.get("attn"))
     if "ffn_norm" not in lp:
         return x, {}                # pure mamba2: no FFN sublayer
     h = rms_norm(x, lp["ffn_norm"])
     if ffn_kind == "moe" and "moe" in lp:
-        h, layer_aux = moe_mod.moe_forward(lp["moe"], cfg, h, aux=aux)
+        h, layer_aux = moe_mod.moe_forward(lp["moe"], cfg, h, aux=aux,
+                                           specs=specs.get("moe"))
         return x + h, layer_aux
-    return x + mlp_forward(lp["mlp"], h, cfg.mlp), {}
+    return x + mlp_forward(lp["mlp"], h, cfg.mlp, specs.get("mlp")), {}
 
 
 #: the products ``"dots"`` keeps: JAX's dot_general without batch
@@ -157,8 +188,13 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
     ``kernels.ops`` impl of every attention and SSD call (``torch``
     forces the plain versions on the card).  ``fsdp``: a
     ``sharding.fsdp.FSDP`` whose blocks ``params`` are (training on a
-    data mesh): each layer's weights, the embedding, the unembedding and
-    the final norm are gathered at their use.
+    data mesh, or the sharded serving state): each layer's weights, the
+    embedding, the unembedding and the final norm are gathered over the
+    data axes at their use; the serving state's model-axis blocks stay
+    blocks, each layer told by its specs which.  A vocabulary block
+    (``embed``/``lm_head`` rows over "model") looks up this rank's
+    tokens, zeros the others and ``psum``s the rows, and its logits are
+    gathered over "model"; the norms are whole on every rank.
     Returns logits (B, S_f + S, vocab), plus the cache (updated in
     place) when one is given, plus, with ``return_aux``, the MoE
     auxiliary losses summed over the layers (fp32 zeros for a stack
@@ -169,13 +205,17 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
     def use(key):
         if fsdp is None:
             return params[key]
-        return fsdp.gather(params[key], fsdp.specs[key])
+        return fsdp.gather(params[key], fsdp.gathered[key])
+
+    # the serving state's specs: which leaves are model-axis blocks
+    specs = fsdp.specs if fsdp is not None and fsdp.serve else None
 
     parts = []
     if embeds is not None:
         parts.append(embeds.to(dt) @ use("frontend_proj").to(dt))
     if tokens is not None:
-        parts.append(use("embed").to(dt)[tokens])
+        parts.append(_lookup(use("embed").to(dt), tokens,
+                             specs and specs["embed"]))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     b, s, _ = x.shape
     if positions is None:
@@ -189,44 +229,53 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
     remat = _remat(cfg) if cache is None and torch.is_grad_enabled() \
         else None
 
-    def layer(i, lp, lc, x, gather):
+    def layer(i, lp, lc, x, gather, ls=None):
         kind = (cfg.block_kind(i), cfg.ffn_kind(i))
         if remat is not None:
             return checkpoint(_layer_forward, lp, cfg, kind, x, positions,
                               None, None, plan, None, impl, return_aux,
-                              gather, **remat)
+                              gather, ls, **remat)
         return _layer_forward(lp, cfg, kind, x, positions, lc, cache_len,
-                              plan, block_tables, impl, return_aux, gather)
+                              plan, block_tables, impl, return_aux, gather,
+                              ls)
 
     if fsdp is None:
         prefix_gather = [None] * len(params["prefix_layers"])
         body_gather = [None] * cfg.layer_period
     else:
         prefix_gather = [functools.partial(fsdp.gather_tree, specs=s)
-                         for s in fsdp.specs["prefix_layers"]]
+                         for s in fsdp.gathered["prefix_layers"]]
         # a stacked leaf's spec leads with its period axis's None
-        body_gather = [functools.partial(fsdp.gather_tree, specs=tree_map(
-            lambda sp: sp[1:], s, is_leaf=lambda sp: isinstance(sp, tuple)))
-            for s in fsdp.specs["layers"]]
+        body_gather = [functools.partial(fsdp.gather_tree, specs=_unstack(s))
+                       for s in fsdp.gathered["layers"]]
+    prefix_specs = [None] * len(params["prefix_layers"]) if specs is None \
+        else specs["prefix_layers"]
+    body_specs = [None] * cfg.layer_period if specs is None \
+        else [_unstack(s) for s in specs["layers"]]
 
     aux = []                            # each layer's aux losses
     for i, lp in enumerate(params["prefix_layers"]):
         x, la = layer(i, lp, None if cache is None else cache["prefix"][i],
-                      x, prefix_gather[i])
+                      x, prefix_gather[i], prefix_specs[i])
         aux.append(la)
     for j in range(cfg.n_periods):
         for pos in range(cfg.layer_period):
             lc = None if cache is None else _index(cache["scan"][pos], j)
             x, la = layer(cfg.first_dense_layers + pos,
                           _index(params["layers"][pos], j), lc, x,
-                          body_gather[pos])
+                          body_gather[pos], body_specs[pos])
             aux.append(la)
 
     x = rms_norm(x, use("final_norm"))
-    if "lm_head" in params:
-        logits = x @ use("lm_head").to(dt)
-    else:
-        logits = x @ use("embed").to(dt).T
+    head = use("lm_head").to(dt) if "lm_head" in params \
+        else use("embed").to(dt).T
+    logits = x @ head
+    head_spec = None if specs is None else (
+        specs["lm_head"] if "lm_head" in params else specs["embed"][::-1])
+    if shrules.splits(head_spec, 1, shrules.active_mesh()):
+        # this rank's vocabulary columns: every rank's, in rank order
+        logits = gather_spec(logits, (None, None, "model"),
+                             shrules.active_mesh())
     out = [logits] if cache is None else [logits, cache]
     if return_aux:
         zero = torch.zeros((), dtype=torch.float32, device=x.device)

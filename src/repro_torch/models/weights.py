@@ -39,26 +39,47 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, resolve_device
-from repro_torch.models.transformer import check_ported
+from repro_torch.models import transformer as tf
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.tree import map as tree_map
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device="cuda", dtype=None):
+def params_from_numpy(tree, cfg: ModelConfig, device="cuda", dtype=None,
+                      *, fsdp=None):
     """The JAX parameter tree (leaves already ``np.asarray``'d by the
     caller) as tensors on ``device``, same structure.  ``dtype`` casts
     the floating leaves but the MoE router, which stays fp32 as the
     JAX package keeps it; default: keep each leaf's dtype (numpy's
-    bfloat16 extension type becomes torch.bfloat16 exactly)."""
-    dev = resolve_device(device)
-    check_ported(cfg)
+    bfloat16 extension type becomes torch.bfloat16 exactly).  ``fsdp``
+    (a ``sharding.fsdp.FSDP``): each leaf becomes this rank's block
+    under its spec, cut on the host, so no whole leaf reaches
+    ``device``."""
+    from repro_torch.sharding.rules import block_index, shard_shape
 
-    def conv(x, key=None):
+    dev = resolve_device(device)
+
+    def block(arr, spec):
+        """This rank's block of ``arr`` under ``spec`` (a numpy view)."""
+        mesh = fsdp.mesh
+        local = shard_shape(arr.shape, spec, mesh)
+        cut = []
+        for i, entry in enumerate(spec):
+            idx, _ = block_index(entry, mesh, mesh.coords)
+            cut.append(slice(idx * local[i], (idx + 1) * local[i]))
+        return arr[tuple(cut)]
+
+    tf.check_ported(cfg)
+
+    def conv(x, key=None, spec=None):
         if isinstance(x, dict):
-            return {k: conv(v, k) for k, v in x.items()}
+            return {k: conv(v, k, None if spec is None else spec[k])
+                    for k, v in x.items()}
         if isinstance(x, (list, tuple)):
-            return [conv(v) for v in x]
+            return [conv(v, None, None if spec is None else spec[i])
+                    for i, v in enumerate(x)]
         arr = np.asarray(x)
+        if spec is not None:
+            arr = block(arr, spec)
         if arr.dtype.name == "bfloat16":
             t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
         else:
@@ -67,7 +88,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda", dtype=None):
             t = t.to(dtype)
         return t.to(dev)
 
-    return conv(tree)
+    return conv(tree, spec=None if fsdp is None else fsdp.specs)
 
 
 def _stacked(shape, lead: int, generator, device, dtype,
@@ -122,7 +143,7 @@ def draw_order(cfg: ModelConfig) -> tuple:
 
 def _init_params(cfg: ModelConfig, generator, dev, cuts, made) -> dict:
     """:func:`init_params`, appending each tensor made to ``made``."""
-    check_ported(cfg)
+    tf.check_ported(cfg)
     if cfg.n_periods < 1:
         raise ValueError(
             f"{cfg.name}: no layer follows the dense prefix (n_layers "
@@ -244,7 +265,7 @@ def param_axes(cfg: ModelConfig) -> dict:
     tree of the same structure with a tuple of axis names per leaf: the
     axes tree the JAX package's ``init_params_and_axes`` returns (a
     stacked ``layers`` leaf gains a leading None)."""
-    check_ported(cfg)
+    tf.check_ported(cfg)
     p = {"embed": ("vocab", "embed"),
          "prefix_layers": [_layer_axes(cfg, i)
                            for i in range(cfg.first_dense_layers)],

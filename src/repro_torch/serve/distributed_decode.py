@@ -18,9 +18,13 @@ depth, applies its slice of the output projection, and the ranks'
 of the DSE's head->core allocation (``launch/mesh_lowering.py``).
 
 The per-rank partial is plain PyTorch in fp32, as the JAX package's
-``_local_partial`` is plain jnp (no Pallas kernel).  The bodies run
-through ``sharding.collectives.shard_map`` on the global tensors every
-rank holds.
+``_local_partial`` is plain jnp (no Pallas kernel).  Both functions
+take this rank's blocks, the blocks of the sharded serving state
+(``serve/layout.py``): the body of JAX's
+``shard_map``, with no slicing of whole tensors.  The refusals of a
+head count or a ``max_len`` the axis does not divide are
+:func:`check_head_parallel` and :func:`check_seq_sharded`, which the
+serving layout applies to the global shapes before any block exists.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.sharding import rules as shrules
-from repro_torch.sharding.collectives import pmax, psum, shard_map
+from repro_torch.sharding.collectives import pmax, psum
 
 NEG_INF = -1e30
 
@@ -58,22 +62,37 @@ def _local_partial(q, k, v, first_col: int, lengths, scale: float):
     return o, m, l
 
 
-def _batch_spec(mesh):
-    """The batch dim's spec entry: the mesh's (pod, data) axes."""
-    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
-    if len(batch_axes) > 1:
-        return batch_axes
-    return batch_axes[0] if batch_axes else None
+def check_seq_sharded(seq: int, n_shards: int, axis: str = "model") -> None:
+    """Raise unless a cache of ``seq`` time columns splits over the
+    ``n_shards`` ranks of ``axis``."""
+    if seq % n_shards:
+        raise ValueError(f"sequence-sharded decode needs the cache's "
+                         f"max_len {seq} divisible by the {axis!r} axis "
+                         f"({n_shards} ranks)")
+
+
+def check_head_parallel(hq: int, hkv: int, n_shards: int,
+                        axis: str = "model") -> None:
+    """Raise unless ``hq`` query and ``hkv`` KV heads split over the
+    ``n_shards`` ranks of ``axis`` (a head group must not straddle
+    ranks)."""
+    if hq % n_shards or hkv % n_shards:
+        raise ValueError(
+            f"head-parallel decode needs heads divisible by the "
+            f"{axis!r} axis: Hq={hq}, Hkv={hkv}, shards={n_shards}")
 
 
 def distributed_decode_attention(q, k, v, lengths, *,
                                  scale: Optional[float] = None,
                                  axis: str = "model", plan=None):
     """Exact attention over a cache whose time dim is sharded over
-    ``axis``, the ranks' partial softmax states combined.  q: (B, Hq,
-    S1, D); k, v: (B, Hkv, S, D); lengths: (B,) per-row valid lengths (a
-    rank wholly past a row's prefix contributes a zeroed partial).
-    Needs an active mesh; S must divide over ``axis``.
+    ``axis``, the ranks' partial softmax states combined.  This rank's
+    blocks: q (B, Hq, S1, D), every head; k, v (B, Hkv, S/n, D), its
+    time columns (rank i holds columns i·S/n onward); lengths (B,)
+    per-row valid lengths (a rank wholly past a row's prefix
+    contributes a zeroed partial).  B is this rank's rows.  Needs an
+    active mesh.  Returns (B, Hq, S1, Dv), the same on every rank of
+    ``axis``.
 
     ``plan`` (a ``lower.runtime.PlanDispatch``): annotated, not
     consulted; the per-rank partial is the streamed score pipeline, so
@@ -89,37 +108,17 @@ def distributed_decode_attention(q, k, v, lengths, *,
             f"distributed decode over axis {axis!r}: cross-shard "
             "traffic is the (m, l, o) partial-softmax triple only")
     mesh = shrules.active_mesh()
-    b, hq, sq, d = q.shape
-    hkv, seq = k.shape[1], k.shape[2]
-    dv = v.shape[3]
+    bl, hq, sq, d = q.shape
+    sl, dv = k.shape[2], v.shape[3]
     scale = scale if scale is not None else d ** -0.5
-    n_shards = shrules.mesh_sizes(mesh)[axis]
-    if seq % n_shards:
-        raise ValueError(f"sequence-sharded decode needs the cache's "
-                         f"max_len {seq} divisible by the {axis!r} axis "
-                         f"({n_shards} ranks)")
-    sl = seq // n_shards
-
-    def per_shard(q, k, v, lengths):
-        bl = q.shape[0]
-        idx = mesh.axis_index(axis)
-        o, m, l = _local_partial(q, k, v, idx * sl, lengths, scale)
-        m_star = pmax(m, mesh, axis)
-        w = torch.exp(m - m_star)
-        o = psum(o * w[..., None], mesh, axis)
-        l = psum(l * w, mesh, axis)
-        l = torch.where(l == 0.0, torch.ones_like(l), l)
-        out = (o / l[..., None]).reshape(bl, hq, sq, dv)
-        return out.to(q.dtype)
-
-    bspec = _batch_spec(mesh)
-    fn = shard_map(per_shard, mesh,
-                   in_specs=((bspec, None, None, None),
-                             (bspec, None, axis, None),
-                             (bspec, None, axis, None),
-                             (bspec,)),
-                   out_specs=(bspec, None, None, None))
-    return fn(q, k, v, lengths)
+    o, m, l = _local_partial(q, k, v, mesh.axis_index(axis) * sl, lengths,
+                             scale)
+    m_star = pmax(m, mesh, axis)
+    w = torch.exp(m - m_star)
+    o = psum(o * w[..., None], mesh, axis)
+    l = psum(l * w, mesh, axis)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (o / l[..., None]).reshape(bl, hq, sq, dv).to(q.dtype)
 
 
 def head_parallel_decode_attention(q, k, v, lengths, wo, *,
@@ -127,21 +126,15 @@ def head_parallel_decode_attention(q, k, v, lengths, wo, *,
                                    axis: str = "model", plan=None):
     """Head-partitioned decode step: each rank along ``axis`` owns a
     contiguous slice of heads, runs their full-depth attention, applies
-    its slice of ``wo`` (Hq, Dv, d_model), and the ranks' (B, S,
-    d_model) partials are summed with one ``psum``.  Returns that sum
-    (the caller adds the residual).  q: (B, Hq, S1, D); k, v: (B, Hkv,
-    S, D), full depth.  Raises ValueError where the axis does not
-    divide both Hq and Hkv (a head group must not straddle ranks)."""
+    its slice of ``wo``, and the ranks' (B, S, d_model) partials are
+    summed with one ``psum``.  Returns that sum (the caller adds the
+    residual).  This rank's blocks: q (B, Hq/n, S1, D); k, v (B, Hkv/n,
+    S, D), full depth; wo (Hq/n, Dv, d_model); lengths (B,).  The head
+    counts' divisibility is :func:`check_head_parallel`'s."""
     mesh = shrules.active_mesh()
-    b, hq, sq, d = q.shape
-    hkv = k.shape[1]
+    bl, hq_local, sq, d = q.shape
     dv = v.shape[3]
     scale = scale if scale is not None else d ** -0.5
-    n_shards = shrules.mesh_sizes(mesh)[axis]
-    if hq % n_shards or hkv % n_shards:
-        raise ValueError(
-            f"head-parallel decode needs heads divisible by the "
-            f"{axis!r} axis: Hq={hq}, Hkv={hkv}, shards={n_shards}")
     if plan is not None:
         if plan.path != "fused_attention":
             plan.plan.record_downgrade(
@@ -151,21 +144,8 @@ def head_parallel_decode_attention(q, k, v, lengths, wo, *,
         plan.plan.note(
             f"head-parallel decode over axis {axis!r}: cross-shard "
             "traffic is one (B, S, d_model) output partial per shard")
-
-    def per_shard(q, k, v, lengths, wo):
-        bl, hq_local = q.shape[0], q.shape[1]
-        o, m, l = _local_partial(q, k, v, 0, lengths, scale)
-        l = torch.where(l == 0.0, torch.ones_like(l), l)
-        o = (o / l[..., None]).reshape(bl, hq_local, sq, dv)
-        out = torch.einsum("bhse,hed->bsd", o, wo.float())
-        return psum(out, mesh, axis)
-
-    bspec = _batch_spec(mesh)
-    fn = shard_map(per_shard, mesh,
-                   in_specs=((bspec, axis, None, None),
-                             (bspec, axis, None, None),
-                             (bspec, axis, None, None),
-                             (bspec,),
-                             (axis, None, None)),
-                   out_specs=(bspec, None, None))
-    return fn(q, k, v, lengths, wo).to(q.dtype)
+    o, m, l = _local_partial(q, k, v, 0, lengths, scale)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = (o / l[..., None]).reshape(bl, hq_local, sq, dv)
+    out = torch.einsum("bhse,hed->bsd", o, wo.float())
+    return psum(out, mesh, axis).to(q.dtype)

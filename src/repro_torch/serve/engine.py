@@ -56,6 +56,22 @@ on ``k.shape[2]``, so its decode path does not change with the
 context.  ``rollback_slot`` and the paged engine refuse the hybrid, as
 they refuse any config with Mamba-2 layers.
 
+On a mesh of more than one rank with ``head_parallel_decode`` or
+``distributed_decode`` set (``sharding.set_rules_for_mesh``), the engine
+serves the sharded serving state (``serve/layout.py``): its weights
+are this rank's blocks of JAX's ``param_shardings``, which it checks,
+and it allocates only this rank's block of each K/V leaf,
+the batch over the data axes and over "model" the time columns
+(``distributed_decode``, JAX's ``decode_state_shardings``) or the KV
+heads (``head_parallel_decode``); ``cache_len`` and ``last_token`` are
+whole on every rank.  Every rank runs every step: a B=1 prefill on
+every rank (its batch does not divide), a decode step on the rank's
+rows, whose logits are gathered over the data axes.  ``insert`` writes
+a slot's row on the rank that holds it, ``preempt`` gathers the row's
+blocks from it.  The paged engine refuses such a mesh, as the JAX
+package refuses paged KV under a mesh path.  A mesh with neither flag
+serves the whole state on every rank.
+
 Fault tolerance (``serve/supervisor.py``) rests on three properties of
 the engine, as in the JAX package.  A prefill step is retry-safe: the
 completions of a step whose later chunk raised wait on
@@ -82,6 +98,8 @@ from repro_torch.lower import rung_down, serving_plan
 from repro_torch.lower.runtime import shape_dispatch
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig, resolve_device
+from repro_torch.serve import layout as sl
+from repro_torch.sharding.rules import active_mesh
 
 
 @dataclasses.dataclass
@@ -100,11 +118,21 @@ def make_serving_plan(cfg: ModelConfig, max_len: int, *, device="cuda",
                         page_size=page_size)
 
 
+def _model_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                 device, fsdp=None) -> dict:
+    """Zeroed caches: the whole tree, or this rank's blocks of it."""
+    if fsdp is None:
+        return tf.init_model_cache(cfg, batch, max_len, dtype, device)
+    return sl.cache_blocks(fsdp, cfg, batch, max_len, dtype, device)
+
+
 def init_decode_state(cfg: ModelConfig, batch: int,
                       max_len: Optional[int] = None,
                       dtype=torch.bfloat16, *, plan=None,
-                      device="cuda") -> DecodeState:
-    """Allocate the cache state; ``max_len`` may come from the plan."""
+                      device="cuda", fsdp=None) -> DecodeState:
+    """Allocate the cache state; ``max_len`` may come from the plan.
+    ``fsdp`` (the sharded serving state's layout): only this rank's
+    block of each cache leaf; ``cache_len`` and ``last_token`` whole."""
     dev = resolve_device(device)
     if max_len is None:
         if plan is None:
@@ -115,7 +143,7 @@ def init_decode_state(cfg: ModelConfig, batch: int,
             f"cache max_len {max_len} exceeds the plan's {plan.max_len}: "
             "contexts past the last plan bucket would be unplanned")
     return DecodeState(
-        cache=tf.init_model_cache(cfg, batch, max_len, dtype, dev),
+        cache=_model_cache(cfg, batch, max_len, dtype, dev, fsdp),
         cache_len=torch.zeros(batch, dtype=torch.int32, device=dev),
         last_token=torch.zeros(batch, dtype=torch.int32, device=dev))
 
@@ -125,27 +153,30 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
 
 
 def prefill(params, cfg: ModelConfig, tokens, state: DecodeState, *,
-            embeds=None, plan=None, impl: str = "auto") -> DecodeState:
+            embeds=None, plan=None, impl: str = "auto",
+            fsdp=None) -> DecodeState:
     """Run the whole prompt at once, filling the caches.  ``embeds``
     (B, S_f, frontend_dim): a stub frontend's rows, placed before the
     ``tokens`` (either may be None); the plan's prefill dispatch and
-    the new ``cache_len`` count the rows of both.  ``impl``: as
-    :func:`decode_step`'s."""
+    the new ``cache_len`` count the rows of both.  ``impl`` and
+    ``fsdp``: as :func:`decode_step`'s; under ``fsdp`` the batch must
+    not split over the data axes (the engine prefills B=1 states)."""
     rows = sum(t.shape[1] for t in (embeds, tokens) if t is not None)
     dispatch = None if plan is None else plan.prefill_dispatch(rows)
     logits, cache = tf.forward(params, cfg, tokens, embeds,
                                cache=state.cache, cache_len=0,
-                               plan=dispatch, impl=impl)
+                               plan=dispatch, impl=impl, fsdp=fsdp)
     return DecodeState(cache=cache,
                        cache_len=torch.full_like(state.cache_len, rows),
                        last_token=greedy_sample(logits))
 
 
 def chunked_prefill(params, cfg: ModelConfig, tokens, state: DecodeState,
-                    *, chunk_size: int, plan=None) -> DecodeState:
+                    *, chunk_size: int, plan=None,
+                    fsdp=None) -> DecodeState:
     """Prefill in ``chunk_size``-token chunks, re-resolving the plan per
     chunk: the first chunk is plain prefill, later chunks the KV-cached
-    regime."""
+    regime.  ``fsdp``: as :func:`prefill`'s."""
     s = tokens.shape[1]
     cache, logits = state.cache, None
     for start in range(0, s, chunk_size):
@@ -153,7 +184,8 @@ def chunked_prefill(params, cfg: ModelConfig, tokens, state: DecodeState,
         dispatch = None if plan is None else plan.chunk_dispatch(
             start + piece.shape[1], piece.shape[1])
         logits, cache = tf.forward(params, cfg, piece, cache=cache,
-                                   cache_len=start, plan=dispatch)
+                                   cache_len=start, plan=dispatch,
+                                   fsdp=fsdp)
     return DecodeState(cache=cache,
                        cache_len=torch.full_like(state.cache_len, s),
                        last_token=greedy_sample(logits))
@@ -161,7 +193,7 @@ def chunked_prefill(params, cfg: ModelConfig, tokens, state: DecodeState,
 
 def decode_step(params, cfg: ModelConfig, state: DecodeState, *,
                 plan=None, dispatch=None, active=None, block_tables=None,
-                impl: str = "auto"):
+                impl: str = "auto", fsdp=None):
     """One token for every row.  ``dispatch``: a pre-resolved
     PlanDispatch (``ServingPlan.step_dispatch`` over host-side lengths),
     else resolved from ``plan`` and the state.  ``active``: (B,) bool;
@@ -169,14 +201,23 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState, *,
     ``block_tables``: the (B, max_pages) page table when ``state`` is
     paged; the state's type is kept either way.  ``impl``: the
     ``kernels.ops`` impl of every call (``torch`` forces the plain
-    versions).  Returns (new state, last-position logits (B, vocab))."""
+    versions).  ``fsdp``: the sharded serving state's layout, whose
+    blocks ``params`` and ``state.cache`` are: the step runs on this
+    rank's rows (all of them unless the batch splits over the data
+    axes), and their logits are gathered.  Returns (new state,
+    last-position logits (B, vocab))."""
     if dispatch is None and plan is not None:
         dispatch = plan.decode_dispatch(
             plan.concrete_ctx(state.cache_len) + 1)
-    logits, cache = tf.forward(params, cfg, state.last_token[:, None],
-                               cache=state.cache,
-                               cache_len=state.cache_len, plan=dispatch,
-                               block_tables=block_tables, impl=impl)
+    batch = state.cache_len.shape[0]
+    first, rows = (0, batch) if fsdp is None \
+        else sl.batch_block(fsdp, batch)
+    logits, cache = tf.forward(
+        params, cfg, state.last_token[first:first + rows, None],
+        cache=state.cache, cache_len=state.cache_len[first:first + rows],
+        plan=dispatch, block_tables=block_tables, impl=impl, fsdp=fsdp)
+    if rows != batch:
+        logits = sl.gather_rows(fsdp, logits, batch)
     nxt = greedy_sample(logits)
     step = torch.ones_like(state.cache_len)
     if active is not None:
@@ -205,17 +246,23 @@ def prefill_request(params, cfg: ModelConfig, prompt, *,
                     max_len: Optional[int] = None, plan=None,
                     chunk_size: Optional[int] = None,
                     dtype=torch.float32, device="cuda") -> PrefillResult:
-    """Prefill one request on the side (B=1) for ``insert``."""
+    """Prefill one request on the side (B=1) for ``insert``.  Under the
+    sharded serving state (``params`` its blocks) the side cache is
+    this rank's blocks too."""
     dev = resolve_device(device)
     toks = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
                            device=dev).reshape(1, -1)
+    layout = sl.serving_layout(cfg)
+    if layout is not None:
+        layout.check_blocks(params)
     state = init_decode_state(cfg, 1, max_len, dtype, plan=plan,
-                              device=dev)
+                              device=dev, fsdp=layout)
     if chunk_size is None:
-        state = prefill(params, cfg, toks, state, plan=plan)
+        state = prefill(params, cfg, toks, state, plan=plan, fsdp=layout)
     else:
         state = chunked_prefill(params, cfg, toks, state,
-                                chunk_size=chunk_size, plan=plan)
+                                chunk_size=chunk_size, plan=plan,
+                                fsdp=layout)
     return PrefillResult(cache=state.cache, length=toks.shape[1],
                          next_token=int(state.last_token[0]))
 
@@ -249,15 +296,20 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
     return t.to("cpu", copy=True)
 
 
-def insert(state: DecodeState, result: PrefillResult,
-           slot: int) -> DecodeState:
+def insert(state: DecodeState, result: PrefillResult, slot: int, *,
+           rows: Optional[tuple] = None) -> DecodeState:
     """Write a prefilled request into batch row ``slot`` (cache rows,
     write position, last token), in place; other rows are untouched.
     Every cache leaf is written, a mamba layer's SSM state too, cast to
-    the batch leaf's dtype (the state stays fp32)."""
-    for (full, axis), (row, _) in zip(_rows(state.cache),
-                                      _rows(result.cache)):
-        full.select(axis, slot).copy_(row.select(axis, 0))
+    the batch leaf's dtype (the state stays fp32).  ``rows``: (first,
+    count) of the batch rows this rank's cache blocks hold (the sharded
+    serving state); a rank that does not hold ``slot`` writes only its
+    position and token."""
+    first, count = rows or (0, state.cache_len.shape[0])
+    if first <= slot < first + count:
+        for (full, axis), (row, _) in zip(_rows(state.cache),
+                                          _rows(result.cache)):
+            full.select(axis, slot - first).copy_(row.select(axis, 0))
     state.cache_len[slot] = result.length
     state.last_token[slot] = result.next_token
     return state
@@ -301,6 +353,14 @@ class ContinuousBatchingEngine:
         self.batch_size, self.max_len = batch_size, max_len
         self.dtype, self.device = dtype, resolve_device(device)
         self.prefill_chunk, self.impl = prefill_chunk, impl
+        #: the sharded serving state's layout under the active mesh
+        #: (None: the whole state on this rank)
+        self.layout = sl.serving_layout(cfg)
+        if self.layout is not None:
+            self.layout.check_blocks(params)
+        #: (first, count) of the batch rows this rank's caches hold
+        self.rows = (0, batch_size) if self.layout is None \
+            else sl.batch_block(self.layout, batch_size)
         self.state = self._init_state()
         self.row_ctx = [0] * batch_size   # host mirror of cache_len
         self.live = [False] * batch_size
@@ -323,7 +383,7 @@ class ContinuousBatchingEngine:
     def _init_state(self):
         return init_decode_state(self.cfg, self.batch_size, self.max_len,
                                  self.dtype, plan=self.plan,
-                                 device=self.device)
+                                 device=self.device, fsdp=self.layout)
 
     def free_slots(self) -> list:
         return [i for i in range(self.batch_size)
@@ -340,8 +400,8 @@ class ContinuousBatchingEngine:
         if toks.shape[1] > self.max_len:
             raise ValueError(f"prompt ({toks.shape[1]} tokens) exceeds "
                              f"cache max_len {self.max_len}")
-        side = tf.init_model_cache(self.cfg, 1, self.max_len, self.dtype,
-                                   self.device)
+        side = _model_cache(self.cfg, 1, self.max_len, self.dtype,
+                            self.device, self.layout)
         self._pending[slot] = {"tokens": toks, "pos": 0, "cache": side}
 
     def _advance_prefills(self) -> list:
@@ -362,7 +422,8 @@ class ContinuousBatchingEngine:
                     piece.shape[1], p["pos"] + piece.shape[1]))
             logits, p["cache"] = tf.forward(
                 self.params, self.cfg, piece, cache=p["cache"],
-                cache_len=p["pos"], plan=dispatch, impl=self.impl)
+                cache_len=p["pos"], plan=dispatch, impl=self.impl,
+                fsdp=self.layout)
             p["pos"] += piece.shape[1]
             if p["pos"] >= total:
                 self.prefill_logits[slot] = logits[0, -1]
@@ -377,7 +438,7 @@ class ContinuousBatchingEngine:
         return inserted
 
     def _insert(self, res: PrefillResult, slot: int) -> None:
-        insert(self.state, res, slot)
+        insert(self.state, res, slot, rows=self.rows)
 
     def _before_decode(self) -> None:
         """Hook run right before each decode launch (the paged engine
@@ -447,7 +508,7 @@ class ContinuousBatchingEngine:
             self.params, self.cfg, self.state, dispatch=dispatch,
             active=torch.tensor(self.live, device=self.device),
             block_tables=getattr(self.state, "block_tables", None),
-            impl=self.impl)
+            impl=self.impl, fsdp=self.layout)
         self._inject_nan()
         for i in range(self.batch_size):
             if self.live[i]:
@@ -486,14 +547,29 @@ class ContinuousBatchingEngine:
         re-enter a free slot (the paged engine checks its pages)."""
         return True
 
+    def _row(self, t: torch.Tensor, axis: int, slot: int) -> torch.Tensor:
+        """Row ``slot`` of the cache leaf ``t`` (batch along ``axis``):
+        under a batch split over the data axes, every rank gets it from
+        the rank that holds it (each rank's row at the same local index,
+        gathered)."""
+        first, count = self.rows
+        if count == self.batch_size:
+            return t.narrow(axis, slot, 1)
+        mine = t.narrow(axis, slot % count, 1)
+        every = sl.gather_rows(self.layout, mine, self.batch_size,
+                               dim=axis)
+        return every.narrow(axis, slot // count, 1)
+
     def preempt(self, slot: int) -> "PreemptedRequest":
         """Snapshot row ``slot``'s cache rows and position to host
         memory and free the lane: the dense twin of the paged engine's
-        verb."""
+        verb.  Under the sharded serving state the snapshot holds this
+        rank's blocks of the row (and every rank gets the row from the
+        rank that holds it)."""
         if not self.live[slot]:
             raise ValueError(f"slot {slot} is not live")
         kv = _map_leaves(self.state.cache, lambda t, axis: _host_copy(
-            t.narrow(axis, slot, 1)))
+            self._row(t, axis, slot)))
         pre = PreemptedRequest(
             kv=kv, n_pages=0, length=self.row_ctx[slot],
             last_token=int(self.state.last_token[slot]))
@@ -643,6 +719,10 @@ def _check_paged_cfg(cfg: ModelConfig) -> None:
                 "paged KV pools cover GQA attention caches only "
                 f"(layer {i} is {cfg.block_kind(i)!r})")
     tf.check_ported(cfg)
+    if sl.sharded_serving(cfg, active_mesh()):
+        raise NotImplementedError(
+            "paged KV does not compose with the distributed decode paths "
+            "yet")
 
 
 def init_paged_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,

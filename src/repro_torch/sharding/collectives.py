@@ -11,11 +11,14 @@ this backward).  :func:`gather_spec` and its transpose
 :func:`reduce_scatter` are plain functions, which FSDP's differentiable
 gather (``sharding/fsdp.py``) is built from.
 
-:func:`shard_map` is JAX's ``shard_map`` over a port mesh, where every
-rank holds the global tensors (the state outside the bodies is
-replicated, as ``shard_map``'s global arrays are).  Each argument enters
-the body as this rank's block under its in-spec; each output leaves it
-all-gathered over the axes its out-spec names.  Their backwards are the
+:func:`shard_map` is JAX's ``shard_map`` over a port mesh, for the
+paths whose arguments are global tensors on every rank (activations,
+which every rank computes whole, and the training paths' weights).
+Each such argument enters the body as this rank's block under its
+in-spec; an argument that is already this rank's block (the sharded
+serving state's weights, ``sharding/fsdp.py``) enters as it is, under
+an in-spec of None.  Each output leaves the body all-gathered over the
+axes its out-spec names.  Their backwards are the
 transpose rules of JAX's ``shard_map``: an input's cotangent is
 gathered over its spec's axes and summed (``psum``) over the mesh axes
 its spec leaves out; an output's cotangent is sliced to this rank's
@@ -34,7 +37,7 @@ all-to-alls move raw bytes.
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -256,17 +259,20 @@ def _full_spec(spec, ndim: int) -> tuple:
     return spec + (None,) * (ndim - len(spec))
 
 
-def shard_map(fn: Callable, mesh, in_specs: Sequence[tuple], out_specs):
+def shard_map(fn: Callable, mesh, in_specs: Sequence[Optional[tuple]],
+              out_specs):
     """``fn`` run on this rank's blocks of its global arguments (one
-    spec each); its output, a tensor (``out_specs`` its spec) or a tuple
-    of tensors (``out_specs`` a tuple of specs), all-gathered back to
-    global tensors.  A mesh of one rank calls ``fn`` on the arguments
+    spec each; None: the argument is this rank's block already); its
+    output, a tensor (``out_specs`` its spec) or a tuple of tensors
+    (``out_specs`` a tuple of specs), all-gathered back to global
+    tensors.  A mesh of one rank calls ``fn`` on the arguments
     themselves."""
 
     def run(*args):
         if mesh.size == 1:
             return fn(*args)
-        local = [_Enter.apply(x, _full_spec(spec, x.ndim), mesh)
+        local = [x if spec is None else
+                 _Enter.apply(x, _full_spec(spec, x.ndim), mesh)
                  for x, spec in zip(args, in_specs)]
         outs = fn(*local)
         if isinstance(outs, torch.Tensor):

@@ -18,6 +18,13 @@ gradient tree never exists on one rank.  A replicated leaf's gather is
 the identity, and its backward the same mean (an all-reduce).
 :meth:`FSDP.init` draws the random parameters as blocks, each slice cut
 as soon as it is drawn, so no rank ever holds the whole tree.
+
+The same class holds the serving state's blocks (``FSDP(...,
+serve=True)``): each leaf keeps its whole ``param_shardings`` spec, so
+the model-axis blocks (``heads``, ``mlp``, ``vocab``, ``experts``) stay
+blocks for the model to consume, and ``gathered`` keeps the data-axis
+part that ``forward`` gathers at use.  Which configs serve so, and the
+decode caches' blocks, are the serving layer's (``serve/layout.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import math
 import torch
 
 from repro_torch import tree
-from repro_torch.models.weights import draw_order, init_params
+from repro_torch.models import weights as mw
 from repro_torch.sharding.collectives import (gather_spec, psum,
                                               reduce_scatter)
 from repro_torch.sharding.rules import (NamedSharding, data_axes, is_axes,
@@ -78,19 +85,30 @@ def held_bytes(t) -> int:
 
 
 class FSDP:
-    """The blocks of a parameter tree on ``mesh``'s data axes (of more
-    than one rank).  ``axes``: the tree's logical axes
-    (``models.weights.param_axes``); ``like``: a tree of the same
-    structure whose leaves have the global shapes (meta tensors will
-    do).  ``specs`` is the tree of each leaf's spec."""
+    """The blocks of a parameter tree on ``mesh``.  ``axes``: the tree's
+    logical axes (``models.weights.param_axes``); ``like``: a tree of
+    the same structure whose leaves have the global shapes (meta tensors
+    will do).  ``specs`` is the tree of each leaf's spec: its data axes
+    alone for training (``mesh`` needs a data axis of more than one
+    rank), its whole spec with ``serve`` (the serving layout; ``mesh``
+    needs more than one rank).  ``gathered`` is the tree of the specs
+    :meth:`gather` takes: each leaf's data axes (``specs`` itself for
+    training)."""
 
-    def __init__(self, mesh, axes, like):
-        self.mesh = mesh
+    def __init__(self, mesh, axes, like, *, serve: bool = False):
+        self.mesh, self.serve = mesh, serve
         self.axes = data_axes(mesh)
-        if not self.axes:
+        if serve and mesh.size == 1:
+            raise ValueError(f"{mesh}: a serving layout of one rank")
+        if not serve and not self.axes:
             raise ValueError(f"{mesh}: no data axis of more than one rank")
-        self.specs = tree.map(lambda s: _data_spec(s.spec, self.axes),
-                              param_shardings(axes, mesh, like=like))
+        full = param_shardings(axes, mesh, like=like)
+        self.specs = tree.map(
+            lambda s: s.spec if serve else _data_spec(s.spec, self.axes),
+            full)
+        self.gathered = tree.map(lambda s: _data_spec(s, self.axes),
+                                 self.specs, is_leaf=is_axes) \
+            if serve else self.specs
         self.block_shapes = tree.map(
             lambda s, x: shard_shape(x.shape, s, mesh), self.specs, like,
             is_leaf=is_axes)
@@ -100,10 +118,15 @@ class FSDP:
         for x, want in zip(tree.leaves(t), tree.leaves(
                 self.block_shapes, is_leaf=is_axes)):
             if tuple(x.shape) != want:
+                what = ("under a sharded serve the serving weights are "
+                        "each rank's blocks (serve.layout.serving_layout("
+                        "cfg).init or .place, or params_from_numpy(fsdp=))"
+                        if self.serve else "under a data mesh the "
+                        "training state is each rank's blocks "
+                        "(FSDP.place)")
                 raise ValueError(
                     f"a leaf of shape {tuple(x.shape)} where its block is "
-                    f"{want}: under a data mesh the training state is "
-                    "each rank's blocks (FSDP.place)")
+                    f"{want}: {what}")
 
     def _map(self, fn, t, specs=None):
         """``fn(leaf, spec)`` over ``t``, whose structure is ``specs``'
@@ -121,12 +144,12 @@ class FSDP:
         the same draws from ``generator``, each slice of a leaf cut to
         its block as soon as it is drawn, so no rank holds more of the
         whole tree than one slice of one leaf."""
-        order, shapes = draw_order(cfg)
+        order, shapes = mw.draw_order(cfg)
         specs = [None] * len(shapes)
         for i, s in zip(tree.leaves(order),
                         tree.leaves(self.specs, is_leaf=is_axes)):
             specs[i] = (None,) * (len(shapes[i]) - len(s)) + s
-        return init_params(cfg, generator, device, cuts=lambda i: (
+        return mw.init_params(cfg, generator, device, cuts=lambda i: (
             functools.partial(local_slice, spec=specs[i], mesh=self.mesh)))
 
     def place(self, t):

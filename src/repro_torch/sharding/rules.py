@@ -27,9 +27,12 @@ lies in blocks, as JAX lays it out: each rank holds its block of every
 parameter, gradient, AdamW moment and error-feedback buffer under
 :func:`param_shardings`' specs over the data axes (FSDP, ZeRO-3:
 ``sharding/fsdp.py``), and a layer gathers its weights when it runs.
-Serving state stays whole on every rank: the decode caches and the
-serving weights, on whose slices the multi-device decode and MoE paths
-run their ``shard_map`` bodies (``sharding.collectives.shard_map``).
+Under a mesh with ``head_parallel_decode`` or ``distributed_decode``
+set, the serving state lies in blocks too: the weights under
+:func:`param_shardings`' whole specs and the decode caches by role
+(``serve/layout.py``), and the model runs on the
+blocks.  A mesh with neither flag serves the whole state on every
+rank.
 JAX's ``constrain`` (``with_sharding_constraint``) is a layout hint
 without a numeric effect, so it has no counterpart here.
 """
@@ -170,6 +173,14 @@ def spec_axes(entry) -> tuple:
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def splits(spec: Optional[tuple], dim: int, mesh,
+           axis: str = "model") -> bool:
+    """Whether ``spec`` lays dim ``dim`` out over ``axis`` of more than
+    one rank of ``mesh`` (False for a None spec or mesh)."""
+    return spec is not None and mesh is not None \
+        and axis in spec_axes(spec[dim]) and mesh.axis_size(axis) > 1
 
 
 def shard_shape(shape: Sequence[int], spec: tuple, mesh) -> tuple:

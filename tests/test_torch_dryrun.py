@@ -27,7 +27,7 @@ from repro.sharding import rules as jax_rules
 
 from repro_torch import configs
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.serve.engine import init_decode_state
 from repro_torch.sharding import rules
 
@@ -148,3 +148,23 @@ def test_run_cell_counts_its_shards(tmp_path, capsys):
     assert [row["mesh"] for row in rows] == ["16x16", "2x16x16"]
     assert rows[0]["per_device_bytes"]["caches"] > 0
     assert "fits=True" in capsys.readouterr().out
+
+
+def test_run_cell_takes_a_serves_geometry():
+    """A decode cell's figure at a serve's own batch and max_len (what a
+    rank of the sharded serving state holds): the caches are that
+    geometry's K/V, the time over (1, 2)'s model axis, beside the whole
+    cache_len and last_token; the parameters are the cell's; a train
+    cell refuses the two."""
+    mesh = Mesh(("data", "model"), (1, 2))
+    cfg = configs.get_config("starcoder2-7b")
+    base = dryrun.run_cell("starcoder2-7b", "decode_32k", mesh=mesh)
+    r = dryrun.run_cell("starcoder2-7b", "decode_32k", mesh=mesh, batch=4,
+                        max_len=1024)
+    kv = 2 * cfg.n_layers * 4 * cfg.kv_heads * 1024 * cfg.head_dim * 2 // 2
+    assert r["per_device_bytes"]["caches"] == kv + 2 * 4 * 4
+    assert r["per_device_bytes"]["params"] \
+        == base["per_device_bytes"]["params"]
+    assert base["per_device_bytes"]["caches"] > r["per_device_bytes"]["caches"]
+    with pytest.raises(ValueError, match="decode cell"):
+        dryrun.run_cell("starcoder2-7b", "train_4k", mesh=mesh, batch=4)

@@ -101,7 +101,8 @@ MESH_MODULES = ["sharding/__init__.py", "sharding/rules.py",
                 "sharding/collectives.py", "launch/mesh.py",
                 "launch/mesh_lowering.py", "launch/mesh_ranks.py",
                 "launch/dryrun.py", "serve/distributed_decode.py",
-                "models/moe_local.py"]
+                "models/moe_local.py", "sharding/fsdp.py",
+                "serve/layout.py"]
 
 
 @pytest.mark.parametrize("rel", TRAINING_MODULES + MAMBA_MODULES

@@ -11,8 +11,13 @@ as tests/test_mesh_parity.py runs it):
   config, a serving plan, 6 steps) emit JAX's token streams, which equal
   the mesh-less engine's; the sharded path ran, and the plan's mesh
   downgrades and notes are JAX's strings;
-* the refusals: heads or max_len that do not divide the axis, paged KV
-  under a mesh path, ``mesh_for_cores`` on too few ranks.
+* the refusals: heads or max_len that do not divide the axis (the
+  sharded serving state's layout and cache), paged KV under a mesh
+  path, ``mesh_for_cores`` on too few ranks.
+
+Both decode functions take each rank's blocks (``mesh_ranks`` cuts them
+from the global inputs), and both engines serve the sharded serving
+state (``serve/layout.py``).
 
 The ranks run ``torch.set_num_threads(1)``; every spawn joins within a
 timeout and rendezvous through a file under ``tmp_path``.
@@ -39,10 +44,10 @@ from repro_torch.launch.mesh_lowering import mesh_for_cores
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.weights import params_from_numpy
-from repro_torch.serve import distributed_decode as dd
 from repro_torch.serve.engine import (ContinuousBatchingEngine,
-                                      make_serving_plan)
+                                      init_decode_state, make_serving_plan)
 from repro_torch.sharding import set_rules_for_mesh
+from repro_torch.serve.layout import serving_layout
 
 torch.set_num_threads(2)
 
@@ -181,7 +186,7 @@ def runs(tmp_path_factory):
         cfg, params = ModelConfig(**CFG), _params_np()
         calls = [(mesh_ranks.decode_attention, ((1, 2), *args)),
                  (mesh_ranks.decode_attention, ((2, 1), *args))]
-        calls += [(mesh_ranks.serve_tokens,
+        calls += [(mesh_ranks.serve_state,
                    (cfg, params, PROMPTS, MAX_LEN, STEPS, flag))
                   for flag in FLAGS]
         port = spawn(2, mesh_ranks.in_turn, backend="gloo",
@@ -232,17 +237,20 @@ def test_engine_tokens_and_ledger_match_jax(runs, flag):
 def test_refusals_before_any_collective():
     """Heads or max_len not dividing the axis, and paged KV, raise as
     JAX's ``shard_map`` and attention do (a shape-only (1, 2) mesh:
-    nothing reaches a collective)."""
-    a = {k: torch.from_numpy(v) for k, v in _decode_inputs().items()}
+    nothing reaches a collective).  The decode functions take each
+    rank's blocks, so the divisibility refusals are the sharded serving
+    state's, on the global shapes: its layout (3 query heads, 1 KV
+    head) and its cache (max_len 23)."""
     mesh = Mesh(("data", "model"), (1, 2))
     with set_rules_for_mesh(mesh):
         with pytest.raises(ValueError, match="heads divisible"):
-            dd.head_parallel_decode_attention(
-                a["q"][:, :3], a["k"][:, :1], a["v"][:, :1], a["lengths"],
-                a["wo"][:3])
+            serving_layout(ModelConfig(**dict(
+                CFG, n_heads=3, n_kv_heads=1, d_head=16,
+                head_parallel_decode=True)))
+        seq = ModelConfig(**dict(CFG, distributed_decode=True))
         with pytest.raises(ValueError, match="max_len 23"):
-            dd.distributed_decode_attention(
-                a["q"], a["k"][:, :, :23], a["v"][:, :, :23], a["lengths"])
+            init_decode_state(seq, 4, 23, device="cpu",
+                              fsdp=serving_layout(seq))
         cfg = dataclasses.replace(ModelConfig(**CFG),
                                   head_parallel_decode=True)
         params = params_from_numpy(_params_np(), cfg, device="cpu")
