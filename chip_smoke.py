@@ -183,7 +183,7 @@ Phases, in order:
   19. mesh  -- the multi-device slice: two gloo ranks spawned once on
                cuda:0 (launch.mesh.spawn), their collectives staged
                through host memory.  (a) starcoder2-7b at full width,
-               4 layers, the serve mix through RequestBatcher with
+               2 layers (MESH_LAYERS), the serve mix through RequestBatcher with
                head_parallel_decode under lower_to_mesh (the DSE's
                round-robin head allocation on multi_core_array(2)): #1
                and #2 launched on each rank's prefill chunks, each
@@ -203,7 +203,7 @@ Phases, in order:
                outputs and the expert weights' gradients of sum(y**2)
                per row within ROW_TOL of the global path's; (d)
                launch/train.train_loop through FSDP (each rank holds
-               its blocks of the training state), 2 layers, B=2 a
+               its blocks of the training state), 1 layer, B=2 a
                rank, seq 1024, 3 steps: #7-#9 on each rank, losses
                within MESH_TRAIN_REL of rank 0's single-rank B=4 run,
                the bytes each rank holds against launch/dryrun.py's
@@ -225,8 +225,21 @@ Phases, in order:
                MOE_ROUTE_MARGIN apart, output rows within ROW_TOL; the
                bf16 streams beside both, where the 2-rank ones part
                their first rerouted token's top-k margin within
-               MOE_ROUTE_MARGIN (a router near-tie).  Each sub-phase's
-               seconds and peak memory a rank.
+               MOE_ROUTE_MARGIN (a router near-tie); (h) deepseek-v3 at
+               full width, 4 layers, under distributed_decode (MLA's
+               latent by time columns, prefill chunk 640 so that #1
+               launches at 64 query heads over the latent head), (i)
+               mamba2-130m at full width and depth head-parallel (conv
+               channels, SSM heads: #11 at 12 heads), (j) jamba's
+               full-width period with dense FFNs under
+               distributed_decode (#1 at 32 over 4 KV heads, #11 at 128
+               heads in 4 groups), each on the sharded serving state at
+               B=4, max_len 1024: bytes a rank equal to the dry-run's,
+               peak beside the 1-rank serve's, every #1/#11 launch per
+               row against its plain version with a key tile or h0
+               dropped rejected, (i)'s fp32 tokens equal to one rank's
+               (logits within MESH_TOL), (h)/(j)'s bf16 streams as
+               (g)'s.  Each sub-phase's seconds and peak memory a rank.
 The kernel phase also holds the four training kernels (#7-#10) to their
 plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal), #7-#9 at hubert-xlarge's (B=2, 16 heads of 80, S = 4096,
@@ -5237,19 +5250,19 @@ def jamba_serve_phase(dev):
 
 #: the mesh phase: two gloo ranks sharing cuda:0
 MESH_RANKS = 2
-MESH_LAYERS = 4
+#: (a)/(b)'s depth: cut from 4 layers to 2 to keep the call's time with
+#: (h)-(j) added (its gates unchanged)
+MESH_LAYERS = 2
 #: (g)'s depth: phi3.5-moe served on the sharded serving state
 MESH_MOE_LAYERS = 2
-MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 2, 1024, 3
+MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 1024, 3
 #: the FSDP sub-phases' archs; (f)'s steps
 MESH_ARCHS = {"d": "starcoder2-7b", "f": "phi3.5-moe-42b-a6.6b"}
-#: each FSDP sub-phase's depth: (f) cut from PR 28's 2 layers to 1 to
-#: keep the call's time with (g) added (its gates unchanged)
-MESH_DEPTH = {"d": MESH_TRAIN_LAYERS, "f": 1}
+#: each FSDP sub-phase's depth: (f) cut from 2 layers to 1 to keep the
+#: call's time with (g) added, (d) from 2 to 1 with (h)-(j) added (their
+#: gates unchanged)
+MESH_DEPTH = {"d": 1, "f": 1}
 MESH_MOE_STEPS = 2
-#: PR 27's replicated data-parallel (d): the peak a rank (PERF.md, PR
-#: 27's final call; H100 80GB HBM3, 700.00 W), printed beside FSDP's
-PR27_MESH_PEAK_GB = 10.23
 #: the mesh phase's serve mix: prompts past C = 2N = 256, 16 new tokens
 MESH_REQUESTS, MESH_MAX_NEW = 4, 16
 #: the mesh of 2 ranks against the mesh of 1: logits per step within
@@ -5321,70 +5334,84 @@ def _mesh_serve(cfg, params, args, dev, ctx) -> dict:
                      "caches": held_bytes(eng.state)}}
 
 
-def _last_logits(run) -> list:
-    """Each request's logits of its last token, in uid order."""
-    return [run["logits"][(uid, len(toks) - 1)]
-            for uid, toks in sorted(run["tokens"].items())]
+def _prefix_logits(got, want) -> tuple:
+    """``got``'s serve against ``want``'s, request by request: every
+    request finishes its budget with finite logits.  Returns (the
+    requests whose streams differ, the worst relative error of the
+    logits that sampled each request's tokens before its first
+    differing one, the number of those steps)."""
+    differ, worst, steps = 0, 0.0, 0
+    for uid, want_toks in sorted(want["tokens"].items()):
+        toks = got["tokens"].get(uid)
+        if toks is None or len(toks) != MESH_MAX_NEW:
+            raise SystemExit(f"request {uid} did not finish its budget "
+                             f"({toks})")
+        first = next((j for j, (a, b) in enumerate(zip(toks, want_toks))
+                      if a != b), len(toks))
+        differ += first < len(toks)
+        for j in range(len(toks)):
+            if not torch.isfinite(got["logits"][(uid, j)]).all():
+                raise SystemExit(f"request {uid}: non-finite logits")
+        for j in range(first):
+            worst = max(worst, rel_err(got["logits"][(uid, j)],
+                                       want["logits"][(uid, j)])[1])
+            steps += 1
+    return differ, worst, steps
 
 
 def _mesh_gate(phase, two, one, alone, rank) -> None:
     """In bf16: the mesh of 2 ranks against the mesh of 1 and against
-    the mesh-less engine on #1-#3, each step's logits within LOGIT_TOL
-    and the tokens through tie_check (the partial sums' order moves bf16
-    roundings through the layers)."""
-    for name, want in (("1 rank", one), ("the mesh-less engine (#1-#3)",
-                                         alone)):
+    the mesh-less engine, each request's logits before its first
+    differing token within LOGIT_TOL, and that token through tie_check
+    (the partial sums' order moves bf16 roundings through the layers,
+    so a stream may part at an argmax near-tie; past it the two serves
+    read other contexts)."""
+    for name, want in (("1 rank", one), ("the mesh-less engine", alone)):
+        if want is None:
+            continue
         differ = tie_check(f"mesh {phase}", two, want, MESH_MAX_NEW)
-        worst = compare_logits(f"mesh {phase}", _last_logits(two),
-                               _last_logits(want))
-        log(f"  [rank {rank}] {phase}: 2 ranks against {name}: last-step "
-            f"logits worst rel {worst:.3e} (tol {LOGIT_TOL}), {differ} of "
-            f"{len(want['tokens'])} requests differ (argmax ties only)")
+        _, worst, steps = _prefix_logits(two, want)
+        log(f"  [rank {rank}] {phase}: 2 ranks against {name}: {differ} of "
+            f"{len(want['tokens'])} requests differ (argmax ties only); "
+            f"{steps} steps' logits before each first difference, worst "
+            f"rel {worst:.3e} (tol {LOGIT_TOL})")
+        if worst > LOGIT_TOL:
+            raise SystemExit(f"mesh {phase}: 2 ranks' logits off {name}'s")
 
 
 def _moe_mesh_report(phase, two, one, alone, rank) -> None:
     """An MoE serve in bf16, the mesh of 2 ranks against the mesh of 1
     and against the mesh-less engine, and the mesh of 1 rank against the
     mesh-less engine: every request finishes its budget with finite
-    logits, and each request's logits up to its first differing token
+    logits, and each request's logits before its first differing token
     are reported.  The streams part, the 1-rank serve from the mesh-less
     one too: a bf16 rounding moves a router near-tie and the token takes
     another expert.  So where the 2-rank streams part, the first router
     call that picks other experts (:func:`_first_reroute`) must do so
     only at tokens whose top-k margin in the other serve is within
     MOE_ROUTE_MARGIN; where no call reroutes, the dense rule of
-    :func:`tie_check` holds.  Each MoE layer alone is gated on the same
-    inputs (:func:`_moe_layer_gate`), and the streams in fp32
+    :func:`_mesh_gate` holds.  Each MoE layer alone is gated on the
+    same inputs (:func:`_moe_layer_gate`), and the streams in fp32
     (:func:`_mesh_gate32`)."""
     pairs = (("2 ranks", two, "1 rank", one),
              ("2 ranks", two, "the mesh-less engine", alone),
              ("1 rank", one, "the mesh-less engine", alone))
     for label, got, name, want in pairs:
-        differ, worst, steps = 0, 0.0, 0
-        for uid, want_toks in sorted(want["tokens"].items()):
-            toks = got["tokens"].get(uid)
-            if toks is None or len(toks) != MESH_MAX_NEW:
-                raise SystemExit(f"mesh {phase}: request {uid} did not "
-                                 f"finish its budget ({toks})")
-            first = next((j for j, (a, b) in enumerate(zip(toks, want_toks))
-                          if a != b), len(toks))
-            differ += first < len(toks)
-            for j in range(len(toks)):
-                if not torch.isfinite(got["logits"][(uid, j)]).all():
-                    raise SystemExit(f"mesh {phase}: non-finite logits")
-            for j in range(first):
-                worst = max(worst, rel_err(got["logits"][(uid, j)],
-                                           want["logits"][(uid, j)])[1])
-                steps += 1
+        if want is None:
+            continue
+        differ, worst, steps = _prefix_logits(got, want)
         text, margin = _first_reroute(got["routes"], want["routes"])
         log(f"  [rank {rank}] {phase} bf16: {label} against {name}: "
             f"{differ} of {len(want['tokens'])} requests differ; {steps} "
             f"steps' logits before each first difference, worst rel "
             f"{worst:.3e}; {text}")
-        if label != "2 ranks" or not differ:
+        if label != "2 ranks":
             continue
         if margin is None:
             tie_check(f"mesh {phase}", got, want, MESH_MAX_NEW)
+            if worst > LOGIT_TOL:
+                raise SystemExit(f"mesh {phase}: 2 ranks' logits off "
+                                 f"{name}'s with no token rerouted")
         elif margin > MOE_ROUTE_MARGIN:
             raise SystemExit(f"mesh {phase}: the 2-rank serve first "
                              f"reroutes a token whose top-k margin is "
@@ -5488,8 +5515,9 @@ def _moe_layer_gate(phase, got, want, rank) -> None:
         if same.any():
             worst = max(worst, row_err(y[same], want_y[same]))
             rows += int(same.sum()) * y.shape[1]
-    log(f"  [rank {rank}] {phase} bf16 MoE layers alone (2 layers, a "
-        f"chunk of 256 and a decode batch of 4): against the whole layer "
+    log(f"  [rank {rank}] {phase} bf16 MoE layers alone "
+        f"({len(got) // len(MOE_LAYER_INPUTS)} layers, a chunk of 256 and "
+        f"a decode batch of 4): against the whole layer "
         f"with no mesh, {flips} tokens rerouted (margin tol "
         f"{MOE_ROUTE_MARGIN:.3e}; the least rerouted margin "
         f"{near:.3e}), {rows} rows per row worst {worst:.3e} (tol "
@@ -5536,79 +5564,165 @@ def _mesh_sub(name, rank, stats, fn, *a, **kw):
     return out
 
 
+#: #11's per-head gate: a head row's error over the larger of its own
+#: largest |value| and this share of its token row's (every head's):
+#: on a served model's inputs a bf16 head row can cancel to a small
+#: fraction of its terms, where both versions' roundings reach 4e-2 of
+#: it (jamba's period on an H100), while a wrong head of any size above
+#: the floor still fails
+HEAD_FLOOR = 0.1
+
+
+def head_err(got, want) -> float:
+    """(..., H, W) rows, W a head's values: the largest, over the head
+    rows, of a row's max |got - want| over the larger of its max |want|
+    and HEAD_FLOOR times the max |want| over its H heads."""
+    got, want = got.float(), want.float()
+    head = want.abs().amax(-1)
+    scale = torch.maximum(head, HEAD_FLOOR * head.amax(-1, keepdim=True))
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return ((got - want).abs().amax(-1) / scale).max().item()
+
+
 @contextlib.contextmanager
-def _kernel_rows(rows):
-    """Each launch of #1 and #2 (``ops.attention`` and
-    ``ops.qproj_attention`` with lengths, on a plan whose impl is
-    ``cuda``) also runs its plain version on the same inputs; (name, Hq,
-    rows, per-row error) appended to ``rows``.  The plain versions
-    launch nothing, so the counts are the run's."""
-    from repro_torch.kernels import ops
-    orig = ops.attention, ops.qproj_attention
+def _kernel_rows(rows, dropped):
+    """Each ``ops`` call of a sharded serve that launches #1, #2 or #11
+    (``build.LAUNCHES`` before and after) also runs its plain version on
+    the same inputs: (name, heads, rows, error) appended to ``rows``,
+    the error per row for #1 and #2 (:func:`row_err`) and per head row
+    of y and of the final state for #11 (:func:`head_err`).  The first
+    launch of #1 or #2 with a row past 64 keys also runs the plain
+    version with that row's last 64 keys dropped, the first of #11 with
+    a nonzero incoming state runs it without the state, and
+    ``dropped[name]`` gets that result's error, which the gate must
+    reject.  The plain versions launch nothing, so the counts are the
+    run's."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    orig = ops.attention, ops.qproj_attention, ops.ssd
 
-    def kernel(plan, lengths, block_tables):
-        return plan is not None and plan.impl == "cuda" \
-            and lengths is not None and block_tables is None
+    def masked(name, fn, plain_fn, heads, n, **extra):
+        def call(*a, **kw):
+            before = build.LAUNCHES[name]
+            out = fn(*a, **kw)
+            if build.LAUNCHES[name] > before:
+                lengths = kw["lengths"].to(torch.int32)
 
-    def attention(q, k, v, **kw):
-        out = orig[0](q, k, v, **kw)
-        if kernel(kw.get("plan"), kw.get("lengths"), kw.get("block_tables")):
-            want = ops.fused_attention_masked_plain(
-                q, k, v, kw["lengths"].to(torch.int32),
-                causal=kw.get("causal", True), scale=kw.get("scale"))
-            rows.append(("fused_attention_masked", q.shape[1], q.shape[2],
-                         row_err(out, want)))
+                def plain(ln):
+                    return plain_fn(*a, ln, causal=kw.get("causal", True),
+                                    scale=kw.get("scale"),
+                                    **{k: kw.get(k) for k in extra})
+                rows.append((name, heads(*a), n(*a),
+                             row_err(out, plain(lengths))))
+                past = lengths > 64
+                if name not in dropped and bool(past.any()):
+                    cut = torch.where(past, lengths - 64, lengths)
+                    dropped[name] = row_err(out[past], plain(cut)[past])
+            return out
+        return call
+
+    def ssd(x, dt, a, b, c, d=None, **kw):
+        before = build.LAUNCHES["ssd_scan"]
+        out = orig[2](x, dt, a, b, c, d, **kw)
+        if build.LAUNCHES["ssd_scan"] > before:
+            h0 = kw.get("h0")
+
+            def plain(state):
+                return ssd_mod.ssd_scan_plain(
+                    x, dt, a, b, c, d, chunk=kw["chunk"], h0=state,
+                    return_final_state=True)
+            got = out if isinstance(out, tuple) else (out,)
+            # y (B, L, H, P) and the final state (B, H, P, S) as
+            # (..., H, W) head rows
+            views = (lambda t: t, lambda t: t.flatten(-2).unsqueeze(1))
+            rows.append(("ssd_scan", x.shape[2], x.shape[1], max(
+                head_err(v(g_), v(w_))
+                for v, g_, w_ in zip(views, got, plain(h0)))))
+            if "ssd_scan" not in dropped and h0 is not None \
+                    and bool(h0.abs().max() > 0):
+                dropped["ssd_scan"] = head_err(got[0], plain(None)[0])
         return out
 
-    def qproj_attention(x, wq, k, v, **kw):
-        out = orig[1](x, wq, k, v, **kw)
-        if kernel(kw.get("plan"), kw.get("lengths"), kw.get("block_tables")):
-            want = ops.fused_qproj_attention_masked_plain(
-                x, wq, k, v, kw["lengths"].to(torch.int32),
-                causal=kw.get("causal", True), scale=kw.get("scale"),
-                rope_theta=kw.get("rope_theta"))
-            rows.append(("fused_qproj_attention_masked", wq.shape[1],
-                         x.shape[1], row_err(out, want)))
-        return out
-
-    ops.attention, ops.qproj_attention = attention, qproj_attention
+    ops.attention = masked("fused_attention_masked", orig[0],
+                           ops.fused_attention_masked_plain,
+                           lambda q, *_: q.shape[1],
+                           lambda q, *_: q.shape[2])
+    ops.qproj_attention = masked("fused_qproj_attention_masked", orig[1],
+                                 ops.fused_qproj_attention_masked_plain,
+                                 lambda x, wq, *_: wq.shape[1],
+                                 lambda x, *_: x.shape[1], rope_theta=True)
+    ops.ssd = ssd
     try:
         yield rows
     finally:
-        ops.attention, ops.qproj_attention = orig
+        ops.attention, ops.qproj_attention, ops.ssd = orig
 
 
-def _rows_gate(phase, rank, rows) -> None:
-    """Every #1 and #2 launch of a sharded serve within ROW_TOL of its
-    plain version per row, and both launched."""
+def _rows_gate(phase, rank, rows, dropped, want) -> None:
+    """Every launch of the kernels ``want`` in a sharded serve within
+    ROW_TOL of its plain version (:func:`_kernel_rows`' rows), each
+    launched, and each dropped-input plain result rejected by the same
+    gate."""
     by = collections.defaultdict(list)
     for name, heads, n, err in rows:
         by[(name, heads)].append(err)
     for (name, heads), errs in sorted(by.items()):
         log(f"  [rank {rank}] {phase}: {name} over {heads} heads, "
-            f"{len(errs)} launches, per row worst {max(errs):.3e} (tol "
-            f"{ROW_TOL})")
+            f"{len(errs)} launches, worst {max(errs):.3e} (tol {ROW_TOL}); "
+            f"against the plain version with "
+            f"{'h0' if name == 'ssd_scan' else 'a key tile'} dropped "
+            f"{dropped.get(name, float('nan')):.3e} (must exceed it)")
     names = {k[0] for k in by}
-    if set(DENSE_KERNELS[:2]) - names or any(
-            e > ROW_TOL for *_, e in rows):
-        raise SystemExit(f"mesh {phase}: rank {rank}'s #1/#2 launches "
-                         "missing or off their plain versions")
+    if set(want) - names or any(e > ROW_TOL for *_, e in rows) \
+            or any(not dropped.get(n, 0.0) > ROW_TOL for n in want):
+        raise SystemExit(f"mesh {phase}: rank {rank}'s {list(want)} "
+                         "launches missing, off their plain versions, or "
+                         "the gate passes a dropped input")
 
 
-def _sharded_serves(rank, dev, stats, arch, layers, runs,
-                    moe: bool = False) -> dict:
-    """``arch`` at full width, ``layers`` layers, served on 2 ranks with
-    the sharded serving state: each ``(tag, sub, flags)`` of ``runs``
-    on the blocks drawn from seed 0 (``serve.model_for`` with the
-    layout), held to the dry-run's per-device bytes for (1, 2) at B=4,
-    max_len 1024, its #1/#2 launches per row to their plain versions;
-    rank 0 first serves the mix with the whole weights on the mesh-less
-    engine and on a mesh of 1 rank (the replicated figure), and gates
-    the 2-rank runs against both in bf16 and against 1 rank in fp32
-    (``moe``: bf16 reported, fp32 gated against both, as
-    ``_moe_mesh_report`` says).  The head-parallel runs take
-    ``lower_to_mesh``'s context.  Returns this rank's launches of the
-    2-rank serves."""
+def _draw(cfg, dev, layout=None):
+    """Seed 0's weights of ``cfg``: whole, or this rank's blocks on
+    ``layout``, the ranks in turn (a draw holds one whole leaf in fp32
+    for a moment, deepseek-v3's experts 15 GB, which two at once
+    overflow)."""
+    import torch.distributed as dist
+
+    from repro_torch.models.weights import init_params
+
+    def draw():
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        return init_params(cfg, g, dev) if layout is None \
+            else layout.init(cfg, g, dev)
+    if layout is None:
+        return draw()
+    for turn in range(MESH_RANKS):
+        if dist.get_rank() == turn:
+            blocks = draw()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return blocks
+
+
+def _sharded_serves(rank, dev, stats, base, runs, want, *, chunk=256,
+                    bf16_gate=True, fp32=()) -> dict:
+    """``base`` (a config at full width) served on 2 ranks with the
+    sharded serving state, B=4, max_len 1024, prefill chunk ``chunk``:
+    each ``(tag, sub, flags)`` of ``runs`` on the blocks of seed 0's
+    draws (:func:`_draw`), held to the dry-run's per-device bytes, every
+    launch of #1, #2 and #11 to its plain version and the kernels
+    ``want`` launched (:func:`_rows_gate`).  Rank 0 first serves the mix
+    with the whole weights on the mesh-less engine and on a mesh of 1
+    rank (the replicated figure), and the 2-rank bf16 serves are gated
+    against both (an MoE config as :func:`_moe_mesh_report` says, with
+    its MoE layers alone; else :func:`_mesh_gate`; ``bf16_gate`` false:
+    reported).  Then in fp32 compute the 2 ranks against 1 rank (an MoE
+    config also against the mesh-less engine) on ``base`` with the
+    replacements ``fp32`` (a cut to what fits the card in fp32 beside
+    its whole state; None: no fp32 run).  The head-parallel runs take
+    ``lower_to_mesh``'s context where the config has a serving plan.
+    Returns this rank's launches of the 2-rank serves."""
     import dataclasses as dc
 
     import torch.distributed as dist
@@ -5623,24 +5737,26 @@ def _sharded_serves(rank, dev, stats, arch, layers, runs,
     from repro_torch.serve.layout import serving_layout
 
     args = serve.parser().parse_args([
-        "--arch", arch, "--layers", str(layers), "--batch", "4",
-        "--requests", str(MESH_REQUESTS), "--max-len", "1024",
-        "--max-new", str(MESH_MAX_NEW), "--prefill-chunk", "256",
-        "--device", "cuda"])
-    base = serve.config_for(args)
+        "--arch", base.name, "--batch", "4", "--requests",
+        str(MESH_REQUESTS), "--max-len", "1024", "--max-new",
+        str(MESH_MAX_NEW), "--prefill-chunk", str(chunk), "--device",
+        "cuda"])
     cfgs = {tag: dc.replace(base, **flags) for tag, _, flags in runs}
     mesh = mesh_for_cores(2, device=dev)
     alone = Mesh(("data", "model"), (1, 1), device=dev)
-    rr = tuple(h % 2 for h in range(base.n_heads))
-    decode_plan = lower.serving_plan(base, args.max_len, device=dev) \
-        .decode_dispatch(args.max_len).plan
-    lowered = lower_to_mesh(decode_plan, acc.multi_core_array(2), rr,
-                            mesh=mesh)
-    if rank == 0 and "hp" in cfgs:
-        log("  " + lowered.describe().replace("\n", "\n  "))
+    lowered, plan = None, None
+    if any(t.startswith("hp") for t in cfgs):
+        plan = lower.serving_plan(base, args.max_len, device=dev)
+    if plan is not None:
+        rr = tuple(h % 2 for h in range(base.n_heads))
+        lowered = lower_to_mesh(plan.decode_dispatch(args.max_len).plan,
+                                acc.multi_core_array(2), rr, mesh=mesh)
+        if rank == 0:
+            log("  " + lowered.describe().replace("\n", "\n  "))
 
     def ctx(tag, m):
-        return lowered.activate() if tag.startswith("hp") and m is mesh \
+        return lowered.activate() if lowered is not None \
+            and tag.startswith("hp") and m is mesh \
             else set_rules_for_mesh(m)
 
     subs = "/".join(sub for _, sub, _ in runs)
@@ -5648,8 +5764,8 @@ def _sharded_serves(rank, dev, stats, arch, layers, runs,
     if rank == 0:
         # the references first, with the whole weights (the blocks are
         # not drawn yet, so the 1-rank peak is the replicated state's)
-        _, whole = serve.model_for(args)
-        if moe:
+        whole = _draw(base, dev)
+        if base.moe:
             # the MoE layers alone, whole and with no mesh
             layer_refs = _moe_layers(base, whole, dev)
         refs["alone"] = _mesh_sub(f"{subs}: mesh-less", rank, stats,
@@ -5666,11 +5782,11 @@ def _sharded_serves(rank, dev, stats, arch, layers, runs,
         torch.cuda.empty_cache()
     dist.barrier()
     layout = serving_layout(cfgs[runs[0][0]], mesh)
-    _, blocks = serve.model_for(args, layout)
+    blocks = _draw(base, dev, layout)
     launches = collections.Counter()
     for tag, sub, _ in runs:
-        rows = []
-        with _kernel_rows(rows):
+        rows, dropped = [], {}
+        with _kernel_rows(rows, dropped):
             run = _mesh_sub(f"{sub}: {tag} 2 ranks", rank, stats,
                             _mesh_serve, cfgs[tag], blocks, args, dev,
                             ctx(tag, mesh))
@@ -5678,19 +5794,18 @@ def _sharded_serves(rank, dev, stats, arch, layers, runs,
         log(f"  [rank {rank}] ({sub}) {tag}: {len(run['tokens'])} requests "
             f"in {run['seconds']:.2f}s, launches {run['launches']}, "
             f"calls {run['calls']}; ledger "
-            f"{run['plan'].plans()[-1].notes[-1:]}")
-        _rows_gate(f"({sub}) {tag}", rank, rows)
+            f"{run['plan'].plans()[-1].notes[-1:] if run['plan'] else None}")
+        _rows_gate(f"({sub}) {tag}", rank, rows, dropped, want)
         cell = dryrun.run_cell(
-            arch, "decode_32k", cfg=cfgs[tag],
+            base.name, "decode_32k", cfg=cfgs[tag],
             mesh=Mesh(("data", "model"), (1, 2)), batch=args.batch,
             max_len=args.max_len)["per_device_bytes"]
         held = run["held"]
-        log(f"  [rank {rank}] ({sub}) {tag}: holds params "
-            f"{held['params'] / 1e9:.4f} GB, caches "
-            f"{held['caches'] / 1e9:.4f} GB; dry-run per device (1, 2) "
+        log(f"  [rank {rank}] ({sub}) {tag}: holds params {held['params']} "
+            f"B, caches {held['caches']} B; dry-run per device (1, 2) "
             f"B={args.batch} max_len {args.max_len}: params "
-            f"{cell['params'] / 1e9:.4f}, caches {cell['caches'] / 1e9:.4f}"
-            f"; peak {stats[f'{sub}: {tag} 2 ranks'][1]:.2f} GB a rank")
+            f"{cell['params']}, caches {cell['caches']}; peak "
+            f"{stats[f'{sub}: {tag} 2 ranks'][1]:.2f} GB a rank")
         if (held["params"], held["caches"]) != (cell["params"],
                                                 cell["caches"]):
             raise SystemExit(f"mesh ({sub}): rank {rank} holds other bytes "
@@ -5698,48 +5813,60 @@ def _sharded_serves(rank, dev, stats, arch, layers, runs,
         if rank == 0:
             peak, whole_held = replicated[tag]
             log(f"  [rank 0] ({sub}) {tag}: the replicated state on a mesh "
-                f"of 1 rank in this call: params "
-                f"{whole_held['params'] / 1e9:.4f} GB, caches "
-                f"{whole_held['caches'] / 1e9:.4f} GB, peak {peak:.2f} GB")
-            gate = _moe_mesh_report if moe else _mesh_gate
-            gate(f"({sub}) {tag}", run, refs[tag], refs["alone"], rank)
-        if moe:
+                f"of 1 rank in this call: params {whole_held['params']} B, "
+                f"caches {whole_held['caches']} B, peak {peak:.2f} GB")
+            if not bf16_gate:
+                differ, _, _ = _prefix_logits(run, refs[tag])
+                log(f"  [rank 0] ({sub}) {tag} bf16: {differ} of "
+                    f"{len(run['tokens'])} requests differ from 1 rank's "
+                    "(reported; gated in fp32)")
+            else:
+                gate = _moe_mesh_report if base.moe else _mesh_gate
+                gate(f"({sub}) {tag}", run, refs[tag], refs["alone"], rank)
+        if base.moe:
             with ctx(tag, mesh):
                 got = _moe_layers(cfgs[tag], blocks, dev, layout.specs)
             if rank == 0:
                 _moe_layer_gate(f"({sub}) {tag}", got, layer_refs, rank)
     del refs
-    # the same in fp32 compute, where the 2-rank sums' order shows at
-    # fp32 rounding, not at bf16's
-    _upcast(blocks)
-    twos = {}
-    for tag, sub, _ in runs:
-        c32 = dc.replace(cfgs[tag], compute_dtype="float32")
-        twos[tag] = _mesh_sub(f"{sub}: {tag} 2 ranks fp32", rank, stats,
-                              _mesh_serve, c32, blocks, args, dev,
-                              ctx(tag, mesh))
-        launches.update(twos[tag]["launches"])
-    del blocks
-    gc.collect()
-    torch.cuda.empty_cache()
-    if rank == 0:
-        _, whole = serve.model_for(args)
-        _upcast(whole)
-        if moe:
-            alone32 = _mesh_sub(
-                f"{subs}: mesh-less fp32", rank, stats, _mesh_serve,
-                dc.replace(base, compute_dtype="float32"), whole, args, dev,
-                contextlib.nullcontext())
-        for tag, sub, _ in runs:
-            c32 = dc.replace(cfgs[tag], compute_dtype="float32")
-            one = _mesh_sub(f"{sub}: {tag} 1 rank fp32", rank, stats,
-                            _mesh_serve, c32, whole, args, dev,
-                            ctx(tag, alone))
-            _mesh_gate32(f"({sub}) {tag}", twos[tag], one, rank)
-            if moe:
-                _mesh_gate32(f"({sub}) {tag}", twos[tag], alone32, rank,
-                             against="the mesh-less engine")
-        del whole
+    if fp32 is None:
+        del blocks
+    else:
+        # the same in fp32 compute, where the 2-rank sums' order shows
+        # at fp32 rounding, not at bf16's
+        c32 = dc.replace(base, compute_dtype="float32", **dict(fp32))
+        if fp32:
+            del blocks
+            gc.collect()
+            torch.cuda.empty_cache()
+            blocks = _draw(c32, dev, serving_layout(
+                dc.replace(c32, **runs[0][2]), mesh))
+        _upcast(blocks)
+        twos = {}
+        for tag, sub, flags in runs:
+            twos[tag] = _mesh_sub(f"{sub}: {tag} 2 ranks fp32", rank, stats,
+                                  _mesh_serve, dc.replace(c32, **flags),
+                                  blocks, args, dev, ctx(tag, mesh))
+            launches.update(twos[tag]["launches"])
+        del blocks
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            whole = _draw(c32, dev)
+            _upcast(whole)
+            if c32.moe:
+                alone32 = _mesh_sub(f"{subs}: mesh-less fp32", rank, stats,
+                                    _mesh_serve, c32, whole, args, dev,
+                                    contextlib.nullcontext())
+            for tag, sub, flags in runs:
+                one = _mesh_sub(f"{sub}: {tag} 1 rank fp32", rank, stats,
+                                _mesh_serve, dc.replace(c32, **flags),
+                                whole, args, dev, ctx(tag, alone))
+                _mesh_gate32(f"({sub}) {tag}", twos[tag], one, rank)
+                if c32.moe:
+                    _mesh_gate32(f"({sub}) {tag}", twos[tag], alone32, rank,
+                                 against="the mesh-less engine")
+            del whole
     dist.barrier()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5750,10 +5877,14 @@ def _mesh_decode(rank, dev, stats) -> dict:
     """(a) head-parallel and (b) sequence-sharded decode of starcoder2-7b
     at full width, MESH_LAYERS layers, on 2 ranks, each holding only its
     blocks of the serving state.  Returns this rank's launches."""
+    import dataclasses as dc
+
+    from repro_torch import configs
     return _sharded_serves(
-        rank, dev, stats, "starcoder2-7b", MESH_LAYERS,
+        rank, dev, stats,
+        dc.replace(configs.get_config("starcoder2-7b"), n_layers=MESH_LAYERS),
         [("hp", "a", {"head_parallel_decode": True}),
-         ("dist", "b", {"distributed_decode": True})])
+         ("dist", "b", {"distributed_decode": True})], DENSE_KERNELS[:2])
 
 
 def _moe_serve_mesh(rank, dev, stats) -> dict:
@@ -5761,10 +5892,61 @@ def _moe_serve_mesh(rank, dev, stats) -> dict:
     head-parallel with expert parallelism (``moe_shard_map_ep``) on 2
     ranks, each holding 8 of the 16 experts of every layer and its
     blocks of the rest.  Returns this rank's launches."""
+    import dataclasses as dc
+
+    from repro_torch import configs
     return _sharded_serves(
-        rank, dev, stats, MOE_ARCH, MESH_MOE_LAYERS,
+        rank, dev, stats,
+        dc.replace(configs.get_config(MOE_ARCH), n_layers=MESH_MOE_LAYERS),
         [("hp+ep", "g", {"head_parallel_decode": True,
-                         "moe_shard_map_ep": True})], moe=True)
+                         "moe_shard_map_ep": True})], DENSE_KERNELS[:2])
+
+
+#: (h)-(j): MLA's latent, Mamba-2's conv tail and SSM state and jamba's
+#: hybrid on the sharded serving state, each (arch, its depth or None
+#: for the whole stack, its decode flag, the kernels it must launch,
+#: ``_sharded_serves``' options).  (h)'s chunk is 640, not 256, because
+#: MLA's shape-only plan sends chunks of at most 512 rows to the
+#: reference (the MLA phase's regime (ii)), so at 256 no chunk would
+#: launch #1; its fp32 gate runs the 3 dense layers (a dense stack of
+#: the prefix's widths), since the MoE layer's 256 experts in fp32 beside
+#: the whole state overflow the card.  (i)'s bf16 streams part from the
+#: 1 rank's over 24 recurrent layers, so they are reported and its fp32
+#: streams gated.  (j)'s period is too large for fp32 beside its whole
+#: state: its bf16 streams are gated.
+MESH_STATES = {
+    "h": ("deepseek-v3-671b", 4, "distributed_decode",
+          ("fused_attention_masked",),
+          dict(chunk=640, fp32=dict(n_layers=3, first_dense_layers=0,
+                                    moe=False))),
+    "i": ("mamba2-130m", None, "head_parallel_decode", ("ssd_scan",),
+          dict(bf16_gate=False)),
+    "j": (JAMBA_ARCH, JAMBA_LAYERS, "distributed_decode",
+          ("fused_attention_masked", "ssd_scan"), dict(fp32=None))}
+
+
+def _state_serves(rank, dev, stats) -> dict:
+    """(h)-(j) (MESH_STATES), each through :func:`_sharded_serves` and
+    timed.  Returns this rank's launches."""
+    import dataclasses as dc
+
+    from repro_torch import configs
+
+    launches = collections.Counter()
+    for sub, (arch, layers, flag, want, kw) in MESH_STATES.items():
+        base = jamba_cfg() if arch == JAMBA_ARCH else configs.get_config(arch)
+        if layers is not None:
+            base = dc.replace(base, n_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tag = "hp" if flag == "head_parallel_decode" else "dist"
+        launches.update(_sharded_serves(rank, dev, stats, base,
+                                        [(tag, sub, {flag: True})], want,
+                                        **kw))
+        log(f"  [rank {rank}] ({sub}) sub-phase: "
+            f"{time.perf_counter() - t0:.1f}s")
+    return dict(launches)
 
 
 def _moe_mesh(rank, dev, stats) -> None:
@@ -5870,10 +6052,9 @@ def _fsdp_run(rank, dev, stats, sub, per_rank, steps) -> tuple:
         f"gradients {gb['grads']:.3f}, AdamW {gb['optimizer']:.3f}: "
         f"{sum(gb.values()):.3f} GB (dry-run per device: params "
         f"{cell['params'] / 1e9:.3f}, optimizer {cell['optimizer'] / 1e9:.3f}"
-        f"); the whole state, which each rank held replicated in PR 27: "
+        f"); the whole state, which each rank would hold replicated: "
         f"{(2 * whole + moments) / 1e9:.3f} GB; peak "
-        f"{stats[f'{sub}: FSDP'][1]:.2f} GB a rank (PR 27's replicated "
-        f"(d), recorded: {PR27_MESH_PEAK_GB} GB)")
+        f"{stats[f'{sub}: FSDP'][1]:.2f} GB a rank")
     if (held["params"], held["optimizer"]) != (cell["params"],
                                                cell["optimizer"]):
         raise SystemExit(f"mesh ({sub}): rank {rank} holds other bytes "
@@ -5905,7 +6086,7 @@ def _fsdp_run(rank, dev, stats, sub, per_rank, steps) -> tuple:
 
 
 def _train_mesh(rank, dev, stats) -> dict:
-    """(d) FSDP training of starcoder2-7b at full width, 2 layers, B=2 a
+    """(d) FSDP training of starcoder2-7b at full width, 1 layer, B=2 a
     rank, seq 1024, against rank 0's single-rank B=4 run; (e)
     remesh_state of the trained blocks from the 2 ranks to each rank
     alone, every leaf bit-equal to the blocks gathered; (f) FSDP
@@ -5952,7 +6133,7 @@ def _train_mesh(rank, dev, stats) -> dict:
 
 
 def mesh_rank(rank, dev):
-    """One rank of the mesh phase: (a)-(g) in turn.  Returns (launches,
+    """One rank of the mesh phase: (a)-(j) in turn.  Returns (launches,
     {sub-phase: (seconds, peak GB)})."""
     torch.backends.cuda.matmul.allow_tf32 = False
     stats = {}
@@ -5966,6 +6147,7 @@ def mesh_rank(rank, dev):
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(_moe_serve_mesh(rank, dev, stats))
+    launches.update(_state_serves(rank, dev, stats))
     return dict(launches), stats
 
 
@@ -5976,8 +6158,10 @@ def mesh_phase(dev):
     both on the sharded serving state, (c) phi3.5-moe's expert-parallel
     and local dispatch, (d) FSDP training, (e) remesh_state, (f)
     phi3.5-moe's FSDP training, (g) phi3.5-moe served head-parallel with
-    expert parallelism on the sharded serving state.  Returns the
-    launches of both ranks."""
+    expert parallelism on the sharded serving state, then (h)
+    deepseek-v3's MLA, (i) mamba2-130m and (j) jamba's period on the
+    sharded serving state (``MESH_STATES``).  Returns the launches of
+    both ranks."""
     from repro_torch.launch.mesh import spawn
 
     gc.collect()

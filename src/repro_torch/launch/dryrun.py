@@ -45,6 +45,7 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.weights import init_params, param_axes
 from repro_torch.optim import adamw_init
 from repro_torch.serve.engine import init_decode_state
+from repro_torch.serve.layout import cache_logical
 from repro_torch.sharding import rules as shrules
 
 #: one NVIDIA H100 SXM's device memory (NVIDIA's data sheet)
@@ -54,27 +55,6 @@ H100_BYTES = 80e9
 def abstract_params(cfg) -> tuple:
     """(the parameter tree on the meta device, its logical axes)."""
     return init_params(cfg, None, "meta"), param_axes(cfg)
-
-
-def _cache_logical(key: str, nd: int) -> tuple:
-    """A decode-state leaf's logical axes by its role (the JAX dry-run's
-    ``decode_state_shardings``): batch over (pod, data), the cache's
-    time dim over model, SSM heads and conv channels over model."""
-    if key.endswith("cache_len"):
-        return (None,) * nd
-    if key.endswith("last_token"):
-        logical = ("batch",)
-    elif key.endswith("/k") or key.endswith("/v"):
-        logical = ("batch", None, "seq_kv", None)
-    elif key.endswith("latent"):
-        logical = ("batch", "seq_kv", None)
-    elif key.endswith("conv"):
-        logical = ("batch", None, "inner")
-    elif key.endswith("ssm"):
-        logical = ("batch", "ssm_heads", None, None)
-    else:
-        logical = ("batch",) + (None,) * (nd - 1)
-    return (None,) * (nd - len(logical)) + logical
 
 
 def _paths(node, prefix="") -> list:
@@ -96,7 +76,7 @@ def _paths(node, prefix="") -> list:
 def decode_state_specs(state, mesh) -> list:
     """(path, spec) of every leaf of a decode state, by role."""
     return [(path, shrules.logical_to_mesh_axes(
-        _cache_logical(path, x.ndim), mesh=mesh, shape=x.shape))
+        cache_logical(path, x.ndim), mesh=mesh, shape=x.shape))
         for path, x in _paths(state)]
 
 

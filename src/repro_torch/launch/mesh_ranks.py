@@ -56,9 +56,9 @@ def decode_attention(rank, device, shape, q, k, v, lengths, wo) -> dict:
 
 def mesh_ledger(plan) -> list:
     """The downgrades and notes the multi-device decode paths left on
-    a serving plan's ExecutionPlans, in order."""
+    a serving plan's ExecutionPlans, in order (none without a plan)."""
     out = []
-    for p in plan.plans():
+    for p in ([] if plan is None else plan.plans()):
         out += [("downgrade", d.reason, d.from_path, d.to_path)
                 for d in p.downgrades if "decode" in d.reason
                 and ("shard" in d.reason or "partial" in d.reason)]
@@ -395,3 +395,117 @@ def sharded_pieces(rank, device, cfg, params_np, x, prefix, start: int,
             "lookup": (_cpu(lookup), _cpu(whole["embed"][tokens])),
             "logits": (_cpu(logits), _cpu(tf.forward(whole, cfg, tokens))),
             "embed_rows": tuple(blocks["embed"].shape)}
+
+
+def _layer0(params, key: str, specs=None):
+    """The first body layer's ``key`` sublayer of ``params`` (or of the
+    layout's ``specs``): a period's views, or the specs without their
+    period axis."""
+    from repro_torch.models import transformer as tf
+    if specs is not None:
+        return tf._unstack(specs["layers"][0])[key]
+    return {k: v[0] for k, v in params["layers"][0][key].items()}
+
+
+def mla_blocks_alone(rank, device, cfg, params_np, x, latent, start: int,
+                     x1, lengths) -> dict:
+    """MLA's layer alone on the sharded serving state, on
+    ``mesh_for_cores(2)`` under ``distributed_decode``, beside the whole
+    layer on this rank without a mesh: a chunk ``x`` (1, S, d) at
+    ``start`` over a latent cache whose prefix ``latent`` (global (1,
+    max_len, r_kv + rope)) is this rank's time columns, and a decode
+    step of ``x1`` (B, 1, d) at per-row ``lengths`` over the same prefix
+    repeated per row: each output and the cache after (gathered), and
+    the specs of every ``gather_spec`` the decode step made."""
+    from repro_torch.serve.layout import serving_layout
+
+    cfg = dataclasses.replace(cfg, distributed_decode=True)
+    mesh = mesh_for_cores(2, device=device)
+    layout = serving_layout(cfg, mesh, max_len=latent.shape[1])
+    whole = _layer0(params_from_numpy(params_np, cfg, device=device), "attn")
+    blocks = _layer0(params_from_numpy(params_np, cfg, device=device,
+                                       fsdp=layout), "attn")
+    specs = _layer0(None, "attn", layout.specs)
+    cspec = (None, "model", None)
+    x, x1, latent = x.to(device), x1.to(device), latent.to(device)
+    lengths = lengths.to(device)
+    out = {}
+    for name, inp, at, prefix in (
+            ("chunk", x, start, latent),
+            ("decode", x1, lengths - 1,
+             latent.expand(x1.shape[0], -1, -1))):
+        pos = (at + torch.arange(inp.shape[1], device=device))[None] \
+            if name == "chunk" else at[:, None].to(torch.int32)
+        cache = {"latent": prefix.clone()}
+        want, _ = attn_mod.mla_forward(whole, cfg, inp, pos, cache=cache,
+                                       cache_len=at)
+        mine = {"latent": local_slice(prefix, cspec, mesh).clone()}
+        seen = []
+        gather = attn_mod.gather_spec
+
+        def recorded(t, spec, m):
+            seen.append(tuple(spec))
+            return gather(t, spec, m)
+        attn_mod.gather_spec = recorded
+        try:
+            with set_rules_for_mesh(mesh):
+                got, _ = attn_mod.mla_forward(blocks, cfg, inp, pos,
+                                              cache=mine, cache_len=at,
+                                              specs=specs)
+                got_cache = gather_spec(mine["latent"], cspec, mesh)
+        finally:
+            attn_mod.gather_spec = gather
+        out[name] = {"out": (_cpu(got), _cpu(want)),
+                     "cache": (_cpu(got_cache), _cpu(cache["latent"])),
+                     "gathers": seen}
+    out["latent_block"] = tuple(mine["latent"].shape)
+    return out
+
+
+def mamba_blocks_alone(rank, device, cfg, params_np, x, conv, ssm) -> dict:
+    """Mamba-2's layer alone on the sharded serving state, on
+    ``mesh_for_cores(2)``, beside the whole layer on this rank without a
+    mesh: a decode step (``x[:, :1]``) and a prefill chunk (``x``) over
+    the conv tail ``conv`` and SSM state ``ssm`` (global), each output
+    and the conv tail and SSM state after (gathered from the blocks);
+    and the block norm of random rows (``inner`` split) against
+    ``rms_norm``."""
+    from repro_torch.models import mamba as mb
+    from repro_torch.models.common import rms_norm
+    from repro_torch.serve.layout import cache_spec, serving_layout
+
+    cfg = dataclasses.replace(cfg, head_parallel_decode=True)
+    mesh = mesh_for_cores(2, device=device)
+    layout = serving_layout(cfg, mesh)
+    whole = _layer0(params_from_numpy(params_np, cfg, device=device),
+                    "mamba")
+    blocks = _layer0(params_from_numpy(params_np, cfg, device=device,
+                                       fsdp=layout), "mamba")
+    specs = _layer0(None, "mamba", layout.specs)
+    x, conv, ssm = x.to(device), conv.to(device), ssm.to(device)
+    cspec = {k: cache_spec(layout, cfg, f"/{k}", t.shape)
+             for k, t in (("conv", conv), ("ssm", ssm))}
+    out = {}
+    for name, inp in (("decode", x[:, :1]), ("chunk", x)):
+        cache = {"conv": conv.clone(), "ssm": ssm.clone()}
+        want, _ = mb.mamba_forward(whole, cfg, inp, cache=cache)
+        mine = {k: local_slice(t, cspec[k], mesh).clone()
+                for k, t in (("conv", conv), ("ssm", ssm))}
+        with set_rules_for_mesh(mesh):
+            got, _ = mb.mamba_forward(blocks, cfg, inp, cache=mine,
+                                      specs=specs)
+            after = {k: gather_spec(t, cspec[k], mesh)
+                     for k, t in mine.items()}
+        out[name] = {"out": (_cpu(got), _cpu(want)),
+                     **{k: (_cpu(after[k]), _cpu(cache[k]))
+                        for k in mine}}
+    d_in = cfg.inner_dim
+    y = torch.randn(6, d_in, generator=torch.Generator().manual_seed(5))
+    y = y.to(device)
+    with set_rules_for_mesh(mesh):
+        got = rms_norm(mb._block(y, True, mesh.axis_index("model"), 2),
+                       blocks["norm"], mesh=mesh, width=d_in)
+        got = gather_spec(got, (None, "model"), mesh)
+    out["norm"] = (_cpu(got), _cpu(rms_norm(y, whole["norm"])))
+    out["blocks"] = {k: tuple(v.shape) for k, v in blocks.items()}
+    return out

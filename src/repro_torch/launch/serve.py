@@ -28,8 +28,11 @@ layer.
 (``distributed_decode``) serves on ``--ranks`` gloo ranks laid out as
 ``mesh_for_cores(ranks)`` (a (1, ranks) mesh), each holding only its
 blocks of the serving state (``serve.layout.serving_layout``): its
-heads, MLP columns, vocabulary rows, experts and cache slice, drawn
-from the same seed as a single rank's weights.  On the card the ranks
+heads, MLP columns, vocabulary rows, experts and cache slice (a GQA
+layer's K/V columns or KV heads, MLA's latent time columns, a Mamba-2
+layer's conv channels and SSM heads, with its columns of ``in_proj``
+and rows of ``inner``), drawn from the same seed as a single rank's
+weights.  On the card the ranks
 share the cards round-robin (two ranks on one card: gloo stages their
 collectives through host memory); on the CPU pass ``--device cpu``:
 
@@ -37,6 +40,13 @@ collectives through host memory); on the CPU pass ``--device cpu``:
         --smoke --mesh dist --ranks 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \
         --layers 4 --max-len 1024 --prefill-chunk 256 --mesh hp
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --smoke --mesh dist --ranks 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+        --smoke --mesh hp --ranks 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --smoke --mesh dist --ranks 2 \
+        --device cpu
 """
 
 from __future__ import annotations

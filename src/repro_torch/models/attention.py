@@ -85,28 +85,30 @@ def _gather_heads(x: torch.Tensor, mesh) -> torch.Tensor:
     return gather_spec(x, (None, "model"), mesh)
 
 
-def _write_columns(kc, vc, k_all, v_all, starts, s: int, per_row: bool,
-                   first: int) -> None:
-    """Write the new K/V (every head) into this rank's time columns
-    ``first``..``first + kc.shape[2]`` of the cache, in place: the rows
-    whose write position it owns (per-row decode), or the part of
-    ``starts``..``starts + s`` it owns (a chunk)."""
-    sl = kc.shape[2]
-    if per_row:
-        rows = torch.arange(kc.shape[0], device=kc.device)
-        loc = starts.long() - first
-        own = ((loc >= 0) & (loc < sl))[:, None, None]
-        at = loc.clamp(0, sl - 1)
-        for buf, new in ((kc, k_all), (vc, v_all)):
-            buf[rows, :, at] = torch.where(own, new[:, :, 0].to(buf.dtype),
-                                           buf[rows, :, at])
-        return
-    lo, hi = max(starts, first), min(starts + s, first + sl)
-    if lo < hi:
-        kc[:, :, lo - first:hi - first] = \
-            k_all[:, :, lo - starts:hi - starts].to(kc.dtype)
-        vc[:, :, lo - first:hi - first] = \
-            v_all[:, :, lo - starts:hi - starts].to(vc.dtype)
+def _write_columns(pairs, starts, s: int, per_row: bool, first: int,
+                   dim: int = 2) -> None:
+    """Write each new ``(buffer, rows)`` pair of ``pairs`` into this
+    rank's time columns ``first``..``first + buffer.shape[dim]`` of the
+    cache, in place (time along ``dim`` of both: 2 for K/V of every
+    head, 1 for MLA's latent): the rows whose write position it owns
+    (per-row decode), or the part of ``starts``..``starts + s`` it owns
+    (a chunk)."""
+    for buf, new in pairs:
+        sl = buf.shape[dim]
+        if per_row:
+            rows = torch.arange(buf.shape[0], device=buf.device)
+            loc = starts.long() - first
+            own = (loc >= 0) & (loc < sl)
+            at = loc.clamp(0, sl - 1)
+            idx = (rows, slice(None), at) if dim == 2 else (rows, at)
+            cur = buf[idx]
+            buf[idx] = torch.where(own.view(-1, *[1] * (cur.ndim - 1)),
+                                   new.select(dim, 0).to(buf.dtype), cur)
+            continue
+        lo, hi = max(starts, first), min(starts + s, first + sl)
+        if lo < hi:
+            buf.narrow(dim, lo - first, hi - lo).copy_(
+                new.narrow(dim, lo - starts, hi - lo))
 
 
 def _query_kv_heads(t: torch.Tensor, first: int, count: int,
@@ -239,7 +241,7 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                                  f"max_len {kc.shape[2] * n_model}")
             k_all, v_all = ((_gather_heads(t, mesh) for t in (k_new, v_new))
                             if kv_split else (k_new, v_new))
-            _write_columns(kc, vc, k_all, v_all, starts, s, per_row,
+            _write_columns(((kc, k_all), (vc, v_all)), starts, s, per_row,
                            r_model * kc.shape[2])
         elif per_row:
             # continuous batching: row r appends at its own position
@@ -376,7 +378,7 @@ def mla_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, cache: Optional[dict] = None,
                 cache_len=None, block_tables: Optional[torch.Tensor] = None,
                 plan=None, residual: Optional[torch.Tensor] = None,
-                impl: str = "auto"):
+                impl: str = "auto", specs: Optional[dict] = None):
     """x: (B, S, E).  Without ``cache``: per-head K/V, causal attention
     at D = nope + rope, Dv = v (the differentiable training attention).
     With ``cache``: append the latent rows at ``cache_len`` (in place,
@@ -385,23 +387,46 @@ def mla_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
     latent, V its first r_kv columns (a view of K's storage).  ``plan``:
     a ``lower.runtime.PlanDispatch`` whose impl the attention call takes
     (no Q or Wo fusion here, as in the JAX package).  ``residual`` is
-    added to the output.  Returns (out, cache)."""
+    added to the output.
+
+    ``specs`` (the sharded serving state, ``serve/layout.py``): the
+    leaves' specs, which say whether ``wq_b``/``wk_b``/``wv_b``/``wo``
+    are this rank's heads, and, under ``"latent"``, the latent cache's
+    spec, which says whether it holds this rank's time columns (whole
+    where ``max_len`` does not divide the "model" axis).  Every path
+    runs at the rank's query heads and one ``psum`` over "model" sums
+    the output partials; the latent rows, computed whole on every
+    rank, are written by the rank owning their columns.  A decode step
+    (S = 1) over split columns gathers the absorbed queries of every
+    head and runs the partial-softmax combine over the rank's own
+    columns (Hkv 1, V the first r_kv columns of K), so no rank gathers
+    the latent; a prefill chunk gathers the layer's columns for the
+    call.  MLA's one latent head has no head-parallel form, so
+    ``head_parallel_decode`` takes the same path.  Returns (out,
+    cache)."""
     if block_tables is not None:
         raise NotImplementedError(
             "paged KV is not supported for MLA latent caches")
     dt = x.dtype
     b, s, _ = x.shape
-    h = cfg.n_heads
+    mesh = shrules.active_mesh()
+    n_model, r_model = _model_axis(mesh)
+    # which leaves are this rank's blocks (the layout's specs)
+    q_split = shrules.splits(specs and specs["wq_b"], 1, mesh)
+    wo_split = shrules.splits(specs and specs["wo"], 0, mesh)
+    seq_split = cache is not None and specs is not None \
+        and shrules.splits(specs["latent"], 1, mesh)
     q_nope, q_rope = _mla_q(params, cfg, x, positions, dt)
     c, k_rope = _mla_latent(params, cfg, x, positions, dt)
     scale = mla_scale(cfg)
+    h_l = q_nope.shape[1]
 
     if cache is None:
         k_nope = _heads(c, params["wk_b"].to(dt))
         v = _heads(c, params["wv_b"].to(dt))
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope[:, None].expand(
-            b, h, s, cfg.qk_rope_head_dim)], dim=-1)
+            b, h_l, s, cfg.qk_rope_head_dim)], dim=-1)
         o = ops.attention(q, k, v, causal=cfg.causal, scale=scale,
                           plan=plan, impl=impl)
         new_cache = None
@@ -413,7 +438,13 @@ def mla_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
         starts, lengths, q_off, per_row = _cache_write(cache_len, b, s,
                                                        x.device)
         buf = cache["latent"]
-        if per_row:
+        if seq_split:
+            if not per_row and starts + s > buf.shape[1] * n_model:
+                raise ValueError(f"cache append at {starts}+{s} overruns "
+                                 f"max_len {buf.shape[1] * n_model}")
+            _write_columns(((buf, latent_new),), starts, s, per_row,
+                           r_model * buf.shape[1], dim=1)
+        elif per_row:
             buf[torch.arange(b, device=x.device), starts.long()] = \
                 latent_new[:, 0].to(buf.dtype)
         else:
@@ -423,13 +454,31 @@ def mla_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
             buf[:, starts:starts + s] = latent_new.to(buf.dtype)
         new_cache = cache
         k_lat = buf.to(dt)[:, None]                  # (B, 1, S, r + rope)
-        v_lat = k_lat[..., :cfg.kv_lora_rank]        # its first r columns
-        o_lat = ops.attention(q_full, k_lat, v_lat, causal=cfg.causal,
-                              q_offset=q_off, scale=scale, lengths=lengths,
-                              plan=plan, impl=impl)  # (B, H, S, r)
+        r = cfg.kv_lora_rank
+        if seq_split and s == 1:
+            # the combine over the ranks' own columns: every head's
+            # queries, the same (B, H, 1, r) out on every rank
+            if q_split:
+                q_full = _gather_heads(q_full, mesh)
+            o_lat = distributed_decode_attention(
+                q_full, k_lat, k_lat[..., :r], lengths, scale=scale,
+                plan=plan)
+            if q_split:                 # back to this rank's heads
+                o_lat = o_lat[:, r_model * h_l:(r_model + 1) * h_l]
+        else:
+            if seq_split:
+                # a chunk reads the layer's whole prefix, for this call
+                k_lat = gather_spec(k_lat, (None, None, "model"), mesh)
+            o_lat = ops.attention(q_full, k_lat, k_lat[..., :r],
+                                  causal=cfg.causal, q_offset=q_off,
+                                  scale=scale, lengths=lengths, plan=plan,
+                                  impl=impl)  # (B, H, S, r)
         o = o_lat @ params["wv_b"].to(dt).transpose(0, 1)
     wo = params["wo"].to(dt)
     out = o.transpose(1, 2).reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    if wo_split:
+        # the ranks' partials over their heads
+        out = psum(out, mesh, "model")
     if residual is not None:
         out = residual + out
     return out, new_cache
@@ -458,10 +507,9 @@ def init_attention(cfg: ModelConfig, draw, ones) -> dict:
 def attention_forward(params: dict, cfg: ModelConfig, x, positions, *,
                       specs: Optional[dict] = None, **kw):
     """The config's attention block: :func:`mla_forward` or
-    :func:`gqa_forward` (``specs``: the sharded serving state's, which
-    covers GQA alone)."""
+    :func:`gqa_forward` (``specs``: the sharded serving state's)."""
     if cfg.attention == "mla":
-        return mla_forward(params, cfg, x, positions, **kw)
+        return mla_forward(params, cfg, x, positions, specs=specs, **kw)
     return gqa_forward(params, cfg, x, positions, specs=specs, **kw)
 
 

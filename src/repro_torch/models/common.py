@@ -154,9 +154,18 @@ def resolve_device(device="cuda") -> torch.device:
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+             eps: float = 1e-6, *, mesh=None,
+             width: Optional[int] = None) -> torch.Tensor:
+    """RMSNorm over the last dim.  ``mesh``: ``x`` (and ``weight``)
+    hold this rank's block of that dim over "model", ``width`` wide in
+    whole, and the sum of squares is summed over "model" first, as the
+    whole norm takes it."""
     xf = x.float()
-    out = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+    if mesh is None:
+        ms = xf.pow(2).mean(-1, keepdim=True)
+    else:
+        ms = psum(xf.pow(2).sum(-1, keepdim=True), mesh, "model") / width
+    out = xf * torch.rsqrt(ms + eps)
     return (out * weight.float()).to(x.dtype)
 
 

@@ -23,6 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, rms_norm
+from repro_torch.sharding import rules as shrules
+from repro_torch.sharding.collectives import gather_spec, psum
 
 
 def dims(cfg: ModelConfig) -> tuple:
@@ -50,26 +52,84 @@ def _conv1d(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b, full[:, full.shape[1] - (width - 1):]
 
 
+def _block(t: torch.Tensor, split: bool, rank: int, n: int,
+           dim: int = -1) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` where ``split``, else
+    ``t``."""
+    if not split:
+        return t
+    size = t.shape[dim] // n
+    return t.narrow(dim, rank * size, size)
+
+
 def mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                  cache: Optional[dict] = None, impl: str = "auto"):
+                  cache: Optional[dict] = None, impl: str = "auto",
+                  specs: Optional[dict] = None):
     """x: (B, L, D).  ``cache`` {"conv", "ssm"}: updated in place.
     ``impl``: the ``ops.ssd`` impl (``torch`` forces the plain version
-    on the card).  Returns (out (B, L, D), the cache or None)."""
+    on the card).
+
+    ``specs`` (the sharded serving state, ``serve/layout.py``): the
+    leaves' specs, each saying whether its leaf is this rank's block
+    over "model": ``in_proj``'s columns, the conv channels (``conv_w``,
+    ``conv_b`` and the conv tail, which share their width), the SSM
+    heads (``a_log``, ``d_skip``, ``dt_bias`` and the SSM state) and
+    ``inner`` (``norm`` and ``out_proj``'s rows), each whole where its
+    width does not divide the axis.  The rank gathers the in-projection
+    over "model", convolves its own channels with its own tail (the conv
+    is depthwise) and gathers them, scans its heads over the B/C of the
+    groups they fall in (the one group its heads lie in, its whole
+    groups, or else a group per head), gates its ``inner`` block, takes
+    the norm's sum of squares over "model" (``rms_norm(mesh=)``) and
+    sums the out-projection's partials with one ``psum``.  Returns (out
+    (B, L, D), the cache or None)."""
     dt_ = x.dtype
     bsz, length, _ = x.shape
     d_in, h, p, g, s = dims(cfg)
+    mesh = shrules.active_mesh()
+    n, r = (mesh.axis_size("model"), mesh.axis_index("model")) \
+        if mesh is not None and "model" in mesh.axis_names else (1, 0)
+    # which leaves are this rank's blocks, by the layout's specs
+    proj_split = shrules.splits(specs and specs["in_proj"], 1, mesh)
+    conv_split = shrules.splits(specs and specs["conv_w"], 1, mesh)
+    head_split = shrules.splits(specs and specs["a_log"], 0, mesh)
+    inner_split = shrules.splits(specs and specs["out_proj"], 0, mesh)
 
     zxbcdt = x @ params["in_proj"].to(dt_)
+    if proj_split:
+        zxbcdt = gather_spec(zxbcdt, (None, None, "model"), mesh)
     z = zxbcdt[..., :d_in]
     xbc = zxbcdt[..., d_in:2 * d_in + 2 * g * s]
     dt_raw = zxbcdt[..., zxbcdt.shape[-1] - h:]
-    xbc, new_conv = _conv1d(xbc, params["conv_w"].to(dt_),
+    xbc, new_conv = _conv1d(_block(xbc, conv_split, r, n),
+                            params["conv_w"].to(dt_),
                             params["conv_b"].to(dt_),
                             None if cache is None else cache["conv"])
     xbc = F.silu(xbc.float()).to(dt_)
-    xs = xbc[..., :d_in].reshape(bsz, length, h, p)
+    if conv_split:
+        xbc = gather_spec(xbc, (None, None, "model"), mesh)
+    h_l = h // n if head_split else h
+    h0 = r * h_l if head_split else 0
+    xs = xbc[..., h0 * p:(h0 + h_l) * p].reshape(bsz, length, h_l, p)
     bmat = xbc[..., d_in:d_in + g * s].reshape(bsz, length, g, s)
     cmat = xbc[..., d_in + g * s:].reshape(bsz, length, g, s)
+    if head_split:
+        per_group = h // g
+        g0 = h0 // per_group
+        if (h0 + h_l - 1) // per_group == g0:
+            g_l = 1                 # the rank's heads inside one group
+        elif h0 % per_group == 0 and h_l % per_group == 0:
+            g_l = h_l // per_group  # whole groups
+        else:
+            g_l = 0                 # a group parted: one per head
+        if g_l:
+            bmat = bmat[:, :, g0:g0 + g_l]
+            cmat = cmat[:, :, g0:g0 + g_l]
+        else:
+            idx = torch.arange(h0, h0 + h_l, device=x.device) // per_group
+            bmat = bmat.index_select(2, idx)
+            cmat = cmat.index_select(2, idx)
+        dt_raw = dt_raw[..., h0:h0 + h_l]
     dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
     a = -torch.exp(params["a_log"].float())
 
@@ -90,10 +150,19 @@ def mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["ssm"].copy_(new_state)
-    y = y.reshape(bsz, length, d_in)
-    y = y * F.silu(z.float()).to(dt_)
-    y = rms_norm(y, params["norm"])
-    return y @ params["out_proj"].to(dt_), cache
+    y = y.reshape(bsz, length, h_l * p)
+    # the rank's heads are its inner block: d_in = H P, so where the
+    # heads divide the axis inner does too (not the other way round)
+    assert inner_split or not head_split
+    if inner_split and not head_split:
+        y = _block(y, True, r, n)
+    y = y * F.silu(_block(z, inner_split, r, n).float()).to(dt_)
+    y = rms_norm(y, params["norm"], mesh=mesh if inner_split else None,
+                 width=d_in)
+    out = y @ params["out_proj"].to(dt_)
+    if inner_split:
+        out = psum(out, mesh, "model")
+    return out, cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device,

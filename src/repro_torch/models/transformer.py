@@ -126,7 +126,7 @@ def _layer_forward(lp: dict, cfg: ModelConfig, kinds: tuple, x,
         h, _ = mb.mamba_forward(
             lp["mamba"], cfg, h,
             cache=None if layer_cache is None else layer_cache["mamba"],
-            impl=impl)
+            impl=impl, specs=specs.get("mamba"))
         x = x + h
     else:
         # the attention block owns its residual add: the decode
@@ -194,7 +194,8 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
     blocks, each layer told by its specs which.  A vocabulary block
     (``embed``/``lm_head`` rows over "model") looks up this rank's
     tokens, zeros the others and ``psum``s the rows, and its logits are
-    gathered over "model"; the norms are whole on every rank.
+    gathered over "model"; the norms are whole on every rank.  An MLA
+    layer's specs hold its latent cache's too.
     Returns logits (B, S_f + S, vocab), plus the cache (updated in
     place) when one is given, plus, with ``return_aux``, the MoE
     auxiliary losses summed over the layers (fp32 zeros for a stack

@@ -109,7 +109,7 @@ def _stacked(shape, lead: int, generator, device, dtype,
     for j in range(lead):
         torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0,
                                     generator=generator)
-        out[j] = tmp * scale if cut is None else cut((tmp * scale)[None])[0]
+        out[j] = tmp * scale if cut is None else cut(tmp[None])[0] * scale
     return out
 
 

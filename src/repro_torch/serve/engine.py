@@ -60,11 +60,13 @@ On a mesh of more than one rank with ``head_parallel_decode`` or
 ``distributed_decode`` set (``sharding.set_rules_for_mesh``), the engine
 serves the sharded serving state (``serve/layout.py``): its weights
 are this rank's blocks of JAX's ``param_shardings``, which it checks,
-and it allocates only this rank's block of each K/V leaf,
-the batch over the data axes and over "model" the time columns
-(``distributed_decode``, JAX's ``decode_state_shardings``) or the KV
-heads (``head_parallel_decode``); ``cache_len`` and ``last_token`` are
-whole on every rank.  Every rank runs every step: a B=1 prefill on
+and it allocates only this rank's block of each cache leaf
+(``serve.layout.cache_blocks``), the batch over the data axes and over
+"model": a K/V leaf's time columns (``distributed_decode``, JAX's
+``decode_state_shardings``) or KV heads (``head_parallel_decode``),
+MLA's latent by its time columns, a Mamba-2 layer's conv tail by its
+channels and SSM state by its heads; ``cache_len`` and ``last_token``
+are whole on every rank.  Every rank runs every step: a B=1 prefill on
 every rank (its batch does not divide), a decode step on the rank's
 rows, whose logits are gathered over the data axes.  ``insert`` writes
 a slot's row on the rank that holds it, ``preempt`` gathers the row's
@@ -252,7 +254,7 @@ def prefill_request(params, cfg: ModelConfig, prompt, *,
     dev = resolve_device(device)
     toks = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
                            device=dev).reshape(1, -1)
-    layout = sl.serving_layout(cfg)
+    layout = sl.serving_layout(cfg, max_len=max_len)
     if layout is not None:
         layout.check_blocks(params)
     state = init_decode_state(cfg, 1, max_len, dtype, plan=plan,
@@ -355,7 +357,7 @@ class ContinuousBatchingEngine:
         self.prefill_chunk, self.impl = prefill_chunk, impl
         #: the sharded serving state's layout under the active mesh
         #: (None: the whole state on this rank)
-        self.layout = sl.serving_layout(cfg)
+        self.layout = sl.serving_layout(cfg, max_len=max_len)
         if self.layout is not None:
             self.layout.check_blocks(params)
         #: (first, count) of the batch rows this rank's caches hold

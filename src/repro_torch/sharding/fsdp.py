@@ -88,12 +88,12 @@ class FSDP:
     """The blocks of a parameter tree on ``mesh``.  ``axes``: the tree's
     logical axes (``models.weights.param_axes``); ``like``: a tree of
     the same structure whose leaves have the global shapes (meta tensors
-    will do).  ``specs`` is the tree of each leaf's spec: its data axes
-    alone for training (``mesh`` needs a data axis of more than one
+    will do).  ``param_specs`` is the tree of each leaf's spec: its data
+    axes alone for training (``mesh`` needs a data axis of more than one
     rank), its whole spec with ``serve`` (the serving layout; ``mesh``
     needs more than one rank).  ``gathered`` is the tree of the specs
-    :meth:`gather` takes: each leaf's data axes (``specs`` itself for
-    training)."""
+    :meth:`gather` takes: each leaf's data axes (``param_specs`` itself
+    for training)."""
 
     def __init__(self, mesh, axes, like, *, serve: bool = False):
         self.mesh, self.serve = mesh, serve
@@ -103,15 +103,18 @@ class FSDP:
         if not serve and not self.axes:
             raise ValueError(f"{mesh}: no data axis of more than one rank")
         full = param_shardings(axes, mesh, like=like)
-        self.specs = tree.map(
+        self.param_specs = tree.map(
             lambda s: s.spec if serve else _data_spec(s.spec, self.axes),
             full)
+        #: the specs the layers read: ``param_specs`` (a serving layout
+        #: adds its caches', ``serve/layout.py``)
+        self.specs = self.param_specs
         self.gathered = tree.map(lambda s: _data_spec(s, self.axes),
-                                 self.specs, is_leaf=is_axes) \
-            if serve else self.specs
+                                 self.param_specs, is_leaf=is_axes) \
+            if serve else self.param_specs
         self.block_shapes = tree.map(
-            lambda s, x: shard_shape(x.shape, s, mesh), self.specs, like,
-            is_leaf=is_axes)
+            lambda s, x: shard_shape(x.shape, s, mesh), self.param_specs,
+            like, is_leaf=is_axes)
 
     def check_blocks(self, t) -> None:
         """Raise unless every leaf of ``t`` has its block's shape."""
@@ -131,13 +134,13 @@ class FSDP:
     def _map(self, fn, t, specs=None):
         """``fn(leaf, spec)`` over ``t``, whose structure is ``specs``'
         (default: the whole tree's)."""
-        specs = self.specs if specs is None else specs
+        specs = self.param_specs if specs is None else specs
         return tree.map(lambda s, x: fn(x, s), specs, t, is_leaf=is_axes)
 
     def shardings(self):
         """The tree of each leaf's :class:`NamedSharding`."""
-        return tree.map(lambda s: NamedSharding(self.mesh, s), self.specs,
-                        is_leaf=is_axes)
+        return tree.map(lambda s: NamedSharding(self.mesh, s),
+                        self.param_specs, is_leaf=is_axes)
 
     def init(self, cfg, generator, device):
         """This rank's blocks of ``init_params(cfg, generator, device)``:
@@ -147,7 +150,7 @@ class FSDP:
         order, shapes = mw.draw_order(cfg)
         specs = [None] * len(shapes)
         for i, s in zip(tree.leaves(order),
-                        tree.leaves(self.specs, is_leaf=is_axes)):
+                        tree.leaves(self.param_specs, is_leaf=is_axes)):
             specs[i] = (None,) * (len(shapes[i]) - len(s)) + s
         return mw.init_params(cfg, generator, device, cuts=lambda i: (
             functools.partial(local_slice, spec=specs[i], mesh=self.mesh)))

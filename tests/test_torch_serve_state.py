@@ -31,8 +31,9 @@ weights:
 * (d) the distributed prefill's all-to-all and the vocabulary-parallel
   lookup and logits alone, against the whole state without a mesh,
   within 1e-5 in fp32;
-* (e) the refusals: MLA, Mamba-2 and the hybrid under a sharded serve,
-  paged KV, and whole weights handed to the sharded engine.
+* (e) MLA, Mamba-2 and the hybrid now have a serving layout under
+  either flag and none without one; the refusals of paged KV and of
+  whole weights handed to the sharded engine.
 """
 
 import dataclasses
@@ -353,15 +354,16 @@ SHAPE_ONLY = Mesh(("data", "model"), (1, 2))
     ("jamba-1.5-large-398b", "hybrid")])
 @pytest.mark.parametrize("flag", FLAGS)
 def test_unported_serving_states_refuse(arch, what, flag):
-    """(e): the caches not laid out on a mesh yet raise, naming the
-    sharded serving state and ROADMAP, before any block exists; with no
-    decode flag the same mesh serves the whole state (no layout)."""
+    """(e): the states that refused before the latent cache, the conv
+    tail and the SSM state were laid out on a mesh now have a serving
+    layout under either decode flag (their blocks:
+    tests/test_torch_serve_state_mla.py and _ssm.py); with no decode
+    flag the same mesh serves the whole state (no layout)."""
     cfg = configs.get_config(arch, smoke=True)
     with set_rules_for_mesh(SHAPE_ONLY):
         assert serving_layout(cfg) is None
-        with pytest.raises(NotImplementedError,
-                           match="sharded serving state.*ROADMAP"):
-            serving_layout(dataclasses.replace(cfg, **{flag: True}))
+        layout = serving_layout(dataclasses.replace(cfg, **{flag: True}))
+        assert layout is not None and layout.serve, what
 
 
 def test_paged_kv_and_whole_weights_refuse():
