@@ -50,7 +50,17 @@ Phases, in order:
                #6; a NaN, an OOM, a preemption storm), a seeded
                schedule twice (the same ledger and fired log), and a
                crash restored from a snapshot (the uncrashed tokens;
-               snapshot size, write and restore times);
+               snapshot size, write and restore times); last the
+               roofline: the dry-run's roofline terms (launch/dryrun.py
+               roofline_cell) of starcoder2-7b decode_32k and train_4k
+               on the (16, 16) mesh, counted on the meta device under a
+               fake process group in a child process started after the
+               build (it runs on the host beside the card's phases),
+               printed beside the card's name and power limit; then one
+               bf16 decode step of the served model at B=4 counted on
+               the card (the kernels launched) and the same step's
+               shapes counted on the meta device: FLOPs and collective
+               bytes must be equal;
   6. new dense -- qwen3-14b (GQA group 5) and starcoder2-15b (group
                12) at full width, cut to 4 layers: the serve mix's
                prompts through launch/serve (#1-#3; qwen3-14b's qk-norm
@@ -157,7 +167,8 @@ Phases, in order:
                step), the first step's gradients taken twice and equal
                bit for bit, every gradient leaf finite and non-zero;
                then one profiled step by part;
-  17. mamba train -- mamba2-130m at full width and depth (24 layers):
+  17. mamba train -- mamba2-130m at full width, cut to 12 of its 24
+               layers (MAMBA_TRAIN_LAYERS):
                launch/train.train_loop, remat full, bf16 moments, B=8,
                seq 2048, 3 steps, through short_train (step ms, tokens/s,
                peak memory, the first step's gradients bit for bit, a
@@ -302,10 +313,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes and bf16
+# tensor-core operations a second, the kernels' bounds' (kernels/cost.py)
+from repro_torch.kernels import cost  # noqa: E402
+from repro_torch.kernels.cost import PEAK_BF16, PEAK_BYTES  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
-PEAK_BYTES = 3.35e12
-PEAK_BF16 = 989e12
 #: the H100's float32 rate outside the tensor cores
 PEAK_FP32 = 67e12
 
@@ -368,9 +380,11 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound(bytes_: float, flops: float) -> tuple[float, str]:
-    tb, tf = bytes_ / PEAK_BYTES, flops / PEAK_BF16
-    return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+def bound(kernel: str, *args, **kw) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card takes for
+    one call of ``kernel`` at these shapes and lengths, from its closed
+    form (``kernels/cost.py``)."""
+    return cost.bound_ms(*cost.cost(kernel, *args, **kw))
 
 
 #: repeats of each library yardstick: its time moves between repeats
@@ -417,21 +431,6 @@ def check_kernel(name, got, want, tag):
     if not ok:
         raise SystemExit(f"{name} disagrees with its plain version ({tag})")
     return err
-
-
-def _valid_cols(lengths, sq, causal):
-    """Score entries and KV rows the masked kernels need for these
-    lengths: (entries per (b, q-head), kv rows per b)."""
-    ent, rows = [], []
-    for n in lengths:
-        n = int(n)
-        if causal:
-            e = sum(max(0, min(n, n - sq + r + 1)) for r in range(sq))
-        else:
-            e = sq * n
-        ent.append(e)
-        rows.append(n)
-    return ent, rows
 
 
 def mask_of(lens, sq, skv, dev):
@@ -637,11 +636,8 @@ def kernel_phase(dev, g):
               fused_qproj_attention_masked_plain(xx, wq, kk, vv, ll,
                                                  rope_theta=th),
               f"Sq={sq_} lengths={ls} rope={th is not None}")
-    ent, rows = _valid_cols([total], sq, True)
-    byts = 2 * (x.numel() + wq.numel() + sum(rows) * HKV * 2 * D
-                + sq * HQ * D) + 4
-    flops = 2 * sq * E * HQ * D + 4 * HQ * D * sum(ent)
-    bms, by = bound(byts, flops)
+    bms, by = bound("fused_qproj_attention_masked", 1, sq, E, HQ, HKV, skv,
+                    D, D, lengths=[total], causal=True, el=x.element_size())
     pos = ref.rope_positions(sq, skv, lengths=lens)
     results["fused_qproj_attention_masked"] = dict(
         source="src/repro_torch/kernels/csrc/fused_qproj_attention.cu",
@@ -751,9 +747,9 @@ def masked_attention_record(q, k, v, lens, tag, gates=None) -> dict:
     if gates is not None:
         gates(out, want, f1)
     del out, want
-    ent, rows = _valid_cols(lens.tolist(), sq, True)
-    bms, by = bound(2 * (2 * q.numel() + sum(rows) * hkv * d * 2) + 4 * b,
-                    4 * hq * d * sum(ent))
+    bms, by = bound("fused_attention_masked", b, hq, hkv, sq, skv, d,
+                    v.shape[-1], lengths=lens.tolist(), causal=True,
+                    el=q.element_size())
     mask = mask_of(lens, sq, skv, q.device)
     ke, ve = (t.repeat_interleave(hq // hkv, 1) for t in (k, v))
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -787,11 +783,8 @@ def decode_block_record(x, res, pairs, k, v, lens, theta, tag, err) -> dict:
 
     p3 = lambda: fused_decode_block_plain(x, wq, k, v, wo, res, lens,
                                           rope_theta=theta)
-    kv_rows = int(lens.sum())
-    bms, by = bound(2 * (3 * b * e + wq.numel() + wo.numel()
-                         + kv_rows * hkv * 2 * d) + 4 * b,
-                    2 * b * e * hq * d + 4 * hq * d * kv_rows
-                    + 2 * b * hq * d * e)
+    bms, by = bound("fused_decode_block", b, e, hq, hkv, skv, d,
+                    v.shape[-1], lengths=lens.tolist(), el=x.element_size())
     return dict(
         max_abs_err=err, ms=time_ms(f3, 20), plain_ms=time_ms(p3, 3),
         bound_ms=bms, bound_by=by, library_ms=None,
@@ -881,7 +874,8 @@ def paged_kernel_phase(dev, g, check, check_decode_with, pairs):
              ([16, 0, 513], 16, ())]
     results = {}
     lens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
-    tbl_bytes = lambda t: 4 * (int(t.count_nonzero()) + t.shape[0])
+    # the table entries a paged kernel follows: each row's live pages
+    pages_read = lambda t: int(t.count_nonzero())
 
     # -- 4. fused_attention_paged: qwen3-8b decode past C = 256 ----------
     E, HQ, HKV, D = (QWEN[k] for k in ("E", "HQ", "HKV", "D"))
@@ -935,9 +929,9 @@ def paged_kernel_phase(dev, g, check, check_decode_with, pairs):
         if 0 in ls and got[ls.index(0)].any():
             raise SystemExit("fused_attention_paged: a length-0 row must "
                              "emit zeros")
-    kv_rows = sum(PAGED_LENS)
-    byts = 2 * (2 * q.numel() + kv_rows * HKV * 2 * D) + tbl_bytes(tbl)
-    bms, by = bound(byts, 4 * HQ * D * kv_rows)
+    bms, by = bound("fused_attention_paged", b, HQ, HKV, 1,
+                    tbl.shape[1] * page, D, D, lengths=PAGED_LENS,
+                    el=q.element_size(), table=pages_read(tbl))
     cols = torch.arange(skv, device=dev)
     mask = (cols[None, :] < lens[:, None])[:, None, None, :]
     ke, ve = (x.repeat_interleave(HQ // HKV, 1) for x in (kg, vg))
@@ -992,9 +986,9 @@ def paged_kernel_phase(dev, g, check, check_decode_with, pairs):
                           xx, wq, ref.gather_pages(kp_, t_),
                           ref.gather_pages(vp_, t_), ll, rope_theta=theta),
                       tag)
-    byts = 2 * (x.numel() + wq.numel() + kv_rows * HKV * 2 * D
-                + b * HQ * D) + tbl_bytes(tbl)
-    bms, by = bound(byts, 2 * b * E * HQ * D + 4 * HQ * D * kv_rows)
+    bms, by = bound("fused_qproj_attention_paged", b, 1, E, HQ, HKV,
+                    tbl.shape[1] * page, D, D, lengths=PAGED_LENS,
+                    el=x.element_size(), table=pages_read(tbl))
     results["fused_qproj_attention_paged"] = dict(
         source="src/repro_torch/kernels/csrc/fused_qproj_attention.cu",
         replaces="src/repro/kernels/fused_qproj_attention.py:322",
@@ -1057,10 +1051,9 @@ def paged_kernel_phase(dev, g, check, check_decode_with, pairs):
 
     p6 = lambda: fused_decode_block_paged_plain(x, wq, kp, vp, wo, res, lens,
                                                 tbl, rope_theta=theta)
-    byts = 2 * (3 * b * E + wq.numel() + wo.numel()
-                + kv_rows * HKV * 2 * D) + tbl_bytes(tbl)
-    flops = 2 * b * E * HQ * D + 4 * HQ * D * kv_rows + 2 * b * HQ * D * E
-    bms, by = bound(byts, flops)
+    bms, by = bound("fused_decode_block_paged", b, E, HQ, HKV,
+                    tbl.shape[1] * page, D, D, lengths=PAGED_LENS,
+                    el=x.element_size(), table=pages_read(tbl))
     results["fused_decode_block_paged"] = dict(
         source="src/repro_torch/kernels/csrc/fused_decode_block.cu",
         replaces="src/repro/kernels/fused_decode_block.py:194",
@@ -1275,7 +1268,7 @@ def profile_windows(args, cfg, params):
     del eng
 
 
-def serve_phase(dev):
+def serve_phase(dev, roofline):
     from repro_torch import lower
     from repro_torch.kernels import build, ops
     from repro_torch.launch import serve
@@ -1358,9 +1351,106 @@ def serve_phase(dev):
     launches.update(paged_serve_phase(args, cfg, params, dense_tokens, dev))
     launches.update(rung_down_phase(args, cfg, params, dev))
     launches.update(chaos_phase(args, cfg, params, dev))
+    roofline_phase(args, cfg, params, dev, roofline)
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+#: the dry-run cells whose roofline terms the roofline phase prints
+ROOFLINE_CELLS = (("starcoder2-7b", "decode_32k"),
+                  ("starcoder2-7b", "train_4k"))
+
+
+def start_roofline():
+    """The dry-run's roofline of ROOFLINE_CELLS on the (16, 16) mesh,
+    started now: rank 0's program of each counted on the meta device
+    under a fake process group, in a child process
+    (``launch.dryrun.roofline_cells``) that runs on the host beside the
+    card's phases.  Returns the future of its results."""
+    import concurrent.futures
+
+    from repro_torch.launch import dryrun
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(dryrun.roofline_cells,
+                         [((a, s), {}) for a, s in ROOFLINE_CELLS])
+    pool.shutdown(wait=False)
+    return future
+
+
+def roofline_phase(args, cfg, params, dev, roofline):
+    """The roofline cells' terms (``roofline``: :func:`start_roofline`'s
+    future, waited for here), each beside the card's name and power
+    limit.  Then one bf16
+    ``decode_step`` of the serve phase's model at B=4 (lengths
+    PAGED_LENS, the plan's decode dispatch) counted on the card, its
+    kernels launched, and the same step's shapes counted on the meta
+    device: the FLOPs and collective bytes must be equal (the kernels'
+    closed forms are counted whether the kernel or its plain version
+    runs)."""
+    from repro_torch import lower
+    from repro_torch.kernels import build
+    from repro_torch.launch import cost_analysis
+    from repro_torch.models.weights import init_params
+    from repro_torch.serve.engine import decode_step, init_decode_state
+
+    t0 = time.time()
+    card = card_line()
+    cells = roofline.result()
+    log(f"roofline: waited {time.time() - t0:.1f}s for the child process "
+        "that counted the cells beside the earlier phases")
+    for r in cells:
+        if "error" in r:
+            raise SystemExit(f"roofline: {r['arch']} x {r['shape']}: "
+                             f"{r['error']}")
+        pd, rt = r["per_device"], r["roofline_seconds"]
+        log(f"roofline: {r['arch']} x {r['shape']} x {r['mesh']} per device: "
+            f"{pd['flops']:.6e} FLOP, {pd['bytes_accessed']:.6e} B accessed, "
+            f"collective {pd['collective_bytes']}; seconds compute "
+            f"{rt['compute']:.6f} memory {rt['memory']:.6f} collective "
+            f"{rt['collective']:.6f}: {r['bottleneck']}-bound at the NVIDIA "
+            f"H100 SXM5 80GB data sheet's rates (700 W); this card: {card}; "
+            f"{r['layout']}; counted in {r['count_seconds']:.1f}s")
+    lens = PAGED_LENS
+    counts = {}
+    for where in (dev, torch.device("meta")):
+        on_card = where.type == "cuda"
+        p = params if on_card else init_params(cfg, None, "meta")
+        state = init_decode_state(cfg, len(lens), args.max_len,
+                                  cfg.torch_dtype(), device=where)
+        if on_card:
+            state.cache_len.copy_(torch.tensor(lens, dtype=torch.int32))
+        plan = lower.ServingPlan(cfg=cfg, max_len=args.max_len, device=where,
+                                 n_blocks=cfg.n_layers)
+        dispatch = plan.decode_dispatch(max(lens) + 1)
+        before = collections.Counter(build.LAUNCHES)
+        with torch.no_grad(), cost_analysis.count() as c:
+            decode_step(p, cfg, state, dispatch=dispatch)
+        if on_card:
+            torch.cuda.synchronize()
+        counts[where.type] = dict(
+            c.result(), launched=dict(collections.Counter(build.LAUNCHES)
+                                      - before), path=dispatch.path)
+        del p, state
+    card_c, meta_c = counts["cuda"], counts["meta"]
+    for where, r in counts.items():
+        log(f"roofline: one decode step of {cfg.name} at B={len(lens)} "
+            f"lengths {lens} ({r['path']}) counted on {where}: "
+            f"{r['flops']} FLOP, {r['bytes_accessed']} B accessed, "
+            f"collective {r['collective_bytes']['total']} B; kernels "
+            f"counted {r['kernels']}, launched {r['launched']}")
+    if not card_c["launched"] or meta_c["launched"]:
+        raise SystemExit("roofline: the card's step launched no kernel, or "
+                         "the meta step launched one")
+    if (card_c["flops"], card_c["collective_bytes"]) \
+            != (meta_c["flops"], meta_c["collective_bytes"]):
+        raise SystemExit("roofline: the card's decode step counts other "
+                         "FLOPs or collective bytes than the meta count of "
+                         "its shapes")
+    log(f"roofline: the card's FLOPs and collective bytes equal the meta "
+        f"count; bytes accessed {card_c['bytes_accessed']} on the card, "
+        f"{meta_c['bytes_accessed']} on meta; phase {time.time() - t0:.1f}s")
 
 
 def compare_logits(phase, got, want, tol=LOGIT_TOL) -> float:
@@ -2103,22 +2193,6 @@ MAMBA = dict(H=24, P=64, G=1, S=128, CHUNK=128)
 SSD_TOL_F32 = 1e-4
 
 
-def ssd_work(b, length, h, p, g, s, chunk, elem, with_h0) -> tuple:
-    """(bytes, operations) #11 must move and do for one call: x, dt, b,
-    c (and h0) read once, y and the final state written once; per head
-    and chunk of n valid rows, the causal n(n+1)/2 entries of C B^T (S
-    each) and of the score product (P each), C.h and the state update
-    (P S each per row), two operations per multiply-add."""
-    byts = (2 * b * length * h * p + b * length * h
-            + 2 * b * length * g * s) * elem + 2 * h * 4 \
-        + (2 if with_h0 else 1) * b * h * p * s * 4
-    ops_ = 0
-    for start in range(0, length, chunk):
-        n = min(chunk, length - start)
-        ops_ += 2 * (n * (n + 1) // 2 * (s + p) + 2 * n * p * s)
-    return byts, ops_ * b * h
-
-
 #: dt's scale in #11's long-memory inputs: a dt about -0.05 a position,
 #: so the state carries across 128-position chunks.  At the other inputs'
 #: a dt of about -1 it decays to nothing within a chunk, and a dropped
@@ -2285,8 +2359,9 @@ def ssd_records(dev, g, dims, cases) -> dict:
                          f"incoming state dropped",
                          {"y": (dy, wy), "state": (dh, wh)}, expect=False)
                 continue
-            byts, flops = ssd_work(b, length, H, P, G, S, C, 2, with_h0)
-            bms, by = bound(byts, flops)
+            flops, byts = cost.cost("ssd_scan", b, length, H, P, G, S, C,
+                                    el=args[0].element_size(), h0=with_h0)
+            bms, by = cost.bound_ms(flops, byts)
             u = lambda: ssd_unfused(*args, C, h0)
             uy, uh = u()
             _, urel = rel_err(uy, wy)
@@ -2575,12 +2650,6 @@ def _train_launches(cfg) -> dict:
             "fused_attention_bwd_dkv": n}
 
 
-def _causal_entries(b, hq, sq):
-    """Score entries of a causal square attention: the work each
-    training kernel needs, (B * Hq) rows of r + 1 columns."""
-    return b * hq * sq * (sq + 1) // 2
-
-
 #: The second gate of the training kernels (and of #1, #2 and #10) at
 #: their main shapes.  KERNEL_TOL of
 #: the largest |want| (about 3.5 for o) is as large as a typical late
@@ -2711,10 +2780,6 @@ def attention_train_records(q, k, v, do, causal, tag) -> dict:
     kw = dict(causal=causal)
     b, hq, sq, d = q.shape
     d_v = v.shape[-1]
-    ent = _causal_entries(b, hq, sq) if causal else b * hq * sq * k.shape[2]
-    # bytes of q (and dq), k (dk), v (dv), o and do (Dv wide)
-    qb, kb, vb, ob = (x.numel() * x.element_size() for x in (q, k, v, do))
-    rowb = b * hq * sq * 4                       # an fp32 (B, Hq, Sq) row
     gqa = dict(enable_gqa=True) if hq != k.shape[1] else {}
     sdpa = lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
         q_, k_, v_, is_causal=causal, **gqa)
@@ -2789,7 +2854,9 @@ def attention_train_records(q, k, v, do, causal, tag) -> dict:
     f7 = lambda: fused_attention_fwd(q, k, v, **kw)
     # products: S = Q.K^T (2 D a score entry), O = P.V (2 Dv); #8 adds
     # dP = dO.V^T and dQ = dS.K, #9 computes S, dP, dV = P^T.dO, dK
-    bms, by = bound(qb + kb + vb + ob + rowb, 2 * (d + d_v) * ent)
+    shapes = (b, hq, k.shape[1], sq, k.shape[2], d, d_v)
+    bms, by = bound("fused_attention_fwd", *shapes, causal=causal,
+                    el=q.element_size())
     results["fused_attention_fwd"] = dict(
         max_abs_err=err7, ms=time_ms(f7, 10),
         plain_ms=time_ms(lambda: fused_attention_fwd_plain(q, k, v, **kw),
@@ -2812,16 +2879,16 @@ def attention_train_records(q, k, v, do, causal, tag) -> dict:
                      f"forward: dq, dk and dv together) for "
                      f"fused_attention_bwd_dq and _dkv [{tag}]",
                      lambda: time_ms(both, 5) - time_ms(fwd_g, 5))
-    bms, by = bound(2 * qb + kb + vb + ob + 2 * rowb,
-                    (4 * d + 2 * d_v) * ent)
+    bms, by = bound("fused_attention_bwd_dq", *shapes, causal=causal,
+                    el=q.element_size())
     results["fused_attention_bwd_dq"] = dict(
         max_abs_err=err8,
         ms=time_ms(lambda: fused_attention_bwd_dq(*args, **kw), 5),
         plain_ms=time_ms(lambda: fused_attention_bwd_dq_plain(*args, **kw),
                          2, 1),
         bound_ms=bms, bound_by=by, library_ms=lib_bwd)
-    bms, by = bound(qb + 2 * kb + 2 * vb + ob + 2 * rowb,
-                    4 * (d + d_v) * ent)
+    bms, by = bound("fused_attention_bwd_dkv", *shapes, causal=causal,
+                    el=q.element_size())
     results["fused_attention_bwd_dkv"] = dict(
         max_abs_err=err9,
         ms=time_ms(lambda: fused_attention_bwd_dkv(*args, **kw), 5),
@@ -2851,9 +2918,6 @@ def train_kernel_phase(dev, g, check):
 
     q, k, v, do = rnd(b, HQ, sq, D), rnd(b, HKV, sq, D), rnd(b, HKV, sq, D), \
         rnd(b, HQ, sq, D)
-    ent = _causal_entries(b, HQ, sq)
-    qb, kvb = q.numel() * 2, k.numel() * 2       # bf16 bytes
-    rowb = b * HQ * sq * 4                       # an fp32 (B, Hq, Sq) row
     sources = {"fused_attention_fwd": ("fused_attention.cu", 155),
                "fused_attention_bwd_dq": ("fused_attention_bwd.cu", 537),
                "fused_attention_bwd_dkv": ("fused_attention_bwd.cu", 564)}
@@ -2917,8 +2981,8 @@ def train_kernel_phase(dev, g, check):
              {"o": (o_m, o_r)}, (lse_m, lse_r), expect=False,
              lse_tol=QPROJ_LSE_TOL)
     del again, o_r, lse_r, o_t, lse_t, o_m, lse_m
-    bms, by = bound(x.numel() * 2 + wq.numel() * 2 + 2 * kvb + qb + rowb,
-                    2 * b * sq * E * HQ * D + 4 * D * ent)
+    bms, by = bound("fused_qproj_attention_fwd", b, sq, E, HQ, HKV, sq, D, D,
+                    el=x.element_size())
     results["fused_qproj_attention_fwd"] = dict(
         source="src/repro_torch/kernels/csrc/fused_qproj_attention.cu",
         replaces="src/repro/kernels/fused_qproj_attention.py:104",
@@ -4412,11 +4476,9 @@ def mla_attention_record(q, k, lens, tag) -> dict:
             raise SystemExit(f"{name} [{tag}]: fp32 per-row gate")
     err = rel_err(out, want)[0]
     del out, want, cut
-    ent, rows = _valid_cols(lens.tolist(), sq, True)
-    el = q.element_size()
-    bms, by = bound(el * (q.numel() + b * hq * sq * MLA_DV
-                          + sum(rows) * d) + 4 * b,
-                    2 * hq * (d + MLA_DV) * sum(ent))
+    bms, by = bound("fused_attention_masked", b, hq, k.shape[1], sq,
+                    k.shape[2], d, MLA_DV, lengths=lens.tolist(),
+                    causal=True, el=q.element_size(), v_in_k=True)
     mask = mask_of(lens, sq, k.shape[2], q.device)
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=MLA_SCALE, enable_gqa=True)
@@ -4946,18 +5008,26 @@ def mla_train_phase(dev):
 #: mamba2-130m's training batch: 8 rows of 2048 tokens (B=2 would leave a
 #: 130 M-parameter step to the launch rate)
 MAMBA_TRAIN_B = 8
+#: mamba2-130m's depth in the training phase: 12 of its 24 layers, which
+#: halves the profiled step's ~50k launches a step and the host time of
+#: their processing, to pay for the roofline phase
+MAMBA_TRAIN_LAYERS = 12
 
 
 def mamba_train_phase(dev):
-    """``short_train`` on mamba2-130m at full width and depth (24 layers,
-    remat full, bf16 moments, B=MAMBA_TRAIN_B, seq 2048, 3 steps).  Under
+    """``short_train`` on mamba2-130m at full width, MAMBA_TRAIN_LAYERS of
+    its 24 layers (remat full, bf16 moments, B=MAMBA_TRAIN_B, seq 2048,
+    3 steps).  Under
     autograd ``ops.ssd`` takes the plain scan (#11 has no backward): no
     ssd_scan launch in a step, ("ssd", "torch") calls counted.  Returns
     the launches of the 3 steps."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.kernels import ops
 
-    cfg = configs.get_config("mamba2-130m")
+    cfg = dataclasses.replace(configs.get_config("mamba2-130m"),
+                              n_layers=MAMBA_TRAIN_LAYERS)
     log(f"mamba train: {cfg.name} {cfg.n_layers} layers d_model="
         f"{cfg.d_model}, {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
         f"{cfg.ssm_state}; remat {cfg.remat}, bf16 params and moments, "
@@ -5799,7 +5869,7 @@ def _sharded_serves(rank, dev, stats, base, runs, want, *, chunk=256,
         cell = dryrun.run_cell(
             base.name, "decode_32k", cfg=cfgs[tag],
             mesh=Mesh(("data", "model"), (1, 2)), batch=args.batch,
-            max_len=args.max_len)["per_device_bytes"]
+            max_len=args.max_len, costs=False)["per_device_bytes"]
         held = run["held"]
         log(f"  [rank {rank}] ({sub}) {tag}: holds params {held['params']} "
             f"B, caches {held['caches']} B; dry-run per device (1, 2) "
@@ -6043,7 +6113,8 @@ def _fsdp_run(rank, dev, stats, sub, per_rank, steps) -> tuple:
                          f"{missing}")
     cell = dryrun.run_cell(arch, "train_4k", cfg=cfg,
                            mesh=Mesh(("data", "model"), (MESH_RANKS, 1)),
-                           moment_dtype="bfloat16")["per_device_bytes"]
+                           moment_dtype="bfloat16",
+                           costs=False)["per_device_bytes"]
     params = tree.leaves(dryrun.abstract_params(cfg)[0])
     whole = sum(x.numel() * x.element_size() for x in params)
     moments = 2 * 2 * sum(x.numel() for x in params)
@@ -6209,6 +6280,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     usage = tensor_core_usage()
 
+    roofline = start_roofline()
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     log("kernels:")
@@ -6234,7 +6306,7 @@ def main() -> int:
         return out
 
     timed("plan", plan_phase, dev)
-    launches = timed("serve", serve_phase, dev)
+    launches = timed("serve", serve_phase, dev, roofline)
     launches.update(timed("new dense", new_dense_phase, dev))
     launches.update(timed("qwen", qwen_phase, dev))
     launches.update(timed("mamba forward", mamba_forward_phase, dev))

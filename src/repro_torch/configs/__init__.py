@@ -115,12 +115,14 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs(arch: str, shape_name: str, cfg=None) -> dict:
+def input_specs(arch: str, shape_name: str, cfg=None,
+                shape: Optional[Shape] = None) -> dict:
     """One cell's model inputs as meta tensors: train -> {"batch":
     {tokens/embeds/targets}}, prefill -> {"tokens"} or {"embeds"},
-    decode -> {"batch": B, "max_len": S}, the decode state's geometry."""
+    decode -> {"batch": B, "max_len": S}, the decode state's geometry.
+    ``shape``: a geometry in place of the named shape's."""
     cfg = cfg or get_config(arch)
-    sh = SHAPES[shape_name]
+    sh = shape or SHAPES[shape_name]
     b, s = sh.global_batch, sh.seq_len
     emb_dt = cfg.torch_dtype()
     i32 = torch.int32

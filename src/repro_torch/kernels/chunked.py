@@ -6,7 +6,10 @@ The score matrix is never materialised whole: query blocks of
 ``block_q`` rows walk the KV sequence ``block_k`` columns at a time,
 carrying the running (max, sum, accumulator) in fp32.  One cast point
 of the CUDA and TPU kernels is kept: p is rounded to V's dtype before
-P.V (a no-op in fp32, where this equals the JAX fallback).
+P.V (a no-op in fp32, where this equals the JAX fallback).  On the
+``meta`` device, which holds no data, one block spans the whole
+sequence: the same ops at shapes alone, without a Python loop over
+thousands of blocks.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     off = (skv - sq) if q_offset is None else q_offset
     off = torch.as_tensor(off, device=dev).reshape(-1)        # (1,) or (B,)
+    if dev.type == "meta":
+        block_q, block_k = sq, skv
     bq, bk = min(block_q, max(sq, 1)), min(block_k, max(skv, 1))
     out = torch.empty(b, hq, sq, dv, dtype=q.dtype, device=dev)
     for q0 in range(0, sq, bq):

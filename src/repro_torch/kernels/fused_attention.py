@@ -33,6 +33,13 @@ MAX_HEAD_DIM for Q and K: MLA's cache-free training attention (D = nope
 128 + rope 64, Dv 128, 128 heads, group 1) runs instantiations of their
 bodies of its own (``*_mma_kernel_d192`` in bf16, the FMA bodies sized
 for 192 in fp32).
+
+Every wrapper launches its kernel on a CUDA tensor (or raises) and runs
+its plain version on a CPU or ``meta`` tensor (:data:`PLAIN_DEVICES`),
+never on the card.  Wrapper and plain version both report the kernel's
+closed-form cost (``kernels/cost.py``) to an active cost counter,
+whichever of the two runs, with every column of the cache counted
+valid.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels.chunked import chunked_attention
 
 #: widest head the CUDA kernels take (csrc/common.cuh kMaxD), but for
@@ -67,6 +74,14 @@ ROWS, TILE = 16, 64
 #: query rows per block of their bf16 one-pass body on the tensor cores
 #: (csrc/masked_mma.cuh masked_mma::kRows)
 MMA_ROWS = 64
+#: the devices whose tensors take a kernel's plain version: the CPU, and
+#: the meta device, which computes shapes alone (the dry-run's count)
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def on_plain_device(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` runs its plain version."""
+    return t.device.type in PLAIN_DEVICES
 
 
 def one_pass_rows(dtype: torch.dtype) -> int:
@@ -233,6 +248,36 @@ def check_block_tables(name: str, block_tables: torch.Tensor, b: int,
     return block_tables.shape[1], page
 
 
+def _masked_cost_args(q, k, v, lengths, *, causal=True, scale=None):
+    """#1's cost arguments (``kernels/cost.py``): the wide body reads V
+    from K's rows."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, dv = v.shape
+    return (b, hq, hkv, sq, skv, d, dv), dict(
+        causal=causal, el=q.element_size(),
+        v_in_k=max(d, dv) > MAX_HEAD_DIM)
+
+
+def _paged_cost_args(q, k_pool, v_pool, lengths, block_tables, *, causal=True,
+                     scale=None):
+    """#4's cost arguments: the table's depth and every entry of it."""
+    b, hq, sq, d = q.shape
+    _, hkv, page, dv = v_pool.shape
+    pages = block_tables.shape[1]
+    return (b, hq, hkv, sq, pages * page, d, dv), dict(
+        causal=causal, el=q.element_size(), table=b * pages)
+
+
+def _train_cost_args(q, k, v, *rest, causal=True, scale=None, q_offset=None):
+    """#7-#9's cost arguments."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, dv = v.shape
+    return (b, hq, hkv, sq, skv, d, dv), dict(
+        causal=causal, el=q.element_size(),
+        q_offset=None if q_offset is None else int(q_offset))
+
+
+@cost.counted("fused_attention_masked", _masked_cost_args)
 def fused_attention_masked_plain(q, k, v, lengths, *, causal: bool = True,
                                  scale: Optional[float] = None):
     """The plain version: ``chunked_attention`` with ``lengths`` and the
@@ -242,13 +287,14 @@ def fused_attention_masked_plain(q, k, v, lengths, *, causal: bool = True,
                              q_offset=lens - q.shape[2], lengths=lens)
 
 
+@cost.counted("fused_attention_masked", _masked_cost_args)
 def fused_attention_masked(q, k, v, lengths, *, causal: bool = True,
                            scale: Optional[float] = None):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D[v]); lengths: (B,) int32.
     Returns (B, Hq, Sq, Dv) in q's dtype.  On a CUDA tensor this
-    launches the kernel (or raises); a CPU tensor takes the plain
-    version."""
-    if q.device.type == "cpu":
+    launches the kernel (or raises); a CPU or meta tensor takes the
+    plain version."""
+    if on_plain_device(q):
         return fused_attention_masked_plain(q, k, v, lengths, causal=causal,
                                             scale=scale)
     b, hq, sq, d = q.shape
@@ -306,6 +352,7 @@ def _masked_wide(q, k, v, lengths, causal: bool, scale):
     return out
 
 
+@cost.counted("fused_attention_paged", _paged_cost_args)
 def fused_attention_paged_plain(q, k_pool, v_pool, lengths, block_tables, *,
                                 causal: bool = True,
                                 scale: Optional[float] = None):
@@ -318,15 +365,16 @@ def fused_attention_paged_plain(q, k_pool, v_pool, lengths, block_tables, *,
         scale=scale)
 
 
+@cost.counted("fused_attention_paged", _paged_cost_args)
 def fused_attention_paged(q, k_pool, v_pool, lengths, block_tables, *,
                           causal: bool = True,
                           scale: Optional[float] = None):
     """q: (B, Hq, Sq, D); k_pool, v_pool: (num_pages, Hkv, page, D[v]);
     lengths: (B,) int32; block_tables: (B, max_pages) int32 page ids.
     Returns (B, Hq, Sq, Dv) in q's dtype.  On a CUDA tensor this
-    launches the kernel (or raises); a CPU tensor takes the plain
-    version."""
-    if q.device.type == "cpu":
+    launches the kernel (or raises); a CPU or meta tensor takes the
+    plain version."""
+    if on_plain_device(q):
         return fused_attention_paged_plain(q, k_pool, v_pool, lengths,
                                            block_tables, causal=causal,
                                            scale=scale)
@@ -359,9 +407,12 @@ def fused_attention_paged(q, k_pool, v_pool, lengths, block_tables, *,
 # fused_attention_bwd_dq (#8) and fused_attention_bwd_dkv (#9)
 # ---------------------------------------------------------------------------
 
-fused_attention_fwd_plain = ref.attention_fwd_plain
-fused_attention_bwd_dq_plain = ref.attention_bwd_dq_plain
-fused_attention_bwd_dkv_plain = ref.attention_bwd_dkv_plain
+fused_attention_fwd_plain = cost.counted(
+    "fused_attention_fwd", _train_cost_args)(ref.attention_fwd_plain)
+fused_attention_bwd_dq_plain = cost.counted(
+    "fused_attention_bwd_dq", _train_cost_args)(ref.attention_bwd_dq_plain)
+fused_attention_bwd_dkv_plain = cost.counted(
+    "fused_attention_bwd_dkv", _train_cost_args)(ref.attention_bwd_dkv_plain)
 
 
 def _train_shapes(name: str, q, k, v):
@@ -389,14 +440,15 @@ def causal_anchor(q_offset, sq: int, skv: int) -> int:
     return (skv - sq) if q_offset is None else int(q_offset)
 
 
+@cost.counted("fused_attention_fwd", _train_cost_args)
 def fused_attention_fwd(q, k, v, *, causal: bool = True,
                         scale: Optional[float] = None, q_offset=None):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D[v]).  Returns (o, lse):
     o (B, Hq, Sq, Dv) in q's dtype, lse (B, Hq, Sq) fp32.  Causal rows
     are anchored at ``q_offset + r`` (default Skv - Sq).  On a CUDA
-    tensor this launches the kernel (or raises); a CPU tensor takes the
-    plain version."""
-    if q.device.type == "cpu":
+    tensor this launches the kernel (or raises); a CPU or meta tensor
+    takes the plain version."""
+    if on_plain_device(q):
         return fused_attention_fwd_plain(q, k, v, causal=causal,
                                          scale=scale, q_offset=q_offset)
     b, hq, hkv, sq, skv, d, dv = _train_shapes("fused_attention_fwd",
@@ -424,13 +476,14 @@ def _bwd_args(name, q, k, v, do, lse, delta):
     return b, hq, hkv, sq, skv, d, dv
 
 
+@cost.counted("fused_attention_bwd_dq", _train_cost_args)
 def fused_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                            scale: Optional[float] = None, q_offset=None):
     """dq (B, Hq, Sq, D) in q's dtype from the forward's inputs, the
     cotangent ``do``, the forward's ``lse`` and ``delta =
     ref.attention_delta(o, do)``.  On a CUDA tensor this launches the
-    kernel (or raises); a CPU tensor takes the plain version."""
-    if q.device.type == "cpu":
+    kernel (or raises); a CPU or meta tensor takes the plain version."""
+    if on_plain_device(q):
         return fused_attention_bwd_dq_plain(q, k, v, do, lse, delta,
                                             causal=causal, scale=scale,
                                             q_offset=q_offset)
@@ -446,13 +499,14 @@ def fused_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     return dq
 
 
+@cost.counted("fused_attention_bwd_dkv", _train_cost_args)
 def fused_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                             scale: Optional[float] = None, q_offset=None):
     """(dk, dv), each summed over its GQA group, in k's and v's dtype.
     Arguments as :func:`fused_attention_bwd_dq`.  On a CUDA tensor this
-    launches the kernel (or raises); a CPU tensor takes the plain
-    version."""
-    if q.device.type == "cpu":
+    launches the kernel (or raises); a CPU or meta tensor takes the
+    plain version."""
+    if on_plain_device(q):
         return fused_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
                                              causal=causal, scale=scale,
                                              q_offset=q_offset)
@@ -511,6 +565,6 @@ def fused_attention(q, k, v, *, causal: bool = True,
     ``fused_attention_fwd`` and keeps its lse; the backward runs
     ``fused_attention_bwd_dq`` and ``fused_attention_bwd_dkv``.  Each
     wrapper launches its kernel on a CUDA tensor and runs its plain
-    version on a CPU one; ``plain`` runs the plain versions on the card
-    too."""
+    version on a CPU or meta one; ``plain`` runs the plain versions on
+    the card too."""
     return _FusedAttention.apply(q, k, v, causal, scale, q_offset, plain)

@@ -19,6 +19,10 @@ start at zero and each launch leaves them at zero, and its grid
 barrier's count of arrivals only counts up.  fp32 runs the FMA body,
 whose workspace is kept the same way.  Setting :data:`PHASE_TRACE`
 makes each bf16 launch stamp its blocks' phases (``time_decode_block.py``).
+
+As in ``fused_attention``, a CPU or meta tensor takes the plain
+version, and wrapper and plain version report the kernel's closed-form
+cost to an active cost counter.
 """
 
 from __future__ import annotations
@@ -27,11 +31,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels.chunked import chunked_attention
 from repro_torch.kernels.fused_attention import (_sm_count,
                                                  check_block_tables,
-                                                 check_cuda_args)
+                                                 check_cuda_args,
+                                                 on_plain_device)
 
 #: the bf16 body's geometry (csrc/fused_decode_block.cu, namespace mk)
 UNIT_ROWS = 64    # weight rows (Wq's E, Wo's Hq * Dv) per unit
@@ -166,6 +171,27 @@ def _launch_plan(x, b, hq, hkv, e, d, dv):
     return ws, plan.n_blocks, plan.n_chunks
 
 
+def _decode_cost_args(x, wq, k, v, wo, residual, lengths, *, scale=None,
+                      rope_theta=None):
+    """#3's cost arguments (``kernels/cost.py``)."""
+    b, _, e = x.shape
+    _, hq, d = wq.shape
+    _, hkv, skv, dv = v.shape
+    return (b, e, hq, hkv, skv, d, dv), dict(el=x.element_size())
+
+
+def _paged_cost_args(x, wq, k_pool, v_pool, wo, residual, lengths,
+                     block_tables, *, scale=None, rope_theta=None):
+    """#6's cost arguments: the table's depth and every entry of it."""
+    b, _, e = x.shape
+    _, hq, d = wq.shape
+    _, hkv, page, dv = v_pool.shape
+    pages = block_tables.shape[1]
+    return (b, e, hq, hkv, pages * page, d, dv), dict(
+        el=x.element_size(), table=b * pages)
+
+
+@cost.counted("fused_decode_block", _decode_cost_args)
 def fused_decode_block_plain(x, wq, k, v, wo, residual, lengths, *,
                              scale: Optional[float] = None,
                              rope_theta: Optional[float] = None):
@@ -180,14 +206,15 @@ def fused_decode_block_plain(x, wq, k, v, wo, residual, lengths, *,
     return (residual.float() + y).to(x.dtype)
 
 
+@cost.counted("fused_decode_block", _decode_cost_args)
 def fused_decode_block(x, wq, k, v, wo, residual, lengths, *,
                        scale: Optional[float] = None,
                        rope_theta: Optional[float] = None):
     """x, residual: (B, 1, E); wq: (E, Hq, D); k, v: (B, Hkv, Skv, D[v]);
     wo: (Hq, Dv, E); lengths: (B,) int32.  Returns (B, 1, E) =
     ``residual + attn_out @ Wo``.  On a CUDA tensor this launches the
-    kernel (or raises); a CPU tensor takes the plain version."""
-    if x.device.type == "cpu":
+    kernel (or raises); a CPU or meta tensor takes the plain version."""
+    if on_plain_device(x):
         return fused_decode_block_plain(x, wq, k, v, wo, residual, lengths,
                                         scale=scale, rope_theta=rope_theta)
     b, sq, e = x.shape
@@ -217,6 +244,7 @@ def fused_decode_block(x, wq, k, v, wo, residual, lengths, *,
     return out
 
 
+@cost.counted("fused_decode_block_paged", _paged_cost_args)
 def fused_decode_block_paged_plain(x, wq, k_pool, v_pool, wo, residual,
                                    lengths, block_tables, *,
                                    scale: Optional[float] = None,
@@ -229,6 +257,7 @@ def fused_decode_block_paged_plain(x, wq, k_pool, v_pool, wo, residual,
         scale=scale, rope_theta=rope_theta)
 
 
+@cost.counted("fused_decode_block_paged", _paged_cost_args)
 def fused_decode_block_paged(x, wq, k_pool, v_pool, wo, residual, lengths,
                              block_tables, *, scale: Optional[float] = None,
                              rope_theta: Optional[float] = None):
@@ -236,8 +265,8 @@ def fused_decode_block_paged(x, wq, k_pool, v_pool, wo, residual, lengths,
     (num_pages, Hkv, page, D[v]); wo: (Hq, Dv, E); lengths: (B,) int32;
     block_tables: (B, max_pages) int32.  Returns (B, 1, E) =
     ``residual + attn_out @ Wo``.  On a CUDA tensor this launches the
-    kernel (or raises); a CPU tensor takes the plain version."""
-    if x.device.type == "cpu":
+    kernel (or raises); a CPU or meta tensor takes the plain version."""
+    if on_plain_device(x):
         return fused_decode_block_paged_plain(
             x, wq, k_pool, v_pool, wo, residual, lengths, block_tables,
             scale=scale, rope_theta=rope_theta)

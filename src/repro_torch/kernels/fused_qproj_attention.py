@@ -18,6 +18,10 @@ whole sequence, rows anchored and rotated at ``q_offset + r``, with
 lse); its backward recomputes and rotates Q, runs the training
 attention's two backward kernels, un-rotates dq and forms dx and dWq as
 plain products, as ``_fqa_bwd`` does.
+
+As in ``fused_attention``, a CPU or meta tensor takes the plain
+version, and wrapper and plain version report the kernel's closed-form
+cost to an active cost counter.
 """
 
 from __future__ import annotations
@@ -26,12 +30,46 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels.chunked import chunked_attention
 from repro_torch.kernels.fused_attention import (
-    attention_backward, causal_anchor, check_block_tables, check_cuda_args)
+    attention_backward, causal_anchor, check_block_tables, check_cuda_args,
+    on_plain_device)
 
 
+def _masked_cost_args(x, wq, k, v, lengths, *, causal=True, scale=None,
+                      rope_theta=None):
+    """#2's cost arguments (``kernels/cost.py``)."""
+    b, sq, e = x.shape
+    _, hq, d = wq.shape
+    _, hkv, skv, dv = v.shape
+    return (b, sq, e, hq, hkv, skv, d, dv), dict(causal=causal,
+                                                 el=x.element_size())
+
+
+def _paged_cost_args(x, wq, k_pool, v_pool, lengths, block_tables, *,
+                     causal=True, scale=None, rope_theta=None):
+    """#5's cost arguments: the table's depth and every entry of it."""
+    b, sq, e = x.shape
+    _, hq, d = wq.shape
+    _, hkv, page, dv = v_pool.shape
+    pages = block_tables.shape[1]
+    return (b, sq, e, hq, hkv, pages * page, d, dv), dict(
+        causal=causal, el=x.element_size(), table=b * pages)
+
+
+def _fwd_cost_args(x, wq, k, v, *, causal=True, scale=None, q_offset=None,
+                   rope_theta=None):
+    """#10's cost arguments."""
+    b, sq, e = x.shape
+    _, hq, d = wq.shape
+    _, hkv, skv, dv = v.shape
+    return (b, sq, e, hq, hkv, skv, d, dv), dict(
+        causal=causal, el=x.element_size(),
+        q_offset=None if q_offset is None else int(q_offset))
+
+
+@cost.counted("fused_qproj_attention_masked", _masked_cost_args)
 def fused_qproj_attention_masked_plain(x, wq, k, v, lengths, *,
                                        causal: bool = True,
                                        scale: Optional[float] = None,
@@ -49,15 +87,16 @@ def fused_qproj_attention_masked_plain(x, wq, k, v, lengths, *,
                              q_offset=lens - sq, lengths=lens)
 
 
+@cost.counted("fused_qproj_attention_masked", _masked_cost_args)
 def fused_qproj_attention_masked(x, wq, k, v, lengths, *,
                                  causal: bool = True,
                                  scale: Optional[float] = None,
                                  rope_theta: Optional[float] = None):
     """x: (B, Sq, E); wq: (E, Hq, D); k, v: (B, Hkv, Skv, D[v]);
     lengths: (B,) int32.  Returns (B, Hq, Sq, Dv) in x's dtype.  On a
-    CUDA tensor this launches the kernel (or raises); a CPU tensor takes
-    the plain version."""
-    if x.device.type == "cpu":
+    CUDA tensor this launches the kernel (or raises); a CPU or meta
+    tensor takes the plain version."""
+    if on_plain_device(x):
         return fused_qproj_attention_masked_plain(
             x, wq, k, v, lengths, causal=causal, scale=scale,
             rope_theta=rope_theta)
@@ -83,6 +122,7 @@ def fused_qproj_attention_masked(x, wq, k, v, lengths, *,
     return out
 
 
+@cost.counted("fused_qproj_attention_paged", _paged_cost_args)
 def fused_qproj_attention_paged_plain(x, wq, k_pool, v_pool, lengths,
                                       block_tables, *, causal: bool = True,
                                       scale: Optional[float] = None,
@@ -95,6 +135,7 @@ def fused_qproj_attention_paged_plain(x, wq, k_pool, v_pool, lengths,
         scale=scale, rope_theta=rope_theta)
 
 
+@cost.counted("fused_qproj_attention_paged", _paged_cost_args)
 def fused_qproj_attention_paged(x, wq, k_pool, v_pool, lengths,
                                 block_tables, *, causal: bool = True,
                                 scale: Optional[float] = None,
@@ -102,9 +143,9 @@ def fused_qproj_attention_paged(x, wq, k_pool, v_pool, lengths,
     """x: (B, Sq, E); wq: (E, Hq, D); k_pool, v_pool: (num_pages, Hkv,
     page, D[v]); lengths: (B,) int32; block_tables: (B, max_pages)
     int32.  Returns (B, Hq, Sq, Dv) in x's dtype.  On a CUDA tensor this
-    launches the kernel (or raises); a CPU tensor takes the plain
-    version."""
-    if x.device.type == "cpu":
+    launches the kernel (or raises); a CPU or meta tensor takes the
+    plain version."""
+    if on_plain_device(x):
         return fused_qproj_attention_paged_plain(
             x, wq, k_pool, v_pool, lengths, block_tables, causal=causal,
             scale=scale, rope_theta=rope_theta)
@@ -147,6 +188,7 @@ def _project(x, wq, sq: int, skv: int, q_offset, rope_theta):
     return ref.rope(q, pos, rope_theta), pos
 
 
+@cost.counted("fused_qproj_attention_fwd", _fwd_cost_args)
 def fused_qproj_attention_fwd_plain(x, wq, k, v, *, causal: bool = True,
                                     scale: Optional[float] = None,
                                     q_offset=None,
@@ -158,6 +200,7 @@ def fused_qproj_attention_fwd_plain(x, wq, k, v, *, causal: bool = True,
                                    q_offset=q_offset)
 
 
+@cost.counted("fused_qproj_attention_fwd", _fwd_cost_args)
 def fused_qproj_attention_fwd(x, wq, k, v, *, causal: bool = True,
                               scale: Optional[float] = None, q_offset=None,
                               rope_theta: Optional[float] = None):
@@ -165,8 +208,8 @@ def fused_qproj_attention_fwd(x, wq, k, v, *, causal: bool = True,
     Returns (o, lse): o (B, Hq, Sq, Dv) in x's dtype, lse (B, Hq, Sq)
     fp32.  Rows are anchored and rotated at ``q_offset + r`` (default
     Skv - Sq).  On a CUDA tensor this launches the kernel (or raises); a
-    CPU tensor takes the plain version."""
-    if x.device.type == "cpu":
+    CPU or meta tensor takes the plain version."""
+    if on_plain_device(x):
         return fused_qproj_attention_fwd_plain(
             x, wq, k, v, causal=causal, scale=scale, q_offset=q_offset,
             rope_theta=rope_theta)

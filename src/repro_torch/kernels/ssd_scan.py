@@ -35,7 +35,10 @@ tensor-core grid, run the first (FMA) body.
 The kernel has no backward (nor has the TPU kernel), so the wrapper
 raises ``NotImplementedError`` on an input that requires grad with
 autograd on, on either device.  :func:`ssd_scan_plain` differentiates:
-training reaches it through ``ops.ssd``'s grad-mode dispatch.
+training reaches it through ``ops.ssd``'s grad-mode dispatch.  A CPU
+or meta tensor takes the plain version; under an active cost counter
+the wrapper, and the plain version where it stands in for the kernel
+(no input tracked by autograd), report the kernel's closed form.
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ from typing import Iterator, NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.fused_attention import _sm_count
+from repro_torch.kernels import build, cost
+from repro_torch.kernels.fused_attention import _sm_count, on_plain_device
 
 #: the kernel's limits (csrc/ssd_scan.cu kMaxP, kMaxS, kMaxChunk)
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 128
@@ -87,15 +90,40 @@ def _pad_seq(t: torch.Tensor, length: int) -> torch.Tensor:
                      dim=1)
 
 
+def _ssd_cost_args(x, dt, a, b, c, d=None, *, chunk=128, h0=None,
+                   return_final_state=False):
+    """#11's cost arguments (``kernels/cost.py``)."""
+    bsz, length, h, p = x.shape
+    return (bsz, length, h, p, b.shape[2], b.shape[3], chunk), dict(
+        el=x.element_size(), h0=h0 is not None, d=d is not None)
+
+
+def _stands_in(x, dt, a, b, c, d=None, *, h0=None, **kw) -> bool:
+    """Whether a plain call stands in for the kernel: no input tracked
+    by autograd (training differentiates the plain scan itself, which
+    no kernel replaces, and counts its ops)."""
+    return not tracked({"x": x, "dt": dt, "a": a, "b": b, "c": c, "d": d,
+                        "h0": h0})
+
+
+@cost.counted("ssd_scan", _ssd_cost_args, when=_stands_in)
 def ssd_scan_plain(x, dt, a, b, c, d=None, *, chunk: int = 128,
                    h0: Optional[torch.Tensor] = None,
                    return_final_state: bool = False):
     """The plain version (``repro/kernels/xla_fallback.py``
     ``chunked_ssd``): the arrays zero-padded to a chunk multiple, the
     groups repeated over the heads, one chunk at a time.
-    x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, G, S)."""
+    x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, G, S).  On
+    the meta device, where it stands in for the kernel (whose closed
+    form a cost count takes), it returns its outputs' shapes without
+    the loop over chunks: there is no data to scan."""
     bsz, length, h, p = x.shape
     g, s = b.shape[2], b.shape[3]
+    if x.device.type == "meta" and _stands_in(x, dt, a, b, c, d, h0=h0):
+        y = torch.empty_like(x)
+        state = torch.empty((bsz, h, p, s), dtype=torch.float32,
+                            device=x.device)
+        return (y, state) if return_final_state else y
     rep = h // g
     nj = -(-length // chunk)
     lp = nj * chunk
@@ -339,6 +367,7 @@ def _check_inner(name: str, key: str, t: torch.Tensor) -> None:
         inner *= t.shape[dim]
 
 
+@cost.counted("ssd_scan", _ssd_cost_args)
 def ssd_scan(x, dt, a, b, c, d=None, *, chunk: int = 128,
              h0: Optional[torch.Tensor] = None,
              return_final_state: bool = False):
@@ -346,12 +375,13 @@ def ssd_scan(x, dt, a, b, c, d=None, *, chunk: int = 128,
     G dividing H; d: (H,) or None; h0: (B, H, P, S) or None (zeros).
     Returns y (B, L, H, P) in x's dtype, and with ``return_final_state``
     the final state (B, H, P, S) fp32.  On a CUDA tensor this launches
-    the kernel (or raises); a CPU tensor takes the plain version.  x, b
-    and c may be views into one wider tensor (the model's conv output):
-    the kernel reads them through their batch and sequence strides."""
+    the kernel (or raises); a CPU or meta tensor takes the plain
+    version.  x, b and c may be views into one wider tensor (the model's
+    conv output): the kernel reads them through their batch and sequence
+    strides."""
     check_no_grad("ssd_scan", {"x": x, "dt": dt, "a": a, "b": b, "c": c,
                                "d": d, "h0": h0})
-    if x.device.type == "cpu":
+    if on_plain_device(x):
         return ssd_scan_plain(x, dt, a, b, c, d, chunk=chunk, h0=h0,
                               return_final_state=return_final_state)
     bsz, length, h, p = x.shape

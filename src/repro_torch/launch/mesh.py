@@ -17,13 +17,23 @@ The backend and each rank's device are the caller's to name: two gloo
 ranks on one ``cuda:0`` is what a single card allows (NCCL refuses two
 ranks on one device), as JAX's tests force host devices.  Nothing here
 switches backends by itself.
+
+:func:`fake_world` makes the running process rank 0 of a process group
+of any size whose collectives return at once without moving data
+(PyTorch's ``fake`` backend): with meta tensors, one process runs rank
+0's program of a production mesh (the dry-run's cost count).  It is the
+one place that imports the private ``fake_pg`` module; run it in a
+child process (:func:`in_child`), so no fake group outlives the count.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
+import multiprocessing
 import os
+import queue as queue_mod
 import time
 from typing import Callable, Optional, Sequence
 
@@ -199,4 +209,67 @@ def spawn(world: int, fn: Callable, *, backend: str,
         path = _result_path(init_file, r)
         out.append(torch.load(path, weights_only=False))
         os.remove(path)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# a fake world: rank 0 of a mesh of any size in one process
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def fake_world(size: int):
+    """The running process as rank 0 of a ``size``-rank process group of
+    PyTorch's ``fake`` backend (collectives return at once and move no
+    data), destroyed on exit.  Raises if a process group is running."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already running")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _child_main(fn: Callable, args: tuple, queue) -> None:
+    torch.set_num_threads(1)
+    try:
+        queue.put(("ok", fn(*args)))
+    except BaseException as e:          # the parent raises it
+        queue.put(("error", f"{type(e).__name__}: {e}"))
+
+
+def in_child(fn: Callable, *args, timeout: float = 1200.0):
+    """``fn(*args)`` in a fresh (spawned) process, one CPU thread, and
+    its return value (picklable); an exception there is raised here as
+    RuntimeError.  ``fn`` must be importable.  Kills the child after
+    ``timeout`` seconds."""
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=_child_main, args=(fn, args, queue))
+    proc.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            try:
+                status, out = queue.get(timeout=1.0)
+                break
+            except queue_mod.Empty:
+                if not proc.is_alive():
+                    raise RuntimeError(
+                        f"{fn.__qualname__}: its child process died "
+                        f"(exit code {proc.exitcode})") from None
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(
+                        f"{fn.__qualname__} did not finish within "
+                        f"{timeout:.0f}s in its child process") from None
+    finally:
+        proc.join(timeout=30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    if status != "ok":
+        raise RuntimeError(f"{fn.__qualname__} in its child process: {out}")
     return out

@@ -509,3 +509,53 @@ def mamba_blocks_alone(rank, device, cfg, params_np, x, conv, ssm) -> dict:
     out["norm"] = (_cpu(got), _cpu(rms_norm(y, whole["norm"])))
     out["blocks"] = {k: tuple(v.shape) for k, v in blocks.items()}
     return out
+
+
+def moe_blocks_alone(rank, device, cfg, params, x) -> dict:
+    """deepseek-v3's MoE layer on the sharded serving state alone, on
+    ``mesh_for_cores(2)`` under ``distributed_decode``: the first body
+    layer's ``moe_forward`` of ``x`` (B, S, d) on this rank's blocks
+    (its experts and router columns, the shared MLP's column blocks),
+    beside the whole layer on this rank without a mesh, its routed
+    experts alone (no ``shared`` leaf) and, with a shared expert, every
+    rank's partial of the shared MLP on its column block before the
+    ``psum`` (stacked in rank order).  ``params``: the whole tree, CPU
+    tensors."""
+    from repro_torch.models.common import mlp_forward
+    from repro_torch.serve.layout import serving_layout
+
+    cfg = dataclasses.replace(cfg, distributed_decode=True)
+    mesh = mesh_for_cores(2, device=device)
+    layout = serving_layout(cfg, mesh)
+    whole = tree.map(lambda t: t.to(device), params)
+    blocks = layout.place(whole)
+    x = x.to(device)
+
+    def period0(p):
+        return tree.map(lambda v: v[0], p["layers"][0]["moe"])
+
+    mine, layer = period0(blocks), period0(whole)
+    specs = _layer0(None, "moe", layout.specs)
+    want, want_aux = moe_mod.moe_forward(layer, cfg, x)
+    routed = dataclasses.replace(cfg, n_shared_experts=0)
+    routed_y, _ = moe_mod.moe_forward(
+        {k: v for k, v in layer.items() if k != "shared"}, routed, x)
+    out = {"whole": _cpu(want), "whole_aux": tree.map(_cpu, want_aux),
+           "routed": _cpu(routed_y)}
+    with set_rules_for_mesh(mesh):
+        got, aux = moe_mod.moe_forward(mine, cfg, x, specs=specs)
+        if "shared" in mine:
+            part = mlp_forward(mine["shared"], x, cfg.mlp)
+            out["partials"] = _cpu(gather_spec(part[None], ("model",), mesh))
+    out.update(blocks=_cpu(got), blocks_aux=tree.map(_cpu, aux))
+    return out
+
+
+def roofline_cells(rank, device, cells) -> list:
+    """``launch.dryrun.rank_program`` of each (arch, shape, keyword
+    arguments) of ``cells`` on every running rank (one process group for
+    all): this rank's counts."""
+    from repro_torch.launch import dryrun
+
+    return [dryrun.rank_program(arch, shape, device=device, **kw)
+            for arch, shape, kw in cells]

@@ -65,12 +65,15 @@ and it allocates only this rank's block of each cache leaf
 "model": a K/V leaf's time columns (``distributed_decode``, JAX's
 ``decode_state_shardings``) or KV heads (``head_parallel_decode``),
 MLA's latent by its time columns, a Mamba-2 layer's conv tail by its
-channels and SSM state by its heads; ``cache_len`` and ``last_token``
-are whole on every rank.  Every rank runs every step: a B=1 prefill on
-every rank (its batch does not divide), a decode step on the rank's
-rows, whose logits are gathered over the data axes.  ``insert`` writes
-a slot's row on the rank that holds it, ``preempt`` gathers the row's
-blocks from it.  The paged engine refuses such a mesh, as the JAX
+channels and SSM state by its heads; ``last_token`` holds the rank's
+rows (JAX's ``decode_state_shardings`` splits it over the data axes)
+and ``cache_len`` is whole on every rank.  Every rank runs every step:
+a B=1 prefill on every rank (its batch does not divide), a decode step
+on the rank's rows, whose logits are gathered over the data axes.
+``insert`` writes a slot's row and token on the rank that holds it,
+``preempt`` gathers the row's blocks and token from it, and
+:meth:`ContinuousBatchingEngine.last_tokens` gathers every rank's
+tokens.  The paged engine refuses such a mesh, as the JAX
 package refuses paged KV under a mesh path.  A mesh with neither flag
 serves the whole state on every rank.
 
@@ -108,7 +111,8 @@ from repro_torch.sharding.rules import active_mesh
 class DecodeState:
     cache: Any
     cache_len: torch.Tensor       # (B,) int32: per-row filled prefix
-    last_token: torch.Tensor      # (B,) int32
+    #: (B,) int32, or this rank's rows of it (the sharded serving state)
+    last_token: torch.Tensor
 
 
 def make_serving_plan(cfg: ModelConfig, max_len: int, *, device="cuda",
@@ -134,7 +138,9 @@ def init_decode_state(cfg: ModelConfig, batch: int,
                       device="cuda", fsdp=None) -> DecodeState:
     """Allocate the cache state; ``max_len`` may come from the plan.
     ``fsdp`` (the sharded serving state's layout): only this rank's
-    block of each cache leaf; ``cache_len`` and ``last_token`` whole."""
+    block of each cache leaf and this rank's rows of ``last_token`` (the
+    batch over the data axes, whole where it does not divide);
+    ``cache_len`` whole."""
     dev = resolve_device(device)
     if max_len is None:
         if plan is None:
@@ -144,10 +150,11 @@ def init_decode_state(cfg: ModelConfig, batch: int,
         raise ValueError(
             f"cache max_len {max_len} exceeds the plan's {plan.max_len}: "
             "contexts past the last plan bucket would be unplanned")
+    rows = batch if fsdp is None else sl.batch_block(fsdp, batch)[1]
     return DecodeState(
         cache=_model_cache(cfg, batch, max_len, dtype, dev, fsdp),
         cache_len=torch.zeros(batch, dtype=torch.int32, device=dev),
-        last_token=torch.zeros(batch, dtype=torch.int32, device=dev))
+        last_token=torch.zeros(rows, dtype=torch.int32, device=dev))
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
@@ -204,10 +211,11 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState, *,
     paged; the state's type is kept either way.  ``impl``: the
     ``kernels.ops`` impl of every call (``torch`` forces the plain
     versions).  ``fsdp``: the sharded serving state's layout, whose
-    blocks ``params`` and ``state.cache`` are: the step runs on this
-    rank's rows (all of them unless the batch splits over the data
-    axes), and their logits are gathered.  Returns (new state,
-    last-position logits (B, vocab))."""
+    blocks ``params``, ``state.cache`` and ``state.last_token`` are
+    (:func:`init_decode_state`): the step runs on this rank's rows (all
+    of them unless the batch splits over the data axes), and their
+    logits are gathered.  Returns (new state, last-position logits (B,
+    vocab))."""
     if dispatch is None and plan is not None:
         dispatch = plan.decode_dispatch(
             plan.concrete_ctx(state.cache_len) + 1)
@@ -215,16 +223,16 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState, *,
     first, rows = (0, batch) if fsdp is None \
         else sl.batch_block(fsdp, batch)
     logits, cache = tf.forward(
-        params, cfg, state.last_token[first:first + rows, None],
+        params, cfg, state.last_token[:, None],
         cache=state.cache, cache_len=state.cache_len[first:first + rows],
         plan=dispatch, block_tables=block_tables, impl=impl, fsdp=fsdp)
+    nxt = greedy_sample(logits)              # this rank's rows
     if rows != batch:
         logits = sl.gather_rows(fsdp, logits, batch)
-    nxt = greedy_sample(logits)
     step = torch.ones_like(state.cache_len)
     if active is not None:
         act = torch.as_tensor(active, device=nxt.device)
-        nxt = torch.where(act, nxt, state.last_token)
+        nxt = torch.where(act[first:first + rows], nxt, state.last_token)
         step = act.to(state.cache_len.dtype)
     return dataclasses.replace(state, cache=cache,
                                cache_len=state.cache_len + step,
@@ -304,24 +312,28 @@ def insert(state: DecodeState, result: PrefillResult, slot: int, *,
     write position, last token), in place; other rows are untouched.
     Every cache leaf is written, a mamba layer's SSM state too, cast to
     the batch leaf's dtype (the state stays fp32).  ``rows``: (first,
-    count) of the batch rows this rank's cache blocks hold (the sharded
-    serving state); a rank that does not hold ``slot`` writes only its
-    position and token."""
+    count) of the batch rows this rank's cache blocks and tokens hold
+    (the sharded serving state); a rank that does not hold ``slot``
+    writes only its position."""
     first, count = rows or (0, state.cache_len.shape[0])
     if first <= slot < first + count:
         for (full, axis), (row, _) in zip(_rows(state.cache),
                                           _rows(result.cache)):
             full.select(axis, slot - first).copy_(row.select(axis, 0))
+        state.last_token[slot - first] = result.next_token
     state.cache_len[slot] = result.length
-    state.last_token[slot] = result.next_token
     return state
 
 
-def evict(state: DecodeState, slot: int) -> DecodeState:
-    """Free batch row ``slot``: zero its write position and token.  The
-    KV rows stay; the next insert into the slot overwrites them."""
+def evict(state: DecodeState, slot: int, *,
+          rows: Optional[tuple] = None) -> DecodeState:
+    """Free batch row ``slot``: zero its write position and token (on the
+    rank that holds it, ``rows`` as :func:`insert`'s).  The KV rows stay;
+    the next insert into the slot overwrites them."""
+    first, count = rows or (0, state.cache_len.shape[0])
     state.cache_len[slot] = 0
-    state.last_token[slot] = 0
+    if first <= slot < first + count:
+        state.last_token[slot - first] = 0
     return state
 
 
@@ -485,7 +497,22 @@ class ContinuousBatchingEngine:
         if slot is None or slot >= self.batch_size or not self.live[slot]:
             return
         self.last_logits[slot] = float("nan")
-        self.state.last_token[slot] = 0
+        self._set_token(slot, 0)
+
+    def _set_token(self, slot: int, token: int) -> None:
+        """Row ``slot``'s last token, written on the rank that holds it."""
+        first, count = self.rows
+        if first <= slot < first + count:
+            self.state.last_token[slot - first] = int(token)
+
+    def last_tokens(self) -> torch.Tensor:
+        """Every row's last token, (B,) int32 on the device: under a
+        batch split over the data axes gathered from the ranks (every
+        rank calls it)."""
+        if self.rows[1] == self.batch_size:
+            return self.state.last_token
+        return sl.gather_rows(self.layout, self.state.last_token,
+                              self.batch_size)
 
     def decode_once(self):
         """One whole-batch decode step over the live rows.  Returns the
@@ -515,7 +542,7 @@ class ContinuousBatchingEngine:
         for i in range(self.batch_size):
             if self.live[i]:
                 self.row_ctx[i] += 1
-        return self.state.last_token.cpu().numpy()
+        return self.last_tokens().cpu().numpy()
 
     def step(self):
         """One scheduler step: advance every pending prefill by one
@@ -541,7 +568,7 @@ class ContinuousBatchingEngine:
                 "replay from the advanced state (the JAX engine does, "
                 "and its tokens then differ from the fault-free run's)")
         self.state.cache_len[slot] = int(ctx)
-        self.state.last_token[slot] = int(token)
+        self._set_token(slot, token)
         self.row_ctx[slot] = int(ctx)
 
     def can_resume(self, pre: "PreemptedRequest") -> bool:
@@ -574,7 +601,7 @@ class ContinuousBatchingEngine:
             self._row(t, axis, slot)))
         pre = PreemptedRequest(
             kv=kv, n_pages=0, length=self.row_ctx[slot],
-            last_token=int(self.state.last_token[slot]))
+            last_token=int(self.last_tokens()[slot]))
         self.evict(slot)
         return pre
 
@@ -591,7 +618,7 @@ class ContinuousBatchingEngine:
 
     def evict(self, slot: int) -> None:
         """Reclaim ``slot`` (request finished or cancelled)."""
-        evict(self.state, slot)
+        evict(self.state, slot, rows=self.rows)
         self.row_ctx[slot] = 0
         self.live[slot] = False
 

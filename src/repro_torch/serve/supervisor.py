@@ -163,7 +163,7 @@ class ServingSupervisor:
         self._clean_steps = 0
         self._last_kernel = True
         self._pre_ctx = list(engine.row_ctx)
-        self._pre_tok = engine.state.last_token.tolist()
+        self._pre_tok = engine.last_tokens().tolist()
 
     # ------------------------------------------------------------ plumbing
     def _attach(self):
@@ -388,7 +388,7 @@ class ServingSupervisor:
                                 "prefill")
         # pre-step rollback anchors for the quarantine path
         self._pre_ctx = list(self.engine.row_ctx)
-        self._pre_tok = self.engine.state.last_token.tolist()
+        self._pre_tok = self.engine.last_tokens().tolist()
         tokens = self._launch(self.engine.decode_once, "decode")
         # a request's first token is sampled by its prefill: clean by
         # construction, so feed it before the quarantine pass (which

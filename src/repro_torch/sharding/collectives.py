@@ -31,7 +31,9 @@ tensor for ``all_to_all`` and its reductions: under gloo a CUDA
 tensor's collective is staged through host memory, logged once per
 collective.  A reduce-scatter is an all-reduce and this rank's slice on
 every backend.  16-bit floats are reduced in fp32; gathers and
-all-to-alls move raw bytes.
+all-to-alls move raw bytes.  Each ``torch.distributed`` call reports
+its per-device output bytes, in the dtype it moves, to the cost counter
+(``kernels.cost.collective``; nothing without an active counter).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import cost
 from repro_torch.sharding.rules import local_slice, spec_axes
 
 #: the collectives already logged as staged through the host
@@ -79,6 +82,7 @@ def _all_reduce(t: torch.Tensor, mesh, axes, op) -> torch.Tensor:
             work = work.float()
         elif work is out:               # the staged copy is new already
             work = work.clone()
+        cost.collective("all-reduce", work.numel() * work.element_size())
         dist.all_reduce(work, op=op, group=group)
         out = work.to(t.dtype)
     return out if out is not t else t.clone()
@@ -106,6 +110,7 @@ def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     staged = _staged("all_gather", x, group)
     src = _bytes(x.cpu() if staged else x)
     parts = [torch.empty_like(src) for _ in range(n)]
+    cost.collective("all-gather", n * src.numel())
     dist.all_gather(parts, src, group=group)
     out = torch.cat([p.view(x.dtype).reshape(x.shape) for p in parts],
                     dim=dim)
@@ -194,6 +199,7 @@ def _a2a(x: torch.Tensor, mesh, axis: str, split_axis: int,
     blocks = torch.stack(src.chunk(n, dim=split_axis))
     send = _bytes(blocks).reshape(n, -1)
     recv = torch.empty_like(send)
+    cost.collective("all-to-all", recv.numel())
     dist.all_to_all_single(recv, send, group=group)
     recv = recv.view(x.dtype).reshape(blocks.shape)
     out = torch.cat(list(recv.unbind(0)), dim=concat_axis)

@@ -66,7 +66,9 @@ bf16, the FMA bodies sized for 192 in fp32) and at D 160 / Dv 96 and D
 that gate shown to reject a dropped key tile and a dropped query tile;
 D 200 or Dv 136 refused by the wrappers and the C entry points; two
 MLA layers at those head widths train on the kernels against the plain
-versions.
+versions.  Each of the eleven wrappers on CUDA tensors launches its
+kernel with its plain version made to raise, and reports its closed-form
+cost (``kernels/cost.py``) to an active cost counter.
 """
 
 import functools
@@ -1688,3 +1690,108 @@ def test_head_parallel_decode_on_two_ranks_sharing_the_card(cuda_device,
     for rank in range(2):
         assert _rel(out[rank]["hp"].to(cuda_device), want) <= 1e-5
         assert _rel(out[rank]["dist"].to(cuda_device), o) <= 1e-5
+
+
+def kernel_calls(dev, dtype=torch.float32) -> list:
+    """One small call of each of the eleven kernel wrappers on ``dev``:
+    (kernel name, module holding its wrapper and plain version, wrapper
+    name, plain version name, args, kwargs, cost arguments, cost
+    keywords) with the inputs on ``dev`` (values valid on the card: the
+    lengths within the cache, the tables' pages within the pools).  The
+    cost arguments count every cache column valid and every table entry
+    read, as the wrappers report them."""
+    from repro_torch.kernels import fused_attention as fa
+    from repro_torch.kernels import fused_decode_block as fdb
+    from repro_torch.kernels import fused_qproj_attention as fqa
+    from repro_torch.kernels import ssd_scan as ss
+
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    def i32(values):
+        return torch.tensor(values, dtype=torch.int32).to(dev)
+
+    b, hq, hkv, sq, skv, d, e, page = 2, 4, 2, 3, 24, 16, 32, 8
+    el = torch.empty((), dtype=dtype).element_size()
+    q, k, v = r(b, hq, sq, d), r(b, hkv, skv, d), r(b, hkv, skv, d)
+    lens, tbl = i32([24, 17]), i32([[1, 2, 3], [4, 5, 0]])
+    kp, vp = r(7, hkv, page, d), r(7, hkv, page, d)
+    x, x1 = r(b, sq, e), r(b, 1, e)
+    wq, wo = r(e, hq, d, scale=e ** -0.5), r(hq, d, e, scale=0.1)
+    res, q1 = r(b, 1, e), r(b, hq, 1, d)
+    qt, do = r(b, hq, skv, d), r(b, hq, skv, d)
+    lse = torch.randn(b, hq, skv, generator=g).to(dev)
+    delta = torch.randn(b, hq, skv, generator=g).to(dev)
+    xt = r(b, skv, e)
+    hs, ps, gs, ss_, ln, ch = 4, 8, 2, 8, 40, 16
+    ssd_args = (r(b, ln, hs, ps), r(b, ln, hs).abs() * 0.1,
+                -torch.rand(hs, generator=g).to(dev), r(b, ln, gs, ss_),
+                r(b, ln, gs, ss_), r(hs))
+    att = (b, hq, hkv, skv, skv, d, d)
+    return [
+        ("fused_attention_masked", fa, "fused_attention_masked",
+         "fused_attention_masked_plain", (q, k, v, lens), {},
+         (b, hq, hkv, sq, skv, d, d), dict(el=el)),
+        ("fused_qproj_attention_masked", fqa, "fused_qproj_attention_masked",
+         "fused_qproj_attention_masked_plain", (x, wq, k, v, lens),
+         dict(rope_theta=1e4), (b, sq, e, hq, hkv, skv, d, d), dict(el=el)),
+        ("fused_decode_block", fdb, "fused_decode_block",
+         "fused_decode_block_plain", (x1, wq, k, v, wo, res, lens),
+         dict(rope_theta=1e4), (b, e, hq, hkv, skv, d, d), dict(el=el)),
+        ("fused_attention_paged", fa, "fused_attention_paged",
+         "fused_attention_paged_plain", (q1, kp, vp, lens, tbl), {},
+         (b, hq, hkv, 1, skv, d, d), dict(el=el, table=6)),
+        ("fused_qproj_attention_paged", fqa, "fused_qproj_attention_paged",
+         "fused_qproj_attention_paged_plain", (x1, wq, kp, vp, lens, tbl),
+         dict(rope_theta=1e4), (b, 1, e, hq, hkv, skv, d, d),
+         dict(el=el, table=6)),
+        ("fused_decode_block_paged", fdb, "fused_decode_block_paged",
+         "fused_decode_block_paged_plain",
+         (x1, wq, kp, vp, wo, res, lens, tbl), dict(rope_theta=1e4),
+         (b, e, hq, hkv, skv, d, d), dict(el=el, table=6)),
+        ("fused_attention_fwd", fa, "fused_attention_fwd",
+         "fused_attention_fwd_plain", (qt, k, v), {}, att, dict(el=el)),
+        ("fused_attention_bwd_dq", fa, "fused_attention_bwd_dq",
+         "fused_attention_bwd_dq_plain", (qt, k, v, do, lse, delta), {},
+         att, dict(el=el)),
+        ("fused_attention_bwd_dkv", fa, "fused_attention_bwd_dkv",
+         "fused_attention_bwd_dkv_plain", (qt, k, v, do, lse, delta), {},
+         att, dict(el=el)),
+        ("fused_qproj_attention_fwd", fqa, "fused_qproj_attention_fwd",
+         "fused_qproj_attention_fwd_plain", (xt, wq, k, v),
+         dict(rope_theta=1e4), (b, skv, e, hq, hkv, skv, d, d),
+         dict(el=el)),
+        ("ssd_scan", ss, "ssd_scan", "ssd_scan_plain", ssd_args,
+         dict(chunk=ch), (b, ln, hs, ps, gs, ss_, ch), dict(el=el)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", range(11))
+def test_cuda_tensors_never_take_a_plain_version(cuda_device, monkeypatch,
+                                                 i):
+    """Each wrapper on CUDA tensors launches its kernel once, with its
+    plain version made to raise, and reports its closed-form cost
+    (``kernels/cost.py``) to an active counter, every cache column
+    counted valid."""
+    from repro_torch.kernels import cost
+    from repro_torch.launch import cost_analysis
+
+    name, mod, wrapper, plain, args, kw, shapes, skw = kernel_calls(
+        cuda_device)[i]
+
+    def refuse(*a, **k):
+        raise AssertionError(f"{plain} ran on a CUDA tensor")
+
+    monkeypatch.setattr(mod, plain, refuse)
+    before = build.LAUNCHES[name]
+    with torch.no_grad(), cost_analysis.count() as c:
+        getattr(mod, wrapper)(*args, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == before + 1
+    flops, nbytes = cost.cost(name, *shapes, **skw)
+    got = c.result()
+    assert (got["flops"], got["bytes_accessed"]) == (flops, nbytes)
+    assert got["kernels"] == {name: 1}

@@ -130,7 +130,8 @@ def test_input_specs_equal_jax(arch):
 
 
 def test_run_cell_counts_its_shards(tmp_path, capsys):
-    r = dryrun.run_cell("starcoder2-7b", "train_4k", multi_pod=False)
+    r = dryrun.run_cell("starcoder2-7b", "train_4k", multi_pod=False,
+                        costs=False)
     params = sum(math.prod(leaf["shard"]) for leaf in r["leaves"])
     dt = configs.get_config("starcoder2-7b").torch_dtype("param")
     size = torch.empty((), dtype=dt).element_size()
@@ -158,9 +159,10 @@ def test_run_cell_takes_a_serves_geometry():
     cell refuses the two."""
     mesh = Mesh(("data", "model"), (1, 2))
     cfg = configs.get_config("starcoder2-7b")
-    base = dryrun.run_cell("starcoder2-7b", "decode_32k", mesh=mesh)
+    base = dryrun.run_cell("starcoder2-7b", "decode_32k", mesh=mesh,
+                           costs=False)
     r = dryrun.run_cell("starcoder2-7b", "decode_32k", mesh=mesh, batch=4,
-                        max_len=1024)
+                        max_len=1024, costs=False)
     kv = 2 * cfg.n_layers * 4 * cfg.kv_heads * 1024 * cfg.head_dim * 2 // 2
     assert r["per_device_bytes"]["caches"] == kv + 2 * 4 * 4
     assert r["per_device_bytes"]["params"] \

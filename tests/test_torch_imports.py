@@ -105,9 +105,14 @@ MESH_MODULES = ["sharding/__init__.py", "sharding/rules.py",
                 "serve/layout.py"]
 
 
+#: the dry-run roofline's modules: the kernels' closed forms and the
+#: cost counter
+ROOFLINE_MODULES = ["kernels/cost.py", "launch/cost_analysis.py"]
+
+
 @pytest.mark.parametrize("rel", TRAINING_MODULES + MAMBA_MODULES
                          + FAULT_MODULES + DSE_MODULES + FRONTEND_MODULES
-                         + HYBRID_MODULES + MESH_MODULES)
+                         + HYBRID_MODULES + MESH_MODULES + ROOFLINE_MODULES)
 def test_training_modules_are_checked(rel):
     path = PORT / rel
     assert path.exists()

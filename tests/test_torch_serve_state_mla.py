@@ -229,7 +229,7 @@ def check_shards(ref, port, runs, i, arch, variants=None) -> dict:
                               **{flag: True})
     cell = dryrun.run_cell(arch, "decode_32k", cfg=cfg,
                            mesh=Mesh(("data", "model"), (1, 2)), batch=2,
-                           max_len=max_len)["per_device_bytes"]
+                           max_len=max_len, costs=False)["per_device_bytes"]
     for rank in range(2):
         got = port[rank][i]
         for part in ("params", "state"):
