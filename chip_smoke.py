@@ -6080,8 +6080,9 @@ def _fsdp_run(rank, dev, stats, sub, per_rank, steps) -> tuple:
     batch: #7-#9 launched on each rank, the losses within MESH_TRAIN_REL
     of the single rank's (MoE: step 0's load-balance loss within
     MESH_LB_REL), the bytes each rank holds against the dry-run's
-    per-device figure for the same mesh.  Returns (the state of blocks, the config, the mesh,
-    this rank's launches of the FSDP run)."""
+    per-device figure for the same mesh.  Returns (the state of blocks,
+    the config, the mesh, this rank's launches of the FSDP run, rank 0's
+    single-rank losses: None on the other ranks)."""
     import dataclasses as dc
 
     import torch.distributed as dist
@@ -6095,6 +6096,7 @@ def _fsdp_run(rank, dev, stats, sub, per_rank, steps) -> tuple:
     arch = MESH_ARCHS[sub]
     cfg = dc.replace(configs.get_config(arch), n_layers=MESH_DEPTH[sub])
     lb = {"FSDP": [], "1 rank": []}
+    want = None
     kw = dict(steps=steps, batch=per_rank * MESH_RANKS, seq=MESH_TRAIN_SEQ,
               lr=TRAIN_LR, moment_dtype="bfloat16", log_every=steps)
     mesh = make_host_mesh(data=MESH_RANKS, device=dev)
@@ -6153,7 +6155,135 @@ def _fsdp_run(rank, dev, stats, sub, per_rank, steps) -> tuple:
                                  "not the global batch's")
     dist.barrier()
     torch.cuda.empty_cache()
-    return state, cfg, mesh, launches
+    return state, cfg, mesh, launches, want
+
+
+def _tp_train(rank, dev, stats, want) -> dict:
+    """(k) tensor-parallel training of ``MESH_ARCHS["d"]`` at full width,
+    ``MESH_DEPTH["d"]`` layers, on a (1, MESH_RANKS) mesh through
+    launch/train.train_loop at (d)'s global batch (every rank the same
+    rows; each its heads, KV heads, MLP columns and vocabulary rows):
+    #7-#9 launched on each rank at its query heads over its KV heads,
+    and held against their plain versions at that shape
+    (``attention_train_records``, with its dropped-tile control); the
+    losses within MESH_TRAIN_REL of (d)'s single-rank run ``want``
+    (rank 0: ``build`` draws the same weights as blocks); the bytes each
+    rank holds against the dry-run's per-device figure for the mesh;
+    one fp32 step's gradients, gathered from the blocks, within
+    MESH_TOL of each leaf's largest against one rank's.  Returns this
+    rank's launches of the training run."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch import configs, tree
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh, mesh_over_ranks
+    from repro_torch.launch.mesh_ranks import fsdp_train
+    from repro_torch.models.weights import init_params
+    from repro_torch.sharding import set_rules_for_mesh
+    from repro_torch.train import step as step_mod
+
+    arch = MESH_ARCHS["d"]
+    cfg = dc.replace(configs.get_config(arch), n_layers=MESH_DEPTH["d"])
+    shape = (1, MESH_RANKS)
+    mesh = mesh_over_ranks(shape, ("data", "model"), device=dev)
+    steps, b, s = MESH_TRAIN_STEPS, 2 * MESH_RANKS, MESH_TRAIN_SEQ
+    build.reset_launches()
+    state, losses, held = _mesh_sub(
+        "k: tensor-parallel", rank, stats, fsdp_train, cfg, mesh, dev,
+        steps=steps, batch=b, seq=s, lr=TRAIN_LR, moment_dtype="bfloat16",
+        log_every=steps)
+    launches = dict(build.LAUNCHES)
+    attn = state.params["layers"][0]["attn"]
+    hq, hkv = attn["wq"].shape[2], attn["wk"].shape[2]
+    per_step = {n: launches.get(n, 0) / steps for n in TRAIN_KERNELS[:3]}
+    log(f"  [rank {rank}] (k) tensor-parallel on {shape}: {hq} of "
+        f"{cfg.n_heads} query heads over {hkv} of {cfg.kv_heads} KV heads, "
+        f"losses {losses}, launches a step {per_step}, "
+        f"{stats['k: tensor-parallel'][0] / steps:.2f}s a step, peak "
+        f"{stats['k: tensor-parallel'][1]:.2f} GB a rank")
+    if (hq, hkv) != (cfg.n_heads // MESH_RANKS, cfg.kv_heads // MESH_RANKS):
+        raise SystemExit("mesh (k): the rank does not hold its heads' block")
+    missing = [n for n, c in per_step.items() if c == 0]
+    if missing:
+        raise SystemExit(f"mesh (k): rank {rank} never launched {missing}")
+    cell = dryrun.run_cell(arch, "train_4k", cfg=cfg,
+                           mesh=Mesh(("data", "model"), shape),
+                           moment_dtype="bfloat16",
+                           costs=False)["per_device_bytes"]
+    log(f"  [rank {rank}] (k) holds params {held['params'] / 1e9:.3f} GB, "
+        f"gradients {held['grads'] / 1e9:.3f}, AdamW "
+        f"{held['optimizer'] / 1e9:.3f} (dry-run per device: params "
+        f"{cell['params'] / 1e9:.3f}, optimizer {cell['optimizer'] / 1e9:.3f})")
+    if (held["params"], held["optimizer"]) != (cell["params"],
+                                               cell["optimizer"]):
+        raise SystemExit(f"mesh (k): rank {rank} holds other bytes than "
+                         "the dry-run's blocks")
+    del state
+    if rank == 0:
+        rel = max(abs(x - y) / abs(y) for x, y in zip(losses, want))
+        log(f"  [rank 0] (k) against (d)'s single-rank B={b} losses {want}: "
+            f"worst rel {rel:.3e} (tol {MESH_TRAIN_REL})")
+        if rel > MESH_TRAIN_REL:
+            raise SystemExit("mesh (k): tensor-parallel losses disagree "
+                             "with the single rank's")
+
+    # the rank's #7-#9 at its head counts, against their plain versions
+    g = torch.Generator(device=dev)
+    g.manual_seed(7 + rank)
+    bf = torch.bfloat16
+    q, do = (torch.randn(b, hq, s, cfg.head_dim, generator=g, device=dev,
+                         dtype=bf) for _ in range(2))
+    k, v = (torch.randn(b, hkv, s, cfg.head_dim, generator=g, device=dev,
+                        dtype=bf) for _ in range(2))
+    records = attention_train_records(q, k, v, do, True, f"k rank {rank}")
+    log(f"  [rank {rank}] (k) #7-#9 at B={b}, {hq} over {hkv} heads, S={s}: "
+        + "; ".join(f"{n} err {r['max_abs_err']:.3e} {r['ms']:.3f} ms"
+                    for n, r in records.items()))
+    del q, do, k, v
+
+    # one fp32 step's gradients, gathered, against one rank's
+    f32 = dc.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    g.manual_seed(11)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s + 1),
+                                     generator=g, device=dev)}
+    fsdp = step_mod.fsdp_layout(f32, mesh)
+
+    def mesh_grads():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = fsdp.init(f32, gen, dev)
+        with set_rules_for_mesh(mesh):
+            (_, m), grads = step_mod.value_and_grad(params, f32, batch,
+                                                    fsdp=fsdp)
+        return float(m["loss"]), fsdp.full(grads, keep=rank == 0)
+
+    loss, got = _mesh_sub("k: fp32 gradients", rank, stats, mesh_grads)
+    if rank == 0:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        (_, m), want_g = step_mod.value_and_grad(
+            init_params(f32, gen, dev), f32, batch)
+        errs = {path: float((x - y).abs().max()
+                            / y.abs().max().clamp_min(1e-30))
+                for (path, y), x in zip(dryrun._paths(want_g),
+                                        tree.leaves(got))}
+        log(f"  [rank 0] (k) fp32 loss {loss:.6f} (1 rank "
+            f"{float(m['loss']):.6f}); each leaf's gradient against one "
+            f"rank's, over its largest (tol {MESH_TOL}): "
+            + " ".join(f"{p}={e:.2e}" for p, e in errs.items()))
+        errs = list(errs.values())
+        if max(errs) > MESH_TOL:
+            raise SystemExit("mesh (k): fp32 gradients disagree with the "
+                             "single rank's")
+        del want_g
+    del got
+    dist.barrier()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _train_mesh(rank, dev, stats) -> dict:
@@ -6163,8 +6293,9 @@ def _train_mesh(rank, dev, stats) -> dict:
     alone, every leaf bit-equal to the blocks gathered; (f) FSDP
     training of phi3.5-moe at full width, 1 layer, B=1 a rank, against
     rank 0's single-rank B=2 run, its load-balance loss among the
-    gates.  Returns this rank's launches of the
-    two FSDP runs."""
+    gates; (k) tensor-parallel training of starcoder2-7b on (1, 2)
+    against (d)'s single-rank run (:func:`_tp_train`).  Returns this
+    rank's launches of the three training runs."""
     from repro_torch import tree
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.weights import param_axes
@@ -6172,8 +6303,8 @@ def _train_mesh(rank, dev, stats) -> dict:
     from repro_torch.runtime import remesh_state
     from repro_torch.train.step import TrainState, fsdp_layout, whole_state
 
-    state, cfg, mesh, launches = _fsdp_run(rank, dev, stats, "d", 2,
-                                           MESH_TRAIN_STEPS)
+    state, cfg, mesh, launches, want = _fsdp_run(rank, dev, stats, "d", 2,
+                                                 MESH_TRAIN_STEPS)
     launches = collections.Counter(launches)
 
     axes = param_axes(cfg)
@@ -6195,16 +6326,18 @@ def _train_mesh(rank, dev, stats) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    state, _, _, more = _fsdp_run(rank, dev, stats, "f", 1, MESH_MOE_STEPS)
+    state, _, _, more, _ = _fsdp_run(rank, dev, stats, "f", 1,
+                                     MESH_MOE_STEPS)
     del state
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(more)
+    launches.update(_tp_train(rank, dev, stats, want))
     return dict(launches)
 
 
 def mesh_rank(rank, dev):
-    """One rank of the mesh phase: (a)-(j) in turn.  Returns (launches,
+    """One rank of the mesh phase: (a)-(k).  Returns (launches,
     {sub-phase: (seconds, peak GB)})."""
     torch.backends.cuda.matmul.allow_tf32 = False
     stats = {}
@@ -6228,11 +6361,11 @@ def mesh_phase(dev):
     head-parallel serve under lower_to_mesh, (b) sequence-sharded decode,
     both on the sharded serving state, (c) phi3.5-moe's expert-parallel
     and local dispatch, (d) FSDP training, (e) remesh_state, (f)
-    phi3.5-moe's FSDP training, (g) phi3.5-moe served head-parallel with
-    expert parallelism on the sharded serving state, then (h)
-    deepseek-v3's MLA, (i) mamba2-130m and (j) jamba's period on the
-    sharded serving state (``MESH_STATES``).  Returns the launches of
-    both ranks."""
+    phi3.5-moe's FSDP training, (k) starcoder2-7b's tensor-parallel
+    training, (g) phi3.5-moe served head-parallel with expert
+    parallelism on the sharded serving state, then (h) deepseek-v3's
+    MLA, (i) mamba2-130m and (j) jamba's period on the sharded serving
+    state (``MESH_STATES``).  Returns the launches of both ranks."""
     from repro_torch.launch.mesh import spawn
 
     gc.collect()

@@ -27,11 +27,16 @@ production meshes:
 
 Rank 0's program, by the cell's kind:
 
-* train: ``train.step.train_step`` on ``step.fsdp_layout`` (FSDP of the
-  state over the data axes), on rank 0's rows of the global batch, at
-  the config's remat, with bf16 moments.  The port trains no
-  tensor-parallel layout, so every rank of the model axis runs the same
-  program: the mesh's work is rank 0's times its ``data_ranks``;
+* train: ``train.step.train_step`` on ``step.fsdp_layout``, on rank
+  0's rows of the global batch (the data axes'; every rank of the
+  model axis takes the same rows), at the config's remat, with bf16
+  moments.  The GQA stacks train on JAX's ``param_shardings``: FSDP
+  over the data axes and their heads, KV heads, MLP columns,
+  vocabulary rows and experts over "model" where they divide, so the
+  rank holds what ``run_cell`` counts and computes on those blocks
+  (``held`` gives its parameter and optimizer bytes).  MLA, Mamba-2
+  and the hybrid keep FSDP over the data axes alone, each rank of the
+  model axis repeating its data group's program;
 * decode: ``serve.engine.decode_step`` on the sharded serving state
   (``serve/layout.py``) under ``distributed_decode``, JAX's dry-run
   layout (the cache's time over "model"; the config's own decode flag
@@ -86,6 +91,7 @@ from repro_torch.serve import layout as sl
 from repro_torch.serve.engine import init_decode_state
 from repro_torch.serve.layout import cache_logical
 from repro_torch.sharding import rules as shrules
+from repro_torch.sharding.fsdp import held_bytes
 from repro_torch.train import step as train_step_mod
 
 #: one NVIDIA H100 SXM's device memory (NVIDIA's data sheet)
@@ -288,12 +294,31 @@ def rank_program(arch: str, shape_name: str, *, cfg=None,
     return _serve_program(cfg, mesh, sh, dev, gen, arch)
 
 
+def _model_blocks(fsdp, cfg) -> str:
+    """Which of the model axis's logical dims a training layout splits
+    over "model", and which stay whole (they do not divide)."""
+    rules = shrules.DEFAULT_RULES
+    split, whole = set(), set()
+    for ax, spec in zip(tree.leaves(param_axes(cfg), is_leaf=shrules.is_axes),
+                        tree.leaves(fsdp.param_specs,
+                                    is_leaf=shrules.is_axes)):
+        for name, entry in zip(ax, spec):
+            if name is not None and rules.get(name) == "model":
+                (split if "model" in shrules.spec_axes(entry)
+                 else whole).add(name)
+    text = ", ".join(sorted(split)) or "nothing"
+    whole -= split
+    return text + (f" (whole: {', '.join(sorted(whole))})" if whole else "")
+
+
 def _train_program(cfg, mesh, sh, dev, gen, moment_dtype, arch) -> dict:
     fsdp = train_step_mod.fsdp_layout(cfg, mesh)
     params = fsdp.init(cfg, gen, dev) if fsdp is not None \
         else init_params(cfg, gen, dev)
     state = train_step_mod.init_train_state(
         None, cfg, moment_dtype=moment_dtype, device=dev, params=params)
+    held = {"params": held_bytes(state.params),
+            "optimizer": held_bytes(state.opt)}
     batch = {k: _like(v, dev) for k, v in configs.input_specs(
         arch, sh.name, cfg, sh)["batch"].items()}
     with shrules.set_rules_for_mesh(mesh), cost_analysis.count() as c:
@@ -303,11 +328,14 @@ def _train_program(cfg, mesh, sh, dev, gen, moment_dtype, arch) -> dict:
     layout = (f"train_step on FSDP blocks over {n} data ranks, rank 0's "
               f"{sh.global_batch // n} of {sh.global_batch} rows of "
               f"{sh.seq_len}, remat {cfg.remat}, {moment_dtype} moments")
-    if model > 1:
+    if model > 1 and fsdp is not None and fsdp.model_ranks > 1:
+        layout += (f"; over the {model} ranks of its model axis: "
+                   f"{_model_blocks(fsdp, cfg)}")
+    elif model > 1:
         layout += (f"; each of the {model} ranks of its model axis runs "
-                   "this program (the port trains no tensor-parallel "
-                   "layout)")
-    return dict(c.result(), layout=layout, data_ranks=n)
+                   f"this program ({cfg.name} trains on the data axes "
+                   "alone)")
+    return dict(c.result(), layout=layout, data_ranks=n, held=held)
 
 
 def _serve_program(cfg, mesh, sh, dev, gen, arch) -> dict:
@@ -393,7 +421,8 @@ def _count_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             "roofline_seconds": rt, "bottleneck": max(rt, key=rt.get),
             "layout": r["layout"], "data_ranks": r["data_ranks"],
             "kernels": r["kernels"],
-            "count_seconds": time.perf_counter() - t0}
+            "count_seconds": time.perf_counter() - t0,
+            **({"held": r["held"]} if "held" in r else {})}
 
 
 def _count_cells(cells: list) -> list:
@@ -434,12 +463,12 @@ def roofline_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     collective bytes by op, ``roofline_seconds`` (compute, memory,
     collective) on the H100's rates (:data:`HW`) and ``bottleneck``;
     with ``layout`` (what rank 0 ran), ``data_ranks`` (the ranks of the
-    mesh's data axes: a train cell's mesh does rank 0's work times
-    them, its model axis repeating it; a serving cell's ranks each run
-    their own blocks, so its mesh does rank 0's work times every rank,
-    whatever it repeats), ``kernels`` (closed-form kernel calls
-    counted) and
-    ``count_seconds``.  Counted in a child process
+    mesh's data axes; every cell's ranks each run their own blocks, so
+    its mesh does rank 0's work times every rank, whatever it repeats:
+    a dim whole on "model", or a whole data-only train program),
+    ``kernels`` (closed-form kernel calls counted),
+    ``count_seconds`` and, for a train cell, ``held`` (rank 0's
+    parameter and optimizer bytes).  Counted in a child process
     (:func:`roofline_cells`); raises RuntimeError where it fails."""
     r = roofline_cells([((arch, shape_name), dict(
         multi_pod=multi_pod, moment_dtype=moment_dtype, cfg=cfg, mesh=mesh,

@@ -179,7 +179,7 @@ def moe_paths(rank, device, shapes, cfg, params_np, x) -> dict:
 
 
 def fsdp_train(cfg, mesh, device, **loop_kw) -> tuple:
-    """``launch.train.train_loop`` on a data ``mesh`` (FSDP; every rank
+    """``launch.train.train_loop`` on ``mesh`` (its blocks; every rank
     calls it): (this rank's state of blocks, the losses, the bytes it
     holds of parameters, gradients and AdamW state).  The gradient
     buffers a step makes are ``zeros_like`` the parameter blocks
@@ -194,16 +194,26 @@ def fsdp_train(cfg, mesh, device, **loop_kw) -> tuple:
                            "optimizer": held_bytes(state.opt)}
 
 
-def train_data_parallel(rank, device, cfg, params_np, loop_kw) -> dict:
-    """:func:`fsdp_train` on a data mesh over every running rank, from
-    ``params_np``: its losses, the final parameters gathered from the
-    ranks' blocks, the bytes this rank holds and its blocks' shapes."""
+def train_mesh(device, shape=None):
+    """The training mesh over every running rank: a (data, model) mesh
+    of ``shape``, or (None) a data mesh of them all."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
+
+    if shape is None:
+        return make_host_mesh(data=dist.get_world_size(), device=device)
+    return mesh_over_ranks(tuple(shape), AXES, device=device)
+
+
+def train_data_parallel(rank, device, cfg, params_np, loop_kw,
+                        shape=None) -> dict:
+    """:func:`fsdp_train` on :func:`train_mesh` (``shape``), from
+    ``params_np``: its losses, the final parameters gathered from the
+    ranks' blocks, the bytes this rank holds and its blocks' shapes."""
     from repro_torch.train import step as step_mod
 
-    mesh = make_host_mesh(data=dist.get_world_size(), device=device)
+    mesh = train_mesh(device, shape)
     params = params_from_numpy(params_np, cfg, device=device)
     state, losses, held = fsdp_train(cfg, mesh, device, params=params,
                                      **loop_kw)
@@ -215,19 +225,16 @@ def train_data_parallel(rank, device, cfg, params_np, loop_kw) -> dict:
                                      state.params)}
 
 
-def train_step_on_mesh(rank, device, cfg, params_np, batch, lr) -> dict:
-    """One ``train.step.train_step`` on a data mesh over every running
-    rank, from the blocks of ``params_np``, on the global ``batch`` (a
-    dict of CPU tensors): its metrics, the step's gradients
-    (``value_and_grad`` on this rank's rows, as the step takes them)
-    and the parameters after the step, both gathered from the
-    blocks."""
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import make_host_mesh
+def train_step_on_mesh(rank, device, cfg, params_np, batch, lr,
+                       shape=None) -> dict:
+    """One ``train.step.train_step`` on :func:`train_mesh` (``shape``),
+    from the blocks of ``params_np``, on the global ``batch`` (a dict of
+    CPU tensors): its metrics, the step's gradients (``value_and_grad``
+    on this rank's rows, as the step takes them) and the parameters
+    after the step, both gathered from the blocks."""
     from repro_torch.train import step as step_mod
 
-    mesh = make_host_mesh(data=dist.get_world_size(), device=device)
+    mesh = train_mesh(device, shape)
     fsdp = step_mod.fsdp_layout(cfg, mesh)
     params = fsdp.place(params_from_numpy(params_np, cfg, device=device))
     state = step_mod.init_train_state(None, cfg, device=device,
@@ -247,9 +254,10 @@ class _Crash(Exception):
     """The failure :func:`fsdp_state` injects into a training run."""
 
 
-def fsdp_state(rank, device, cfg, params_np, loop_kw, ckpt_dir) -> dict:
-    """``launch.train.train_loop`` with int8 gradient compression on a
-    data mesh over every running rank, three times: uninterrupted,
+def fsdp_state(rank, device, cfg, params_np, loop_kw, ckpt_dir,
+               shape=None) -> dict:
+    """``launch.train.train_loop`` with int8 gradient compression on
+    :func:`train_mesh` (``shape``), three times: uninterrupted,
     checkpointing its last step; crashed after the step before it,
     checkpointed there; resumed from that checkpoint.  Returns the
     losses, the uninterrupted run's checkpoint restored as this rank's
@@ -263,12 +271,11 @@ def fsdp_state(rank, device, cfg, params_np, loop_kw, ckpt_dir) -> dict:
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.launch import train as train_mod
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim.adamw import global_norm
     from repro_torch.optim.compression import _quant_int8
     from repro_torch.train import step as step_mod
 
-    mesh = make_host_mesh(data=dist.get_world_size(), device=device)
+    mesh = train_mesh(device, shape)
     steps = loop_kw["steps"]
 
     def run(name, **kw):
@@ -559,3 +566,70 @@ def roofline_cells(rank, device, cells) -> list:
 
     return [dryrun.rank_program(arch, shape, device=device, **kw)
             for arch, shape, kw in cells]
+
+
+def remesh_blocks(rank, device, cfg, params_np, batch, lr, shape,
+                  new_shape) -> dict:
+    """One ``train_step`` on :func:`train_mesh` (``shape``) from the
+    blocks of ``params_np``, then ``runtime.remesh_state`` of the
+    state's parameters and AdamW moments onto a (data, model) mesh of
+    ``new_shape`` over the same ranks: the moved blocks, and the state
+    gathered from the first mesh's blocks."""
+    from repro_torch.models.weights import param_axes
+    from repro_torch.runtime import remesh_state
+    from repro_torch.train import step as step_mod
+
+    mesh = train_mesh(device, shape)
+    fsdp = step_mod.fsdp_layout(cfg, mesh)
+    state = step_mod.init_train_state(
+        None, cfg, device=device,
+        params=fsdp.place(params_from_numpy(params_np, cfg, device=device)))
+    with set_rules_for_mesh(mesh):
+        state, _ = step_mod.train_step(
+            state, {k: v.to(device) for k, v in batch.items()}, cfg, lr=lr)
+    new = mesh_over_ranks(tuple(new_shape), AXES, device=device)
+    axes = param_axes(cfg)
+    trees = {"params": state.params, "mu": state.opt.mu,
+             "nu": state.opt.nu}
+    return {"moved": {k: tree.map(_cpu, remesh_state(t, axes, new,
+                                                       mesh=mesh))
+                      for k, t in trees.items()},
+            "whole": {k: tree.map(_cpu, fsdp.full(t))
+                      for k, t in trees.items()}}
+
+
+def grads_backward_elsewhere(rank, device, cfg, params_np, batch,
+                             shape) -> dict:
+    """The gradients of ``train.step.loss_fn`` on :func:`train_mesh`
+    (``shape``) from the blocks of ``params_np``, on the global
+    ``batch``, the forward under the mesh's rules and the backward run
+    in another thread, where they are unset (as the autograd engine
+    runs a CUDA graph's backward, and a checkpointed layer's recompute
+    with it): gathered from the blocks."""
+    import threading
+
+    from repro_torch.train import step as step_mod
+
+    mesh = train_mesh(device, shape)
+    fsdp = step_mod.fsdp_layout(cfg, mesh)
+    params = fsdp.place(params_from_numpy(params_np, cfg, device=device))
+    grads = tree.map(torch.zeros_like, params)
+    leaves = step_mod._trainable(params, grads)
+    rows = {k: local_slice(v.to(device), (fsdp.axes,), mesh)
+            for k, v in batch.items()}
+    with set_rules_for_mesh(mesh):
+        total, _ = step_mod.loss_fn(leaves, cfg, rows, fsdp=fsdp)
+    failed = []
+
+    def backward():
+        try:
+            total.backward()
+        except BaseException as e:      # re-raised in the rank's thread
+            failed.append(e)
+
+    worker = threading.Thread(target=backward)
+    worker.start()
+    worker.join()
+    if failed:
+        raise failed[0]
+    return {"grads": tree.map(_cpu, fsdp.full(grads))}

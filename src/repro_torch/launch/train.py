@@ -5,8 +5,9 @@ checkpoint, on the card by default (a copy of ``repro.launch.train``).
         --smoke --steps 20 --batch 8 --seq 128 --device cpu
 
 ``--mesh`` trains on a data mesh, as the JAX launcher's
-``make_host_mesh(data=len(jax.devices()))`` does: one rank per device
-the host exposes (``torch.cuda.device_count()``; on the CPU the
+``make_host_mesh(data=len(jax.devices()))`` does (``train_loop(mesh=)``
+takes any (data, model) mesh, as JAX's ``build(mesh=)``): one rank per
+device the host exposes (``torch.cuda.device_count()``; on the CPU the
 ``--ranks`` the caller passes, where JAX's tests force host devices),
 each holding its FSDP blocks of the training state (JAX's
 ``param_shardings`` placement, drawn as blocks) and running its block
@@ -56,10 +57,11 @@ def build(cfg, *, batch: int, seq: int, lr: float, steps: int,
           mesh=None):
     """(state, step_fn, dataset).  Weights are drawn from a generator
     seeded with ``seed`` on ``device`` unless ``params`` are given.
-    Under ``mesh`` with data axes of more than one rank the state is
-    this rank's FSDP blocks: random weights are drawn as blocks, each
-    slice cut as it is drawn (the single rank's draws); given
-    ``params`` are sliced; the moments are made as blocks."""
+    Under a (data, model) ``mesh`` the state is this rank's blocks
+    (``train.step.fsdp_layout``: FSDP over the data axes and, for the
+    GQA stacks, their model-axis blocks): random weights are drawn as
+    blocks, each slice cut as it is drawn (the single rank's draws);
+    given ``params`` are sliced; the moments are made as blocks."""
     dev = resolve_device(device)
     fsdp = train_mod.fsdp_layout(cfg, mesh)
     if params is None:
@@ -87,9 +89,12 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float,
     """Train ``steps`` steps; returns (state, losses).  ``on_step(step,
     metrics, seconds)`` (optional) sees each step's metrics and its time
     on the host clock, the device synchronised.  ``mesh``: train under
-    it (FSDP over its data axes; every rank of it calls this, and the
-    state returned is this rank's blocks); rank 0 alone logs and
-    writes checkpoints.  Keyword arguments go to :func:`build`."""
+    it, any (data, model) mesh of the running ranks, as JAX's
+    ``build(mesh=)`` takes one (FSDP over its data axes, tensor
+    parallelism over "model" for the GQA stacks; every rank of it calls
+    this, and the state returned is this rank's blocks); rank 0 alone
+    logs and writes checkpoints.  Keyword arguments go to
+    :func:`build`."""
     state, step_fn, ds = build(cfg, batch=batch, seq=seq, lr=lr,
                                steps=steps, mesh=mesh, **kw)
     dev = state.opt.step.device

@@ -113,11 +113,17 @@ def _write_columns(pairs, starts, s: int, per_row: bool, first: int,
 
 def _query_kv_heads(t: torch.Tensor, first: int, count: int,
                     group: int) -> torch.Tensor:
-    """The K or V heads (dim 1, every KV head) of the query heads
-    ``first``..``first + count``, one per query head: where the query
-    heads are this rank's block and the KV heads whole (their count
-    does not divide the ranks), so a rank's query heads may part a
-    KV group."""
+    """The K or V heads (dim 1, every KV head: a cache, or the ``wk``/
+    ``wv`` projection of a cache-free call) that the query heads
+    ``first``..``first + count`` read, where the query heads are this
+    rank's block and the KV heads whole (their count does not divide
+    the ranks): the KV heads of the rank's query groups, which the
+    kernel pairs with the query heads at its GQA ratio, where the block
+    holds whole groups or lies inside one; else, where the block parts
+    a group, one KV head per query head."""
+    lo, hi = first // group, (first + count - 1) // group + 1
+    if hi - lo == 1 or (first % group == 0 and count % group == 0):
+        return t.narrow(1, lo, hi - lo).contiguous()
     idx = torch.arange(first, first + count, device=t.device) // group
     return t.index_select(1, idx)
 
@@ -142,20 +148,25 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
     follows the plan, else the device); a cache-free call is the
     differentiable training attention.
 
-    ``specs`` (the sharded serving state, ``serve/layout.py``): the
-    leaves' specs, which say which projections are this rank's heads
+    ``specs`` (the sharded serving state, ``serve/layout.py``, or the
+    tensor-parallel training layout, ``train/step.py``): the leaves'
+    specs, which say which projections are this rank's heads
     (``wq``/``wk``/``wv`` (E, H/n, D), ``wo`` (H/n, D, E)); each is
     whole where its head count does not divide the "model" axis, as
     JAX's rules fall back.  Every path attends over the rank's query
     heads and one ``psum`` over "model" sums the ranks' output
-    partials; with the KV heads whole, each query head reads its own
-    KV head.  Under ``distributed_decode`` the cache holds this rank's
-    time columns of every KV head: the new K/V (and a decode step's q)
-    are gathered over the heads where they are blocks, the rank owning
-    a column writes it, a decode step runs the partial-softmax combine,
-    and a prefill chunk reads its heads' whole depth for the call: one
-    ``all_to_all`` turns the layer's columns into the rank's KV heads,
-    or, with the KV heads whole, the columns are gathered.
+    partials (its backward the ``psum`` of the ranks' shares,
+    ``sharding/collectives.py``); with the KV heads whole, the rank
+    reads its query groups' KV heads (:func:`_query_kv_heads`).  The
+    cache-free call (training) runs #7-#9 at the rank's head counts,
+    qk-norm per head.  Under ``distributed_decode`` the cache holds this
+    rank's time columns of every KV head: the new K/V (and a decode
+    step's q) are gathered over the heads where they are blocks, the
+    rank owning a column writes it, a decode step runs the
+    partial-softmax combine, and a prefill chunk reads its heads' whole
+    depth for the call: one ``all_to_all`` turns the layer's columns
+    into the rank's KV heads, or, with the KV heads whole, the columns
+    are gathered.
     Returns (out, cache)."""
     dt = x.dtype
     b, s, _ = x.shape
@@ -203,8 +214,13 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
     theta = float(cfg.rope_theta) if cfg.rope_theta else None
 
-    k_new = _heads(x, params["wk"].to(dt))
-    v_new = _heads(x, params["wv"].to(dt))
+    wk, wv = params["wk"], params["wv"]
+    if expand and not decode:
+        # cache-free: project only the KV heads the rank's query heads
+        # read
+        wk, wv = own(wk), own(wv)
+    k_new = _heads(x, wk.to(dt))
+    v_new = _heads(x, wv.to(dt))
     if cfg.qk_norm:
         k_new = rms_norm(k_new, params["k_norm"])
     k_new = rope(k_new, positions, cfg.rope_theta)
@@ -215,9 +231,8 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
         q = rope(q, positions, cfg.rope_theta)
 
     if not decode:
-        o = ops.attention(q, *((own(k_new), own(v_new)) if expand
-                               else (k_new, v_new)),
-                          causal=cfg.causal, plan=plan, impl=impl)
+        o = ops.attention(q, k_new, v_new, causal=cfg.causal, plan=plan,
+                          impl=impl)
         new_cache = None
     else:
         starts, lengths, q_off, per_row = _cache_write(cache_len, b, s,

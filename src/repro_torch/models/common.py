@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.collectives import psum
+from repro_torch.sharding.collectives import pmax, psum
 from repro_torch.sharding.rules import active_mesh, splits
 
 
@@ -191,11 +191,13 @@ def mlp_forward(params: dict, x: torch.Tensor, kind: str,
                 specs: Optional[dict] = None) -> torch.Tensor:
     """Gated-SiLU or GELU MLP.  jax.nn.gelu defaults to the tanh
     approximation, so the GELU here is the tanh form too.  ``specs``
-    (the sharded serving state): the leaves' specs; where they make the
-    hidden width this rank's block over "model" (``w_up``/``w_gate``
-    column blocks, ``w_down`` a row block), the local product is a
-    partial that one ``psum`` over "model" sums, the partition GSPMD
-    makes of JAX's ``constrain(h, ..., "mlp")``."""
+    (the sharded serving state, or the tensor-parallel training
+    layout): the leaves' specs; where they make the hidden width this
+    rank's block over "model" (``w_up``/``w_gate`` column blocks,
+    ``w_down`` a row block), the local product is a partial that one
+    ``psum`` over "model" sums, the partition GSPMD makes of JAX's
+    ``constrain(h, ..., "mlp")`` (its backward the ``psum`` of the
+    ranks' shares of the output's cotangent)."""
     dt = x.dtype
     if kind == "silu_glu":
         g = x @ params["w_gate"].to(dt)
@@ -211,12 +213,29 @@ def mlp_forward(params: dict, x: torch.Tensor, kind: str,
     return out
 
 
-def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Each token's negative log-likelihood, the logits in fp32."""
+def token_nll(logits: torch.Tensor, targets: torch.Tensor,
+              mesh=None) -> torch.Tensor:
+    """Each token's negative log-likelihood, the logits in fp32.
+    ``mesh``: ``logits`` are this rank's block of vocabulary columns
+    over "model" (JAX's ``constrain(logits, "batch", "seq", "vocab")``),
+    and the loss is taken on them without gathering the rows: the row
+    max is the ranks' ``pmax`` (no gradient flows through it), the
+    exponential sums are summed (``psum``), and the target's logit
+    comes from the rank whose columns hold it (``psum`` of its column
+    and the others' zeros)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    return lse - ll
+    if mesh is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        return lse - ll
+    cols = logits.shape[-1]
+    top = pmax(logits.detach().amax(-1), mesh, "model")
+    total = psum(torch.exp(logits - top[..., None]).sum(-1), mesh, "model")
+    local = targets.long() - mesh.axis_index("model") * cols
+    own = (local >= 0) & (local < cols)
+    picked = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])
+    ll = psum(torch.where(own, picked[..., 0], 0.0), mesh, "model")
+    return torch.log(total) + top - ll
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

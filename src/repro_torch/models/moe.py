@@ -59,7 +59,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, mlp_forward
 from repro_torch.sharding import rules as shrules
-from repro_torch.sharding.collectives import (all_to_all, gather_spec, pmean,
+from repro_torch.sharding.collectives import (all_gather, all_to_all, pmean,
                                               shard_map)
 
 
@@ -108,8 +108,8 @@ def route(router: torch.Tensor, x: torch.Tensor, k: int,
     every rank's logits are gathered first."""
     logits = x.float() @ router.float()
     if split:
-        logits = gather_spec(logits, (None,) * (logits.ndim - 1)
-                             + ("model",), ep_mesh())
+        logits = all_gather(logits, (None,) * (logits.ndim - 1)
+                            + ("model",), ep_mesh())
     probs = torch.softmax(logits, dim=-1)
     topw, topi = top_k(probs, k)
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
@@ -216,7 +216,7 @@ def _local_experts(buf, params: dict, dt):
     up = torch.einsum("becd,edf->becf", mine, params["w_up"].to(dt))
     h = F.silu(gate.float()).to(dt) * up
     out = torch.einsum("becf,efd->becd", h, params["w_down"].to(dt))
-    return gather_spec(out, (None, "model"), mesh)
+    return all_gather(out, (None, "model"), mesh)
 
 
 def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,

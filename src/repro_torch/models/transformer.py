@@ -77,6 +77,19 @@ def _lookup(embed: torch.Tensor, tokens: torch.Tensor,
     return psum(out, mesh, "model")
 
 
+def vocab_blocks(fsdp) -> bool:
+    """Whether the layout ``fsdp`` (None: whole weights) holds the
+    unembedding's vocabulary columns (``lm_head``, or the tied
+    ``embed``'s rows) in blocks over "model": a tensor-parallel
+    training forward then returns this rank's columns of the logits,
+    which the loss takes as they are (``models.common.token_nll``)."""
+    if fsdp is None:
+        return False
+    specs = fsdp.specs
+    spec = specs["lm_head"] if "lm_head" in specs else specs["embed"][::-1]
+    return shrules.splits(spec, 1, fsdp.mesh)
+
+
 def _unstack(specs):
     """The specs of one period's slice of stacked leaves: each spec
     without its leading period axis."""
@@ -187,15 +200,16 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
     of paged caches, shared by every layer.  ``impl``: the
     ``kernels.ops`` impl of every attention and SSD call (``torch``
     forces the plain versions on the card).  ``fsdp``: a
-    ``sharding.fsdp.FSDP`` whose blocks ``params`` are (training on a
-    data mesh, or the sharded serving state): each layer's weights, the
+    ``sharding.fsdp.FSDP`` whose blocks ``params`` are (the training
+    layout, or the sharded serving state): each layer's weights, the
     embedding, the unembedding and the final norm are gathered over the
-    data axes at their use; the serving state's model-axis blocks stay
-    blocks, each layer told by its specs which.  A vocabulary block
+    data axes at their use; the model-axis blocks stay blocks, each
+    layer told by the layout's specs which.  A vocabulary block
     (``embed``/``lm_head`` rows over "model") looks up this rank's
-    tokens, zeros the others and ``psum``s the rows, and its logits are
-    gathered over "model"; the norms are whole on every rank.  An MLA
-    layer's specs hold its latent cache's too.
+    tokens, zeros the others and ``psum``s the rows; its logits are
+    gathered over "model" when serving and stay this rank's columns in
+    training (:func:`vocab_blocks`); the norms are whole on every rank.
+    An MLA layer's specs hold its latent cache's too.
     Returns logits (B, S_f + S, vocab), plus the cache (updated in
     place) when one is given, plus, with ``return_aux``, the MoE
     auxiliary losses summed over the layers (fp32 zeros for a stack
@@ -206,10 +220,10 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
     def use(key):
         if fsdp is None:
             return params[key]
-        return fsdp.gather(params[key], fsdp.gathered[key])
+        return fsdp.gather(params[key], fsdp.param_specs[key])
 
-    # the serving state's specs: which leaves are model-axis blocks
-    specs = fsdp.specs if fsdp is not None and fsdp.serve else None
+    # the layout's specs: which leaves are model-axis blocks
+    specs = None if fsdp is None else fsdp.specs
 
     parts = []
     if embeds is not None:
@@ -230,10 +244,13 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
     remat = _remat(cfg) if cache is None and torch.is_grad_enabled() \
         else None
 
+    # the recompute runs under the forward's mesh, in whatever thread
+    layer_fn = shrules.under_active_rules(_layer_forward)
+
     def layer(i, lp, lc, x, gather, ls=None):
         kind = (cfg.block_kind(i), cfg.ffn_kind(i))
         if remat is not None:
-            return checkpoint(_layer_forward, lp, cfg, kind, x, positions,
+            return checkpoint(layer_fn, lp, cfg, kind, x, positions,
                               None, None, plan, None, impl, return_aux,
                               gather, ls, **remat)
         return _layer_forward(lp, cfg, kind, x, positions, lc, cache_len,
@@ -245,10 +262,10 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
         body_gather = [None] * cfg.layer_period
     else:
         prefix_gather = [functools.partial(fsdp.gather_tree, specs=s)
-                         for s in fsdp.gathered["prefix_layers"]]
+                         for s in fsdp.param_specs["prefix_layers"]]
         # a stacked leaf's spec leads with its period axis's None
         body_gather = [functools.partial(fsdp.gather_tree, specs=_unstack(s))
-                       for s in fsdp.gathered["layers"]]
+                       for s in fsdp.param_specs["layers"]]
     prefix_specs = [None] * len(params["prefix_layers"]) if specs is None \
         else specs["prefix_layers"]
     body_specs = [None] * cfg.layer_period if specs is None \
@@ -271,9 +288,7 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
     head = use("lm_head").to(dt) if "lm_head" in params \
         else use("embed").to(dt).T
     logits = x @ head
-    head_spec = None if specs is None else (
-        specs["lm_head"] if "lm_head" in params else specs["embed"][::-1])
-    if shrules.splits(head_spec, 1, shrules.active_mesh()):
+    if vocab_blocks(fsdp) and not fsdp.model_ranks > 1:
         # this rank's vocabulary columns: every rank's, in rank order
         logits = gather_spec(logits, (None, None, "model"),
                              shrules.active_mesh())

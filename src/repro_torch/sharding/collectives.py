@@ -9,7 +9,25 @@ an ``all_to_all`` the inverse ``all_to_all``; ``pmax`` has none (JAX
 raises "Differentiation rule for 'pmax' not implemented", and so does
 this backward).  :func:`gather_spec` and its transpose
 :func:`reduce_scatter` are plain functions, which FSDP's differentiable
-gather (``sharding/fsdp.py``) is built from.
+gather (``sharding/fsdp.py``) and :func:`all_gather` are built from.
+
+Tensor-parallel training (the ``model`` axis, ``train/step.py``) keeps
+JAX's ``shard_map`` convention: every rank of the axis computes the
+values it holds whole (the residual stream, the norms, the loss), and
+the cotangent each rank holds of such a value is its share, the ranks'
+shares summing to the cotangent.  The loss enters the backward through
+:func:`leave` (each rank's share is 1/n), and a parameter leaf that is
+whole on the axis through :func:`enter` (the identity; its backward
+sums the shares, Megatron's *f*), so its gradient is the whole one on
+every rank.  In between, the model's call sites use ``psum`` (its
+backward the ``psum`` of the shares: the exact cotangent of each
+rank's partial): the output projections of the attention heads and of
+the MLP's hidden block, the embedding's vocabulary rows and the
+vocabulary-parallel cross entropy's sums; :func:`all_gather` where a
+block becomes whole (the MoE router's expert columns, the experts'
+outputs), and ``pmax`` with no gradient for the cross entropy's row
+max.  A model-axis block's own gradient is exact on its rank and is
+never summed over the axis.
 
 :func:`shard_map` is JAX's ``shard_map`` over a port mesh, for the
 paths whose arguments are global tensors on every rank (activations,
@@ -172,6 +190,67 @@ class _Pmax(torch.autograd.Function):
 def psum(x: torch.Tensor, mesh, axis) -> torch.Tensor:
     """Sum over the ranks of ``axis`` (a name or a tuple of names)."""
     return _Psum.apply(x, mesh, _axes(axis))
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (_reduce(ct, ctx.mesh, ctx.axes, dist.ReduceOp.SUM), None,
+                None)
+
+
+class _Share(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.n = math.prod(mesh.axis_size(a) for a in axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct / ctx.n, None, None
+
+
+def enter(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """A value whole on every rank of ``axis`` entering a computation
+    split over it: the identity, whose backward sums the ranks'
+    partial cotangents (``psum``): Megatron's *f*, JAX's transpose of a
+    replicated operand of a ``model``-split einsum (and of a
+    ``shard_map`` input whose spec leaves the axis out)."""
+    return _Copy.apply(x, mesh, _axes(axis))
+
+
+def leave(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """A value every rank of ``axis`` computes whole (a loss) leaving
+    a computation split over it: the identity, whose backward hands
+    each rank its share, the cotangent over the axis's rank count
+    (JAX's transpose of a ``shard_map`` output whose spec leaves the
+    axis out), so the shares of every replicated value sum to its
+    cotangent."""
+    return _Share.apply(x, mesh, _axes(axis))
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        out = gather_spec(x, spec, mesh)
+        return out if out is not x else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return reduce_scatter(ct, ctx.spec, ctx.mesh), None, None
+
+
+def all_gather(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """:func:`gather_spec`, differentiable: the backward is its
+    transpose, :func:`reduce_scatter` of the ranks' shares of the
+    gathered value's cotangent (JAX's transpose of ``all_gather``)."""
+    return _AllGather.apply(x, tuple(spec), mesh)
 
 
 def pmean(x: torch.Tensor, mesh, axis) -> torch.Tensor:

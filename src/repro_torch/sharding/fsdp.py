@@ -1,30 +1,38 @@
-"""FSDP (ZeRO-3) of the training state on a data mesh, as the JAX
-package's rules lay it out under GSPMD: ``"embed"`` and
+"""FSDP (ZeRO-3) of the training state on a (data, model) mesh, as the
+JAX package's rules lay it out under GSPMD: ``"embed"`` and
 ``"expert_embed"`` over ("pod", "data") (``rules.DEFAULT_RULES``), so
 each rank holds 1/N of every parameter with such a dim, and of the
-gradients, AdamW moments and error-feedback buffers that follow it.
+gradients, AdamW moments and error-feedback buffers that follow it;
+``"heads"``, ``"kv_heads"``, ``"mlp"``, ``"vocab"`` and ``"experts"``
+over "model" (tensor parallelism), so each rank holds its model-axis
+blocks alone.
 
-:class:`FSDP` holds each parameter leaf's spec over the mesh's data
-axes: :func:`rules.param_shardings` of the leaf's logical axes on the
-global shape (the divisibility fallback replicates a dim that does not
-divide), with every other mesh axis dropped, since the port trains no
-tensor-parallel layout.  A leaf without a data axis in its spec (a
-norm's scale) is whole on every rank.
+:class:`FSDP` holds each parameter leaf's spec over the mesh:
+:func:`rules.param_shardings` of the leaf's logical axes on the global
+shape (the divisibility fallback leaves a dim that does not divide
+whole, leaf by leaf).  The tensor-parallel layout keeps the whole spec;
+``model=False`` drops every axis but the data axes (the layout of the
+stacks that do not train on the model axis yet, whose model ranks each
+repeat their data group's program).  A leaf without a data axis in its
+spec (a norm's scale) is whole on every rank of the data axes.
 
-The model gathers a layer's blocks when the layer runs
-(:meth:`FSDP.gather`): its backward reduce-scatters the gradient back
-to the block and averages it over the data ranks, in fp32, so the whole
-gradient tree never exists on one rank.  A replicated leaf's gather is
-the identity, and its backward the same mean (an all-reduce).
+The model gathers a layer's blocks over the data axes when the layer
+runs (:meth:`FSDP.gather`): its backward reduce-scatters the gradient
+back to the block and averages it over the data ranks, in fp32, so the
+whole gradient tree never exists on one rank.  A model-axis block stays
+a block: the layer computes on it, and its gradient, exact on its rank,
+is never summed over "model".  A leaf whole on "model" enters the
+model's computation through ``collectives.enter``, which sums its
+ranks' shares of the gradient (the convention of
+``sharding/collectives.py``).  A replicated leaf's gather is the
+identity, and its backward the same mean (an all-reduce).
 :meth:`FSDP.init` draws the random parameters as blocks, each slice cut
 as soon as it is drawn, so no rank ever holds the whole tree.
 
 The same class holds the serving state's blocks (``FSDP(...,
-serve=True)``): each leaf keeps its whole ``param_shardings`` spec, so
-the model-axis blocks (``heads``, ``mlp``, ``vocab``, ``experts``) stay
-blocks for the model to consume, and ``gathered`` keeps the data-axis
-part that ``forward`` gathers at use.  Which configs serve so, and the
-decode caches' blocks, are the serving layer's (``serve/layout.py``).
+serve=True)``): the same specs, the data-axis part gathered at use.
+Which configs serve so, and the decode caches' blocks, are the serving
+layer's (``serve/layout.py``).
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.models import weights as mw
-from repro_torch.sharding.collectives import (gather_spec, psum,
+from repro_torch.sharding.collectives import (enter, gather_spec, psum,
                                               reduce_scatter)
 from repro_torch.sharding.rules import (NamedSharding, data_axes, is_axes,
                                         local_slice, param_shardings,
@@ -88,30 +96,31 @@ class FSDP:
     """The blocks of a parameter tree on ``mesh``.  ``axes``: the tree's
     logical axes (``models.weights.param_axes``); ``like``: a tree of
     the same structure whose leaves have the global shapes (meta tensors
-    will do).  ``param_specs`` is the tree of each leaf's spec: its data
-    axes alone for training (``mesh`` needs a data axis of more than one
-    rank), its whole spec with ``serve`` (the serving layout; ``mesh``
-    needs more than one rank).  ``gathered`` is the tree of the specs
-    :meth:`gather` takes: each leaf's data axes (``param_specs`` itself
-    for training)."""
+    will do).  ``param_specs`` is the tree of each leaf's spec: its
+    whole spec (``mesh`` needs more than one rank), or with
+    ``model=False`` its data axes alone (``mesh`` needs a data axis of
+    more than one rank).  ``model_ranks`` is the rank count of the
+    "model" axis a training layout splits (1 for a serving or
+    data-only layout): the loss leaves the model through
+    ``collectives.leave`` over it."""
 
-    def __init__(self, mesh, axes, like, *, serve: bool = False):
+    def __init__(self, mesh, axes, like, *, serve: bool = False,
+                 model: bool = True):
         self.mesh, self.serve = mesh, serve
         self.axes = data_axes(mesh)
-        if serve and mesh.size == 1:
-            raise ValueError(f"{mesh}: a serving layout of one rank")
-        if not serve and not self.axes:
+        if (serve or model) and mesh.size == 1:
+            raise ValueError(f"{mesh}: a layout of blocks on one rank")
+        if not (serve or model) and not self.axes:
             raise ValueError(f"{mesh}: no data axis of more than one rank")
         full = param_shardings(axes, mesh, like=like)
         self.param_specs = tree.map(
-            lambda s: s.spec if serve else _data_spec(s.spec, self.axes),
-            full)
+            lambda s: s.spec if serve or model
+            else _data_spec(s.spec, self.axes), full)
         #: the specs the layers read: ``param_specs`` (a serving layout
         #: adds its caches', ``serve/layout.py``)
         self.specs = self.param_specs
-        self.gathered = tree.map(lambda s: _data_spec(s, self.axes),
-                                 self.param_specs, is_leaf=is_axes) \
-            if serve else self.param_specs
+        self.model_ranks = 1 if serve or not model or "model" not in \
+            mesh.axis_names else mesh.axis_size("model")
         self.block_shapes = tree.map(
             lambda s, x: shard_shape(x.shape, s, mesh), self.param_specs,
             like, is_leaf=is_axes)
@@ -124,9 +133,8 @@ class FSDP:
                 what = ("under a sharded serve the serving weights are "
                         "each rank's blocks (serve.layout.serving_layout("
                         "cfg).init or .place, or params_from_numpy(fsdp=))"
-                        if self.serve else "under a data mesh the "
-                        "training state is each rank's blocks "
-                        "(FSDP.place)")
+                        if self.serve else "under a mesh the training "
+                        "state is each rank's blocks (FSDP.place)")
                 raise ValueError(
                     f"a leaf of shape {tuple(x.shape)} where its block is "
                     f"{want}: {what}")
@@ -164,9 +172,17 @@ class FSDP:
             t)
 
     def gather(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
-        """The global tensor of the block ``x`` (every rank calls it);
-        its gradient lands in the block, the data ranks' mean."""
-        return _Gather.apply(x, tuple(spec), self.mesh, self.axes)
+        """The block ``x`` of a leaf whose spec is ``spec``, gathered
+        over the data axes (every rank calls it); its gradient lands in
+        the block, the data ranks' mean.  A leaf whole on the "model"
+        axis of a tensor-parallel layout enters through
+        ``collectives.enter``."""
+        x = _Gather.apply(x, _data_spec(spec, self.axes), self.mesh,
+                          self.axes)
+        if self.model_ranks > 1 and "model" not in {
+                a for e in spec for a in spec_axes(e)}:
+            x = enter(x, self.mesh, "model")
+        return x
 
     def gather_tree(self, t, specs):
         """:meth:`gather` of every leaf of ``t`` (specs: its specs)."""

@@ -40,6 +40,7 @@ without a numeric effect, so it has no counterpart here.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 from typing import Optional, Sequence
@@ -117,6 +118,24 @@ def set_rules_for_mesh(mesh, rules: Optional[dict] = None):
         yield
     finally:
         _state.mesh, _state.rules = prev
+
+
+def under_active_rules(fn):
+    """``fn`` bound to the mesh and rules active now: it runs under them
+    wherever it is called.  A checkpointed layer's recompute needs it:
+    the autograd engine runs a CUDA graph's backward, and the recompute
+    with it, in a thread of its own, where this thread's rules are
+    unset (a CPU graph's runs in the calling thread)."""
+    mesh, rules = _current()
+    if mesh is None:
+        return fn
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with set_rules_for_mesh(mesh, rules):
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def mesh_sizes(mesh) -> dict:

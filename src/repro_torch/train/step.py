@@ -13,22 +13,30 @@ allocate a zero tensor of the whole stacked leaf (5.4 GB for
 starcoder2-7b's ``w_up``) per layer.  The gradient tree comes back in
 the JAX package's layout.
 
-Under an active mesh (``sharding.set_rules_for_mesh``) whose data axes
-("pod", "data") span more than one rank, the step is FSDP (ZeRO-3), the
-JAX package's layout under GSPMD: the state is each rank's blocks
+Under an active mesh (``sharding.set_rules_for_mesh``) of more than one
+rank, the step runs on the JAX package's layout under GSPMD
 (:func:`fsdp_layout`, ``sharding/fsdp.py``; ``launch.train.build``
-places them), each rank runs its block of the batch's rows, and the
-model gathers each layer's weights at their use and reduce-scatters
-their gradients back to the blocks, averaged over the data ranks in
-fp32.  Every rank computes the global batch's loss through
-differentiable ``psum``/``pmean``: the token mean over the global batch
-(with a mask, the ranks' masked sums over their summed token counts),
-the MoE load balance from global means (``models/moe.py``) and the
-z-loss as the ranks' mean; the metrics are those global values.  The
-gradient norm, the int8 scales and AdamW run on the blocks, each
-reading its leaf's global values where it needs them (``optim/``).
-Microbatches are slices of the global batch, each rank taking its rows
-of each, as JAX slices its global batch.
+places the blocks): FSDP (ZeRO-3) over the data axes ("pod", "data"),
+and for the GQA stacks tensor parallelism over "model" (heads, KV
+heads, MLP columns, vocabulary rows and experts, where they divide).
+Each rank runs its data axes' block of the batch's rows (every rank of
+"model" the same rows); the model gathers each layer's weights over the
+data axes at their use and reduce-scatters their gradients back to the
+blocks, averaged over the data ranks in fp32, and computes on its
+model-axis blocks, which it never gathers: the attention on its heads,
+the MLP on its columns, the MoE on its experts, the logits on its
+vocabulary columns, whose cross entropy ``token_nll(mesh=)`` takes
+without gathering them.  Every rank computes the global batch's loss
+through differentiable ``psum``/``pmean``: the token mean over the
+global batch (with a mask, the ranks' masked sums over their summed
+token counts), the MoE load balance from global means
+(``models/moe.py``) and the z-loss as the ranks' mean; the metrics are
+those global values.  Each rank of "model" takes its share of the
+loss's cotangent (``collectives.leave``), as ``sharding/collectives.py``
+sets out.  The gradient norm, the int8 scales and AdamW run on the
+blocks, each reading its leaf's global values where it needs them
+(``optim/``).  Microbatches are slices of the global batch, each rank
+taking its rows of each, as JAX slices its global batch.
 """
 
 from __future__ import annotations
@@ -55,7 +63,7 @@ from repro_torch.optim import (adamw_init, adamw_update,
                                int8_compress_with_feedback)
 from repro_torch.optim.adamw import AdamWState, chunks
 from repro_torch.sharding import rules as shrules
-from repro_torch.sharding.collectives import pmean, psum
+from repro_torch.sharding.collectives import leave, pmean, psum
 from repro_torch.sharding.fsdp import FSDP
 from repro_torch.sharding.rules import NamedSharding
 
@@ -82,16 +90,30 @@ def init_train_state(generator: Optional[torch.Generator],
                       feedback=fb)
 
 
+def trains_on_model_axis(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` trains on the tensor-parallel layout: the GQA
+    stacks, dense or MoE.  MLA, Mamba-2 and their hybrid keep the
+    data-only layout, each rank of a model axis repeating its data
+    group's program."""
+    return cfg.attention == "gqa" and cfg.attn_every == 1
+
+
 @functools.lru_cache(maxsize=8)
 def fsdp_layout(cfg: ModelConfig, mesh) -> Optional[FSDP]:
-    """The FSDP blocks of ``cfg``'s training state on ``mesh``:
+    """The blocks of ``cfg``'s training state on ``mesh``:
     ``param_shardings`` of the parameters' logical axes on their global
-    shapes, laid out on the meta device; None without a mesh or where
-    no data axis of it spans more than one rank (the single-card
-    step)."""
-    if mesh is None or not shrules.data_axes(mesh):
+    shapes, laid out on the meta device, over the data axes and "model"
+    for the stacks that train on it (:func:`trains_on_model_axis`), over
+    the data axes alone for the others; None without a mesh, on a mesh
+    of one rank, and for a data-only layout where no data axis spans
+    more than one rank (the single-card step)."""
+    if mesh is None or mesh.size == 1:
         return None
-    return FSDP(mesh, param_axes(cfg), init_params(cfg, None, "meta"))
+    model = trains_on_model_axis(cfg)
+    if not model and not shrules.data_axes(mesh):
+        return None
+    return FSDP(mesh, param_axes(cfg), init_params(cfg, None, "meta"),
+                model=model)
 
 
 def state_shardings(state: TrainState, fsdp: FSDP) -> TrainState:
@@ -128,7 +150,9 @@ def loss_fn(params, cfg: ModelConfig, batch, *, impl: str = "auto",
     loss covers the text suffix only) or {"embeds", "targets"} (the
     encoder); optional "mask" (B, S) and, for a non-causal model,
     "targets".  ``fsdp``: ``params`` are its blocks and ``batch`` this
-    rank's rows of the global batch, whose loss every rank returns."""
+    rank's rows of the global batch, whose loss every rank returns (on
+    a tensor-parallel layout from its vocabulary columns of the
+    logits)."""
     tokens, embeds = batch.get("tokens"), batch.get("embeds")
     if tokens is not None and cfg.causal:
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
@@ -143,7 +167,9 @@ def loss_fn(params, cfg: ModelConfig, batch, *, impl: str = "auto",
         loss = cross_entropy(logits, targets, mask)
     else:
         mesh, axes = fsdp.mesh, fsdp.axes
-        nll = token_nll(logits, targets)
+        nll = token_nll(logits, targets,
+                        mesh if tf.vocab_blocks(fsdp) and fsdp.model_ranks > 1
+                        else None)
         if mask is None:                # equal rows: the ranks' mean
             loss = pmean(nll.mean(), mesh, axes)
         else:
@@ -151,6 +177,10 @@ def loss_fn(params, cfg: ModelConfig, batch, *, impl: str = "auto",
                 psum(mask.sum().float(), mesh, axes), min=1.0)
         aux = dict(aux, moe_z_loss=pmean(aux["moe_z_loss"], mesh, axes))
     total = loss + 0.01 * aux["moe_lb_loss"] + 0.001 * aux["moe_z_loss"]
+    if fsdp is not None and fsdp.model_ranks > 1:
+        # every model rank computes the loss whole: each backward takes
+        # its share (sharding/collectives.py)
+        total = leave(total, fsdp.mesh, "model")
     metrics = {"loss": loss.detach(),
                "moe_lb_loss": aux["moe_lb_loss"].detach(),
                "moe_z_loss": aux["moe_z_loss"].detach()}
@@ -195,8 +225,8 @@ def train_step(state: TrainState, batch, cfg: ModelConfig, *,
     """One optimizer step, updating ``state`` in place and returning it
     with the metrics.  ``microbatches`` > 1 accumulates the gradients of
     leading-batch slices in fp32 and divides, as the JAX package does;
-    the metrics are the last slice's.  Under a data mesh ``state``
-    holds this rank's blocks (:func:`fsdp_layout`) and ``batch`` is the
+    the metrics are the last slice's.  Under a mesh ``state`` holds
+    this rank's blocks (:func:`fsdp_layout`) and ``batch`` is the
     global batch."""
     params = state.params
     fsdp = fsdp_layout(cfg, shrules.active_mesh())

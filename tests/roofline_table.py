@@ -7,9 +7,10 @@ roofline seconds (compute, memory, collective: the NVIDIA H100 SXM5
 mesh over ``benchmarks/roofline.py`` ``analytic_flops`` (the JAX
 package's closed form: 8 N D for a train cell under remat full, 2 N D
 for a forward, plus the attention and SSD terms): a rank's FLOPs times
-the data ranks for a train cell, whose model axis repeats the data
-group's program, times every device for a serving cell, whose ranks
-each run their own blocks (and whatever those repeat).  Test-side
+every device where the ranks each run their own blocks (a serving
+cell, a train cell on the tensor-parallel layout: whatever those
+repeat counts), times the data ranks for a train cell on the data-only
+layout, whose model axis repeats the data group's program.  Test-side
 tooling: it reads the JAX package's configs.
 
     PYTHONPATH=src python tests/roofline_table.py build/roofline_torch.json
@@ -42,7 +43,9 @@ def main(argv=None) -> int:
     shapes = list(dict.fromkeys(r["shape"] for r in rows))
     cells = {}
     for r in rows:
-        ranks = r["data_ranks"] if r["kind"] == "train" else r["devices"]
+        repeats = r["kind"] == "train" and "its model axis:" not in \
+            r["layout"]
+        ranks = r["data_ranks"] if repeats else r["devices"]
         ratio = r["per_device"]["flops"] * ranks / flops_of(r["arch"],
                                                             r["shape"])
         rt = r["roofline_seconds"]

@@ -11,19 +11,23 @@ group (``launch/cost_analysis.py``), and each kernel's closed-form cost
   and every collective key exactly, bytes accessed within 1% (both run
   the same aten ops; the CPU run also reads back the cache lengths the
   masked-kernel dispatch checks on the host);
-* (b) the smoke train cell (remat none) against closed forms summed
-  here from the config's widths: its FLOPs (three times each forward
-  product, and #7-#9's closed forms over the causal half), and its
-  collective bytes from the FSDP layout's specs (each use of a leaf
-  gathers its blocks and all-reduces its fp32 gradient; the loss's
-  means and the gradient norm's partial sums, fp32 scalars);
+* (b) the smoke train cell (remat none, the tensor-parallel layout)
+  against closed forms summed here from the config's widths: its FLOPs
+  (three times each forward product, and #7-#9's closed forms over the
+  causal half, on the rank's half of the heads, MLP and vocabulary),
+  and its collective bytes from the layout's specs (each use of a leaf
+  gathers its model-axis block over "data" and all-reduces its fp32
+  gradient; the activations' sums over "model"; the loss's means and
+  the gradient norm's partial sums, fp32 scalars);
 * (c) ``kernels/cost.py`` at PERF.md's main shapes gives its bound
   column to four digits, and on the meta device each wrapper and each
   plain version reports exactly its closed form, its plain body's ops
   adding nothing;
-* (d) starcoder2-7b at full width on (16, 16): ``train_4k``'s FLOPs
-  times the data ranks within 25% of ``benchmarks/roofline.py``
-  ``analytic_flops``; ``decode_32k``'s FLOPs equal to the closed form
+* (d) at full width on (16, 16): qwen3-8b's ``train_4k`` on the
+  tensor-parallel layout, its FLOPs times the 256 ranks within 25% of
+  ``benchmarks/roofline.py`` ``analytic_flops`` and its held parameter
+  and optimizer bytes ``run_cell``'s; starcoder2-7b's
+  ``decode_32k``'s FLOPs equal to the closed form
   of its layout (the projections of the 36 query and 4 KV heads whole on
   every rank, which the 16-way model axis does not divide; its 2048 of
   the cache's columns; a 16th of the MLP and the vocabulary);
@@ -66,7 +70,8 @@ SMALL = {"train_4k": ("train_4k", 4, 64, None),
          "prefill_32k": ("prefill_32k", 4, 64, None),
          "decode_32k": ("decode_32k", 4, 64, None),
          "decode_32k hp": ("decode_32k", 4, 64, ("head_parallel_decode",))}
-FULL = ("train_4k", "decode_32k")
+#: the full-width cells on (16, 16): (arch, shape)
+FULL = (("qwen3-8b", "train_4k"), (ARCH, "decode_32k"))
 
 
 @pytest.fixture(scope="module")
@@ -74,11 +79,11 @@ def meta():
     """Every cell of this file counted on meta, in one child process."""
     cells = [((ARCH, s), dict(cfg=SMOKE, mesh=MESH, batch=b, seq=n,
                               flags=f)) for s, b, n, f in SMALL.values()]
-    cells += [((ARCH, s), {}) for s in FULL]
+    cells += [(cell, {}) for cell in FULL]
     out = dryrun.roofline_cells(cells)
     for r in out:
         assert "error" not in r, r
-    return dict(zip(list(SMALL) + [f"full {s}" for s in FULL], out))
+    return dict(zip(list(SMALL) + [f"full {s}" for _, s in FULL], out))
 
 
 @pytest.fixture(scope="module")
@@ -109,15 +114,19 @@ def test_meta_count_equals_four_gloo_ranks(meta, gloo, shape):
 def _smoke_train_flops() -> int:
     """FLOPs of rank 0's smoke train step (remat none): every forward
     product three times (its forward, and its two backward products),
-    and #7, #8 and #9's closed forms a layer."""
+    and #7, #8 and #9's closed forms a layer, on the rank's model-axis
+    blocks: a half of the heads, the KV heads, the MLP columns and the
+    vocabulary, all of which divide the 2 ranks."""
     c = SMOKE
     _, b, s, _ = SMALL["train_4k"]
+    m = MESH.shape[1]
+    assert c.n_heads % m == c.kv_heads % m == c.d_ff % m == 0
     t = b // MESH.shape[0] * s                 # rank 0's tokens
     hd, q, kv = c.head_dim, c.n_heads * c.head_dim, c.kv_heads * c.head_dim
-    layer = 2 * t * c.d_model * (2 * q + 2 * kv) + 2 * 2 * t * c.d_model \
-        * c.d_ff
-    forward = c.n_layers * layer + 2 * t * c.d_model * c.vocab_size
-    ent = b // MESH.shape[0] * c.n_heads * s * (s + 1) // 2
+    layer = 2 * t * c.d_model * (2 * q + 2 * kv) // m + 2 * 2 * t \
+        * c.d_model * c.d_ff // m
+    forward = c.n_layers * layer + 2 * t * c.d_model * c.vocab_size // m
+    ent = b // MESH.shape[0] * c.n_heads // m * s * (s + 1) // 2
     attn = (2 * 2 * hd + (4 * hd + 2 * hd) + 4 * 2 * hd) * ent
     return 3 * forward + c.n_layers * attn
 
@@ -132,26 +141,36 @@ def test_smoke_train_flops_equal_their_closed_form(meta):
 
 
 def test_smoke_train_collective_bytes_equal_their_closed_form(meta):
-    """Each use of a leaf (a stacked leaf's period, once a layer) gathers
-    its FSDP blocks (fp32 parameters) where its spec has the data axis,
-    and its backward all-reduces the fp32 gradient of the whole leaf over
-    the data axis; then three fp32 scalars (the loss's mean, forward and
-    backward, and the z-loss's mean) and the gradient norm's partial sum
-    of each leaf split over the data axis."""
+    """On the tensor-parallel layout: each use of a leaf (a stacked
+    leaf's period, once a layer) gathers its model-axis block over the
+    data axis where its spec has the data axis, and its backward
+    all-reduces the fp32 gradient of that block over the data axis; a
+    leaf whole on the model axis (the norms) all-reduces its gradient's
+    shares over "model" too.  The activations: the embedding's rows,
+    each layer's attention and MLP outputs (fp32, forward and backward)
+    and the cross entropy's row max (forward), exponential sums and
+    target logits (forward and backward) summed over "model"; then
+    three fp32 scalars (the loss's mean, forward and backward, and the
+    z-loss's mean) and the gradient norm's partial sum of each leaf
+    over each axis it is split on."""
     fsdp = fsdp_layout(SMOKE, MESH)
     params = init_params(SMOKE, None, "meta")
+    _, b, s, _ = SMALL["train_4k"]
     gather = reduce = split = 0
     for key in params:
         for spec, x in zip(tree.leaves(fsdp.param_specs[key],
                                        is_leaf=lambda t: isinstance(t, tuple)),
                            tree.leaves(params[key])):
-            uses = x.shape[0] if key == "layers" else 1
-            per_use = x.numel() // uses * x.element_size()
-            has_data = any("data" in rules.spec_axes(e) for e in spec)
-            gather += uses * per_use if has_data else 0
-            reduce += uses * x.numel() // uses * 4
-            split += has_data
-    want = {"all-gather": gather, "all-reduce": reduce + 4 * 3 + 4 * split,
+            named = {a for e in spec for a in rules.spec_axes(e)}
+            block = x.numel() // (2 if "model" in named else 1)
+            gather += block * x.element_size() if "data" in named else 0
+            reduce += block * 4 * (1 if "model" in named else 2)
+            split += len(named)
+    rows = b // MESH.shape[0] * s
+    acts = 4 * rows * SMOKE.d_model * (2 + 4 * SMOKE.n_layers) \
+        + 4 * rows * 5
+    want = {"all-gather": gather,
+            "all-reduce": reduce + acts + 4 * 3 + 4 * split,
             "reduce-scatter": 0, "all-to-all": 0, "collective-permute": 0}
     want["total"] = sum(want.values())
     assert meta["train_4k"]["per_device"]["collective_bytes"] == want
@@ -234,12 +253,29 @@ def _analytic_flops(arch, shape):
 
 
 def test_full_width_train_flops_within_a_quarter_of_analytic(meta):
+    """qwen3-8b on the tensor-parallel layout: its heads, MLP and
+    vocabulary divide the 16 ranks of "model", its 8 KV heads stay
+    whole, and each rank projects only its query group's KV head, so
+    the mesh's FLOPs are rank 0's times every rank."""
+    c = configs.get_config("qwen3-8b")
+    assert c.n_heads % 16 == c.d_ff % 16 == c.vocab_size % 16 == 0
+    assert c.kv_heads % 16
     r = meta["full train_4k"]
-    data = r["data_ranks"]
-    assert data == 16 and r["devices"] == 256
-    ratio = r["per_device"]["flops"] * data / _analytic_flops(ARCH,
-                                                              "train_4k")
+    assert r["data_ranks"] == 16 and r["devices"] == 256
+    assert "over the 16 ranks of its model axis: heads, mlp, vocab " \
+        "(whole: kv_heads)" in r["layout"]
+    ratio = r["per_device"]["flops"] * r["devices"] / _analytic_flops(
+        "qwen3-8b", "train_4k")
     assert 0.75 <= ratio <= 1.25, ratio
+
+
+def test_full_width_train_holds_what_run_cell_counts(meta):
+    """Rank 0's program holds the parameter and optimizer bytes of the
+    cell's memory column, to the byte."""
+    cell = dryrun.run_cell("qwen3-8b", "train_4k", costs=False)
+    held = meta["full train_4k"]["held"]
+    assert held == {k: cell["per_device_bytes"][k]
+                    for k in ("params", "optimizer")}
 
 
 def test_full_width_decode_flops_equal_the_layouts_closed_form(meta):
