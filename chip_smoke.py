@@ -167,7 +167,7 @@ Phases, in order:
                step), the first step's gradients taken twice and equal
                bit for bit, every gradient leaf finite and non-zero;
                then one profiled step by part;
-  17. mamba train -- mamba2-130m at full width, cut to 12 of its 24
+  17. mamba train -- mamba2-130m at full width, cut to 6 of its 24
                layers (MAMBA_TRAIN_LAYERS):
                launch/train.train_loop, remat full, bf16 moments, B=8,
                seq 2048, 3 steps, through short_train (step ms, tokens/s,
@@ -250,7 +250,17 @@ Phases, in order:
                row against its plain version with a key tile or h0
                dropped rejected, (i)'s fp32 tokens equal to one rank's
                (logits within MESH_TOL), (h)/(j)'s bf16 streams as
-               (g)'s.  Each sub-phase's seconds and peak memory a rank.
+               (g)'s; (k) starcoder2-7b, (l) deepseek-v3's MLA training
+               config (1 layer) and (m) mamba2-130m (4 layers) trained
+               tensor-parallel on (1, 2) at full width, B=4, seq 1024
+               (each rank its heads, MLP columns, vocabulary rows, and
+               (m)'s SSM heads, conv channels and inner): bytes a rank
+               the dry-run's, #7-#9 on each rank per row against their
+               plain versions ((k) at 18 over 2 heads, (l) at 64 heads
+               of D 192 / Dv 128), losses within MESH_TRAIN_REL of one
+               rank's, one fp32 step's gradients within MESH_TOL of
+               each leaf's largest.  Each sub-phase's seconds and peak
+               memory a rank.
 The kernel phase also holds the four training kernels (#7-#10) to their
 plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal), #7-#9 at hubert-xlarge's (B=2, 16 heads of 80, S = 4096,
@@ -5008,10 +5018,11 @@ def mla_train_phase(dev):
 #: mamba2-130m's training batch: 8 rows of 2048 tokens (B=2 would leave a
 #: 130 M-parameter step to the launch rate)
 MAMBA_TRAIN_B = 8
-#: mamba2-130m's depth in the training phase: 12 of its 24 layers, which
-#: halves the profiled step's ~50k launches a step and the host time of
-#: their processing, to pay for the roofline phase
-MAMBA_TRAIN_LAYERS = 12
+#: mamba2-130m's depth in the training phase: 6 of its 24 layers, which
+#: cuts the profiled step's ~50k launches a step and the host time of
+#: their processing, to pay for the roofline phase (24 -> 12) and the
+#: mesh phase's (l) and (m) (12 -> 6)
+MAMBA_TRAIN_LAYERS = 6
 
 
 def mamba_train_phase(dev):
@@ -5326,12 +5337,15 @@ MESH_LAYERS = 2
 #: (g)'s depth: phi3.5-moe served on the sharded serving state
 MESH_MOE_LAYERS = 2
 MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 1024, 3
-#: the FSDP sub-phases' archs; (f)'s steps
-MESH_ARCHS = {"d": "starcoder2-7b", "f": "phi3.5-moe-42b-a6.6b"}
-#: each FSDP sub-phase's depth: (f) cut from 2 layers to 1 to keep the
-#: call's time with (g) added, (d) from 2 to 1 with (h)-(j) added (their
-#: gates unchanged)
-MESH_DEPTH = {"d": 1, "f": 1}
+#: the training sub-phases' archs; (f)'s steps
+MESH_ARCHS = {"d": "starcoder2-7b", "f": "phi3.5-moe-42b-a6.6b",
+              "l": MLA_ARCH, "m": "mamba2-130m"}
+#: each training sub-phase's depth: (f) cut from 2 layers to 1 to keep
+#: the call's time with (g) added, (d) (and (k), which trains its config)
+#: from 2 to 1 with (h)-(j) added (their gates unchanged); (l) deepseek-v3's
+#: MLA training config (no MoE, no dense prefix) at 1 layer, (m)
+#: mamba2-130m at 4 of its 24
+MESH_DEPTH = {"d": 1, "f": 1, "l": 1, "m": 4}
 MESH_MOE_STEPS = 2
 #: the mesh phase's serve mix: prompts past C = 2N = 256, 16 new tokens
 MESH_REQUESTS, MESH_MAX_NEW = 4, 16
@@ -6158,96 +6172,152 @@ def _fsdp_run(rank, dev, stats, sub, per_rank, steps) -> tuple:
     return state, cfg, mesh, launches, want
 
 
-def _tp_train(rank, dev, stats, want) -> dict:
-    """(k) tensor-parallel training of ``MESH_ARCHS["d"]`` at full width,
-    ``MESH_DEPTH["d"]`` layers, on a (1, MESH_RANKS) mesh through
-    launch/train.train_loop at (d)'s global batch (every rank the same
-    rows; each its heads, KV heads, MLP columns and vocabulary rows):
-    #7-#9 launched on each rank at its query heads over its KV heads,
-    and held against their plain versions at that shape
-    (``attention_train_records``, with its dropped-tile control); the
-    losses within MESH_TRAIN_REL of (d)'s single-rank run ``want``
-    (rank 0: ``build`` draws the same weights as blocks); the bytes each
-    rank holds against the dry-run's per-device figure for the mesh;
-    one fp32 step's gradients, gathered from the blocks, within
-    MESH_TOL of each leaf's largest against one rank's.  Returns this
-    rank's launches of the training run."""
+#: (l)'s fp32 gradient step's sequence: shorter than MESH_TRAIN_SEQ, to
+#: bound each rank's memory (2.44 G parameters whole in fp32 with their
+#: gradients on both ranks of the one card, beside the blocks' gradients)
+MESH_MLA_GRAD_SEQ = 256
+
+
+def _tp_blocks(params) -> dict:
+    """The model-axis widths a rank of (k)-(m) holds in its first layer:
+    the GQA stack's query and KV heads, MLA's heads, or Mamba-2's SSM
+    heads, ``in_proj`` columns, conv channels and ``inner``; each leaf
+    stacked with a leading period axis."""
+    layer = params["layers"][0]
+    if "attn" in layer:
+        attn = layer["attn"]
+        keys = ("wq_b", "wk_b", "wv_b", "wo") if "wq_b" in attn \
+            else ("wq", "wk", "wv", "wo")
+        return {k: attn[k].shape[2 if k != "wo" else 1] for k in keys}
+    m = layer["mamba"]
+    return {"ssm_heads": m["a_log"].shape[-1],
+            "in_proj": m["in_proj"].shape[-1],
+            "conv": m["conv_w"].shape[-1], "inner": m["out_proj"].shape[1]}
+
+
+def _tp_train(rank, dev, stats, sub, want=None) -> dict:
+    """Tensor-parallel training on a (1, MESH_RANKS) mesh through
+    launch/train.train_loop at full width, global B=4, seq
+    MESH_TRAIN_SEQ, MESH_TRAIN_STEPS steps, bf16 moments (every rank the
+    same rows): (k) ``MESH_ARCHS["d"]`` at (d)'s depth, (l) deepseek-v3's
+    MLA training config (``mla_train_cfg``, no MoE, no dense prefix) or
+    (m) mamba2-130m through the plain scan, each at ``MESH_DEPTH[sub]``
+    layers.  Gates: each rank holds its model-axis blocks (query and KV
+    heads; MLA's heads; Mamba-2's SSM heads, ``in_proj`` columns, conv
+    channels and ``inner``), its bytes the dry-run's per-device figure
+    for the mesh; the losses within MESH_TRAIN_REL of one rank's run of
+    the same config and batch (``want``: (k) takes (d)'s, else rank 0
+    runs it); #7-#9 launched on each rank and held against their plain
+    versions at its head counts (``attention_train_records``, with its
+    dropped-tile control; (l) at 64 heads, D 192 / Dv 128); one fp32
+    step's gradient blocks within MESH_TOL of each leaf's largest
+    against the same blocks of one rank's whole gradients, which every
+    rank computes (no gather of the fp32 blocks through the host).
+    Returns this rank's launches of the training run."""
     import dataclasses as dc
 
     import torch.distributed as dist
 
     from repro_torch import configs, tree
     from repro_torch.kernels import build
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, train
     from repro_torch.launch.mesh import Mesh, mesh_over_ranks
     from repro_torch.launch.mesh_ranks import fsdp_train
     from repro_torch.models.weights import init_params
+    from repro_torch.sharding import rules as shrules
     from repro_torch.sharding import set_rules_for_mesh
+    from repro_torch.sharding.rules import local_slice
     from repro_torch.train import step as step_mod
 
-    arch = MESH_ARCHS["d"]
-    cfg = dc.replace(configs.get_config(arch), n_layers=MESH_DEPTH["d"])
+    key = "d" if sub == "k" else sub        # (k) trains (d)'s config
+    arch = MESH_ARCHS[key]
+    cfg = dc.replace(mla_train_cfg() if sub == "l"
+                     else configs.get_config(arch), n_layers=MESH_DEPTH[key])
+    name = f"{sub}: tensor-parallel"
     shape = (1, MESH_RANKS)
     mesh = mesh_over_ranks(shape, ("data", "model"), device=dev)
     steps, b, s = MESH_TRAIN_STEPS, 2 * MESH_RANKS, MESH_TRAIN_SEQ
+    kw = dict(steps=steps, batch=b, seq=s, lr=TRAIN_LR,
+              moment_dtype="bfloat16", log_every=steps)
     build.reset_launches()
-    state, losses, held = _mesh_sub(
-        "k: tensor-parallel", rank, stats, fsdp_train, cfg, mesh, dev,
-        steps=steps, batch=b, seq=s, lr=TRAIN_LR, moment_dtype="bfloat16",
-        log_every=steps)
+    state, losses, held = _mesh_sub(name, rank, stats, fsdp_train, cfg,
+                                    mesh, dev, **kw)
     launches = dict(build.LAUNCHES)
-    attn = state.params["layers"][0]["attn"]
-    hq, hkv = attn["wq"].shape[2], attn["wk"].shape[2]
+    blocks = _tp_blocks(state.params)
+    whole = _tp_blocks(init_params(cfg, None, "meta"))
+    attention = "wo" in blocks
     per_step = {n: launches.get(n, 0) / steps for n in TRAIN_KERNELS[:3]}
-    log(f"  [rank {rank}] (k) tensor-parallel on {shape}: {hq} of "
-        f"{cfg.n_heads} query heads over {hkv} of {cfg.kv_heads} KV heads, "
-        f"losses {losses}, launches a step {per_step}, "
-        f"{stats['k: tensor-parallel'][0] / steps:.2f}s a step, peak "
-        f"{stats['k: tensor-parallel'][1]:.2f} GB a rank")
-    if (hq, hkv) != (cfg.n_heads // MESH_RANKS, cfg.kv_heads // MESH_RANKS):
-        raise SystemExit("mesh (k): the rank does not hold its heads' block")
+    log(f"  [rank {rank}] ({sub}) {cfg.name} tensor-parallel on {shape}: "
+        + ", ".join(f"{k} {v} of {whole[k]}" for k, v in blocks.items())
+        + f"; losses {losses}, launches a step {per_step}, "
+        f"{stats[name][0] / steps:.2f}s a step, peak {stats[name][1]:.2f} "
+        "GB a rank")
+    if any(v * MESH_RANKS != whole[k] for k, v in blocks.items()):
+        raise SystemExit(f"mesh ({sub}): the rank does not hold its "
+                         "model-axis blocks")
     missing = [n for n, c in per_step.items() if c == 0]
-    if missing:
-        raise SystemExit(f"mesh (k): rank {rank} never launched {missing}")
+    if attention and missing:
+        raise SystemExit(f"mesh ({sub}): rank {rank} never launched "
+                         f"{missing}")
     cell = dryrun.run_cell(arch, "train_4k", cfg=cfg,
                            mesh=Mesh(("data", "model"), shape),
                            moment_dtype="bfloat16",
                            costs=False)["per_device_bytes"]
-    log(f"  [rank {rank}] (k) holds params {held['params'] / 1e9:.3f} GB, "
-        f"gradients {held['grads'] / 1e9:.3f}, AdamW "
+    log(f"  [rank {rank}] ({sub}) holds params {held['params'] / 1e9:.3f} "
+        f"GB, gradients {held['grads'] / 1e9:.3f}, AdamW "
         f"{held['optimizer'] / 1e9:.3f} (dry-run per device: params "
         f"{cell['params'] / 1e9:.3f}, optimizer {cell['optimizer'] / 1e9:.3f})")
     if (held["params"], held["optimizer"]) != (cell["params"],
                                                cell["optimizer"]):
-        raise SystemExit(f"mesh (k): rank {rank} holds other bytes than "
-                         "the dry-run's blocks")
+        raise SystemExit(f"mesh ({sub}): rank {rank} holds other bytes "
+                         "than the dry-run's blocks")
     del state
+    gc.collect()
+    torch.cuda.empty_cache()
     if rank == 0:
+        if want is None:
+            want = _mesh_sub(f"{sub}: 1 rank B={b}", rank, stats,
+                             train.train_loop, cfg, device=dev, **kw)[1]
         rel = max(abs(x - y) / abs(y) for x, y in zip(losses, want))
-        log(f"  [rank 0] (k) against (d)'s single-rank B={b} losses {want}: "
-            f"worst rel {rel:.3e} (tol {MESH_TRAIN_REL})")
+        log(f"  [rank 0] ({sub}) single-rank B={b} losses {want}: worst "
+            f"rel {rel:.3e} (tol {MESH_TRAIN_REL})")
         if rel > MESH_TRAIN_REL:
-            raise SystemExit("mesh (k): tensor-parallel losses disagree "
-                             "with the single rank's")
+            raise SystemExit(f"mesh ({sub}): tensor-parallel losses "
+                             "disagree with the single rank's")
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
 
-    # the rank's #7-#9 at its head counts, against their plain versions
     g = torch.Generator(device=dev)
-    g.manual_seed(7 + rank)
-    bf = torch.bfloat16
-    q, do = (torch.randn(b, hq, s, cfg.head_dim, generator=g, device=dev,
-                         dtype=bf) for _ in range(2))
-    k, v = (torch.randn(b, hkv, s, cfg.head_dim, generator=g, device=dev,
-                        dtype=bf) for _ in range(2))
-    records = attention_train_records(q, k, v, do, True, f"k rank {rank}")
-    log(f"  [rank {rank}] (k) #7-#9 at B={b}, {hq} over {hkv} heads, S={s}: "
-        + "; ".join(f"{n} err {r['max_abs_err']:.3e} {r['ms']:.3f} ms"
-                    for n, r in records.items()))
-    del q, do, k, v
+    if attention:
+        # the rank's #7-#9 at its head counts, against their plain versions
+        g.manual_seed(7 + rank)
+        if sub == "l":
+            hq = hkv = blocks["wq_b"]
+            d, d_v = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, \
+                cfg.v_head_dim
+        else:
+            hq, hkv, d, d_v = blocks["wq"], blocks["wk"], cfg.head_dim, \
+                cfg.head_dim
+        bf = torch.bfloat16
+        q = torch.randn(b, hq, s, d, generator=g, device=dev, dtype=bf)
+        k = torch.randn(b, hkv, s, d, generator=g, device=dev, dtype=bf)
+        v = torch.randn(b, hkv, s, d_v, generator=g, device=dev, dtype=bf)
+        do = torch.randn(b, hq, s, d_v, generator=g, device=dev, dtype=bf)
+        records = attention_train_records(q, k, v, do, True,
+                                          f"{sub} rank {rank}")
+        log(f"  [rank {rank}] ({sub}) #7-#9 at B={b}, {hq} over {hkv} "
+            f"heads, D {d} / Dv {d_v}, S={s}: "
+            + "; ".join(f"{n} err {r['max_abs_err']:.3e} {r['ms']:.3f} ms"
+                        for n, r in records.items()))
+        del q, k, v, do
 
-    # one fp32 step's gradients, gathered, against one rank's
+    # one fp32 step's gradient blocks, each rank's against the same
+    # blocks of one rank's whole gradients
     f32 = dc.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    s_g = MESH_MLA_GRAD_SEQ if sub == "l" else s
     g.manual_seed(11)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s + 1),
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s_g + 1),
                                      generator=g, device=dev)}
     fsdp = step_mod.fsdp_layout(f32, mesh)
 
@@ -6258,28 +6328,34 @@ def _tp_train(rank, dev, stats, want) -> dict:
         with set_rules_for_mesh(mesh):
             (_, m), grads = step_mod.value_and_grad(params, f32, batch,
                                                     fsdp=fsdp)
-        return float(m["loss"]), fsdp.full(grads, keep=rank == 0)
+        return float(m["loss"]), grads
 
-    loss, got = _mesh_sub("k: fp32 gradients", rank, stats, mesh_grads)
-    if rank == 0:
+    loss, got = _mesh_sub(f"{sub}: fp32 gradients", rank, stats, mesh_grads)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def whole_grads():
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
-        (_, m), want_g = step_mod.value_and_grad(
-            init_params(f32, gen, dev), f32, batch)
-        errs = {path: float((x - y).abs().max()
-                            / y.abs().max().clamp_min(1e-30))
-                for (path, y), x in zip(dryrun._paths(want_g),
-                                        tree.leaves(got))}
-        log(f"  [rank 0] (k) fp32 loss {loss:.6f} (1 rank "
-            f"{float(m['loss']):.6f}); each leaf's gradient against one "
-            f"rank's, over its largest (tol {MESH_TOL}): "
-            + " ".join(f"{p}={e:.2e}" for p, e in errs.items()))
-        errs = list(errs.values())
-        if max(errs) > MESH_TOL:
-            raise SystemExit("mesh (k): fp32 gradients disagree with the "
-                             "single rank's")
-        del want_g
-    del got
+        (_, m), grads = step_mod.value_and_grad(init_params(f32, gen, dev),
+                                                f32, batch)
+        return float(m["loss"]), grads
+
+    loss_1, want_g = _mesh_sub(f"{sub}: fp32 gradients, 1 rank", rank,
+                               stats, whole_grads)
+    specs = tree.leaves(fsdp.param_specs, is_leaf=shrules.is_axes)
+    errs = {path: float((x - local_slice(y, spec, mesh)).abs().max()
+                        / y.abs().max().clamp_min(1e-30))
+            for (path, y), x, spec in zip(dryrun._paths(want_g),
+                                          tree.leaves(got), specs)}
+    log(f"  [rank {rank}] ({sub}) fp32 loss {loss:.6f} (1 rank "
+        f"{loss_1:.6f}) at S={s_g}; each leaf's gradient block against "
+        f"one rank's, over the leaf's largest (tol {MESH_TOL}): "
+        + " ".join(f"{p}={e:.2e}" for p, e in errs.items()))
+    if max(errs.values()) > MESH_TOL:
+        raise SystemExit(f"mesh ({sub}): fp32 gradients disagree with the "
+                         "single rank's")
+    del got, want_g
     dist.barrier()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6293,9 +6369,10 @@ def _train_mesh(rank, dev, stats) -> dict:
     alone, every leaf bit-equal to the blocks gathered; (f) FSDP
     training of phi3.5-moe at full width, 1 layer, B=1 a rank, against
     rank 0's single-rank B=2 run, its load-balance loss among the
-    gates; (k) tensor-parallel training of starcoder2-7b on (1, 2)
-    against (d)'s single-rank run (:func:`_tp_train`).  Returns this
-    rank's launches of the three training runs."""
+    gates; (k) starcoder2-7b's tensor-parallel training on (1, 2)
+    against (d)'s single-rank run, (l) deepseek-v3's MLA and (m)
+    mamba2-130m's (:func:`_tp_train`).  Returns this rank's launches of
+    the training runs."""
     from repro_torch import tree
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.weights import param_axes
@@ -6332,12 +6409,16 @@ def _train_mesh(rank, dev, stats) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(more)
-    launches.update(_tp_train(rank, dev, stats, want))
+    t0 = time.perf_counter()
+    for sub in ("k", "l", "m"):
+        launches.update(_tp_train(rank, dev, stats, sub,
+                                  want if sub == "k" else None))
+    log(f"  [rank {rank}] (k), (l) and (m): {time.perf_counter() - t0:.1f}s")
     return dict(launches)
 
 
 def mesh_rank(rank, dev):
-    """One rank of the mesh phase: (a)-(k).  Returns (launches,
+    """One rank of the mesh phase: (a)-(m).  Returns (launches,
     {sub-phase: (seconds, peak GB)})."""
     torch.backends.cuda.matmul.allow_tf32 = False
     stats = {}
@@ -6361,9 +6442,10 @@ def mesh_phase(dev):
     head-parallel serve under lower_to_mesh, (b) sequence-sharded decode,
     both on the sharded serving state, (c) phi3.5-moe's expert-parallel
     and local dispatch, (d) FSDP training, (e) remesh_state, (f)
-    phi3.5-moe's FSDP training, (k) starcoder2-7b's tensor-parallel
-    training, (g) phi3.5-moe served head-parallel with expert
-    parallelism on the sharded serving state, then (h) deepseek-v3's
+    phi3.5-moe's FSDP training, (k) starcoder2-7b's, (l) deepseek-v3's
+    MLA and (m) mamba2-130m's tensor-parallel training, (g) phi3.5-moe
+    served head-parallel with expert parallelism on the sharded serving
+    state, then (h) deepseek-v3's
     MLA, (i) mamba2-130m and (j) jamba's period on the sharded serving
     state (``MESH_STATES``).  Returns the launches of both ranks."""
     from repro_torch.launch.mesh import spawn

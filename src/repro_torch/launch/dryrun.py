@@ -30,13 +30,12 @@ Rank 0's program, by the cell's kind:
 * train: ``train.step.train_step`` on ``step.fsdp_layout``, on rank
   0's rows of the global batch (the data axes'; every rank of the
   model axis takes the same rows), at the config's remat, with bf16
-  moments.  The GQA stacks train on JAX's ``param_shardings``: FSDP
-  over the data axes and their heads, KV heads, MLP columns,
-  vocabulary rows and experts over "model" where they divide, so the
-  rank holds what ``run_cell`` counts and computes on those blocks
-  (``held`` gives its parameter and optimizer bytes).  MLA, Mamba-2
-  and the hybrid keep FSDP over the data axes alone, each rank of the
-  model axis repeating its data group's program;
+  moments.  Every stack trains on JAX's ``param_shardings``: FSDP
+  over the data axes and its heads, KV heads, Mamba-2 ``inner``,
+  ``ssm_heads`` and conv channels, MLP columns, vocabulary rows and
+  experts over "model" where they divide, so the rank holds what
+  ``run_cell`` counts and computes on those blocks (``held`` gives its
+  parameter and optimizer bytes);
 * decode: ``serve.engine.decode_step`` on the sharded serving state
   (``serve/layout.py``) under ``distributed_decode``, JAX's dry-run
   layout (the cache's time over "model"; the config's own decode flag
@@ -294,21 +293,27 @@ def rank_program(arch: str, shape_name: str, *, cfg=None,
     return _serve_program(cfg, mesh, sh, dev, gen, arch)
 
 
-def _model_blocks(fsdp, cfg) -> str:
-    """Which of the model axis's logical dims a training layout splits
-    over "model", and which stay whole (they do not divide)."""
+def _model_blocks(cfg, mesh) -> str:
+    """Which of the model axis's logical dims a training layout on
+    ``mesh`` splits over "model", which it splits in some leaves and
+    leaves whole in others (named by their key), and which stay whole
+    (they do not divide)."""
     rules = shrules.DEFAULT_RULES
-    split, whole = set(), set()
-    for ax, spec in zip(tree.leaves(param_axes(cfg), is_leaf=shrules.is_axes),
-                        tree.leaves(fsdp.param_specs,
-                                    is_leaf=shrules.is_axes)):
+    params, axes = abstract_params(cfg)
+    split, whole = {}, {}
+    for (path, _, spec), ax in zip(param_specs(cfg, mesh, params, axes),
+                                   tree.leaves(axes, is_leaf=shrules.is_axes)):
+        key = path.rsplit("/", 1)[1]
         for name, entry in zip(ax, spec):
             if name is not None and rules.get(name) == "model":
                 (split if "model" in shrules.spec_axes(entry)
-                 else whole).add(name)
-    text = ", ".join(sorted(split)) or "nothing"
-    whole -= split
-    return text + (f" (whole: {', '.join(sorted(whole))})" if whole else "")
+                 else whole).setdefault(name, set()).add(key)
+    text = ", ".join(
+        name + (f" (whole in {', '.join(sorted(whole[name]))})"
+                if name in whole else "")
+        for name in sorted(split)) or "nothing"
+    rest = sorted(set(whole) - set(split))
+    return text + (f" (whole: {', '.join(rest)})" if rest else "")
 
 
 def _train_program(cfg, mesh, sh, dev, gen, moment_dtype, arch) -> dict:
@@ -328,13 +333,9 @@ def _train_program(cfg, mesh, sh, dev, gen, moment_dtype, arch) -> dict:
     layout = (f"train_step on FSDP blocks over {n} data ranks, rank 0's "
               f"{sh.global_batch // n} of {sh.global_batch} rows of "
               f"{sh.seq_len}, remat {cfg.remat}, {moment_dtype} moments")
-    if model > 1 and fsdp is not None and fsdp.model_ranks > 1:
+    if model > 1:
         layout += (f"; over the {model} ranks of its model axis: "
-                   f"{_model_blocks(fsdp, cfg)}")
-    elif model > 1:
-        layout += (f"; each of the {model} ranks of its model axis runs "
-                   f"this program ({cfg.name} trains on the data axes "
-                   "alone)")
+                   f"{_model_blocks(cfg, mesh)}")
     return dict(c.result(), layout=layout, data_ranks=n, held=held)
 
 
@@ -465,7 +466,7 @@ def roofline_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     with ``layout`` (what rank 0 ran), ``data_ranks`` (the ranks of the
     mesh's data axes; every cell's ranks each run their own blocks, so
     its mesh does rank 0's work times every rank, whatever it repeats:
-    a dim whole on "model", or a whole data-only train program),
+    a dim whole on "model"),
     ``kernels`` (closed-form kernel calls counted),
     ``count_seconds`` and, for a train cell, ``held`` (rank 0's
     parameter and optimizer bytes).  Counted in a child process

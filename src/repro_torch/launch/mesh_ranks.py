@@ -231,7 +231,9 @@ def train_step_on_mesh(rank, device, cfg, params_np, batch, lr,
     from the blocks of ``params_np``, on the global ``batch`` (a dict of
     CPU tensors): its metrics, the step's gradients (``value_and_grad``
     on this rank's rows, as the step takes them) and the parameters
-    after the step, both gathered from the blocks."""
+    after the step, both gathered from the blocks; the bytes this rank
+    holds and its blocks' shapes."""
+    from repro_torch.sharding.fsdp import held_bytes
     from repro_torch.train import step as step_mod
 
     mesh = train_mesh(device, shape)
@@ -247,7 +249,12 @@ def train_step_on_mesh(rank, device, cfg, params_np, batch, lr,
         state, metrics = step_mod.train_step(state, batch, cfg, lr=lr)
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "grads": tree.map(_cpu, fsdp.full(grads)),
-            "params": tree.map(_cpu, fsdp.full(state.params))}
+            "params": tree.map(_cpu, fsdp.full(state.params)),
+            "held": {"params": held_bytes(state.params),
+                     "grads": held_bytes(grads),
+                     "optimizer": held_bytes(state.opt)},
+            "block_shapes": tree.map(lambda x: tuple(x.shape),
+                                     state.params)}
 
 
 class _Crash(Exception):

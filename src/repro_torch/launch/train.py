@@ -58,8 +58,8 @@ def build(cfg, *, batch: int, seq: int, lr: float, steps: int,
     """(state, step_fn, dataset).  Weights are drawn from a generator
     seeded with ``seed`` on ``device`` unless ``params`` are given.
     Under a (data, model) ``mesh`` the state is this rank's blocks
-    (``train.step.fsdp_layout``: FSDP over the data axes and, for the
-    GQA stacks, their model-axis blocks): random weights are drawn as
+    (``train.step.fsdp_layout``: FSDP over the data axes and the
+    model-axis blocks of every stack): random weights are drawn as
     blocks, each slice cut as it is drawn (the single rank's draws);
     given ``params`` are sliced; the moments are made as blocks."""
     dev = resolve_device(device)
@@ -91,7 +91,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float,
     on the host clock, the device synchronised.  ``mesh``: train under
     it, any (data, model) mesh of the running ranks, as JAX's
     ``build(mesh=)`` takes one (FSDP over its data axes, tensor
-    parallelism over "model" for the GQA stacks; every rank of it calls
+    parallelism over "model"; every rank of it calls
     this, and the state returned is this rank's blocks); rank 0 alone
     logs and writes checkpoints.  Keyword arguments go to
     :func:`build`."""

@@ -404,7 +404,8 @@ def mla_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
     (no Q or Wo fusion here, as in the JAX package).  ``residual`` is
     added to the output.
 
-    ``specs`` (the sharded serving state, ``serve/layout.py``): the
+    ``specs`` (the sharded serving state, ``serve/layout.py``, or the
+    tensor-parallel training layout, ``train/step.py``): the
     leaves' specs, which say whether ``wq_b``/``wk_b``/``wv_b``/``wo``
     are this rank's heads, and, under ``"latent"``, the latent cache's
     spec, which says whether it holds this rank's time columns (whole
@@ -417,8 +418,12 @@ def mla_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
     columns (Hkv 1, V the first r_kv columns of K), so no rank gathers
     the latent; a prefill chunk gathers the layer's columns for the
     call.  MLA's one latent head has no head-parallel form, so
-    ``head_parallel_decode`` takes the same path.  Returns (out,
-    cache)."""
+    ``head_parallel_decode`` takes the same path.  The cache-free
+    (training) path computes the latent ``c`` and the shared rope key
+    whole on every rank, from ``wq_a``/``wkv_a`` and their norms whole
+    on "model": each rank's cotangent of them is its heads' share,
+    which the layout's ``enter`` sums into the whole leaves'
+    gradients.  Returns (out, cache)."""
     if block_tables is not None:
         raise NotImplementedError(
             "paged KV is not supported for MLA latent caches")

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, rms_norm
 from repro_torch.sharding import rules as shrules
-from repro_torch.sharding.collectives import gather_spec, psum
+from repro_torch.sharding.collectives import all_gather, psum
 
 
 def dims(cfg: ModelConfig) -> tuple:
@@ -69,7 +69,8 @@ def mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     ``impl``: the ``ops.ssd`` impl (``torch`` forces the plain version
     on the card).
 
-    ``specs`` (the sharded serving state, ``serve/layout.py``): the
+    ``specs`` (the sharded serving state, ``serve/layout.py``, or the
+    tensor-parallel training layout, ``train/step.py``): the
     leaves' specs, each saying whether its leaf is this rank's block
     over "model": ``in_proj``'s columns, the conv channels (``conv_w``,
     ``conv_b`` and the conv tail, which share their width), the SSM
@@ -81,8 +82,11 @@ def mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     groups they fall in (the one group its heads lie in, its whole
     groups, or else a group per head), gates its ``inner`` block, takes
     the norm's sum of squares over "model" (``rms_norm(mesh=)``) and
-    sums the out-projection's partials with one ``psum``.  Returns (out
-    (B, L, D), the cache or None)."""
+    sums the out-projection's partials with one ``psum``.  Both gathers
+    are ``collectives.all_gather``, whose backward sums the ranks'
+    shares of the gathered cotangent and keeps the rank's own block, so
+    training takes the same path.  Returns (out (B, L, D), the cache or
+    None)."""
     dt_ = x.dtype
     bsz, length, _ = x.shape
     d_in, h, p, g, s = dims(cfg)
@@ -97,7 +101,7 @@ def mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     zxbcdt = x @ params["in_proj"].to(dt_)
     if proj_split:
-        zxbcdt = gather_spec(zxbcdt, (None, None, "model"), mesh)
+        zxbcdt = all_gather(zxbcdt, (None, None, "model"), mesh)
     z = zxbcdt[..., :d_in]
     xbc = zxbcdt[..., d_in:2 * d_in + 2 * g * s]
     dt_raw = zxbcdt[..., zxbcdt.shape[-1] - h:]
@@ -107,7 +111,7 @@ def mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                             None if cache is None else cache["conv"])
     xbc = F.silu(xbc.float()).to(dt_)
     if conv_split:
-        xbc = gather_spec(xbc, (None, None, "model"), mesh)
+        xbc = all_gather(xbc, (None, None, "model"), mesh)
     h_l = h // n if head_split else h
     h0 = r * h_l if head_split else 0
     xs = xbc[..., h0 * p:(h0 + h_l) * p].reshape(bsz, length, h_l, p)

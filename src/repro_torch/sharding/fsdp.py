@@ -3,18 +3,15 @@ JAX package's rules lay it out under GSPMD: ``"embed"`` and
 ``"expert_embed"`` over ("pod", "data") (``rules.DEFAULT_RULES``), so
 each rank holds 1/N of every parameter with such a dim, and of the
 gradients, AdamW moments and error-feedback buffers that follow it;
-``"heads"``, ``"kv_heads"``, ``"mlp"``, ``"vocab"`` and ``"experts"``
-over "model" (tensor parallelism), so each rank holds its model-axis
-blocks alone.
+``"heads"``, ``"kv_heads"``, ``"inner"``, ``"ssm_heads"``, ``"mlp"``,
+``"vocab"`` and ``"experts"`` over "model" (tensor parallelism), so
+each rank holds its model-axis blocks alone.
 
 :class:`FSDP` holds each parameter leaf's spec over the mesh:
 :func:`rules.param_shardings` of the leaf's logical axes on the global
 shape (the divisibility fallback leaves a dim that does not divide
-whole, leaf by leaf).  The tensor-parallel layout keeps the whole spec;
-``model=False`` drops every axis but the data axes (the layout of the
-stacks that do not train on the model axis yet, whose model ranks each
-repeat their data group's program).  A leaf without a data axis in its
-spec (a norm's scale) is whole on every rank of the data axes.
+whole, leaf by leaf).  A leaf without a data axis in its spec (a
+norm's scale) is whole on every rank of the data axes.
 
 The model gathers a layer's blocks over the data axes when the layer
 runs (:meth:`FSDP.gather`): its backward reduce-scatters the gradient
@@ -96,30 +93,23 @@ class FSDP:
     """The blocks of a parameter tree on ``mesh``.  ``axes``: the tree's
     logical axes (``models.weights.param_axes``); ``like``: a tree of
     the same structure whose leaves have the global shapes (meta tensors
-    will do).  ``param_specs`` is the tree of each leaf's spec: its
-    whole spec (``mesh`` needs more than one rank), or with
-    ``model=False`` its data axes alone (``mesh`` needs a data axis of
-    more than one rank).  ``model_ranks`` is the rank count of the
-    "model" axis a training layout splits (1 for a serving or
-    data-only layout): the loss leaves the model through
+    will do).  ``param_specs`` is the tree of each leaf's spec
+    (``mesh`` needs more than one rank).  ``model_ranks`` is the rank
+    count of the "model" axis a training layout splits (1 for a
+    serving layout): the loss leaves the model through
     ``collectives.leave`` over it."""
 
-    def __init__(self, mesh, axes, like, *, serve: bool = False,
-                 model: bool = True):
+    def __init__(self, mesh, axes, like, *, serve: bool = False):
         self.mesh, self.serve = mesh, serve
         self.axes = data_axes(mesh)
-        if (serve or model) and mesh.size == 1:
+        if mesh.size == 1:
             raise ValueError(f"{mesh}: a layout of blocks on one rank")
-        if not (serve or model) and not self.axes:
-            raise ValueError(f"{mesh}: no data axis of more than one rank")
-        full = param_shardings(axes, mesh, like=like)
         self.param_specs = tree.map(
-            lambda s: s.spec if serve or model
-            else _data_spec(s.spec, self.axes), full)
+            lambda s: s.spec, param_shardings(axes, mesh, like=like))
         #: the specs the layers read: ``param_specs`` (a serving layout
         #: adds its caches', ``serve/layout.py``)
         self.specs = self.param_specs
-        self.model_ranks = 1 if serve or not model or "model" not in \
+        self.model_ranks = 1 if serve or "model" not in \
             mesh.axis_names else mesh.axis_size("model")
         self.block_shapes = tree.map(
             lambda s, x: shard_shape(x.shape, s, mesh), self.param_specs,

@@ -17,16 +17,18 @@ Under an active mesh (``sharding.set_rules_for_mesh``) of more than one
 rank, the step runs on the JAX package's layout under GSPMD
 (:func:`fsdp_layout`, ``sharding/fsdp.py``; ``launch.train.build``
 places the blocks): FSDP (ZeRO-3) over the data axes ("pod", "data"),
-and for the GQA stacks tensor parallelism over "model" (heads, KV
-heads, MLP columns, vocabulary rows and experts, where they divide).
+and tensor parallelism over "model" (attention heads, KV heads,
+Mamba-2's ``inner``, ``ssm_heads`` and conv channels, MLP columns,
+vocabulary rows and experts, where they divide), for every stack.
 Each rank runs its data axes' block of the batch's rows (every rank of
 "model" the same rows); the model gathers each layer's weights over the
 data axes at their use and reduce-scatters their gradients back to the
 blocks, averaged over the data ranks in fp32, and computes on its
-model-axis blocks, which it never gathers: the attention on its heads,
-the MLP on its columns, the MoE on its experts, the logits on its
-vocabulary columns, whose cross entropy ``token_nll(mesh=)`` takes
-without gathering them.  Every rank computes the global batch's loss
+model-axis blocks, which it never gathers: the attention (GQA or MLA)
+on its heads, the Mamba-2 block on its channels and SSM heads, the MLP
+on its columns, the MoE on its experts, the logits on its vocabulary
+columns, whose cross entropy ``token_nll(mesh=)`` takes without
+gathering them.  Every rank computes the global batch's loss
 through differentiable ``psum``/``pmean``: the token mean over the
 global batch (with a mask, the ranks' masked sums over their summed
 token counts), the MoE load balance from global means
@@ -90,30 +92,16 @@ def init_train_state(generator: Optional[torch.Generator],
                       feedback=fb)
 
 
-def trains_on_model_axis(cfg: ModelConfig) -> bool:
-    """Whether ``cfg`` trains on the tensor-parallel layout: the GQA
-    stacks, dense or MoE.  MLA, Mamba-2 and their hybrid keep the
-    data-only layout, each rank of a model axis repeating its data
-    group's program."""
-    return cfg.attention == "gqa" and cfg.attn_every == 1
-
-
 @functools.lru_cache(maxsize=8)
 def fsdp_layout(cfg: ModelConfig, mesh) -> Optional[FSDP]:
     """The blocks of ``cfg``'s training state on ``mesh``:
     ``param_shardings`` of the parameters' logical axes on their global
-    shapes, laid out on the meta device, over the data axes and "model"
-    for the stacks that train on it (:func:`trains_on_model_axis`), over
-    the data axes alone for the others; None without a mesh, on a mesh
-    of one rank, and for a data-only layout where no data axis spans
-    more than one rank (the single-card step)."""
+    shapes, laid out on the meta device, over the data axes and
+    "model"; None without a mesh and on a mesh of one rank (the
+    single-card step)."""
     if mesh is None or mesh.size == 1:
         return None
-    model = trains_on_model_axis(cfg)
-    if not model and not shrules.data_axes(mesh):
-        return None
-    return FSDP(mesh, param_axes(cfg), init_params(cfg, None, "meta"),
-                model=model)
+    return FSDP(mesh, param_axes(cfg), init_params(cfg, None, "meta"))
 
 
 def state_shardings(state: TrainState, fsdp: FSDP) -> TrainState:

@@ -7,11 +7,9 @@ roofline seconds (compute, memory, collective: the NVIDIA H100 SXM5
 mesh over ``benchmarks/roofline.py`` ``analytic_flops`` (the JAX
 package's closed form: 8 N D for a train cell under remat full, 2 N D
 for a forward, plus the attention and SSD terms): a rank's FLOPs times
-every device where the ranks each run their own blocks (a serving
-cell, a train cell on the tensor-parallel layout: whatever those
-repeat counts), times the data ranks for a train cell on the data-only
-layout, whose model axis repeats the data group's program.  Test-side
-tooling: it reads the JAX package's configs.
+every device, since the ranks each run their own blocks (whatever
+those repeat counts).  Test-side tooling: it reads the JAX package's
+configs.
 
     PYTHONPATH=src python tests/roofline_table.py build/roofline_torch.json
 """
@@ -43,11 +41,8 @@ def main(argv=None) -> int:
     shapes = list(dict.fromkeys(r["shape"] for r in rows))
     cells = {}
     for r in rows:
-        repeats = r["kind"] == "train" and "its model axis:" not in \
-            r["layout"]
-        ranks = r["data_ranks"] if repeats else r["devices"]
-        ratio = r["per_device"]["flops"] * ranks / flops_of(r["arch"],
-                                                            r["shape"])
+        ratio = r["per_device"]["flops"] * r["devices"] / flops_of(
+            r["arch"], r["shape"])
         rt = r["roofline_seconds"]
         cells[r["arch"], r["shape"]] = (
             f"{rt['compute']:.3g} / {rt['memory']:.3g} / "

@@ -26,7 +26,9 @@ group (``launch/cost_analysis.py``), and each kernel's closed-form cost
 * (d) at full width on (16, 16): qwen3-8b's ``train_4k`` on the
   tensor-parallel layout, its FLOPs times the 256 ranks within 25% of
   ``benchmarks/roofline.py`` ``analytic_flops`` and its held parameter
-  and optimizer bytes ``run_cell``'s; starcoder2-7b's
+  and optimizer bytes ``run_cell``'s, as are mamba2-130m's and those of
+  deepseek-v3 cut to 4 layers (3 dense, 1 MoE) on their
+  tensor-parallel layouts (one 256-token row a data rank); starcoder2-7b's
   ``decode_32k``'s FLOPs equal to the closed form
   of its layout (the projections of the 36 query and 4 KV heads whole on
   every rank, which the 16-way model axis does not divide; its 2048 of
@@ -42,6 +44,7 @@ process.
 """
 
 import ast
+import dataclasses
 import importlib.util
 import json
 import math
@@ -72,6 +75,16 @@ SMALL = {"train_4k": ("train_4k", 4, 64, None),
          "decode_32k hp": ("decode_32k", 4, 64, ("head_parallel_decode",))}
 #: the full-width cells on (16, 16): (arch, shape)
 FULL = (("qwen3-8b", "train_4k"), (ARCH, "decode_32k"))
+#: full-width train cells on (16, 16) whose held bytes are checked:
+#: name -> (arch, the config's changes), each at one row a data rank
+#: of 256 tokens (the bytes held do not depend on the batch)
+HELD = {"mamba2-130m": ("mamba2-130m", {}),
+        "deepseek-v3 4 layers": ("deepseek-v3-671b", dict(n_layers=4))}
+
+
+def _held_cfg(name):
+    arch, kw = HELD[name]
+    return dataclasses.replace(configs.get_config(arch), **kw)
 
 
 @pytest.fixture(scope="module")
@@ -80,10 +93,14 @@ def meta():
     cells = [((ARCH, s), dict(cfg=SMOKE, mesh=MESH, batch=b, seq=n,
                               flags=f)) for s, b, n, f in SMALL.values()]
     cells += [(cell, {}) for cell in FULL]
+    cells += [((arch, "train_4k"), dict(cfg=_held_cfg(name), batch=16,
+                                        seq=256))
+              for name, (arch, _) in HELD.items()]
     out = dryrun.roofline_cells(cells)
     for r in out:
         assert "error" not in r, r
-    return dict(zip(list(SMALL) + [f"full {s}" for _, s in FULL], out))
+    return dict(zip(list(SMALL) + [f"full {s}" for _, s in FULL]
+                    + [f"held {name}" for name in HELD], out))
 
 
 @pytest.fixture(scope="module")
@@ -276,6 +293,27 @@ def test_full_width_train_holds_what_run_cell_counts(meta):
     held = meta["full train_4k"]["held"]
     assert held == {k: cell["per_device_bytes"][k]
                     for k in ("params", "optimizer")}
+
+
+@pytest.mark.parametrize("name", list(HELD))
+def test_mla_and_mamba_train_hold_what_run_cell_counts(meta, name):
+    """mamba2-130m (``in_proj``'s 3352 columns and the 24 SSM heads
+    whole on the 16 ranks of "model", its conv channels and ``inner``
+    split) and deepseek-v3 cut to 3 dense layers and 1 MoE layer: rank
+    0's program holds the parameter and optimizer bytes of the cell's
+    memory column, to the byte, on the tensor-parallel layout."""
+    r = meta[f"held {name}"]
+    cell = dryrun.run_cell(HELD[name][0], "train_4k", cfg=_held_cfg(name),
+                           costs=False)
+    assert r["held"] == {k: cell["per_device_bytes"][k]
+                         for k in ("params", "optimizer")}
+    assert r["devices"] == 256 and "over the 16 ranks of its model axis: " \
+        in r["layout"]
+    if name == "mamba2-130m":
+        assert "inner (whole in in_proj), vocab (whole: ssm_heads)" \
+            in r["layout"]
+    else:
+        assert "experts, heads, mlp, vocab" in r["layout"]
 
 
 def test_full_width_decode_flops_equal_the_layouts_closed_form(meta):

@@ -33,7 +33,9 @@ heads over 3 KV heads, which stay whole on the model axis (each rank's
   ``shardings=`` bit for bit (and a crashed run resumes bit for bit);
   ``runtime.remesh_state`` moves the (2, 2) state to (4, 1), every leaf
   bit-equal to the gathered blocks;
-* MLA and Mamba-2 keep the data-only layout on a model axis.
+* MLA, Mamba-2 and jamba's hybrid split over the model axis too, on
+  (2, 2) and (1, 2) (their training against JAX is
+  ``tests/test_torch_tp_train_mla_ssm.py``'s).
 """
 
 import concurrent.futures
@@ -378,28 +380,35 @@ def test_remesh_moves_the_blocks_to_another_mesh(ranks):
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "mamba2-130m",
                                   "jamba-1.5-large-398b"])
 def test_mla_and_mamba_keep_the_data_only_layout(arch):
-    """Not on the model axis yet: their blocks are the data axes' alone,
-    each model rank repeating its data group's program."""
+    """No stack keeps a data-only layout any more: MLA's heads,
+    Mamba-2's ``inner``, ``ssm_heads`` and conv channels, the MLP's
+    columns, the experts and the vocabulary rows are blocks over
+    "model" on (2, 2) and (1, 2), as for the GQA stacks; the latent,
+    the conv width and the SSM state stay whole."""
     cfg = configs.get_config(arch, smoke=True)
-    assert not port_step.trains_on_model_axis(cfg)
-    fsdp = port_step.fsdp_layout(cfg, FOUR)
-    assert fsdp.model_ranks == 1
-    specs = tree.leaves(fsdp.param_specs,
-                        is_leaf=lambda t: isinstance(t, tuple))
-    assert all("model" not in spec_axes(e) for s in specs for e in s)
-    assert any("data" in spec_axes(e) for s in specs for e in s)
-    assert port_step.fsdp_layout(cfg, Mesh(("data", "model"), (1, 2))) \
-        is None
-    for arch in CASES.values():
-        gqa = configs.get_config(arch[0], smoke=True)
-        assert port_step.fsdp_layout(gqa, Mesh(("data", "model"),
-                                               (1, 2))).model_ranks == 2
+    for shape in (SHAPE, (1, 2)):
+        fsdp = port_step.fsdp_layout(cfg, Mesh(("data", "model"), shape))
+        assert fsdp.model_ranks == 2
+        specs = tree.leaves(fsdp.param_specs,
+                            is_leaf=lambda t: isinstance(t, tuple))
+        axes = tree.leaves(param_axes(cfg),
+                           is_leaf=lambda t: isinstance(t, tuple))
+        split = {name for ax, spec in zip(axes, specs)
+                 for name, e in zip(ax, spec) if "model" in spec_axes(e)}
+        assert "vocab" in split
+        assert not {"latent", "conv", "ssm_state"} & split
+        if cfg.attention == "mla":
+            assert {"heads", "experts", "mlp"} <= split
+        if cfg.ssm_heads:
+            assert {"inner", "ssm_heads"} <= split
+        if shape == SHAPE:
+            assert any("data" in spec_axes(e) for s in specs for e in s)
 
 
 @pytest.mark.parametrize("arch", configs.list_archs())
 def test_build_draws_the_model_blocks_of_the_single_rank_draws(arch):
     """On (2, 2) and (1, 2) each slice of a leaf is cut to the rank's
-    block (its model-axis block too, for the GQA stacks) as it is drawn:
+    block (its model-axis block too) as it is drawn:
     the blocks of the single rank's weights, bit for bit, so a mesh's
     run starts from the single rank's model."""
     cfg = configs.get_config(arch, smoke=True)
@@ -410,10 +419,6 @@ def test_build_draws_the_model_blocks_of_the_single_rank_draws(arch):
         for rank in range(math.prod(shape)):
             mesh = Mesh(("data", "model"), shape, rank=rank)
             fsdp = port_step.fsdp_layout(cfg, mesh)
-            if fsdp is None:            # data-only, and no data axis
-                assert shape == (1, 2)
-                assert not port_step.trains_on_model_axis(cfg)
-                continue
             state = port_train.build(cfg, mesh=mesh, **kw)[0]
             fsdp.check_blocks(state.params)
             want = tree.leaves(fsdp.place(whole))
@@ -423,4 +428,4 @@ def test_build_draws_the_model_blocks_of_the_single_rank_draws(arch):
                        for a, b in zip(got, want))
             split += sum(a.shape != b.shape
                          for a, b in zip(got, tree.leaves(whole)))
-        assert split > 0 or fsdp is None
+        assert split > 0
