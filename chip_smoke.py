@@ -259,8 +259,14 @@ Phases, in order:
                plain versions ((k) at 18 over 2 heads, (l) at 64 heads
                of D 192 / Dv 128), losses within MESH_TRAIN_REL of one
                rank's, one fp32 step's gradients within MESH_TOL of
-               each leaf's largest.  Each sub-phase's seconds and peak
-               memory a rank.
+               each leaf's largest; each layer's output a rank holds
+               (the residual stream, JAX's seq_stream) its 512 of the
+               1024 rows; (k) also runs one bf16 step under each of
+               the default rules and dict(DEFAULT_RULES,
+               seq_stream=None) (seconds, peak GB and collective bytes
+               by kind a step) and the fp32 step under the latter,
+               its gradients within MESH_TOL of the default's.  Each
+               sub-phase's seconds and peak memory a rank.
 The kernel phase also holds the four training kernels (#7-#10) to their
 plain versions at starcoder2-7b's training shapes (B=2, Sq = Skv = 2048,
 causal), #7-#9 at hubert-xlarge's (B=2, 16 heads of 80, S = 4096,
@@ -6195,6 +6201,33 @@ def _tp_blocks(params) -> dict:
             "conv": m["conv_w"].shape[-1], "inner": m["out_proj"].shape[1]}
 
 
+@contextlib.contextmanager
+def _stream_rows(rows: list):
+    """Append the sequence rows of each layer's output (the residual
+    stream a rank holds between the layers) to ``rows`` while the
+    enclosed code runs."""
+    from repro_torch.models import transformer as tf
+
+    layer = tf._layer_forward
+
+    def recorded(*a, **kw):
+        out = layer(*a, **kw)
+        rows.append(out[0].shape[1])
+        return out
+
+    tf._layer_forward = recorded
+    try:
+        yield rows
+    finally:
+        tf._layer_forward = layer
+
+
+def _bytes_line(counter) -> str:
+    """A collective count's bytes by kind, in MB."""
+    coll = counter.result()["collective_bytes"]
+    return ", ".join(f"{k} {v / 1e6:.1f}" for k, v in coll.items() if v)
+
+
 def _tp_train(rank, dev, stats, sub, want=None) -> dict:
     """Tensor-parallel training on a (1, MESH_RANKS) mesh through
     launch/train.train_loop at full width, global B=4, seq
@@ -6212,8 +6245,15 @@ def _tp_train(rank, dev, stats, sub, want=None) -> dict:
     dropped-tile control; (l) at 64 heads, D 192 / Dv 128); one fp32
     step's gradient blocks within MESH_TOL of each leaf's largest
     against the same blocks of one rank's whole gradients, which every
-    rank computes (no gather of the fp32 blocks through the host).
-    Returns this rank's launches of the training run."""
+    rank computes (no gather of the fp32 blocks through the host); each
+    layer's output in the run its rank's S / MESH_RANKS rows of the
+    residual stream (JAX's ``seq_stream``).  (k) also runs one bf16
+    step under the default rules and one under
+    ``dict(DEFAULT_RULES, seq_stream=None)`` (the stream whole, its sums
+    all-reduces), each timed with its peak and collective bytes, and
+    the fp32 step under the latter, its gradient blocks within MESH_TOL
+    of each leaf's largest against the default run's.  Returns this
+    rank's launches of the training run."""
     import dataclasses as dc
 
     import torch.distributed as dist
@@ -6221,6 +6261,7 @@ def _tp_train(rank, dev, stats, sub, want=None) -> dict:
     from repro_torch import configs, tree
     from repro_torch.kernels import build
     from repro_torch.launch import dryrun, train
+    from repro_torch.launch.cost_analysis import count_collectives
     from repro_torch.launch.mesh import Mesh, mesh_over_ranks
     from repro_torch.launch.mesh_ranks import fsdp_train
     from repro_torch.models.weights import init_params
@@ -6240,9 +6281,16 @@ def _tp_train(rank, dev, stats, sub, want=None) -> dict:
     kw = dict(steps=steps, batch=b, seq=s, lr=TRAIN_LR,
               moment_dtype="bfloat16", log_every=steps)
     build.reset_launches()
-    state, losses, held = _mesh_sub(name, rank, stats, fsdp_train, cfg,
-                                    mesh, dev, **kw)
+    with _stream_rows([]) as rows, count_collectives() as moved:
+        state, losses, held = _mesh_sub(name, rank, stats, fsdp_train, cfg,
+                                        mesh, dev, **kw)
     launches = dict(build.LAUNCHES)
+    log(f"  [rank {rank}] ({sub}) residual stream a rank: {len(rows)} "
+        f"layer outputs of {sorted(set(rows))} rows of {s}; collective "
+        f"MB over the {steps} steps: {_bytes_line(moved)}")
+    if not rows or set(rows) != {s // MESH_RANKS}:
+        raise SystemExit(f"mesh ({sub}): rank {rank}'s residual stream is "
+                         "not its sequence block")
     blocks = _tp_blocks(state.params)
     whole = _tp_blocks(init_params(cfg, None, "meta"))
     attention = "wo" in blocks
@@ -6271,6 +6319,25 @@ def _tp_train(rank, dev, stats, sub, want=None) -> dict:
                                                cell["optimizer"]):
         raise SystemExit(f"mesh ({sub}): rank {rank} holds other bytes "
                          "than the dry-run's blocks")
+    whole_stream = dict(shrules.DEFAULT_RULES, seq_stream=None)
+    if sub == "k":
+        # one more step under each rule set, in turn on the trained blocks
+        g = torch.Generator(device=dev)
+        g.manual_seed(13)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s + 1),
+                                         generator=g, device=dev)}
+        for label, rules in (("seq_stream", None),
+                             ("seq_stream=None", whole_stream)):
+            with count_collectives() as moved, \
+                    set_rules_for_mesh(mesh, rules):
+                state, m = _mesh_sub(f"{sub}: one step, {label}", rank,
+                                     stats, step_mod.train_step, state,
+                                     batch, cfg, lr=TRAIN_LR)
+            sec, peak = stats[f"{sub}: one step, {label}"]
+            log(f"  [rank {rank}] ({sub}) one bf16 step under {label}: "
+                f"{sec:.3f}s, peak {peak:.2f} GB, loss "
+                f"{float(m['loss']):.6f}, collective MB "
+                f"{_bytes_line(moved)}")
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -6321,18 +6388,40 @@ def _tp_train(rank, dev, stats, sub, want=None) -> dict:
                                      generator=g, device=dev)}
     fsdp = step_mod.fsdp_layout(f32, mesh)
 
-    def mesh_grads():
+    def mesh_grads(rules=None):
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         params = fsdp.init(f32, gen, dev)
-        with set_rules_for_mesh(mesh):
+        with set_rules_for_mesh(mesh, rules):
             (_, m), grads = step_mod.value_and_grad(params, f32, batch,
                                                     fsdp=fsdp)
         return float(m["loss"]), grads
 
-    loss, got = _mesh_sub(f"{sub}: fp32 gradients", rank, stats, mesh_grads)
+    with count_collectives() as moved:
+        loss, got = _mesh_sub(f"{sub}: fp32 gradients", rank, stats,
+                              mesh_grads)
+    log(f"  [rank {rank}] ({sub}) fp32 step: collective MB "
+        f"{_bytes_line(moved)}")
     gc.collect()
     torch.cuda.empty_cache()
+    if sub == "k":
+        with count_collectives() as moved:
+            loss_w, whole = _mesh_sub(f"{sub}: fp32 gradients, "
+                                      "seq_stream=None", rank, stats,
+                                      mesh_grads, whole_stream)
+        errs = [float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                for x, y in zip(tree.leaves(whole), tree.leaves(got))]
+        log(f"  [rank {rank}] ({sub}) fp32 step under seq_stream=None: "
+            f"loss {loss_w:.6f} ({loss:.6f} under seq_stream), collective "
+            f"MB {_bytes_line(moved)}; its gradient blocks against "
+            f"seq_stream's, worst over a leaf's largest {max(errs):.2e} "
+            f"(tol {MESH_TOL})")
+        if max(errs) > MESH_TOL:
+            raise SystemExit(f"mesh ({sub}): the whole stream's gradients "
+                             "disagree with the sequence blocks'")
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
 
     def whole_grads():
         gen = torch.Generator(device=dev)

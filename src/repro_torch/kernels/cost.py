@@ -28,6 +28,7 @@ counter (``launch/cost_analysis.py``), which installs itself with
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, Optional, Sequence
 
@@ -212,6 +213,23 @@ def collective(op: str, nbytes: int) -> None:
     (JAX's HLO names: all-gather, all-reduce, all-to-all, ...)."""
     if _COUNTER is not None:
         _COUNTER.collective(op, nbytes)
+
+
+@contextlib.contextmanager
+def inside_collective():
+    """The body of one ``torch.distributed`` call: the aten ops a backend
+    runs inside it (gloo's ``reduce_scatter_tensor`` and
+    ``all_gather_into_tensor`` split and copy on the host) are the
+    collective's, so an active counter counts no bytes for them."""
+    counter = _COUNTER
+    if counter is None or counter.in_kernel:
+        yield
+        return
+    counter.in_kernel = True
+    try:
+        yield
+    finally:
+        counter.in_kernel = False
 
 
 def counted(kernel: str, shapes: Callable,

@@ -23,8 +23,10 @@ Inside :func:`count` three sums run over everything the process does:
   JAX's HLO op names (``all-gather``, ``all-reduce``, ``reduce-scatter``,
   ``all-to-all``, ``collective-permute``) and their ``total``, in the
   dtype the call moves: a 16-bit reduction in fp32, a gather or an
-  all-to-all as raw bytes.  The port's reduce-scatter is an all-reduce
-  and this rank's slice, so it counts under ``all-reduce``.
+  all-to-all as raw bytes.  FSDP's reduce-scatter is an all-reduce and
+  this rank's slice, so it counts under ``all-reduce``; the residual
+  stream's sequence reduce-scatter (``seq_stream``) is one, and counts
+  under ``reduce-scatter``.
 
 It runs on any device: on the card (the kernels launched), on the CPU,
 and on the ``meta`` device, where nothing is computed and a program
@@ -136,6 +138,43 @@ class Counter:
                 "bytes_accessed": self.bytes_accessed,
                 "collective_bytes": coll,
                 "kernels": dict(self.kernels)}
+
+
+class CollectiveCounter:
+    """The collective bytes alone (no FLOPs, no bytes accessed, each
+    kernel call left to run uncounted): cheap enough to run around a
+    timed program on the card.  Read them with :meth:`result`."""
+
+    in_kernel = False
+
+    def __init__(self):
+        self.collectives = dict.fromkeys(OPS, 0)
+
+    def collective(self, op: str, nbytes: int) -> None:
+        self.collectives[op] += int(nbytes)
+
+    @contextlib.contextmanager
+    def kernel(self, name: str, flops: int, nbytes: int):
+        yield
+
+    def result(self) -> dict:
+        """{"collective_bytes": {op: bytes, ..., "total"}}."""
+        coll = dict(self.collectives)
+        coll["total"] = sum(coll.values())
+        return {"collective_bytes": coll}
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count the collective bytes of the enclosed code alone; yields the
+    :class:`CollectiveCounter`.  Not reentrant, nor inside
+    :func:`count`."""
+    counter = CollectiveCounter()
+    cost.set_counter(counter)
+    try:
+        yield counter
+    finally:
+        cost.set_counter(None)
 
 
 class _BytesMode(TorchDispatchMode):

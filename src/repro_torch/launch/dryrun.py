@@ -62,6 +62,8 @@ Usage:
         --out build/dryrun_torch.json
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes \\
         --roofline --out build/roofline_torch.json
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --shape \\
+        train_4k --roofline --out build/roofline_train.json
 """
 
 from __future__ import annotations
@@ -493,7 +495,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if args.all:
-        cells = [(a, s) for a, s, _, _ in configs.cells()]
+        # every arch, of one shape where --shape names it
+        cells = [(a, s) for a, s, _, _ in configs.cells()
+                 if args.shape in (None, s)]
     elif args.arch and args.shape:
         cells = [(args.arch, args.shape)]
     else:

@@ -20,7 +20,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.weights import params_from_numpy
 from repro_torch.sharding import set_rules_for_mesh
-from repro_torch.sharding.collectives import gather_spec
+from repro_torch.sharding.collectives import gather_spec, psum
 from repro_torch.sharding.rules import local_slice
 from repro_torch.serve import distributed_decode as dd
 
@@ -257,6 +257,97 @@ def train_step_on_mesh(rank, device, cfg, params_np, batch, lr,
                                      state.params)}
 
 
+def seq_stream_step(rank, device, cfg, params_np, batch, shape,
+                    rules=None) -> dict:
+    """``train.step.loss_fn`` and its backward on :func:`train_mesh`
+    (``shape``) under ``rules`` (None: the default, whose
+    ``seq_stream`` holds the residual stream as sequence blocks of the
+    model axis), from the blocks of ``params_np``, on the global
+    ``batch``: the metrics, the gradients gathered from the blocks
+    (rank 0's; None on the others), the residual stream each layer's
+    forward returned on this rank, the bytes autograd saved of the
+    layers' inputs (``saved_tensors_hooks``: a checkpointed layer saves
+    its input alone), each stream spec the forward resolved with its
+    global shape, and this rank's model-axis index."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import rules as shrules
+    from repro_torch.train import step as step_mod
+
+    mesh = train_mesh(device, shape)
+    fsdp = step_mod.fsdp_layout(cfg, mesh)
+    params = fsdp.place(params_from_numpy(params_np, cfg, device=device))
+    grads = tree.map(torch.zeros_like, params)
+    leaves = step_mod._trainable(params, grads)
+    rows = {k: local_slice(v.to(device), (fsdp.axes,), mesh)
+            for k, v in batch.items()}
+    streams, inputs, saved, specs = [], set(), [], []
+    layer, resolve = tf._layer_forward, shrules.stream_spec
+    forward = [True]                # a recompute in the backward: False
+
+    def recorded_layer(lp, c, kinds, x, *a, **kw):
+        out = layer(lp, c, kinds, x, *a, **kw)
+        if forward[0]:
+            inputs.add(x.data_ptr())
+            streams.append(_cpu(out[0]))
+        return out
+
+    def recorded_spec(shp, *a, **kw):
+        spec = resolve(shp, *a, **kw)
+        specs.append((tuple(shp), spec))
+        return spec
+
+    def pack(t):
+        saved.append((t.data_ptr(), t.numel() * t.element_size()))
+        return t
+
+    tf._layer_forward, shrules.stream_spec = recorded_layer, recorded_spec
+    try:
+        with set_rules_for_mesh(mesh, rules):
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                total, metrics = step_mod.loss_fn(leaves, cfg, rows,
+                                                  fsdp=fsdp)
+            forward[0] = False
+            total.backward()
+    finally:
+        tf._layer_forward, shrules.stream_spec = layer, resolve
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "total": float(total.detach()),
+            "grads": fsdp.full(grads, device="cpu", keep=rank == 0),
+            "streams": streams,
+            "saved_inputs": sum(n for ptr, n in saved if ptr in inputs),
+            "specs": specs,
+            "model_index": mesh.axis_index("model")}
+
+
+def seq_collectives(rank, device, shape) -> dict:
+    """``collectives.seq_gather`` and ``seq_scatter`` over the model
+    axis of a (data, model) mesh of ``shape``, fp32 and bf16, each
+    rank's input ``rank + arange``: their outputs, their inputs'
+    gradients under a cotangent of ``1 + rank`` times the output's
+    index, and the bytes counted under each collective op."""
+    from repro_torch.launch import cost_analysis
+    from repro_torch.sharding.collectives import seq_gather, seq_scatter
+
+    mesh = mesh_over_ranks(tuple(shape), AXES, device=device)
+    n = mesh.axis_size("model")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, fn, rows in (("gather", seq_gather, 4),
+                               ("scatter", seq_scatter, 4 * n)):
+            x = (torch.arange(2 * rows * 3, dtype=torch.float32)
+                 .reshape(2, rows, 3) + rank).to(device, dtype)
+            x.requires_grad_()
+            with cost_analysis.count() as c:
+                y = fn(x, mesh)
+                ct = (torch.arange(y.numel(), dtype=torch.float32)
+                      .reshape(y.shape) * (1 + rank)).to(device, dtype)
+                y.backward(ct)
+            out[name, str(dtype)] = {
+                "y": _cpu(y), "grad": _cpu(x.grad),
+                "bytes": c.result()["collective_bytes"]}
+    return out
+
+
 class _Crash(Exception):
     """The failure :func:`fsdp_state` injects into a training run."""
 
@@ -402,7 +493,10 @@ def sharded_pieces(rank, device, cfg, params_np, x, prefix, start: int,
             layer0(blocks), cfg, x, positions, cache=mine, cache_len=start,
             specs=tf._unstack(layout.specs["layers"][0])["attn"])
         got_cache = {n: gather_spec(t, cspec, mesh) for n, t in mine.items()}
-        lookup = tf._lookup(blocks["embed"], tokens, layout.specs["embed"])
+        lookup, partial = tf._rows(blocks["embed"], tokens,
+                                   layout.specs["embed"])
+        if partial:
+            lookup = psum(lookup, mesh, "model")
         logits = tf.forward(blocks, cfg, tokens, fsdp=layout)
     return {"attn": (_cpu(got), _cpu(want)),
             "cache": {n: (_cpu(got_cache[n]), _cpu(cache[n])) for n in "kv"},

@@ -43,7 +43,8 @@ from repro_torch.models.common import ModelConfig, rms_norm, rope
 from repro_torch.serve.distributed_decode import (
     distributed_decode_attention, head_parallel_decode_attention)
 from repro_torch.sharding import rules as shrules
-from repro_torch.sharding.collectives import all_to_all, gather_spec, psum
+from repro_torch.sharding.collectives import (all_to_all, gather_spec,
+                                              to_stream)
 
 
 def _cache_write(cache_len, b: int, s: int, device):
@@ -132,7 +133,8 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, cache: Optional[dict] = None,
                 cache_len=None, block_tables: Optional[torch.Tensor] = None,
                 plan=None, residual: Optional[torch.Tensor] = None,
-                impl: str = "auto", specs: Optional[dict] = None):
+                impl: str = "auto", specs: Optional[dict] = None,
+                seq: bool = False):
     """x: (B, S, E).  With ``cache``: append K/V at ``cache_len`` (in
     place) and attend over the valid prefix.  ``plan``: a
     ``lower.runtime.PlanDispatch``; ``plan.fuse_q`` hands x and Wq to
@@ -167,6 +169,10 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
     depth for the call: one ``all_to_all`` turns the layer's columns
     into the rank's KV heads, or, with the KV heads whole, the columns
     are gathered.
+    ``seq`` (``seq_stream``): ``x`` is the whole sequence, gathered from
+    the ranks' blocks, and ``residual`` this rank's block; the output
+    partials are reduce-scattered to the block instead of summed
+    (``collectives.to_stream``), or the whole output sliced to it.
     Returns (out, cache)."""
     dt = x.dtype
     b, s, _ = x.shape
@@ -317,10 +323,9 @@ def gqa_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                               impl=impl)
     wo = params["wo"].to(dt)
     out = o.transpose(1, 2).reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
-    if wo_split:
-        # the ranks' partials over their heads (GSPMD's heads-sharded
-        # einsum)
-        out = psum(out, mesh, "model")
+    # the ranks' partials over their heads (GSPMD's heads-sharded
+    # einsum), summed or reduce-scattered to the stream's block
+    out = to_stream(out, mesh, partial=wo_split, seq=seq)
     if residual is not None:
         out = residual + out
     return out, new_cache
@@ -393,7 +398,8 @@ def mla_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, cache: Optional[dict] = None,
                 cache_len=None, block_tables: Optional[torch.Tensor] = None,
                 plan=None, residual: Optional[torch.Tensor] = None,
-                impl: str = "auto", specs: Optional[dict] = None):
+                impl: str = "auto", specs: Optional[dict] = None,
+                seq: bool = False):
     """x: (B, S, E).  Without ``cache``: per-head K/V, causal attention
     at D = nope + rope, Dv = v (the differentiable training attention).
     With ``cache``: append the latent rows at ``cache_len`` (in place,
@@ -423,7 +429,9 @@ def mla_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
     whole on every rank, from ``wq_a``/``wkv_a`` and their norms whole
     on "model": each rank's cotangent of them is its heads' share,
     which the layout's ``enter`` sums into the whole leaves'
-    gradients.  Returns (out, cache)."""
+    gradients.  ``seq``: as :func:`gqa_forward`'s (the latent rows and
+    their cache columns come from the whole sequence).  Returns (out,
+    cache)."""
     if block_tables is not None:
         raise NotImplementedError(
             "paged KV is not supported for MLA latent caches")
@@ -496,9 +504,8 @@ def mla_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
         o = o_lat @ params["wv_b"].to(dt).transpose(0, 1)
     wo = params["wo"].to(dt)
     out = o.transpose(1, 2).reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
-    if wo_split:
-        # the ranks' partials over their heads
-        out = psum(out, mesh, "model")
+    # the ranks' partials over their heads
+    out = to_stream(out, mesh, partial=wo_split, seq=seq)
     if residual is not None:
         out = residual + out
     return out, new_cache

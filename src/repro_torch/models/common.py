@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.collectives import pmax, psum
+from repro_torch.sharding.collectives import pmax, psum, to_stream
 from repro_torch.sharding.rules import active_mesh, splits
 
 
@@ -188,7 +188,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def mlp_forward(params: dict, x: torch.Tensor, kind: str,
-                specs: Optional[dict] = None) -> torch.Tensor:
+                specs: Optional[dict] = None,
+                seq: bool = False) -> torch.Tensor:
     """Gated-SiLU or GELU MLP.  jax.nn.gelu defaults to the tanh
     approximation, so the GELU here is the tanh form too.  ``specs``
     (the sharded serving state, or the tensor-parallel training
@@ -197,7 +198,10 @@ def mlp_forward(params: dict, x: torch.Tensor, kind: str,
     ``w_down`` a row block), the local product is a partial that one
     ``psum`` over "model" sums, the partition GSPMD makes of JAX's
     ``constrain(h, ..., "mlp")`` (its backward the ``psum`` of the
-    ranks' shares of the output's cotangent)."""
+    ranks' shares of the output's cotangent).  ``seq``
+    (``seq_stream``): the output is this rank's sequence block, the
+    partials reduce-scattered, a whole output sliced
+    (``collectives.to_stream``)."""
     dt = x.dtype
     if kind == "silu_glu":
         g = x @ params["w_gate"].to(dt)
@@ -208,9 +212,8 @@ def mlp_forward(params: dict, x: torch.Tensor, kind: str,
         h = F.gelu(h.float(), approximate="tanh").to(dt)
     out = h @ params["w_down"].to(dt)
     mesh = active_mesh()
-    if specs is not None and splits(specs["w_down"], 0, mesh):
-        out = psum(out, mesh, "model")
-    return out
+    return to_stream(out, mesh, seq=seq, partial=specs is not None
+                     and splits(specs["w_down"], 0, mesh))
 
 
 def token_nll(logits: torch.Tensor, targets: torch.Tensor,

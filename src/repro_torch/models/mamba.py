@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, rms_norm
 from repro_torch.sharding import rules as shrules
-from repro_torch.sharding.collectives import all_gather, psum
+from repro_torch.sharding.collectives import all_gather, to_stream
 
 
 def dims(cfg: ModelConfig) -> tuple:
@@ -64,7 +64,7 @@ def _block(t: torch.Tensor, split: bool, rank: int, n: int,
 
 def mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                   cache: Optional[dict] = None, impl: str = "auto",
-                  specs: Optional[dict] = None):
+                  specs: Optional[dict] = None, seq: bool = False):
     """x: (B, L, D).  ``cache`` {"conv", "ssm"}: updated in place.
     ``impl``: the ``ops.ssd`` impl (``torch`` forces the plain version
     on the card).
@@ -85,8 +85,12 @@ def mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     sums the out-projection's partials with one ``psum``.  Both gathers
     are ``collectives.all_gather``, whose backward sums the ranks'
     shares of the gathered cotangent and keeps the rank's own block, so
-    training takes the same path.  Returns (out (B, L, D), the cache or
-    None)."""
+    training takes the same path.  ``seq`` (``seq_stream``): ``x`` is
+    the whole sequence, gathered from the ranks' blocks (the conv and
+    the scan run on it), and the out-projection's partials are
+    reduce-scattered to this rank's block instead of summed, or a whole
+    output sliced to it (``collectives.to_stream``).  Returns (out (B,
+    L, D), or its block, the cache or None)."""
     dt_ = x.dtype
     bsz, length, _ = x.shape
     d_in, h, p, g, s = dims(cfg)
@@ -164,9 +168,7 @@ def mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     y = rms_norm(y, params["norm"], mesh=mesh if inner_split else None,
                  width=d_in)
     out = y @ params["out_proj"].to(dt_)
-    if inner_split:
-        out = psum(out, mesh, "model")
-    return out, cache
+    return to_stream(out, mesh, partial=inner_split, seq=seq), cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device,

@@ -60,7 +60,7 @@ import torch.nn.functional as F
 from repro_torch.models.common import ModelConfig, mlp_forward
 from repro_torch.sharding import rules as shrules
 from repro_torch.sharding.collectives import (all_gather, all_to_all, pmean,
-                                              shard_map)
+                                              shard_map, to_stream)
 
 
 def init_moe(cfg: ModelConfig, draw: Callable) -> dict:
@@ -220,16 +220,24 @@ def _local_experts(buf, params: dict, dt):
 
 
 def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                aux: bool = True, specs: Optional[dict] = None):
+                aux: bool = True, specs: Optional[dict] = None,
+                seq: bool = False):
     """x: (B, S, d) -> (y (B, S, d), aux dict), the aux dict
     ``{"moe_lb_loss", "moe_z_loss"}`` (fp32 scalars), or empty without
     ``aux``.  ``specs`` (the sharded serving state): the leaves' specs,
     which say whether the router and the experts are this rank's blocks
-    over "model"."""
+    over "model".  ``seq`` (``seq_stream``): ``x`` is the whole
+    sequence, gathered from the ranks' blocks, so the routing groups,
+    the capacity and the aux losses are the whole sequence's; ``y`` is
+    this rank's sequence block: the routed experts' output (whole on
+    every rank) sliced to it, the shared expert's partials
+    reduce-scattered."""
     if cfg.moe_local_dispatch and ep_mesh() is not None:
         from repro_torch.models.moe_local import moe_forward_local
-        return moe_forward_local(params, cfg, x, aux=aux, specs=specs)
+        return moe_forward_local(params, cfg, x, aux=aux, specs=specs,
+                                 seq=seq)
     mesh = ep_mesh()
+    x_in = x
     # this rank's experts, and their router columns, over "model"
     experts_split = shrules.splits(specs and specs["w_gate"], 0, mesh)
     router_split = shrules.splits(specs and specs["router"], -1, mesh)
@@ -263,12 +271,12 @@ def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         out_buf = torch.einsum("becf,efd->becd", h,
                                params["w_down"].to(dt))
     y = _combine(out_buf, slot, order, topw, s, k)
-
-    if "shared" in params:
-        y = y + mlp_forward(params["shared"], x, cfg.mlp,
-                            specs and specs["shared"])
     if grouped:
         y = y.reshape(b_in, s_in, d)
+    y = to_stream(y, mesh, partial=False, seq=seq)
+    if "shared" in params:
+        y = y + mlp_forward(params["shared"], x_in, cfg.mlp,
+                            specs and specs["shared"], seq=seq)
     if not aux:
         return y, {}
     onehot = F.one_hot(topi, e).float()                      # (B,S,k,E)

@@ -28,20 +28,21 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, mlp_forward
 from repro_torch.sharding import rules as shrules
 from repro_torch.sharding.collectives import (all_to_all, gather_spec, pmean,
-                                              shard_map)
+                                              shard_map, to_stream)
 
 #: whether the fallback to the global path was logged
 _FALLBACK_LOGGED: list = []
 
 
 def moe_forward_local(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                      aux: bool = True, specs=None):
+                      aux: bool = True, specs=None, seq: bool = False):
     """``moe.moe_forward`` under a mesh with a "model" axis: x (B, S, d)
     -> (y, aux dict).  ``specs`` (the sharded serving state): where the
     experts are this rank's blocks over "model" they enter as they are,
     and where the router is, its columns are gathered (every rank
     routes its own tokens over every expert: the in-spec JAX's
-    ``shard_map`` gives it, d x E fp32)."""
+    ``shard_map`` gives it, d x E fp32).  ``seq``: as ``moe_forward``'s
+    (``x`` whole, ``y`` this rank's sequence block)."""
     mesh = moe_mod.ep_mesh()
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
@@ -56,7 +57,7 @@ def moe_forward_local(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                   "(the JAX package's fallback)", flush=True)
         return moe_mod.moe_forward(
             params, dataclasses.replace(cfg, moe_local_dispatch=False), x,
-            aux=aux, specs=specs)
+            aux=aux, specs=specs, seq=seq)
 
     all_axes = tuple(mesh.axis_names)
     t_local = tokens // n_dev
@@ -97,10 +98,10 @@ def moe_forward_local(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                    out_specs=((all_axes, None), (), ()))
     y, lb, zl = fn(x.reshape(tokens, d), router, params["w_gate"].to(dt),
                    params["w_up"].to(dt), params["w_down"].to(dt))
-    y = y.reshape(b, s, d)
+    y = to_stream(y.reshape(b, s, d), mesh, partial=False, seq=seq)
     if "shared" in params:
         y = y + mlp_forward(params["shared"], x, cfg.mlp,
-                            specs and specs["shared"])
+                            specs and specs["shared"], seq=seq)
     if not aux:
         return y, {}
     return y, {"moe_lb_loss": lb, "moe_z_loss": zl}

@@ -46,6 +46,7 @@ layer of each stacked leaf, so every layer's gradient is written once.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -57,24 +58,26 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, mlp_forward, rms_norm
 from repro_torch.sharding import rules as shrules
-from repro_torch.sharding.collectives import gather_spec, psum
+from repro_torch.sharding.collectives import (gather_spec, psum,
+                                              seq_gather, to_stream)
 from repro_torch.tree import map as tree_map
 
 
-def _lookup(embed: torch.Tensor, tokens: torch.Tensor,
-            spec: Optional[tuple] = None) -> torch.Tensor:
-    """The rows of ``tokens`` in ``embed``: where ``spec`` makes it
-    this rank's block of rows over "model", its own tokens' rows, zeros
-    for the others', summed over the ranks (one holds each row, so the
+def _rows(embed: torch.Tensor, tokens: torch.Tensor,
+          spec: Optional[tuple] = None) -> tuple:
+    """(the rows of ``tokens`` in ``embed``, whether they are this
+    rank's partial): where ``spec`` makes ``embed`` this rank's block of
+    rows over "model", its own tokens' rows and zeros for the others',
+    which summed over the ranks are the rows (one holds each, so the
     sum is exact)."""
     mesh = shrules.active_mesh()
     if not shrules.splits(spec, 0, mesh):
-        return embed[tokens]
+        return embed[tokens], False
     rows = embed.shape[0]
     local = tokens - mesh.axis_index("model") * rows
     own = (local >= 0) & (local < rows)
     out = embed[local.clamp(0, rows - 1)] * own[..., None].to(embed.dtype)
-    return psum(out, mesh, "model")
+    return out, True
 
 
 def vocab_blocks(fsdp) -> bool:
@@ -121,7 +124,7 @@ def _index(tree, j: int):
 def _layer_forward(lp: dict, cfg: ModelConfig, kinds: tuple, x,
                    positions, layer_cache, cache_len, plan,
                    block_tables=None, impl="auto", aux=False, gather=None,
-                   specs=None):
+                   specs=None, seq=False):
     """One layer of ``kinds`` (``cfg.block_kind(i)``,
     ``cfg.ffn_kind(i)``): (x, its MoE aux losses, empty for a dense FFN
     or without ``aux``).  ``gather`` (FSDP): the layer's global weights
@@ -129,17 +132,26 @@ def _layer_forward(lp: dict, cfg: ModelConfig, kinds: tuple, x,
     gathers them again in its recompute and frees them after it.
     ``specs`` (the sharded serving state): the layer's leaves' specs,
     which say the sublayers which of ``lp``'s leaves are model-axis
-    blocks."""
+    blocks.  ``seq``: ``x`` is this rank's sequence block of the
+    residual stream (``seq_stream``): the norms and residual adds run on
+    it, each sublayer's normed input is gathered along the sequence and
+    its output comes back as the block (``collectives.to_stream``)."""
     if gather is not None:
         lp = gather(lp)
     specs = specs or {}
     kind, ffn_kind = kinds
-    h = rms_norm(x, lp["pre_norm"])
+    mesh = shrules.active_mesh()
+
+    def normed(x, weight):
+        h = rms_norm(x, weight)
+        return seq_gather(h, mesh) if seq else h
+
+    h = normed(x, lp["pre_norm"])
     if kind == "mamba":
         h, _ = mb.mamba_forward(
             lp["mamba"], cfg, h,
             cache=None if layer_cache is None else layer_cache["mamba"],
-            impl=impl, specs=specs.get("mamba"))
+            impl=impl, specs=specs.get("mamba"), seq=seq)
         x = x + h
     else:
         # the attention block owns its residual add: the decode
@@ -149,15 +161,16 @@ def _layer_forward(lp: dict, cfg: ModelConfig, kinds: tuple, x,
             lp["attn"], cfg, h, positions,
             cache=None if layer_cache is None else layer_cache["attn"],
             cache_len=cache_len, block_tables=block_tables, plan=plan,
-            residual=x, impl=impl, specs=specs.get("attn"))
+            residual=x, impl=impl, specs=specs.get("attn"), seq=seq)
     if "ffn_norm" not in lp:
         return x, {}                # pure mamba2: no FFN sublayer
-    h = rms_norm(x, lp["ffn_norm"])
+    h = normed(x, lp["ffn_norm"])
     if ffn_kind == "moe" and "moe" in lp:
         h, layer_aux = moe_mod.moe_forward(lp["moe"], cfg, h, aux=aux,
-                                           specs=specs.get("moe"))
+                                           specs=specs.get("moe"), seq=seq)
         return x + h, layer_aux
-    return x + mlp_forward(lp["mlp"], h, cfg.mlp, specs.get("mlp")), {}
+    return x + mlp_forward(lp["mlp"], h, cfg.mlp, specs.get("mlp"),
+                           seq=seq), {}
 
 
 #: the products ``"dots"`` keeps: JAX's dot_general without batch
@@ -206,10 +219,20 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
     data axes at their use; the model-axis blocks stay blocks, each
     layer told by the layout's specs which.  A vocabulary block
     (``embed``/``lm_head`` rows over "model") looks up this rank's
-    tokens, zeros the others and ``psum``s the rows; its logits are
-    gathered over "model" when serving and stay this rank's columns in
-    training (:func:`vocab_blocks`); the norms are whole on every rank.
-    An MLA layer's specs hold its latent cache's too.
+    tokens, zeros the others and sums the rows over "model"; its logits
+    are gathered over "model" when serving and stay this rank's columns
+    in training (:func:`vocab_blocks`); the norms' scales are whole on
+    every rank.  An MLA layer's specs hold its latent cache's too.
+
+    Under an active mesh whose rules hold the residual stream as
+    sequence blocks (``rules.stream_splits``: JAX's ``seq_stream`` over
+    a "model" axis of more than one rank, where S divides it; a decode
+    step's S = 1 never does) each rank holds its S/n rows between the
+    layers: the embedding's rows are reduce-scattered (a vocabulary
+    block's partials; a frontend's rows enter that sum as model rank
+    0's) or sliced, every layer runs on its block (``_layer_forward``'s
+    ``seq``), and the final norm's output is gathered before the
+    unembedding, so the logits have every row.
     Returns logits (B, S_f + S, vocab), plus the cache (updated in
     place) when one is given, plus, with ``return_aux``, the MoE
     auxiliary losses summed over the layers (fp32 zeros for a stack
@@ -225,14 +248,31 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
     # the layout's specs: which leaves are model-axis blocks
     specs = None if fsdp is None else fsdp.specs
 
-    parts = []
+    mesh = shrules.active_mesh()
+    b = (embeds if tokens is None else tokens).shape[0]
+    s = sum(t.shape[1] for t in (embeds, tokens) if t is not None)
+    # the residual stream in sequence blocks (JAX's seq_stream), its
+    # spec resolved on the global shape: a training layout's rows are
+    # the data ranks' blocks of the batch
+    rows = b * (1 if fsdp is None or fsdp.serve else
+                math.prod(fsdp.mesh.axis_size(a) for a in fsdp.axes))
+    seq = mesh is not None and shrules.stream_splits(
+        (rows, s, cfg.d_model), mesh)
+    parts, partial = [], False
     if embeds is not None:
         parts.append(embeds.to(dt) @ use("frontend_proj").to(dt))
     if tokens is not None:
-        parts.append(_lookup(use("embed").to(dt), tokens,
-                             specs and specs["embed"]))
+        found, partial = _rows(use("embed").to(dt), tokens,
+                               specs and specs["embed"])
+        if partial and not seq:
+            found, partial = psum(found, mesh, "model"), False
+        if partial and parts:
+            # the frontend's rows, whole on every rank, enter the
+            # ranks' sum as model rank 0's
+            parts[0] = parts[0] * float(mesh.axis_index("model") == 0)
+        parts.append(found)
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    b, s, _ = x.shape
+    x = to_stream(x, mesh, partial=partial, seq=seq)
     if positions is None:
         ar = torch.arange(s, dtype=torch.int32, device=x.device)
         if isinstance(cache_len, torch.Tensor) and cache_len.ndim == 1:
@@ -252,10 +292,10 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
         if remat is not None:
             return checkpoint(layer_fn, lp, cfg, kind, x, positions,
                               None, None, plan, None, impl, return_aux,
-                              gather, ls, **remat)
+                              gather, ls, seq, **remat)
         return _layer_forward(lp, cfg, kind, x, positions, lc, cache_len,
                               plan, block_tables, impl, return_aux, gather,
-                              ls)
+                              ls, seq)
 
     if fsdp is None:
         prefix_gather = [None] * len(params["prefix_layers"])
@@ -285,13 +325,14 @@ def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, *,
             aux.append(la)
 
     x = rms_norm(x, use("final_norm"))
+    if seq:
+        x = seq_gather(x, mesh)
     head = use("lm_head").to(dt) if "lm_head" in params \
         else use("embed").to(dt).T
     logits = x @ head
     if vocab_blocks(fsdp) and not fsdp.model_ranks > 1:
         # this rank's vocabulary columns: every rank's, in rank order
-        logits = gather_spec(logits, (None, None, "model"),
-                             shrules.active_mesh())
+        logits = gather_spec(logits, (None, None, "model"), mesh)
     out = [logits] if cache is None else [logits, cache]
     if return_aux:
         zero = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -69,7 +69,11 @@ channels and SSM state by its heads; ``last_token`` holds the rank's
 rows (JAX's ``decode_state_shardings`` splits it over the data axes)
 and ``cache_len`` is whole on every rank.  Every rank runs every step:
 a B=1 prefill on every rank (its batch does not divide), a decode step
-on the rank's rows, whose logits are gathered over the data axes.
+on the rank's rows, whose logits are gathered over the data axes.  A
+prefill chunk whose length divides the "model" axis holds its residual
+stream as the rank's sequence block between the layers (JAX's
+``seq_stream``, ``models/transformer.py``); a decode step's one token,
+and a chunk that does not divide, stay whole.
 ``insert`` writes a slot's row and token on the rank that holds it,
 ``preempt`` gathers the row's blocks and token from it, and
 :meth:`ContinuousBatchingEngine.last_tokens` gathers every rank's

@@ -29,6 +29,26 @@ outputs), and ``pmax`` with no gradient for the cross entropy's row
 max.  A model-axis block's own gradient is exact on its rank and is
 never summed over the axis.
 
+Under JAX's ``seq_stream`` (``rules.stream_splits``: the residual
+stream's sequence dim over "model" where it divides) the residual
+stream between sublayers is a *sequence block*: each rank holds its
+S/n rows, and the norms and residual adds run on them.  A sequence
+block's cotangent is exact on its rank, as a model-axis block's is; a
+value whole on every rank still carries a share.  Each sublayer takes
+its normed input through :func:`seq_gather` (an all-gather along the
+sequence; its backward reduce-scatters the ranks' shares of the whole
+cotangent, each rank keeping its block's sum) and leaves through
+:func:`to_stream`: a partial (the heads', the MLP columns', a
+vocabulary block's rows) by :func:`seq_scatter` (a reduce-scatter; its
+backward all-gathers the blocks' exact cotangents, the exact cotangent
+of every rank's partial), a value every rank holds whole by its rows
+(a slice, whose backward pads the block's cotangent with zeros: a
+share).  A leaf whole on "model" (a norm's scale) then gets each rank's
+part of the gradient from its rows, and ``enter`` sums them, as it
+sums the shares.  Megatron's sequence parallelism: the sums of the
+model-axis partials become reduce-scatters, the stream's copies
+all-gathers.
+
 :func:`shard_map` is JAX's ``shard_map`` over a port mesh, for the
 paths whose arguments are global tensors on every rank (activations,
 which every rank computes whole, and the training paths' weights).
@@ -47,11 +67,13 @@ rank the global gradient, as JAX's transpose does.
 gloo, the one backend that runs two ranks on one card, takes no CUDA
 tensor for ``all_to_all`` and its reductions: under gloo a CUDA
 tensor's collective is staged through host memory, logged once per
-collective.  A reduce-scatter is an all-reduce and this rank's slice on
-every backend.  16-bit floats are reduced in fp32; gathers and
-all-to-alls move raw bytes.  Each ``torch.distributed`` call reports
-its per-device output bytes, in the dtype it moves, to the cost counter
-(``kernels.cost.collective``; nothing without an active counter).
+collective.  :func:`reduce_scatter` (FSDP's) is an all-reduce and this
+rank's slice on every backend; the sequence pair runs on
+``reduce_scatter_tensor`` and ``all_gather_into_tensor``.  16-bit
+floats are reduced in fp32; gathers and all-to-alls move raw bytes.
+Each ``torch.distributed`` call reports its per-device output bytes, in
+the dtype it moves, to the cost counter (``kernels.cost.collective``;
+nothing without an active counter).
 """
 
 from __future__ import annotations
@@ -67,6 +89,14 @@ from repro_torch.sharding.rules import local_slice, spec_axes
 
 #: the collectives already logged as staged through the host
 _STAGED_LOGGED: set = set()
+
+# torch 2.13 renames ``all_gather_into_tensor`` and
+# ``reduce_scatter_tensor`` (``*_single``, the old names deprecated);
+# torch 2.11 has the old names alone
+_ALL_GATHER = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
 
 
 def _staged(op: str, t: torch.Tensor, group) -> bool:
@@ -251,6 +281,114 @@ def all_gather(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     transpose, :func:`reduce_scatter` of the ranks' shares of the
     gathered value's cotangent (JAX's transpose of ``all_gather``)."""
     return _AllGather.apply(x, tuple(spec), mesh)
+
+
+def _seq_all_gather(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The "model" ranks' blocks of ``x`` concatenated along ``dim`` in
+    rank order: ``all_gather_into_tensor`` of the raw bytes with ``dim``
+    moved first, the moves on ``x``'s device (a CUDA tensor under gloo
+    is staged through host memory as contiguous bytes alone)."""
+    n = mesh.axis_size("model")
+    group = mesh.group("model")
+    src = x.movedim(dim, 0).contiguous()
+    raw = src.view(-1).view(torch.uint8)
+    staged = _staged("all_gather_into_tensor", x, group)
+    if staged:
+        raw = raw.cpu()
+    out = raw.new_empty(n * raw.numel())
+    cost.collective("all-gather", out.numel())
+    with cost.inside_collective():
+        _ALL_GATHER(out, raw, group=group)
+    if staged:
+        out = out.to(x.device)
+    out = out.view(x.dtype).view(n * src.shape[0], *src.shape[1:])
+    return out.movedim(0, dim).contiguous()
+
+
+def _seq_reduce_scatter(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the "model" ranks' sum of
+    their ``x``: ``reduce_scatter_tensor`` with ``dim`` moved first, a
+    16-bit ``x`` summed in fp32 and rounded back, the moves and casts on
+    ``x``'s device (a CUDA tensor under gloo is staged through host
+    memory)."""
+    n = mesh.axis_size("model")
+    group = mesh.group("model")
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    work = x.movedim(dim, 0)
+    if work.element_size() == 2:
+        work = work.float()
+    work = work.contiguous()
+    staged = _staged("reduce_scatter_tensor", x, group)
+    if staged:
+        work = work.cpu()
+    out = work.new_empty((work.shape[0] // n, *work.shape[1:]))
+    cost.collective("reduce-scatter", out.numel() * out.element_size())
+    with cost.inside_collective():
+        _REDUCE_SCATTER(out, work, op=dist.ReduceOp.SUM, group=group)
+    if staged:
+        out = out.to(x.device)
+    return out.movedim(0, dim).to(x.dtype).contiguous()
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _seq_all_gather(x, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _seq_reduce_scatter(ct, ctx.mesh, ctx.dim), None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _seq_reduce_scatter(x, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _seq_all_gather(ct, ctx.mesh, ctx.dim), None, None
+
+
+def seq_gather(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
+    """The whole sequence of which ``x`` is this rank's block along
+    ``dim`` over "model": an all-gather, whose backward reduce-scatters
+    the ranks' shares of the whole value's cotangent (JAX's transpose
+    of ``all_gather``)."""
+    return _SeqGather.apply(x, mesh, dim)
+
+
+def seq_scatter(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
+    """This rank's block along ``dim`` of the "model" ranks' sum of
+    their partials ``x``: a reduce-scatter, whose backward all-gathers
+    the blocks' cotangents (JAX's transpose of ``psum_scatter``)."""
+    return _SeqScatter.apply(x, mesh, dim)
+
+
+def seq_block(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
+    """This rank's block along ``dim`` over "model" of ``x``, a value
+    every rank holds whole: a copy of its rows (so it pins nothing of
+    ``x``), whose backward pads the block's cotangent with zeros, a
+    share of the whole value's."""
+    n = mesh.axis_size("model")
+    size = x.shape[dim] // n
+    return x.narrow(dim, mesh.axis_index("model") * size, size).clone(
+        memory_format=torch.contiguous_format)
+
+
+def to_stream(x: torch.Tensor, mesh, *, partial: bool,
+              seq: bool) -> torch.Tensor:
+    """A sublayer's output ``x`` in the residual stream's layout: with
+    ``seq`` (the stream is sequence blocks) the ranks' partials
+    reduce-scattered, or a whole value's rows; else the partials summed
+    (``psum``), or ``x`` itself."""
+    if seq:
+        return seq_scatter(x, mesh) if partial else seq_block(x, mesh)
+    return psum(x, mesh, "model") if partial else x
 
 
 def pmean(x: torch.Tensor, mesh, axis) -> torch.Tensor:

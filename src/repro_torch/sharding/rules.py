@@ -34,7 +34,11 @@ set, the serving state lies in blocks too: the weights under
 blocks.  A mesh with neither flag serves the whole state on every
 rank.
 JAX's ``constrain`` (``with_sharding_constraint``) is a layout hint
-without a numeric effect, so it has no counterpart here.
+without a numeric effect, so it has no counterpart here but one: the
+residual stream's ``("batch", "seq_stream", "embed_act")``, which
+decides what a rank holds between the blocks and which collectives
+move it (:func:`stream_splits`; ``models/transformer.py``).  Under
+``dict(DEFAULT_RULES, seq_stream=None)`` the stream stays whole.
 """
 
 from __future__ import annotations
@@ -185,6 +189,28 @@ def logical_to_mesh_axes(logical: Sequence[Optional[str]],
         else:
             out.append(tuple(picked))
     return tuple(out)
+
+
+#: the residual stream's logical axes, JAX's ``constrain`` of the
+#: embedding's output and of each layer's
+STREAM = ("batch", "seq_stream", "embed_act")
+
+
+def stream_spec(shape: Sequence[int], rules: Optional[dict] = None,
+                mesh=None) -> tuple:
+    """The spec of a residual stream of global ``shape`` (B, S, E)
+    under the active (or given) rules and mesh: :data:`STREAM` resolved
+    on the shape, as JAX's shape-aware ``constrain`` resolves it (an S
+    that does not divide the model axis stays whole)."""
+    return logical_to_mesh_axes(STREAM, rules, mesh, shape=shape)
+
+
+def stream_splits(shape: Sequence[int], mesh=None) -> bool:
+    """Whether the active rules hold a residual stream of global
+    ``shape`` as sequence blocks over a "model" axis of more than one
+    rank of ``mesh`` (default: the active one)."""
+    mesh = mesh if mesh is not None else active_mesh()
+    return splits(stream_spec(shape, mesh=mesh), 1, mesh)
 
 
 def spec_axes(entry) -> tuple:

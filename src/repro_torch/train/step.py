@@ -28,8 +28,13 @@ model-axis blocks, which it never gathers: the attention (GQA or MLA)
 on its heads, the Mamba-2 block on its channels and SSM heads, the MLP
 on its columns, the MoE on its experts, the logits on its vocabulary
 columns, whose cross entropy ``token_nll(mesh=)`` takes without
-gathering them.  Every rank computes the global batch's loss
-through differentiable ``psum``/``pmean``: the token mean over the
+gathering them.  Between the layers each rank of "model" holds its
+block of the residual stream's sequence where the sequence divides the
+axis (JAX's ``seq_stream``, ``models/transformer.py``): the norms and
+residual adds run on it, each sublayer all-gathers its normed input
+along the sequence and reduce-scatters its output partials.  Every
+rank computes the global batch's loss through differentiable
+``psum``/``pmean``: the token mean over the
 global batch (with a mask, the ranks' masked sums over their summed
 token counts), the MoE load balance from global means
 (``models/moe.py``) and the z-loss as the ranks' mean; the metrics are

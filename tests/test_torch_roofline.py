@@ -17,8 +17,10 @@ group (``launch/cost_analysis.py``), and each kernel's closed-form cost
   causal half, on the rank's half of the heads, MLP and vocabulary),
   and its collective bytes from the layout's specs (each use of a leaf
   gathers its model-axis block over "data" and all-reduces its fp32
-  gradient; the activations' sums over "model"; the loss's means and
-  the gradient norm's partial sums, fp32 scalars);
+  gradient; the residual stream's sequence all-gathers and
+  reduce-scatters over "model" (``seq_stream``); the cross entropy's
+  sums over "model"; the loss's means and the gradient norm's partial
+  sums, fp32 scalars);
 * (c) ``kernels/cost.py`` at PERF.md's main shapes gives its bound
   column to four digits, and on the meta device each wrapper and each
   plain version reports exactly its closed form, its plain body's ops
@@ -163,13 +165,17 @@ def test_smoke_train_collective_bytes_equal_their_closed_form(meta):
     data axis where its spec has the data axis, and its backward
     all-reduces the fp32 gradient of that block over the data axis; a
     leaf whole on the model axis (the norms) all-reduces its gradient's
-    shares over "model" too.  The activations: the embedding's rows,
-    each layer's attention and MLP outputs (fp32, forward and backward)
-    and the cross entropy's row max (forward), exponential sums and
-    target logits (forward and backward) summed over "model"; then
-    three fp32 scalars (the loss's mean, forward and backward, and the
-    z-loss's mean) and the gradient norm's partial sum of each leaf
-    over each axis it is split on."""
+    shares over "model" too.  The activations (``seq_stream``: the
+    residual stream is each rank's half of the sequence): the
+    embedding's rows and each layer's attention and MLP outputs
+    reduce-scattered over "model" (forward; each sum's fp32 block) and
+    their cotangents all-gathered (backward), each layer's two normed
+    inputs and the final norm's output all-gathered (forward) and their
+    cotangents reduce-scattered (backward); the cross entropy's row max
+    (forward), exponential sums and target logits (forward and
+    backward) summed over "model"; then three fp32 scalars (the loss's
+    mean, forward and backward, and the z-loss's mean) and the gradient
+    norm's partial sum of each leaf over each axis it is split on."""
     fsdp = fsdp_layout(SMOKE, MESH)
     params = init_params(SMOKE, None, "meta")
     _, b, s, _ = SMALL["train_4k"]
@@ -184,11 +190,15 @@ def test_smoke_train_collective_bytes_equal_their_closed_form(meta):
             reduce += block * 4 * (1 if "model" in named else 2)
             split += len(named)
     rows = b // MESH.shape[0] * s
-    acts = 4 * rows * SMOKE.d_model * (2 + 4 * SMOKE.n_layers) \
-        + 4 * rows * 5
-    want = {"all-gather": gather,
-            "all-reduce": reduce + acts + 4 * 3 + 4 * split,
-            "reduce-scatter": 0, "all-to-all": 0, "collective-permute": 0}
+    m = MESH.shape[1]
+    assert s % m == 0 and SMOKE.compute_dtype == "float32"
+    # each direction: the embedding's, each layer's two sublayers' and
+    # the final norm's, over the data rank's whole rows, fp32
+    stream = 4 * rows * SMOKE.d_model * (2 + 4 * SMOKE.n_layers)
+    want = {"all-gather": gather + stream,
+            "all-reduce": reduce + 4 * rows * 5 + 4 * 3 + 4 * split,
+            "reduce-scatter": stream // m, "all-to-all": 0,
+            "collective-permute": 0}
     want["total"] = sum(want.values())
     assert meta["train_4k"]["per_device"]["collective_bytes"] == want
 

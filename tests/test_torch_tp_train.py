@@ -28,7 +28,8 @@ heads over 3 KV heads, which stay whole on the model axis (each rank's
   equal the dry-run's ``run_cell`` per-device figure there;
 * the logits stay in vocabulary blocks: the step's counted all-gathers
   (``cost_analysis.count``) are the FSDP gathers of the parameters'
-  data-axis blocks alone;
+  data-axis blocks and the residual stream's sequence gathers
+  (``seq_stream``) alone;
 * a checkpoint saved from the (2, 2) blocks is restored with
   ``shardings=`` bit for bit (and a crashed run resumes bit for bit);
   ``runtime.remesh_state`` moves the (2, 2) state to (4, 1), every leaf
@@ -319,14 +320,28 @@ def _data_gather_bytes(cfg) -> int:
     return total
 
 
+def _sequence_gather_bytes(cfg) -> int:
+    """The residual stream's all-gathers of one step at remat none
+    (``seq_stream``: the stream is each rank's S/2 rows): forward, each
+    layer's two normed sublayer inputs and the final norm's output;
+    backward, the transposes of the reduce-scatters of each layer's two
+    sublayer outputs and of the embedding's rows; each the data rank's
+    whole (B/2, S, d) rows in the compute dtype."""
+    rows = STEP_B // SHAPE[0] * STEP_S
+    one = rows * cfg.d_model * cfg.torch_dtype().itemsize
+    return (2 * cfg.n_layers + 1) * 2 * one
+
+
 def test_logits_stay_in_vocabulary_blocks(ranks):
-    """The step gathers nothing but the parameters' data-axis blocks:
-    no logits (4 x 32 x 256 fp32) over the vocabulary."""
+    """The step gathers nothing but the parameters' data-axis blocks and
+    the residual stream's sequence blocks: no logits (4 x 32 x 256 fp32)
+    over the vocabulary."""
     for case, got in zip(COUNTED, ranks[0][("counted",)]):
         cfg = _cfg(case)
         assert cfg.remat == "none"
         gathered = got["collective_bytes"]["all-gather"]
-        assert gathered == _data_gather_bytes(cfg), case
+        assert gathered == _data_gather_bytes(cfg) \
+            + _sequence_gather_bytes(cfg), case
         assert "over the 2 ranks of its model axis: heads, kv_heads, " \
             "mlp, vocab" in got["layout"]
 
